@@ -1,0 +1,45 @@
+// Philox4x32-10 counter-based generator (Salmon et al., SC'11), the device
+// side of ops/philox.py: both compute the same rounds, so a kernel and its
+// plain PyTorch version draw identical uniforms.
+//
+// Replaces the TPU kernels' hardware PRNG (`_uniform_bits`,
+// boltzmann_machines_tpu/ops/pallas_ops.py:39), which no other device can
+// reproduce.  Keyed by (epoch seed, global iteration); the counter holds the
+// element index and the stream id (see ops/philox.py for the stream layout).
+#pragma once
+
+#include <stdint.h>
+
+namespace bm {
+
+constexpr unsigned kPhiloxM0 = 0xD2511F53u;
+constexpr unsigned kPhiloxM1 = 0xCD9E8D57u;
+constexpr unsigned kPhiloxW0 = 0x9E3779B9u;
+constexpr unsigned kPhiloxW1 = 0xBB67AE85u;
+constexpr unsigned kStreamPll = 0xFFFFu;
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k.x += kPhiloxW0;
+      k.y += kPhiloxW1;
+    }
+    const unsigned hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
+    const unsigned hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+  }
+  return c;
+}
+
+// Uniform in [0, 1) from the first output word, by the mantissa trick of the
+// TPU kernels: bitcast((bits >> 9) | 0x3f800000) - 1 == (bits >> 9) * 2^-23.
+__device__ __forceinline__ float philox_uniform(unsigned seed, unsigned it,
+                                                unsigned stream,
+                                                unsigned idx) {
+  const uint4 r = philox4x32_10(make_uint4(idx, stream, 0u, 0u),
+                                make_uint2(seed, it));
+  return __uint_as_float((r.x >> 9) | 0x3f800000u) - 1.0f;
+}
+
+}  // namespace bm

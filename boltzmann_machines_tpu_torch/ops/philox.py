@@ -1,0 +1,78 @@
+"""Philox4x32-10 counter-based random numbers, in plain torch arithmetic.
+
+The CUDA kernels draw their uniforms from the device function in
+``csrc/philox.cuh``; this module computes the same rounds on int64 tensors
+(every product split so that no intermediate exceeds 2^49), so the plain
+version of a kernel draws exactly the same numbers.
+
+Stream layout of the CD epoch (one key per training iteration):
+
+* key     = (epoch seed, global iteration ``it``);
+* counter = (element index ``row * n_cols + col``, stream id, 0, 0);
+* stream ids: ``STREAM_H0`` for the data-driven hidden sample, then for
+  Gibbs step ``s`` (0-based) ``stream_v(s)`` and ``stream_h(s)``, and
+  ``STREAM_PLL`` for the PLL flip position of each row.
+
+A uniform is built from the first output word with the mantissa trick of
+the TPU kernels (``bitcast((bits >> 9) | 0x3f800000) - 1``), which equals
+``(bits >> 9) * 2^-23`` exactly.
+"""
+
+import torch
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+MASK32 = 0xFFFFFFFF
+N_ROUNDS = 10
+
+STREAM_H0 = 0
+STREAM_PLL = 0xFFFF
+
+
+def stream_v(step):
+    return 1 + 2 * step
+
+
+def stream_h(step):
+    return 2 + 2 * step
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant `m` and
+    the int64 tensor `x` (values in [0, 2^32))."""
+    p_lo = m * (x & 0xFFFF)        # < 2^48
+    p_hi = m * (x >> 16)           # < 2^48
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & MASK32
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of the counter words (int64 tensors or ints in
+    [0, 2^32)) under the key (k0, k1) (ints); returns the four output words
+    as int64 tensors."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64)
+                      for c in (c0, c1, c2, c3))
+    k0, k1 = int(k0) & MASK32, int(k1) & MASK32
+    for r in range(N_ROUNDS):
+        if r:
+            k0 = (k0 + PHILOX_W0) & MASK32
+            k1 = (k1 + PHILOX_W1) & MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_uniform(seed, it, stream, shape, device='cpu'):
+    """float32 uniforms in [0, 1) of the given `shape`, element ``j`` (in
+    row-major order) drawn from counter (j, stream, 0, 0) under key
+    (seed, it)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    bits, _, _, _ = philox4x32(idx, stream, 0, 0, seed, it)
+    return ((bits >> 9).to(torch.float32) * (2. ** -23)).reshape(shape)
