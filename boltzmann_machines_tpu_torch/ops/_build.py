@@ -2,7 +2,8 @@
 
 ``load_library(name)`` compiles ``csrc/<name>.cu`` with ``nvcc`` on first
 use into ``_build/`` beside this package (listed in ``.gitignore``) and
-loads it with ``ctypes``.  The library's file name carries a hash of every
+loads it with ``ctypes``; ``build_all(names)`` compiles several sources at
+once, one ``nvcc`` each.  The library's file name carries a hash of every
 source under ``csrc/`` and of the compiler flags, so an edited source is
 rebuilt and a stale library is never loaded.  The build needs only
 ``nvcc`` and the CUDA toolkit's headers -- no PyTorch headers, no network.
@@ -56,33 +57,50 @@ def library_path(name):
                                                           _source_hash()))
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
-    Returns the library path; the compiler's output (register and shared
-    memory use per kernel) is kept beside it as ``<lib>.log``."""
-    lib = library_path(name)
-    if os.path.isfile(lib):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    src = os.path.join(CSRC_DIR, name + '.cu')
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
-    proc = subprocess.run(cmd, cwd=CSRC_DIR, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('building {0} failed ({1}):\n{2}\n{3}'.format(
-            src, ' '.join(cmd), proc.stdout, proc.stderr))
-    with open(lib + '.log', 'w') as f:
-        f.write(proc.stdout + proc.stderr)
-    # atomic publish: a concurrent build of the same sources writes the
-    # same bytes, and a reader never sees a half-written library
-    os.replace(tmp, lib)
-    return lib
+def build_all(names):
+    """Compile ``csrc/<name>.cu`` for every name that has no up-to-date
+    library, one ``nvcc`` per source, all started together; waits for all
+    of them (even when one fails) and returns the library paths.  The
+    compiler's output (register and shared memory use per kernel) is kept
+    beside each library as ``<lib>.log``."""
+    jobs = []
+    try:
+        for name in names:
+            lib = library_path(name)
+            if os.path.isfile(lib):
+                jobs.append((lib, None, None, None))
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            src = os.path.join(CSRC_DIR, name + '.cu')
+            fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
+            proc = subprocess.Popen(cmd, cwd=CSRC_DIR, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            jobs.append((lib, proc, tmp, cmd))
+    finally:
+        failures = []
+        for lib, proc, tmp, cmd in jobs:
+            if proc is None:
+                continue
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failures.append('building {0} failed ({1}):\n{2}\n{3}'.format(
+                    cmd[-1], ' '.join(cmd), out, err))
+                continue
+            with open(lib + '.log', 'w') as f:
+                f.write(out + err)
+            # atomic publish: a concurrent build of the same sources writes
+            # the same bytes, and a reader never sees a half-written library
+            os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError('\n'.join(failures))
+    return [lib for lib, _, _, _ in jobs]
 
 
 def load_library(name):
     """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(build(name))
+        _LOADED[name] = ctypes.CDLL(build_all([name])[0])
     return _LOADED[name]

@@ -32,7 +32,8 @@ from collections import namedtuple
 import torch
 import torch.nn.functional as F
 
-from .philox import STREAM_H0, STREAM_PLL, philox_uniform, stream_h, stream_v
+from .philox import (STREAM_H0, STREAM_PLL, bernoulli, philox_uniform,
+                     stream_h, stream_v)
 
 STATE_KEYS = ('W', 'vb', 'hb', 'dW', 'dvb', 'dhb', 'q_means')
 KERNELS = ('cd_gemm_act', 'cd_bias_stats', 'cd_assoc_update', 'cd_metrics')
@@ -105,11 +106,6 @@ def pll_flip_index(seed, it, batch_size, n_visible, device):
     return (u * n_visible).to(torch.int64)
 
 
-def _bernoulli(means, seed, it, stream):
-    u = philox_uniform(seed, it, stream, means.shape, means.device)
-    return (u < means).to(means.dtype)
-
-
 def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
     """The plain PyTorch version of the epoch (see module docstring)."""
     W, vb, hb, dW, dvb, dhb, q = (state[key] for key in STATE_KEYS)
@@ -124,16 +120,16 @@ def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
         X = X_batches[i]
         it = int(iter0) + i + 1
         h0 = torch.sigmoid(up * (X @ W + hb))
-        h_states = _bernoulli(h0, seed, it, STREAM_H0) \
+        h_states = bernoulli(h0, seed, it, STREAM_H0) \
             if cfg.sample_h_states else h0
         # k = 0 follows the TPU kernels: v_states = X and h_means = h0
         v_means, v_states, h_means = X, X, h0
         for s in range(cfg.k):
             v_means = torch.sigmoid(down * (h_states @ W.T + vb))
-            v_states = _bernoulli(v_means, seed, it, stream_v(s)) \
+            v_states = bernoulli(v_means, seed, it, stream_v(s)) \
                 if cfg.sample_v_states else v_means
             h_means = torch.sigmoid(up * (v_states @ W + hb))
-            h_states = _bernoulli(h_means, seed, it, stream_h(s)) \
+            h_states = bernoulli(h_means, seed, it, stream_h(s)) \
                 if cfg.sample_h_states else h_means
 
         dW_grad = (X.T @ h0 - v_states.T @ h_means) / B - cfg.l2 * W

@@ -13,6 +13,18 @@ Stream layout of the CD epoch (one key per training iteration):
   Gibbs step ``s`` (0-based) ``stream_v(s)`` and ``stream_h(s)``, and
   ``STREAM_PLL`` for the PLL flip position of each row.
 
+The DBM kernels (``ops/dbm_ops.py``) keep the same rule -- the key is
+(seed, step), the counter is (element index, stream id):
+
+* DBM epoch: key (epoch seed, global iteration ``it``); Gibbs sweep ``s``
+  of a minibatch draws hidden layer ``l`` on ``stream_dbm(s, l, L)`` and
+  the visible units (drawn last) on ``stream_dbm(s, L, L)``;
+* ``sample_v``: key (seed, sampled sweep ``s``); layer ``l`` on stream
+  ``l`` (visible: ``L``);
+* AIS: key (seed, index ``j`` of the transition's beta, 1-based); Gibbs
+  step ``s`` of the transition draws v, h2 and h1 on ``stream_ais(s, g)``
+  with ``g`` = ``AIS_V``, ``AIS_H2``, ``AIS_H1``.
+
 A uniform is built from the first output word with the mantissa trick of
 the TPU kernels (``bitcast((bits >> 9) | 0x3f800000) - 1``), which equals
 ``(bits >> 9) * 2^-23`` exactly.
@@ -37,6 +49,21 @@ def stream_v(step):
 
 def stream_h(step):
     return 2 + 2 * step
+
+
+def stream_dbm(step, layer, n_layers):
+    """Stream of hidden layer `layer` (``n_layers`` for the visible units)
+    in Gibbs sweep `step` of a DBM minibatch."""
+    return step * (n_layers + 1) + layer
+
+
+AIS_V, AIS_H2, AIS_H1 = 0, 1, 2
+
+
+def stream_ais(step, group):
+    """Stream of unit group `group` (``AIS_V``, ``AIS_H2``, ``AIS_H1``) in
+    Gibbs step `step` of an AIS transition."""
+    return 3 * step + group
 
 
 def _mulhilo(m, x):
@@ -76,3 +103,10 @@ def philox_uniform(seed, it, stream, shape, device='cpu'):
     idx = torch.arange(n, dtype=torch.int64, device=device)
     bits, _, _, _ = philox4x32(idx, stream, 0, 0, seed, it)
     return ((bits >> 9).to(torch.float32) * (2. ** -23)).reshape(shape)
+
+
+def bernoulli(means, seed, it, stream):
+    """States ``1[u < means]`` with the uniforms of (`seed`, `it`,
+    `stream`), as the kernels' epilogues draw them."""
+    u = philox_uniform(seed, it, stream, means.shape, means.device)
+    return (u.to(means.dtype) < means).to(means.dtype)

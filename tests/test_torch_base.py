@@ -86,7 +86,10 @@ def test_copied_utils_doctests(module):
 
 def test_import_does_not_load_jax():
     code = ('import sys, boltzmann_machines_tpu_torch as m; '
-            'm.BernoulliRBM(n_visible=4, n_hidden=2); '
+            'import boltzmann_machines_tpu_torch.dbm, '
+            'boltzmann_machines_tpu_torch.ops.dbm_ops; '
+            'r = m.BernoulliRBM(n_visible=4, n_hidden=2); '
+            'm.DBM(rbms=[r, m.BernoulliRBM(n_visible=2, n_hidden=2)]); '
             'bad = [k for k in sys.modules if k == "jax" or '
             'k.startswith("jax.") or k == "boltzmann_machines_tpu" or '
             'k.startswith("boltzmann_machines_tpu.")]; '

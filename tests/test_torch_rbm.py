@@ -85,6 +85,29 @@ def test_fit_matches_jax(tmp_path):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize('doubling', ['dbm_first', 'dbm_last'])
+def test_dbm_pretraining_fit_matches_jax(tmp_path, doubling):
+    """The pretraining half of the DBM slice: a fit with the input and bias
+    doubling of `doubling` and a per-epoch CD-k schedule, sampling off,
+    against JAX (state atol 2e-5, transform 1e-5)."""
+    rng = np.random.RandomState(2)
+    V, H = 20, 12
+    X = (rng.rand(44, V) < 0.4).astype(np.float32)   # 5 batches of 8 + 4
+    cfg = dict(n_visible=V, n_hidden=H, W_init=rng.randn(V, H) * 0.1,
+               batch_size=8, max_epoch=4, n_gibbs_steps=[1, 1, 2, 2],
+               learning_rate=0.05, momentum=[0.5, 0.9], l2=1e-4,
+               sample_v_states=False, sample_h_states=False,
+               random_seed=4, verbose=False, **{doubling: True})
+    jrbm = JaxBernoulliRBM(model_path=str(tmp_path) + '/j/', **cfg).fit(X)
+    trbm = BernoulliRBM(model_path=str(tmp_path) + '/t/', **cfg).fit(X)
+    assert trbm.iter_ == jrbm.iter_ == 24
+    for key, v in jrbm.get_params_arrays().items():
+        np.testing.assert_allclose(trbm.get_params_arrays()[key], v,
+                                   atol=2e-5, err_msg=key)
+    np.testing.assert_allclose(trbm.transform(X), jrbm.transform(X),
+                               atol=1e-5)
+
+
 def test_fewer_rows_than_a_batch_matches_jax(tmp_path):
     """No full batch: each epoch trains on the remainder alone, in both
     packages (base_rbm.py:1005-1008)."""
