@@ -1,12 +1,12 @@
 """PyTorch and CUDA port of boltzmann_machines_tpu, for NVIDIA Hopper.
 
 The JAX package ``boltzmann_machines_tpu`` is the reference this package is
-held against; this one imports neither JAX nor that package.  Its first
-slices are the Bernoulli RBM trained by CD-k and the all-Bernoulli DBM
-trained by PCD with mean-field, with its sampler and AIS log Z: on a CUDA
-device they run in hand-written kernels (``csrc/cd_epoch.cu`` and
-``csrc/dbm_ops.cu``, built with nvcc on first use), on the CPU in plain
-PyTorch.  Checkpoints load in both packages.
+held against; this one imports neither JAX nor that package.  Its slices so
+far are the Bernoulli, Gaussian and multinomial RBMs trained by CD-k and
+the all-Bernoulli DBM trained by PCD with mean-field, with its sampler and
+AIS log Z: on a CUDA device they run in hand-written kernels
+(``csrc/cd_epoch.cu`` and ``csrc/dbm_ops.cu``, built with nvcc on first
+use), on the CPU in plain PyTorch.  Checkpoints load in both packages.
 """
 
 __version__ = '0.1.0'
@@ -14,6 +14,7 @@ __version__ = '0.1.0'
 from . import base, utils
 from .layers import BernoulliLayer, MultinomialLayer, GaussianLayer
 from .ebm import EnergyBasedModel
-from .rbm import BaseRBM, BernoulliRBM, logit_mean
+from .rbm import (BaseRBM, BernoulliRBM, GaussianRBM, MultinomialRBM,
+                  logit_mean)
 from .dbm import DBM
 from .convert import load_model

@@ -11,7 +11,8 @@ either package loads in the other:
                            accumulators, EMA means).
 
 The model's device is private (``_device``) and never enters
-``params.json``.  Checkpoints and metrics are written synchronously at the
+``params.json``; by default it is the CUDA device when there is one (the
+JAX package likewise runs on its default backend), else the CPU.  Checkpoints and metrics are written synchronously at the
 end of each epoch.
 """
 
@@ -26,11 +27,16 @@ from .base_model import BaseModel
 from .mixin import DtypeMixin
 
 
+def default_device():
+    """'cuda' when a CUDA device is available, else 'cpu'."""
+    return 'cuda' if torch.cuda.is_available() else 'cpu'
+
+
 class TorchModel(BaseModel, DtypeMixin):
     def __init__(self, model_path='torch_model/', paths=None,
-                 json_params=None, device='cpu', *args, **kwargs):
+                 json_params=None, device=None, *args, **kwargs):
         super(TorchModel, self).__init__(*args, **kwargs)
-        self._device = torch.device(device)
+        self._device = torch.device(device or default_device())
         self._model_dirpath = None
         self._model_filepath = None
         self._params_filepath = None
@@ -132,9 +138,9 @@ class TorchModel(BaseModel, DtypeMixin):
         self._write_checkpoint(params, rng_state, self._get_state_arrays())
 
     @classmethod
-    def load_model(cls, model_path, device='cpu'):
+    def load_model(cls, model_path, device=None):
         """Load a checkpoint directory (written by this package or by the
-        JAX package) onto `device`."""
+        JAX package) onto `device` (default: CUDA when available)."""
         paths = TorchModel.compute_working_paths(model_path)
 
         with open(paths['params_filepath'], 'r') as f:

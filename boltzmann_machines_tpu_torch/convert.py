@@ -141,13 +141,15 @@ def dbm_state_to_numpy(state):
     return out
 
 
-def load_model(model_path, device='cpu'):
+def load_model(model_path, device=None):
     """Load a checkpoint directory written by either package, choosing the
-    class from its ``params.json``."""
-    from .rbm import BernoulliRBM
+    class from its ``params.json``, onto `device` (default: CUDA when
+    available)."""
+    from .rbm import BernoulliRBM, GaussianRBM, MultinomialRBM
     from .dbm import DBM
     from .base.torch_model import TorchModel
-    classes = {c.__name__: c for c in (BernoulliRBM, DBM)}
+    classes = {c.__name__: c for c in (BernoulliRBM, GaussianRBM,
+                                       MultinomialRBM, DBM)}
     paths = TorchModel.compute_working_paths(model_path)
     with open(paths['params_filepath']) as f:
         class_name = json.load(f)['__class_name__']

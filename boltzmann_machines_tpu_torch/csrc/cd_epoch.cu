@@ -1,52 +1,100 @@
-// CD-k epoch of a Bernoulli x Bernoulli RBM, hand-written for Hopper (sm_90a).
+// CD-k epoch of an RBM, hand-written for Hopper (sm_90a): Bernoulli or
+// Gaussian visible units, Bernoulli or multinomial hidden units.
 //
 // Replaces the TPU's fused epoch kernel `make_cd_epoch_kernel` /
 // `_cd_epoch_kernel` (boltzmann_machines_tpu/ops/pallas_ops.py:1266, body
-// :262-509, `sub_tiles == 1` branch).  On the TPU one pallas_call runs the
-// whole epoch with W resident in VMEM.  Hopper has no such memory, so W and
-// dW live in device memory (and the 50 MB L2) and each minibatch runs as a
-// short sequence of launches on one stream, in this order:
+// :262-509, `sub_tiles == 1` branch) and its hidden-tiled twin
+// `make_tiled_cd_epoch_kernel` / `_tiled_cd_epoch_kernel` (:726, body
+// :512-723).  On the TPU one pallas_call runs the whole epoch with W resident
+// in VMEM, and the tiled twin exists only because a 3072x5000 W + dW does
+// not fit there: it streams (V, 1024) tiles of W through double-buffered DMA
+// and pads H to 128.  Hopper has no such memory, so W and dW always live in
+// device memory (and the 50 MB L2); the kernels below compute both TPU
+// kernels' function at any V and H, with no tiling and no padding.  Each
+// minibatch runs as a short sequence of launches on one stream:
 //
 //   K1 cd_gemm_act      1 + 2k per step.  f32 tiled GEMM, A and B addressed
 //                       by (row stride, column stride) so X.W, h.W^T and
-//                       v.W are one kernel; epilogue sigmoid(mult*(acc+bias))
-//                       and, when sampling, the Philox-thresholded states.
-//                       Replaces the chain of pallas_ops.py:300-345.
+//                       v.W are one kernel.  Epilogues: sigmoid(mult*(acc +
+//                       bias)) with Philox-thresholded states (Bernoulli);
+//                       mult*(acc*sigma + vb) with states + sigma*Box-Muller
+//                       (Gaussian visible, pallas_ops.py:321-330); or the
+//                       pre-activation mult*(acc + bias) for K1b.  Replaces
+//                       the chain of :300-345 (tiled: :584-633).
+//   K1b cd_softmax_sample  multinomial hidden units only, after each hidden
+//                       K1: one block per row computes means = n softmax(pre)
+//                       (:307-314) and, when sampling, exact Multinomial(n,
+//                       means/n) counts (`_multinomial_sample_bits`, :130-182,
+//                       the body of the TPU's `multinomial_sample`).
 //   K2 cd_bias_stats    column sums over the batch (dvb, dhb, h_sum, msre
 //                       partial), the sparsity EMA and penalty, and the
-//                       vb/hb/dvb/dhb/q updates.  Replaces :353-356, :425-441.
+//                       vb/hb/dvb/dhb/q updates.  Replaces :353-356, :425-441
+//                       (tiled: :635-651).
 //   K3 cd_assoc_update  X^T h0 - v^T h (contraction over the batch) with the
 //                       momentum update of dW and W in place as epilogue;
 //                       each (i, j) has one owner, and it reads the old W for
-//                       the L2 term.  Replaces :348-352, :425, :433-439.
+//                       the L2 term.  Replaces :348-352, :425, :433-439
+//                       (tiled: :653-714).
 //   K4 cd_metrics       only where it % every == 0 (the host knows `it`, so
 //                       no readback): L2 of the new W, msre, and the PLL with
-//                       one flipped unit per row, via X.W_new with a softplus
-//                       row sum (`_free_energy_sum`, pallas_ops.py:185).
-//                       Replaces :443-509.
+//                       one flipped unit per row on the new parameters, with
+//                       the per-flavour free energy of `_free_energy_sum`
+//                       (:185-205, the body of `make_free_energy_probe`):
+//                       Gaussian 0.5 sum (x - vb/sigma)^2, multinomial
+//                       -x.vb - (xW).h_hat with one uniform-multinomial h_hat
+//                       per evaluation drawn by K1b's device functions.
+//                       Replaces :443-509 (the tiled kernel had no PLL).
+//
+// Two standalone launchers share these device functions: bm_normal_sample
+// (the TPU's `normal_sample`, :95) and bm_fe_probe (`make_free_energy_probe`,
+// :208); bm_cd_softmax_sample on given means is `multinomial_sample` (:106).
 //
 // Ordering: every K1 of a step reads the old vb/hb before K2 writes them; K3
 // needs K2's penalty vector; K4 reads the new W, vb, hb.  One stream, in
 // order, no host synchronisation inside an epoch.
 //
-// What bounds it on an H100: at 784x1024 the step is a few MFLOP (batch 10)
-// to ~2 GFLOP (batch 256), far below the card's f32 rate either way.  A
-// profile of the main path (PERF.md) shows the device busy nearly all of
-// the step at batch 10, and most of that in cd_gemm_act: with a 64-row tile
-// a batch-10 product is one row of 13-16 blocks, each walking the whole
-// 784- or 1024-long K loop alone -- latency-bound, with most SMs idle, more
-// than launch-bound.  The design does nothing about that yet: all products
-// are plain f32 FMA (no TF32, no tensor cores), and split-K for small
-// batches, CUDA graphs or one persistent kernel per epoch are later work.
+// What bounds it on an H100.  At 784x1024 the step is a few MFLOP (batch 10)
+// to ~2 GFLOP (batch 256); at the CIFAR shapes (3072x5000 and 5000x1000,
+// batch 100) ~15 and ~5 GFLOP, and W + dW (123 MB and 40 MB) are read and
+// written once per step.  The f32 bound is then ~0.23 ms and the memory
+// bound ~0.13 ms at 3072x5000 (PERF.md).  The products are plain f32 FMA on
+// SIMT cores (no TF32, no tensor cores) in 64x64 tiles, latency-bound at a
+// small batch: a 100-row product is two rows of blocks, each walking the
+// whole K loop alone.  The design does nothing about that yet; split-K,
+// wgmma, CUDA graphs or one persistent kernel per epoch are later work.
+//
+// The multinomial pass is bound by neither: per row it scans H entries and
+// binary-searches n draws.  Its design choices are about exactness, not
+// speed.  The CDF of means/n is accumulated in float64 (warp 0, 32 chunks)
+// and rounded to float32 per entry, as the plain version does with a float64
+// cumsum, so both build the same CDF except in ties at float64 rounding; the
+// counts are integers in a shared-memory histogram (atomicAdd), exact and
+// independent of order.  This replaces the TPU's n*B*H bucket compares and
+// its two HIGHEST-precision matmuls, whose bf16 default broke the counts
+// (:138-147): integer histograms cannot round.
+//
+// K4 and bm_fe_probe give each of B blocks one row x and let each thread
+// walk whole columns of W (from L2): 2BVH operations against a bound of
+// ~15 us at 5000x1000, B = 100, but each thread's column walk waits on its
+// loads.  The loop is unrolled 8 deep to keep eight loads in flight, and
+// the probe (no flipped row) skips the flipped sums.  Turning the walk into
+// a GEMM over the batch is later work.
+//
+// The Gaussian epilogue writes fl(fl(acc*sigma) + vb) times the multiplier
+// (1 or 2, so exact) with __fmul_rn/__fadd_rn, and the sample
+// fl(means + fl(z*sigma)), the plain version's operations in its order.  The
+// library is built without --use_fast_math, so Box-Muller's logf, cosf and
+// sqrtf stay within an ulp or two of torch's.
 //
 // The tiled GEMM, the activations and the block reduction live in gemm.cuh,
 // shared with dbm_ops.cu.
 //
-// C interface (bound with ctypes by ops/cd_epoch.py): every entry launches on
-// the given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError().
+// C interface (bound with ctypes by ops/cd_epoch.py and ops/samplers.py):
+// every entry launches on the given stream, allocates nothing, does not
+// synchronise, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "gemm.cuh"
@@ -67,18 +115,163 @@ using bm::TM;
 using bm::TN;
 
 constexpr int kMetThreads = 256;
+constexpr int kRowThreads = 256;
+constexpr int kStaticSmemLimit = 48 * 1024;
+
+// epilogues of cd_gemm_act (ops/cd_epoch.py ACT_*)
+constexpr int kActSigmoid = 0, kActGaussian = 1, kActPre = 2;
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return x < 0.f ? x - log1pf(expf(x)) : -log1pf(expf(-x));
 }
 
-// K1: means = sigmoid(mult * (A.B + bias)); states = 1[u < means] if given.
+// Max (is_max) or sum over the block, returned to every thread.  `red`
+// holds one float per warp plus one.  Must be called by all threads.
+__device__ float block_reduce_all(float v, float* red, bool is_max) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float t = __shfl_down_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, t) : v + t;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (int)(blockDim.x >> 5);
+  __syncthreads();  // `red` may still be read by a previous call
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = red[0];
+    for (int w = 1; w < n_warps; ++w) t = is_max ? fmaxf(t, red[w]) : t + red[w];
+    red[n_warps] = t;
+  }
+  __syncthreads();
+  return red[n_warps];
+}
+
+// In place: buf[0..H) holds expected counts (means), leaves the float32 CDF
+// of means/n with buf[H-1] = +inf (the last bucket absorbs rounding).  The
+// running sum is float64, as the plain version's float64 cumsum; warp 0
+// sums 32 contiguous chunks and scans their totals.  All threads call it.
+__device__ void build_cdf(float* buf, int H, int n) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int chunk = (H + 31) / 32;
+    const int lo = min(lane * chunk, H), hi = min(lo + chunk, H);
+    const double dn = (double)n;
+    double s = 0.0;
+    for (int i = lo; i < hi; ++i) s += (double)buf[i] / dn;
+    double incl = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double t = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += t;
+    }
+    double run = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) run = 0.0;
+    for (int i = lo; i < hi; ++i) {
+      run += (double)buf[i] / dn;
+      buf[i] = (float)run;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) buf[H - 1] = INFINITY;
+  __syncthreads();
+}
+
+// The uniform-multinomial CDF of the Monte Carlo free energy: means
+// float32(n) / float32(H) in every bucket.
+__device__ void uniform_cdf(float* buf, int H, int n) {
+  const float m = (float)n / (float)H;
+  for (int h = threadIdx.x; h < H; h += blockDim.x) buf[h] = m;
+  build_cdf(buf, H, n);
+}
+
+// counts[0..H) = histogram of n draws over `cdf`: draw j is the Philox
+// uniform at element idx0 + j and lands in the first bucket whose CDF
+// exceeds it (binary search; cdf[H-1] = +inf).  All threads call it.
+__device__ void multinomial_draw(const float* cdf, int H, int n,
+                                 unsigned seed, unsigned it, unsigned stream,
+                                 unsigned idx0, int* counts) {
+  for (int h = threadIdx.x; h < H; h += blockDim.x) counts[h] = 0;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const float u = bm::philox_uniform(seed, it, stream, idx0 + (unsigned)j);
+    int lo = 0, hi = H - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (u < cdf[mid])
+        hi = mid;
+      else
+        lo = mid + 1;
+    }
+    atomicAdd(&counts[lo], 1);
+  }
+  __syncthreads();
+}
+
+// Free energy of the row x and, when kFlip, of x with unit `flip` set to
+// 1 - x, block-wide, valid in thread 0 -- `_free_energy_sum` for one row:
+// visible term -x.vb (Bernoulli, sigma == nullptr) or 0.5 sum (x -
+// vb/sigma)^2 (Gaussian), hidden term -sum softplus(xW + hb) (Bernoulli,
+// hhat == nullptr) or -(xW).hhat (multinomial; hhat_f for the flipped row).
+// Without kFlip (the probe) the flipped sums are not formed at all.
+template <bool kFlip>
+__device__ void row_free_energies(const float* __restrict__ x, int flip,
+                                  const float* __restrict__ W,
+                                  const float* __restrict__ vb,
+                                  const float* __restrict__ hb,
+                                  const float* __restrict__ sigma,
+                                  const int* hhat, const int* hhat_f, int V,
+                                  int H, float* red, float* fe, float* fef) {
+  const int tid = threadIdx.x;
+  float tv = 0.f, tvf = 0.f;
+  for (int v = tid; v < V; v += blockDim.x) {
+    const float xv = x[v], xf = v == flip ? 1.f - xv : xv;
+    if (sigma) {
+      const float c = vb[v] / sigma[v], d = xv - c, df = xf - c;
+      tv = fmaf(d, d, tv);
+      if (kFlip) tvf = fmaf(df, df, tvf);
+    } else {
+      tv = fmaf(xv, vb[v], tv);
+      if (kFlip) tvf = fmaf(xf, vb[v], tvf);
+    }
+  }
+  float th = 0.f, thf = 0.f;
+  for (int h = tid; h < H; h += blockDim.x) {
+    float a = 0.f, af = 0.f;
+    // the walk down column h of W is bound by the latency of its loads, not
+    // by the FMAs: unrolled 8 deep, eight loads are in flight per thread
+    // (the sums keep their order, so the result bits do not change)
+#pragma unroll 8
+    for (int v = 0; v < V; ++v) {
+      const float xv = x[v], w = W[(long long)v * H + h];
+      a = fmaf(xv, w, a);
+      if (kFlip) af = fmaf(v == flip ? 1.f - xv : xv, w, af);
+    }
+    if (hhat) {
+      th = fmaf(a, (float)hhat[h], th);
+      if (kFlip) thf = fmaf(af, (float)hhat_f[h], thf);
+    } else {
+      th += softplus(a + hb[h]);
+      if (kFlip) thf += softplus(af + hb[h]);
+    }
+  }
+  const float s_tv = block_sum(tv, red), s_th = block_sum(th, red);
+  *fe = sigma ? 0.5f * s_tv - s_th : -s_tv - s_th;
+  if (kFlip) {
+    const float s_tvf = block_sum(tvf, red), s_thf = block_sum(thf, red);
+    *fef = sigma ? 0.5f * s_tvf - s_thf : -s_tvf - s_thf;
+  }
+}
+
+// K1: means = act(A.B) per the epilogue `act`; states drawn if given.
 __global__ void __launch_bounds__(kGemmThreads)
     cd_gemm_act_kernel(const float* __restrict__ A, long long sam,
                        long long sak, const float* __restrict__ Bm,
                        long long sbk, long long sbn,
-                       const float* __restrict__ bias, float mult, int M,
-                       int N, int K, float* __restrict__ means,
+                       const float* __restrict__ bias,
+                       const float* __restrict__ sigma, float mult, int act,
+                       int M, int N, int K, float* __restrict__ means,
                        float* __restrict__ states, unsigned seed, unsigned it,
                        unsigned stream_id) {
   __shared__ GemmTile sm;
@@ -95,15 +288,75 @@ __global__ void __launch_bounds__(kGemmThreads)
       const int n = n0 + tx * TN + j;
       if (n >= N) continue;
       const long long idx = (long long)m * N + n;
-      const float p = sigmoid(mult * (acc[i][j] + bias[n]));
-      means[idx] = p;
-      if (states) {
-        const float u = bm::philox_uniform(seed, it, stream_id,
-                                           (unsigned)idx);
-        states[idx] = u < p ? 1.f : 0.f;
+      if (act == kActGaussian) {
+        // GaussianLayer.activation(mult x, mult vb) = mult (x sigma + vb)
+        const float s = sigma[n];
+        const float mu = mult * __fadd_rn(__fmul_rn(acc[i][j], s), bias[n]);
+        means[idx] = mu;
+        if (states)
+          states[idx] = __fadd_rn(
+              mu, __fmul_rn(bm::philox_normal(seed, it, stream_id,
+                                              (unsigned)idx),
+                            s));
+      } else if (act == kActPre) {
+        means[idx] = mult * (acc[i][j] + bias[n]);
+      } else {
+        const float p = sigmoid(mult * (acc[i][j] + bias[n]));
+        means[idx] = p;
+        if (states) {
+          const float u = bm::philox_uniform(seed, it, stream_id,
+                                             (unsigned)idx);
+          states[idx] = u < p ? 1.f : 0.f;
+        }
       }
     }
   }
+}
+
+// K1b: block b owns row b.  from_pre: `in` holds pre-activations and the
+// means n softmax(pre) go to `means`; else `in` holds the means.  With
+// `states`, Multinomial(n, means/n) counts of the draws at elements b*n + j.
+// Dynamic shared memory: H floats and H ints.
+__global__ void __launch_bounds__(kRowThreads)
+    cd_softmax_sample_kernel(const float* __restrict__ in, int from_pre,
+                             int H, int n, float* __restrict__ means,
+                             float* __restrict__ states, unsigned seed,
+                             unsigned it, unsigned stream_id) {
+  extern __shared__ float smem[];
+  __shared__ float red[kRowThreads / 32 + 1];
+  float* buf = smem;
+  int* counts = reinterpret_cast<int*>(smem + H);
+  const long long row = (long long)blockIdx.x * H;
+  if (from_pre) {
+    float m = -INFINITY;
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      const float x = in[row + h];
+      buf[h] = x;
+      m = fmaxf(m, x);
+    }
+    m = block_reduce_all(m, red, true);
+    float s = 0.f;
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      const float e = expf(buf[h] - m);
+      buf[h] = e;
+      s += e;
+    }
+    s = block_reduce_all(s, red, false);
+    const float fn = (float)n;
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      const float mu = fn * (buf[h] / s);
+      buf[h] = mu;
+      means[row + h] = mu;
+    }
+  } else {
+    for (int h = threadIdx.x; h < H; h += blockDim.x) buf[h] = in[row + h];
+  }
+  if (!states) return;
+  build_cdf(buf, H, n);
+  multinomial_draw(buf, H, n, seed, it, stream_id,
+                   (unsigned)blockIdx.x * (unsigned)n, counts);
+  for (int h = threadIdx.x; h < H; h += blockDim.x)
+    states[row + h] = (float)counts[h];
 }
 
 // K2: one thread per visible column j < V, then per hidden column.
@@ -186,15 +439,19 @@ __global__ void __launch_bounds__(kGemmThreads)
 // K4: grid of B blocks (block b owns batch row b for the PLL); every block
 // also sums a grid-strided slice of W^2.  The last block to finish reduces
 // the per-block partials in a fixed order (deterministic) and writes the
-// three metric rows, then re-arms the counter for the next launch.
+// three metric rows, then re-arms the counter for the next launch.  With a
+// multinomial PLL (n > 0) every block draws the same two count vectors
+// (deterministic Philox) into dynamic shared memory: H floats, 2H ints.
 __global__ void __launch_bounds__(kMetThreads)
     cd_metrics_kernel(const float* __restrict__ X, const float* __restrict__ W,
                       const float* __restrict__ vb,
                       const float* __restrict__ hb,
+                      const float* __restrict__ sigma,
                       const float* __restrict__ msre_col, int B, int V, int H,
-                      float l2, int compute_pll, unsigned seed, unsigned it,
-                      float* partials, unsigned* counter, float* msre_out,
-                      float* pll_out, float* l2_out) {
+                      float l2, int compute_pll, int n, unsigned seed,
+                      unsigned it, float* partials, unsigned* counter,
+                      float* msre_out, float* pll_out, float* l2_out) {
+  extern __shared__ float smem[];
   __shared__ float red[kMetThreads / 32];
   __shared__ int flip;
   __shared__ bool is_last;
@@ -212,34 +469,23 @@ __global__ void __launch_bounds__(kMetThreads)
   float fe_row = 0.f, fef_row = 0.f;
   if (compute_pll && (int)blockIdx.x < B) {
     const int b = blockIdx.x;
+    int *hhat = nullptr, *hhat_f = nullptr;
+    if (n > 0) {
+      // independent draws for fe(x) and fe(x_flipped) (pallas_ops.py:484)
+      hhat = reinterpret_cast<int*>(smem + H);
+      hhat_f = hhat + H;
+      uniform_cdf(smem, H, n);
+      multinomial_draw(smem, H, n, seed, it, bm::kStreamPllHhat, 0u, hhat);
+      multinomial_draw(smem, H, n, seed, it, bm::kStreamPllHhatFlip, 0u,
+                       hhat_f);
+    }
     if (tid == 0) {
       const float u = bm::philox_uniform(seed, it, bm::kStreamPll, b);
       flip = (int)(u * (float)V);
     }
     __syncthreads();
-    const float* x = X + (long long)b * V;
-    float tv = 0.f, tvf = 0.f;
-    for (int v = tid; v < V; v += blockDim.x) {
-      const float xv = x[v], xf = v == flip ? 1.f - xv : xv;
-      tv = fmaf(xv, vb[v], tv);
-      tvf = fmaf(xf, vb[v], tvf);
-    }
-    float th = 0.f, thf = 0.f;
-    for (int h = tid; h < H; h += blockDim.x) {
-      float a = 0.f, af = 0.f;
-      for (int v = 0; v < V; ++v) {
-        const float xv = x[v], w = W[(long long)v * H + h];
-        a = fmaf(xv, w, a);
-        af = fmaf(v == flip ? 1.f - xv : xv, w, af);
-      }
-      th += softplus(a + hb[h]);
-      thf += softplus(af + hb[h]);
-    }
-    // per-row free energy: -x.vb - sum_h softplus(x.W + hb)
-    const float s_tv = block_sum(tv, red), s_tvf = block_sum(tvf, red);
-    const float s_th = block_sum(th, red), s_thf = block_sum(thf, red);
-    fe_row = -s_tv - s_th;
-    fef_row = -s_tvf - s_thf;
+    row_free_energies<true>(X + (long long)b * V, flip, W, vb, hb, sigma,
+                            hhat, hhat_f, V, H, red, &fe_row, &fef_row);
   }
 
   if (tid == 0) {
@@ -273,19 +519,93 @@ __global__ void __launch_bounds__(kMetThreads)
   }
 }
 
+// The TPU's `normal_sample`: out[i] = Box-Muller of counter (i, stream).
+__global__ void normal_sample_kernel(float* __restrict__ out,
+                                     long long count, unsigned seed,
+                                     unsigned it, unsigned stream_id) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x)
+    out[i] = bm::philox_normal(seed, it, stream_id, (unsigned)i);
+}
+
+// The TPU's `make_free_energy_probe`: block b owns row b; the last block
+// reduces the row free energies in a fixed order and writes the batch mean
+// and the count vector (every block drew the same one; zeros for Bernoulli
+// hidden units).  Dynamic shared memory for n > 0: H floats and H ints.
+__global__ void __launch_bounds__(kMetThreads)
+    fe_probe_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                    const float* __restrict__ vb,
+                    const float* __restrict__ hb,
+                    const float* __restrict__ sigma, int B, int V, int H,
+                    int n, unsigned seed, float* partials, unsigned* counter,
+                    float* fe_out, float* hhat_out) {
+  extern __shared__ float smem[];
+  __shared__ float red[kMetThreads / 32];
+  __shared__ bool is_last;
+  const int tid = threadIdx.x;
+  int* hhat = nullptr;
+  if (n > 0) {
+    hhat = reinterpret_cast<int*>(smem + H);
+    uniform_cdf(smem, H, n);
+    multinomial_draw(smem, H, n, seed, 0u, bm::kStreamPllHhat, 0u, hhat);
+  }
+  float fe;
+  row_free_energies<false>(X + (long long)blockIdx.x * V, -1, W, vb, hb,
+                           sigma, hhat, nullptr, V, H, red, &fe, nullptr);
+  if (tid == 0) {
+    partials[blockIdx.x] = fe;
+    __threadfence();
+    is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  float p = 0.f;
+  for (int g = tid; g < B; g += blockDim.x) p += __ldcg(&partials[g]);
+  const float t = block_sum(p, red);
+  for (int h = tid; h < H; h += blockDim.x)
+    hhat_out[h] = hhat ? (float)hhat[h] : 0.f;
+  if (tid == 0) {
+    *fe_out = t / (float)B;
+    *counter = 0u;
+  }
+}
+
+// Dynamic shared memory above the 48 KB default must be granted per kernel.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= (size_t)kStaticSmemLimit) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
 }  // namespace
 
 extern "C" {
 
 int bm_cd_gemm_act(const float* A, long long sam, long long sak,
                    const float* Bm, long long sbk, long long sbn,
-                   const float* bias, float mult, int M, int N, int K,
-                   float* means, float* states, unsigned seed, unsigned it,
-                   unsigned stream_id, void* stream) {
+                   const float* bias, const float* sigma, float mult, int act,
+                   int M, int N, int K, float* means, float* states,
+                   unsigned seed, unsigned it, unsigned stream_id,
+                   void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cd_gemm_act_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      A, sam, sak, Bm, sbk, sbn, bias, mult, M, N, K, means, states, seed, it,
-      stream_id);
+      A, sam, sak, Bm, sbk, sbn, bias, sigma, mult, act, M, N, K, means,
+      states, seed, it, stream_id);
+  return (int)cudaGetLastError();
+}
+
+// `in` and the outputs are (rows, H); draws of row b at elements b*n + j.
+int bm_cd_softmax_sample(const float* in, int from_pre, int rows, int H,
+                         int n, float* means, float* states, unsigned seed,
+                         unsigned it, unsigned stream_id, void* stream) {
+  const size_t smem = (size_t)H * (sizeof(float) + sizeof(int));
+  const cudaError_t err = allow_smem(cd_softmax_sample_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cd_softmax_sample_kernel<<<rows, kRowThreads, smem,
+                             (cudaStream_t)stream>>>(
+      in, from_pre, H, n, means, states, seed, it, stream_id);
   return (int)cudaGetLastError();
 }
 
@@ -313,15 +633,48 @@ int bm_cd_assoc_update(const float* X, const float* h0, const float* vs,
   return (int)cudaGetLastError();
 }
 
-// `partials` holds 3 * B floats; `counter` one zeroed unsigned.
+// `partials` holds 3 * B floats; `counter` one zeroed unsigned.  sigma ==
+// nullptr: Bernoulli visible units; n == 0: Bernoulli hidden units.
 int bm_cd_metrics(const float* X, const float* W, const float* vb,
-                  const float* hb, const float* msre_col, int B, int V, int H,
-                  float l2, int compute_pll, unsigned seed, unsigned it,
-                  float* partials, unsigned* counter, float* msre_out,
-                  float* pll_out, float* l2_out, void* stream) {
-  cd_metrics_kernel<<<B, kMetThreads, 0, (cudaStream_t)stream>>>(
-      X, W, vb, hb, msre_col, B, V, H, l2, compute_pll, seed, it, partials,
-      counter, msre_out, pll_out, l2_out);
+                  const float* hb, const float* sigma, const float* msre_col,
+                  int B, int V, int H, float l2, int compute_pll, int n,
+                  unsigned seed, unsigned it, float* partials,
+                  unsigned* counter, float* msre_out, float* pll_out,
+                  float* l2_out, void* stream) {
+  const size_t smem =
+      compute_pll && n > 0 ? (size_t)H * (sizeof(float) + 2 * sizeof(int))
+                           : 0;
+  const cudaError_t err = allow_smem(cd_metrics_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cd_metrics_kernel<<<B, kMetThreads, smem, (cudaStream_t)stream>>>(
+      X, W, vb, hb, sigma, msre_col, B, V, H, l2, compute_pll, n, seed, it,
+      partials, counter, msre_out, pll_out, l2_out);
+  return (int)cudaGetLastError();
+}
+
+int bm_normal_sample(float* out, long long count, unsigned seed, unsigned it,
+                     unsigned stream_id, void* stream) {
+  const int threads = 256;
+  const long long want = (count + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1)
+                                           : 132 * 16);
+  normal_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      out, count, seed, it, stream_id);
+  return (int)cudaGetLastError();
+}
+
+// `partials` holds B floats; `counter` one zeroed unsigned; `hhat_out` H
+// floats.  sigma == nullptr: Bernoulli visible; n == 0: Bernoulli hidden.
+int bm_fe_probe(const float* X, const float* W, const float* vb,
+                const float* hb, const float* sigma, int B, int V, int H,
+                int n, unsigned seed, float* partials, unsigned* counter,
+                float* fe_out, float* hhat_out, void* stream) {
+  const size_t smem = n > 0 ? (size_t)H * (sizeof(float) + sizeof(int)) : 0;
+  const cudaError_t err = allow_smem(fe_probe_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  fe_probe_kernel<<<B, kMetThreads, smem, (cudaStream_t)stream>>>(
+      X, W, vb, hb, sigma, B, V, H, n, seed, partials, counter, fe_out,
+      hhat_out);
   return (int)cudaGetLastError();
 }
 

@@ -17,6 +17,8 @@ constexpr unsigned kPhiloxM1 = 0xCD9E8D57u;
 constexpr unsigned kPhiloxW0 = 0x9E3779B9u;
 constexpr unsigned kPhiloxW1 = 0xBB67AE85u;
 constexpr unsigned kStreamPll = 0xFFFFu;
+constexpr unsigned kStreamPllHhat = 0xFFFEu;
+constexpr unsigned kStreamPllHhatFlip = 0xFFFDu;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -40,6 +42,21 @@ __device__ __forceinline__ float philox_uniform(unsigned seed, unsigned it,
   const uint4 r = philox4x32_10(make_uint4(idx, stream, 0u, 0u),
                                 make_uint2(seed, it));
   return __uint_as_float((r.x >> 9) | 0x3f800000u) - 1.0f;
+}
+
+// Standard normal by Box-Muller on the uniforms of output words 0 and 1 of
+// one counter (ops/philox.py `normal`; the TPU's `_normal_from_bits`,
+// pallas_ops.py:46-51).  Built without --use_fast_math, so logf, cosf and
+// sqrtf stay within an ulp or two of torch's.
+__device__ __forceinline__ float philox_normal(unsigned seed, unsigned it,
+                                               unsigned stream,
+                                               unsigned idx) {
+  const uint4 r = philox4x32_10(make_uint4(idx, stream, 0u, 0u),
+                                make_uint2(seed, it));
+  const float u1 = __uint_as_float((r.x >> 9) | 0x3f800000u) - 1.0f;
+  const float u2 = __uint_as_float((r.y >> 9) | 0x3f800000u) - 1.0f;
+  const float rad = sqrtf(__fmul_rn(-2.f, logf(fmaxf(u1, 1e-7f))));
+  return __fmul_rn(rad, cosf(__fmul_rn(6.2831854820251465f, u2)));
 }
 
 }  // namespace bm

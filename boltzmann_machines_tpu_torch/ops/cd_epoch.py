@@ -1,8 +1,11 @@
-"""The CD-k training epoch of a Bernoulli x Bernoulli RBM.
+"""The CD-k training epoch of an RBM: Bernoulli or Gaussian visible units,
+Bernoulli or multinomial hidden units.
 
-Port of the TPU's fused epoch kernel ``make_cd_epoch_kernel`` /
-``_cd_epoch_kernel`` (boltzmann_machines_tpu/ops/pallas_ops.py:1266,
-body :262-509), with the same contract::
+Port of the TPU's fused epoch kernels ``make_cd_epoch_kernel`` /
+``_cd_epoch_kernel`` (boltzmann_machines_tpu/ops/pallas_ops.py:1266, body
+:262-509) and ``make_tiled_cd_epoch_kernel`` / ``_tiled_cd_epoch_kernel``
+(:726, body :512-723; the same function for a W too big for VMEM, which on
+Hopper is no special case), with the contract of the first::
 
     epoch = make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k, ...)
     state, msre_rows, pll_rows, l2_rows = epoch(state, X_batches, lr,
@@ -12,7 +15,9 @@ body :262-509), with the same contract::
 (n_batches, batch_size, n_visible) float32; the rows are (n_batches,) and
 hold the metrics of every iteration ``it = iter0 + i + 1`` with
 ``it % metrics_every == 0`` (zero elsewhere).  The input state is not
-modified.
+modified.  Gaussian inputs arrive divided by sigma and vb is raw
+(ROADMAP.md Queue C5); the PLL free energies omit the multinomial lgamma
+constant (Queue C6), as the TPU kernels do.
 
 Three parts:
 
@@ -22,26 +27,44 @@ Three parts:
   on first use) or raises;
 * ``cd_epoch.launches`` -- how many times each kernel was launched.
 
-Random draws (sampled states, the PLL flip) come from the Philox stream of
-``ops/philox.py``, which the kernels reproduce exactly.
+Random draws (sampled states, the PLL flip and count vectors) come from the
+Philox stream of ``ops/philox.py``, which the kernels reproduce exactly.
 """
 
 import ctypes
 from collections import namedtuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .philox import (STREAM_H0, STREAM_PLL, bernoulli, philox_uniform,
-                     stream_h, stream_v)
+from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
+                     STREAM_PLL_HHAT_FLIP, bernoulli, multinomial_counts,
+                     normal, philox_uniform, stream_h, stream_v)
 
 STATE_KEYS = ('W', 'vb', 'hb', 'dW', 'dvb', 'dhb', 'q_means')
-KERNELS = ('cd_gemm_act', 'cd_bias_stats', 'cd_assoc_update', 'cd_metrics')
+KERNELS = ('cd_gemm_act', 'cd_softmax_sample', 'cd_bias_stats',
+           'cd_assoc_update', 'cd_metrics')
+VISIBLE = ('bernoulli', 'gaussian')
+HIDDEN = ('bernoulli', 'multinomial')
 
 CDEpochConfig = namedtuple('CDEpochConfig', (
     'n_visible', 'n_hidden', 'k', 'sample_v_states', 'sample_h_states',
     'propup_mult', 'propdown_mult', 'l2', 'sparsity_target', 'sparsity_cost',
-    'sparsity_damping', 'metrics_every', 'compute_pll'))
+    'sparsity_damping', 'metrics_every', 'compute_pll', 'visible', 'sigma',
+    'hidden', 'n_samples'),
+    defaults=('bernoulli', None, 'bernoulli', None))
+
+
+def check_flavour(visible, hidden, n_samples):
+    """Raise unless the unit types are ones the kernels take (and
+    multinomial hidden units come with n_samples >= 1)."""
+    if visible not in VISIBLE or hidden not in HIDDEN:
+        raise ValueError('visible must be one of {0} and hidden one of {1}, '
+                         'got {2!r} and {3!r}'.format(VISIBLE, HIDDEN,
+                                                      visible, hidden))
+    if hidden == 'multinomial' and (n_samples is None or int(n_samples) < 1):
+        raise ValueError('multinomial hidden units need n_samples >= 1')
 
 
 def make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k,
@@ -52,24 +75,21 @@ def make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k,
                          compute_pll=True, visible='bernoulli', sigma=None,
                          hidden='bernoulli', n_samples=None):
     """Build ``epoch(state, X_batches, lr, momentum, seed, iter0)`` with the
-    static configuration of the JAX factory.  `batch_size` is kept for that
-    signature; the epoch takes any batch size (the remainder batch of a fit
-    runs through it with its own row count)."""
-    if visible != 'bernoulli':
-        raise NotImplementedError(
-            'Gaussian visible units: the CD epoch kernel covers Bernoulli x '
-            'Bernoulli only (ROADMAP.md Queue B2, Gaussian variant)')
-    if hidden != 'bernoulli':
-        raise NotImplementedError(
-            'multinomial hidden units: the CD epoch kernel covers Bernoulli '
-            'x Bernoulli only (ROADMAP.md Queue B2, multinomial variant)')
+    static configuration of the JAX factory.  `sigma` (Gaussian visible
+    units) is a scalar or a (n_visible,) array, `n_samples` (multinomial
+    hidden units) the number of tied softmax draws.  `batch_size` is kept
+    for that signature; the epoch takes any batch size (the remainder batch
+    of a fit runs through it with its own row count)."""
+    check_flavour(visible, hidden, n_samples)
     if int(k) < 0 or int(metrics_every) < 1:
         raise ValueError('need k >= 0 and metrics_every >= 1')
     cfg = CDEpochConfig(
         int(n_visible), int(n_hidden), int(k), bool(sample_v_states),
         bool(sample_h_states), float(propup_mult), float(propdown_mult),
         float(l2), float(sparsity_target), float(sparsity_cost),
-        float(sparsity_damping), int(metrics_every), bool(compute_pll))
+        float(sparsity_damping), int(metrics_every), bool(compute_pll),
+        visible, sigma if visible == 'gaussian' else None, hidden,
+        None if hidden == 'bernoulli' else int(n_samples))
 
     def epoch(state, X_batches, lr, momentum, seed, iter0):
         return cd_epoch(cfg, state, X_batches, lr, momentum, seed, iter0)
@@ -80,23 +100,61 @@ def make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k,
 # ---------------------------------------------------------------------- #
 # plain version                                                           #
 # ---------------------------------------------------------------------- #
-def free_energy_sum(X, act, vb, hb):
-    """Batch-SUM free energy of Bernoulli visibles and hidden units given
-    ``act = X @ W`` -- the counterpart of the JAX kernel's
-    ``_free_energy_sum`` (pallas_ops.py:185) for this flavour."""
-    return -torch.sum(X * vb) - torch.sum(F.softplus(act + hb))
+def sigma_tensor(sigma, n_visible, device):
+    """A scalar or per-unit sigma (None: 1) as a (V,) float32 tensor."""
+    return torch.as_tensor(np.broadcast_to(
+        np.asarray(1. if sigma is None else sigma, np.float32).reshape(-1),
+        (n_visible,)).copy(), device=device)
 
 
-def pll_from_flip(X, flip_idx, W, vb, hb):
+def sigma_row(cfg, device):
+    """The (V,) sigma of Gaussian visible units (None otherwise)."""
+    if cfg.visible != 'gaussian':
+        return None
+    return sigma_tensor(cfg.sigma, cfg.n_visible, device)
+
+
+def free_energy_sum(X, act, vb, hb, visible='bernoulli', hidden='bernoulli',
+                    sigma=None, h_hat=None):
+    """Batch-SUM free energy given ``act = X @ W`` -- the counterpart of the
+    JAX kernels' ``_free_energy_sum`` (pallas_ops.py:185): Gaussian inputs
+    already divided by `sigma` with vb raw, ``h_hat`` the drawn count
+    vector of multinomial hidden units, no lgamma constant."""
+    if visible == 'gaussian':
+        d = X - vb / sigma
+        t_vis = 0.5 * torch.sum(d * d)
+    else:
+        t_vis = -torch.sum(X * vb)
+    if hidden == 'multinomial':
+        t_hid = -torch.sum(act * h_hat)
+    else:
+        t_hid = -torch.sum(F.softplus(act + hb))
+    return t_vis + t_hid
+
+
+def uniform_h_hat(n_samples, n_hidden, seed, it, stream, device):
+    """One (1, H) count vector of the uniform Multinomial(n, 1/H): the
+    Monte Carlo hidden draw of the multinomial free energy, from the means
+    ``float32(n) / float32(H)`` that the kernels use."""
+    m = np.float32(n_samples) / np.float32(n_hidden)
+    means = torch.full((1, n_hidden), float(m), dtype=torch.float32,
+                       device=device)
+    return multinomial_counts(means, n_samples, seed, it, stream)
+
+
+def pll_from_flip(X, flip_idx, W, vb, hb, visible='bernoulli',
+                  hidden='bernoulli', sigma=None, h_hats=(None, None)):
     """PLL proxy of one batch given the flipped unit of each row:
     ``n_visible * log_sigmoid(fe(X_flip) - fe(X))`` with batch-MEAN free
-    energies and no dbm doubling (ROADMAP.md Queue C4)."""
+    energies and no dbm doubling (ROADMAP.md Queue C4); `h_hats` are the
+    count vectors of fe(X) and fe(X_flip) for multinomial hidden units."""
     B, V = X.shape
     rows = torch.arange(B, device=X.device)
     Xf = X.clone()
     Xf[rows, flip_idx] = 1. - X[rows, flip_idx]
-    fe = free_energy_sum(X, X @ W, vb, hb) / B
-    fe_f = free_energy_sum(Xf, Xf @ W, vb, hb) / B
+    kw = dict(visible=visible, hidden=hidden, sigma=sigma)
+    fe = free_energy_sum(X, X @ W, vb, hb, h_hat=h_hats[0], **kw) / B
+    fe_f = free_energy_sum(Xf, Xf @ W, vb, hb, h_hat=h_hats[1], **kw) / B
     return V * F.logsigmoid(fe_f - fe)
 
 
@@ -106,30 +164,74 @@ def pll_flip_index(seed, it, batch_size, n_visible, device):
     return (u * n_visible).to(torch.int64)
 
 
+def pll_h_hats(cfg, seed, it, device):
+    """The two independent count vectors of the multinomial PLL at
+    iteration `it` (pallas_ops.py:484-496), None for Bernoulli hidden."""
+    if cfg.hidden != 'multinomial':
+        return None, None
+    return tuple(uniform_h_hat(cfg.n_samples, cfg.n_hidden, seed, it, s,
+                               device)
+                 for s in (STREAM_PLL_HHAT, STREAM_PLL_HHAT_FLIP))
+
+
+def h_means_reference(cfg, v, W, hb):
+    """Hidden means given visible rows: sigmoid or n softmax of
+    ``up * (v W + hb)``."""
+    pre = cfg.propup_mult * (v @ W + hb)
+    if cfg.hidden == 'multinomial':
+        return float(cfg.n_samples) * torch.softmax(pre, dim=1)
+    return torch.sigmoid(pre)
+
+
+def h_sample_reference(cfg, means, seed, it, stream):
+    if cfg.hidden == 'multinomial':
+        return multinomial_counts(means, cfg.n_samples, seed, it, stream)
+    return bernoulli(means, seed, it, stream)
+
+
+def v_means_reference(cfg, h, W, vb, sigma):
+    """Visible means given hidden rows: ``down (h W^T) sigma + down vb``
+    (GaussianLayer.activation of the doubled input) or
+    sigmoid(down (h W^T + vb))."""
+    down = cfg.propdown_mult
+    if sigma is not None:
+        return (down * (h @ W.T)) * sigma + down * vb
+    return torch.sigmoid(down * (h @ W.T + vb))
+
+
+def v_sample_reference(cfg, means, sigma, seed, it, stream):
+    if sigma is not None:
+        return means + normal(seed, it, stream, means.shape,
+                              means.device) * sigma
+    return bernoulli(means, seed, it, stream)
+
+
 def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
     """The plain PyTorch version of the epoch (see module docstring)."""
     W, vb, hb, dW, dvb, dhb, q = (state[key] for key in STATE_KEYS)
     NB, B, V = X_batches.shape
-    up, down = cfg.propup_mult, cfg.propdown_mult
     lr, mom = float(lr), float(momentum)
     damp = cfg.sparsity_damping
+    sigma = sigma_row(cfg, X_batches.device)
     rows = [torch.zeros(NB, dtype=X_batches.dtype, device=X_batches.device)
             for _ in range(3)]
     msre_rows, pll_rows, l2_rows = rows
     for i in range(NB):
         X = X_batches[i]
         it = int(iter0) + i + 1
-        h0 = torch.sigmoid(up * (X @ W + hb))
-        h_states = bernoulli(h0, seed, it, STREAM_H0) \
+        h0 = h_means_reference(cfg, X, W, hb)
+        h_states = h_sample_reference(cfg, h0, seed, it, STREAM_H0) \
             if cfg.sample_h_states else h0
         # k = 0 follows the TPU kernels: v_states = X and h_means = h0
         v_means, v_states, h_means = X, X, h0
         for s in range(cfg.k):
-            v_means = torch.sigmoid(down * (h_states @ W.T + vb))
-            v_states = bernoulli(v_means, seed, it, stream_v(s)) \
+            v_means = v_means_reference(cfg, h_states, W, vb, sigma)
+            v_states = v_sample_reference(cfg, v_means, sigma, seed, it,
+                                          stream_v(s)) \
                 if cfg.sample_v_states else v_means
-            h_means = torch.sigmoid(up * (v_states @ W + hb))
-            h_states = bernoulli(h_means, seed, it, stream_h(s)) \
+            h_means = h_means_reference(cfg, v_states, W, hb)
+            h_states = h_sample_reference(cfg, h_means, seed, it,
+                                          stream_h(s)) \
                 if cfg.sample_h_states else h_means
 
         dW_grad = (X.T @ h0 - v_states.T @ h_means) / B - cfg.l2 * W
@@ -152,7 +254,9 @@ def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
             l2_rows[i] = cfg.l2 * 0.5 * torch.sum(W * W)
             if cfg.compute_pll:
                 flip = pll_flip_index(seed, it, B, V, X.device)
-                pll_rows[i] = pll_from_flip(X, flip, W, vb, hb)
+                pll_rows[i] = pll_from_flip(
+                    X, flip, W, vb, hb, cfg.visible, cfg.hidden, sigma,
+                    pll_h_hats(cfg, seed, it, X.device))
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
     return new_state, msre_rows, pll_rows, l2_rows
 
@@ -166,19 +270,25 @@ _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _F = ctypes.c_float
 _ARGTYPES = {
-    'bm_cd_gemm_act': [_P, _L, _L, _P, _L, _L, _P, _F, _I, _I, _I, _P, _P,
-                       _U, _U, _U, _P],
+    'bm_cd_gemm_act': [_P, _L, _L, _P, _L, _L, _P, _P, _F, _I, _I, _I, _I,
+                       _P, _P, _U, _U, _U, _P],
+    'bm_cd_softmax_sample': [_P, _I, _I, _I, _I, _P, _P, _U, _U, _U, _P],
     'bm_cd_bias_stats': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _F, _F, _F, _F, _F, _F, _P],
     'bm_cd_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F,
                            _F, _P],
-    'bm_cd_metrics': [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _U, _U, _P, _P,
-                      _P, _P, _P, _P],
+    'bm_cd_metrics': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _U, _U,
+                      _P, _P, _P, _P, _P, _P],
+    'bm_normal_sample': [_P, _L, _U, _U, _U, _P],
+    'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P, _P, _P, _P,
+                    _P],
 }
+# epilogues of cd_gemm_act (csrc/cd_epoch.cu)
+ACT_SIGMOID, ACT_GAUSSIAN, ACT_PRE = 0, 1, 2
 _BOUND = {}
 
 
-def _library():
+def library():
     """The built kernel library with its C signatures declared."""
     if 'lib' not in _BOUND:
         from ._build import load_library
@@ -191,14 +301,112 @@ def _library():
     return _BOUND['lib']
 
 
-def _check(err, name):
+def check_launch(err, name):
     if err != 0:
         raise RuntimeError('{0} launch failed: CUDA error {1}'.format(name,
                                                                      err))
 
 
-def _ptr(t, offset=0):
+def ptr(t, offset=0):
     return None if t is None else t.data_ptr() + 4 * offset
+
+
+def check_tensors(pairs, device, shapes):
+    """Raise unless every (tensor, name) is a contiguous float32 tensor on
+    `device` with the shape `shapes` gives its name (if any)."""
+    for t, name in pairs:
+        if t.device != device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError('{0} must be a contiguous float32 tensor on {1}'
+                             .format(name, device))
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError('{0} has shape {1}, expected {2}'.format(
+                name, tuple(t.shape), shapes[name]))
+
+
+def _launch_gemm_act(lib, stream, A, W, transposed_w, bias, sigma, mult,
+                     act, means, states, seed, it, stream_id):
+    """cd_gemm_act on A (M, K) row-major and W (V, H): A.W (K = V, N = H)
+    or A.W^T (K = H, N = V), with the epilogue `act`."""
+    V, H = W.shape
+    M = A.shape[0]
+    N, K = (V, H) if transposed_w else (H, V)
+    sbk, sbn = (1, H) if transposed_w else (H, 1)
+    check_launch(lib.bm_cd_gemm_act(
+        ptr(A), K, 1, ptr(W), sbk, sbn, ptr(bias), ptr(sigma), mult, act, M,
+        N, K, ptr(means), ptr(states), seed, it, stream_id, stream),
+        'cd_gemm_act')
+    cd_epoch.launches['cd_gemm_act'] += 1
+
+
+def _launch_h_pass(lib, stream, cfg, A, W, hb, means, states, pre, seed, it,
+                   stream_id):
+    if cfg.hidden != 'multinomial':
+        _launch_gemm_act(lib, stream, A, W, False, hb, None, cfg.propup_mult,
+                         ACT_SIGMOID, means, states, seed, it, stream_id)
+        return
+    # the softmax needs whole rows: the GEMM writes up * (A.W + hb), a row
+    # kernel turns it into means and counts
+    _launch_gemm_act(lib, stream, A, W, False, hb, None, cfg.propup_mult,
+                     ACT_PRE, pre, None, seed, it, stream_id)
+    check_launch(lib.bm_cd_softmax_sample(
+        ptr(pre), 1, A.shape[0], W.shape[1], cfg.n_samples, ptr(means),
+        ptr(states), seed, it, stream_id, stream), 'cd_softmax_sample')
+    cd_epoch.launches['cd_softmax_sample'] += 1
+
+
+def _launch_v_pass(lib, stream, cfg, A, W, vb, sigma, means, states, seed,
+                   it, stream_id):
+    act = ACT_SIGMOID if sigma is None else ACT_GAUSSIAN
+    _launch_gemm_act(lib, stream, A, W, True, vb, sigma, cfg.propdown_mult,
+                     act, means, states, seed, it, stream_id)
+
+
+# test hooks: one pass of the chain, kernel vs plain, draw by draw; no
+# library code calls them
+def _gibbs_pass_reference(cfg, layer, A, W, bias, seed, it, stream_id,
+                          sample=True):
+    """The plain version of ``_gibbs_pass``, on any device."""
+    if layer == 'h':
+        means = h_means_reference(cfg, A, W, bias)
+        return means, (h_sample_reference(cfg, means, seed, it, stream_id)
+                       if sample else None)
+    sigma = sigma_row(cfg, A.device)
+    means = v_means_reference(cfg, A, W, bias, sigma)
+    return means, (v_sample_reference(cfg, means, sigma, seed, it, stream_id)
+                   if sample else None)
+
+
+def _gibbs_pass(cfg, layer, A, W, bias, seed, it, stream_id, sample=True):
+    """One pass of the epoch's chain on the rows `A`: layer 'h' gives the
+    hidden (means, states) given visible rows, 'v' the visible ones given
+    hidden rows (states None unless `sample`) -- on CUDA tensors by the
+    epoch's own kernels and launch helpers, on CPU tensors by the plain
+    version.  Lets a caller hold the kernels' sampled states against the
+    plain version's on the same inputs."""
+    dev = A.device
+    if dev.type == 'cpu':
+        return _gibbs_pass_reference(cfg, layer, A, W, bias, seed, it,
+                                     stream_id, sample)
+    sigma = sigma_row(cfg, dev) if layer == 'v' else None
+    V, H = W.shape
+    check_tensors([(A, 'A'), (W, 'W'), (bias, 'bias')], dev,
+                  {'A': (A.shape[0], V if layer == 'h' else H),
+                   'bias': (H if layer == 'h' else V,)})
+    n = A.shape[0], (H if layer == 'h' else V)
+    means = torch.empty(n, dtype=torch.float32, device=dev)
+    states = torch.empty(n, dtype=torch.float32, device=dev) \
+        if sample else None
+    lib, stream = library(), torch.cuda.current_stream(dev).cuda_stream
+    if layer == 'h':
+        pre = torch.empty(n, dtype=torch.float32, device=dev) \
+            if cfg.hidden == 'multinomial' else None
+        _launch_h_pass(lib, stream, cfg, A, W, bias, means, states, pre,
+                       int(seed), int(it), int(stream_id))
+    else:
+        _launch_v_pass(lib, stream, cfg, A, W, bias, sigma, means, states,
+                       int(seed), int(it), int(stream_id))
+    return means, states
 
 
 def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
@@ -208,27 +416,26 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
             or X_batches.shape[0] < 1 or X_batches.shape[1] < 1:
         raise ValueError('X_batches must be (n_batches, batch_size, {0}), '
                          'got {1}'.format(V, tuple(X_batches.shape)))
-    shapes = {'W': (V, H), 'vb': (V,), 'hb': (H,), 'dW': (V, H),
-              'dvb': (V,), 'dhb': (H,), 'q_means': (H,)}
-    for t, name in [(X_batches, 'X_batches')] + \
-            [(state[key], key) for key in STATE_KEYS]:
-        if t.device != X_batches.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError('{0} must be a contiguous float32 tensor on {1}'
-                             .format(name, X_batches.device))
-        if name in shapes and tuple(t.shape) != shapes[name]:
-            raise ValueError('{0} has shape {1}, expected {2}'.format(
-                name, tuple(t.shape), shapes[name]))
+    check_tensors([(X_batches, 'X_batches')] +
+                  [(state[key], key) for key in STATE_KEYS],
+                  X_batches.device,
+                  {'W': (V, H), 'vb': (V,), 'hb': (H,), 'dW': (V, H),
+                   'dvb': (V,), 'dhb': (H,), 'q_means': (H,)})
+    NB, B = int(X_batches.shape[0]), int(X_batches.shape[1])
+    multinomial = cfg.hidden == 'multinomial'
+    n = cfg.n_samples if multinomial else 0
     if not (0 <= int(seed) < 2 ** 32 and 0 <= int(iter0)
-            and int(iter0) + X_batches.shape[0] < 2 ** 32):
-        raise ValueError('seed and iterations must fit in 32 bits')
+            and int(iter0) + NB < 2 ** 32
+            and B * max(V, H, n) < 2 ** 32):
+        raise ValueError('seed, iterations and draw indices must fit in 32 '
+                         'bits')
 
-    lib = _library()
+    lib = library()
     launches = cd_epoch.launches
     dev = X_batches.device
-    NB, B = int(X_batches.shape[0]), int(X_batches.shape[1])
     # the epoch updates copies of the state in place, batch after batch
     W, vb, hb, dW, dvb, dhb, q = (state[key].clone() for key in STATE_KEYS)
+    sigma = sigma_row(cfg, dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -236,6 +443,7 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     h0, v_means, h_means = empty(B, H), empty(B, V), empty(B, H)
     h_samp = empty(B, H) if cfg.sample_h_states else None
     v_samp = empty(B, V) if cfg.sample_v_states else None
+    pre = empty(B, H) if multinomial else None
     pen, msre_col = empty(H), empty(V)
     partials = empty(3 * B)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -244,54 +452,44 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                                     for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     lr, mom = float(lr), float(momentum)
-    up, down = cfg.propup_mult, cfg.propdown_mult
     seed = int(seed)
-
-    def gemm_act(A, transposed_w, bias, mult, M, N, K, means, states, it,
-                 stream_id):
-        # A (M, K) row-major; B = W (K = V, N = H) or W^T (K = H, N = V)
-        sbk, sbn = (1, H) if transposed_w else (H, 1)
-        _check(lib.bm_cd_gemm_act(
-            _ptr(A), K, 1, _ptr(W), sbk, sbn, _ptr(bias), mult, M, N, K,
-            _ptr(means), _ptr(states), seed, it, stream_id, stream),
-            'cd_gemm_act')
-        launches['cd_gemm_act'] += 1
 
     for i in range(NB):
         X = X_batches[i]
         it = int(iter0) + i + 1
-        gemm_act(X, False, hb, up, B, H, V, h0, h_samp, it, STREAM_H0)
+        _launch_h_pass(lib, stream, cfg, X, W, hb, h0, h_samp, pre, seed, it,
+                       STREAM_H0)
         h_states = h_samp if cfg.sample_h_states else h0
         v_states, v_m, h_m = X, X, h0
         for s in range(cfg.k):
-            gemm_act(h_states, True, vb, down, B, V, H, v_means, v_samp, it,
-                     stream_v(s))
+            _launch_v_pass(lib, stream, cfg, h_states, W, vb, sigma, v_means,
+                           v_samp, seed, it, stream_v(s))
             v_m = v_means
             v_states = v_samp if cfg.sample_v_states else v_means
-            gemm_act(v_states, False, hb, up, B, H, V, h_means, h_samp, it,
-                     stream_h(s))
+            _launch_h_pass(lib, stream, cfg, v_states, W, hb, h_means, h_samp,
+                           pre, seed, it, stream_h(s))
             h_m = h_means
             h_states = h_samp if cfg.sample_h_states else h_means
 
         damp = cfg.sparsity_damping
-        _check(lib.bm_cd_bias_stats(
-            _ptr(X), _ptr(v_states), _ptr(v_m), _ptr(h0), _ptr(h_m), B, V, H,
-            _ptr(vb), _ptr(dvb), _ptr(hb), _ptr(dhb), _ptr(q), _ptr(pen),
-            _ptr(msre_col), lr, mom, damp, 1. - damp, cfg.sparsity_cost,
+        check_launch(lib.bm_cd_bias_stats(
+            ptr(X), ptr(v_states), ptr(v_m), ptr(h0), ptr(h_m), B, V, H,
+            ptr(vb), ptr(dvb), ptr(hb), ptr(dhb), ptr(q), ptr(pen),
+            ptr(msre_col), lr, mom, damp, 1. - damp, cfg.sparsity_cost,
             cfg.sparsity_target, stream), 'cd_bias_stats')
         launches['cd_bias_stats'] += 1
 
-        _check(lib.bm_cd_assoc_update(
-            _ptr(X), _ptr(h0), _ptr(v_states), _ptr(h_m), _ptr(pen), B, V, H,
-            _ptr(W), _ptr(dW), lr, mom, cfg.l2, stream), 'cd_assoc_update')
+        check_launch(lib.bm_cd_assoc_update(
+            ptr(X), ptr(h0), ptr(v_states), ptr(h_m), ptr(pen), B, V, H,
+            ptr(W), ptr(dW), lr, mom, cfg.l2, stream), 'cd_assoc_update')
         launches['cd_assoc_update'] += 1
 
         if it % cfg.metrics_every == 0:
-            _check(lib.bm_cd_metrics(
-                _ptr(X), _ptr(W), _ptr(vb), _ptr(hb), _ptr(msre_col), B, V, H,
-                cfg.l2, int(cfg.compute_pll), seed, it, _ptr(partials),
-                _ptr(counter), _ptr(msre_rows, i), _ptr(pll_rows, i),
-                _ptr(l2_rows, i), stream), 'cd_metrics')
+            check_launch(lib.bm_cd_metrics(
+                ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma), ptr(msre_col),
+                B, V, H, cfg.l2, int(cfg.compute_pll), n, seed, it,
+                ptr(partials), ptr(counter), ptr(msre_rows, i),
+                ptr(pll_rows, i), ptr(l2_rows, i), stream), 'cd_metrics')
             launches['cd_metrics'] += 1
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
     return new_state, msre_rows, pll_rows, l2_rows

@@ -11,7 +11,19 @@ Stream layout of the CD epoch (one key per training iteration):
 * counter = (element index ``row * n_cols + col``, stream id, 0, 0);
 * stream ids: ``STREAM_H0`` for the data-driven hidden sample, then for
   Gibbs step ``s`` (0-based) ``stream_v(s)`` and ``stream_h(s)``, and
-  ``STREAM_PLL`` for the PLL flip position of each row.
+  ``STREAM_PLL`` for the PLL flip position of each row;
+* Gaussian visible units draw step ``s`` on ``stream_v(s)`` too, with two
+  uniforms per element (words 0 and 1 of its counter) for Box-Muller;
+* multinomial hidden units draw ``n`` uniforms per row on ``STREAM_H0``
+  (h0) and ``stream_h(s)``, draw ``j`` of row ``b`` at element index
+  ``b * n + j``;
+* the multinomial PLL draws one uniform-multinomial count vector for
+  fe(x) on ``STREAM_PLL_HHAT`` and an independent one for fe(x_flipped)
+  on ``STREAM_PLL_HHAT_FLIP``.
+
+The standalone samplers (``ops/samplers.py``) draw under key (seed, 0) on
+stream 0; the free-energy probe draws its count vector under key
+(seed, 0) on ``STREAM_PLL_HHAT``.
 
 The DBM kernels (``ops/dbm_ops.py``) keep the same rule -- the key is
 (seed, step), the counter is (element index, stream id):
@@ -41,6 +53,11 @@ N_ROUNDS = 10
 
 STREAM_H0 = 0
 STREAM_PLL = 0xFFFF
+STREAM_PLL_HHAT = 0xFFFE
+STREAM_PLL_HHAT_FLIP = 0xFFFD
+
+#: 2 pi rounded to float32, the constant the kernels multiply by
+TWO_PI_F32 = 6.2831854820251465
 
 
 def stream_v(step):
@@ -93,16 +110,41 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def philox_uniform(seed, it, stream, shape, device='cpu'):
-    """float32 uniforms in [0, 1) of the given `shape`, element ``j`` (in
-    row-major order) drawn from counter (j, stream, 0, 0) under key
-    (seed, it)."""
+def _words(seed, it, stream, shape, device):
     n = 1
     for d in shape:
         n *= int(d)
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    bits, _, _, _ = philox4x32(idx, stream, 0, 0, seed, it)
+    return philox4x32(idx, stream, 0, 0, seed, it)
+
+
+def _to_uniform(bits, shape):
     return ((bits >> 9).to(torch.float32) * (2. ** -23)).reshape(shape)
+
+
+def philox_uniform(seed, it, stream, shape, device='cpu'):
+    """float32 uniforms in [0, 1) of the given `shape`, element ``j`` (in
+    row-major order) drawn from counter (j, stream, 0, 0) under key
+    (seed, it)."""
+    bits, _, _, _ = _words(seed, it, stream, shape, device)
+    return _to_uniform(bits, shape)
+
+
+def philox_uniform2(seed, it, stream, shape, device='cpu'):
+    """Two float32 uniforms per element, from words 0 and 1 of the same
+    counter as ``philox_uniform`` (whose uniforms are the first of the
+    pair)."""
+    w0, w1, _, _ = _words(seed, it, stream, shape, device)
+    return _to_uniform(w0, shape), _to_uniform(w1, shape)
+
+
+def normal(seed, it, stream, shape, device='cpu'):
+    """float32 standard normals by Box-Muller on the uniform pairs of
+    ``philox_uniform2``, as the TPU kernels' ``_normal_from_bits``
+    (pallas_ops.py:46-51): ``sqrt(-2 ln max(u1, 1e-7)) cos(2 pi u2)``."""
+    u1, u2 = philox_uniform2(seed, it, stream, shape, device)
+    r = torch.sqrt(-2. * torch.log(torch.clamp(u1, min=1e-7)))
+    return r * torch.cos(TWO_PI_F32 * u2)
 
 
 def bernoulli(means, seed, it, stream):
@@ -110,3 +152,20 @@ def bernoulli(means, seed, it, stream):
     `stream`), as the kernels' epilogues draw them."""
     u = philox_uniform(seed, it, stream, means.shape, means.device)
     return (u.to(means.dtype) < means).to(means.dtype)
+
+
+def multinomial_counts(means, n_samples, seed, it, stream):
+    """Exact Multinomial(n, means / n) counts per row of the (B, H)
+    expected counts `means`, as the kernels draw them: the CDF of
+    ``means / n`` accumulated in float64 and rounded to float32, its last
+    entry set to +inf (the last bucket absorbs rounding); draw ``j`` of row
+    ``b`` is the uniform at element ``b * n + j`` and lands in the first
+    bucket whose CDF exceeds it.  Integer counts, summed exactly."""
+    B, H = means.shape
+    n = int(n_samples)
+    cdf = torch.cumsum(means.to(torch.float64) / n, dim=1).to(torch.float32)
+    cdf[:, -1] = float('inf')
+    u = philox_uniform(seed, it, stream, (B, n), means.device)
+    idx = torch.searchsorted(cdf, u, right=True)
+    counts = torch.zeros((B, H), dtype=means.dtype, device=means.device)
+    return counts.scatter_add_(1, idx, torch.ones_like(u, dtype=means.dtype))

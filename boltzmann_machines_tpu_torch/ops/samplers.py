@@ -1,0 +1,165 @@
+"""Standalone samplers and the free-energy probe.
+
+Ports of three TPU kernels of boltzmann_machines_tpu/ops/pallas_ops.py,
+each one launch over the device functions of the CD epoch kernels
+(``csrc/cd_epoch.cu``):
+
+* ``normal_sample(seed, shape)`` -- standard normals by Box-Muller
+  (``normal_sample``, :95; ``pallas_call`` at :97);
+* ``multinomial_sample(seed, means, n_samples)`` -- exact per-row
+  Multinomial(n, means / n) counts (``multinomial_sample``, :106;
+  ``pallas_call`` at :115);
+* ``make_free_energy_probe(V, H, B, visible, hidden, n_samples)`` -- the
+  batch-mean free energy the epoch's PLL uses, with the drawn count vector
+  of multinomial hidden units (``make_free_energy_probe``, :208;
+  ``pallas_call`` at :241).
+
+Each has a plain PyTorch version (``*_reference``) that draws the same
+Philox numbers (key (seed, 0); ``ops/philox.py``), and a launch count on
+its wrapper (``<wrapper>.launches``).  A CPU tensor (or ``device='cpu'``)
+runs the plain version, a CUDA one launches the kernel or raises.
+"""
+
+import numpy as np
+import torch
+
+from .cd_epoch import (check_flavour, check_launch, check_tensors,
+                       free_energy_sum, library, ptr, sigma_tensor,
+                       uniform_h_hat)
+from .philox import STREAM_PLL_HHAT, multinomial_counts, normal
+
+
+def _check_seed(seed, n_draws):
+    if not (0 <= int(seed) < 2 ** 32 and 0 <= int(n_draws) < 2 ** 32):
+        raise ValueError('seed and draw indices must fit in 32 bits')
+
+
+def _device_of(device):
+    device = torch.device(device)
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError('runs on CUDA (kernel) or the CPU (plain version), '
+                         'not on {0}'.format(device))
+    return device
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------- #
+# normal_sample                                                           #
+# ---------------------------------------------------------------------- #
+def normal_sample_reference(seed, shape, device='cpu'):
+    return normal(int(seed), 0, 0, tuple(shape), device)
+
+
+def normal_sample(seed, shape, device='cuda'):
+    """float32 standard normals of `shape`, element ``i`` (row-major) from
+    Philox counter (i, 0) under key (seed, 0)."""
+    device = _device_of(device)
+    shape = tuple(int(d) for d in shape)
+    _check_seed(seed, int(np.prod(shape, dtype=np.int64)))
+    if device.type == 'cpu':
+        return normal_sample_reference(seed, shape, device)
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    check_launch(library().bm_normal_sample(
+        ptr(out), out.numel(), int(seed), 0, 0, _stream(device)),
+        'normal_sample')
+    normal_sample.launches['normal_sample'] += 1
+    return out
+
+
+normal_sample.launches = {'normal_sample': 0}
+
+
+# ---------------------------------------------------------------------- #
+# multinomial_sample                                                      #
+# ---------------------------------------------------------------------- #
+def multinomial_sample_reference(seed, means, n_samples):
+    return multinomial_counts(means, int(n_samples), int(seed), 0, 0)
+
+
+def multinomial_sample(seed, means, n_samples):
+    """Multinomial(n_samples, means / n_samples) counts per row of the
+    (B, H) float32 expected counts `means` (rows summing to ~n_samples);
+    draw ``j`` of row ``b`` from Philox counter (b * n + j, 0) under key
+    (seed, 0)."""
+    if means.dim() != 2 or means.shape[1] < 1:
+        raise ValueError('means must be (rows, n_hidden), got {0}'.format(
+            tuple(means.shape)))
+    n = int(n_samples)
+    if n < 1:
+        raise ValueError('n_samples must be >= 1')
+    _check_seed(seed, means.shape[0] * n)
+    device = _device_of(means.device)
+    if device.type == 'cpu':
+        return multinomial_sample_reference(seed, means, n)
+    check_tensors([(means, 'means')], device, {})
+    B, H = means.shape
+    out = torch.empty((B, H), dtype=torch.float32, device=device)
+    check_launch(library().bm_cd_softmax_sample(
+        ptr(means), 0, B, H, n, None, ptr(out), int(seed), 0, 0,
+        _stream(device)), 'multinomial_sample')
+    multinomial_sample.launches['multinomial_sample'] += 1
+    return out
+
+
+multinomial_sample.launches = {'multinomial_sample': 0}
+
+
+# ---------------------------------------------------------------------- #
+# make_free_energy_probe                                                  #
+# ---------------------------------------------------------------------- #
+def make_free_energy_probe(n_visible, n_hidden, batch_size, visible,
+                           hidden, n_samples=None):
+    """``probe(X, W, vb, hb, sigma, seed) -> (fe, h_hat)``: the batch-mean
+    free energy of the (B, V) float32 `X` as the epoch kernels' PLL
+    computes it (Gaussian inputs already divided by `sigma`, vb raw; no
+    multinomial lgamma constant), and the (H,) count vector drawn for
+    multinomial hidden units (zeros for Bernoulli ones) under key
+    (seed, 0) on ``STREAM_PLL_HHAT``."""
+    V, H, B = int(n_visible), int(n_hidden), int(batch_size)
+    check_flavour(visible, hidden, n_samples)
+    n = int(n_samples) if hidden == 'multinomial' else 0
+
+    def reference(X, W, vb, hb, sigma, seed):
+        sig = sigma_tensor(sigma, V, X.device) \
+            if visible == 'gaussian' else None
+        h_hat = (uniform_h_hat(n, H, int(seed), 0, STREAM_PLL_HHAT,
+                               X.device)[0]
+                 if n else torch.zeros(H, dtype=X.dtype, device=X.device))
+        fe = free_energy_sum(X, X @ W, vb, hb, visible, hidden, sig,
+                             h_hat) / B
+        return fe, h_hat
+
+    def probe(X, W, vb, hb, sigma, seed):
+        _check_seed(seed, n)
+        device = _device_of(X.device)
+        if device.type == 'cpu':
+            return reference(X, W, vb, hb, sigma, seed)
+        sig = sigma_tensor(sigma, V, device) \
+            if visible == 'gaussian' else None
+        check_tensors([(X, 'X'), (W, 'W'), (vb, 'vb'), (hb, 'hb')], device,
+                      {'X': (B, V), 'W': (V, H), 'vb': (V,), 'hb': (H,)})
+        partials = torch.empty(B, dtype=torch.float32, device=device)
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        fe = torch.empty((), dtype=torch.float32, device=device)
+        h_hat = torch.empty(H, dtype=torch.float32, device=device)
+        check_launch(library().bm_fe_probe(
+            ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sig), B, V, H, n,
+            int(seed), ptr(partials), ptr(counter), ptr(fe), ptr(h_hat),
+            _stream(device)), 'fe_probe')
+        make_free_energy_probe.launches['fe_probe'] += 1
+        return fe, h_hat
+
+    probe.reference = reference
+    return probe
+
+
+make_free_energy_probe.launches = {'fe_probe': 0}
+
+
+def reset_launches():
+    for fn in (normal_sample, multinomial_sample, make_free_energy_probe):
+        for name in fn.launches:
+            fn.launches[name] = 0

@@ -1,2 +1,2 @@
 from .base_rbm import BaseRBM
-from .rbm import BernoulliRBM, logit_mean
+from .rbm import BernoulliRBM, GaussianRBM, MultinomialRBM, logit_mean

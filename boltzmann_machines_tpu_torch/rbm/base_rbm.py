@@ -1,15 +1,17 @@
 """Generic RBM with k-step Contrastive Divergence, in PyTorch.
 
-The counterpart of the JAX package's ``rbm/base_rbm.py`` for the Bernoulli
-slice of the port:
+The counterpart of the JAX package's ``rbm/base_rbm.py``:
 
 * model state is an ``RBMState`` module with buffers {W, vb, hb, dW, dvb,
   dhb, q_means} on the model's device (``convert.py``);
 * the pure ops below (chain, CD statistics, update, metrics) are plain
   tensor functions -- the generic path, the counterpart of JAX's XLA path;
-* on a CUDA device a Bernoulli x Bernoulli float32 model without dropout
-  trains through the hand-written CD epoch kernels (``ops/cd_epoch.py``),
-  as the JAX package picks its fused Pallas kernel on a TPU;
+* on a CUDA device a float32 model without dropout, with Bernoulli or
+  Gaussian visible and Bernoulli or multinomial hidden units, trains
+  through the hand-written CD epoch kernels (``ops/cd_epoch.py``) at any
+  size, as the JAX package picks its fused Pallas kernels on a TPU (where
+  a big W takes the tiled kernel and loses PLL, and a multinomial one
+  too big for VMEM the XLA path);
 * randomness: each ``fit`` draws one op seed from the persisted host RNG;
   per-epoch seeds derive from it, seeding a ``torch.Generator`` (generic
   path) or keying the kernels' Philox stream.
@@ -30,7 +32,7 @@ from ..base import is_attribute_name
 from ..base.mixin import make_generator
 from ..convert import RBMState, state_from_jax_arrays, state_to_numpy
 from ..ebm import EnergyBasedModel
-from ..layers import BernoulliLayer
+from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
 from ..ops.cd_epoch import make_cd_epoch_kernel
 from ..utils import (make_list_from, epoch_iter, schedule_value,
                      write_during_training)
@@ -69,7 +71,8 @@ class BaseRBM(EnergyBasedModel):
     kernel : 'auto' picks the CUDA CD epoch kernels when the model is
         eligible; 'xla' forces the generic path; 'pallas' forces the
         kernels (the JAX values, kept so checkpoints load both ways).
-    device : torch device of the model state (private, never persisted).
+    device : torch device of the model state (private, never persisted);
+        default: CUDA when available, else the CPU.
     """
 
     def __init__(self,
@@ -367,14 +370,30 @@ class BaseRBM(EnergyBasedModel):
             self._programs[name] = make()
         return self._programs[name]
 
+    def _kernel_flavours(self):
+        """(visible, sigma, hidden, n_samples) of the CD epoch kernels, or
+        None for unit types they do not take."""
+        v, h = self._v_layer, self._h_layer
+        if isinstance(v, BernoulliLayer):
+            visible, sigma = 'bernoulli', None
+        elif isinstance(v, GaussianLayer):
+            visible, sigma = 'gaussian', np.asarray(v.sigma, np.float32)
+        else:
+            return None
+        if isinstance(h, BernoulliLayer):
+            return visible, sigma, 'bernoulli', None
+        if isinstance(h, MultinomialLayer):
+            return visible, sigma, 'multinomial', int(h.n_samples)
+        return None
+
     def _kernel_eligible(self):
-        """The CUDA CD epoch kernels cover Bernoulli x Bernoulli RBMs in
-        float32 without dropout, on a CUDA device -- decided once per fit
-        from the configuration."""
+        """The CUDA CD epoch kernels cover Bernoulli or Gaussian visible
+        units with Bernoulli or multinomial hidden units, in float32 without
+        dropout, on a CUDA device, at any size and with PLL -- decided once
+        per fit from the configuration."""
         if self.kernel == 'xla':
             return False
-        ok = (isinstance(self._v_layer, BernoulliLayer)
-              and isinstance(self._h_layer, BernoulliLayer)
+        ok = (self._kernel_flavours() is not None
               and self.dtype == 'float32'
               and self.dropout is None
               and self._device.type == 'cuda')
@@ -384,6 +403,7 @@ class BaseRBM(EnergyBasedModel):
         return ok
 
     def _cd_epoch_program(self, k):
+        visible, sigma, hidden, n_samples = self._kernel_flavours()
         return make_cd_epoch_kernel(
             self.n_visible, self.n_hidden, self.batch_size, k,
             sample_v_states=self.sample_v_states,
@@ -394,7 +414,8 @@ class BaseRBM(EnergyBasedModel):
             sparsity_cost=float(self.sparsity_cost),
             sparsity_damping=float(self.sparsity_damping),
             metrics_every=int(self.metrics_config['train_metrics_every_iter']),
-            compute_pll=bool(self.metrics_config['pll']))
+            compute_pll=bool(self.metrics_config['pll']),
+            visible=visible, sigma=sigma, hidden=hidden, n_samples=n_samples)
 
     def _train_epoch_kernel(self, full, rem, lr, mom, k, seed):
         """One epoch through the CD epoch kernels: the full batches in one

@@ -27,7 +27,30 @@ Phases, each printing its lines before the last:
    then the AIS kernel against its plain version on the trained DBM,
    sampling on;
 8. AIS on the card against a brute-force log Z of a 6-5-4 DBM;
-9. DBM timings: epoch step, sampler sweep and AIS beta, kernels vs plain.
+9. DBM timings: epoch step, sampler sweep and AIS beta, kernels vs plain;
+10. CIFAR kernels vs plain: the Gaussian-visible CD kernels at 3072 x 5000
+    (examples/dbm_cifar_naive.py's G-RBM, dbm_first) and 3072 x 7800
+    (examples/dbm_cifar.py's, a ragged H) and the multinomial-hidden ones at
+    5000 x 1000, n = 1000 (the M-RBM, dbm_last, PLL on every checked
+    iteration), batch 100, sampling off and on; the standalone samplers
+    and the free-energy probe driven once each between a reset and a read
+    of their launch counts, those outputs against their plain versions,
+    and each timed per call beside its plain version and, where one
+    PyTorch call computes the same function, that call;
+11. the generative half of examples/dbm_cifar_naive.py on the card:
+    ``GaussianRBM(3072, 5000).fit``, ``transform``,
+    ``MultinomialRBM(5000, 1000, n_samples=1000).fit``, ``transform``, save
+    and load_model, on synthetic CIFAR-shaped rows, launch counts checked;
+12. CIFAR timings: G-RBM and M-RBM steps, kernels vs plain, the device
+    time of each kernel (torch.profiler) and torch.matmul on the step's
+    largest product as a yardstick.
+
+Every entry of the kernels' JSON line has its time on the card (``ms``),
+its plain version's (``plain_ms``), the least time the card could take for
+the same work (``bound_ms``: the larger of the bytes it must move over
+3.35 TB/s and its f32 operations over 67 TFLOP/s, from this run's shapes;
+``bound_by`` says which), and ``library_ms``, the time of one PyTorch call
+computing the same function where there is one (else null).
 
 Any failure raises (non-zero exit).  The line before the last is the
 kernels' JSON line; the last line of standard output is one JSON object:
@@ -50,7 +73,39 @@ REPLACES = {
     'dbm_epoch': 'boltzmann_machines_tpu/ops/pallas_dbm.py:373',
     'dbm_sample': 'boltzmann_machines_tpu/ops/pallas_dbm.py:481',
     'ais': 'boltzmann_machines_tpu/ops/pallas_dbm.py:516',
+    'cd_epoch_gaussian': 'boltzmann_machines_tpu/ops/pallas_ops.py:792 and '
+                         ':1343 (Gaussian variant)',
+    'cd_epoch_multinomial': 'boltzmann_machines_tpu/ops/pallas_ops.py:1343 '
+                            '(multinomial variant)',
+    'normal_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:97',
+    'multinomial_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:115',
+    'free_energy_probe': 'boltzmann_machines_tpu/ops/pallas_ops.py:241',
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
+# tensor cores, and device memory
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time for `flops` f32 operations and
+    `nbytes` bytes moved, whichever is larger."""
+    t_op, t_b = flops / PEAK_F32, nbytes / PEAK_BYTES
+    return 1e3 * max(t_op, t_b), 'operations' if t_op >= t_b else 'bytes'
+
+
+def cd_step_work(V, H, B, k=1, n_samples=0):
+    """f32 operations and bytes of one CD-k step: the 1 + 2k products and
+    the two association products (2 B V H each), ~8 per weight for the
+    momentum update, and a softmax row pass (~5 per entry) per hidden pass
+    of multinomial units; each input read once and each output written
+    once: X, W and dW in, W and dW out, the biases.  The Philox draws
+    (integer work) and the binary-searched multinomial draws are not
+    counted."""
+    flops = 2. * B * V * H * (1 + 2 * k + 2) + 8. * V * H
+    if n_samples:
+        flops += 5. * B * H * (1 + k)
+    nbytes = 4. * (B * V + 4 * V * H + 6 * (V + H))
+    return flops, nbytes
 
 
 def say(*parts):
@@ -130,15 +185,15 @@ TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4), 'msre': (1e-6, 0.),
 ROWS = ('msre', 'pll', 'l2')
 
 
-def diffs(got, want, B):
+def diffs(got, want, B, tols=TOL):
     """{name: (max |d|, max excess over the tolerance)}; an excess <= 0 is
     within tolerance."""
     out = {}
-    pairs = [(k, got[0][k], want[0][k], k if k in TOL else 'state')
+    pairs = [(k, got[0][k], want[0][k], k if k in tols else 'state')
              for k in got[0]]
     pairs += [(name, a, b, name) for name, a, b in zip(ROWS, got[1:], want[1:])]
     for name, a, b, tol in pairs:
-        atol, rtol = TOL[tol]
+        atol, rtol = tols[tol]
         if name == 'q_means':
             atol *= B
         d = (a - b).abs()
@@ -246,8 +301,9 @@ def main_path(torch, tmpdir):
     dt = time.perf_counter() - t0
     launches = dict(cd_epoch.launches)
     n_iter = epochs * math.ceil(len(X_train) / B)
-    expect = {'cd_gemm_act': 3 * n_iter, 'cd_bias_stats': n_iter,
-              'cd_assoc_update': n_iter, 'cd_metrics': n_iter // every}
+    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
+              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+              'cd_metrics': n_iter // every}
     say('fit: %d epochs, %d iterations in %.2f s; launches %s' % (
         epochs, rbm.iter_, dt, launches))
     if launches != expect or rbm.iter_ != n_iter:
@@ -322,6 +378,18 @@ def timings(torch):
                         B, sample_h, name, nb * B, t,
                         ' '.join('%.4f' % x for x in times[name]),
                         nb * B / t, 1e6 * t / nb))
+    # the main path's kernels one by one (B = 10, hidden states sampled),
+    # and torch.matmul on one cd_gemm_act product (X.W) as a yardstick
+    X = torch.as_tensor(X_all[:100 * 10].reshape(100, 10, V), device='cuda')
+    state = init_state(torch, X_all)
+    cfg = config(False, True, 1000)
+    out['kernel_us'], out['busy'] = profile_kernels(
+        torch, lambda: cd_epoch(cfg, state, X, LR, MOMENTUM, 5, 0))
+    out['matmul_ms'] = event_ms(torch, lambda: X[0] @ state['W'], 50)
+    say('B=10 per-kernel device us per launch %s; device busy %s; '
+        'torch.matmul (10 x %d) @ (%d x %d): %.4f ms' % (
+            out['kernel_us'], 'not measured' if out['busy'] is None
+            else '%.1f%%' % (100. * out['busy']), V, V, H, out['matmul_ms']))
     return out
 
 
@@ -583,7 +651,7 @@ def dbm_mnist_path(torch, tmpdir):
     cd_launches = dict(cd_epoch.launches)
     # k = 1 then k = 2: 1 + 2k GEMM launches per step
     expect = {'cd_gemm_act': n_rbm_iter // 2 * (3 + 3 + 3 + 5),
-              'cd_bias_stats': 2 * n_rbm_iter,
+              'cd_softmax_sample': 0, 'cd_bias_stats': 2 * n_rbm_iter,
               'cd_assoc_update': 2 * n_rbm_iter,
               'cd_metrics': 2 * (n_rbm_iter // 100)}
     say('pretraining: RBM #1 and RBM #2, %d iterations each, in %.2f s; '
@@ -829,7 +897,625 @@ def dbm_timings(torch):
                 {'dbm_epoch': 'step', 'dbm_sample': 'sweep',
                  'ais': 'beta'}[name],
                 ' '.join('%.4f' % x for x in ts), extra))
+    # torch.matmul on one dbm_gemm_act product (X.W0, 100 x 784 x 512) as
+    # a yardstick
+    out['matmul_ms'] = event_ms(torch, lambda: X[0] @ state['W'][0], 50)
+    say('torch.matmul (%d x %d) @ (%d x %d): %.4f ms' % (
+        DBM_B, DBM_SIZES[0], DBM_SIZES[0], DBM_SIZES[1], out['matmul_ms']))
     return out
+
+# ---------------------------------------------------------------------- #
+# the dbm_cifar_naive RBM stages: examples/dbm_cifar_naive.py:103-163     #
+# ---------------------------------------------------------------------- #
+GRBM = (3072, 5000)
+GRBM_WIDE = (3072, 7800)      # examples/dbm_cifar.py:266, N_SMALL_HIDDEN * 26
+MRBM = (5000, 1000)
+CIFAR_B, N_SAMPLES = 100, 1000
+GRBM_LR, MRBM_LR = 5e-4, 1e-4   # the example's learning rates
+GRBM_L2, MRBM_L2 = 0.01, 0.05
+
+# Tolerances at the CIFAR shapes, kernel vs plain version on the same
+# inputs (true f32 on both sides, sums in another order):
+#   state, q_means: as at 784 x 1024 (a few steps of lr <= 5e-4);
+#   msre: atol 1e-6 + rtol 1e-5 (the Gaussian msre is ~1, a mean of 3e5
+#         squares);
+#   l2:   rtol 1e-5;
+#   pll:  atol 1 + rtol 1e-3: V (3072 or 5000) x the difference of two
+#         batch-mean free energies of magnitude up to ~1e3 (f32 ulp 6e-5
+#         there), each a sum of V + H terms per row taken in another order.
+# Sampling on, the draws agree bit for bit except where a uniform lies
+# within rounding of its threshold or CDF entry.  The means differ by ~1e-6
+# relative (K = 3072 or 5000 summed in another order), so a Bernoulli state
+# flips with odds ~1e-7 per draw, while a multinomial draw moves to the next
+# bucket with odds ~5e-5 (the sum of the H = 1000 CDF differences): a few
+# of the 1e5 draws of each M-RBM pass.  The Box-Muller normals differ by an
+# ulp or two.  So `compare_passes` holds the sampled states of one pass on
+# the same inputs: Bernoulli states differ in <= 1e-5 of draws, multinomial
+# counts in <= 1e-3 of draws with every row summing to n, Gaussian states
+# within 1e-5 (1 + |v|).  Epoch steps, each from the kernel's state, are
+# exact (within CIFAR_TOL) or hold moved draws, and then must stay within
+# SAMPLED_TOL: the parameters as CIFAR_TOL (lr <= 5e-4 scales a moved draw
+# far below it), while a moved draw changes one row's chain means by a few
+# per cent, so msre by <= 1e-2 relative and q_means (sums over 100 rows) by
+# <= 1e-2 relative; the PLL as CIFAR_TOL.  A probe step (lr 1, momentum 0,
+# no metrics) from the same state shows the moved draws: dvb = mean(X -
+# v_states) moves by <= max|W| sigma / B per flipped or moved draw, and
+# must stay within 20 of them.
+CIFAR_TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4),
+             'msre': (1e-6, 1e-5), 'l2': (0., 1e-5), 'pll': (1., 1e-3)}
+SAMPLED_TOL = dict(CIFAR_TOL, q_means=(1e-5, 1e-2), msre=(1e-6, 1e-2))
+
+
+def make_cifar(n, seed=42, n_templates=10):
+    """n synthetic CIFAR-shaped rows (32 x 32 x 3 values in [0, 1]): a few
+    smooth colour templates plus pixel noise, made with numpy from `seed`
+    (CIFAR-10 itself is not in the repository)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:32, 0:32] / 32.
+    T = []
+    for _ in range(n_templates):
+        f = rng.uniform(0.5, 3., size=(3, 2))
+        ph = rng.uniform(0., 2. * np.pi, size=3)
+        T.append(np.stack([0.5 + 0.4 * np.sin(
+            2. * np.pi * (f[c, 0] * xx + f[c, 1] * yy) + ph[c])
+            for c in range(3)], axis=-1).reshape(-1))
+    X = np.asarray(T)[rng.randint(0, n_templates, n)] \
+        + 0.1 * rng.randn(n, 3072)
+    return np.clip(X, 0., 1.).astype(np.float32)
+
+
+def standardize(X_train, *others):
+    """examples/dbm_cifar_naive.py:301-306, without the SVD smoothing."""
+    mean = X_train.mean(axis=0)
+    std = X_train.std(axis=0) + 1e-8
+    return [((X - mean) / std).astype('float32') for X in (X_train,) + others]
+
+
+def grbm_cfg(V, H, sample, metrics_every, compute_pll=True):
+    """The G-RBM stage: Gaussian visible units, sigma 1, dbm_first."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import CDEpochConfig
+    return CDEpochConfig(V, H, 1, sample, sample, 2., 1., GRBM_L2, 0.1, 0.,
+                         0.9, metrics_every, compute_pll, 'gaussian',
+                         np.ones(V, np.float32))
+
+
+def mrbm_cfg(sample, metrics_every):
+    """The M-RBM stage: n_samples 1000, hidden states sampled, dbm_last."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import CDEpochConfig
+    return CDEpochConfig(*MRBM, 1, False, sample, 1., 2., MRBM_L2, 0.1, 0.,
+                         0.9, metrics_every, True, 'bernoulli', None,
+                         'multinomial', N_SAMPLES)
+
+
+def cifar_state(torch, V, H, w_init, seed=1337):
+    g = torch.Generator(device='cuda')
+    g.manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device='cuda')
+    return {'W': w_init * torch.randn((V, H), generator=g, **f32),
+            'vb': torch.zeros(V, **f32), 'hb': torch.zeros(H, **f32),
+            'dW': torch.zeros((V, H), **f32), 'dvb': torch.zeros(V, **f32),
+            'dhb': torch.zeros(H, **f32), 'q_means': torch.zeros(H, **f32)}
+
+
+def cifar_inputs(torch, nb, kind, seed=3):
+    """(nb, 100, V) batches: standardized synthetic CIFAR rows for the
+    G-RBMs, G-RBM-feature-like values in [0, 1) for the M-RBM."""
+    import numpy as np
+    if kind == 'mrbm':
+        X = np.random.RandomState(seed).rand(nb * CIFAR_B, MRBM[0])
+    else:
+        X, = standardize(make_cifar(nb * CIFAR_B, seed=seed))
+    return torch.as_tensor(X.reshape(nb, CIFAR_B, -1), dtype=torch.float32,
+                           device='cuda')
+
+
+def compare_cifar(torch, label, cfg, state, X, lr):
+    """Kernel vs plain over the batches of X, sampling off; raises beyond
+    CIFAR_TOL.  Returns the max |W kernel - plain|."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, cd_epoch_reference)
+    got = cd_epoch(cfg, state, X, lr, MOMENTUM, 7, 0)
+    want = cd_epoch_reference(cfg, state, X, lr, MOMENTUM, 7, 0)
+    torch.cuda.synchronize()
+    d = diffs(got, want, CIFAR_B, CIFAR_TOL)
+    say('%s sampling off, %d steps, max|kernel-plain|: %s' % (
+        label, len(X), ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items())))
+    say('  rows kernel: msre %s pll %s' % (
+        ['%.5f' % v for v in got[1].tolist()],
+        ['%.3f' % v for v in got[2].tolist()]))
+    bad = [k for k, v in d.items() if v[1] > 0]
+    if bad:
+        raise AssertionError('%s: kernel and plain version disagree on %s: '
+                             '%s' % (label, bad, d))
+    if not (float(got[1].min()) > 0 and float(got[3].min()) > 0
+            and bool(torch.isfinite(got[2]).all())
+            and float(got[2].max()) <= 0 and float(got[2].min()) < 0):
+        raise AssertionError('%s: metric rows not written' % label)
+    return d['W'][0]
+
+
+def compare_cifar_sampled(torch, label, cfg, state, X, lr):
+    """Sampling on, each step from the kernel's state (see CIFAR_TOL).
+    Returns the share of exact probe steps."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, cd_epoch_reference)
+    probe = cfg._replace(metrics_every=10 ** 6)
+    s, n_exact, exact, max_d, max_dvb, moved = state, 0, 0, 0., 0., []
+    sigma = 1. if cfg.sigma is None else float(np.max(cfg.sigma))
+    for i in range(len(X)):
+        Xi = X[i:i + 1]
+        got = cd_epoch(cfg, s, Xi, lr, MOMENTUM, 11, i)
+        want = cd_epoch_reference(cfg, s, Xi, lr, MOMENTUM, 11, i)
+        d = diffs(got, want, CIFAR_B, CIFAR_TOL)
+        n_exact += all(v[1] <= 0 for v in d.values())
+        wide = diffs(got, want, CIFAR_B, SAMPLED_TOL)
+        if any(v[1] > 0 for v in wide.values()):
+            raise AssertionError('%s sampled step %d beyond moved draws: %s' % (
+                label, i, wide))
+        max_d = max(max_d, d['W'][0])
+        pg = cd_epoch(probe, s, Xi, 1., 0., 13, i)
+        pw = cd_epoch_reference(probe, s, Xi, 1., 0., 13, i)
+        dp = diffs(pg, pw, CIFAR_B, CIFAR_TOL)
+        per_draw = float(s['W'].abs().max()) * sigma / CIFAR_B
+        exact += all(v[1] <= 0 for v in dp.values())
+        moved.append(dp['dvb'][0] / per_draw)
+        if dp['dvb'][0] > 20 * per_draw:
+            raise AssertionError('%s probe step %d differs beyond 20 moved '
+                                 'draws: %s' % (label, i, dp))
+        max_dvb = max(max_dvb, dp['dvb'][0])
+        s = got[0]
+    say('%s sampling on, %d steps from the kernel\'s state at lr %g: %d '
+        'exact, the rest within the moved-draw tolerance (max|W '
+        'kernel-plain|=%.3g); probe steps (lr 1): %d exact, max|dvb '
+        'kernel-plain|=%.3g = %.2f max|W| sigma / B' % (
+            label, len(X), lr, n_exact, max_d, exact, max_dvb, max(moved)))
+    return exact / len(X)
+
+
+def compare_passes(torch, label, cfg, layer, A, W, bias, n_batches):
+    """The sampled states of one Gibbs pass of the epoch's kernels against
+    the plain version's on the same inputs (see CIFAR_TOL).  Returns the
+    share of differing draws (Bernoulli, multinomial) or the max |d| of the
+    Gaussian states."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _gibbs_pass, _gibbs_pass_reference)
+    d_means, n_diff, n_draws, d_states = 0., 0, 0, 0.
+    for i in range(n_batches):
+        mk, sk = _gibbs_pass(cfg, layer, A[i], W, bias, 21, i + 1, 3)
+        mp, sp = _gibbs_pass_reference(cfg, layer, A[i], W, bias, 21, i + 1,
+                                       3)
+        torch.cuda.synchronize()
+        d_means = max(d_means, float(((mk - mp).abs()
+                                      / mp.abs().clamp(min=1.)).max()))
+        if layer == 'v' and cfg.visible == 'gaussian':
+            d_states = max(d_states, float(((sk - sp).abs()
+                                            / (1. + sp.abs())).max()))
+        elif cfg.hidden == 'multinomial' and layer == 'h':
+            if not bool((sk.sum(1) == cfg.n_samples).all()):
+                raise AssertionError('%s: counts do not sum to n' % label)
+            n_diff += int((sk - sp).abs().sum()) // 2
+            n_draws += sk.shape[0] * cfg.n_samples
+        else:
+            n_diff += int((sk != sp).sum())
+            n_draws += sk.numel()
+    if n_draws:
+        share = n_diff / n_draws
+        limit = 1e-3 if cfg.hidden == 'multinomial' else 1e-5
+        say('%s %s pass, %d batches: %d of %d draws differ (%.2g; limit %g), '
+            'means max rel |d| %.3g' % (label, layer, n_batches, n_diff,
+                                        n_draws, share, limit, d_means))
+        if share > limit:
+            raise AssertionError('%s: sampled states differ' % label)
+        return share
+    say('%s %s pass (Gaussian), %d batches: states max |d| / (1 + |v|) %.3g '
+        '(limit 1e-5), means %.3g' % (label, layer, n_batches, d_states,
+                                      d_means))
+    if d_states > 1e-5:
+        raise AssertionError('%s: Gaussian states differ' % label)
+    return d_states
+
+
+def cifar_kernels_vs_plain(torch):
+    """The Gaussian and multinomial CD kernels against the plain version at
+    the CIFAR shapes.  Returns {entry: max |W kernel - plain|} and the
+    shares of exact probe steps and of differing draws."""
+    err, share = {}, {}
+    X = cifar_inputs(torch, 20, 'grbm', seed=3)
+    state = cifar_state(torch, *GRBM, 0.0008)
+    err['cd_epoch_gaussian'] = compare_cifar(
+        torch, 'G-RBM 3072x5000', grbm_cfg(*GRBM, False, 1), state, X[:5],
+        GRBM_LR)
+    cfg = grbm_cfg(*GRBM, True, 1)
+    share['grbm'] = compare_cifar_sampled(torch, 'G-RBM 3072x5000', cfg,
+                                          state, X, GRBM_LR)
+    share['grbm_h_draws'] = compare_passes(
+        torch, 'G-RBM', cfg, 'h', X, state['W'], state['hb'] + 0.1, 5)
+    H0 = (torch.rand((5, CIFAR_B, GRBM[1]), device='cuda') < 0.5).float()
+    share['grbm_v_states'] = compare_passes(
+        torch, 'G-RBM', cfg, 'v', H0, state['W'] * 10., state['vb'] + 0.1, 5)
+    wide = cifar_state(torch, *GRBM_WIDE, 0.0008, seed=7)
+    err['cd_epoch_gaussian'] = max(err['cd_epoch_gaussian'], compare_cifar(
+        torch, 'G-RBM 3072x7800', grbm_cfg(*GRBM_WIDE, False, 1), wide,
+        X[:3], GRBM_LR))
+    del wide
+    Xm = cifar_inputs(torch, 20, 'mrbm', seed=4)
+    state = cifar_state(torch, *MRBM, 0.01)
+    err['cd_epoch_multinomial'] = compare_cifar(
+        torch, 'M-RBM 5000x1000 n=1000', mrbm_cfg(False, 1), state, Xm[:5],
+        MRBM_LR)
+    cfg = mrbm_cfg(True, 1)
+    share['mrbm'] = compare_cifar_sampled(torch, 'M-RBM 5000x1000 n=1000',
+                                          cfg, state, Xm, MRBM_LR)
+    share['mrbm_h_draws'] = compare_passes(
+        torch, 'M-RBM', cfg, 'h', Xm, state['W'], state['hb'], 10)
+    return err, share
+
+
+def event_ms(torch, fn, n):
+    """Device milliseconds per call of `fn`, by CUDA events around n calls
+    after a warm-up."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def samplers_vs_plain(torch):
+    """The standalone launchers normal_sample, multinomial_sample and the
+    free-energy probe at the shapes of the path.  Each is driven once (the
+    probe once per flavour) with the launch counts set to 0 just before and
+    read just after; those outputs are held against the plain versions;
+    then each is timed per call (CUDA events): kernel, plain, and the one
+    PyTorch call that computes the same function where there is one."""
+    from boltzmann_machines_tpu_torch.ops import samplers
+    out = {}
+    # the G-RBM's visible draw: (100, 3072) normals
+    shape = (CIFAR_B, GRBM[0])
+    # the M-RBM's hidden draw: n = 1000 over 1000 buckets, on softmax means
+    g = torch.Generator(device='cuda')
+    g.manual_seed(3)
+    pre = 2. * torch.randn((CIFAR_B, MRBM[1]), generator=g, device='cuda')
+    means = N_SAMPLES * torch.softmax(pre, dim=1)
+    # the free energy of the M-RBM's PLL (multinomial, 5000 x 1000) and of
+    # the G-RBM (Gaussian, 3072 x 5000), batch 100
+    probes = []
+    for label, (V, H), visible, hidden, X in (
+            ('M-RBM', MRBM, 'bernoulli', 'multinomial',
+             cifar_inputs(torch, 1, 'mrbm')[0]),
+            ('G-RBM', GRBM, 'gaussian', 'bernoulli',
+             cifar_inputs(torch, 1, 'grbm')[0])):
+        st = cifar_state(torch, V, H, 0.01)
+        probe = samplers.make_free_energy_probe(V, H, CIFAR_B, visible,
+                                                hidden, N_SAMPLES)
+        args = (X, st['W'], st['vb'] + 0.1, st['hb'] - 0.1,
+                1. if visible == 'gaussian' else None, 9)
+        probes.append((label, V, H, probe, args))
+
+    torch.cuda.synchronize()
+    samplers.reset_launches()
+    got_normal = samplers.normal_sample(5, shape, 'cuda')
+    got_counts = samplers.multinomial_sample(6, means, N_SAMPLES)
+    got_fe = [probe(*args) for _, _, _, probe, args in probes]
+    torch.cuda.synchronize()
+    launches = {'normal_sample': samplers.normal_sample.launches[
+                    'normal_sample'],
+                'multinomial_sample': samplers.multinomial_sample.launches[
+                    'multinomial_sample'],
+                'free_energy_probe': samplers.make_free_energy_probe.launches[
+                    'fe_probe']}
+    say('standalone launchers driven once each: %s' % json.dumps(launches))
+    if launches != {'normal_sample': 1, 'multinomial_sample': 1,
+                    'free_energy_probe': len(probes)}:
+        raise AssertionError('launch counts of the standalone launchers: %s'
+                             % launches)
+
+    # ~30 f32 operations per normal (log, sqrt, cos and their scaling)
+    got = got_normal
+    want = samplers.normal_sample_reference(5, shape, 'cuda')
+    d = (got - want).abs()
+    ulps = float((d / torch.finfo(torch.float32).eps
+                  / want.abs().clamp(min=1.)).max())
+    say('normal_sample %s: max|kernel-plain|=%.3g (%.1f ulp); mean %.4f, '
+        'var %.4f' % (shape, float(d.max()), ulps, float(got.mean()),
+                      float(got.var())))
+    if not float(d.max()) <= 4e-6 * max(1., float(want.abs().max())):
+        raise AssertionError('normal_sample kernel and plain disagree')
+    out['normal_sample'] = dict(
+        err=float(d.max()), work=(30. * got.numel(), 4. * got.numel()),
+        ms=event_ms(torch, lambda: samplers.normal_sample(5, shape, 'cuda'),
+                    50),
+        plain_ms=event_ms(torch, lambda: samplers.normal_sample_reference(
+            5, shape, 'cuda'), 5),
+        # a yardstick: other numbers from another generator, same shape
+        library_ms=event_ms(torch, lambda: torch.randn(
+            shape, generator=g, device='cuda'), 50))
+
+    got, probs = got_counts, means / N_SAMPLES
+    want = samplers.multinomial_sample_reference(6, means, N_SAMPLES)
+    rows_equal = int((got == want).all(dim=1).sum())
+    say('multinomial_sample (%d, %d) n=%d: %d of %d rows of counts equal, '
+        'max|kernel-plain|=%g; row sums %s' % (
+            CIFAR_B, MRBM[1], N_SAMPLES, rows_equal, CIFAR_B,
+            float((got - want).abs().max()),
+            sorted(set(got.sum(1).tolist()))))
+    if rows_equal != CIFAR_B or not bool((got.sum(1) == N_SAMPLES).all()):
+        raise AssertionError('multinomial_sample kernel and plain disagree')
+    out['multinomial_sample'] = dict(
+        err=float((got - want).abs().max()),
+        work=(5. * means.numel() + 10. * CIFAR_B * N_SAMPLES,
+              8. * means.numel()),
+        ms=event_ms(torch, lambda: samplers.multinomial_sample(
+            6, means, N_SAMPLES), 50),
+        plain_ms=event_ms(torch, lambda: samplers.multinomial_sample_reference(
+            6, means, N_SAMPLES), 5),
+        # a yardstick: the same distribution from torch's own sampler
+        library_ms=event_ms(torch, lambda: torch.distributions.Multinomial(
+            N_SAMPLES, probs=probs, validate_args=False).sample(), 50))
+
+    err = 0.
+    for (label, V, H, probe, args), (fe, hh) in zip(probes, got_fe):
+        fe_p, hh_p = probe.reference(*args)
+        d = abs(float(fe) - float(fe_p))
+        say('free_energy_probe %s %dx%d: fe %.4f vs plain %.4f (|d| %.3g); '
+            'count vectors %s' % (label, V, H, float(fe), float(fe_p), d,
+                                  'equal' if torch.equal(hh, hh_p.reshape(-1))
+                                  else 'DIFFER'))
+        if not d <= 1e-5 * max(1., abs(float(fe_p))) \
+                or not torch.equal(hh, hh_p.reshape(-1)):
+            raise AssertionError('free-energy probe kernel and plain '
+                                 'disagree (%s)' % label)
+        err = max(err, d)
+        if label == 'M-RBM':
+            out['free_energy_probe'] = dict(
+                work=(2. * CIFAR_B * V * H, 4. * (CIFAR_B * V + V * H)),
+                ms=event_ms(torch, lambda: probe(*args), 20),
+                plain_ms=event_ms(torch, lambda: probe.reference(*args), 5))
+    out['free_energy_probe']['err'] = err
+    for name, r in out.items():
+        r['launches'] = launches[name]
+        say('%s: %.4f ms per call, plain %.4f ms, library %s ms' % (
+            name, r['ms'], r['plain_ms'], r.get('library_ms')))
+    return out
+
+
+def cifar_naive_path(torch, tmpdir):
+    """examples/dbm_cifar_naive.py stages 1 and 2 at their published widths
+    through the public API on the card, on 3000 + 500 synthetic CIFAR rows
+    (standardized; the SVD smoothing skipped).  Depth cuts: 2 epochs per
+    stage (120 and 180 in the example); metrics every iteration (1000 and
+    400 in the example) and validation and FEG every epoch on 5 batches
+    (every 2 epochs on 50), so that they log within the run; no image
+    summaries (not ported).  Returns the launch counts of each stage."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch import GaussianRBM, MultinomialRBM
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, reset_launches)
+    X = make_cifar(3500, seed=42)
+    X_train, X_val = standardize(X[:3000], X[3000:])
+    n_iter = 2 * math.ceil(len(X_train) / CIFAR_B)
+    metrics = dict(train_metrics_every_iter=1, val_metrics_every_epoch=1,
+                   feg_every_epoch=1, n_batches_for_feg=5)
+    grbm = GaussianRBM(
+        n_visible=GRBM[0], n_hidden=GRBM[1], sigma=1., W_init=0.0008, vb_init=0.,
+        hb_init=0., n_gibbs_steps=1, learning_rate=GRBM_LR,
+        momentum=np.geomspace(0.5, 0.9, 8), max_epoch=2, batch_size=CIFAR_B,
+        l2=GRBM_L2, sample_v_states=True, sample_h_states=True,
+        sparsity_cost=0., dbm_first=True,
+        metrics_config=dict(msre=True, feg=True, **metrics), verbose=True,
+        display_filters=0, display_hidden_activations=0, v_shape=(32, 32, 3),
+        dtype='float32', random_seed=1337, device='cuda',
+        model_path=tmpdir + '/grbm/')
+    reset_launches()
+    t0 = time.perf_counter()
+    grbm.fit(X_train, X_val)
+    torch.cuda.synchronize()
+    t_g = time.perf_counter() - t0
+    g_launches = dict(cd_epoch.launches)
+    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
+              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+              'cd_metrics': n_iter}
+    say('G-RBM fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
+        grbm.iter_, t_g, g_launches))
+    if g_launches != expect or grbm.iter_ != n_iter:
+        raise AssertionError('G-RBM launch counts %s, schedule implies %s' % (
+            g_launches, expect))
+    check_msre(tmpdir + '/grbm/', 'G-RBM')
+    Q_train = grbm.transform(X_train)
+    Q_val = grbm.transform(X_val)
+    if Q_train.shape != (len(X_train), GRBM[1]) \
+            or not np.all(np.isfinite(Q_train)) or Q_train.min() < 0 \
+            or Q_train.max() > 1:
+        raise AssertionError('G-RBM transform: bad output')
+
+    mrbm = MultinomialRBM(
+        n_visible=MRBM[0], n_hidden=MRBM[1], n_samples=N_SAMPLES, W_init=0.01,
+        hb_init=0., vb_init=0., n_gibbs_steps=1, learning_rate=MRBM_LR,
+        momentum=np.geomspace(0.5, 0.9, 8), max_epoch=2, batch_size=CIFAR_B,
+        l2=MRBM_L2, sample_h_states=True, sample_v_states=False,
+        sparsity_cost=0., dbm_last=True,
+        metrics_config=dict(msre=True, pll=True, feg=True, **metrics),
+        verbose=True, display_hidden_activations=0, random_seed=1337,
+        dtype='float32', device='cuda', model_path=tmpdir + '/mrbm/')
+    reset_launches()
+    t0 = time.perf_counter()
+    mrbm.fit(Q_train, Q_val)
+    torch.cuda.synchronize()
+    t_m = time.perf_counter() - t0
+    m_launches = dict(cd_epoch.launches)
+    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 2 * n_iter,
+              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+              'cd_metrics': n_iter}
+    say('M-RBM fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
+        mrbm.iter_, t_m, m_launches))
+    if m_launches != expect or mrbm.iter_ != n_iter:
+        raise AssertionError('M-RBM launch counts %s, schedule implies %s' % (
+            m_launches, expect))
+    check_msre(tmpdir + '/mrbm/', 'M-RBM')
+    pll = [v for _, v in read_tag(tmpdir + '/mrbm/logs/train/scalars.jsonl',
+                                  'pseudo_loglikelihood')]
+    feg = read_tag(tmpdir + '/mrbm/logs/val/scalars.jsonl', 'free_energy_gap')
+    say('  M-RBM train pll per epoch %s; val feg %s' % (pll, feg))
+    if len(pll) != 2 or not all(math.isfinite(v) and v <= 0 for v in pll) \
+            or len(feg) != 2 or not all(math.isfinite(v) for _, v in feg):
+        raise AssertionError('M-RBM pll / feg not finite')
+    G = mrbm.transform(Q_val)
+    dev = float(np.abs(G.sum(1) - 1.).max())
+    say('M-RBM transform %s: rows sum to 1 within %.2g' % (G.shape, dev))
+    if G.shape != (len(X_val), MRBM[1]) or not dev <= 1e-5 or G.min() < 0:
+        raise AssertionError('M-RBM transform: rows do not sum to 1')
+
+    for cls, model, name, X_chk in ((GaussianRBM, grbm, 'grbm', X_val),
+                                    (MultinomialRBM, mrbm, 'mrbm', Q_val)):
+        r1 = cls.load_model(tmpdir + '/' + name + '/', device='cuda')
+        r2 = cls.load_model(tmpdir + '/' + name + '/', device='cuda')
+        s0, s1 = model.get_params_arrays(), r1.get_params_arrays()
+        if set(s0) != set(s1) or any(not np.array_equal(s0[k], s1[k])
+                                     for k in s0) \
+                or r1._state.W.device.type != 'cuda':
+            raise AssertionError('%s: load_model changed the state' % name)
+        if not np.array_equal(r1.transform(X_chk), r2.transform(X_chk)):
+            raise AssertionError('%s: loaded models transform differently'
+                                 % name)
+    say('save / load_model(device="cuda"): both models, 7 state arrays '
+        'identical, transform reproducible')
+    return g_launches, m_launches
+
+
+def check_msre(model_dir, label):
+    msre = [v for _, v in read_tag(model_dir + 'logs/train/scalars.jsonl',
+                                   'mean_squared_reconstruction_error')]
+    say('  %s train msre per epoch %s' % (label, msre))
+    if len(msre) != 2 or not all(map(math.isfinite, msre)) \
+            or not msre[1] < msre[0]:
+        raise AssertionError('%s msre not finite and falling: %s' % (label,
+                                                                     msre))
+
+
+def profile_kernels(torch, fn):
+    """Device microseconds per launch of each CD kernel over one call of
+    `fn`, and the device busy share of that call (torch.profiler).  None
+    where the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import KERNELS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per, busy = {}, 0.
+    for ev in prof.key_averages():
+        t = getattr(ev, 'device_time_total', None)
+        if t is None:
+            t = getattr(ev, 'cuda_time_total', 0.)
+        for name in KERNELS:
+            if name + '_kernel' in ev.key:
+                us, n = per.get(name, (0., 0))
+                per[name] = (us + t, n + ev.count)
+                busy += t
+    if not busy:
+        return None, None
+    return ({k: round(us / n, 1) for k, (us, n) in per.items()},
+            busy * 1e-6 / wall)
+
+
+def cifar_timings(torch):
+    """ms per step of each stage, kernels vs plain version in turns (plain,
+    kernel, plain, kernel, kernel, plain; the first run of each a warm-up),
+    sampling as on the path and off, metrics off the cadence; then one
+    profiled kernel run per stage, and torch.matmul on the step's X.W
+    product (B x V x H) as a yardstick."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, cd_epoch_reference)
+    nb = 10
+    fns = {'kernel': cd_epoch, 'plain': cd_epoch_reference}
+    out = {}
+    for name, (V, H), lr, w_init, make_cfg in (
+            ('grbm', GRBM, GRBM_LR, 0.0008,
+             lambda smp: grbm_cfg(*GRBM, smp, 10 ** 6, False)),
+            ('mrbm', MRBM, MRBM_LR, 0.01,
+             lambda smp: mrbm_cfg(smp, 10 ** 6))):
+        X = cifar_inputs(torch, nb, name, seed=5)
+        state = cifar_state(torch, V, H, w_init)
+        for sample in (True, False):
+            cfg = make_cfg(sample)
+            times = {'kernel': [], 'plain': []}
+            for which in ('plain', 'kernel', 'plain', 'kernel', 'kernel',
+                          'plain'):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[which](cfg, state, X, lr, MOMENTUM, 5, 0)
+                torch.cuda.synchronize()
+                times[which].append(time.perf_counter() - t0)
+            for which, ts in times.items():
+                out[(name, sample, which)] = 1e3 * min(ts[1:]) / nb
+                say('%s %dx%d B=%d sampling %s %s: %.4f ms/step (runs %s)' % (
+                    name, V, H, CIFAR_B, 'on' if sample else 'off', which,
+                    out[(name, sample, which)],
+                    ' '.join('%.4f' % x for x in ts)))
+        cfg = make_cfg(True)
+        per, busy = profile_kernels(torch, lambda: cd_epoch(
+            cfg, state, X, lr, MOMENTUM, 5, 0))
+        out[(name, 'kernel_us')], out[(name, 'busy')] = per, busy
+        say('%s per-kernel device us per launch %s; device busy %s' % (
+            name, per, 'not measured' if busy is None else '%.1f%%' % (
+                100. * busy)))
+        W = state['W']
+        out[(name, 'matmul_ms')] = event_ms(torch, lambda: X[0] @ W, 20)
+        say('%s torch.matmul (%d x %d) @ (%d x %d): %.4f ms' % (
+            name, CIFAR_B, V, V, H, out[(name, 'matmul_ms')]))
+    return out
+
+
+def unported_bounds():
+    """Bounds (ms) of the TPU kernels still to port, at the shapes where
+    they would run: #1 `bernoulli_sample` on rbm_mnist's hidden draw
+    (10 x 1024, p in, states out), #7 `make_cd_stats_kernel` on one of four
+    data-parallel shards of rbm_mnist's batch 256 at 784 x 1024, #6
+    `make_tiled_cd_stats_kernel` on one of four shards of the G-RBM's batch
+    100 at 3072 x 5000 (the five products of a CD-1 step, W in, the
+    association sums and v_means out)."""
+    def stats(V, H, B):
+        return 2. * B * V * H * 5, 4. * (2 * B * V + 2 * V * H + 3 * H)
+    return {'bernoulli_sample': bound(1. * 10 * 1024, 8. * 10 * 1024),
+            'make_cd_stats_kernel': bound(*stats(784, 1024, 64)),
+            'make_tiled_cd_stats_kernel': bound(*stats(3072, 5000, 25))}
+
+
+def dbm_step_work(V, H1, H2, B, M, n_mf, k=1):
+    """f32 operations and bytes of one DBM epoch step (ops/dbm_ops.py):
+    X.W0, the init of h2, n_mf mean-field sweeps (two products each), k
+    Gibbs sweeps of the particles, the association products of both layers
+    on data and particles, the reconstruction for msre, and ~11 per weight
+    for the update and max-norm; X, W, dW, particles in and out once."""
+    a, b = V * H1, H1 * H2
+    flops = (2. * B * a + 2. * B * b + n_mf * 4. * B * b
+             + k * 4. * M * (a + b) + 2. * (B + M) * (a + b)
+             + 2. * B * a + 11. * (a + b))
+    nbytes = 4. * (B * V + 4 * (a + b) + 2 * M * (V + H1 + H2))
+    return flops, nbytes
+
+
+def dbm_sweep_work(V, H1, H2, M):
+    a, b = V * H1, H1 * H2
+    return 4. * M * (a + b), 4. * ((a + b) + 2 * M * (V + H1 + H2))
+
+
+def ais_beta_work(V, H1, H2, R, k):
+    """k transitions of three products each plus the two log p~ products
+    (R runs), W read once, the runs' states in and out."""
+    a, b = V * H1, H1 * H2
+    return (4. * k + 2.) * R * (a + b), 4. * ((a + b) + 2 * R * H1)
+
 
 
 def main():
@@ -842,6 +1528,8 @@ def main():
     environment(torch)
     build()
     worst = kernel_vs_plain(torch)
+    cifar_err, cifar_share = cifar_kernels_vs_plain(torch)
+    sampler = samplers_vs_plain(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         rbm_launches = main_path(torch, tmpdir)
     t = timings(torch)
@@ -851,37 +1539,101 @@ def main():
         dbm_launches, dbm = dbm_mnist_path(torch, tmpdir)
         dbm_err['ais'] = max(dbm_err['ais'], ais_trained_vs_plain(torch, dbm))
         ais_vs_bruteforce(torch, tmpdir)
+    del dbm
     td = dbm_timings(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        g_launches, m_launches = cifar_naive_path(torch, tmpdir)
+    tc = cifar_timings(torch)
     cd_launches = {k: rbm_launches[k] + dbm_launches['cd_epoch'][k]
                    for k in rbm_launches}
 
-    def entry(name, source, launches, err, ms, plain_ms, **extra):
+    def entry(name, source, launches, err, ms, plain_ms, work,
+              library_ms=None, **extra):
+        bound_ms, bound_by = bound(*work)
         d = {'name': name, 'route': 'cuda', 'source': CSRC + source,
-             'replaces': REPLACES[name], 'launches': sum(launches.values()),
-             'launches_per_kernel': launches, 'max_abs_err': err,
-             'ms': ms, 'plain_ms': plain_ms}
+             'replaces': REPLACES[name],
+             'launches': (sum(launches.values())
+                          if isinstance(launches, dict) else launches),
+             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+             'bound_ms': bound_ms, 'bound_by': bound_by,
+             'library_ms': library_ms}
+        if isinstance(launches, dict):
+            d['launches_per_kernel'] = launches
         d.update(extra)
         return d
 
+    def stage(name):
+        return dict(kernel_us=tc[(name, 'kernel_us')],
+                    device_busy=tc[(name, 'busy')],
+                    cd_gemm_act_library_ms=tc[(name, 'matmul_ms')],
+                    plain_sampling_off_ms=tc[(name, False, 'plain')],
+                    sampling_off_ms=tc[(name, False, 'kernel')])
+
+    say('bounds of the kernels still to port (ms, by): %s' % json.dumps(
+        unported_bounds()))
     say(json.dumps({'kernels': [
         # per minibatch step of the RBM path (batch 10, sampled hiddens);
         # launches from the RBM path and the DBM path's pretraining
         entry('cd_epoch', 'cd_epoch.cu', cd_launches, worst,
               1e3 * t[(10, 'kernel', True)] / steps,
-              1e3 * t[(10, 'plain', True)] / steps),
-        # per minibatch step at B = M = 100, sampling on
+              1e3 * t[(10, 'plain', True)] / steps,
+              cd_step_work(V, H, 10), kernel_us=t['kernel_us'],
+              device_busy=t['busy'], cd_gemm_act_library_ms=t['matmul_ms']),
+        # per minibatch step at B = M = 100, n_mf 50, sampling on
         entry('dbm_epoch', 'dbm_ops.cu', dbm_launches['dbm_epoch'],
               dbm_err['dbm_epoch'], td[('dbm_epoch', True, 'kernel')],
-              td[('dbm_epoch', True, 'plain')]),
+              td[('dbm_epoch', True, 'plain')],
+              dbm_step_work(*DBM_SIZES, DBM_B, DBM_M, 50),
+              dbm_gemm_act_library_ms=td['matmul_ms']),
         # per Gibbs sweep of 100 particles, sampling on
         entry('dbm_sample', 'dbm_ops.cu', dbm_launches['dbm_sample'],
               dbm_err['dbm_sample'], td[('dbm_sample', True, 'kernel')],
-              td[('dbm_sample', True, 'plain')]),
+              td[('dbm_sample', True, 'plain')],
+              dbm_sweep_work(*DBM_SIZES, DBM_M)),
         # per beta of 100 runs with k = 5; the plain version with sampling
         # off (its Philox emulation would dominate)
         entry('ais', 'dbm_ops.cu', dbm_launches['ais'], dbm_err['ais'],
               td[('ais', True, 'kernel')], td[('ais', False, 'plain')],
-              plain_sampling='off'),
+              ais_beta_work(*DBM_SIZES, 100, 5), plain_sampling='off'),
+        # per G-RBM step, 3072 x 5000, B = 100, k = 1, states sampled;
+        # launches from the dbm_cifar_naive G-RBM fit
+        entry('cd_epoch_gaussian', 'cd_epoch.cu', g_launches,
+              cifar_err['cd_epoch_gaussian'], tc[('grbm', True, 'kernel')],
+              tc[('grbm', True, 'plain')], cd_step_work(*GRBM, CIFAR_B),
+              sampled_probe_steps_exact=cifar_share['grbm'],
+              sampled_h_draws_differing=cifar_share['grbm_h_draws'],
+              sampled_v_states_max_rel_err=cifar_share['grbm_v_states'],
+              **stage('grbm')),
+        # per M-RBM step, 5000 x 1000, B = 100, n = 1000, hiddens sampled;
+        # launches from the dbm_cifar_naive M-RBM fit
+        entry('cd_epoch_multinomial', 'cd_epoch.cu', m_launches,
+              cifar_err['cd_epoch_multinomial'], tc[('mrbm', True, 'kernel')],
+              tc[('mrbm', True, 'plain')],
+              cd_step_work(*MRBM, CIFAR_B, n_samples=N_SAMPLES),
+              sampled_probe_steps_exact=cifar_share['mrbm'],
+              sampled_h_draws_differing=cifar_share['mrbm_h_draws'],
+              **stage('mrbm')),
+        # the three standalone launchers at the path's shapes: `launches`
+        # is their own count from the phase that drives them once each;
+        # `path_launches` the measured launches, on the dbm_cifar_naive
+        # path, of the epoch kernel whose launches carry the same device
+        # functions (a third of the G-RBM's cd_gemm_act launches are its
+        # sampled Gaussian visible pass)
+        *(entry(name, 'cd_epoch.cu', sampler[name]['launches'],
+                sampler[name]['err'], sampler[name]['ms'],
+                sampler[name]['plain_ms'], sampler[name]['work'],
+                sampler[name].get('library_ms'),
+                path_launches=path_launches, shape=shape)
+          for name, path_launches, shape in (
+              ('normal_sample',
+               {'cd_gemm_act': g_launches['cd_gemm_act']},
+               [CIFAR_B, GRBM[0]]),
+              ('multinomial_sample',
+               {'cd_softmax_sample': m_launches['cd_softmax_sample']},
+               [CIFAR_B, MRBM[1], N_SAMPLES]),
+              ('free_energy_probe',
+               {'cd_metrics': m_launches['cd_metrics']},
+               [CIFAR_B, *MRBM, N_SAMPLES]))),
     ]}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -85,10 +85,17 @@ def test_copied_utils_doctests(module):
 
 
 def test_import_does_not_load_jax():
-    code = ('import sys, boltzmann_machines_tpu_torch as m; '
-            'import boltzmann_machines_tpu_torch.dbm, '
-            'boltzmann_machines_tpu_torch.ops.dbm_ops; '
+    """Every module of the port (found by walking the package, so a new
+    module is covered when it lands), and models of each class."""
+    code = ('import importlib, pkgutil, sys; '
+            'import boltzmann_machines_tpu_torch as m; '
+            'mods = [i.name for i in pkgutil.walk_packages(m.__path__, '
+            '"boltzmann_machines_tpu_torch.")]; '
+            'assert "boltzmann_machines_tpu_torch.ops.samplers" in mods; '
+            '[importlib.import_module(n) for n in mods]; '
             'r = m.BernoulliRBM(n_visible=4, n_hidden=2); '
+            'm.GaussianRBM(n_visible=4, n_hidden=2, sigma=[1., 2., 1., 1.]); '
+            'm.MultinomialRBM(n_visible=4, n_hidden=2, n_samples=3); '
             'm.DBM(rbms=[r, m.BernoulliRBM(n_visible=2, n_hidden=2)]); '
             'bad = [k for k in sys.modules if k == "jax" or '
             'k.startswith("jax.") or k == "boltzmann_machines_tpu" or '

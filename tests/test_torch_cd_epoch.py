@@ -190,12 +190,21 @@ def test_sampled_epoch_is_deterministic():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match='Gaussian'):
-        make_cd_epoch_kernel(V, H, B, 1, False, False, visible='gaussian',
+    """The epoch takes Bernoulli or Gaussian visible and Bernoulli or
+    multinomial hidden units (tests/test_torch_cd_flavours.py); any other
+    unit type, or multinomial units without a draw count, is refused, as
+    the JAX factory asserts."""
+    with pytest.raises(ValueError, match='visible'):
+        make_cd_epoch_kernel(V, H, B, 1, False, False, visible='multinomial',
                              **CONFIG)
-    with pytest.raises(NotImplementedError, match='multinomial'):
+    with pytest.raises(ValueError, match='hidden'):
+        make_cd_epoch_kernel(V, H, B, 1, False, False, hidden='gaussian',
+                             **CONFIG)
+    with pytest.raises(ValueError, match='n_samples'):
         make_cd_epoch_kernel(V, H, B, 1, False, False, hidden='multinomial',
-                             n_samples=4, **CONFIG)
+                             **CONFIG)
+    make_cd_epoch_kernel(V, H, B, 1, False, False, visible='gaussian',
+                         hidden='multinomial', n_samples=4, **CONFIG)
 
 
 def test_kernel_pallas_on_cpu_raises(tmp_path):

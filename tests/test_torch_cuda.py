@@ -1,5 +1,6 @@
 """The port's CUDA kernels (boltzmann_machines_tpu_torch/csrc/cd_epoch.cu and
-csrc/dbm_ops.cu) against their plain PyTorch versions, on the card.  This
+csrc/dbm_ops.cu, behind ops/cd_epoch.py, ops/samplers.py and ops/dbm_ops.py)
+against their plain PyTorch versions, on the card.  This
 file imports no JAX, so it runs where the card is:
 
     BMT_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -98,8 +99,9 @@ def test_launch_counts(cuda):
     cd_epoch(cfg, state, X, 0.05, 0.9, 3, 1)
     diff = {n: cd_epoch.launches[n] - before[n] for n in before}
     # iterations 2..7; metrics where it % 4 == 0 (it = 4)
-    assert diff == {'cd_gemm_act': NB * (1 + 2 * k), 'cd_bias_stats': NB,
-                    'cd_assoc_update': NB, 'cd_metrics': 1}
+    assert diff == {'cd_gemm_act': NB * (1 + 2 * k), 'cd_softmax_sample': 0,
+                    'cd_bias_stats': NB, 'cd_assoc_update': NB,
+                    'cd_metrics': 1}
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -116,6 +118,215 @@ def test_wrapper_rejects_bad_inputs(cuda):
         cd_epoch(cfg, dict(state, hb=state['hb'][:-1]), X, 0.05, 0.9, 3, 0)
     with pytest.raises(ValueError, match='X_batches'):
         cd_epoch(cfg, state, X[:, :, :-1], 0.05, 0.9, 3, 0)
+
+
+# ---------------------------------------------------------------------- #
+# Gaussian-visible and multinomial-hidden CD kernels, samplers, probe      #
+# ---------------------------------------------------------------------- #
+def flavour_config(V, H, k, sample, flavour, metrics_every=2):
+    """(config, X-maker) of a flavour: Gaussian visible units with a scalar
+    or per-unit sigma (dbm_first's doubling), or multinomial hidden units
+    with n = 12 (dbm_last's)."""
+    rng = np.random.RandomState(7)
+    kw = {'gaussian': dict(visible='gaussian', sigma=np.float32(1.5)),
+          'gaussian_per_unit': dict(visible='gaussian', sigma=(
+              rng.rand(V) + 0.5).astype(np.float32)),
+          'multinomial': dict(hidden='multinomial', n_samples=12)}[flavour]
+    up, down = (2., 1.) if 'sigma' in kw else (1., 2.)
+    return CDEpochConfig(V, H, k, sample, sample, up, down, 1e-4, 0.1, 1e-2,
+                         0.9, metrics_every, True, **kw)
+
+
+def flavour_inputs(V, H, B, NB, dev, flavour, seed=0):
+    X, state = make_inputs(V, H, B, NB, dev, seed)
+    if flavour != 'multinomial':
+        X = torch.as_tensor(np.random.RandomState(seed).randn(NB, B, V),
+                            dtype=torch.float32, device=dev)
+    return X, state
+
+
+FLAVOURS = ['gaussian', 'gaussian_per_unit', 'multinomial']
+
+
+@pytest.mark.parametrize('V,H,B', SHAPES)
+@pytest.mark.parametrize('k', [0, 1, 2])
+@pytest.mark.parametrize('flavour', FLAVOURS)
+def test_flavour_kernels_match_plain_version_sampling_off(cuda, V, H, B, k,
+                                                          flavour):
+    """The tolerances of the Bernoulli kernels; the PLL (with the same two
+    multinomial count vectors on both sides) within 1e-3."""
+    X, state = flavour_inputs(V, H, B, 5, cuda, flavour)
+    cfg = flavour_config(V, H, k, False, flavour)
+    got = cd_epoch(cfg, state, X, 0.01, 0.9, 3, 0)
+    want = cd_epoch_reference(cfg, state, X, 0.01, 0.9, 3, 0)
+    torch.cuda.synchronize()
+    for key in got[0]:
+        atol = 1e-5 * (B if key == 'q_means' else 1)
+        torch.testing.assert_close(got[0][key], want[0][key], rtol=1e-5,
+                                   atol=atol, msg=key)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
+    assert float(got[2][1]) < 0 and float(got[2][0]) == 0
+
+
+@pytest.mark.parametrize('V,H,B', SHAPES)
+@pytest.mark.parametrize('flavour', FLAVOURS)
+def test_flavour_kernels_match_plain_version_sampling_on(cuda, V, H, B,
+                                                         flavour):
+    """Sampled, each step from the same state: the Box-Muller normals
+    differ from torch's by an ulp or two (a Gaussian state by ~1e-6) and
+    the softmax means by an ulp, which can move a multinomial draw across a
+    CDF boundary or a Bernoulli threshold now and then; so all but one of
+    the 6 steps agree within rtol 1e-4, atol 1e-4 (x B for q_means)."""
+    X, state = flavour_inputs(V, H, B, 6, cuda, flavour, seed=1)
+    cfg = flavour_config(V, H, 1, True, flavour, metrics_every=1)
+    bad = 0
+    for i in range(6):
+        got = cd_epoch(cfg, state, X[i:i + 1], 0.01, 0.9, 17, i)
+        want = cd_epoch_reference(cfg, state, X[i:i + 1], 0.01, 0.9, 17, i)
+        ok = all(torch.allclose(got[0][key], want[0][key], rtol=1e-4,
+                                atol=1e-4 * (B if key == 'q_means' else 1))
+                 for key in got[0])
+        bad += not ok
+        state = got[0]
+    assert bad <= 1
+
+
+def test_flavour_launch_counts(cuda):
+    """Multinomial hidden units: every hidden GEMM is followed by one row
+    kernel; PLL every 2 iterations."""
+    V, H, B, NB, k = 24, 16, 8, 6, 2
+    X, state = flavour_inputs(V, H, B, NB, cuda, 'multinomial')
+    cfg = flavour_config(V, H, k, True, 'multinomial')
+    before = dict(cd_epoch.launches)
+    cd_epoch(cfg, state, X, 0.01, 0.9, 3, 0)
+    diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    assert diff == {'cd_gemm_act': NB * (1 + 2 * k),
+                    'cd_softmax_sample': NB * (1 + k), 'cd_bias_stats': NB,
+                    'cd_assoc_update': NB, 'cd_metrics': NB // 2}
+
+
+@pytest.mark.parametrize('flavour,layer', [
+    ('gaussian', 'v'), ('gaussian', 'h'), ('multinomial', 'h')])
+def test_gibbs_pass_states_match_plain_version(cuda, flavour, layer):
+    """The sampled states of one pass of the epoch's kernels on the same
+    inputs as the plain version: Gaussian states within 1e-5 (1 + |v|)
+    (Box-Muller ulps), Bernoulli states in <= 1e-5 of draws and multinomial
+    counts in <= 1e-3 of draws (a draw moves where its uniform lies between
+    the two versions' CDF entries, which differ by the means' rounding),
+    every count row summing to n."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _gibbs_pass, _gibbs_pass_reference)
+    V, H, B = 300, 1000, 64
+    cfg = flavour_config(V, H, 1, True, flavour)
+    if flavour == 'multinomial':
+        cfg = cfg._replace(n_samples=1000)
+    X, state = flavour_inputs(V, H, B, 1, cuda, flavour)
+    A = X[0] if layer == 'h' else \
+        (torch.rand((B, H), device=cuda) < 0.5).float()
+    bias = state['hb'] if layer == 'h' else state['vb']
+    mk, sk = _gibbs_pass(cfg, layer, A, state['W'], bias, 5, 2, 3)
+    mp, sp = _gibbs_pass_reference(cfg, layer, A, state['W'], bias, 5, 2, 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-5)
+    if layer == 'v':
+        assert float(((sk - sp).abs() / (1. + sp.abs())).max()) <= 1e-5
+    elif flavour == 'multinomial':
+        assert bool((sk.sum(1) == 1000).all())
+        assert float((sk - sp).abs().sum()) / 2 <= 1e-3 * B * 1000
+    else:
+        assert int((sk != sp).sum()) <= 1e-5 * sk.numel() + 1
+
+
+@pytest.mark.parametrize('H,n', [(16, 12), (1000, 1000), (7800, 513)])
+def test_multinomial_sample_kernel_matches_plain_version(cuda, H, n):
+    """Given the same means both build the CDF in float64 (in another
+    order) and round it to float32, so the counts are equal; every row
+    sums to n.  H = 7800 takes 62 KB of dynamic shared memory."""
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        multinomial_sample, multinomial_sample_reference)
+    rng = np.random.RandomState(H)
+    means = torch.as_tensor(n * rng.dirichlet(np.ones(H), size=50),
+                            dtype=torch.float32, device=cuda)
+    before = multinomial_sample.launches['multinomial_sample']
+    got = multinomial_sample(5, means, n)
+    want = multinomial_sample_reference(5, means, n)
+    torch.cuda.synchronize()
+    assert multinomial_sample.launches['multinomial_sample'] == before + 1
+    assert torch.equal(got, want)
+    assert bool((got.sum(1) == n).all())
+
+
+def test_normal_sample_kernel_matches_plain_version(cuda):
+    """Box-Muller in the kernel (logf, cosf, sqrtf without fast math) and
+    in torch agree within a few ulps: 4e-6."""
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        normal_sample, normal_sample_reference)
+    got = normal_sample(9, (100, 3072))
+    want = normal_sample_reference(9, (100, 3072), cuda)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=4e-6, atol=4e-6)
+    assert abs(float(got.mean())) < 6 / np.sqrt(got.numel())
+
+
+@pytest.mark.parametrize('visible,hidden', [
+    ('bernoulli', 'bernoulli'), ('gaussian', 'bernoulli'),
+    ('bernoulli', 'multinomial')])
+def test_free_energy_probe_kernel_matches_plain_version(cuda, visible,
+                                                        hidden):
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        make_free_energy_probe)
+    V, H, B = 70, 65, 37
+    X, state = flavour_inputs(V, H, B, 1, cuda,
+                              'gaussian' if visible == 'gaussian'
+                              else 'multinomial')
+    probe = make_free_energy_probe(V, H, B, visible, hidden, n_samples=40)
+    args = (X[0], state['W'], state['vb'], state['hb'],
+            1.5 if visible == 'gaussian' else None, 4)
+    fe, h_hat = probe(*args)
+    fe_p, h_hat_p = probe.reference(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(fe, fe_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h_hat, h_hat_p.reshape(-1))
+
+
+def test_free_energy_probe_multinomial_seeded_mean(cuda):
+    """tests/test_pallas_ops.py:979-997 on the card: seeded probe
+    estimates vary and their mean is within 6 standard errors of the closed
+    form E[fe] = mean(-X vb) - (M / K) mean(sum(X W))."""
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        make_free_energy_probe)
+    V, H, B, M = 8, 8, 4, 24
+    rng = np.random.RandomState(3)
+    W = (rng.randn(V, H) * 0.3).astype(np.float32)
+    vb = (rng.randn(V) * 0.5).astype(np.float32)
+    hb = (rng.randn(H) * 0.5).astype(np.float32)
+    X = (np.random.RandomState(4).rand(B, V) < 0.5).astype(np.float32)
+    t = [torch.as_tensor(a, device=cuda) for a in (X, W, vb, hb)]
+    probe = make_free_energy_probe(V, H, B, 'bernoulli', 'multinomial',
+                                   n_samples=M)
+    fes = np.array([float(probe(*t, None, s)[0]) for s in range(64)])
+    closed = float(np.mean(-X @ vb) - (M / float(H)) *
+                   np.mean(np.sum(X @ W, axis=1)))
+    sem = fes.std(ddof=1) / np.sqrt(len(fes))
+    assert fes.std() > 0
+    assert abs(fes.mean() - closed) < 6 * sem + 1e-4
+
+
+def test_sampler_wrappers_reject_bad_inputs(cuda):
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        make_free_energy_probe, multinomial_sample)
+    means = torch.full((4, 8), 1.5, device=cuda)
+    with pytest.raises(ValueError, match='float32'):
+        multinomial_sample(1, means.double(), 12)
+    with pytest.raises(ValueError, match='rows'):
+        multinomial_sample(1, means[0], 12)
+    probe = make_free_energy_probe(8, 8, 4, 'bernoulli', 'bernoulli')
+    with pytest.raises(ValueError, match='shape'):
+        probe(means, torch.zeros((8, 8), device=cuda),
+              torch.zeros(8, device=cuda), torch.zeros(7, device=cuda),
+              None, 0)
 
 
 # ---------------------------------------------------------------------- #
