@@ -11,9 +11,11 @@ either package loads in the other:
                            accumulators, EMA means).
 
 The model's device is private (``_device``) and never enters
-``params.json``; by default it is the CUDA device when there is one (the
-JAX package likewise runs on its default backend), else the CPU.  Checkpoints and metrics are written synchronously at the
-end of each epoch.
+``params.json``.  By default it is the CUDA device: the port runs on the
+card, and the CPU is asked for by name (``device='cpu'``); a model built
+without a device where there is no CUDA device raises.  Checkpoints and
+metrics are written synchronously at the end of each epoch, by one process
+only when several train one model (``_writes_files``).
 """
 
 import os
@@ -28,15 +30,28 @@ from .mixin import DtypeMixin
 
 
 def default_device():
-    """'cuda' when a CUDA device is available, else 'cpu'."""
-    return 'cuda' if torch.cuda.is_available() else 'cpu'
+    """The device of a model, state or checkpoint given none: the card."""
+    return 'cuda'
+
+
+def resolve_device(device=None):
+    """`device` as a ``torch.device``; None means ``default_device()``,
+    which raises where there is no CUDA device rather than running on the
+    CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: the port runs on the card "
+                               "unless asked otherwise -- pass "
+                               "device='cpu' to run on the CPU")
+        device = default_device()
+    return torch.device(device)
 
 
 class TorchModel(BaseModel, DtypeMixin):
     def __init__(self, model_path='torch_model/', paths=None,
                  json_params=None, device=None, *args, **kwargs):
         super(TorchModel, self).__init__(*args, **kwargs)
-        self._device = torch.device(device or default_device())
+        self._device = resolve_device(device)
         self._model_dirpath = None
         self._model_filepath = None
         self._params_filepath = None
@@ -133,14 +148,22 @@ class TorchModel(BaseModel, DtypeMixin):
             json.dump(params, f, **self.json_params)
         os.replace(tmp, self._params_filepath)
 
+    def _writes_files(self):
+        """Whether this process writes checkpoints and summaries (all but
+        rank 0 of a data-parallel mesh stay silent)."""
+        return True
+
     def _save_model(self):
+        if not self._writes_files():
+            return
         params, rng_state = self._checkpoint_payload()
         self._write_checkpoint(params, rng_state, self._get_state_arrays())
 
     @classmethod
     def load_model(cls, model_path, device=None):
         """Load a checkpoint directory (written by this package or by the
-        JAX package) onto `device` (default: CUDA when available)."""
+        JAX package) onto `device` (default: the CUDA device; raises where
+        there is none)."""
         paths = TorchModel.compute_working_paths(model_path)
 
         with open(paths['params_filepath'], 'r') as f:

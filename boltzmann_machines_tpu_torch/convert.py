@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .base.torch_model import resolve_device
 from .ops.cd_epoch import STATE_KEYS
 from .ops.dbm_ops import LAYER_KEYS as DBM_LAYER_KEYS
 from .ops.dbm_ops import STATE_KEYS as DBM_STATE_KEYS
@@ -50,9 +51,11 @@ class RBMState(nn.Module):
             setattr(self, key, tensors[key])
 
 
-def state_from_jax_arrays(arrays, device='cpu', dtype=torch.float32):
-    """``RBMState`` on `device` from the JAX package's
-    ``_get_state_arrays()`` dict (or a loaded ``model.npz``)."""
+def state_from_jax_arrays(arrays, device=None, dtype=torch.float32):
+    """``RBMState`` on `device` (default: the CUDA device; raises where
+    there is none) from the JAX package's ``_get_state_arrays()`` dict (or
+    a loaded ``model.npz``)."""
+    device = resolve_device(device)
     return RBMState({key: torch.tensor(np.asarray(arrays[npz_key]),
                                        dtype=dtype, device=device)
                      for key, npz_key in STATE_ARRAY_KEYS.items()})
@@ -110,10 +113,11 @@ class DBMState(nn.Module):
                 setattr(self, key, tensors[key])
 
 
-def dbm_state_from_jax_arrays(arrays, device='cpu', dtype=torch.float32):
-    """``DBMState`` on `device` from the JAX DBM's ``_get_state_arrays()``
-    dict (or a loaded ``model.npz``); the layer count is read from the
-    keys."""
+def dbm_state_from_jax_arrays(arrays, device=None, dtype=torch.float32):
+    """``DBMState`` on `device` (default: the CUDA device; raises where
+    there is none) from the JAX DBM's ``_get_state_arrays()`` dict (or a
+    loaded ``model.npz``); the layer count is read from the keys."""
+    device = resolve_device(device)
     n_layers = sum(1 for k in arrays if k.startswith('weights/W_'))
 
     def tensor(npz_key):
@@ -143,8 +147,8 @@ def dbm_state_to_numpy(state):
 
 def load_model(model_path, device=None):
     """Load a checkpoint directory written by either package, choosing the
-    class from its ``params.json``, onto `device` (default: CUDA when
-    available)."""
+    class from its ``params.json``, onto `device` (default: the CUDA device;
+    raises where there is none)."""
     from .rbm import BernoulliRBM, GaussianRBM, MultinomialRBM
     from .dbm import DBM
     from .base.torch_model import TorchModel

@@ -45,9 +45,39 @@
 //                       per evaluation drawn by K1b's device functions.
 //                       Replaces :443-509 (the tiled kernel had no PLL).
 //
-// Two standalone launchers share these device functions: bm_normal_sample
-// (the TPU's `normal_sample`, :95) and bm_fe_probe (`make_free_energy_probe`,
-// :208); bm_cd_softmax_sample on given means is `multinomial_sample` (:106).
+// The data-parallel epoch's per-shard statistics (the TPU's
+// `make_cd_stats_kernel` / `_cd_stats_kernel`, :1206, body :1086-1151, and
+// its W-streaming twin `make_tiled_cd_stats_kernel` /
+// `_tiled_cd_stats_kernel`, :991, body :840-988, which exists on the TPU only
+// because a 3072x7800 W and its association overflow VMEM) are the same
+// chain without the update, 3 + 2k launches per local minibatch:
+//
+//   K1 cd_gemm_act      1 + 2k, as above, drawing under the shard word of
+//                       the counter (philox.cuh), so each rank's rows get
+//                       their own stream (the TPU mixes the shard into the
+//                       seed, :1096-1100).  Shard 0 draws what the epoch
+//                       kernels draw.
+//   K2s cd_stats_sums   dvb_sum = sum(X - v_states), dhb_sum = sum(h0 -
+//                       h_means), h_sum = sum(h_means) over the local batch:
+//                       K2's column sums without the update (:1148-1150).
+//   K3s cd_assoc_stats  X^T h0 - v^T h (:1142-1147): K3's contraction without
+//                       the momentum epilogue.
+//
+// Both write straight into the caller's flat buffer [assoc | dvb_sum |
+// dhb_sum | h_sum], which is all-reduced across the ranks as one block;
+// the update then runs replicated in torch ops, as the TPU left it to XLA.
+// No padding and no tiling: H = 7800 needs only the GEMM's edge masks.
+// What bounds it: at 3072x7800 and a local batch of 50 (two ranks of the
+// G-RBM's 100), the five products are 2BVH operations each, 12 GFLOP in all
+// (0.18 ms at the f32 peak), against W read once and the association
+// written once (192 MB, 0.057 ms): operations, on the same SIMT tile as the
+// epoch, which is latency-bound at such batches.
+//
+// Three standalone launchers share these device functions: bm_normal_sample
+// (the TPU's `normal_sample`, :95), bm_bernoulli_sample (`bernoulli_sample`,
+// :74, the threshold of K1's Bernoulli epilogue) and bm_fe_probe
+// (`make_free_energy_probe`, :208); bm_cd_softmax_sample on given means is
+// `multinomial_sample` (:106).
 //
 // Ordering: every K1 of a step reads the old vb/hb before K2 writes them; K3
 // needs K2's penalty vector; K4 reads the new W, vb, hb.  One stream, in
@@ -89,7 +119,8 @@
 // The tiled GEMM, the activations and the block reduction live in gemm.cuh,
 // shared with dbm_ops.cu.
 //
-// C interface (bound with ctypes by ops/cd_epoch.py and ops/samplers.py):
+// C interface (bound with ctypes by ops/cd_epoch.py, ops/cd_stats.py and
+// ops/samplers.py):
 // every entry launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 
@@ -273,7 +304,7 @@ __global__ void __launch_bounds__(kGemmThreads)
                        const float* __restrict__ sigma, float mult, int act,
                        int M, int N, int K, float* __restrict__ means,
                        float* __restrict__ states, unsigned seed, unsigned it,
-                       unsigned stream_id) {
+                       unsigned stream_id, unsigned shard) {
   __shared__ GemmTile sm;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[TM][TN] = {};
@@ -296,7 +327,7 @@ __global__ void __launch_bounds__(kGemmThreads)
         if (states)
           states[idx] = __fadd_rn(
               mu, __fmul_rn(bm::philox_normal(seed, it, stream_id,
-                                              (unsigned)idx),
+                                              (unsigned)idx, shard),
                             s));
       } else if (act == kActPre) {
         means[idx] = mult * (acc[i][j] + bias[n]);
@@ -305,7 +336,7 @@ __global__ void __launch_bounds__(kGemmThreads)
         means[idx] = p;
         if (states) {
           const float u = bm::philox_uniform(seed, it, stream_id,
-                                             (unsigned)idx);
+                                             (unsigned)idx, shard);
           states[idx] = u < p ? 1.f : 0.f;
         }
       }
@@ -436,6 +467,62 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
+// K2s: K2's column sums of one local batch with no update -- the stats
+// kernels' psum-able dvb_sum, dhb_sum and h_sum, in K2's summation order.
+__global__ void cd_stats_sums_kernel(const float* __restrict__ X,
+                                     const float* __restrict__ vs,
+                                     const float* __restrict__ h0,
+                                     const float* __restrict__ hm, int B,
+                                     int V, int H,
+                                     float* __restrict__ dvb_sum,
+                                     float* __restrict__ dhb_sum,
+                                     float* __restrict__ h_sum) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < V) {
+    float s = 0.f;
+    for (int b = 0; b < B; ++b)
+      s += X[(long long)b * V + j] - vs[(long long)b * V + j];
+    dvb_sum[j] = s;
+  } else if (j < V + H) {
+    const int c = j - V;
+    float s = 0.f, hsum = 0.f;
+    for (int b = 0; b < B; ++b) {
+      const float h = hm[(long long)b * H + c];
+      s += h0[(long long)b * H + c] - h;
+      hsum += h;
+    }
+    dhb_sum[c] = s;
+    h_sum[c] = hsum;
+  }
+}
+
+// K3s: K3's contraction over the local batch, X^T h0 - v^T h, written as it
+// is (no update): rows i of the association (visible), columns j (hidden).
+__global__ void __launch_bounds__(kGemmThreads)
+    cd_assoc_stats_kernel(const float* __restrict__ X,
+                          const float* __restrict__ h0,
+                          const float* __restrict__ vs,
+                          const float* __restrict__ hm, int B, int V, int H,
+                          float* __restrict__ assoc) {
+  __shared__ GemmTile sm;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float pos[TM][TN] = {}, neg[TM][TN] = {};
+  gemm_accumulate(X, 1, V, h0, H, 1, V, H, B, m0, n0, sm, pos);
+  gemm_accumulate(vs, 1, V, hm, H, 1, V, H, B, m0, n0, sm, neg);
+  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty * TM + i;
+    if (m >= V) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int c = n0 + tx * TN + j;
+      if (c >= H) continue;
+      assoc[(long long)m * H + c] = pos[i][j] - neg[i][j];
+    }
+  }
+}
+
 // K4: grid of B blocks (block b owns batch row b for the PLL); every block
 // also sums a grid-strided slice of W^2.  The last block to finish reduces
 // the per-block partials in a fixed order (deterministic) and writes the
@@ -528,6 +615,17 @@ __global__ void normal_sample_kernel(float* __restrict__ out,
     out[i] = bm::philox_normal(seed, it, stream_id, (unsigned)i);
 }
 
+// The TPU's `bernoulli_sample`: out[i] = 1 if the Philox uniform of counter
+// (i, 0) under key (w0, w1) is below p[i], else 0 -- K1's Bernoulli draw.
+__global__ void bernoulli_sample_kernel(const float* __restrict__ p,
+                                        float* __restrict__ out,
+                                        long long count, unsigned w0,
+                                        unsigned w1) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x)
+    out[i] = bm::philox_uniform(w0, w1, 0u, (unsigned)i) < p[i] ? 1.f : 0.f;
+}
+
 // The TPU's `make_free_energy_probe`: block b owns row b; the last block
 // reduces the row free energies in a fixed order and writes the batch mean
 // and the count vector (every block drew the same one; zeros for Bernoulli
@@ -588,11 +686,11 @@ int bm_cd_gemm_act(const float* A, long long sam, long long sak,
                    const float* bias, const float* sigma, float mult, int act,
                    int M, int N, int K, float* means, float* states,
                    unsigned seed, unsigned it, unsigned stream_id,
-                   void* stream) {
+                   unsigned shard, void* stream) {
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   cd_gemm_act_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
       A, sam, sak, Bm, sbk, sbn, bias, sigma, mult, act, M, N, K, means,
-      states, seed, it, stream_id);
+      states, seed, it, stream_id, shard);
   return (int)cudaGetLastError();
 }
 
@@ -633,6 +731,28 @@ int bm_cd_assoc_update(const float* X, const float* h0, const float* vs,
   return (int)cudaGetLastError();
 }
 
+// Slices of the caller's flat statistics buffer: dvb_sum (V), dhb_sum and
+// h_sum (H each).
+int bm_cd_stats_sums(const float* X, const float* vs, const float* h0,
+                     const float* hm, int B, int V, int H, float* dvb_sum,
+                     float* dhb_sum, float* h_sum, void* stream) {
+  const int threads = 256;
+  const int blocks = (V + H + threads - 1) / threads;
+  cd_stats_sums_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      X, vs, h0, hm, B, V, H, dvb_sum, dhb_sum, h_sum);
+  return (int)cudaGetLastError();
+}
+
+// `assoc` is the (V, H) head of the caller's flat statistics buffer.
+int bm_cd_assoc_stats(const float* X, const float* h0, const float* vs,
+                      const float* hm, int B, int V, int H, float* assoc,
+                      void* stream) {
+  const dim3 grid((H + BN - 1) / BN, (V + BM - 1) / BM);
+  cd_assoc_stats_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
+      X, h0, vs, hm, B, V, H, assoc);
+  return (int)cudaGetLastError();
+}
+
 // `partials` holds 3 * B floats; `counter` one zeroed unsigned.  sigma ==
 // nullptr: Bernoulli visible units; n == 0: Bernoulli hidden units.
 int bm_cd_metrics(const float* X, const float* W, const float* vb,
@@ -660,6 +780,17 @@ int bm_normal_sample(float* out, long long count, unsigned seed, unsigned it,
                                            : 132 * 16);
   normal_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       out, count, seed, it, stream_id);
+  return (int)cudaGetLastError();
+}
+
+int bm_bernoulli_sample(const float* p, float* out, long long count,
+                        unsigned w0, unsigned w1, void* stream) {
+  const int threads = 256;
+  const long long want = (count + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1)
+                                           : 132 * 16);
+  bernoulli_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      p, out, count, w0, w1);
   return (int)cudaGetLastError();
 }
 

@@ -5,7 +5,9 @@
 // Replaces the TPU kernels' hardware PRNG (`_uniform_bits`,
 // boltzmann_machines_tpu/ops/pallas_ops.py:39), which no other device can
 // reproduce.  Keyed by (epoch seed, global iteration); the counter holds the
-// element index and the stream id (see ops/philox.py for the stream layout).
+// element index, the stream id and the data-parallel shard id (0 outside a
+// mesh; the TPU mixes it into the seed instead, pallas_ops.py:1096-1100) --
+// see ops/philox.py for the stream layout.
 #pragma once
 
 #include <stdint.h>
@@ -38,8 +40,9 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // TPU kernels: bitcast((bits >> 9) | 0x3f800000) - 1 == (bits >> 9) * 2^-23.
 __device__ __forceinline__ float philox_uniform(unsigned seed, unsigned it,
                                                 unsigned stream,
-                                                unsigned idx) {
-  const uint4 r = philox4x32_10(make_uint4(idx, stream, 0u, 0u),
+                                                unsigned idx,
+                                                unsigned shard = 0u) {
+  const uint4 r = philox4x32_10(make_uint4(idx, stream, shard, 0u),
                                 make_uint2(seed, it));
   return __uint_as_float((r.x >> 9) | 0x3f800000u) - 1.0f;
 }
@@ -50,8 +53,9 @@ __device__ __forceinline__ float philox_uniform(unsigned seed, unsigned it,
 // sqrtf stay within an ulp or two of torch's.
 __device__ __forceinline__ float philox_normal(unsigned seed, unsigned it,
                                                unsigned stream,
-                                               unsigned idx) {
-  const uint4 r = philox4x32_10(make_uint4(idx, stream, 0u, 0u),
+                                               unsigned idx,
+                                               unsigned shard = 0u) {
+  const uint4 r = philox4x32_10(make_uint4(idx, stream, shard, 0u),
                                 make_uint2(seed, it));
   const float u1 = __uint_as_float((r.x >> 9) | 0x3f800000u) - 1.0f;
   const float u2 = __uint_as_float((r.y >> 9) | 0x3f800000u) - 1.0f;

@@ -19,10 +19,11 @@ The counterpart of the JAX package's ``dbm.py`` for all-Bernoulli DBMs:
 Not ported yet (ROADMAP.md): Gaussian and multinomial layers, the
 ``adaptive`` beta ladder, ``base_rate`` and BDMC of ``log_Z``, histogram and
 image summaries (``display_filters`` or ``display_particles`` above 0 make
-``fit`` raise) and device meshes.  One deliberate difference: ``load_rbms``
-on a model that is already initialized (trained, or loaded from a
-checkpoint) keeps its state; the JAX package discards it, so its
-``examples/dbm_mnist.py`` would re-stack a cached DBM from the RBMs.
+``fit`` raise) and device meshes (``set_mesh`` raises).  One deliberate
+difference: ``load_rbms`` on a model that is already initialized (trained,
+or loaded from a checkpoint) keeps its state; the JAX package discards it,
+so its ``examples/dbm_mnist.py`` would re-stack a cached DBM from the
+RBMs.
 """
 
 import math
@@ -266,6 +267,12 @@ class DBM(EnergyBasedModel):
     # ================================================================== #
     # device programs                                                     #
     # ================================================================== #
+    def set_mesh(self, mesh, data_axis='data'):
+        """The DBM's data-parallel epoch (sharded batch and particles, the
+        mean-field test as an all_reduce(MAX)) is not ported yet."""
+        raise NotImplementedError('DBM.set_mesh: the DBM mesh epoch is not '
+                                  'ported yet (ROADMAP.md Queue A6.4)')
+
     def _kernel_eligible(self):
         """The CUDA DBM kernels cover all-Bernoulli float32 DBMs on a CUDA
         device -- decided from the configuration (JAX

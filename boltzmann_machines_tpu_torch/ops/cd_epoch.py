@@ -158,9 +158,10 @@ def pll_from_flip(X, flip_idx, W, vb, hb, visible='bernoulli',
     return V * F.logsigmoid(fe_f - fe)
 
 
-def pll_flip_index(seed, it, batch_size, n_visible, device):
-    """The flipped unit of each row at iteration `it`: ``floor(u * V)``."""
-    u = philox_uniform(seed, it, STREAM_PLL, (batch_size,), device)
+def pll_flip_index(seed, it, batch_size, n_visible, device, shard=0):
+    """The flipped unit of each row at iteration `it`: ``floor(u * V)``
+    (the local rows of `shard` in the data-parallel epoch)."""
+    u = philox_uniform(seed, it, STREAM_PLL, (batch_size,), device, shard)
     return (u * n_visible).to(torch.int64)
 
 
@@ -183,10 +184,10 @@ def h_means_reference(cfg, v, W, hb):
     return torch.sigmoid(pre)
 
 
-def h_sample_reference(cfg, means, seed, it, stream):
+def h_sample_reference(cfg, means, seed, it, stream, shard=0):
     if cfg.hidden == 'multinomial':
         return multinomial_counts(means, cfg.n_samples, seed, it, stream)
-    return bernoulli(means, seed, it, stream)
+    return bernoulli(means, seed, it, stream, shard)
 
 
 def v_means_reference(cfg, h, W, vb, sigma):
@@ -199,11 +200,11 @@ def v_means_reference(cfg, h, W, vb, sigma):
     return torch.sigmoid(down * (h @ W.T + vb))
 
 
-def v_sample_reference(cfg, means, sigma, seed, it, stream):
+def v_sample_reference(cfg, means, sigma, seed, it, stream, shard=0):
     if sigma is not None:
         return means + normal(seed, it, stream, means.shape,
-                              means.device) * sigma
-    return bernoulli(means, seed, it, stream)
+                              means.device, shard) * sigma
+    return bernoulli(means, seed, it, stream, shard)
 
 
 def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
@@ -271,7 +272,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _ARGTYPES = {
     'bm_cd_gemm_act': [_P, _L, _L, _P, _L, _L, _P, _P, _F, _I, _I, _I, _I,
-                       _P, _P, _U, _U, _U, _P],
+                       _P, _P, _U, _U, _U, _U, _P],
     'bm_cd_softmax_sample': [_P, _I, _I, _I, _I, _P, _P, _U, _U, _U, _P],
     'bm_cd_bias_stats': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _F, _F, _F, _F, _F, _F, _P],
@@ -279,6 +280,9 @@ _ARGTYPES = {
                            _F, _P],
     'bm_cd_metrics': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _U, _U,
                       _P, _P, _P, _P, _P, _P],
+    'bm_cd_stats_sums': [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    'bm_cd_assoc_stats': [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    'bm_bernoulli_sample': [_P, _P, _L, _U, _U, _P],
     'bm_normal_sample': [_P, _L, _U, _U, _U, _P],
     'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P, _P, _P, _P,
                     _P],
@@ -325,25 +329,28 @@ def check_tensors(pairs, device, shapes):
 
 
 def _launch_gemm_act(lib, stream, A, W, transposed_w, bias, sigma, mult,
-                     act, means, states, seed, it, stream_id):
+                     act, means, states, seed, it, stream_id, shard=0,
+                     launches=None):
     """cd_gemm_act on A (M, K) row-major and W (V, H): A.W (K = V, N = H)
-    or A.W^T (K = H, N = V), with the epilogue `act`."""
+    or A.W^T (K = H, N = V), with the epilogue `act`; the launch counts in
+    `launches` (default: the epoch's)."""
     V, H = W.shape
     M = A.shape[0]
     N, K = (V, H) if transposed_w else (H, V)
     sbk, sbn = (1, H) if transposed_w else (H, 1)
     check_launch(lib.bm_cd_gemm_act(
         ptr(A), K, 1, ptr(W), sbk, sbn, ptr(bias), ptr(sigma), mult, act, M,
-        N, K, ptr(means), ptr(states), seed, it, stream_id, stream),
+        N, K, ptr(means), ptr(states), seed, it, stream_id, shard, stream),
         'cd_gemm_act')
-    cd_epoch.launches['cd_gemm_act'] += 1
+    (cd_epoch.launches if launches is None else launches)['cd_gemm_act'] += 1
 
 
 def _launch_h_pass(lib, stream, cfg, A, W, hb, means, states, pre, seed, it,
-                   stream_id):
+                   stream_id, shard=0, launches=None):
     if cfg.hidden != 'multinomial':
         _launch_gemm_act(lib, stream, A, W, False, hb, None, cfg.propup_mult,
-                         ACT_SIGMOID, means, states, seed, it, stream_id)
+                         ACT_SIGMOID, means, states, seed, it, stream_id,
+                         shard, launches)
         return
     # the softmax needs whole rows: the GEMM writes up * (A.W + hb), a row
     # kernel turns it into means and counts
@@ -356,38 +363,40 @@ def _launch_h_pass(lib, stream, cfg, A, W, hb, means, states, pre, seed, it,
 
 
 def _launch_v_pass(lib, stream, cfg, A, W, vb, sigma, means, states, seed,
-                   it, stream_id):
+                   it, stream_id, shard=0, launches=None):
     act = ACT_SIGMOID if sigma is None else ACT_GAUSSIAN
     _launch_gemm_act(lib, stream, A, W, True, vb, sigma, cfg.propdown_mult,
-                     act, means, states, seed, it, stream_id)
+                     act, means, states, seed, it, stream_id, shard, launches)
 
 
 # test hooks: one pass of the chain, kernel vs plain, draw by draw; no
 # library code calls them
 def _gibbs_pass_reference(cfg, layer, A, W, bias, seed, it, stream_id,
-                          sample=True):
+                          sample=True, shard=0):
     """The plain version of ``_gibbs_pass``, on any device."""
     if layer == 'h':
         means = h_means_reference(cfg, A, W, bias)
-        return means, (h_sample_reference(cfg, means, seed, it, stream_id)
-                       if sample else None)
+        return means, (h_sample_reference(cfg, means, seed, it, stream_id,
+                                          shard) if sample else None)
     sigma = sigma_row(cfg, A.device)
     means = v_means_reference(cfg, A, W, bias, sigma)
-    return means, (v_sample_reference(cfg, means, sigma, seed, it, stream_id)
-                   if sample else None)
+    return means, (v_sample_reference(cfg, means, sigma, seed, it, stream_id,
+                                      shard) if sample else None)
 
 
-def _gibbs_pass(cfg, layer, A, W, bias, seed, it, stream_id, sample=True):
+def _gibbs_pass(cfg, layer, A, W, bias, seed, it, stream_id, sample=True,
+                shard=0):
     """One pass of the epoch's chain on the rows `A`: layer 'h' gives the
     hidden (means, states) given visible rows, 'v' the visible ones given
     hidden rows (states None unless `sample`) -- on CUDA tensors by the
     epoch's own kernels and launch helpers, on CPU tensors by the plain
-    version.  Lets a caller hold the kernels' sampled states against the
-    plain version's on the same inputs."""
+    version; `shard` is the data-parallel stats kernels' counter word.
+    Lets a caller hold the kernels' sampled states against the plain
+    version's on the same inputs."""
     dev = A.device
     if dev.type == 'cpu':
         return _gibbs_pass_reference(cfg, layer, A, W, bias, seed, it,
-                                     stream_id, sample)
+                                     stream_id, sample, shard)
     sigma = sigma_row(cfg, dev) if layer == 'v' else None
     V, H = W.shape
     check_tensors([(A, 'A'), (W, 'W'), (bias, 'bias')], dev,
@@ -402,10 +411,10 @@ def _gibbs_pass(cfg, layer, A, W, bias, seed, it, stream_id, sample=True):
         pre = torch.empty(n, dtype=torch.float32, device=dev) \
             if cfg.hidden == 'multinomial' else None
         _launch_h_pass(lib, stream, cfg, A, W, bias, means, states, pre,
-                       int(seed), int(it), int(stream_id))
+                       int(seed), int(it), int(stream_id), int(shard))
     else:
         _launch_v_pass(lib, stream, cfg, A, W, bias, sigma, means, states,
-                       int(seed), int(it), int(stream_id))
+                       int(seed), int(it), int(stream_id), int(shard))
     return means, states
 
 

@@ -8,7 +8,11 @@ version of a kernel draws exactly the same numbers.
 Stream layout of the CD epoch (one key per training iteration):
 
 * key     = (epoch seed, global iteration ``it``);
-* counter = (element index ``row * n_cols + col``, stream id, 0, 0);
+* counter = (element index ``row * n_cols + col``, stream id, shard, 0);
+  the shard is 0 except in the data-parallel epoch, where each rank draws
+  its local rows (element index local to the shard) under its rank, as the
+  TPU's stats kernels mix the shard into their seed
+  (pallas_ops.py:1096-1100);
 * stream ids: ``STREAM_H0`` for the data-driven hidden sample, then for
   Gibbs step ``s`` (0-based) ``stream_v(s)`` and ``stream_h(s)``, and
   ``STREAM_PLL`` for the PLL flip position of each row;
@@ -22,8 +26,10 @@ Stream layout of the CD epoch (one key per training iteration):
   on ``STREAM_PLL_HHAT_FLIP``.
 
 The standalone samplers (``ops/samplers.py``) draw under key (seed, 0) on
-stream 0; the free-energy probe draws its count vector under key
-(seed, 0) on ``STREAM_PLL_HHAT``.
+stream 0 (``bernoulli_sample`` also under a two-word key (w0, w1)); the
+free-energy probe draws its count vector under key (seed, 0) on
+``STREAM_PLL_HHAT``.  The data-parallel epoch draws the PLL flip of its
+local rows on ``STREAM_PLL`` under its shard.
 
 The DBM kernels (``ops/dbm_ops.py``) keep the same rule -- the key is
 (seed, step), the counter is (element index, stream id):
@@ -110,47 +116,47 @@ def philox4x32(c0, c1, c2, c3, k0, k1):
     return c0, c1, c2, c3
 
 
-def _words(seed, it, stream, shape, device):
+def _words(seed, it, stream, shape, device, shard):
     n = 1
     for d in shape:
         n *= int(d)
     idx = torch.arange(n, dtype=torch.int64, device=device)
-    return philox4x32(idx, stream, 0, 0, seed, it)
+    return philox4x32(idx, stream, shard, 0, seed, it)
 
 
 def _to_uniform(bits, shape):
     return ((bits >> 9).to(torch.float32) * (2. ** -23)).reshape(shape)
 
 
-def philox_uniform(seed, it, stream, shape, device='cpu'):
+def philox_uniform(seed, it, stream, shape, device='cpu', shard=0):
     """float32 uniforms in [0, 1) of the given `shape`, element ``j`` (in
-    row-major order) drawn from counter (j, stream, 0, 0) under key
+    row-major order) drawn from counter (j, stream, shard, 0) under key
     (seed, it)."""
-    bits, _, _, _ = _words(seed, it, stream, shape, device)
+    bits, _, _, _ = _words(seed, it, stream, shape, device, shard)
     return _to_uniform(bits, shape)
 
 
-def philox_uniform2(seed, it, stream, shape, device='cpu'):
+def philox_uniform2(seed, it, stream, shape, device='cpu', shard=0):
     """Two float32 uniforms per element, from words 0 and 1 of the same
     counter as ``philox_uniform`` (whose uniforms are the first of the
     pair)."""
-    w0, w1, _, _ = _words(seed, it, stream, shape, device)
+    w0, w1, _, _ = _words(seed, it, stream, shape, device, shard)
     return _to_uniform(w0, shape), _to_uniform(w1, shape)
 
 
-def normal(seed, it, stream, shape, device='cpu'):
+def normal(seed, it, stream, shape, device='cpu', shard=0):
     """float32 standard normals by Box-Muller on the uniform pairs of
     ``philox_uniform2``, as the TPU kernels' ``_normal_from_bits``
     (pallas_ops.py:46-51): ``sqrt(-2 ln max(u1, 1e-7)) cos(2 pi u2)``."""
-    u1, u2 = philox_uniform2(seed, it, stream, shape, device)
+    u1, u2 = philox_uniform2(seed, it, stream, shape, device, shard)
     r = torch.sqrt(-2. * torch.log(torch.clamp(u1, min=1e-7)))
     return r * torch.cos(TWO_PI_F32 * u2)
 
 
-def bernoulli(means, seed, it, stream):
+def bernoulli(means, seed, it, stream, shard=0):
     """States ``1[u < means]`` with the uniforms of (`seed`, `it`,
-    `stream`), as the kernels' epilogues draw them."""
-    u = philox_uniform(seed, it, stream, means.shape, means.device)
+    `stream`, `shard`), as the kernels' epilogues draw them."""
+    u = philox_uniform(seed, it, stream, means.shape, means.device, shard)
     return (u.to(means.dtype) < means).to(means.dtype)
 
 

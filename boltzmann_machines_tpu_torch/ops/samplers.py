@@ -1,9 +1,12 @@
 """Standalone samplers and the free-energy probe.
 
-Ports of three TPU kernels of boltzmann_machines_tpu/ops/pallas_ops.py,
+Ports of four TPU kernels of boltzmann_machines_tpu/ops/pallas_ops.py,
 each one launch over the device functions of the CD epoch kernels
 (``csrc/cd_epoch.cu``):
 
+* ``bernoulli_sample(seed, probs)`` -- Bernoulli states, the threshold
+  draw of the epoch kernels' Bernoulli epilogue (``bernoulli_sample``, :74;
+  ``pallas_call`` at :80);
 * ``normal_sample(seed, shape)`` -- standard normals by Box-Muller
   (``normal_sample``, :95; ``pallas_call`` at :97);
 * ``multinomial_sample(seed, means, n_samples)`` -- exact per-row
@@ -15,8 +18,9 @@ each one launch over the device functions of the CD epoch kernels
   ``pallas_call`` at :241).
 
 Each has a plain PyTorch version (``*_reference``) that draws the same
-Philox numbers (key (seed, 0); ``ops/philox.py``), and a launch count on
-its wrapper (``<wrapper>.launches``).  A CPU tensor (or ``device='cpu'``)
+Philox numbers (key (seed, 0), or the two words of a two-word seed for
+``bernoulli_sample``; ``ops/philox.py``), and a launch count on its wrapper
+(``<wrapper>.launches``).  A CPU tensor (or ``device='cpu'``)
 runs the plain version, a CUDA one launches the kernel or raises.
 """
 
@@ -26,7 +30,8 @@ import torch
 from .cd_epoch import (check_flavour, check_launch, check_tensors,
                        free_energy_sum, library, ptr, sigma_tensor,
                        uniform_h_hat)
-from .philox import STREAM_PLL_HHAT, multinomial_counts, normal
+from .philox import (STREAM_PLL_HHAT, multinomial_counts, normal,
+                     philox_uniform)
 
 
 def _check_seed(seed, n_draws):
@@ -44,6 +49,55 @@ def _device_of(device):
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------- #
+# bernoulli_sample                                                        #
+# ---------------------------------------------------------------------- #
+def key_words(seed):
+    """The Philox key (w0, w1) of `seed`: an int gives (seed, 0), two
+    uint32 words (a sequence, array or tensor of 2) give (w0, w1) -- the
+    TPU's ``_seed_words`` (pallas_ops.py:57-65)."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.tolist()
+    a = np.asarray(seed)
+    if a.ndim == 0:
+        words = (int(a), 0)
+    elif a.size == 2:
+        words = tuple(int(w) for w in a.reshape(-1))
+    else:
+        raise ValueError('seed must be an int or two uint32 words, got '
+                         'shape {0}'.format(a.shape))
+    if not all(0 <= w < 2 ** 32 for w in words):
+        raise ValueError('seed words must fit in 32 bits')
+    return words
+
+
+def bernoulli_sample_reference(seed, probs):
+    w0, w1 = key_words(seed)
+    u = philox_uniform(w0, w1, 0, probs.shape, probs.device)
+    return (u.to(probs.dtype) < probs).to(probs.dtype)
+
+
+def bernoulli_sample(seed, probs):
+    """float32 states of the float32 `probs` (any shape): element ``i``
+    (row-major) is 1 where the Philox uniform of counter (i, 0) under the
+    key of `seed` (``key_words``) is below ``probs[i]``, else 0."""
+    words = key_words(seed)
+    _check_seed(0, probs.numel())
+    device = _device_of(probs.device)
+    if device.type == 'cpu':
+        return bernoulli_sample_reference(seed, probs)
+    check_tensors([(probs, 'probs')], device, {})
+    out = torch.empty_like(probs)
+    check_launch(library().bm_bernoulli_sample(
+        ptr(probs), ptr(out), probs.numel(), words[0], words[1],
+        _stream(device)), 'bernoulli_sample')
+    bernoulli_sample.launches['bernoulli_sample'] += 1
+    return out
+
+
+bernoulli_sample.launches = {'bernoulli_sample': 0}
 
 
 # ---------------------------------------------------------------------- #
@@ -160,6 +214,7 @@ make_free_energy_probe.launches = {'fe_probe': 0}
 
 
 def reset_launches():
-    for fn in (normal_sample, multinomial_sample, make_free_energy_probe):
+    for fn in (bernoulli_sample, normal_sample, multinomial_sample,
+               make_free_energy_probe):
         for name in fn.launches:
             fn.launches[name] = 0

@@ -12,9 +12,17 @@ The counterpart of the JAX package's ``rbm/base_rbm.py``:
   size, as the JAX package picks its fused Pallas kernels on a TPU (where
   a big W takes the tiled kernel and loses PLL, and a multinomial one
   too big for VMEM the XLA path);
-* randomness: each ``fit`` draws one op seed from the persisted host RNG;
-  per-epoch seeds derive from it, seeding a ``torch.Generator`` (generic
-  path) or keying the kernels' Philox stream.
+* with a data-parallel mesh (``set_mesh(parallel.make_mesh())``, one
+  process per device, every process calling ``fit`` with the whole data)
+  each rank trains on its rows of every minibatch: the CD-k sums of its
+  rows (the stats kernels of ``ops/cd_stats.py`` on CUDA, else the generic
+  body), one ``all_reduce`` of them per step, and the same update on every
+  rank -- the JAX package's shard_map epoch.  Only rank 0 writes
+  checkpoints, summaries and the verbose lines;
+* randomness: each ``fit`` draws one op seed from the persisted host RNG
+  (on a mesh, rank 0's, with its state broadcast to every rank); per-epoch
+  seeds derive from it, seeding a ``torch.Generator`` (generic path) or
+  keying the kernels' Philox stream.
 
 Semantics follow the reference exactly: the momentum rule
 ``acc <- lr * (m * acc + grad); param += acc``, the EMA sparsity penalty on
@@ -33,15 +41,19 @@ from ..base.mixin import make_generator
 from ..convert import RBMState, state_from_jax_arrays, state_to_numpy
 from ..ebm import EnergyBasedModel
 from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
-from ..ops.cd_epoch import make_cd_epoch_kernel
+from ..ops.cd_epoch import make_cd_epoch_kernel, pll_flip_index
+from ..ops.cd_stats import make_cd_stats_kernel, split_stats
+from ..parallel.mesh import replicate
 from ..utils import (make_list_from, epoch_iter, schedule_value,
                      write_during_training)
 from ..utils.testing import assert_len, assert_shape
 
 # seed salts of the per-epoch streams (the JAX package folds the same
-# offsets into its fit key)
+# offsets into its fit key); a rank's generic stream on the mesh salts the
+# epoch seed with its rank
 _VAL_SALT = 100000
 _FEG_SALT = 200000
+_SHARD_SALT = 300000
 
 
 def derive_seed(seed, salt):
@@ -72,7 +84,7 @@ class BaseRBM(EnergyBasedModel):
         eligible; 'xla' forces the generic path; 'pallas' forces the
         kernels (the JAX values, kept so checkpoints load both ways).
     device : torch device of the model state (private, never persisted);
-        default: CUDA when available, else the CPU.
+        default: the CUDA device (without one, pass ``device='cpu'``).
     """
 
     def __init__(self,
@@ -178,6 +190,8 @@ class BaseRBM(EnergyBasedModel):
 
         # RBMState module (None until first init/fit/load)
         self._state = None
+        # data-parallel mesh (parallel.make_mesh()), None for one device
+        self._mesh = None
         # cache of built epoch programs, invalidated when hyperparams change
         self._programs = {}
 
@@ -238,6 +252,23 @@ class BaseRBM(EnergyBasedModel):
     def set_params(self, **params):
         self._programs = {}  # hyperparams may have changed -> rebuild
         return super(BaseRBM, self).set_params(**params)
+
+    def set_mesh(self, mesh, data_axis='data', model_axis=None):
+        """Attach a data-parallel mesh (``parallel.make_mesh()``): training
+        batches are split over its ranks along `data_axis`, their CD
+        statistics summed by ``all_reduce``.  A `model_axis` (tensor-parallel
+        W) is not ported."""
+        if model_axis is not None:
+            raise NotImplementedError('model_axis: tensor-parallel W is not '
+                                      'ported yet (ROADMAP.md Queue A9)')
+        if data_axis not in mesh.axis_names:
+            raise ValueError('the mesh has no axis {0!r}'.format(data_axis))
+        self._mesh = mesh
+        self._programs = {}
+        return self
+
+    def _writes_files(self):
+        return self._mesh is None or self._mesh.rank == 0
 
     # ================================================================== #
     # pure ops (the generic path)                                         #
@@ -434,6 +465,114 @@ class BaseRBM(EnergyBasedModel):
             rows.append(torch.stack([msre, pll, l2]))
         return rows
 
+    # ------------------- data-parallel (mesh) epoch --------------------- #
+    def _shardmap_eligible(self):
+        """Mesh training runs the data-parallel epoch (per-rank CD sums, an
+        all_reduce, a replicated update) unless the user forced
+        kernel='xla' or the batch does not split over the ranks; then every
+        rank trains the whole batches through the single-device path (JAX
+        base_rbm.py:503-526, whose GSPMD fallback gives that result)."""
+        if self._mesh is None or self.kernel == 'xla':
+            return False
+        return self.batch_size % self._mesh.size == 0
+
+    def _stats_kernel_eligible(self):
+        """The CUDA stats kernels take Bernoulli or Gaussian visible units
+        with Bernoulli hidden units, float32, no dropout, on a CUDA device
+        (JAX base_rbm.py:528-568 without its VMEM budgets); otherwise the
+        epoch runs the generic ``_cd_stats`` body, as the JAX package runs
+        its lax body."""
+        flavours = self._kernel_flavours()
+        return (self.kernel != 'xla' and flavours is not None
+                and flavours[2] == 'bernoulli'
+                and self.dtype == 'float32' and self.dropout is None
+                and self._device.type == 'cuda')
+
+    def _cd_stats_program(self, k):
+        visible, sigma, _, _ = self._kernel_flavours()
+        return make_cd_stats_kernel(
+            self.n_visible, self.n_hidden,
+            self.batch_size // self._mesh.size, k,
+            sample_v_states=self.sample_v_states,
+            sample_h_states=self.sample_h_states,
+            propup_mult=self._propup_multiplier,
+            propdown_mult=self._propdown_multiplier,
+            visible=visible, sigma=sigma)
+
+    def _train_epoch_shardmap(self, full, rem, lr, mom, k, seed):
+        """One epoch over the mesh (JAX `_shardmap_epoch_core`,
+        base_rbm.py:570-739).  `full` holds this rank's rows of every full
+        batch.  Per batch: the CD-k sums of the local rows, written into one
+        flat buffer [assoc | dvb_sum | dhb_sum | h_sum], one all_reduce(SUM)
+        of it, and the update with N = batch_size on every rank.  On a
+        cadence iteration the local sum of squared reconstruction errors
+        and the local batch-mean free energies of x and of x with one unit
+        per row flipped (Philox, per (it, rank)) are kept; they are reduced
+        in one all_reduce per epoch.  The remainder batch runs replicated
+        through the single-device step (on CUDA the CD epoch kernels, shard
+        0).  Returns the (msre, pll, l2) rows of every iteration."""
+        import torch.distributed as dist
+        mesh = self._mesh
+        every = int(self.metrics_config['train_metrics_every_iter'])
+        want_pll = bool(self.metrics_config['pll'])
+        V, H, N = self.n_visible, self.n_hidden, self.batch_size
+        dev, dtype = self._device, self._torch_dtype
+        nb = int(full.shape[0])
+        stats_fn = self._program(('cd_stats', k),
+                                 lambda: self._cd_stats_program(k)) \
+            if self._stats_kernel_eligible() else None
+        g = make_generator(derive_seed(seed, _SHARD_SALT + mesh.rank), dev)
+        flat = torch.empty(V * H + V + 2 * H, dtype=dtype, device=dev)
+        sums = split_stats(flat, V, H)
+        # local metric parts per batch: sum of squares, fe(x), fe(x flipped)
+        parts = torch.zeros((3, nb), dtype=dtype, device=dev)
+        l2_row = torch.zeros(nb, dtype=dtype, device=dev)
+        iters = self.iter_ + 1 + np.arange(nb)
+        state = self._state.as_dict()
+        for i in range(nb):
+            self.iter_ += 1
+            it = self.iter_
+            if stats_fn is not None:
+                _, aux = stats_fn(state, full[i], seed, it, mesh.rank,
+                                  out=flat)
+            else:
+                stats, aux = self._cd_stats(state, full[i], k, g)
+                for key, view in sums.items():
+                    view.copy_(stats[key])
+            dist.all_reduce(flat, group=mesh.group)
+            state = self._apply_cd_update(state, sums, N, lr, mom)
+            if it % every:
+                continue
+            X = aux['X']
+            parts[0, i] = torch.sum(torch.square(X - aux['v_means']))
+            if want_pll:
+                rows = torch.arange(X.shape[0], device=dev)
+                flip = pll_flip_index(seed, it, X.shape[0], V, dev,
+                                      mesh.rank)
+                Xf = X.clone()
+                Xf[rows, flip] = 1. - X[rows, flip]
+                parts[1, i] = self._free_energy(state, X, g)
+                parts[2, i] = self._free_energy(state, Xf, g)
+            l2_row[i] = self.l2 * 0.5 * torch.sum(torch.square(state['W']))
+        self._state.update(state)
+        out = []
+        if nb:
+            dist.all_reduce(parts, group=mesh.group)
+            msre = parts[0] / (N * V)
+            pll = torch.zeros_like(msre)
+            if want_pll:
+                # batch-mean free energies over equal shards: the mean of
+                # the ranks' means
+                fe_x, fe_f = parts[1] / mesh.size, parts[2] / mesh.size
+                logged = torch.as_tensor(iters % every == 0, device=dev)
+                pll = torch.where(logged, V * F.logsigmoid(fe_f - fe_x), pll)
+            out.append(torch.stack([msre, pll, l2_row]))
+        if rem is not None:
+            out += self._train_epoch_kernel(None, rem, lr, mom, k, seed) \
+                if self._kernel_eligible() else \
+                self._train_epoch_generic((), rem, lr, mom, k, seed)
+        return out
+
     def _train_epoch_generic(self, full, rem, lr, mom, k, seed):
         """One epoch on the generic path (the JAX package's XLA epoch plus
         its remainder step)."""
@@ -467,15 +606,18 @@ class BaseRBM(EnergyBasedModel):
         """Input hook (GaussianRBM divides by sigma)."""
         return np.asarray(X, dtype=self._np_dtype)
 
-    def _stage_batches(self, X):
+    def _stage_batches(self, X, rows=None):
         """Split X into (full_batches, remainder, n_full) tensors on the
-        model's device."""
+        model's device; `rows` (a slice) keeps only those rows of every
+        full batch (a rank's share on the mesh)."""
         X = self._preprocess(X)
         B = self.batch_size
         n_full = len(X) // B
-        full = torch.as_tensor(
-            X[:n_full * B].reshape(n_full, B, self.n_visible),
-            device=self._device)
+        full = X[:n_full * B].reshape(n_full, B, self.n_visible)
+        if rows is not None:
+            full = full[:, rows]
+        full = torch.as_tensor(np.ascontiguousarray(full),
+                               device=self._device)
         rem = X[n_full * B:]
         rem = torch.as_tensor(np.ascontiguousarray(rem),
                               device=self._device) if len(rem) else None
@@ -551,20 +693,44 @@ class BaseRBM(EnergyBasedModel):
                 'display_filters / display_hidden_activations: image '
                 'summaries are not ported yet (ROADMAP.md Queue A10)')
         self._fit_seed = self.make_random_seed()
-        self._init_writers()
+        mesh = self._mesh
+        if mesh is not None:
+            # every rank starts from rank 0's state and seed
+            seed = torch.tensor([self._fit_seed], device=self._device)
+            replicate(mesh, [seed] + list(self._state.as_dict().values()))
+            self._fit_seed = int(seed)
+        writes = self._writes_files()
+        if writes:
+            self._init_writers()
         use_kernel = self._kernel_eligible()
-        staged_train = self._stage_batches(X)
-        full, rem, _ = staged_train
+        mc = self.metrics_config
+        # a one-rank mesh keeps the single-device kernels, as the JAX
+        # package keeps its whole-epoch kernel on a one-device mesh
+        shardmap = self._shardmap_eligible() and \
+            not (use_kernel and mesh.size == 1)
+        if shardmap:
+            b = self.batch_size // mesh.size
+            staged_train = self._stage_batches(
+                X, rows=slice(mesh.rank * b, (mesh.rank + 1) * b))
+            train_epoch = self._train_epoch_shardmap
+        else:
+            staged_train = self._stage_batches(X)
+            train_epoch = self._train_epoch_kernel if use_kernel \
+                else self._train_epoch_generic
+        full, rem, n_full = staged_train
         staged_val = self._stage_batches(X_val) if X_val is not None \
             else None
-        mc = self.metrics_config
+        staged_feg = staged_train
+        if shardmap and X_val is not None and mc['feg']:
+            # the FEG reads whole training batches, the same on every rank
+            n, B = mc['n_batches_for_feg'], self.batch_size
+            staged_feg = self._stage_batches(
+                X if n_full < n else np.asarray(X)[:n * B])
         every = int(mc['train_metrics_every_iter'])
-        train_epoch = self._train_epoch_kernel if use_kernel \
-            else self._train_epoch_generic
 
         for self.epoch_ in epoch_iter(start_epoch=self.epoch_,
                                       max_epoch=self.max_epoch,
-                                      verbose=self.verbose):
+                                      verbose=self.verbose and writes):
             lr = float(schedule_value(self.learning_rate, self.epoch_))
             mom = float(schedule_value(self.momentum, self.epoch_))
             k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
@@ -584,35 +750,39 @@ class BaseRBM(EnergyBasedModel):
                 val_results = self._val_metrics(staged_val, k)
             if X_val is not None and mc['feg'] and \
                     self.epoch_ % mc['feg_every_epoch'] == 0:
-                feg = self._feg(staged_train, staged_val)
-
-            step = self.iter_
-            for m, v in train_results.items():
-                self._train_writer.add_scalar(self._metrics_names_map[m], v,
-                                              step)
-            for m, v in val_results.items():
-                self._val_writer.add_scalar(self._metrics_names_map[m], v,
-                                            step)
-            if feg is not None:
-                self._val_writer.add_scalar(self._metrics_names_map['feg'],
-                                            feg, step)
-            self._train_writer.flush()
-            self._val_writer.flush()
-
-            if self.verbose:
-                s = 'epoch: {0:{1}}/{2}'.format(
-                    self.epoch_, len(str(self.max_epoch)), self.max_epoch)
-                for m, v in sorted(train_results.items()):
-                    s += '; {0}: {1:{2}}'.format(m, v, mc[m + '_fmt'])
-                for m, v in sorted(val_results.items()):
-                    s += '; val.{0}: {1:{2}}'.format(m, v, mc[m + '_fmt'])
-                if feg is not None:
-                    s += ' ; feg: {0:{1}}'.format(feg, mc['feg_fmt'])
-                write_during_training(s)
-
+                feg = self._feg(staged_feg, staged_val)
+            if writes:
+                self._log_epoch(train_results, val_results, feg)
             if self.save_after_each_epoch and \
                     self.epoch_ % self.checkpoint_every_epoch == 0:
                 self._save_model()
+
+    def _log_epoch(self, train_results, val_results, feg):
+        """Scalar summaries and the verbose line of one epoch."""
+        mc = self.metrics_config
+        step = self.iter_
+        for m, v in train_results.items():
+            self._train_writer.add_scalar(self._metrics_names_map[m], v,
+                                          step)
+        for m, v in val_results.items():
+            self._val_writer.add_scalar(self._metrics_names_map[m], v,
+                                        step)
+        if feg is not None:
+            self._val_writer.add_scalar(self._metrics_names_map['feg'],
+                                        feg, step)
+        self._train_writer.flush()
+        self._val_writer.flush()
+
+        if self.verbose:
+            s = 'epoch: {0:{1}}/{2}'.format(
+                self.epoch_, len(str(self.max_epoch)), self.max_epoch)
+            for m, v in sorted(train_results.items()):
+                s += '; {0}: {1:{2}}'.format(m, v, mc[m + '_fmt'])
+            for m, v in sorted(val_results.items()):
+                s += '; val.{0}: {1:{2}}'.format(m, v, mc[m + '_fmt'])
+            if feg is not None:
+                s += ' ; feg: {0:{1}}'.format(feg, mc['feg_fmt'])
+            write_during_training(s)
 
     # ================================================================== #
     # public API                                                          #

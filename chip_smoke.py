@@ -43,7 +43,24 @@ Phases, each printing its lines before the last:
     and load_model, on synthetic CIFAR-shaped rows, launch counts checked;
 12. CIFAR timings: G-RBM and M-RBM steps, kernels vs plain, the device
     time of each kernel (torch.profiler) and torch.matmul on the step's
-    largest product as a yardstick.
+    largest product as a yardstick;
+13. stats kernels vs plain: the data-parallel epoch's per-shard CD stats
+    kernels (``ops/cd_stats.py``) at the local batches of two ranks, 784 x
+    1024 with 128 rows and 3072 x 7800 with 50 (Gaussian, dbm_first),
+    shards 0 and 1, k = 0 and 1, sampling off (sums within STATS_TOL) and on
+    (one pass's states draw by draw; shard 0's draws the CD epoch
+    kernels'); ``bernoulli_sample`` driven once at (10, 1024) and
+    (100, 7800), bit for bit against plain;
+14. the data-parallel path on the card: the epoch driven directly on a
+    one-rank NCCL group at 3072 x 7800 against the CD epoch kernels, and
+    its step timed beside theirs; then the main path of this slice, a
+    2-rank ``fit`` through ``set_mesh(parallel.make_mesh())`` (two
+    processes on the one card over gloo) of dbm_cifar.py's 3072 x 7800
+    G-RBM and of a 784 x 1024 RBM at batch 256, launch counts checked on
+    each rank, replicas bit for bit equal, rank 0 alone writing; the
+    784 x 1024 fit against the single-process fit;
+15. stats and sampler timings: per call, kernel vs plain, torch.matmul and
+    torch.bernoulli as yardsticks, per-kernel device times.
 
 Every entry of the kernels' JSON line has its time on the card (``ms``),
 its plain version's (``plain_ms``), the least time the card could take for
@@ -80,6 +97,8 @@ REPLACES = {
     'normal_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:97',
     'multinomial_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:115',
     'free_energy_probe': 'boltzmann_machines_tpu/ops/pallas_ops.py:241',
+    'cd_stats': 'boltzmann_machines_tpu/ops/pallas_ops.py:1238 and :1033',
+    'bernoulli_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:80',
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, and device memory
@@ -120,10 +139,12 @@ def environment(torch):
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True, timeout=60)
     # the card's name and power limit, as nvidia-smi gives them
-    say(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
     # TF32 off wherever the plain version runs on the card (true f32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
 
 
 def build():
@@ -1075,18 +1096,21 @@ def compare_cifar_sampled(torch, label, cfg, state, X, lr):
     return exact / len(X)
 
 
-def compare_passes(torch, label, cfg, layer, A, W, bias, n_batches):
+def compare_passes(torch, label, cfg, layer, A, W, bias, n_batches,
+                   shard=0):
     """The sampled states of one Gibbs pass of the epoch's kernels against
-    the plain version's on the same inputs (see CIFAR_TOL).  Returns the
-    share of differing draws (Bernoulli, multinomial) or the max |d| of the
-    Gaussian states."""
+    the plain version's on the same inputs (see CIFAR_TOL), under the
+    data-parallel counter word `shard`.  Returns the share of differing
+    draws (Bernoulli, multinomial) or the max |d| of the Gaussian
+    states."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         _gibbs_pass, _gibbs_pass_reference)
     d_means, n_diff, n_draws, d_states = 0., 0, 0, 0.
     for i in range(n_batches):
-        mk, sk = _gibbs_pass(cfg, layer, A[i], W, bias, 21, i + 1, 3)
+        mk, sk = _gibbs_pass(cfg, layer, A[i], W, bias, 21, i + 1, 3,
+                             shard=shard)
         mp, sp = _gibbs_pass_reference(cfg, layer, A[i], W, bias, 21, i + 1,
-                                       3)
+                                       3, shard=shard)
         torch.cuda.synchronize()
         d_means = max(d_means, float(((mk - mp).abs()
                                       / mp.abs().clamp(min=1.)).max()))
@@ -1399,12 +1423,14 @@ def check_msre(model_dir, label):
                                                                      msre))
 
 
-def profile_kernels(torch, fn):
-    """Device microseconds per launch of each CD kernel over one call of
-    `fn`, and the device busy share of that call (torch.profiler).  None
-    where the profiler reports no device time."""
+def profile_kernels(torch, fn, names=None):
+    """Device microseconds per launch of each kernel of `names` (default:
+    the CD epoch's) over one call of `fn`, and the device busy share of
+    that call (torch.profiler).  None where the profiler reports no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     from boltzmann_machines_tpu_torch.ops.cd_epoch import KERNELS
+    names = KERNELS if names is None else names
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1417,7 +1443,7 @@ def profile_kernels(torch, fn):
         t = getattr(ev, 'device_time_total', None)
         if t is None:
             t = getattr(ev, 'cuda_time_total', 0.)
-        for name in KERNELS:
+        for name in names:
             if name + '_kernel' in ev.key:
                 us, n = per.get(name, (0., 0))
                 per[name] = (us + t, n + ev.count)
@@ -1476,19 +1502,475 @@ def cifar_timings(torch):
     return out
 
 
-def unported_bounds():
-    """Bounds (ms) of the TPU kernels still to port, at the shapes where
-    they would run: #1 `bernoulli_sample` on rbm_mnist's hidden draw
-    (10 x 1024, p in, states out), #7 `make_cd_stats_kernel` on one of four
-    data-parallel shards of rbm_mnist's batch 256 at 784 x 1024, #6
-    `make_tiled_cd_stats_kernel` on one of four shards of the G-RBM's batch
-    100 at 3072 x 5000 (the five products of a CD-1 step, W in, the
-    association sums and v_means out)."""
-    def stats(V, H, B):
-        return 2. * B * V * H * 5, 4. * (2 * B * V + 2 * V * H + 3 * H)
-    return {'bernoulli_sample': bound(1. * 10 * 1024, 8. * 10 * 1024),
-            'make_cd_stats_kernel': bound(*stats(784, 1024, 64)),
-            'make_tiled_cd_stats_kernel': bound(*stats(3072, 5000, 25))}
+# ---------------------------------------------------------------------- #
+# the data-parallel slice: the RBM epoch on torch.distributed             #
+# ---------------------------------------------------------------------- #
+# the local batches of two ranks: rbm_mnist's batch 256 at 784 x 1024, and
+# dbm_cifar's G-RBM batch 100 at 3072 x 7800 (Gaussian, sigma 1, dbm_first)
+DP_WORLD = 2
+DP_SHAPES = (('784x1024', (V, H), 256 // DP_WORLD, 'bernoulli', 1.),
+             ('3072x7800', GRBM_WIDE, CIFAR_B // DP_WORLD, 'gaussian', 2.))
+# Stats kernels vs plain on the same inputs, sampling off: every sum runs
+# over the local batch of B rows, each term within a few ulps on either
+# side, so |d| <= 1e-5 B + 1e-5 |ref|; v_means as the epoch's state
+# (1e-5 + 1e-5 |ref|).
+STATS_TOL = {'sums': (1e-5, 1e-5), 'v_means': (1e-5, 1e-5)}
+
+
+def stats_work(V, H, B, k=1):
+    """f32 operations and bytes of one stats call: the 1 + 2k chain
+    products and the two association products (2 B V H each); X, W and
+    the biases read once, the association, the three sums and v_means
+    written once.  Philox (integer work) is not counted."""
+    flops = 2. * B * V * H * (1 + 2 * k + 2)
+    nbytes = 4. * (2 * B * V + 2 * V * H + 2 * V + 3 * H)
+    return flops, nbytes
+
+
+def dp_inputs(torch, label, B, n, seed):
+    """(n, B, V) local batches of one shape of DP_SHAPES."""
+    if label == '784x1024':
+        X = make_data(n * B, seed=seed).reshape(n, B, V)
+        return torch.as_tensor(X, device='cuda')
+    return cifar_inputs(torch, n, 'grbm', seed=seed)[:, :B].contiguous()
+
+
+def stats_vs_plain(torch):
+    """The stats kernels (#7, with #6 folded in) against their plain version
+    at DP_SHAPES, shards 0 and 1, k = 0 and 1.  Sampling off: every sum
+    within STATS_TOL (at k = 0 the association and the bias sums exactly
+    0).  Sampling on: one pass's states draw by draw under each shard
+    (compare_passes), and at shard 0 one step's sums equal the CD epoch
+    kernels' at the same (seed, it) bit for bit: the epoch at lr 1,
+    momentum 0, no L2 or sparsity leaves dW = assoc / B, dvb = dvb_sum / B,
+    q = h_sum.  Returns {shape: max |assoc kernel - plain|}."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        CDEpochConfig, cd_epoch)
+    from boltzmann_machines_tpu_torch.ops.cd_stats import (
+        cd_stats_reference, make_cd_stats_kernel)
+    err = {}
+    for label, (Vs, Hs), B, visible, up in DP_SHAPES:
+        sigma = 1. if visible == 'gaussian' else None
+        X = dp_inputs(torch, label, B, 5, seed=13)
+        # the W_init of each path: rbm_mnist's 0.01, the G-RBM's 0.0008
+        state = cifar_state(torch, Vs, Hs, 0.01 if Vs == V else 0.0008,
+                            seed=17)
+        state['vb'] += 0.1
+        state['hb'] -= 0.1
+        worst, exceed = 0., []
+        for k in (0, 1):
+            fn = make_cd_stats_kernel(Vs, Hs, B, k, False, False, up, 1.,
+                                      visible=visible, sigma=sigma)
+            for shard in (0, 1):
+                got, aux = fn(state, X[shard], 7, 3, shard)
+                want, aux_p = cd_stats_reference(fn.config, state, X[shard],
+                                                 7, 3, shard)
+                torch.cuda.synchronize()
+                pairs = [(key, got[key], want[key], 'sums') for key in want]
+                pairs.append(('v_means', aux['v_means'], aux_p['v_means'],
+                              'v_means'))
+                for key, a, b, tol in pairs:
+                    atol, rtol = STATS_TOL[tol]
+                    d = (a - b).abs()
+                    if tol == 'sums':
+                        atol *= B
+                    if float((d - atol - rtol * b.abs()).max()) > 0:
+                        exceed.append((k, shard, key, float(d.max())))
+                    if key == 'assoc':
+                        worst = max(worst, float(d.max()))
+                if k == 0 and any(bool(got[key].any()) for key in
+                                  ('assoc', 'dvb_sum', 'dhb_sum')):
+                    exceed.append((k, shard, 'k = 0 sums not zero'))
+        say('stats %s, local batch %d, sampling off, k 0 and 1, shards 0 and '
+            '1: max|assoc kernel-plain|=%.3g' % (label, B, worst))
+        if exceed:
+            raise AssertionError('stats kernels and plain version disagree '
+                                 '(%s): %s' % (label, exceed))
+        err[label] = worst
+
+        fn = make_cd_stats_kernel(Vs, Hs, B, 1, True, True, up, 1.,
+                                  visible=visible, sigma=sigma)
+        H0 = (torch.rand((3, B, Hs), device='cuda') < 0.5).float()
+        for shard in (0, 1):
+            compare_passes(torch, 'stats %s shard %d' % (label, shard),
+                           fn.config, 'h', X, state['W'], state['hb'], 3,
+                           shard)
+            compare_passes(torch, 'stats %s shard %d' % (label, shard),
+                           fn.config, 'v', H0, state['W'] * 10.,
+                           state['vb'], 3, shard)
+        s0, _ = fn(state, X[0], 11, 5, 0)
+        ecfg = CDEpochConfig(Vs, Hs, 1, True, True, up, 1., 0., 0.1, 0., 0.,
+                             10 ** 6, False, visible, sigma)
+        zero = {key: torch.zeros_like(v) for key, v in state.items()}
+        ep = cd_epoch(ecfg, dict(zero, W=state['W'], vb=state['vb'],
+                                 hb=state['hb']), X[:1], 1., 0., 11, 4)[0]
+        s1, _ = fn(state, X[0], 11, 5, 1)
+        n = torch.tensor(float(B), device='cuda')
+        same = (torch.equal(ep['dW'], s0['assoc'] / n)
+                and torch.equal(ep['dvb'], s0['dvb_sum'] / n)
+                and torch.equal(ep['q_means'], s0['h_sum']))
+        differ = not torch.equal(s1['h_sum'], s0['h_sum'])
+        say('stats %s sampling on: shard 0 sums %s the CD epoch kernels\' at '
+            'the same (seed, it); shard 1 %s' % (
+                label, 'equal' if same else 'DIFFER from',
+                'draws other states' if differ else 'draws THE SAME'))
+        if not (same and differ):
+            raise AssertionError('stats %s: shard 0 draws are not the epoch '
+                                 'kernels\' or shard 1 repeats them' % label)
+    return err
+
+
+def bernoulli_vs_plain(torch):
+    """``bernoulli_sample`` driven once at (10, 1024) (rbm_mnist's hidden
+    draw) and once at (100, 7800) (dbm_cifar's G-RBM's) between a reset and
+    a read of its launch count, each output bit for bit against the plain
+    version (an int seed and a two-word key); then timed per call at
+    (100, 7800) beside the plain version and torch.bernoulli."""
+    from boltzmann_machines_tpu_torch.ops import samplers
+    g = torch.Generator(device='cuda')
+    g.manual_seed(5)
+    probs = {shape: torch.rand(shape, generator=g, device='cuda')
+             for shape in ((10, H), (CIFAR_B, GRBM_WIDE[1]))}
+    seeds = {(10, H): 12345, (CIFAR_B, GRBM_WIDE[1]): (7, 99)}
+    torch.cuda.synchronize()
+    samplers.reset_launches()
+    got = {shape: samplers.bernoulli_sample(seeds[shape], p)
+           for shape, p in probs.items()}
+    torch.cuda.synchronize()
+    launches = samplers.bernoulli_sample.launches['bernoulli_sample']
+    for shape, p in probs.items():
+        want = samplers.bernoulli_sample_reference(seeds[shape], p)
+        n_diff = int((got[shape] != want).sum())
+        say('bernoulli_sample %s seed %s: %d of %d states differ from plain; '
+            'mean %.4f (p %.4f)' % (shape, seeds[shape], n_diff, p.numel(),
+                                    float(got[shape].mean()),
+                                    float(p.mean())))
+        if n_diff:
+            raise AssertionError('bernoulli_sample kernel and plain differ')
+    if launches != len(probs):
+        raise AssertionError('bernoulli_sample launches %d' % launches)
+    p = probs[(CIFAR_B, GRBM_WIDE[1])]
+    out = dict(
+        launches=launches, err=0., work=(1. * p.numel(), 8. * p.numel()),
+        ms=event_ms(torch, lambda: samplers.bernoulli_sample(7, p), 50),
+        plain_ms=event_ms(torch, lambda: samplers.bernoulli_sample_reference(
+            7, p), 5),
+        # one PyTorch call computing the same function (other numbers)
+        library_ms=event_ms(torch, lambda: torch.bernoulli(p, generator=g),
+                            50),
+        small_ms=event_ms(torch, lambda: samplers.bernoulli_sample(
+            7, probs[(10, H)]), 50))
+    say('bernoulli_sample (%d, %d): %.4f ms per call, plain %.4f ms, '
+        'torch.bernoulli %.4f ms; (10, %d) %.4f ms' % (
+            CIFAR_B, GRBM_WIDE[1], out['ms'], out['plain_ms'],
+            out['library_ms'], H, out['small_ms']))
+    return out
+
+
+def stats_timings(torch):
+    """ms per stats call at DP_SHAPES with sampling as on each path
+    (rbm_mnist: hidden states; dbm_cifar's G-RBM: both), kernel and plain
+    version by CUDA events, with sampling off beside them, torch.matmul on
+    the call's X.W product as a yardstick, and the kernels' device times
+    (torch.profiler)."""
+    from boltzmann_machines_tpu_torch.ops.cd_stats import (
+        KERNELS, cd_stats_reference, make_cd_stats_kernel)
+    out = {}
+    for label, (Vs, Hs), B, visible, up in DP_SHAPES:
+        sigma = 1. if visible == 'gaussian' else None
+        X = dp_inputs(torch, label, B, 1, seed=19)[0]
+        state = cifar_state(torch, Vs, Hs, 0.01, seed=23)
+        r = {}
+        for sample in (True, False):
+            fn = make_cd_stats_kernel(Vs, Hs, B, 1,
+                                      sample and visible == 'gaussian',
+                                      sample, up, 1., visible=visible,
+                                      sigma=sigma)
+            tag = '' if sample else '_sampling_off'
+            r['ms' + tag] = event_ms(
+                torch, lambda: fn(state, X, 5, 1, 1), 20)
+            r['plain_ms' + tag] = event_ms(torch, lambda: cd_stats_reference(
+                fn.config, state, X, 5, 1, 1), 5)
+            if sample:
+                r['kernel_us'], r['busy'] = profile_kernels(
+                    torch, lambda: [fn(state, X, 5, i, 1) for i in range(10)],
+                    KERNELS)
+        r['library_ms'] = event_ms(torch, lambda: X @ state['W'], 20)
+        say('stats %s local batch %d: kernel %.4f ms (sampling off %.4f), '
+            'plain %.4f ms (off %.4f), torch.matmul X.W %.4f ms; per-kernel '
+            'us %s, device busy %s' % (
+                label, B, r['ms'], r['ms_sampling_off'], r['plain_ms'],
+                r['plain_ms_sampling_off'], r['library_ms'], r['kernel_us'],
+                'not measured' if r['busy'] is None
+                else '%.1f%%' % (100. * r['busy'])))
+        out[label] = r
+    return out
+
+
+def grbm_wide(sample, every, **kw):
+    """dbm_cifar.py's stage-2 G-RBM (3072 x 7800, sigma 1, k 1, dbm_first,
+    lr 5e-4, batch 100) on the card, as keyword arguments."""
+    import numpy as np
+    cfg = dict(n_visible=GRBM_WIDE[0], n_hidden=GRBM_WIDE[1], sigma=1.,
+               W_init=0.0008, vb_init=0., hb_init=0., n_gibbs_steps=1,
+               learning_rate=GRBM_LR,
+               momentum=[float(m) for m in np.geomspace(0.5, 0.9, 8)],
+               batch_size=CIFAR_B, l2=GRBM_L2, sample_v_states=sample,
+               sample_h_states=sample, sparsity_cost=0., dbm_first=True,
+               metrics_config=dict(msre=True, pll=True,
+                                   train_metrics_every_iter=every),
+               random_seed=1337, device='cuda')
+    cfg.update(kw)
+    return cfg
+
+
+def dp_world1(torch, tmpdir):
+    """(a) The data-parallel epoch driven directly (``_train_epoch_shardmap``)
+    on a one-rank NCCL group at 3072 x 7800, batch 100: with sampling off
+    and PLL every step, 5 steps against the single-device CD epoch kernels
+    on the same state and batches (CIFAR_TOL; the PLL flips are the same
+    Philox draws); then ms per step of the two, in turns, sampling on (the
+    path) and off, metrics off the cadence, and the stats kernels' device
+    times over a data-parallel epoch."""
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import GaussianRBM, parallel
+    from boltzmann_machines_tpu_torch.ops.cd_stats import KERNELS
+    info = parallel.initialize('file://' + tmpdir + '/store_w1', 1, 0)
+    out = {}
+    try:
+        say('one-rank NCCL group: %s' % json.dumps(info))
+        rbm = GaussianRBM(**grbm_wide(False, 1, model_path=tmpdir + '/w1/'))
+        rbm.set_mesh(parallel.make_mesh())
+        rbm._ensure_state()
+        X = cifar_inputs(torch, 5, 'grbm', seed=3)
+        start = {key: v.clone() for key, v in rbm._state.as_dict().items()}
+        want = rbm._cd_epoch_program(1)(start, X, GRBM_LR, MOMENTUM, 9, 0)
+        rows = rbm._train_epoch_shardmap(X, None, GRBM_LR, MOMENTUM, 1, 9)
+        torch.cuda.synchronize()
+        got = (rbm._state.as_dict(),) + tuple(rows[0])
+        d = diffs(got, want, CIFAR_B, CIFAR_TOL)
+        say('world-1 data-parallel epoch vs CD epoch kernels, 3072x7800, 5 '
+            'steps, sampling off: max|d| %s' % ' '.join(
+                '%s=%.3g' % (key, v[0]) for key, v in d.items()))
+        bad = [key for key, v in d.items() if v[1] > 0]
+        if bad:
+            raise AssertionError('world-1 epoch and CD epoch kernels '
+                                 'disagree on %s: %s' % (bad, d))
+        out['err'] = d['W'][0]
+
+        nb = 10
+        Xt = cifar_inputs(torch, nb, 'grbm', seed=5)
+        for sample in (True, False):
+            rbm.set_params(sample_v_states=sample, sample_h_states=sample,
+                           metrics_config=dict(rbm.metrics_config, pll=False,
+                                               train_metrics_every_iter=10 ** 6))
+            epoch = rbm._cd_epoch_program(1)
+            fns = {'epoch': lambda: epoch(rbm._state.as_dict(), Xt, GRBM_LR,
+                                          MOMENTUM, 5, 0),
+                   'data_parallel': lambda: rbm._train_epoch_shardmap(
+                       Xt, None, GRBM_LR, MOMENTUM, 1, 5)}
+            times = {'epoch': [], 'data_parallel': []}
+            for which in ('epoch', 'data_parallel', 'epoch', 'data_parallel',
+                          'data_parallel', 'epoch'):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[which]()
+                torch.cuda.synchronize()
+                times[which].append(time.perf_counter() - t0)
+            for which, ts in times.items():
+                out[(which, sample)] = 1e3 * min(ts[1:]) / nb
+                say('world-1 %s step 3072x7800 B=%d sampling %s: %.4f ms/step '
+                    '(runs %s)' % (which, CIFAR_B, 'on' if sample else 'off',
+                                   out[(which, sample)],
+                                   ' '.join('%.4f' % x for x in ts)))
+            if sample:
+                out['kernel_us'], out['busy'] = profile_kernels(
+                    torch, fns['data_parallel'], KERNELS)
+                say('world-1 data-parallel epoch per-kernel device us %s; '
+                    'device busy %s' % (out['kernel_us'], 'not measured'
+                                        if out['busy'] is None else '%.1f%%'
+                                        % (100. * out['busy'])))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dp_rank(rank, world, tmpdir):
+    """One rank of the 2-rank fits, in a process of its own (spawned by
+    ``dp_fit``): joins the gloo group, fits each job of jobs.json on the
+    mesh with the launch counts set to 0 just before and read just after,
+    and writes its state arrays and counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import (BernoulliRBM, GaussianRBM,
+                                              parallel)
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, reset_launches as reset_epoch_launches)
+    from boltzmann_machines_tpu_torch.ops.cd_stats import (
+        cd_stats, reset_launches as reset_stats_launches)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize('file://' + tmpdir + '/store_dp', world, rank,
+                        backend='gloo')
+    try:
+        with open(tmpdir + '/jobs.json') as f:
+            jobs = json.load(f)
+        out = {}
+        for job in jobs:
+            data = np.load('%s/%s.npz' % (tmpdir, job['name']))
+            cls = {'GaussianRBM': GaussianRBM,
+                   'BernoulliRBM': BernoulliRBM}[job['cls']]
+            rbm = cls(model_path='%s/%s_rank%d/' % (tmpdir, job['name'], rank),
+                      **job['cfg'])
+            rbm.set_mesh(parallel.make_mesh())
+            torch.cuda.synchronize()
+            reset_epoch_launches()
+            reset_stats_launches()
+            t0 = time.perf_counter()
+            rbm.fit(data['X'], data['X_val'])
+            torch.cuda.synchronize()
+            out[job['name']] = dict(
+                seconds=time.perf_counter() - t0, iter_=rbm.iter_,
+                stats=dict(cd_stats.launches), epoch=dict(cd_epoch.launches))
+            np.savez('%s/%s_out%d.npz' % (tmpdir, job['name'], rank),
+                     **rbm.get_params_arrays())
+        with open('%s/rank%d.json' % (tmpdir, rank), 'w') as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_fit(torch, tmpdir):
+    """(b) The data-parallel fit through the public API: two ranks, each a
+    process of its own on the one card, over gloo (NCCL refuses two ranks
+    on one GPU; gloo's all_reduce takes CUDA tensors), every rank calling
+    ``set_mesh(make_mesh())`` and ``fit`` with the whole data.
+
+    G-RBM 3072 x 7800 with dbm_cifar.py's stage-2 hyperparameters (both
+    states sampled), 2 epochs over 3050 + 500 synthetic CIFAR rows (30 full
+    batches and a remainder of 50 per epoch; 80 epochs and the real
+    features in the example), metrics every step: launch counts exact on
+    each rank (3 + 2k stats launches per full step, the remainder through
+    the CD epoch kernels), the ranks' states bit for bit equal, msre
+    falling, nothing written by rank 1, and rank 0's checkpoint loaded with
+    ``load_model(device='cuda')`` and transforming.  Then the same fit at
+    784 x 1024, batch 256, sampling off (rbm_mnist's hyperparameters),
+    against the single-process CD epoch kernels' fit on the same data:
+    state within TOL, msre stream within 1e-6 + 1e-5 |ref|.  Returns the
+    ranks' counts and timings."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    from boltzmann_machines_tpu_torch import BernoulliRBM, GaussianRBM
+    X = make_cifar(3550, seed=42)
+    X_train, X_val = standardize(X[:3050], X[3050:])
+    np.savez(tmpdir + '/grbm.npz', X=X_train, X_val=X_val)
+    Xm = make_data(2560 + 100 + 500, seed=29)
+    np.savez(tmpdir + '/mnist.npz', X=Xm[:2660], X_val=Xm[2660:])
+    mnist_cfg = dict(
+        n_visible=V, n_hidden=H, W_init=0.01, vb_init=0., hb_init=0.,
+        n_gibbs_steps=1, learning_rate=LR, momentum=[0.5, 0.9],
+        max_epoch=2, batch_size=256, l2=1e-5, sample_v_states=False,
+        sample_h_states=False, sparsity_target=0.1, sparsity_cost=1e-5,
+        sparsity_damping=0.9, metrics_config=dict(
+            msre=True, train_metrics_every_iter=2), random_seed=1337,
+        verbose=False)
+    jobs = [dict(name='grbm', cls='GaussianRBM',
+                 cfg=grbm_wide(True, 1, max_epoch=2, verbose=True)),
+            dict(name='mnist', cls='BernoulliRBM',
+                 cfg=dict(mnist_cfg, device='cuda'))]
+    with open(tmpdir + '/jobs.json', 'w') as f:
+        json.dump(jobs, f)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(dp_rank, args=(DP_WORLD, tmpdir),
+                             nprocs=DP_WORLD, join=False,
+                             start_method='spawn')
+    try:
+        deadline = time.time() + 600
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise AssertionError('the 2-rank fit did not end in 600 s')
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+    say('2-rank fits (gloo, one card): %.1f s with process start-up' % (
+        time.perf_counter() - t0))
+    ranks = []
+    for r in range(DP_WORLD):
+        with open('%s/rank%d.json' % (tmpdir, r)) as f:
+            ranks.append(json.load(f))
+    out = {'ranks': ranks}
+
+    # G-RBM: launch counts, replicas, msre, files, load_model
+    n_full, n_iter = 3050 // CIFAR_B, 2 * (3050 // CIFAR_B + 1)
+    expect_stats = {'cd_gemm_act': 3 * 2 * n_full, 'cd_stats_sums': 2 * n_full,
+                    'cd_assoc_stats': 2 * n_full}
+    expect_epoch = {'cd_gemm_act': 3 * 2, 'cd_softmax_sample': 0,
+                    'cd_bias_stats': 2, 'cd_assoc_update': 2,
+                    'cd_metrics': 2}
+    for r, rk in enumerate(ranks):
+        g = rk['grbm']
+        say('G-RBM 3072x7800 rank %d: %d iterations in %.2f s; stats '
+            'launches %s; epoch-kernel launches %s' % (
+                r, g['iter_'], g['seconds'], g['stats'], g['epoch']))
+        if g['stats'] != expect_stats or g['epoch'] != expect_epoch \
+                or g['iter_'] != n_iter:
+            raise AssertionError('rank %d launch counts %s / %s, schedule '
+                                 'implies %s / %s' % (
+                                     r, g['stats'], g['epoch'], expect_stats,
+                                     expect_epoch))
+    a, b = (np.load('%s/grbm_out%d.npz' % (tmpdir, r)) for r in (0, 1))
+    same = all(np.array_equal(a[key], b[key]) for key in a.files)
+    say('G-RBM ranks 0 and 1: %d state arrays %s' % (
+        len(a.files), 'bit for bit equal' if same else 'DIFFER'))
+    if not same:
+        raise AssertionError('the ranks\' states differ')
+    check_msre(tmpdir + '/grbm_rank0/', 'G-RBM 2-rank')
+    for name in ('grbm', 'mnist'):
+        if os.path.exists('%s/%s_rank1/' % (tmpdir, name)):
+            raise AssertionError('rank 1 wrote files (%s)' % name)
+    loaded = GaussianRBM.load_model(tmpdir + '/grbm_rank0/', device='cuda')
+    s = loaded.get_params_arrays()
+    Q = loaded.transform(X_val)
+    if any(not np.array_equal(s[key], a[key]) for key in a.files) \
+            or loaded._state.W.device.type != 'cuda' \
+            or Q.shape != (len(X_val), GRBM_WIDE[1]) \
+            or not np.all(np.isfinite(Q)) or Q.min() < 0 or Q.max() > 1:
+        raise AssertionError('rank 0\'s checkpoint does not load or '
+                             'transform')
+    say('rank 0 only wrote files; load_model(device="cuda") gives its state; '
+        'transform %s in [%.3f, %.3f]' % (Q.shape, Q.min(), Q.max()))
+
+    # 784 x 1024, sampling off: 2 ranks vs the single-process epoch kernels
+    ref = BernoulliRBM(device='cuda', model_path=tmpdir + '/mnist_ref/',
+                       **mnist_cfg)
+    ref.fit(Xm[:2660], Xm[2660:])
+    m0 = np.load('%s/mnist_out0.npz' % tmpdir)
+    excess, worst = {}, {}
+    for key, v in ref.get_params_arrays().items():
+        atol, rtol = TOL['q_means' if key.endswith('q_means') else 'state']
+        if key.endswith('q_means'):
+            atol *= 256
+        d = np.abs(m0[key] - v)
+        worst[key] = float(d.max())
+        excess[key] = float((d - atol - rtol * np.abs(v)).max())
+    msre_dp = read_tag(tmpdir + '/mnist_rank0/logs/train/scalars.jsonl',
+                       'mean_squared_reconstruction_error')
+    msre_ref = read_tag(tmpdir + '/mnist_ref/logs/train/scalars.jsonl',
+                        'mean_squared_reconstruction_error')
+    d_msre = max(abs(x[1] - y[1]) - 1e-6 - 1e-5 * abs(y[1])
+                 for x, y in zip(msre_dp, msre_ref))
+    say('784x1024 B=256 sampling off, 2 ranks vs single-process epoch '
+        'kernels: max|d| %s; msre %s vs %s' % (
+            ' '.join('%s=%.3g' % (key.split('/')[-1], v)
+                     for key, v in worst.items()),
+            [v for _, v in msre_dp], [v for _, v in msre_ref]))
+    if any(e > 0 for e in excess.values()) or d_msre > 0 \
+            or len(msre_dp) != len(msre_ref) or not msre_dp:
+        raise AssertionError('2-rank 784x1024 fit and the single-process '
+                             'fit disagree: %s' % excess)
+    out['mnist_err'] = worst['weights/W']
+    return out
 
 
 def dbm_step_work(V, H1, H2, B, M, n_mf, k=1):
@@ -1525,11 +2007,13 @@ def main():
                          'on a GPU\n')
         return 1
     import boltzmann_machines_tpu_torch  # noqa: F401  (fails outside the repo)
-    environment(torch)
+    card = environment(torch)
     build()
     worst = kernel_vs_plain(torch)
     cifar_err, cifar_share = cifar_kernels_vs_plain(torch)
     sampler = samplers_vs_plain(torch)
+    stats_err = stats_vs_plain(torch)
+    bern = bernoulli_vs_plain(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         rbm_launches = main_path(torch, tmpdir)
     t = timings(torch)
@@ -1544,8 +2028,15 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         g_launches, m_launches = cifar_naive_path(torch, tmpdir)
     tc = cifar_timings(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        w1 = dp_world1(torch, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        dp = dp_fit(torch, tmpdir)
+    ts = stats_timings(torch)
     cd_launches = {k: rbm_launches[k] + dbm_launches['cd_epoch'][k]
                    for k in rbm_launches}
+    dp_stats = [r['grbm']['stats'] for r in dp['ranks']]
+    wide, mnist = ts['3072x7800'], ts['784x1024']
 
     def entry(name, source, launches, err, ms, plain_ms, work,
               library_ms=None, **extra):
@@ -1569,8 +2060,8 @@ def main():
                     plain_sampling_off_ms=tc[(name, False, 'plain')],
                     sampling_off_ms=tc[(name, False, 'kernel')])
 
-    say('bounds of the kernels still to port (ms, by): %s' % json.dumps(
-        unported_bounds()))
+    # the card again, beside the numbers it gave
+    say(card)
     say(json.dumps({'kernels': [
         # per minibatch step of the RBM path (batch 10, sampled hiddens);
         # launches from the RBM path and the DBM path's pretraining
@@ -1634,6 +2125,39 @@ def main():
               ('free_energy_probe',
                {'cd_metrics': m_launches['cd_metrics']},
                [CIFAR_B, *MRBM, N_SAMPLES]))),
+        # per stats call at the G-RBM's local shape (3072 x 7800, 50 rows,
+        # k = 1, both states sampled); launches: both ranks' on the 2-rank
+        # G-RBM fit (the main path of the data-parallel slice)
+        entry('cd_stats', 'cd_epoch.cu',
+              {k: sum(r[k] for r in dp_stats) for k in dp_stats[0]},
+              max(stats_err.values()), wide['ms'], wide['plain_ms'],
+              stats_work(*GRBM_WIDE, CIFAR_B // DP_WORLD),
+              launches_per_rank=dp_stats, kernel_us=wide['kernel_us'],
+              device_busy=wide['busy'],
+              cd_gemm_act_library_ms=wide['library_ms'],
+              sampling_off_ms=wide['ms_sampling_off'],
+              plain_sampling_off_ms=wide['plain_ms_sampling_off'],
+              mnist_784x1024_local_128=dict(
+                  ms=mnist['ms'], plain_ms=mnist['plain_ms'],
+                  bound_ms=bound(*stats_work(V, H, 256 // DP_WORLD))[0],
+                  cd_gemm_act_library_ms=mnist['library_ms'],
+                  kernel_us=mnist['kernel_us']),
+              world1_step_ms={'data_parallel': w1[('data_parallel', True)],
+                              'cd_epoch': w1[('epoch', True)],
+                              'data_parallel_sampling_off':
+                                  w1[('data_parallel', False)],
+                              'cd_epoch_sampling_off': w1[('epoch', False)]},
+              world1_kernel_us=w1['kernel_us'], world1_max_abs_err=w1['err'],
+              fit_784x1024_max_abs_err=dp['mnist_err']),
+        # per call at (100, 7800), the G-RBM's hidden draw; `launches` its
+        # own count from the phase that drives it once per shape;
+        # `path_launches` the stats kernels' cd_gemm_act launches that
+        # carry its body (the Bernoulli hidden draws) on the 2-rank fit
+        entry('bernoulli_sample', 'cd_epoch.cu', bern['launches'], bern['err'],
+              bern['ms'], bern['plain_ms'], bern['work'], bern['library_ms'],
+              path_launches={'cd_gemm_act': sum(r['cd_gemm_act']
+                                                for r in dp_stats)},
+              shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms']),
     ]}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -40,17 +40,17 @@ def assert_same_model(a, b):
 def test_jax_checkpoint_loads_in_torch(X, tmp_path):
     d = str(tmp_path) + '/jax/'
     jrbm = JaxBernoulliRBM(model_path=d, **CFG).fit(X)
-    trbm = BernoulliRBM.load_model(d)
+    trbm = BernoulliRBM.load_model(d, device='cpu')
     assert_same_model(jrbm, trbm)
     assert isinstance(trbm._state, RBMState)
     assert trbm._device == torch.device('cpu')
     # the class-dispatching loader reads it unchanged too
-    assert_same_model(jrbm, load_model(d))
+    assert_same_model(jrbm, load_model(d, device='cpu'))
 
 
 def test_torch_checkpoint_loads_in_jax(X, tmp_path):
     d = str(tmp_path) + '/torch/'
-    trbm = BernoulliRBM(model_path=d, **CFG).fit(X)
+    trbm = BernoulliRBM(device='cpu', model_path=d, **CFG).fit(X)
     jrbm = JaxBernoulliRBM.load_model(d)
     assert_same_model(trbm, jrbm)
     # the device never enters params.json
@@ -71,7 +71,7 @@ def test_state_conversion_round_trip(X, tmp_path):
         np.testing.assert_array_equal(back[key], np.asarray(arrays[key]))
     # state_dict round-trips through a fresh module
     other = state_from_jax_arrays({k: np.zeros_like(np.asarray(v))
-                                   for k, v in arrays.items()})
+                                   for k, v in arrays.items()}, device='cpu')
     other.load_state_dict(state.state_dict())
     for key, v in state_to_numpy(other).items():
         np.testing.assert_array_equal(v, np.asarray(arrays[key]))
@@ -92,13 +92,41 @@ def test_import_does_not_load_jax():
             'mods = [i.name for i in pkgutil.walk_packages(m.__path__, '
             '"boltzmann_machines_tpu_torch.")]; '
             'assert "boltzmann_machines_tpu_torch.ops.samplers" in mods; '
+            'assert "boltzmann_machines_tpu_torch.parallel.mesh" in mods; '
             '[importlib.import_module(n) for n in mods]; '
-            'r = m.BernoulliRBM(n_visible=4, n_hidden=2); '
-            'm.GaussianRBM(n_visible=4, n_hidden=2, sigma=[1., 2., 1., 1.]); '
-            'm.MultinomialRBM(n_visible=4, n_hidden=2, n_samples=3); '
-            'm.DBM(rbms=[r, m.BernoulliRBM(n_visible=2, n_hidden=2)]); '
+            'cpu = dict(device="cpu"); '
+            'r = m.BernoulliRBM(n_visible=4, n_hidden=2, **cpu); '
+            'm.GaussianRBM(n_visible=4, n_hidden=2, sigma=[1., 2., 1., 1.], '
+            '**cpu); '
+            'm.MultinomialRBM(n_visible=4, n_hidden=2, n_samples=3, **cpu); '
+            'm.DBM(rbms=[r, m.BernoulliRBM(n_visible=2, n_hidden=2, **cpu)], '
+            '**cpu); '
             'bad = [k for k in sys.modules if k == "jax" or '
             'k.startswith("jax.") or k == "boltzmann_machines_tpu" or '
             'k.startswith("boltzmann_machines_tpu.")]; '
             'assert not bad, bad')
     subprocess.run([sys.executable, '-c', code], check=True, timeout=120)
+
+
+def test_no_device_without_cuda_raises(X, tmp_path, monkeypatch):
+    """The port runs on the card unless asked otherwise: where there is no
+    CUDA device, a model, ``load_model`` or a state converter given no
+    device raises (naming device='cpu') instead of running on the CPU."""
+    from boltzmann_machines_tpu_torch import DBM, GaussianRBM
+    from boltzmann_machines_tpu_torch.convert import dbm_state_from_jax_arrays
+    d = str(tmp_path) + '/cpu/'
+    rbm = BernoulliRBM(model_path=d, device='cpu', **CFG).fit(X)
+    arrays = rbm._get_state_arrays()
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    calls = [lambda: BernoulliRBM(**CFG),
+             lambda: GaussianRBM(n_visible=4, n_hidden=2),
+             lambda: DBM(rbms=[rbm]),
+             lambda: BernoulliRBM.load_model(d),
+             lambda: load_model(d),
+             lambda: state_from_jax_arrays(arrays),
+             lambda: dbm_state_from_jax_arrays({})]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert load_model(d, device='cpu')._state.W.device.type == 'cpu'
+    assert state_from_jax_arrays(arrays, device='cpu').W.device.type == 'cpu'

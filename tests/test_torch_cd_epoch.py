@@ -212,7 +212,8 @@ def test_kernel_pallas_on_cpu_raises(tmp_path):
     and fit raises, as the JAX package does off the TPU."""
     X, _ = make_inputs()
     rbm = BernoulliRBM(n_visible=V, n_hidden=H, batch_size=B, kernel='pallas',
-                       verbose=False, model_path=str(tmp_path) + '/')
+                       verbose=False, device='cpu',
+                       model_path=str(tmp_path) + '/')
     with pytest.raises(ValueError, match='pallas'):
         rbm.fit(X.reshape(-1, V))
     jrbm = JaxBernoulliRBM(n_visible=V, n_hidden=H, batch_size=B,

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (boltzmann_machines_tpu_torch/csrc/cd_epoch.cu and
-csrc/dbm_ops.cu, behind ops/cd_epoch.py, ops/samplers.py and ops/dbm_ops.py)
-against their plain PyTorch versions, on the card.  This
+csrc/dbm_ops.cu, behind ops/cd_epoch.py, ops/cd_stats.py, ops/samplers.py
+and ops/dbm_ops.py) against their plain PyTorch versions, on the card.  This
 file imports no JAX, so it runs where the card is:
 
     BMT_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
@@ -327,6 +327,103 @@ def test_sampler_wrappers_reject_bad_inputs(cuda):
         probe(means, torch.zeros((8, 8), device=cuda),
               torch.zeros(8, device=cuda), torch.zeros(7, device=cuda),
               None, 0)
+
+
+# ---------------------------------------------------------------------- #
+# data-parallel stats kernels and bernoulli_sample (csrc/cd_epoch.cu)     #
+# ---------------------------------------------------------------------- #
+def stats_fn(V, H, k, sample, visible='bernoulli', sigma=None, up=1.,
+             down=1.):
+    from boltzmann_machines_tpu_torch.ops.cd_stats import make_cd_stats_kernel
+    return make_cd_stats_kernel(V, H, 0, k, sample, sample, up, down,
+                                visible=visible, sigma=sigma)
+
+
+@pytest.mark.parametrize('V,H,B', SHAPES)
+@pytest.mark.parametrize('k', [0, 1, 2])
+@pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
+def test_cd_stats_kernels_match_plain_version(cuda, V, H, B, k, visible):
+    """Sampling off: the stats kernels (3 + 2k launches) against the plain
+    version on the same inputs, rtol / atol 1e-5 (true f32, sums in
+    another order); at k = 0 the association and the two bias sums are
+    exactly zero."""
+    from boltzmann_machines_tpu_torch.ops.cd_stats import (
+        cd_stats, cd_stats_reference)
+    X, state = make_inputs(V, H, B, 1, cuda)
+    sigma = np.linspace(0.5, 2., V) if visible == 'gaussian' else None
+    fn = stats_fn(V, H, k, False, visible, sigma, up=2.)
+    before = dict(cd_stats.launches)
+    got, aux = fn(state, X[0], 7, 3, 1)
+    torch.cuda.synchronize()
+    assert {n: cd_stats.launches[n] - before[n] for n in before} == {
+        'cd_gemm_act': 1 + 2 * k, 'cd_stats_sums': 1, 'cd_assoc_stats': 1}
+    want, aux_p = cd_stats_reference(fn.config, state, X[0], 7, 3, 1)
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux['v_means'], aux_p['v_means'], rtol=1e-5,
+                               atol=1e-5)
+    if k == 0:
+        for key in ('assoc', 'dvb_sum', 'dhb_sum'):
+            assert not bool(got[key].any())
+
+
+@pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
+def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, visible):
+    """Sampling on: at shard 0 one step's draws are the CD epoch kernels'
+    at the same (seed, it).  The epoch at lr 1, momentum 0, no L2 or
+    sparsity leaves dW = assoc / B, dvb = dvb_sum / B, q = h_sum, exact for
+    B = 64; shard 1 draws other states, the same in kernel and plain
+    version (a threshold flip, odds ~1e-7 per draw, would move h_sum by up
+    to 1)."""
+    from boltzmann_machines_tpu_torch.ops.cd_stats import cd_stats_reference
+    V, H, B = 130, 129, 64
+    X, state = make_inputs(V, H, B, 1, cuda)
+    sigma = 1. if visible == 'gaussian' else None
+    fn = stats_fn(V, H, 1, True, visible, sigma)
+    s0, _ = fn(state, X[0], 11, 5, 0)
+    s0 = {key: v.clone() for key, v in s0.items()}
+    cfg = CDEpochConfig(V, H, 1, True, True, 1., 1., 0., 0.1, 0., 0., 10 ** 6,
+                        False, visible, sigma)
+    zero = {key: torch.zeros_like(v) for key, v in state.items()}
+    ep = cd_epoch(cfg, dict(zero, W=state['W'], vb=state['vb'],
+                            hb=state['hb']), X, 1., 0., 11, 4)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(ep['dW'] * B, s0['assoc'])
+    assert torch.equal(ep['dvb'] * B, s0['dvb_sum'])
+    assert torch.equal(ep['q_means'], s0['h_sum'])
+    s1, _ = fn(state, X[0], 11, 5, 1)
+    assert not torch.equal(s1['h_sum'], s0['h_sum'])
+    p1, _ = cd_stats_reference(fn.config, state, X[0], 11, 5, 1)
+    torch.testing.assert_close(s1['h_sum'], p1['h_sum'], rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', [(10, 1024), (100, 7800)])
+def test_bernoulli_sample_kernel_matches_plain_version(cuda, shape):
+    """Bit for bit, under an int seed and a two-word key; one launch
+    each."""
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        bernoulli_sample, bernoulli_sample_reference)
+    probs = torch.rand(shape, device=cuda)
+    before = bernoulli_sample.launches['bernoulli_sample']
+    for seed in (12345, (7, 99)):
+        got = bernoulli_sample(seed, probs)
+        want = bernoulli_sample_reference(seed, probs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert bernoulli_sample.launches['bernoulli_sample'] == before + 2
+    assert abs(float(got.mean()) - float(probs.mean())) < 0.02
+
+
+def test_cd_stats_wrapper_rejects_bad_inputs(cuda):
+    X, state = make_inputs(24, 16, 8, 1, cuda)
+    fn = stats_fn(24, 16, 1, False)
+    with pytest.raises(ValueError, match='X_local'):
+        fn(state, X[0][:, :10], 1, 1, 0)
+    with pytest.raises(ValueError, match='float32'):
+        fn(dict(state, W=state['W'].double()), X[0], 1, 1, 0)
+    with pytest.raises(ValueError, match='out'):
+        fn(state, X[0], 1, 1, 0, out=torch.empty(7, device=cuda))
 
 
 # ---------------------------------------------------------------------- #

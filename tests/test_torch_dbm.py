@@ -33,11 +33,11 @@ def data():
 def pretrain_rbms(X, tmp, seed=1):
     r1 = BernoulliRBM(n_visible=V, n_hidden=H1, dbm_first=True, max_epoch=2,
                       batch_size=8, random_seed=seed, verbose=False,
-                      model_path=tmp + 'r1/')
+                      device='cpu', model_path=tmp + 'r1/')
     r1.fit(X)
     r2 = BernoulliRBM(n_visible=H1, n_hidden=H2, dbm_last=True, max_epoch=2,
                       batch_size=8, random_seed=seed + 1, verbose=False,
-                      model_path=tmp + 'r2/')
+                      device='cpu', model_path=tmp + 'r2/')
     r2.fit(r1.transform(X))
     return r1, r2
 
@@ -47,7 +47,7 @@ def make_dbm(rbms, tmp, seed=3, **kw):
                mf_tol=1e-7, learning_rate=0.01, momentum=0.5, max_epoch=3,
                batch_size=8, max_norm=4., random_seed=seed, verbose=False)
     cfg.update(kw)
-    return DBM(rbms=list(rbms), model_path=tmp + 'dbm/', **cfg)
+    return DBM(rbms=list(rbms), device='cpu', model_path=tmp + 'dbm/', **cfg)
 
 
 @pytest.fixture(scope='module')
@@ -89,8 +89,8 @@ def test_fit_matches_jax(tmp_path):
                           max_epoch=1, batch_size=8, random_seed=2,
                           verbose=False, model_path=d + 'r2/')
     jr2.fit(jr1.transform(X))
-    tr1 = BernoulliRBM.load_model(d + 'r1/')
-    tr2 = BernoulliRBM.load_model(d + 'r2/')
+    tr1 = BernoulliRBM.load_model(d + 'r1/', device='cpu')
+    tr2 = BernoulliRBM.load_model(d + 'r2/', device='cpu')
     cfg = dict(n_particles=10,
                v_particle_init=rng.rand(10, 12).astype(np.float32),
                h_particles_init=(rng.rand(10, 8).astype(np.float32),
@@ -103,7 +103,8 @@ def test_fit_matches_jax(tmp_path):
                train_metrics_every_iter=2, val_metrics_every_epoch=2,
                random_seed=3, verbose=False)
     jd = JaxDBM(rbms=[jr1, jr2], model_path=d + 'jd/', **cfg).fit(X, X_val)
-    td = DBM(rbms=[tr1, tr2], model_path=d + 'td/', **cfg).fit(X, X_val)
+    td = DBM(rbms=[tr1, tr2], device='cpu', model_path=d + 'td/',
+             **cfg).fit(X, X_val)
     assert td.iter_ == jd.iter_ == 15 and td.epoch_ == 3
 
     sj, st = jd.get_params_arrays(), td.get_params_arrays()
@@ -171,7 +172,7 @@ def test_save_load_resume(trained, data, tmp_path):
     model kept in memory."""
     dbm, tmp = trained
     dbm._save_model()
-    dbm2 = DBM.load_model(tmp + 'dbm/')
+    dbm2 = DBM.load_model(tmp + 'dbm/', device='cpu')
     assert dbm2.epoch_ == dbm.epoch_ and dbm2.n_layers_ == 2
     assert dbm2.n_hiddens_ == [H1, H2]
     np.testing.assert_array_equal(dbm.transform(data), dbm2.transform(data))
@@ -179,7 +180,7 @@ def test_save_load_resume(trained, data, tmp_path):
     s2 = dbm2.get_params_arrays('negative_particles')
     for k in s1:
         np.testing.assert_array_equal(s1[k], s2[k])
-    dbm3 = DBM.load_model(tmp + 'dbm/')
+    dbm3 = DBM.load_model(tmp + 'dbm/', device='cpu')
     dbm2.update_working_paths(model_path=str(tmp_path) + '/a/')
     dbm3.update_working_paths(model_path=str(tmp_path) + '/b/')
     for d in (dbm2, dbm3):
@@ -261,10 +262,10 @@ def test_jax_checkpoint_loads_in_torch_then_load_rbms(data, tmp_path):
     the RBMs, transform and the particles are those of the JAX model."""
     tmp = str(tmp_path) + '/'
     jd = jax_trained(data, tmp)
-    td = load_model(tmp + 'dbm/')
+    td = load_model(tmp + 'dbm/', device='cpu')
     assert isinstance(td, DBM) and td.epoch_ == jd.epoch_ == 2
-    td.load_rbms([BernoulliRBM.load_model(tmp + 'r1/'),
-                  BernoulliRBM.load_model(tmp + 'r2/')])
+    td.load_rbms([BernoulliRBM.load_model(tmp + 'r1/', device='cpu'),
+                  BernoulliRBM.load_model(tmp + 'r2/', device='cpu')])
     sj, st = jd.get_params_arrays(), td.get_params_arrays()
     assert set(sj) == set(st)
     for k in sj:
@@ -289,7 +290,7 @@ def test_torch_checkpoint_loads_in_jax(trained, data):
     with open(tmp + 'dbm/params.json') as f:
         assert 'device' not in f.read()
     # the port's load_rbms keeps a loaded state
-    td = DBM.load_model(tmp + 'dbm/')
+    td = DBM.load_model(tmp + 'dbm/', device='cpu')
     before = td.get_params_arrays()
     td.load_rbms(dbm._rbms)
     for k, v in td.get_params_arrays().items():

@@ -48,7 +48,8 @@ def jax_dbm(sizes, tmp, n_particles=8, seed=0, **kw):
 
 
 def torch_state(jdbm):
-    return dbm_state_from_jax_arrays(jdbm._get_state_arrays()).as_dict()
+    return dbm_state_from_jax_arrays(jdbm._get_state_arrays(),
+                                     device='cpu').as_dict()
 
 
 def assert_state_close(jax_state, state, atol, keys=dbm_ops.STATE_KEYS):

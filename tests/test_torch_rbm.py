@@ -68,7 +68,7 @@ def test_fit_matches_jax(tmp_path):
                random_seed=3, verbose=False)
     pj, pt = str(tmp_path) + '/jax/', str(tmp_path) + '/torch/'
     jrbm = JaxBernoulliRBM(model_path=pj, **cfg).fit(X, X_val)
-    trbm = BernoulliRBM(model_path=pt, **cfg).fit(X, X_val)
+    trbm = BernoulliRBM(device='cpu', model_path=pt, **cfg).fit(X, X_val)
     assert trbm.iter_ == jrbm.iter_ == 18 and trbm.epoch_ == 3
 
     sj, st = jrbm.get_params_arrays(), trbm.get_params_arrays()
@@ -99,7 +99,8 @@ def test_dbm_pretraining_fit_matches_jax(tmp_path, doubling):
                sample_v_states=False, sample_h_states=False,
                random_seed=4, verbose=False, **{doubling: True})
     jrbm = JaxBernoulliRBM(model_path=str(tmp_path) + '/j/', **cfg).fit(X)
-    trbm = BernoulliRBM(model_path=str(tmp_path) + '/t/', **cfg).fit(X)
+    trbm = BernoulliRBM(device='cpu', model_path=str(tmp_path) + '/t/',
+                        **cfg).fit(X)
     assert trbm.iter_ == jrbm.iter_ == 24
     for key, v in jrbm.get_params_arrays().items():
         np.testing.assert_allclose(trbm.get_params_arrays()[key], v,
@@ -117,7 +118,8 @@ def test_fewer_rows_than_a_batch_matches_jax(tmp_path):
                batch_size=8, max_epoch=2, sample_h_states=False,
                random_seed=1, verbose=False)
     jrbm = JaxBernoulliRBM(model_path=str(tmp_path) + '/j/', **cfg).fit(X)
-    trbm = BernoulliRBM(model_path=str(tmp_path) + '/t/', **cfg).fit(X)
+    trbm = BernoulliRBM(device='cpu', model_path=str(tmp_path) + '/t/',
+                        **cfg).fit(X)
     assert trbm.iter_ == jrbm.iter_ == 2
     for key, v in jrbm.get_params_arrays().items():
         np.testing.assert_allclose(trbm.get_params_arrays()[key], v,
@@ -128,8 +130,8 @@ def test_consistency(X, X_val, tmp_path):
     """Same-seed models are bitwise-identical through fit, extra fit,
     reload-from-disk and another fit; sampling on (tests/test_rbm.py:73)."""
     d = str(tmp_path) + '/'
-    r1 = BernoulliRBM(model_path=d + 'r1/', **RBM_CONFIG)
-    r2 = BernoulliRBM(model_path=d + 'r2/', **RBM_CONFIG)
+    r1 = BernoulliRBM(device='cpu', model_path=d + 'r1/', **RBM_CONFIG)
+    r2 = BernoulliRBM(device='cpu', model_path=d + 'r2/', **RBM_CONFIG)
     r1.fit(X)
     r2.fit(X)
     assert_weights_equal(r1, r2)
@@ -141,8 +143,8 @@ def test_consistency(X, X_val, tmp_path):
     r2.set_params(max_epoch=r2.max_epoch + 1).fit(X)
     assert_weights_equal(r1, r2)
 
-    r1 = BernoulliRBM.load_model(d + 'r1/')
-    r2 = BernoulliRBM.load_model(d + 'r2/')
+    r1 = BernoulliRBM.load_model(d + 'r1/', device='cpu')
+    r2 = BernoulliRBM.load_model(d + 'r2/', device='cpu')
     assert_weights_equal(r1, r2)
     np.testing.assert_array_equal(r1.transform(X_val), r2.transform(X_val))
 
@@ -158,8 +160,8 @@ def test_resume_is_trajectory_identical(X, X_val, tmp_path):
     d = str(tmp_path) + '/'
     cfg = dict(RBM_CONFIG, metrics_config=dict(msre=True, pll=True,
                                                train_metrics_every_iter=2))
-    a = BernoulliRBM(model_path=d + 'a/', **cfg).fit(X, X_val)
-    b = BernoulliRBM.load_model(d + 'a/')
+    a = BernoulliRBM(device='cpu', model_path=d + 'a/', **cfg).fit(X, X_val)
+    b = BernoulliRBM.load_model(d + 'a/', device='cpu')
     b.update_working_paths(model_path=d + 'b/')
     a.set_params(max_epoch=4).fit(X, X_val)
     b.set_params(max_epoch=4).fit(X, X_val)
@@ -185,7 +187,7 @@ def test_learning_decreases_msre(tmp_path):
         Vm = 1. / (1. + np.exp(-(Hm @ w['W'].T + w['vb'])))
         return float(np.mean((X - Vm) ** 2))
 
-    rbm = BernoulliRBM(n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
+    rbm = BernoulliRBM(device='cpu', n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
                        max_epoch=1, batch_size=16, learning_rate=0.1,
                        momentum=0.5, l2=0., random_seed=1337, verbose=False,
                        save_after_each_epoch=False,
@@ -208,9 +210,9 @@ def test_init_from(X, tmp_path):
     """Weights, accumulators and progress attributes are copied
     (tests/test_rbm.py:246)."""
     d = str(tmp_path) + '/'
-    r1 = BernoulliRBM(model_path=d + 'r1/', **RBM_CONFIG)
+    r1 = BernoulliRBM(device='cpu', model_path=d + 'r1/', **RBM_CONFIG)
     r1.fit(X)
-    r2 = BernoulliRBM(model_path=d + 'r2/', **RBM_CONFIG)
+    r2 = BernoulliRBM(device='cpu', model_path=d + 'r2/', **RBM_CONFIG)
     r2.init_from(r1)
     r2.init()
     assert_weights_equal(r1, r2)
@@ -223,12 +225,13 @@ def test_init_from(X, tmp_path):
         pass
 
     with pytest.raises(ValueError):
-        Other(n_visible=N_VISIBLE, n_hidden=N_HIDDEN).init_from(r1)
+        Other(n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
+              device='cpu').init_from(r1)
 
 
 def test_display_summaries_raise(X, tmp_path):
     """Image summaries are not ported: asking for them fails loudly."""
-    rbm = BernoulliRBM(n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
+    rbm = BernoulliRBM(device='cpu', n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
                        display_filters=2, verbose=False,
                        model_path=str(tmp_path) + '/')
     with pytest.raises(NotImplementedError, match='display'):

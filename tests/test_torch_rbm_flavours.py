@@ -100,7 +100,7 @@ def test_grbm_fit_matches_jax(tmp_path, sigma):
     cfg = grbm_config(sigma_of(sigma))
     pj, pt = str(tmp_path) + '/jax/', str(tmp_path) + '/torch/'
     jrbm = JaxGaussianRBM(model_path=pj, **cfg).fit(X, X_val)
-    trbm = GaussianRBM(model_path=pt, **cfg).fit(X, X_val)
+    trbm = GaussianRBM(device='cpu', model_path=pt, **cfg).fit(X, X_val)
     assert trbm.iter_ == jrbm.iter_ == 12
     assert_states_close(trbm, jrbm)
     for sub in ('logs/train', 'logs/val'):
@@ -135,7 +135,7 @@ def test_mrbm_fit_matches_jax(tmp_path):
     cfg = mrbm_config()
     pj, pt = str(tmp_path) + '/jax/', str(tmp_path) + '/torch/'
     jrbm = JaxMultinomialRBM(model_path=pj, **cfg).fit(X, X_val)
-    trbm = MultinomialRBM(model_path=pt, **cfg).fit(X, X_val)
+    trbm = MultinomialRBM(device='cpu', model_path=pt, **cfg).fit(X, X_val)
     assert trbm.iter_ == jrbm.iter_ == 12
     assert_states_close(trbm, jrbm)
     a, b = read_scalars(pj + 'logs/train'), read_scalars(pt + 'logs/train')
@@ -176,9 +176,9 @@ def test_kernel_path_matches_generic_path(tmp_path, monkeypatch, flavour):
         cls, cfg = MultinomialRBM, mrbm_config()
         X = binary_data(4, 45)
     cfg['metrics_config'] = dict(msre=True, train_metrics_every_iter=2)
-    generic = cls(model_path=str(tmp_path) + '/g/', **cfg).fit(X)
+    generic = cls(device='cpu', model_path=str(tmp_path) + '/g/', **cfg).fit(X)
     monkeypatch.setattr(BaseRBM, '_kernel_eligible', lambda self: True)
-    kernel = cls(model_path=str(tmp_path) + '/k/', **cfg).fit(X)
+    kernel = cls(device='cpu', model_path=str(tmp_path) + '/k/', **cfg).fit(X)
     assert_states_close(kernel, generic)
     a = read_scalars(str(tmp_path) + '/g/logs/train')
     b = read_scalars(str(tmp_path) + '/k/logs/train')
@@ -190,14 +190,16 @@ def test_kernel_path_matches_generic_path(tmp_path, monkeypatch, flavour):
 def test_default_device_is_the_card_when_there_is_one(monkeypatch):
     """Entry points run on the card unless the caller asks for the CPU:
     with a CUDA device visible the default device is CUDA (nothing is
-    allocated until a fit or init), without one the CPU."""
+    allocated until a fit or init); without one a model given no device
+    raises, naming device='cpu'."""
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     for cls, kw in ((GaussianRBM, {}), (MultinomialRBM, dict(n_samples=3))):
         assert cls(n_visible=4, n_hidden=2, **kw)._device.type == 'cuda'
         assert cls(n_visible=4, n_hidden=2, device='cpu',
                    **kw)._device.type == 'cpu'
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    assert GaussianRBM(n_visible=4, n_hidden=2)._device.type == 'cpu'
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GaussianRBM(n_visible=4, n_hidden=2)
 
 
 def test_kernel_eligibility():
@@ -215,7 +217,8 @@ def test_kernel_eligibility():
                               device='cuda')._kernel_eligible()
     assert not GaussianRBM(n_visible=4, n_hidden=2, kernel='xla',
                            device='cuda')._kernel_eligible()
-    assert not GaussianRBM(n_visible=4, n_hidden=2)._kernel_eligible()
+    assert not GaussianRBM(n_visible=4, n_hidden=2,
+                           device='cpu')._kernel_eligible()
 
 
 CHECKPOINT_CASES = {
@@ -238,10 +241,10 @@ def test_jax_checkpoint_loads_in_torch(tmp_path, case):
     cls, jcls, cfg = CHECKPOINT_CASES[case]
     d = str(tmp_path) + '/jax/'
     jrbm = jcls(model_path=d, **cfg()).fit(data_for(cls))
-    trbm = cls.load_model(d)
+    trbm = cls.load_model(d, device='cpu')
     assert_same_model(jrbm, trbm)
-    assert_same_model(jrbm, load_model(d))
-    assert type(load_model(d)) is cls
+    assert_same_model(jrbm, load_model(d, device='cpu'))
+    assert type(load_model(d, device='cpu')) is cls
     np.testing.assert_array_equal(trbm._v_layer.sigma
                                   if cls is GaussianRBM else
                                   trbm._h_layer.n_samples,
@@ -254,7 +257,7 @@ def test_jax_checkpoint_loads_in_torch(tmp_path, case):
 def test_torch_checkpoint_loads_in_jax(tmp_path, case):
     cls, jcls, cfg = CHECKPOINT_CASES[case]
     d = str(tmp_path) + '/torch/'
-    trbm = cls(model_path=d, **cfg()).fit(data_for(cls))
+    trbm = cls(device='cpu', model_path=d, **cfg()).fit(data_for(cls))
     jrbm = jcls.load_model(d)
     assert_same_model(trbm, jrbm)
     if cls is GaussianRBM:
@@ -269,20 +272,21 @@ def test_consistency_and_resume(tmp_path, case):
     cls, _, cfg = CHECKPOINT_CASES[case]
     X = data_for(cls)
     d = str(tmp_path) + '/'
-    r1 = cls(model_path=d + 'r1/', **cfg()).fit(X)
-    r2 = cls(model_path=d + 'r2/', **cfg()).fit(X)
+    r1 = cls(device='cpu', model_path=d + 'r1/', **cfg()).fit(X)
+    r2 = cls(device='cpu', model_path=d + 'r2/', **cfg()).fit(X)
     assert_same_model(r1, r2)
     np.testing.assert_array_equal(r1.transform(X), r2.transform(X))
-    b = cls.load_model(d + 'r1/')
+    b = cls.load_model(d + 'r1/', device='cpu')
     b.update_working_paths(model_path=d + 'b/')
-    r1 = cls.load_model(d + 'r1/')
+    r1 = cls.load_model(d + 'r1/', device='cpu')
     r1.set_params(max_epoch=4).fit(X)
     b.set_params(max_epoch=4).fit(X)
     assert r1.epoch_ == b.epoch_ == 4
     sa, sb = r1.get_params_arrays(), b.get_params_arrays()
     for key in sa:
         np.testing.assert_array_equal(sa[key], sb[key], err_msg=key)
-    c = cls(model_path=d + 'c/', **dict(cfg(), random_seed=99)).fit(X)
+    c = cls(device='cpu', model_path=d + 'c/',
+            **dict(cfg(), random_seed=99)).fit(X)
     assert not np.array_equal(c.get_params_arrays()['weights/W'],
                               r2.get_params_arrays()['weights/W'])
 
@@ -291,8 +295,8 @@ def test_consistency_and_resume(tmp_path, case):
 def test_init_from(tmp_path, case):
     cls, _, cfg = CHECKPOINT_CASES[case]
     d = str(tmp_path) + '/'
-    r1 = cls(model_path=d + 'r1/', **cfg()).fit(data_for(cls))
-    r2 = cls(model_path=d + 'r2/', **cfg())
+    r1 = cls(device='cpu', model_path=d + 'r1/', **cfg()).fit(data_for(cls))
+    r2 = cls(device='cpu', model_path=d + 'r2/', **cfg())
     r2.init_from(r1)
     r2.init()
     for scope in ('weights', 'grads_accumulators'):
@@ -302,7 +306,7 @@ def test_init_from(tmp_path, case):
     assert r2.epoch_ == r1.epoch_ and r2.iter_ == r1.iter_
     other = GaussianRBM if cls is MultinomialRBM else MultinomialRBM
     with pytest.raises(ValueError):
-        other(n_visible=V, n_hidden=H).init_from(r1)
+        other(n_visible=V, n_hidden=H, device='cpu').init_from(r1)
 
 
 def test_multinomial_free_energy_adds_lgamma_constant():
@@ -311,7 +315,7 @@ def test_multinomial_free_energy_adds_lgamma_constant():
     -lgamma(M+K) + lgamma(M+1) + lgamma(K); the kernels' free energy
     (`free_energy_sum`, the epoch's PLL and the probe) omits it, given the
     same draw the two differ by exactly that constant."""
-    rbm = MultinomialRBM(n_visible=V, n_hidden=H, n_samples=M,
+    rbm = MultinomialRBM(device='cpu', n_visible=V, n_hidden=H, n_samples=M,
                          random_seed=2, verbose=False)
     rbm._ensure_state()
     state = rbm._state.as_dict()
