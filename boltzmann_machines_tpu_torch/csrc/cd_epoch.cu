@@ -13,10 +13,11 @@
 // kernels' function at any V and H, with no tiling and no padding.  Each
 // minibatch runs as a short sequence of launches on one stream:
 //
-//   K1 cd_gemm_act      1 + 2k per step.  f32 tiled GEMM, A and B addressed
-//                       by (row stride, column stride) so X.W, h.W^T and
-//                       v.W are one kernel.  Epilogues: sigmoid(mult*(acc +
-//                       bias)) with Philox-thresholded states (Bernoulli);
+//   K1 cd_gemm_act      1 + 2k per step.  The tensor-core tile of
+//                       gemm_tc.cuh (X.W, h.W^T and v.W alike: W is read
+//                       as it lies, either way).  Epilogues:
+//                       sigmoid(mult*(acc + bias)) with Philox-thresholded
+//                       states (Bernoulli);
 //                       mult*(acc*sigma + vb) with states + sigma*Box-Muller
 //                       (Gaussian visible, pallas_ops.py:321-330); or the
 //                       pre-activation mult*(acc + bias) for K1b.  Replaces
@@ -70,8 +71,8 @@
 // What bounds it: at 3072x7800 and a local batch of 50 (two ranks of the
 // G-RBM's 100), the five products are 2BVH operations each, 12 GFLOP in all
 // (0.18 ms at the f32 peak), against W read once and the association
-// written once (192 MB, 0.057 ms): operations, on the same SIMT tile as the
-// epoch, which is latency-bound at such batches.
+// written once (192 MB, 0.057 ms): operations.  K1 runs on the tensor-core
+// tile, K3s on the SIMT tile, as in the epoch.
 //
 // Three standalone launchers share these device functions: bm_normal_sample
 // (the TPU's `normal_sample`, :95), bm_bernoulli_sample (`bernoulli_sample`,
@@ -86,12 +87,14 @@
 // What bounds it on an H100.  At 784x1024 the step is a few MFLOP (batch 10)
 // to ~2 GFLOP (batch 256); at the CIFAR shapes (3072x5000 and 5000x1000,
 // batch 100) ~15 and ~5 GFLOP, and W + dW (123 MB and 40 MB) are read and
-// written once per step.  The f32 bound is then ~0.23 ms and the memory
-// bound ~0.13 ms at 3072x5000 (PERF.md).  The products are plain f32 FMA on
-// SIMT cores (no TF32, no tensor cores) in 64x64 tiles, latency-bound at a
-// small batch: a 100-row product is two rows of blocks, each walking the
-// whole K loop alone.  The design does nothing about that yet; split-K,
-// wgmma, CUDA graphs or one persistent kernel per epoch are later work.
+// written once per step: ~0.13 ms of bytes at 3072x5000 (PERF.md).  K1's
+// products run on the tensor-core tile of gemm_tc.cuh (swap-AB wgmma in
+// 3xTF32, a TMA-fed ring, deterministic split-K; its note says what bounds
+// each product and what the design does about it).  K3's contraction over
+// the batch is another shape (K = B, a V x H output) and still uses the
+// SIMT tile of gemm.cuh: at the CIFAR shapes it is now the largest kernel
+// of the step.  CUDA graphs or one persistent kernel per epoch are later
+// work.
 //
 // The multinomial pass is bound by neither: per row it scans H entries and
 // binary-searches n draws.  Its design choices are about exactness, not
@@ -116,8 +119,9 @@
 // library is built without --use_fast_math, so Box-Muller's logf, cosf and
 // sqrtf stay within an ulp or two of torch's.
 //
-// The tiled GEMM, the activations and the block reduction live in gemm.cuh,
-// shared with dbm_ops.cu.
+// The SIMT tile (K3, K3s), the activations and the block reduction live in
+// gemm.cuh, the tensor-core tile (K1) in gemm_tc.cuh; both are shared with
+// dbm_ops.cu.
 //
 // C interface (bound with ctypes by ops/cd_epoch.py, ops/cd_stats.py and
 // ops/samplers.py):
@@ -129,6 +133,7 @@
 #include <stdint.h>
 
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -295,50 +300,54 @@ __device__ void row_free_energies(const float* __restrict__ x, int flip,
   }
 }
 
-// K1: means = act(A.B) per the epilogue `act`; states drawn if given.
-__global__ void __launch_bounds__(kGemmThreads)
-    cd_gemm_act_kernel(const float* __restrict__ A, long long sam,
-                       long long sak, const float* __restrict__ Bm,
-                       long long sbk, long long sbn,
-                       const float* __restrict__ bias,
-                       const float* __restrict__ sigma, float mult, int act,
-                       int M, int N, int K, float* __restrict__ means,
-                       float* __restrict__ states, unsigned seed, unsigned it,
-                       unsigned stream_id, unsigned shard) {
-  __shared__ GemmTile sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  gemm_accumulate(A, sam, sak, Bm, sbk, sbn, M, N, K, m0, n0, sm, acc);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      const long long idx = (long long)m * N + n;
-      if (act == kActGaussian) {
-        // GaussianLayer.activation(mult x, mult vb) = mult (x sigma + vb)
-        const float s = sigma[n];
-        const float mu = mult * __fadd_rn(__fmul_rn(acc[i][j], s), bias[n]);
-        means[idx] = mu;
-        if (states)
-          states[idx] = __fadd_rn(
-              mu, __fmul_rn(bm::philox_normal(seed, it, stream_id,
-                                              (unsigned)idx, shard),
-                            s));
-      } else if (act == kActPre) {
-        means[idx] = mult * (acc[i][j] + bias[n]);
-      } else {
-        const float p = sigmoid(mult * (acc[i][j] + bias[n]));
-        means[idx] = p;
-        if (states) {
-          const float u = bm::philox_uniform(seed, it, stream_id,
-                                             (unsigned)idx, shard);
-          states[idx] = u < p ? 1.f : 0.f;
-        }
+// Arguments of one cd_gemm_act launch (a kernel parameter, so the tensor
+// maps of the tile sit in parameter space).
+struct CdGemmArgs {
+  bm::tc::Tile t;
+  const float* bias;
+  const float* sigma;
+  float* means;
+  float* states;
+  float mult;
+  int act;
+  unsigned seed, it, stream_id, shard;
+};
+
+// K1: means = act(A.B) per the epilogue `act`; states drawn if given.  The
+// product is the tensor-core tile (gemm_tc.cuh); element (m, n) of the
+// batch-major output is the Philox element m * N + n, as before the swap.
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    cd_gemm_act_kernel(const __grid_constant__ CdGemmArgs a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  float* T;
+  if (!bm::tc::tile_product<NT>(a.t, tc_smem, T)) return;
+  const int N = a.t.nm, m0 = blockIdx.x * bm::tc::kTileM, b0 = blockIdx.y * NT;
+  for (int e = threadIdx.x; e < bm::tc::kTileM * NT; e += bm::tc::kThreads) {
+    const int n = m0 + e % bm::tc::kTileM, m = b0 + e / bm::tc::kTileM;
+    if (n >= N || m >= a.t.nb) continue;
+    const float acc =
+        T[(e / bm::tc::kTileM) * bm::tc::kTileStride + e % bm::tc::kTileM];
+    const long long idx = (long long)m * N + n;
+    if (a.act == kActGaussian) {
+      // GaussianLayer.activation(mult x, mult vb) = mult (x sigma + vb)
+      const float s = a.sigma[n];
+      const float mu = a.mult * __fadd_rn(__fmul_rn(acc, s), a.bias[n]);
+      a.means[idx] = mu;
+      if (a.states)
+        a.states[idx] = __fadd_rn(
+            mu, __fmul_rn(bm::philox_normal(a.seed, a.it, a.stream_id,
+                                            (unsigned)idx, a.shard),
+                          s));
+    } else if (a.act == kActPre) {
+      a.means[idx] = a.mult * (acc + a.bias[n]);
+    } else {
+      const float p = sigmoid(a.mult * (acc + a.bias[n]));
+      a.means[idx] = p;
+      if (a.states) {
+        const float u = bm::philox_uniform(a.seed, a.it, a.stream_id,
+                                           (unsigned)idx, a.shard);
+        a.states[idx] = u < p ? 1.f : 0.f;
       }
     }
   }
@@ -681,17 +690,36 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 extern "C" {
 
+// A(m, k) = A[m*sam + k*sak] with sak == 1; B(k, n) = Bm[k*sbk + n*sbn]
+// with sbn == 1 (W as it is) or sbk == 1 (W^T).  The plan (n_tile, splits)
+// comes from ops/gemm.py; `ws` holds splits x 128 x n_tile floats per output
+// tile and `counters` one zeroed unsigned per tile (both unused at splits 1).
 int bm_cd_gemm_act(const float* A, long long sam, long long sak,
                    const float* Bm, long long sbk, long long sbn,
                    const float* bias, const float* sigma, float mult, int act,
                    int M, int N, int K, float* means, float* states,
                    unsigned seed, unsigned it, unsigned stream_id,
-                   unsigned shard, void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  cd_gemm_act_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      A, sam, sak, Bm, sbk, sbn, bias, sigma, mult, act, M, N, K, means,
-      states, seed, it, stream_id, shard);
-  return (int)cudaGetLastError();
+                   unsigned shard, int n_tile, int splits, float* ws,
+                   unsigned* counters, void* stream) {
+  if (sak != 1 || (sbn != 1 && sbk != 1)) return (int)cudaErrorInvalidValue;
+  const int w_trans = sbn != 1;
+  const bm::tc::Operand op = {A, Bm, sam, w_trans ? sbn : sbk, K, w_trans};
+  CdGemmArgs a;
+  int err = bm::tc::setup_tile(&a.t, &op, 1, M, N, n_tile, splits, ws,
+                               counters);
+  if (err) return err;
+  a.bias = bias;
+  a.sigma = sigma;
+  a.means = means;
+  a.states = states;
+  a.mult = mult;
+  a.act = act;
+  a.seed = seed;
+  a.it = it;
+  a.stream_id = stream_id;
+  a.shard = shard;
+  BM_TC_DISPATCH(cd_gemm_act_kernel, a.t, a, (cudaStream_t)stream, err);
+  return err;
 }
 
 // `in` and the outputs are (rows, H); draws of row b at elements b*n + j.

@@ -14,8 +14,9 @@
 //
 // Kernels:
 //   dbm_gemm_act     out = act(alpha (A1.B1 + A2.B2 + C) + gamma bias), the
-//                    one GEMM of every layer update: two products summed in
-//                    one accumulator (a middle layer reads "up from below
+//                    one GEMM of every layer update (the tensor-core tile
+//                    of gemm_tc.cuh): two products summed in one K loop
+//                    (a middle layer reads "up from below
 //                    plus down from above"), an optional addend C (the
 //                    hoisted X.W0 of mean-field), the bias scaled by gamma
 //                    apart from the product (mean-field init doubles the
@@ -50,11 +51,16 @@
 // layer 0 still reads the old mu1 (layer 1's launch comes after it).
 //
 // What bounds it on an H100: at dbm_mnist's shapes (784-512-1024, 100 rows)
-// each GEMM is 40-100 MFLOP, far below the card's f32 rate, and with a 64-row
-// tile a 100-row product is two rows of 8-16 blocks on 132 SMs, each walking
-// a K loop of 512-1536 alone: latency-bound, like cd_gemm_act at small batch
-// (PERF.md).  The design does nothing about that yet (plain f32 FMA, no tensor
-// cores, no split-K); persistent kernels, CUDA graphs and wgmma are later work.
+// each product is 40-100 MFLOP and reads 1.6-3.2 MB of W: a microsecond of
+// either, so a launch is bound by its latency, and a DBM step (107
+// dbm_gemm_act launches at 50 mean-field sweeps) or an AIS beta (17) by the
+// chain of launches.  dbm_gemm_act runs on the tensor-core tile of
+// gemm_tc.cuh: swap-AB wgmma in 3xTF32 with the two products of a middle
+// layer in one K loop, narrow batch tiles and deterministic split-K so that
+// ~100-130 blocks share each product instead of 8-16, and the epilogues
+// above on the summed tile.  dbm_assoc_update (K = rows, an n_in x n_out
+// output) keeps the SIMT tile of gemm.cuh; CUDA graphs for the launch chain
+// are later work.
 //
 // C interface (bound with ctypes by ops/dbm_ops.py): every entry launches on
 // the given stream, allocates nothing, does not synchronise, and returns
@@ -63,7 +69,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <vector>
+
 #include "gemm.cuh"
+#include "gemm_tc.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -89,9 +98,12 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 }  // namespace
 
 // Arguments of one dbm_gemm_act launch; ops/dbm_ops.py mirrors the layout
-// (ctypes.Structure, natural alignment).  A(m, k) = a[m*sam + k*sak],
-// B(k, n) = b[k*sbk + n*sbn]; a2 == nullptr (or k2 == 0) drops the second
-// product, c (row-major M x N) and bias (N) may be null.
+// (ctypes.Structure, natural alignment).  A(m, k) = a[m*sam + k*sak] with
+// sak == 1, B(k, n) = b[k*sbk + n*sbn] with sbn == 1 (W) or sbk == 1 (W^T);
+// a2 == nullptr (or k2 == 0) drops the second product, c (row-major M x N)
+// and bias (N) may be null.  The tile's plan (ops/gemm.py): n_tile, splits,
+// and for splits > 1 a workspace of splits x 128 x n_tile floats and one
+// zeroed counter per output tile.
 struct GemmArgs {
   const float* a1;
   const float* b1;
@@ -102,12 +114,22 @@ struct GemmArgs {
   float* out;             // means or states; kSoftplusRows: partials
   unsigned* delta_bits;   // kSigmoidDelta: max |new - old| as float bits
   const int* done;        // launch is a no-op while *done != 0; may be null
+  float* ws;              // split-K workspace
+  unsigned* counters;     // split-K per-tile counters
   long long sam1, sak1, sbk1, sbn1;
   long long sam2, sak2, sbk2, sbn2;
   int k1, k2, M, N;
   int act, sample;
+  int n_tile, splits;
   float alpha, alpha2, gamma;
   unsigned seed, it, stream_id;
+};
+
+// The kernel's parameter: the launch's arguments and its tile (tensor maps
+// in parameter space).
+struct DbmGemmArgs {
+  bm::tc::Tile t;
+  GemmArgs a;
 };
 
 namespace {
@@ -115,56 +137,62 @@ namespace {
 constexpr int kRedThreads = 256;
 
 // out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias, acc = A1.B1 +
-// A2.B2; kSoftplusRows sums softplus(alpha (acc + C + bias)) and the same at
-// alpha2 over the row instead.
-__global__ void __launch_bounds__(kGemmThreads)
-    dbm_gemm_act_kernel(const GemmArgs a) {
+// A2.B2 by the tensor-core tile (gemm_tc.cuh); kSoftplusRows sums
+// softplus(alpha (acc + C + bias)) and the same at alpha2 over the row's 128
+// columns of this block instead.
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
+  const GemmArgs& a = p.a;
   if (a.done != nullptr && *a.done != 0) return;  // mean-field converged
-  __shared__ GemmTile sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  if (a.k1 > 0)
-    gemm_accumulate(a.a1, a.sam1, a.sak1, a.b1, a.sbk1, a.sbn1, a.M, a.N,
-                    a.k1, m0, n0, sm, acc);
-  if (a.a2 != nullptr && a.k2 > 0)
-    gemm_accumulate(a.a2, a.sam2, a.sak2, a.b2, a.sbk2, a.sbn2, a.M, a.N,
-                    a.k2, m0, n0, sm, acc);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float rows[2][NT][4];  // kSoftplusRows: per row, per warp
+  float* T;
+  if (!bm::tc::tile_product<NT>(p.t, tc_smem, T)) return;
+  const int m0 = blockIdx.y * NT, n0 = blockIdx.x * bm::tc::kTileM;
+  const int warp = threadIdx.x >> 5;
   float dmax = 0.f;
-  float rows1[TM], rows2[TM];
+  // 256 threads cover two rows of 128 columns per pass: warps 0-3 the
+  // first, warps 4-7 the second
+  for (int e = threadIdx.x; e < bm::tc::kTileM * NT; e += bm::tc::kThreads) {
+    const int n = n0 + e % bm::tc::kTileM, m = m0 + e / bm::tc::kTileM;
+    const bool in = m < a.M && n < a.N;
+    const long long idx = (long long)m * a.N + n;
+    float t =
+        T[(e / bm::tc::kTileM) * bm::tc::kTileStride + e % bm::tc::kTileM];
+    if (in && a.c != nullptr) t += a.c[idx];
+    const float b = in && a.bias != nullptr ? a.bias[n] : 0.f;
+    if (a.act == kSoftplusRows) {
+      // bias inside the scale: softplus(beta (x.W + b)) at two betas; the
+      // row's sums in a fixed order (a shuffle tree, then the two halves)
+      const float u = t + b;
+      float r1 = in ? softplus(a.alpha * u) : 0.f;
+      float r2 = in ? softplus(a.alpha2 * u) : 0.f;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    rows1[i] = rows2[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (m >= a.M || n >= a.N) continue;
-      const long long idx = (long long)m * a.N + n;
-      float t = acc[i][j];
-      if (a.c != nullptr) t += a.c[idx];
-      const float b = a.bias != nullptr ? a.bias[n] : 0.f;
-      if (a.act == kSoftplusRows) {
-        // bias inside the scale: softplus(beta (x.W + b)) at two betas
-        const float u = t + b;
-        rows1[i] += softplus(a.alpha * u);
-        rows2[i] += softplus(a.alpha2 * u);
-        continue;
+      for (int o = 16; o > 0; o >>= 1) {
+        r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+        r2 += __shfl_xor_sync(0xffffffffu, r2, o);
       }
-      const float pre = a.alpha * t + a.gamma * b;
-      if (a.act == kIdentity) {
-        a.out[idx] = pre;
-        continue;
+      if ((threadIdx.x & 31) == 0) {
+        rows[0][e / bm::tc::kTileM][warp & 3] = r1;
+        rows[1][e / bm::tc::kTileM][warp & 3] = r2;
       }
-      float p = sigmoid(pre);
-      if (a.act == kSigmoidDelta) dmax = nan_max(dmax, fabsf(p - a.out[idx]));
-      if (a.sample) {
-        const float r = bm::philox_uniform(a.seed, a.it, a.stream_id,
-                                           (unsigned)idx);
-        p = r < p ? 1.f : 0.f;
-      }
-      a.out[idx] = p;
+      continue;
     }
+    if (!in) continue;
+    const float pre = a.alpha * t + a.gamma * b;
+    if (a.act == kIdentity) {
+      a.out[idx] = pre;
+      continue;
+    }
+    float q = sigmoid(pre);
+    if (a.act == kSigmoidDelta) dmax = nan_max(dmax, fabsf(q - a.out[idx]));
+    if (a.sample) {
+      const float r = bm::philox_uniform(a.seed, a.it, a.stream_id,
+                                         (unsigned)idx);
+      q = r < q ? 1.f : 0.f;
+    }
+    a.out[idx] = q;
   }
   if (a.act == kSigmoidDelta) {
     // max over the warp, then one atomic per warp; atomicMax on the bits of
@@ -173,27 +201,19 @@ __global__ void __launch_bounds__(kGemmThreads)
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       dmax = nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, o));
-    if ((threadIdx.x & 31) == 0) atomicMax(a.delta_bits, __float_as_uint(dmax));
+    if ((threadIdx.x & 31) == 0)
+      atomicMax(a.delta_bits, __float_as_uint(dmax));
   } else if (a.act == kSoftplusRows) {
-    // the 16 threads of a row group are adjacent lanes of one warp: sum
-    // their row partials in a fixed order, then one write per (row, block)
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int o = 8; o > 0; o >>= 1) {
-        rows1[i] += __shfl_xor_sync(0xffffffffu, rows1[i], o);
-        rows2[i] += __shfl_xor_sync(0xffffffffu, rows2[i], o);
-      }
-    }
-    if (tx == 0) {
-      const int nblk = gridDim.x;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int m = m0 + ty * TM + i;
-        if (m >= a.M) continue;
-        a.out[(long long)m * nblk + blockIdx.x] = rows1[i];
-        a.out[((long long)a.M + m) * nblk + blockIdx.x] = rows2[i];
-      }
+    // one write per (row, column block)
+    __syncthreads();
+    const int nblk = gridDim.x;
+    for (int r = threadIdx.x; r < NT; r += bm::tc::kThreads) {
+      const int m = m0 + r;
+      if (m >= a.M) continue;
+      a.out[(long long)m * nblk + blockIdx.x] =
+          (rows[0][r][0] + rows[0][r][1]) + (rows[0][r][2] + rows[0][r][3]);
+      a.out[((long long)a.M + m) * nblk + blockIdx.x] =
+          (rows[1][r][0] + rows[1][r][1]) + (rows[1][r][2] + rows[1][r][3]);
     }
   }
 }
@@ -351,22 +371,49 @@ __global__ void __launch_bounds__(kRedThreads)
   log_w[r] = log_w[r] + lp_hi;
 }
 
-inline dim3 gemm_grid(const GemmArgs& a) {
-  return dim3((a.N + BN - 1) / BN, (a.M + BM - 1) / BM);
+// The products of `a` as the tile's operands, and its plan.
+int setup(DbmGemmArgs* p, const GemmArgs& a) {
+  bm::tc::Operand ops[2];
+  int n = 0;
+  const float* as[2] = {a.a1, a.a2};
+  const float* bs[2] = {a.b1, a.b2};
+  const long long sam[2] = {a.sam1, a.sam2}, sak[2] = {a.sak1, a.sak2};
+  const long long sbk[2] = {a.sbk1, a.sbk2}, sbn[2] = {a.sbn1, a.sbn2};
+  const int ks[2] = {a.k1, a.k2};
+  for (int i = 0; i < 2; ++i) {
+    if (as[i] == nullptr || ks[i] <= 0) continue;
+    if (sak[i] != 1 || (sbn[i] != 1 && sbk[i] != 1))
+      return (int)cudaErrorInvalidValue;
+    const int w_trans = sbn[i] != 1;
+    ops[n++] = {as[i], bs[i], sam[i], w_trans ? sbn[i] : sbk[i], ks[i],
+                w_trans};
+  }
+  p->a = a;
+  return bm::tc::setup_tile(&p->t, ops, n, a.M, a.N, a.n_tile, a.splits,
+                            a.ws, a.counters);
+}
+
+int launch(const DbmGemmArgs& p, cudaStream_t stream) {
+  int err = 0;
+  BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err);
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of column blocks of a launch: the partials of kSoftplusRows hold
-// 2 * M * gemm_col_blocks(N) floats.
-int bm_dbm_gemm_col_blocks(int N) { return (N + BN - 1) / BN; }
+// Number of column blocks of a launch (the tile's 128 model columns per
+// block): the partials of kSoftplusRows hold 2 * M * gemm_col_blocks(N)
+// floats.
+int bm_dbm_gemm_col_blocks(int N) {
+  return (N + bm::tc::kTileM - 1) / bm::tc::kTileM;
+}
 
 int bm_dbm_gemm_act(const GemmArgs* a, void* stream) {
-  dbm_gemm_act_kernel<<<gemm_grid(*a), kGemmThreads, 0,
-                        (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  DbmGemmArgs p;
+  const int err = setup(&p, *a);
+  return err ? err : launch(p, (cudaStream_t)stream);
 }
 
 // Zero the mean-field control words {delta bits, done, n_mf}.
@@ -377,16 +424,19 @@ int bm_dbm_mf_reset(unsigned* ctrl, void* stream) {
 
 // `n_sweeps` mean-field sweeps: per sweep the `n_layers` layer launches of
 // `layers` (each with delta_bits = ctrl and done = ctrl + 1), then one
-// dbm_mf_check.
+// dbm_mf_check.  The layers' tiles are set up once for all sweeps.
 int bm_dbm_mf_loop(const GemmArgs* layers, int n_layers, int n_sweeps,
                    unsigned* ctrl, float tol, int max_updates, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  std::vector<DbmGemmArgs> p(n_layers > 0 ? n_layers : 0);
+  for (int l = 0; l < n_layers; ++l) {
+    const int e = setup(&p[l], layers[l]);
+    if (e) return e;
+  }
   for (int it = 0; it < n_sweeps; ++it) {
     for (int l = 0; l < n_layers; ++l) {
-      dbm_gemm_act_kernel<<<gemm_grid(layers[l]), kGemmThreads, 0, s>>>(
-          layers[l]);
-      const cudaError_t e = cudaGetLastError();
-      if (e != cudaSuccess) return (int)e;
+      const int e = launch(p[l], s);
+      if (e) return e;
     }
     dbm_mf_check_kernel<<<1, 1, 0, s>>>(ctrl, tol, max_updates);
     const cudaError_t e = cudaGetLastError();

@@ -1,12 +1,18 @@
-// Shared device code of the port's kernels: a tiled f32 GEMM accumulator
-// addressed by strides, the activations, and a block reduction.  Used by
-// cd_epoch.cu (the RBM's CD epoch) and dbm_ops.cu (the DBM epoch, sampler and
-// AIS).
+// Shared device code of the port's kernels: the SIMT GEMM accumulator of the
+// association kernels, the activations, and a block reduction.  Used by
+// cd_epoch.cu (the RBM's CD epoch and stats) and dbm_ops.cu (the DBM epoch).
 //
-// The GEMM is plain f32 FMA on SIMT cores (no TF32, no tensor cores): a
-// 64x64 output tile per block of 256 threads, 4x4 outputs per thread, a 16-deep
-// K slice staged in shared memory.  A and B are addressed by (row stride,
-// column stride), so A.B, A.B^T and A^T.B are the same code.
+// gemm_accumulate serves the contractions over the batch (X^T h0 - v^T h
+// into a V x H output: cd_assoc_update, cd_assoc_stats, dbm_assoc_update),
+// which the TPU computes inside the same Pallas bodies as the chain's
+// products (pallas_ops.py:1343, :1238, pallas_dbm.py:373).  It is plain f32
+// FMA on the SIMT cores: a 64x64 output tile per block of 256 threads, 4x4
+// outputs per thread, a 16-deep K slice staged in shared memory, A and B
+// addressed by (row stride, column stride).  Their K is the batch (10-256),
+// their output W-sized, so they are bound by operations at 67 TFLOP/s, not
+// by latency as the chain's products were; moving them to the tensor cores
+// is the next item of ROADMAP.md.  The chain's products (A.W, h.W^T) run on
+// the tensor-core tile of gemm_tc.cuh.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -25,6 +25,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+# after the source: the tensor-core tile encodes its TMA descriptors with the
+# driver's cuTensorMapEncodeTiled
+LIBS = ('-lcuda',)
 
 _LOADED = {}
 
@@ -44,7 +47,7 @@ def find_nvcc():
 
 
 def _source_hash():
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(NVCC_FLAGS + LIBS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, '*'))):
         h.update(os.path.basename(path).encode())
         with open(path, 'rb') as f:
@@ -74,7 +77,7 @@ def build_all(names):
             src = os.path.join(CSRC_DIR, name + '.cu')
             fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
             os.close(fd)
-            cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, src]
+            cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp, src, *LIBS]
             proc = subprocess.Popen(cmd, cwd=CSRC_DIR, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
             jobs.append((lib, proc, tmp, cmd))
@@ -87,7 +90,7 @@ def build_all(names):
             if proc.returncode != 0:
                 os.unlink(tmp)
                 failures.append('building {0} failed ({1}):\n{2}\n{3}'.format(
-                    cmd[-1], ' '.join(cmd), out, err))
+                    os.path.basename(lib), ' '.join(cmd), out, err))
                 continue
             with open(lib + '.log', 'w') as f:
                 f.write(out + err)

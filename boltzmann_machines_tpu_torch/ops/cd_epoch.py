@@ -38,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .gemm import check_operand, launch_plan
 from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
                      STREAM_PLL_HHAT_FLIP, bernoulli, multinomial_counts,
                      normal, philox_uniform, stream_h, stream_v)
@@ -272,7 +273,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 _ARGTYPES = {
     'bm_cd_gemm_act': [_P, _L, _L, _P, _L, _L, _P, _P, _F, _I, _I, _I, _I,
-                       _P, _P, _U, _U, _U, _U, _P],
+                       _P, _P, _U, _U, _U, _U, _I, _I, _P, _P, _P],
     'bm_cd_softmax_sample': [_P, _I, _I, _I, _I, _P, _P, _U, _U, _U, _P],
     'bm_cd_bias_stats': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _F, _F, _F, _F, _F, _F, _P],
@@ -330,17 +331,21 @@ def check_tensors(pairs, device, shapes):
 
 def _launch_gemm_act(lib, stream, A, W, transposed_w, bias, sigma, mult,
                      act, means, states, seed, it, stream_id, shard=0,
-                     launches=None):
-    """cd_gemm_act on A (M, K) row-major and W (V, H): A.W (K = V, N = H)
-    or A.W^T (K = H, N = V), with the epilogue `act`; the launch counts in
-    `launches` (default: the epoch's)."""
+                     launches=None, splits=None):
+    """cd_gemm_act on A (M, K) with unit column stride and W (V, H): A.W
+    (K = V, N = H) or A.W^T (K = H, N = V), with the epilogue `act`, on the
+    tensor-core tile with the plan of ``ops/gemm.py`` (`splits` K slices
+    instead of the plan's, where given); the launch counts in `launches`
+    (default: the epoch's)."""
     V, H = W.shape
     M = A.shape[0]
     N, K = (V, H) if transposed_w else (H, V)
-    sbk, sbn = (1, H) if transposed_w else (H, 1)
+    sam, (sbk, sbn) = check_operand(A, W, transposed_w)
+    plan, ws, counters = launch_plan(M, N, K, A.device, stream, splits)
     check_launch(lib.bm_cd_gemm_act(
-        ptr(A), K, 1, ptr(W), sbk, sbn, ptr(bias), ptr(sigma), mult, act, M,
-        N, K, ptr(means), ptr(states), seed, it, stream_id, shard, stream),
+        ptr(A), sam, 1, ptr(W), sbk, sbn, ptr(bias), ptr(sigma), mult, act, M,
+        N, K, ptr(means), ptr(states), seed, it, stream_id, shard,
+        plan.n_tile, plan.splits, ptr(ws), ptr(counters), stream),
         'cd_gemm_act')
     (cd_epoch.launches if launches is None else launches)['cd_gemm_act'] += 1
 

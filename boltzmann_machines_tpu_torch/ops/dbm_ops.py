@@ -51,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .gemm import check_operand, launch_plan
 from .philox import AIS_H1, AIS_H2, AIS_V, bernoulli, stream_ais, stream_dbm
 
 STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
@@ -383,10 +384,11 @@ class GemmArgs(ctypes.Structure):
     """The ``GemmArgs`` struct of csrc/dbm_ops.cu (same field order)."""
     _fields_ = (
         [(n, _P) for n in ('a1', 'b1', 'a2', 'b2', 'c', 'bias', 'out',
-                           'delta_bits', 'done')] +
+                           'delta_bits', 'done', 'ws', 'counters')] +
         [(n, _L) for n in ('sam1', 'sak1', 'sbk1', 'sbn1',
                            'sam2', 'sak2', 'sbk2', 'sbn2')] +
-        [(n, _I) for n in ('k1', 'k2', 'M', 'N', 'act', 'sample')] +
+        [(n, _I) for n in ('k1', 'k2', 'M', 'N', 'act', 'sample', 'n_tile',
+                           'splits')] +
         [(n, _F) for n in ('alpha', 'alpha2', 'gamma')] +
         [(n, _U) for n in ('seed', 'it', 'stream_id')])
 
@@ -431,20 +433,29 @@ def _ptr(t):
 
 
 def _gemm_args(out, A=(), c=None, bias=None, act=ACT_SIGMOID, alpha=1.,
-               gamma=1.):
-    """Arguments of one ``dbm_gemm_act`` launch writing `out` (M, N).  `A`
-    holds up to two products ``(lhs, W, transposed)``: lhs (M, K) row-major
-    times W (K, N), or W^T for a W of shape (N, K)."""
+               gamma=1., *, stream, splits=None):
+    """Arguments of one ``dbm_gemm_act`` launch writing `out` (M, N) on the
+    CUDA stream `stream` (the handle).  `A` holds up to two products ``(lhs,
+    W, transposed)``: lhs (M, K) with unit column stride times W (K, N), or
+    W^T for a W of shape (N, K).  The tensor-core tile's plan
+    (``ops/gemm.py``) covers both products' K; `splits`, where given,
+    replaces its slice count."""
     a = GemmArgs()
     a.out = out.data_ptr()
     a.M, a.N = int(out.shape[0]), int(out.shape[1])
     for slot, (lhs, W, transposed) in enumerate(A, start=1):
         K = int(lhs.shape[1])
-        sbk, sbn = (1, W.shape[1]) if transposed else (W.shape[1], 1)
+        sam, (sbk, sbn) = check_operand(lhs, W, transposed,
+                                        'A{0}'.format(slot))
         for name, value in (('a', lhs.data_ptr()), ('b', W.data_ptr()),
-                            ('sam', K), ('sak', 1), ('sbk', sbk),
+                            ('sam', sam), ('sak', 1), ('sbk', sbk),
                             ('sbn', sbn), ('k', K)):
             setattr(a, '{0}{1}'.format(name, slot), value)
+    plan, ws, counters = launch_plan(a.M, a.N,
+                                     [int(lhs.shape[1]) for lhs, _, _ in A],
+                                     out.device, stream, splits)
+    a.n_tile, a.splits = plan.n_tile, plan.splits
+    a.ws, a.counters = _ptr(ws), _ptr(counters)
     a.c, a.bias = _ptr(c), _ptr(bias)
     a.act = act
     a.alpha, a.gamma = alpha, gamma
@@ -542,19 +553,21 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
 
     # launch arguments shared by every minibatch (X's pointer and the
     # iteration are set per minibatch)
-    t0_args = _gemm_args(T0, [(X_batches[0], W[0], False)], act=ACT_IDENTITY)
+    t0_args = _gemm_args(T0, [(X_batches[0], W[0], False)], act=ACT_IDENTITY,
+                         stream=stream)
     # mean-field init: sigmoid(2 X.W0 + hb0) doubles the product only
-    init_args = [_gemm_args(mu[0], c=T0, bias=hb[0], alpha=2.)]
+    init_args = [_gemm_args(mu[0], c=T0, bias=hb[0], alpha=2., stream=stream)]
     for l in range(1, L):
         init_args.append(_gemm_args(mu[l], [(mu[l - 1], W[l], False)],
-                                    bias=hb[l], alpha=2. if l < L - 1 else 1.))
+                                    bias=hb[l], alpha=2. if l < L - 1 else 1.,
+                                    stream=stream))
     sweep = (GemmArgs * L)()
     for l in range(L):
         A = [(mu[l - 1], W[l], False)] if l else []
         if l + 1 < L:
             A.append((mu[l + 1], W[l + 1], True))
         sweep[l] = _gemm_args(mu[l], A, c=T0 if l == 0 else None, bias=hb[l],
-                              act=ACT_SIGMOID_DELTA)
+                              act=ACT_SIGMOID_DELTA, stream=stream)
         sweep[l].delta_bits = ctrl.data_ptr()
         sweep[l].done = ctrl.data_ptr() + 4
     gibbs = []
@@ -569,11 +582,12 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                 if l + 1 < L:
                     A.append((H[l + 1], W[l + 1], True))
                 out, bias, on = H[l], hb[l], cfg.sample_h[l]
-            a = _gemm_args(out, A, bias=bias)
+            a = _gemm_args(out, A, bias=bias, stream=stream)
             a.sample, a.seed = int(on), int(seed)
             a.stream_id = stream_dbm(step, l, L)
             gibbs.append(a)
-    recon_args = _gemm_args(v_means, [(mu[0], W[0], True)], bias=s['vb'])
+    recon_args = _gemm_args(v_means, [(mu[0], W[0], True)], bias=s['vb'],
+                            stream=stream)
     # (data side, particle side, width, bias, its accumulator, sparsity
     # EMAs q and mu, penalty, cost, target); the data side of vb is X
     biases = [(None, s['v'], V, s['vb'], s['dvb'], None, None, None, 0., 0.)]
@@ -651,11 +665,12 @@ def _dbm_sample_cuda(cfg, state, n_steps, seed):
 
     def layer_args(l, out):
         if l == L:
-            return _gemm_args(out, [(H[0], W[0], True)], bias=vb)
+            return _gemm_args(out, [(H[0], W[0], True)], bias=vb,
+                              stream=stream)
         A = [(v, W[0], False)] if l == 0 else [(H[l - 1], W[l], False)]
         if l + 1 < L:
             A.append((H[l + 1], W[l + 1], True))
-        return _gemm_args(out, A, bias=hb[l])
+        return _gemm_args(out, A, bias=hb[l], stream=stream)
 
     sweep = [layer_args(l, v if l == L else H[l]) for l in range(L + 1)]
     for l, a in enumerate(sweep):
@@ -669,7 +684,8 @@ def _dbm_sample_cuda(cfg, state, n_steps, seed):
             launches['dbm_gemm_act'] += 1
     h0_means = torch.empty((M, hs[0]), dtype=torch.float32, device=dev)
     for a in (layer_args(0, h0_means),
-              _gemm_args(v, [(h0_means, W[0], True)], bias=vb)):
+              _gemm_args(v, [(h0_means, W[0], True)], bias=vb,
+                         stream=stream)):
         _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream), 'dbm_gemm_act')
         launches['dbm_gemm_act'] += 1
     return dict(state, v=v, H=H), v
@@ -711,14 +727,16 @@ def _ais_cuda(cfg, state, seed, x0):
                 (h2, [(x, W1, False)], hb1, AIS_H2, cfg.sample_h1),
                 (x, [(v, W0, False), (h2, W1, True)], hb0, AIS_H1,
                  cfg.sample_h0)):
-            a = _gemm_args(out, A, bias=bias)
+            a = _gemm_args(out, A, bias=bias, stream=stream)
             a.sample, a.seed = int(on), int(seed)
             a.stream_id = stream_ais(step, g)
             trans.append(a)
     # softplus(beta (x.W0^T + vb)) and softplus(beta (x.W1 + hb1)), row sums
     # at both betas of the pair from one product each
-    lp_v = _gemm_args(v, [(x, W0, True)], bias=vb, act=ACT_SOFTPLUS_ROWS)
-    lp_h2 = _gemm_args(h2, [(x, W1, False)], bias=hb1, act=ACT_SOFTPLUS_ROWS)
+    lp_v = _gemm_args(v, [(x, W0, True)], bias=vb, act=ACT_SOFTPLUS_ROWS,
+                      stream=stream)
+    lp_h2 = _gemm_args(h2, [(x, W1, False)], bias=hb1, act=ACT_SOFTPLUS_ROWS,
+                       stream=stream)
     lp_v.out, lp_h2.out = part_v.data_ptr(), part_h2.data_ptr()
     for j, (beta_t, beta_lo, beta_hi) in enumerate(
             ais_schedule(cfg.n_betas).tolist(), start=1):

@@ -582,3 +582,279 @@ def test_dbm_wrappers_reject_bad_inputs(cuda):
     acfg = dbm_ops.AISConfig(24, 16, 12, 5, 1, False, False, False)
     with pytest.raises(ValueError, match='x0'):
         dbm_ops.ais(acfg, state, 1, torch.zeros((4, 15), device=cuda))
+
+
+# ---------------------------------------------------------------------- #
+# the tensor-core tile of cd_gemm_act and dbm_gemm_act (csrc/gemm_tc.cuh) #
+# ---------------------------------------------------------------------- #
+# (B, V, H): the ragged SHAPES and every product of the paths
+GEMM_SHAPES = [(B, V, H) for V, H, B in SHAPES] + [
+    (10, 784, 1024), (128, 784, 1024), (100, 3072, 5000), (100, 5000, 1000),
+    (50, 3072, 7800)]
+
+
+def cd_gemm(A, W, transposed, bias, sigma, mult, act, states, seed=5, it=2,
+            stream_id=3, shard=0, splits=None):
+    """One cd_gemm_act launch: (means, states) of act(mult (A.W^(T) + b)),
+    with `splits` K slices instead of the plan's where given."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _launch_gemm_act, library)
+    N = W.shape[0] if transposed else W.shape[1]
+    means = torch.empty((A.shape[0], N), device=A.device)
+    st = torch.empty_like(means) if states else None
+    counts = {'cd_gemm_act': 0}
+    _launch_gemm_act(library(), torch.cuda.current_stream().cuda_stream, A,
+                     W, transposed, bias, sigma, mult, act, means, st, seed,
+                     it, stream_id, shard, launches=counts, splits=splits)
+    assert counts == {'cd_gemm_act': 1}
+    return means, st
+
+
+def cd_gemm_plain(A, W, transposed, bias, sigma, mult, act, seed=5, it=2,
+                  stream_id=3, shard=0):
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        ACT_GAUSSIAN, ACT_PRE)
+    from boltzmann_machines_tpu_torch.ops.philox import bernoulli, normal
+    acc = A @ (W.T if transposed else W)
+    if act == ACT_GAUSSIAN:
+        mu = mult * (acc * sigma + bias)
+        return mu, mu + normal(seed, it, stream_id, mu.shape, A.device,
+                               shard) * sigma
+    if act == ACT_PRE:
+        return mult * (acc + bias), None
+    mu = torch.sigmoid(mult * (acc + bias))
+    return mu, bernoulli(mu, seed, it, stream_id, shard)
+
+
+def gemm_operands(B, V, H, transposed, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    K, N = (H, V) if transposed else (V, H)
+    W = torch.as_tensor(rng.randn(V, H) * 0.05, dtype=torch.float32,
+                        device=dev)
+    A = torch.as_tensor(rng.randn(B, K), dtype=torch.float32, device=dev)
+    bias = torch.as_tensor(rng.randn(N) * 0.1, dtype=torch.float32,
+                           device=dev)
+    sigma = torch.as_tensor(rng.rand(N) + 0.5, dtype=torch.float32,
+                            device=dev)
+    return A, W, bias, sigma
+
+
+# The tile's error against the plain product in true f32, per element of
+# A.W: at most 2^-22 (gemm.ERR_SUM |A|.|W| + |A.W|).  Read on the H100 by
+# `python3 chip_smoke.py --readings` on this file's operands: the committed
+# tile needs at most 0.69 (50 x 3072 -> 7800); the tile with one
+# accumulator per slice (the tensor cores truncate its sum, ROADMAP Queue
+# C8) needs 5.7-19.6 at every product of the paths (K >= 784), so this
+# bound fails it there.
+
+
+def assert_gemm_close(got, want, act, A, W, transposed, bias, sigma, mult):
+    """Each element within the bound its own terms give: the product's
+    error E = 2^-22 (gemm.ERR_SUM |A|.|W| + |A.W|) carried through the
+    epilogue with the bias's rounding -- times mult for the
+    pre-activation, mult sigma for the Gaussian mean, mult / 4 for the
+    sigmoid (plus 2^-20 of the mean: its exp); Gaussian states within the
+    mean's bound plus 1e-5 sigma (1 + |n|) for the Box-Muller draw n (C15)
+    and 2^-22 |v|; Bernoulli states in <= 1e-5 of draws plus one (a mean
+    within rounding of its uniform)."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        ACT_GAUSSIAN, ACT_PRE)
+    u = 2. ** -22
+    Wk = W.T if transposed else W
+    E = u * (gemm.ERR_SUM * (A.abs() @ Wk.abs()) + (A @ Wk).abs())
+    b = u * bias.abs()
+    if act == ACT_PRE:
+        tol = mult * (E + b)
+    elif act == ACT_GAUSSIAN:
+        tol = mult * (sigma * E + b)
+    else:
+        tol = mult / 4. * (E + b) + 2. ** -20 * want[0].abs()
+    excess = (got[0] - want[0]).abs() - tol
+    assert float(excess.max()) <= 0., 'means off by %.3g over the bound' % \
+        float(excess.max())
+    if want[1] is None:
+        assert got[1] is None
+    elif act == ACT_GAUSSIAN:
+        n = (want[1] - want[0]) / sigma
+        tol_v = tol + 1e-5 * sigma * (1. + n.abs()) + u * want[1].abs()
+        assert bool(((got[1] - want[1]).abs() <= tol_v).all())
+    else:
+        assert int((got[1] != want[1]).sum()) <= 1e-5 * want[1].numel() + 1
+
+
+@pytest.mark.parametrize('B,V,H', GEMM_SHAPES)
+@pytest.mark.parametrize('transposed', [False, True])
+@pytest.mark.parametrize('act', [0, 1, 2])
+def test_cd_gemm_act_matches_plain_version(cuda, B, V, H, transposed, act):
+    """Every epilogue (sigmoid with Bernoulli states, Gaussian with
+    Box-Muller states, the pre-activation) in both directions of W, at the
+    ragged shapes and the paths' products; a second same-seed launch is bit
+    for bit the first."""
+    A, W, bias, sigma = gemm_operands(B, V, H, transposed, cuda)
+    sigma = sigma if act == 1 else None
+    states = act != 2
+    got = cd_gemm(A, W, transposed, bias, sigma, 2., act, states)
+    again = cd_gemm(A, W, transposed, bias, sigma, 2., act, states)
+    want = cd_gemm_plain(A, W, transposed, bias, sigma, 2., act)
+    torch.cuda.synchronize()
+    assert_gemm_close(got, want, act, A, W, transposed, bias, sigma, 2.)
+    assert torch.equal(got[0], again[0])
+    assert not states or torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize('B,V,H', [(67, 50, 129), (10, 784, 1024),
+                                   (100, 5000, 1000), (50, 3072, 7800)])
+@pytest.mark.parametrize('transposed', [False, True])
+def test_cd_gemm_act_split_counts(cuda, B, V, H, transposed):
+    """Split-K with 1, 2, 3 and 7 slices and the plan's: each within the
+    plain tolerance, each bit for bit the same on a same-seed rerun."""
+    A, W, bias, _ = gemm_operands(B, V, H, transposed, cuda, seed=1)
+    want = cd_gemm_plain(A, W, transposed, bias, None, 1., 0)
+    for splits in (1, 2, 3, 7, None):
+        runs = [cd_gemm(A, W, transposed, bias, None, 1., 0, True,
+                        splits=splits) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert_gemm_close(runs[0], want, 0, A, W, transposed, bias, None, 1.)
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_cd_gemm_act_cp_async_path(cuda):
+    """Row strides that are no multiple of 16 bytes (TMA cannot take them)
+    fill the same ring by cp.async: a (B, 37) view of a wider buffer, and W
+    of 37 columns; a base address 4 bytes off a 16-byte boundary too."""
+    A0, W, bias, _ = gemm_operands(9, 37, 70, False, cuda, seed=2)
+    wide = torch.zeros((9, 41), device=cuda)
+    wide[:, 1:38] = A0
+    for A in (wide[:, 1:38], wide[:, :37].copy_(A0)):
+        assert A.stride() == (41, 1)
+        got = cd_gemm(A, W, False, bias, None, 1., 0, True)
+        want = cd_gemm_plain(A, W, False, bias, None, 1., 0)
+        torch.cuda.synchronize()
+        assert_gemm_close(got, want, 0, A, W, False, bias, None, 1.)
+    Wt = W.T.contiguous()  # (70, 37): h.W^T with rows of 37 floats
+    h = (torch.rand((9, 37), device=cuda) < 0.5).float()
+    got = cd_gemm(h, Wt, True, bias, None, 1., 2, False)
+    want = cd_gemm_plain(h, Wt, True, bias, None, 1., 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def test_cd_gemm_act_rejects_a_strided_operand(cuda):
+    """The tile reads activation rows K-major: a column stride other than
+    1 raises in the wrapper (check_operand), before any launch."""
+    A, W, bias, _ = gemm_operands(8, 24, 16, False, cuda)
+    with pytest.raises(ValueError, match='unit column stride'):
+        cd_gemm(A.T.contiguous().T, W, False, bias, None, 1., 0, False)
+
+
+def dbm_launch(out, A, c=None, bias=None, act=dbm_ops.ACT_SIGMOID, alpha=1.,
+               sample=False, done=None, ctrl=None, partials=None):
+    import ctypes
+    a = dbm_ops._gemm_args(out, A, c=c, bias=bias, act=act, alpha=alpha,
+                           gamma=alpha,
+                           stream=torch.cuda.current_stream().cuda_stream)
+    a.alpha2 = 0.5
+    a.sample, a.seed, a.it, a.stream_id = int(sample), 9, 4, 2
+    if done is not None:
+        a.done = done.data_ptr()
+    if ctrl is not None:
+        a.delta_bits = ctrl.data_ptr()
+    if partials is not None:
+        a.out = partials.data_ptr()
+    lib = dbm_ops._library()
+    dbm_ops._check(lib.bm_dbm_gemm_act(
+        ctypes.byref(a), torch.cuda.current_stream().cuda_stream),
+        'dbm_gemm_act')
+
+
+DBM_GEMM_SHAPES = [((24, 16, 12), 8), ((70, 37, 65), 13), ((6, 5, 4), 100),
+                   ((784, 512, 1024), 100)]
+
+
+@pytest.mark.parametrize('sizes,M', DBM_GEMM_SHAPES)
+@pytest.mark.parametrize('act', ['identity', 'sigmoid', 'sample', 'delta',
+                                 'softplus'])
+def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act):
+    """The middle layer's two-product form x0.W0 + x2.W1^T with the addend
+    C, every epilogue: identity, sigmoid, sigmoid with Philox states, the
+    mean-field change (max |new - old| into the control word), and the
+    softplus row sums at two betas (per column block of the tile,
+    ``bm_dbm_gemm_col_blocks`` of them); same-seed reruns bit for bit."""
+    import torch.nn.functional as F
+    from boltzmann_machines_tpu_torch.ops.philox import bernoulli
+    V, H1, H2 = sizes
+    rng = np.random.RandomState(V + M)
+
+    def t(*shape, scale=1.):
+        return torch.as_tensor(rng.randn(*shape) * scale,
+                               dtype=torch.float32, device=cuda)
+
+    W0, W1 = t(V, H1, scale=0.1), t(H1, H2, scale=0.1)
+    x0 = (t(M, V) > 0).float()
+    x2 = (t(M, H2) > 0).float()
+    c, bias, old = t(M, H1), t(H1, scale=0.1), torch.rand((M, H1),
+                                                           device=cuda)
+    A = [(x0, W0, False), (x2, W1, True)]
+    code = {'identity': dbm_ops.ACT_IDENTITY, 'sigmoid': dbm_ops.ACT_SIGMOID,
+            'sample': dbm_ops.ACT_SIGMOID,
+            'delta': dbm_ops.ACT_SIGMOID_DELTA,
+            'softplus': dbm_ops.ACT_SOFTPLUS_ROWS}[act]
+    nblk = dbm_ops._library().bm_dbm_gemm_col_blocks(H1)
+    runs = []
+    for _ in range(2):
+        out = old.clone()
+        ctrl = torch.zeros(1, dtype=torch.int32, device=cuda)
+        part = torch.empty(2 * M * nblk, device=cuda)
+        dbm_launch(out, A, c=c, bias=bias, act=code, alpha=0.7,
+                   sample=act == 'sample', ctrl=ctrl,
+                   partials=part if act == 'softplus' else None)
+        runs.append((out, ctrl, part))
+    acc = x0 @ W0 + x2 @ W1.T + c
+    torch.cuda.synchronize()
+    (out, ctrl, part), again = runs
+    if act == 'softplus':
+        got = part.view(2, M, nblk).sum(2)
+        want = torch.stack([F.softplus(b * (acc + bias)).sum(1)
+                            for b in (0.7, 0.5)])
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+        assert torch.equal(part, again[2])
+        return
+    pre = 0.7 * acc + 0.7 * bias
+    want = pre if act == 'identity' else torch.sigmoid(pre)
+    if act == 'sample':
+        st = bernoulli(want, 9, 4, 2)
+        assert int((out != st).sum()) <= 1e-5 * st.numel() + 1
+    else:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    if act == 'delta':
+        delta = float(ctrl.view(torch.float32))
+        assert abs(delta - float((want - old).abs().max())) <= 1e-5
+    assert torch.equal(out, again[0]) and torch.equal(ctrl, again[1])
+
+
+def test_dbm_gemm_act_done_is_a_no_op(cuda):
+    """With *done set (mean-field converged) the launch writes nothing, so
+    the sweeps enqueued after convergence leave the state alone."""
+    x = torch.rand((100, 784), device=cuda)
+    W = torch.randn((784, 512), device=cuda)
+    out = torch.full((100, 512), 7., device=cuda)
+    done = torch.ones(1, dtype=torch.int32, device=cuda)
+    dbm_launch(out, [(x, W, False)], done=done)
+    torch.cuda.synchronize()
+    assert bool((out == 7.).all())
+    done.zero_()
+    dbm_launch(out, [(x, W, False)], done=done)
+    torch.cuda.synchronize()
+    assert not bool((out == 7.).any())
+
+
+@pytest.mark.parametrize('N', [1, 4, 65, 128, 129, 512, 784, 1024, 7800])
+def test_dbm_gemm_col_blocks_is_the_tiling(cuda, N):
+    """The softplus partials are sized by the kernel's column blocks: the
+    plan's model tiles, 128 columns each."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    n = dbm_ops._library().bm_dbm_gemm_col_blocks(N)
+    assert n == -(-N // gemm.TILE_M) == gemm.gemm_plan(100, N, 64, 132) \
+        .model_tiles
