@@ -31,11 +31,11 @@
 //                       partial), the sparsity EMA and penalty, and the
 //                       vb/hb/dvb/dhb/q updates.  Replaces :353-356, :425-441
 //                       (tiled: :635-651).
-//   K3 cd_assoc_update  X^T h0 - v^T h (contraction over the batch) with the
-//                       momentum update of dW and W in place as epilogue;
-//                       each (i, j) has one owner, and it reads the old W for
-//                       the L2 term.  Replaces :348-352, :425, :433-439
-//                       (tiled: :653-714).
+//   K3 cd_assoc_update  X^T h0 - v^T h (contraction over the batch) on the
+//                       tensor cores, with the momentum update of dW and W
+//                       in place as epilogue (assoc_tc.cuh); each (i, j) has
+//                       one owner, and it reads the old W for the L2 term.
+//                       Replaces :348-352, :425, :433-439 (tiled: :653-714).
 //   K4 cd_metrics       only where it % every == 0 (the host knows `it`, so
 //                       no readback): L2 of the new W, msre, and the PLL with
 //                       one flipped unit per row on the new parameters, with
@@ -70,9 +70,9 @@
 // No padding and no tiling: H = 7800 needs only the GEMM's edge masks.
 // What bounds it: at 3072x7800 and a local batch of 50 (two ranks of the
 // G-RBM's 100), the five products are 2BVH operations each, 12 GFLOP in all
-// (0.18 ms at the f32 peak), against W read once and the association
-// written once (192 MB, 0.057 ms): operations.  K1 runs on the tensor-core
-// tile, K3s on the SIMT tile, as in the epoch.
+// (0.07 ms at 3xTF32's 165 TFLOP/s), against W read once and the
+// association written once (192 MB, 0.057 ms).  K1 runs on the tensor-core
+// tile, K3s on the association kernel, as in the epoch.
 //
 // Three standalone launchers share these device functions: bm_normal_sample
 // (the TPU's `normal_sample`, :95), bm_bernoulli_sample (`bernoulli_sample`,
@@ -91,10 +91,10 @@
 // products run on the tensor-core tile of gemm_tc.cuh (swap-AB wgmma in
 // 3xTF32, a TMA-fed ring, deterministic split-K; its note says what bounds
 // each product and what the design does about it).  K3's contraction over
-// the batch is another shape (K = B, a V x H output) and still uses the
-// SIMT tile of gemm.cuh: at the CIFAR shapes it is now the largest kernel
-// of the step.  CUDA graphs or one persistent kernel per epoch are later
-// work.
+// the batch is another shape (K = B, a V x H output, bound by W and dW's
+// bytes): the association kernel of assoc_tc.cuh, the same main loop with
+// its operands transposed and the update as a TMA-fed epilogue.  CUDA
+// graphs or one persistent kernel per epoch are later work.
 //
 // The multinomial pass is bound by neither: per row it scans H entries and
 // binary-searches n draws.  Its design choices are about exactness, not
@@ -119,9 +119,9 @@
 // library is built without --use_fast_math, so Box-Muller's logf, cosf and
 // sqrtf stay within an ulp or two of torch's.
 //
-// The SIMT tile (K3, K3s), the activations and the block reduction live in
-// gemm.cuh, the tensor-core tile (K1) in gemm_tc.cuh; both are shared with
-// dbm_ops.cu.
+// The activations and the block reduction live in gemm.cuh, the
+// tensor-core tile (K1) in gemm_tc.cuh, the association kernel (K3, K3s) in
+// assoc_tc.cuh; all are shared with dbm_ops.cu.
 //
 // C interface (bound with ctypes by ops/cd_epoch.py, ops/cd_stats.py and
 // ops/samplers.py):
@@ -132,23 +132,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "assoc_tc.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bm::BK;
-using bm::BM;
-using bm::BN;
 using bm::block_sum;
-using bm::gemm_accumulate;
-using bm::GemmTile;
-using bm::kGemmThreads;
 using bm::sigmoid;
 using bm::softplus;
-using bm::TM;
-using bm::TN;
 
 constexpr int kMetThreads = 256;
 constexpr int kRowThreads = 256;
@@ -440,42 +433,6 @@ __global__ void cd_bias_stats_kernel(
   }
 }
 
-// K3: rows i of W (visible), columns j (hidden); contraction over the batch.
-__global__ void __launch_bounds__(kGemmThreads)
-    cd_assoc_update_kernel(const float* __restrict__ X,
-                           const float* __restrict__ h0,
-                           const float* __restrict__ vs,
-                           const float* __restrict__ hm,
-                           const float* __restrict__ pen, int B, int V, int H,
-                           float* __restrict__ W, float* __restrict__ dW,
-                           float lr, float mom, float l2) {
-  __shared__ GemmTile sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float pos[TM][TN] = {}, neg[TM][TN] = {};
-  // A(i, b) = X[b*V + i], B(b, j) = h0[b*H + j]
-  gemm_accumulate(X, 1, V, h0, H, 1, V, H, B, m0, n0, sm, pos);
-  gemm_accumulate(vs, 1, V, hm, H, 1, V, H, B, m0, n0, sm, neg);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  const float n = (float)B;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= V) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c >= H) continue;
-      const long long idx = (long long)m * H + c;
-      const float w = W[idx];
-      const float g = (pos[i][j] - neg[i][j]) / n - l2 * w;
-      // the sparsity penalty is subtracted from every row of dW
-      const float acc = lr * (mom * dW[idx] + g - pen[c]);
-      dW[idx] = acc;
-      W[idx] = w + acc;
-    }
-  }
-}
-
 // K2s: K2's column sums of one local batch with no update -- the stats
 // kernels' psum-able dvb_sum, dhb_sum and h_sum, in K2's summation order.
 __global__ void cd_stats_sums_kernel(const float* __restrict__ X,
@@ -502,33 +459,6 @@ __global__ void cd_stats_sums_kernel(const float* __restrict__ X,
     }
     dhb_sum[c] = s;
     h_sum[c] = hsum;
-  }
-}
-
-// K3s: K3's contraction over the local batch, X^T h0 - v^T h, written as it
-// is (no update): rows i of the association (visible), columns j (hidden).
-__global__ void __launch_bounds__(kGemmThreads)
-    cd_assoc_stats_kernel(const float* __restrict__ X,
-                          const float* __restrict__ h0,
-                          const float* __restrict__ vs,
-                          const float* __restrict__ hm, int B, int V, int H,
-                          float* __restrict__ assoc) {
-  __shared__ GemmTile sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float pos[TM][TN] = {}, neg[TM][TN] = {};
-  gemm_accumulate(X, 1, V, h0, H, 1, V, H, B, m0, n0, sm, pos);
-  gemm_accumulate(vs, 1, V, hm, H, 1, V, H, B, m0, n0, sm, neg);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= V) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c >= H) continue;
-      assoc[(long long)m * H + c] = pos[i][j] - neg[i][j];
-    }
   }
 }
 
@@ -749,14 +679,15 @@ int bm_cd_bias_stats(const float* X, const float* vs, const float* vm,
   return (int)cudaGetLastError();
 }
 
+// X^T h0 - v^T h by the association kernel (assoc_tc.cuh), with the CD
+// momentum update of W and dW in place as its epilogue.
 int bm_cd_assoc_update(const float* X, const float* h0, const float* vs,
                        const float* hm, const float* pen, int B, int V, int H,
                        float* W, float* dW, float lr, float mom, float l2,
                        void* stream) {
-  const dim3 grid((H + BN - 1) / BN, (V + BM - 1) / BM);
-  cd_assoc_update_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      X, h0, vs, hm, pen, B, V, H, W, dW, lr, mom, l2);
-  return (int)cudaGetLastError();
+  return bm::tc::launch_assoc(X, h0, B, 1.f, vs, hm, B, -1.f, V, H,
+                              bm::tc::kAssocCd, W, dW, pen, (float)B,
+                              lr, mom, l2, (cudaStream_t)stream);
 }
 
 // Slices of the caller's flat statistics buffer: dvb_sum (V), dhb_sum and
@@ -775,10 +706,15 @@ int bm_cd_stats_sums(const float* X, const float* vs, const float* h0,
 int bm_cd_assoc_stats(const float* X, const float* h0, const float* vs,
                       const float* hm, int B, int V, int H, float* assoc,
                       void* stream) {
-  const dim3 grid((H + BN - 1) / BN, (V + BM - 1) / BM);
-  cd_assoc_stats_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      X, h0, vs, hm, B, V, H, assoc);
-  return (int)cudaGetLastError();
+  return bm::tc::launch_assoc(X, h0, B, 1.f, vs, hm, B, -1.f, V, H,
+                              bm::tc::kAssocStats, assoc, nullptr, nullptr,
+                              1.f, 0.f, 0.f, 0.f, (cudaStream_t)stream);
+}
+
+// The association kernel's columns per block at V x H on n_sm SMs (the
+// plan that ops/gemm.py's assoc_plan mirrors).
+int bm_assoc_n_tile(int V, int H, int n_sm) {
+  return bm::tc::assoc_n_tile(V, H, n_sm);
 }
 
 // `partials` holds 3 * B floats; `counter` one zeroed unsigned.  sigma ==

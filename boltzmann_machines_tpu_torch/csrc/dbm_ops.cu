@@ -59,8 +59,10 @@
 // layer in one K loop, narrow batch tiles and deterministic split-K so that
 // ~100-130 blocks share each product instead of 8-16, and the epilogues
 // above on the summed tile.  dbm_assoc_update (K = rows, an n_in x n_out
-// output) keeps the SIMT tile of gemm.cuh; CUDA graphs for the launch chain
-// are later work.
+// output) is the association kernel of assoc_tc.cuh: both products in one
+// tensor-core K loop, each scaled as its stages are added (1/N, -1/M), the
+// update of W and dW as a TMA-fed epilogue.  CUDA graphs for the launch
+// chain are later work.
 //
 // C interface (bound with ctypes by ops/dbm_ops.py): every entry launches on
 // the given stream, allocates nothing, does not synchronise, and returns
@@ -71,22 +73,16 @@
 
 #include <vector>
 
+#include "assoc_tc.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 #include "philox.cuh"
 
 namespace {
 
-using bm::BM;
-using bm::BN;
 using bm::block_sum;
-using bm::gemm_accumulate;
-using bm::GemmTile;
-using bm::kGemmThreads;
 using bm::sigmoid;
 using bm::softplus;
-using bm::TM;
-using bm::TN;
 
 enum Act { kIdentity = 0, kSigmoid = 1, kSigmoidDelta = 2, kSoftplusRows = 3 };
 
@@ -261,45 +257,6 @@ __global__ void dbm_bias_update_kernel(
   b[j] += acc;
 }
 
-// W (n_in, n_out), rows i, columns j.  pos = Ad^T.Bd over N data rows, neg =
-// Ap^T.Bp over M particle rows; each (i, j) has one owner, which reads the
-// old W for the L2 term before it writes the new one.
-__global__ void __launch_bounds__(kGemmThreads)
-    dbm_assoc_update_kernel(const float* __restrict__ Ad,
-                            const float* __restrict__ Bd,
-                            const float* __restrict__ Ap,
-                            const float* __restrict__ Bp,
-                            const float* __restrict__ pen, int N, int M,
-                            int n_in, int n_out, float* __restrict__ W,
-                            float* __restrict__ dW, float lr, float mom,
-                            float l2) {
-  __shared__ GemmTile sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float pos[TM][TN] = {}, neg[TM][TN] = {};
-  // A(i, r) = Ad[r*n_in + i], B(r, j) = Bd[r*n_out + j]
-  gemm_accumulate(Ad, 1, n_in, Bd, n_out, 1, n_in, n_out, N, m0, n0, sm, pos);
-  gemm_accumulate(Ap, 1, n_in, Bp, n_out, 1, n_in, n_out, M, m0, n0, sm, neg);
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  const float fn = (float)N, fm = (float)M;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = m0 + ty * TM + i;
-    if (r >= n_in) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = n0 + tx * TN + j;
-      if (c >= n_out) continue;
-      const long long idx = (long long)r * n_out + c;
-      const float w = W[idx];
-      float g = pos[i][j] / fn - neg[i][j] / fm - l2 * w;
-      if (pen != nullptr) g = g - pen[c];
-      const float acc = lr * (mom * dW[idx] + g);
-      dW[idx] = acc;
-      W[idx] = w + acc;
-    }
-  }
-}
-
 // One thread per column: W[:, j] *= min(|w|, c) / max(|w|, 1e-8).
 __global__ void dbm_max_norm_kernel(float* W, int n_in, int n_out,
                                     float max_norm) {
@@ -461,10 +418,12 @@ int bm_dbm_assoc_update(const float* Ad, const float* Bd, const float* Ap,
                         const float* Bp, const float* pen, int N, int M,
                         int n_in, int n_out, float* W, float* dW, float lr,
                         float mom, float l2, void* stream) {
-  const dim3 grid((n_out + BN - 1) / BN, (n_in + BM - 1) / BM);
-  dbm_assoc_update_kernel<<<grid, kGemmThreads, 0, (cudaStream_t)stream>>>(
-      Ad, Bd, Ap, Bp, pen, N, M, n_in, n_out, W, dW, lr, mom, l2);
-  return (int)cudaGetLastError();
+  // Ad^T Bd / N - Ap^T Bp / M: each stage of a product scaled as it is
+  // added to the block's sum (1/N, -1/M, rounded once each)
+  return bm::tc::launch_assoc(Ad, Bd, N, 1.f / (float)N, Ap, Bp, M,
+                              -1.f / (float)M, n_in, n_out, bm::tc::kAssocDbm,
+                              W, dW, pen, 1.f, lr, mom, l2,
+                              (cudaStream_t)stream);
 }
 
 int bm_dbm_max_norm(float* W, int n_in, int n_out, float max_norm,

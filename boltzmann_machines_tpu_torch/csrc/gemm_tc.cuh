@@ -1,6 +1,7 @@
 // The tensor-core GEMM tile of the chain's products, hand-written for Hopper
-// (sm_90a): the main loop of cd_gemm_act (cd_epoch.cu) and dbm_gemm_act
-// (dbm_ops.cu), which carry the products of the TPU's CD epoch and stats
+// (sm_90a): the main loop of cd_gemm_act (cd_epoch.cu), dbm_gemm_act
+// (dbm_ops.cu) and the association kernels (assoc_tc.cuh).  The first two
+// carry the products of the TPU's CD epoch and stats
 // kernels (boltzmann_machines_tpu/ops/pallas_ops.py:1343, :792, :1238,
 // :1033) and of its DBM epoch, sampler and AIS kernels (pallas_dbm.py:373,
 // :481, :516).  On the TPU each product sits inside the Pallas body with W
@@ -23,11 +24,11 @@
 // * 3xTF32 on the tensor cores, for f32 accuracy: each operand is split into
 //   hi = tf32(x) and lo = tf32(x - hi) (round to nearest), and lo.hi +
 //   hi.lo + hi.hi accumulate in f32 (small terms first), each 32-deep stage
-//   into an accumulator of its own that is added to the block's sum with
-//   f32 adds rounded to nearest.  Products of tf32 values are exact in f32,
-//   so the error is the dropped lo.lo and lo's rounding (~2^-22 relative)
-//   and the sums.  Plain TF32 (~1e-3) would break the kernel-vs-plain
-//   comparisons and the draw-by-draw ones.
+//   into an accumulator of its own that is added to the block's sum (times
+//   its product's scale) by an f32 FMA rounded to nearest.  Products of
+//   tf32 values are exact in f32, so the error is the dropped lo.lo and
+//   lo's rounding (~2^-22 relative) and the sums.  Plain TF32 (~1e-3)
+//   would break the kernel-vs-plain comparisons and the draw-by-draw ones.
 // * wgmma reads tf32 from shared memory only K-major.  The activation tile
 //   (rows of 32 k, K-major in A's own layout) is split once per stage into
 //   hi (in place) and lo copies that wgmma reads through 128-byte-swizzle
@@ -51,7 +52,12 @@
 //   atomics: same-seed runs are bit-identical at a given plan.
 //
 // The two-product form (A1.W1 + A2.W2 of a DBM middle layer) is one K loop
-// over both ranges.  The kernel allocates nothing: the caller passes the
+// over both ranges.  The association kernels (assoc_tc.cuh: X^T h0 - v^T h
+// with the update as epilogue) run the same main loop, tile_accumulate,
+// with A given as (k, rows) (Operand::a_trans: staged as it lies, written
+// K-major by the split), the two products' k-tiles interleaved and each
+// stage added times its product's scale (Operand::scale: 1 and -1, or
+// 1/N and -1/M).  The kernel allocates nothing: the caller passes the
 // workspace (splits x 128 x n_tile floats per tile) and the zeroed
 // counters.
 #pragma once
@@ -71,13 +77,17 @@ constexpr int kThreads = 256;  // two warpgroups
 constexpr int kTileStride = kTileM + 4;  // row stride of the staged output
 constexpr int kWBytes = kTileM * kTileK * 4;
 
-// One product's operands: A (rows, k) with row stride lda; W (k, nm) with
-// row stride ldw (propup, w_trans 0) or (nm, k) (propdown, w_trans 1).
+// One product's operands: A (rows, k) with row stride lda, or (k, rows)
+// when a_trans (the association's hidden side); W (k, nm) with row stride
+// ldw (propup, w_trans 0) or (nm, k) (propdown, w_trans 1).  Each 32-deep
+// stage of the product is added to the block's sum times `scale`.
 struct Operand {
   const float* a;
   const float* w;
   long long lda, ldw;
   int k, w_trans;
+  int a_trans = 0;
+  float scale = 1.f;
 };
 
 // Everything a block of the tile needs; the tensor maps are used only when
@@ -92,16 +102,24 @@ struct Tile {
 };
 
 // Ring depth: as many stages as fit beside the two lo tiles (the widest
-// batch tiles take 4 of 29-32 KB, the narrower 6).
-__host__ __device__ constexpr int stages(int n_tile) {
-  return n_tile > 64 ? 4 : 6;
+// batch tiles take 4 of 29-32 KB, the narrower 6).  With a transposed A
+// (trans_a: the association kernels) 4: their K is a batch of <= 16
+// k-tiles, and their W and dW tiles take the room.
+__host__ __device__ constexpr int stages(int n_tile, bool trans_a = false) {
+  return trans_a || n_tile > 64 ? 4 : 6;
 }
 
+// stages of (W tile, A tile), two lo copies of A (and two hi copies when
+// A is transposed), the barriers
+__host__ __device__ constexpr int ring_bytes(int n_tile, bool trans_a) {
+  return stages(n_tile, trans_a) * (kWBytes + n_tile * kTileK * 4) +
+         (trans_a ? 4 : 2) * n_tile * kTileK * 4 +
+         stages(n_tile, trans_a) * 8;
+}
+
+// the ring and 1024 bytes of slack to align it for the 128-byte swizzle
 __host__ __device__ constexpr int smem_bytes(int n_tile) {
-  // stages of (W tile, A tile), two lo copies of A, the barriers; 1024
-  // bytes of slack to align the ring for the 128-byte swizzle
-  return stages(n_tile) * (kWBytes + n_tile * kTileK * 4) +
-         2 * n_tile * kTileK * 4 + stages(n_tile) * 8 + 1024;
+  return ring_bytes(n_tile, false) + 1024;
 }
 
 // ------------------------------------------------------------------ PTX
@@ -218,24 +236,55 @@ __device__ __forceinline__ int w_offset(int w_trans, int m, int k) {
 }
 
 // ------------------------------------------------------------- main loop
-// Accumulates the block's slice of the product and stages the 128 x n_tile
-// result in shared memory, out_tile[b * kTileStride + m] (batch column b,
-// model row m); with split-K, the sum over all slices (returns false in the
-// blocks that are not the last of their tile, which then stop).  Must be
-// called by all kThreads threads; `smem` is the dynamic shared memory.
-template <int NT>
-__device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
-                             float*& out_tile) {
-  constexpr int S = stages(NT);
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// The operand and first k of k-tile kt of the K loop, over nk0 k-tiles of
+// product 0 and nk1 of product 1: product 0's first, then product 1's; or,
+// interleaved, tile j of product 0 then tile j of product 1 while both have
+// one.  The association interleaves: where its two products are equal (k =
+// 0) each stage of one cancels the same stage of the other, so the sum is
+// exactly 0.
+__device__ __forceinline__ void ktile(int kt, int nk0, int nk1,
+                                      bool interleave, int& o, int& k0) {
+  int j;
+  const int p = nk0 < nk1 ? nk0 : nk1;
+  if (!interleave) {
+    o = kt < nk0 ? 0 : 1;
+    j = o ? kt - nk0 : kt;
+  } else if (kt < 2 * p) {
+    o = kt & 1;
+    j = kt >> 1;
+  } else {
+    o = nk0 > nk1 ? 0 : 1;
+    j = kt - p;
+  }
+  k0 = j * kTileK;
+}
+
+// Accumulates the block's slice of the product into d, in wgmma's
+// accumulator layout (wgmma_tf32.cuh); with split-K, the sum over all
+// slices (returns false in the blocks that are not the last of their tile,
+// which then stop).  kTransA: every product's A is (k, rows) (Operand::
+// a_trans), staged as it lies and written K-major by the split, and the
+// products' k-tiles interleave.  Must be called by all kThreads threads;
+// `smem_raw` is the dynamic shared memory.
+template <int NT, bool kTransA>
+__device__ __forceinline__ bool tile_accumulate(const Tile& t,
+                                                unsigned char* smem_raw,
+                                                float (&d)[NT / 2]) {
+  constexpr int S = stages(NT, kTransA);
   constexpr int kABytes = NT * kTileK * 4;
   constexpr int kStageBytes = kWBytes + kABytes;
   constexpr int kA4 = kABytes / 16;  // float4 per activation tile
   __shared__ int is_last;
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  float* los = reinterpret_cast<float*>(smem + S * kStageBytes);  // 2 tiles
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(smem + S * kStageBytes + 2 * kABytes);
+  unsigned char* smem = align_smem(smem_raw);
+  // kTransA: two hi tiles; then two lo tiles; then the barriers
+  float* his = reinterpret_cast<float*>(smem + S * kStageBytes);
+  float* los = his + (kTransA ? 2 : 0) * (kABytes / 4);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(los + 2 * (kABytes / 4));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int m0 = blockIdx.x * kTileM, b0 = blockIdx.y * NT;
@@ -255,10 +304,9 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
 
   // load local k-tile j into stage j % S
   auto issue = [&](int j) {
-    const int kt = kt0 + j;
-    const int o = kt < nk0 ? 0 : 1;
+    int o, kk;
+    ktile(kt0 + j, nk0, nk1, kTransA, o, kk);
     const Operand& op = t.op[o];
-    const int kk = (kt - (o ? nk0 : 0)) * kTileK;
     unsigned char* st = smem + (j % S) * kStageBytes;
     float* ws = reinterpret_cast<float*>(st);
     float* as = reinterpret_cast<float*>(st + kWBytes);
@@ -273,7 +321,10 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
             tma_load_2d(ws + i * kTileK * 32, &t.tm_w[o], m0 + 32 * i, kk,
                         bar);
         }
-        tma_load_2d(as, &t.tm_a[o], kk, b0, bar);
+        if (kTransA)
+          tma_load_2d(as, &t.tm_a[o], b0, kk, bar);
+        else
+          tma_load_2d(as, &t.tm_a[o], kk, b0, bar);
       }
       return;
     }
@@ -294,25 +345,35 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
       cp_async4(ws + w_offset(op.w_trans, m, k), src, ok);
     }
     for (int e = tid; e < NT * kTileK; e += kThreads) {
-      const int b = e >> 5, k = e & 31;
-      const bool ok = b0 + b < t.nb && kk + k < op.k;
-      cp_async4(as + sw128(b, k),
-                ok ? op.a + (long long)(b0 + b) * op.lda + kk + k : op.a, ok);
+      if (kTransA) {  // (32 k, NT rows) as it lies
+        const int k = e / NT, b = e % NT;
+        const bool ok = b0 + b < t.nb && kk + k < op.k;
+        cp_async4(as + e,
+                  ok ? op.a + (long long)(kk + k) * op.lda + b0 + b : op.a,
+                  ok);
+      } else {
+        const int b = e >> 5, k = e & 31;
+        const bool ok = b0 + b < t.nb && kk + k < op.k;
+        cp_async4(as + sw128(b, k),
+                  ok ? op.a + (long long)(b0 + b) * op.lda + kk + k : op.a,
+                  ok);
+      }
     }
   };
 
   // d: the block's sum; c: one stage's product.  Each stage's 12 wgmmas
-  // accumulate into a zeroed c, which is then added to d with f32 adds
-  // rounded to nearest: the tensor cores' own accumulation truncates, and
-  // over K = 5000 (~2000 wgmma steps into one accumulator) that bias alone
-  // reached ~1e-5 at 3072x5000; per stage it stays at the scale of c.
-  float d[NT / 2], c[NT / 2];
+  // accumulate into a zeroed c, which is then added to d, times its
+  // product's scale, rounded to nearest: the tensor cores' own accumulation
+  // truncates, and over K = 5000 (~2000 wgmma steps into one accumulator)
+  // that bias alone reached ~1e-5 at 3072x5000; per stage it stays at the
+  // scale of c.
+  float c[NT / 2];
 #pragma unroll
   for (int i = 0; i < NT / 2; ++i) d[i] = c[i] = 0.f;
 
   // prepare(j, f): wait for k-tile j, split its activation tile (hi in
-  // place, lo into lo buffer j % 2) and load W's fragments of the tile (hi
-  // and lo) into registers f.
+  // place, or into hi buffer j % 2 when transposed; lo into lo buffer
+  // j % 2) and load W's fragments of the tile (hi and lo) into registers f.
   auto prepare = [&](int j, uint32_t(&f)[2][4][4]) {
     const int s = j % S;
     if (t.tma) {
@@ -325,7 +386,30 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
     const float* wsm = reinterpret_cast<const float*>(st);
     float4* as = reinterpret_cast<float4*>(st + kWBytes);
     float4* lo = reinterpret_cast<float4*>(los + (j & 1) * (kABytes / 4));
-    {
+    if (kTransA) {
+      // element (k, b) of the staged (32 k, NT) tile to row b, column k of
+      // the swizzled hi and lo tiles, four k per thread: reads of
+      // neighbouring b, 16-byte writes to eight distinct chunks
+      const float* at = reinterpret_cast<const float*>(as);
+      float4* hi = reinterpret_cast<float4*>(his + (j & 1) * (kABytes / 4));
+#pragma unroll
+      for (int i = 0; i < (kA4 + kThreads - 1) / kThreads; ++i) {
+        const int e = tid + i * kThreads;
+        if (kA4 % kThreads == 0 || e < kA4) {
+          const int b = e % NT, k4 = e / NT;
+          float x[4], h[4], l[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            x[r] = at[(4 * k4 + r) * NT + b];
+            h[r] = tf32_rna(x[r]);
+            l[r] = tf32_rna(x[r] - h[r]);
+          }
+          const int off = sw128(b, 4 * k4) >> 2;
+          hi[off] = make_float4(h[0], h[1], h[2], h[3]);
+          lo[off] = make_float4(l[0], l[1], l[2], l[3]);
+        }
+      }
+    } else {
 #pragma unroll
       for (int i = 0; i < (kA4 + kThreads - 1) / kThreads; ++i) {
         const int e = tid + i * kThreads;
@@ -345,7 +429,9 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
         }
       }
     }
-    const int w_trans = t.op[(kt0 + j) < nk0 ? 0 : 1].w_trans;
+    int o, k0;
+    ktile(kt0 + j, nk0, nk1, kTransA, o, k0);
+    const int w_trans = t.op[o].w_trans;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
@@ -361,17 +447,19 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
   };
 
   // step(j): the 12 wgmmas of k-tile j (fragments f) run while k-tile j + 1
-  // is prepared (into fn); then they are retired (d += c), stage j % S is
-  // refilled with k-tile j + S, and the barrier makes the next split
-  // visible.  No wgmma is in flight across a step, so the compiler keeps
-  // the accumulator registers in place.
+  // is prepared (into fn); then they are retired (d += scale c), stage
+  // j % S is refilled with k-tile j + S, and the barrier makes the next
+  // split visible.  No wgmma is in flight across a step, so the compiler
+  // keeps the accumulator registers in place.
   auto step = [&](int j, uint32_t(&f)[2][4][4], uint32_t(&fn)[2][4][4]) {
     unsigned char* st = smem + (j % S) * kStageBytes;
     {
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) fence_reg(c[i]);
       wgmma_fence();
-      const uint64_t dh = desc_sw128(st + kWBytes);
+      const uint64_t dh =
+          desc_sw128(kTransA ? his + (j & 1) * (kABytes / 4)
+                             : reinterpret_cast<float*>(st + kWBytes));
       const uint64_t dl = desc_sw128(los + (j & 1) * (kABytes / 4));
       // +32 bytes per 8-deep step inside the swizzled 128-byte rows.  The
       // eight small products (lo.hi, hi.lo) first, while c is small: each
@@ -388,6 +476,9 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
     }
     if (j + 1 < n_local) prepare(j + 1, fn);
     {
+      int o, k0;
+      ktile(kt0 + j, nk0, nk1, kTransA, o, k0);
+      const float scale = t.op[o].scale;
       wgmma_wait_all();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
@@ -399,7 +490,7 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
 #pragma unroll
       for (int i = 0; i < NT / 2; ++i) {
         fence_reg(c[i]);
-        d[i] = __fadd_rn(d[i], c[i]);
+        d[i] = __fmaf_rn(c[i], scale, d[i]);
         c[i] = 0.f;
       }
     }
@@ -468,10 +559,20 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
     }
     if (tid == 0) t.counters[tile] = 0u;  // re-armed for the next launch
   }
+  return true;
+}
 
-  // stage the sum for the epilogue: no copy is in flight any more, so the
-  // ring's memory is free
-  float* T = reinterpret_cast<float*>(smem);
+// tile_accumulate, then the 128 x n_tile result staged in shared memory for
+// the epilogue, out_tile[b * kTileStride + m] (batch column b, model row m).
+template <int NT>
+__device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
+                             float*& out_tile) {
+  float d[NT / 2];
+  if (!tile_accumulate<NT, false>(t, smem_raw, d)) return false;
+  // no copy is in flight any more, so the ring's memory is free
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
+            q = threadIdx.x & 3;
+  float* T = reinterpret_cast<float*>(align_smem(smem_raw));
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < NT / 8; ++i)
@@ -519,14 +620,20 @@ inline int setup_tile(Tile* t, const Operand* ops, int n_ops, int nb, int nm,
   for (int i = 0; i < n_ops; ++i) {
     const Operand& o = ops[i];
     const cuuint32_t unit[2] = {1, 1};
-    {  // A: (nb rows, k), boxes of n_tile rows x 32 k
-      const cuuint64_t dims[2] = {(cuuint64_t)o.k, (cuuint64_t)nb};
+    {  // A: (nb rows, k), swizzled boxes of n_tile rows x 32 k; or (k, nb)
+       // (a_trans), plain boxes of 32 k x n_tile, split K-major later
+      const cuuint64_t dims[2] = {(cuuint64_t)(o.a_trans ? nb : o.k),
+                                  (cuuint64_t)(o.a_trans ? o.k : nb)};
       const cuuint64_t strides[1] = {(cuuint64_t)o.lda * 4};
-      const cuuint32_t box[2] = {kTileK, (cuuint32_t)n_tile};
+      const cuuint32_t box[2] = {
+          (cuuint32_t)(o.a_trans ? n_tile : kTileK),
+          (cuuint32_t)(o.a_trans ? kTileK : n_tile)};
       if (cuTensorMapEncodeTiled(
               &t->tm_a[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
               const_cast<float*>(o.a), dims, strides, box, unit,
-              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_INTERLEAVE_NONE,
+              o.a_trans ? CU_TENSOR_MAP_SWIZZLE_NONE
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
         return (int)cudaErrorInvalidValue;

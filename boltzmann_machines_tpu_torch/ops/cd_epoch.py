@@ -287,6 +287,7 @@ _ARGTYPES = {
     'bm_normal_sample': [_P, _L, _U, _U, _U, _P],
     'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _P, _P, _P, _P,
                     _P],
+    'bm_assoc_n_tile': [_I, _I, _I],
 }
 # epilogues of cd_gemm_act (csrc/cd_epoch.cu)
 ACT_SIGMOID, ACT_GAUSSIAN, ACT_PRE = 0, 1, 2

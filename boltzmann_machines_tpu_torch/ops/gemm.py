@@ -1,5 +1,6 @@
-"""Launch plan of the tensor-core GEMM tile (``csrc/gemm_tc.cuh``), the
-main loop of ``cd_gemm_act`` and ``dbm_gemm_act``.
+"""Launch plans of the tensor-core GEMM tile (``csrc/gemm_tc.cuh``), the
+main loop of ``cd_gemm_act`` and ``dbm_gemm_act``, and of the association
+kernel (``csrc/assoc_tc.cuh``, ``assoc_plan``) on the same main loop.
 
 The tile computes ``out (B x N) = A (B x K) . W`` (or ``W^T``) with the
 model dimension N as wgmma's 64-row M and the batch B as its N.  The plan
@@ -86,6 +87,34 @@ def gemm_plan(M, N, K, n_sm):
     summed in one accumulator -- on a card of `n_sm` SMs."""
     ks = (int(K),) if isinstance(K, int) else tuple(int(k) for k in K)
     return _plan(int(M), int(N), ks, int(n_sm))
+
+
+AssocPlan = namedtuple('AssocPlan', ('n_tile', 'row_tiles', 'col_tiles',
+                                     'blocks'))
+#: the association kernel's widths (csrc/assoc_tc.cuh): columns of H per
+#: block; V is wgmma's M, TILE_M rows per block
+ASSOC_N_TILES = (32, 64)
+
+
+def assoc_plan(V, H, n_sm):
+    """The plan of an association launch (``cd_assoc_update``,
+    ``cd_assoc_stats``, ``dbm_assoc_update``: a V x H output contracted
+    over the batch) on a card of `n_sm` SMs: 64 columns per block, or 32
+    where 64-wide tiles would leave more than a quarter of the SMs idle and
+    32-wide ones still fit in one wave.  No split-K: every element has one
+    owner.  The three entry points take no plan (their C signatures are
+    fixed), so the kernel applies the same rule in C (``bm_assoc_n_tile``);
+    ``test_assoc_plan_is_the_kernels`` and chip_smoke.py's association
+    phase hold the two equal on the card."""
+    V, H, n_sm = int(V), int(H), int(n_sm)
+    if V < 1 or H < 1 or n_sm < 1:
+        raise ValueError('assoc_plan needs V, H, n_sm >= 1, got {0}'.format(
+            (V, H, n_sm)))
+    rows = _ceil(V, TILE_M)
+    wide, narrow = rows * _ceil(H, 64), rows * _ceil(H, 32)
+    n_tile = 32 if 4 * wide < 3 * n_sm and narrow <= n_sm else 64
+    cols = _ceil(H, n_tile)
+    return AssocPlan(n_tile, rows, cols, rows * cols)
 
 
 @lru_cache(maxsize=None)

@@ -3,6 +3,10 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
+(``--readings`` and ``--assoc-readings`` print, instead of the smoke, what
+two checks' limits rest on and where the association kernel's time goes;
+see ``readings`` and ``assoc_readings``.)
+
 Phases, each printing its lines before the last:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
@@ -42,8 +46,9 @@ Phases, each printing its lines before the last:
     ``MultinomialRBM(5000, 1000, n_samples=1000).fit``, ``transform``, save
     and load_model, on synthetic CIFAR-shaped rows, launch counts checked;
 12. CIFAR timings: G-RBM and M-RBM steps, kernels vs plain, the device
-    time of each kernel (torch.profiler) and torch.matmul on the step's
-    largest product as a yardstick;
+    time of each kernel (torch.profiler), their busy share of the step's
+    unprofiled wall, and torch.matmul on the step's largest product as a
+    yardstick;
 13. stats kernels vs plain: the data-parallel epoch's per-shard CD stats
     kernels (``ops/cd_stats.py``) at the local batches of two ranks, 784 x
     1024 with 128 rows and 3072 x 7800 with 50 (Gaussian, dbm_first),
@@ -60,7 +65,9 @@ Phases, each printing its lines before the last:
     each rank, replicas bit for bit equal, rank 0 alone writing; the
     784 x 1024 fit against the single-process fit;
 15. stats and sampler timings: per call, kernel vs plain, torch.matmul and
-    torch.bernoulli as yardsticks, per-kernel device times;
+    torch.bernoulli as yardsticks, per-kernel device times; the standalone
+    samplers' device times alone (CUDA graphs) beside torch.bernoulli's and
+    torch.randn's;
 16. the tensor-core tile of the chain's products (csrc/gemm_tc.cuh): each
     ``cd_gemm_act`` and ``dbm_gemm_act`` product of the paths, both
     directions, every epilogue the path uses there (the two-product and
@@ -69,9 +76,17 @@ Phases, each printing its lines before the last:
     bit), then timed (a CUDA graph of launches between CUDA events) at the
     plan's split count and at one K slice, beside torch.matmul on the same
     product and the product's bounds in 3xTF32 and in f32, one line per
-    product.  The DBM path (7) also runs its three training stages through
-    the plain versions and holds the kernels' validation error against that
-    reference's.
+    product;
+17. the association kernel (csrc/assoc_tc.cuh): each cd_assoc_update,
+    cd_assoc_stats and dbm_assoc_update launch of the paths alone, through
+    its C entry point, against its plain version's arithmetic (each element
+    within the bound of tests/test_torch_cuda.py) and a second time on the
+    same inputs (bit for bit), then timed by a CUDA graph beside the plain
+    version, the former SIMT tile's recorded time and torch.matmul on the
+    stacked K = 2B product.
+
+The DBM path (7) also runs its three training stages through the plain
+versions and holds the kernels' validation error against that reference's.
 
 Every entry of the kernels' JSON line has its time on the card (``ms``),
 its plain version's (``plain_ms``), the least time the card could take for
@@ -420,13 +435,16 @@ def timings(torch):
                         B, sample_h, name, nb * B, t,
                         ' '.join('%.4f' % x for x in times[name]),
                         nb * B / t, 1e6 * t / nb))
-    # the main path's kernels one by one (B = 10, hidden states sampled),
-    # and torch.matmul on one cd_gemm_act product (X.W) as a yardstick
-    X = torch.as_tensor(X_all[:100 * 10].reshape(100, 10, V), device='cuda')
+    # the main path's kernels one by one over the epoch timed above (B = 10,
+    # hidden states sampled), their busy share over its timed wall, and
+    # torch.matmul on one cd_gemm_act product (X.W) as a yardstick
+    nb = out[(10, 'steps')]
+    X = torch.as_tensor(X_all[:nb * 10].reshape(nb, 10, V), device='cuda')
     state = init_state(torch, X_all)
     cfg = config(False, True, 1000)
     out['kernel_us'], out['busy'] = profile_kernels(
-        torch, lambda: cd_epoch(cfg, state, X, LR, MOMENTUM, 5, 0))
+        torch, lambda: cd_epoch(cfg, state, X, LR, MOMENTUM, 5, 0),
+        wall=out[(10, 'kernel', True)])
     out['matmul_ms'] = event_ms(torch, lambda: X[0] @ state['W'], 50)
     say('B=10 per-kernel device us per launch %s; device busy %s; '
         'torch.matmul (10 x %d) @ (%d x %d): %.4f ms' % (
@@ -1323,7 +1341,12 @@ def samplers_vs_plain(torch):
             5, shape, 'cuda'), 5),
         # a yardstick: other numbers from another generator, same shape
         library_ms=event_ms(torch, lambda: torch.randn(
-            shape, generator=g, device='cuda'), 50))
+            shape, generator=g, device='cuda'), 50),
+        # device times alone (a CUDA graph of calls: no host launch time)
+        device_ms=graph_ms(torch, lambda: samplers.normal_sample(
+            5, shape, 'cuda')),
+        library_device_ms=graph_ms(torch, lambda: torch.randn(
+            shape, device='cuda')))
 
     got, probs = got_counts, means / N_SAMPLES
     want = samplers.multinomial_sample_reference(6, means, N_SAMPLES)
@@ -1369,8 +1392,11 @@ def samplers_vs_plain(torch):
     out['free_energy_probe']['err'] = err
     for name, r in out.items():
         r['launches'] = launches[name]
-        say('%s: %.4f ms per call, plain %.4f ms, library %s ms' % (
-            name, r['ms'], r['plain_ms'], r.get('library_ms')))
+        say('%s: %.4f ms per call, plain %.4f ms, library %s ms%s' % (
+            name, r['ms'], r['plain_ms'], r.get('library_ms'),
+            '; device time alone %.4f ms, torch.randn %.4f ms' % (
+                r['device_ms'], r['library_device_ms'])
+            if 'device_ms' in r else ''))
     return out
 
 
@@ -1487,28 +1513,43 @@ def check_msre(model_dir, label):
                                                                      msre))
 
 
-def profile_kernels(torch, fn, names=None):
+# the device kernel of each launch name, where it is not <name>_kernel: the
+# association entry points run the one kernel of csrc/assoc_tc.cuh
+KERNEL_SYMBOLS = {'cd_assoc_update': 'assoc_kernel',
+                  'cd_assoc_stats': 'assoc_kernel'}
+
+
+def profile_kernels(torch, fn, names=None, wall=None):
     """Device microseconds per launch of each kernel of `names` (default:
-    the CD epoch's) over one call of `fn`, and the device busy share of
-    that call (torch.profiler).  None where the profiler reports no device
-    time."""
+    the CD epoch's) over one call of `fn` (torch.profiler), and the device
+    busy share of the call: those kernels' device time over the wall time
+    in seconds of the same call run without the profiler (the profiler's
+    own host work would lengthen a profiled wall): `wall`, where a timing
+    phase measured it, else the best of three runs here.  None where the
+    profiler reports no device time."""
     from torch.profiler import ProfilerActivity, profile
     from boltzmann_machines_tpu_torch.ops.cd_epoch import KERNELS
     names = KERNELS if names is None else names
-    torch.cuda.synchronize()
+    if wall is None:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = min(walls)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     per, busy = {}, 0.
     for ev in prof.key_averages():
         t = getattr(ev, 'device_time_total', None)
         if t is None:
             t = getattr(ev, 'cuda_time_total', 0.)
         for name in names:
-            if name + '_kernel' in ev.key:
+            if KERNEL_SYMBOLS.get(name, name + '_kernel') in ev.key:
                 us, n = per.get(name, (0., 0))
                 per[name] = (us + t, n + ev.count)
                 busy += t
@@ -1723,11 +1764,16 @@ def bernoulli_vs_plain(torch):
         library_ms=event_ms(torch, lambda: torch.bernoulli(p, generator=g),
                             50),
         small_ms=event_ms(torch, lambda: samplers.bernoulli_sample(
-            7, probs[(10, H)]), 50))
+            7, probs[(10, H)]), 50),
+        # device times alone (a CUDA graph of calls: no host launch time)
+        device_ms=graph_ms(torch, lambda: samplers.bernoulli_sample(7, p)),
+        library_device_ms=graph_ms(torch, lambda: torch.bernoulli(p)))
     say('bernoulli_sample (%d, %d): %.4f ms per call, plain %.4f ms, '
-        'torch.bernoulli %.4f ms; (10, %d) %.4f ms' % (
+        'torch.bernoulli %.4f ms; (10, %d) %.4f ms; device time alone %.4f '
+        'ms, torch.bernoulli %.4f ms' % (
             CIFAR_B, GRBM_WIDE[1], out['ms'], out['plain_ms'],
-            out['library_ms'], H, out['small_ms']))
+            out['library_ms'], H, out['small_ms'], out['device_ms'],
+            out['library_device_ms']))
     return out
 
 
@@ -2116,7 +2162,8 @@ def gemm_bounds(M, K, N, extra_bytes):
 def gemm_line(label, res):
     b3, bf = res['bound_3xtf32'], res['bound_f32']
     say('%s: max|kernel-plain| %.3g, draws differing %d, same-seed rerun '
-        'bit-identical; %.4f ms per launch (PR 4: %.4f; one K slice %.4f), '
+        'bit-identical; %.4f ms per launch (SIMT tile, recorded: %.4f; one '
+        'K slice %.4f), '
         'torch.matmul %.4f ms; bound %.4f ms in 3xTF32 at 165 TFLOP/s (%s), '
         '%.4f ms in f32 at 67 (%s), bytes term %.4f ms; splits %d, n_tile '
         '%d' % (label, res['err'], res['draws_differing'], res['ms'],
@@ -2333,6 +2380,154 @@ def gemm_shapes(torch):
     return dict(cd_gemm_shapes(torch), **dbm_gemm_shapes(torch))
 
 
+# ---------------------------------------------------------------------- #
+# the association kernel (csrc/assoc_tc.cuh), one launch per shape        #
+# ---------------------------------------------------------------------- #
+# Each association launch of the paths: (label, entry point, rows B (DBM:
+# N = M), V, H, visible activations Gaussian, the former SIMT tile's us per
+# launch as PERF.md section 6 records it (H100 80GB HBM3, 700 W; None: not
+# timed alone))
+ASSOC_SHAPES = (
+    ('rbm_mnist', 'cd_assoc_update', 10, 784, 1024, False, 15.3),
+    ('grbm', 'cd_assoc_update', 100, 3072, 5000, True, 520.4),
+    ('mrbm', 'cd_assoc_update', 100, 5000, 1000, False, 198.3),
+    ('stats_7800', 'cd_assoc_stats', 50, 3072, 7800, True, 331.4),
+    ('stats_784', 'cd_assoc_stats', 128, 784, 1024, False, 40.5),
+    ('dbm_w0', 'dbm_assoc_update', 100, 784, 512, False, None),
+    ('dbm_w1', 'dbm_assoc_update', 100, 512, 1024, False, None),
+)
+
+
+def assoc_work(kind, B, V, H):
+    """(product operations, other f32 operations, bytes) of one association
+    launch: the two products over B rows (2 B V H each); the update ~8 f32
+    operations per weight; the activations read once, W and dW read and
+    written once (the stats: the association written once)."""
+    ops = 4. * B * V * H
+    acts = 4. * 2 * B * (V + H)
+    if kind == 'cd_assoc_stats':
+        return ops, 0., acts + 4. * V * H
+    return ops, 8. * V * H, acts + 16. * V * H + 4. * H
+
+
+def assoc_shapes(torch):
+    """Each association launch of ASSOC_SHAPES alone, through its C entry
+    point: against its plain version's arithmetic on the same inputs, each
+    element within the bound of tests/test_torch_cuda.py (2^-22 (2 |A|^T|B|
+    + |A^T B|) on the association, carried through the update), a second
+    launch on the same inputs bit for bit; then timed (graph_ms) beside the
+    plain version and, as yardstick, torch.matmul on the pre-stacked K = 2B
+    product [X; v]^T [h0; -h]."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops, gemm
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    lib, dlib = library(), dbm_ops._library()
+    g = torch.Generator(device='cuda')
+    g.manual_seed(41)
+    f32 = dict(dtype=torch.float32, device='cuda')
+    u = 2. ** -22
+    lr, mom, l2 = 1e-3, 0.9, 1e-4
+
+    def stream():  # the current one: a graph capture's while timing
+        return torch.cuda.current_stream().cuda_stream
+
+    out = {}
+    for label, kind, B, V, H, gaussian, pr5 in ASSOC_SHAPES:
+        def side(K):
+            A = torch.randn((K, V), generator=g, **f32) if gaussian else \
+                (torch.rand((K, V), generator=g, **f32) < 0.3).float()
+            return A, torch.rand((K, H), generator=g, **f32)
+        (X, h0), (v, h) = side(B), side(B)
+        W0 = 0.01 * torch.randn((V, H), generator=g, **f32)
+        dW0 = 1e-3 * torch.randn((V, H), generator=g, **f32)
+        pen = 1e-4 * torch.randn(H, generator=g, **f32)
+        W, dW = W0.clone(), dW0.clone()
+
+        if kind == 'cd_assoc_update':
+            def run():
+                check_launch(lib.bm_cd_assoc_update(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, H,
+                    ptr(W), ptr(dW), lr, mom, l2, stream()), kind)
+
+            def plain():
+                assoc = X.T @ h0 - v.T @ h
+                d = lr * (mom * dW0 + (assoc / B - l2 * W0) - pen)
+                return W0 + d, d
+            scales = (1. / B, 1. / B)
+        elif kind == 'dbm_assoc_update':
+            def run():
+                dbm_ops._check(dlib.bm_dbm_assoc_update(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, B, V, H,
+                    ptr(W), ptr(dW), lr, mom, l2, stream()), kind)
+
+            def plain():
+                assoc = (X.T @ h0) / B - (v.T @ h) / B
+                d = lr * (mom * dW0 + (assoc - l2 * W0 - pen))
+                return W0 + d, d
+            scales = (1. / B, 1. / B)
+        else:
+            def run():
+                check_launch(lib.bm_cd_assoc_stats(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), B, V, H, ptr(W),
+                    stream()), kind)
+
+            def plain():
+                return (X.T @ h0 - v.T @ h,)
+            scales = (1., 1.)
+
+        run()
+        got = (W.clone(), dW.clone())
+        W.copy_(W0)
+        dW.copy_(dW0)
+        run()
+        same = torch.equal(got[0], W) and torch.equal(got[1], dW)
+        want = plain()
+        assoc = X.T @ h0 - v.T @ h
+        E = u * (gemm.ERR_SUM * (scales[0] * (X.abs().T @ h0.abs()) +
+                                 scales[1] * (v.abs().T @ h.abs()))
+                 + (scales[0] * assoc).abs())
+        if kind == 'cd_assoc_stats':
+            errs = [(got[0] - want[0]).abs()]
+            ok = bool((errs[0] <= E).all())
+        else:
+            terms = (mom * dW0).abs() + (scales[0] * assoc).abs() + \
+                (l2 * W0).abs() + pen.abs()
+            tol_dw = lr * (E + 2. ** -20 * terms) + u * want[1].abs()
+            errs = [(got[0] - want[0]).abs(), (got[1] - want[1]).abs()]
+            ok = bool((errs[1] <= tol_dw).all()) and bool(
+                (errs[0] <= tol_dw + u * want[0].abs()).all())
+        torch.cuda.synchronize()
+        err = max(float(e.max()) for e in errs)
+        name = '%s %s (%d rows, %d x %d)' % (kind, label, B, V, H)
+        if not ok or not same:
+            raise AssertionError('%s: kernel and plain version disagree (max '
+                                 '|d| %.3g, rerun identical %s)' % (
+                                     name, err, same))
+        stacked = (torch.cat([X, v]).contiguous(),
+                   torch.cat([h0, -h]).contiguous())
+        # the width the kernel picks (its own rule), and ops/gemm.py's plan
+        plan = gemm.assoc_plan(V, H, gemm.num_sms(X.device))
+        n_tile = lib.bm_assoc_n_tile(V, H, gemm.num_sms(X.device))
+        if n_tile != plan.n_tile:
+            raise AssertionError('%s: the kernel takes %d columns per block, '
+                                 'assoc_plan %d' % (name, n_tile, plan.n_tile))
+        bound_ms, bound_by = bound(*assoc_work(kind, B, V, H))
+        r = dict(err=err, ms=graph_ms(torch, run),
+                 plain_ms=graph_ms(torch, plain),
+                 matmul_ms=graph_ms(torch, lambda: stacked[0].T @ stacked[1]),
+                 bound_ms=bound_ms, bound_by=bound_by, n_tile=n_tile,
+                 blocks=plan.blocks)
+        say('%s: max|kernel-plain| %.3g within the bound, same-input rerun '
+            'bit-identical; %.4f ms per launch (SIMT tile, recorded: %s), '
+            'plain %.4f ms, torch.matmul of the stacked K = %d product %.4f '
+            'ms; bound %.4f ms (%s); n_tile %d, %d blocks' % (
+                name, err, r['ms'], 'not timed' if pr5 is None
+                else '%.4f' % (pr5 / 1e3), r['plain_ms'], 2 * B,
+                r['matmul_ms'], bound_ms, bound_by, n_tile, plan.blocks))
+        out[label] = r
+    return out
+
+
 def dbm_step_work(V, H1, H2, B, M, n_mf, k=1):
     """(product operations, other f32 operations, bytes) of one DBM epoch
     step (ops/dbm_ops.py): X.W0, the init of h2, n_mf mean-field sweeps (two
@@ -2367,13 +2562,13 @@ def ais_beta_work(V, H1, H2, R, k):
 # ---------------------------------------------------------------------- #
 # Variants of the tensor-core tile with a planted fault, each made by a
 # text edit of a copy of csrc/ in a temporary directory: (old text, new
-# text) pairs on csrc/gemm_tc.cuh.
+# text) pairs on csrc/gemm_tc.cuh, or (file, old text, new text).
 TILE_VARIANTS = {
     # every wgmma of a slice into the block's one accumulator, as the
     # tile's first design did (the tensor cores truncate their sums)
     'single_accumulator': (
         ('wgmma_tf32<NT>(c, ', 'wgmma_tf32<NT>(d, '),
-        ('d[i] = __fadd_rn(d[i], c[i]);', ''),
+        ('d[i] = __fmaf_rn(c[i], scale, d[i]);', ''),
         ('fence_reg(c[i]);', 'fence_reg(d[i]);')),
     # plain TF32: the lo.hi and hi.lo products dropped
     '1xtf32': (
@@ -2383,6 +2578,14 @@ TILE_VARIANTS = {
     'lost_slice': (
         ('for (int s = 1; s < t.splits; ++s) {',
          'for (int s = 1; s < t.splits - 1; ++s) {'),),
+    # the association kernel without its contraction (the accumulators
+    # zero), or returning before its epilogue: where its time goes
+    'assoc_no_mainloop': (
+        ('assoc_tc.cuh', 'tile_accumulate<NT, true>(p.t, assoc_smem, d);',
+         'for (int i = 0; i < NT / 2; ++i) d[i] = 0.f;'),),
+    'assoc_no_epilogue': (
+        ('assoc_tc.cuh', '  if (prefetch) mbar_wait(ebar, 0);\n',
+         '  if (prefetch) mbar_wait(ebar, 0);\n  if (p.mode >= 0) return;\n'),),
 }
 
 
@@ -2402,16 +2605,16 @@ def use_tile(tmpdir, variant=None):
         build_dir = os.path.join(tmpdir, variant, '_build')
         if not os.path.isdir(csrc):
             shutil.copytree(src, csrc)
-            path = os.path.join(csrc, 'gemm_tc.cuh')
-            with open(path) as f:
-                text = f.read()
-            for old, new in TILE_VARIANTS[variant]:
+            for edit in TILE_VARIANTS[variant]:
+                name, old, new = (('gemm_tc.cuh',) + edit)[-3:]
+                path = os.path.join(csrc, name)
+                with open(path) as f:
+                    text = f.read()
                 if old not in text:
-                    raise AssertionError('%s: %r not in gemm_tc.cuh' % (
-                        variant, old))
-                text = text.replace(old, new)
-            with open(path, 'w') as f:
-                f.write(text)
+                    raise AssertionError('%s: %r not in %s' % (variant, old,
+                                                               name))
+                with open(path, 'w') as f:
+                    f.write(text.replace(old, new))
     _build.CSRC_DIR, _build.BUILD_DIR = csrc, build_dir
     _build._LOADED.clear()
     cd_bound.clear()
@@ -2513,6 +2716,47 @@ def dbm_msre_readings(torch, tmpdir, seeds=(0, 1, 2)):
     return val
 
 
+def assoc_readings():
+    """Where the association kernel's time goes: cd_assoc_update at the
+    paths' three update shapes (ASSOC_SHAPES), timed by graph_ms, as
+    committed, without its contraction and without its epilogue."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke --assoc-readings: no CUDA device\n')
+        return 1
+    environment(torch)
+    import importlib
+    ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
+    g = torch.Generator(device='cuda')
+    g.manual_seed(43)
+    shapes = [(label, B, V, H) for label, kind, B, V, H, _, _ in ASSOC_SHAPES
+              if kind == 'cd_assoc_update']
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for variant in (None, 'assoc_no_mainloop', 'assoc_no_epilogue'):
+            use_tile(tmpdir, variant)
+            lib = ce.library()
+            for label, B, V, H in shapes:
+                X, v = (torch.randn((B, V), generator=g, device='cuda')
+                        for _ in range(2))
+                h0, h = (torch.rand((B, H), generator=g, device='cuda')
+                         for _ in range(2))
+                W = 0.01 * torch.randn((V, H), generator=g, device='cuda')
+                dW, pen = torch.zeros_like(W), torch.zeros(H, device='cuda')
+
+                def run():
+                    ce.check_launch(lib.bm_cd_assoc_update(
+                        ce.ptr(X), ce.ptr(h0), ce.ptr(v), ce.ptr(h),
+                        ce.ptr(pen), B, V, H, ce.ptr(W), ce.ptr(dW), 1e-4,
+                        0.5, 1e-4, torch.cuda.current_stream().cuda_stream),
+                        'cd_assoc_update')
+                say('  %s cd_assoc_update %s (%d rows, %d x %d): %s us' % (
+                    variant or 'committed', label, B, V, H, ' '.join(
+                        '%.1f' % (1e3 * graph_ms(torch, run))
+                        for _ in range(3))))
+        use_tile(tmpdir)
+    return 0
+
+
 def readings():
     """The readings behind two limits: the card tests' tolerance of the
     tensor-core tile (the committed tile against the single-accumulator
@@ -2553,6 +2797,7 @@ def main():
     stats_err = stats_vs_plain(torch)
     bern = bernoulli_vs_plain(torch)
     gs = gemm_shapes(torch)
+    asc = assoc_shapes(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         rbm_launches = main_path(torch, tmpdir)
     t = timings(torch)
@@ -2595,13 +2840,21 @@ def main():
     def shapes(*labels):
         """The per-shape phase's numbers for the entry's products."""
         return {label: {
-            'ms': gs[label]['ms'], 'pr4_ms': gs[label]['pr4_ms'],
+            'ms': gs[label]['ms'],
             'one_slice_ms': gs[label]['one_slice_ms'],
             'matmul_ms': gs[label]['matmul_ms'],
             'bound_3xtf32_ms': gs[label]['bound_3xtf32'][0],
             'bound_f32_ms': gs[label]['bound_f32'][0],
             'splits': gs[label]['splits'], 'n_tile': gs[label]['n_tile'],
             'max_abs_err': gs[label]['err']} for label in labels}
+
+    def assoc(*labels):
+        """The association phase's numbers for the entry's launches."""
+        keys = ('ms', 'plain_ms', 'matmul_ms', 'bound_ms',
+                'bound_by', 'n_tile', 'blocks')
+        return {label: dict({k: asc[label][k] for k in keys},
+                            max_abs_err=asc[label]['err'])
+                for label in labels}
 
     dbm_step_shapes = ('dbm_x_w0', 'dbm_mf_h0', 'dbm_mf_h1', 'dbm_gibbs_h0',
                        'dbm_gibbs_h1', 'dbm_gibbs_v')
@@ -2623,14 +2876,16 @@ def main():
               1e3 * t[(10, 'plain', True)] / steps,
               cd_step_work(V, H, 10), kernel_us=t['kernel_us'],
               device_busy=t['busy'], cd_gemm_act_library_ms=t['matmul_ms'],
-              cd_gemm_act_shapes=shapes('rbm_mnist_h', 'rbm_mnist_v')),
+              cd_gemm_act_shapes=shapes('rbm_mnist_h', 'rbm_mnist_v'),
+              cd_assoc_update_shapes=assoc('rbm_mnist')),
         # per minibatch step at B = M = 100, n_mf 50, sampling on
         entry('dbm_epoch', 'dbm_ops.cu', dbm_launches['dbm_epoch'],
               dbm_err['dbm_epoch'], td[('dbm_epoch', True, 'kernel')],
               td[('dbm_epoch', True, 'plain')],
               dbm_step_work(*DBM_SIZES, DBM_B, DBM_M, 50),
               dbm_gemm_act_library_ms=td['matmul_ms'],
-              dbm_gemm_act_shapes=shapes(*dbm_step_shapes)),
+              dbm_gemm_act_shapes=shapes(*dbm_step_shapes),
+              dbm_assoc_update_shapes=assoc('dbm_w0', 'dbm_w1')),
         # per Gibbs sweep of 100 particles, sampling on
         entry('dbm_sample', 'dbm_ops.cu', dbm_launches['dbm_sample'],
               dbm_err['dbm_sample'], td[('dbm_sample', True, 'kernel')],
@@ -2652,7 +2907,8 @@ def main():
               sampled_probe_steps_exact=cifar_share['grbm'],
               sampled_h_draws_differing=cifar_share['grbm_h_draws'],
               sampled_v_states_max_rel_err=cifar_share['grbm_v_states'],
-              cd_gemm_act_shapes=shapes('grbm_h', 'grbm_v'), **stage('grbm')),
+              cd_gemm_act_shapes=shapes('grbm_h', 'grbm_v'),
+              cd_assoc_update_shapes=assoc('grbm'), **stage('grbm')),
         # per M-RBM step, 5000 x 1000, B = 100, n = 1000, hiddens sampled;
         # launches from the dbm_cifar_naive M-RBM fit
         entry('cd_epoch_multinomial', 'cd_epoch.cu', m_launches,
@@ -2661,7 +2917,8 @@ def main():
               cd_step_work(*MRBM, CIFAR_B, n_samples=N_SAMPLES),
               sampled_probe_steps_exact=cifar_share['mrbm'],
               sampled_h_draws_differing=cifar_share['mrbm_h_draws'],
-              cd_gemm_act_shapes=shapes('mrbm_h', 'mrbm_v'), **stage('mrbm')),
+              cd_gemm_act_shapes=shapes('mrbm_h', 'mrbm_v'),
+              cd_assoc_update_shapes=assoc('mrbm'), **stage('mrbm')),
         # the three standalone launchers at the path's shapes: `launches`
         # is their own count from the phase that drives them once each;
         # `path_launches` the measured launches, on the dbm_cifar_naive
@@ -2672,7 +2929,10 @@ def main():
                 sampler[name]['err'], sampler[name]['ms'],
                 sampler[name]['plain_ms'], sampler[name]['work'],
                 sampler[name].get('library_ms'),
-                path_launches=path_launches, shape=shape)
+                path_launches=path_launches, shape=shape,
+                **{k: sampler[name][k] for k in ('device_ms',
+                                                 'library_device_ms')
+                   if k in sampler[name]})
           for name, path_launches, shape in (
               ('normal_sample',
                {'cd_gemm_act': g_launches['cd_gemm_act']},
@@ -2708,7 +2968,8 @@ def main():
               world1_kernel_us=w1['kernel_us'], world1_max_abs_err=w1['err'],
               fit_784x1024_max_abs_err=dp['mnist_err'],
               cd_gemm_act_shapes=shapes('stats_7800_h', 'stats_7800_v',
-                                        'stats_784_h', 'stats_784_v')),
+                                        'stats_784_h', 'stats_784_v'),
+              cd_assoc_stats_shapes=assoc('stats_7800', 'stats_784')),
         # per call at (100, 7800), the G-RBM's hidden draw; `launches` its
         # own count from the phase that drives it once per shape;
         # `path_launches` the stats kernels' cd_gemm_act launches that
@@ -2717,7 +2978,9 @@ def main():
               bern['ms'], bern['plain_ms'], bern['work'], bern['library_ms'],
               path_launches={'cd_gemm_act': sum(r['cd_gemm_act']
                                                 for r in dp_stats)},
-              shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms']),
+              shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms'],
+              device_ms=bern['device_ms'],
+              library_device_ms=bern['library_device_ms']),
     ]}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -2726,4 +2989,5 @@ def main():
 
 
 if __name__ == '__main__':
-    sys.exit(readings() if sys.argv[1:] == ['--readings'] else main())
+    sys.exit({'--readings': readings, '--assoc-readings': assoc_readings}
+             .get(' '.join(sys.argv[1:]), main)())

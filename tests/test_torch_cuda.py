@@ -858,3 +858,183 @@ def test_dbm_gemm_col_blocks_is_the_tiling(cuda, N):
     n = dbm_ops._library().bm_dbm_gemm_col_blocks(N)
     assert n == -(-N // gemm.TILE_M) == gemm.gemm_plan(100, N, 64, 132) \
         .model_tiles
+
+
+# ---------------------------------------------------------------------- #
+# the association kernel (csrc/assoc_tc.cuh): cd_assoc_update,            #
+# cd_assoc_stats and dbm_assoc_update against their plain versions        #
+# ---------------------------------------------------------------------- #
+# (B, V, H): the paths' associations (rbm_mnist at B = 10 and 256, the
+# G-RBM and M-RBM steps, the stats calls at 128 and 50 rows) and ragged
+# ones: V and H no multiples of 64 (and H of 4: the cp.async path), B from
+# 1 to 256
+ASSOC_SHAPES = [(10, 784, 1024), (256, 784, 1024), (100, 3072, 5000),
+                (100, 5000, 1000), (1, 24, 16), (7, 37, 70), (50, 130, 65),
+                (100, 50, 129), (256, 65, 36)]
+ASSOC_STATS_SHAPES = [(50, 3072, 7800), (128, 784, 1024), (7, 37, 70),
+                      (1, 130, 65), (256, 50, 132)]
+# (N data rows, M particles, n_in, n_out): the dbm_mnist layers, and N != M
+DBM_ASSOC_SHAPES = [(100, 100, 784, 512), (100, 100, 512, 1024),
+                    (7, 10, 37, 70), (50, 100, 130, 65), (1, 256, 24, 16)]
+
+
+def assoc_sides(K, V, H, dev, rng, gaussian):
+    """(A, B): K rows of visible activations (Gaussian or 0/1) and of hidden
+    means in (0, 1)."""
+    A = rng.randn(K, V) if gaussian else (rng.rand(K, V) < 0.3)
+    return (torch.as_tensor(A, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.rand(K, H), dtype=torch.float32, device=dev))
+
+
+def assoc_bound(pairs, scales, assoc):
+    """The association's per-element bound: 2^-22 (gemm.ERR_SUM sum_i
+    |s_i| |A_i|^T |B_i| + |assoc|)."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    l1 = sum(abs(s) * (A.abs().T @ B.abs()) for (A, B), s in zip(pairs,
+                                                                  scales))
+    return 2. ** -22 * (gemm.ERR_SUM * l1 + assoc.abs())
+
+
+def assert_update_close(got, want, E, terms, lr):
+    """W and dW within the association's bound E carried through the
+    update: lr E; plus the roundings of the update's f32 operations, seven
+    on either side, each within 2^-24 of the terms' sum (2^-20 > 14 x
+    2^-24); plus 2^-22 of the results."""
+    u = 2. ** -22
+    tol_dw = lr * (E + 2. ** -20 * terms) + u * want[1].abs()
+    tol_w = tol_dw + u * want[0].abs()
+    for g, w, tol, name in ((got[0], want[0], tol_w, 'W'),
+                            (got[1], want[1], tol_dw, 'dW')):
+        excess = float(((g - w).abs() - tol).max())
+        assert excess <= 0., '%s off by %.3g over the bound' % (name, excess)
+
+
+def cd_assoc_update_launch(X, h0, v, h, pen, W, dW, lr, mom, l2):
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    W, dW = W.clone(), dW.clone()
+    B, V = X.shape
+    check_launch(library().bm_cd_assoc_update(
+        ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, W.shape[1], ptr(W),
+        ptr(dW), lr, mom, l2, torch.cuda.current_stream().cuda_stream),
+        'cd_assoc_update')
+    return W, dW
+
+
+@pytest.mark.parametrize('B,V,H', ASSOC_SHAPES)
+@pytest.mark.parametrize('sparsity', [False, True])
+def test_cd_assoc_update_matches_plain_version(cuda, B, V, H, sparsity):
+    """W += dW = lr (mom dW + (X^T h0 - v^T h) / B - l2 W - pen) against
+    the plain version's arithmetic (ops/cd_epoch.py), each element within
+    the association's bound carried through the update; a same-input rerun
+    bit for bit."""
+    rng = np.random.RandomState(B + V + H)
+    X, h0 = assoc_sides(B, V, H, cuda, rng, gaussian=V == 3072)
+    v, h = assoc_sides(B, V, H, cuda, rng, gaussian=V == 3072)
+    W = torch.as_tensor(rng.randn(V, H) * 0.05, dtype=torch.float32,
+                        device=cuda)
+    dW = torch.as_tensor(rng.randn(V, H) * 0.01, dtype=torch.float32,
+                         device=cuda)
+    pen = torch.as_tensor(rng.randn(H) * 1e-3 if sparsity else np.zeros(H),
+                          dtype=torch.float32, device=cuda)
+    lr, mom, l2 = 0.05, 0.9, 1e-4
+    got = cd_assoc_update_launch(X, h0, v, h, pen, W, dW, lr, mom, l2)
+    again = cd_assoc_update_launch(X, h0, v, h, pen, W, dW, lr, mom, l2)
+    assoc = X.T @ h0 - v.T @ h
+    g = assoc / B - l2 * W
+    want_dw = lr * (mom * dW + g - pen)
+    want = (W + want_dw, want_dw)
+    torch.cuda.synchronize()
+    E = assoc_bound([(X, h0), (v, h)], (1., 1.), assoc) / B
+    terms = (mom * dW).abs() + (assoc / B).abs() + (l2 * W).abs() + pen.abs()
+    assert_update_close(got, want, E, terms, lr)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def cd_assoc_stats_launch(X, h0, v, h):
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    B, V = X.shape
+    H = h0.shape[1]
+    out = torch.full((V, H), float('nan'), device=X.device)
+    check_launch(library().bm_cd_assoc_stats(
+        ptr(X), ptr(h0), ptr(v), ptr(h), B, V, H, ptr(out),
+        torch.cuda.current_stream().cuda_stream), 'cd_assoc_stats')
+    return out
+
+
+@pytest.mark.parametrize('B,V,H', ASSOC_STATS_SHAPES)
+def test_cd_assoc_stats_matches_plain_version(cuda, B, V, H):
+    """X^T h0 - v^T h written as it is, each element within the bound, a
+    rerun bit for bit; at k = 0 (v = X, h = h0) exactly zero."""
+    rng = np.random.RandomState(B * V + H)
+    X, h0 = assoc_sides(B, V, H, cuda, rng, gaussian=True)
+    v, h = assoc_sides(B, V, H, cuda, rng, gaussian=False)
+    got = cd_assoc_stats_launch(X, h0, v, h)
+    again = cd_assoc_stats_launch(X, h0, v, h)
+    zero = cd_assoc_stats_launch(X, h0, X, h0)
+    want = X.T @ h0 - v.T @ h
+    torch.cuda.synchronize()
+    excess = (got - want).abs() - assoc_bound([(X, h0), (v, h)], (1., 1.),
+                                              want)
+    assert float(excess.max()) <= 0.
+    assert torch.equal(got, again)
+    assert not bool(zero.any())
+
+
+def dbm_assoc_update_launch(Ad, Bd, Ap, Bp, pen, W, dW, lr, mom, l2):
+    W, dW = W.clone(), dW.clone()
+    (N, n_in), M = Ad.shape, Ap.shape[0]
+    dbm_ops._check(dbm_ops._library().bm_dbm_assoc_update(
+        dbm_ops._ptr(Ad), dbm_ops._ptr(Bd), dbm_ops._ptr(Ap),
+        dbm_ops._ptr(Bp), dbm_ops._ptr(pen), N, M, n_in, W.shape[1],
+        dbm_ops._ptr(W), dbm_ops._ptr(dW), lr, mom, l2,
+        torch.cuda.current_stream().cuda_stream), 'dbm_assoc_update')
+    return W, dW
+
+
+@pytest.mark.parametrize('N,M,n_in,n_out', DBM_ASSOC_SHAPES)
+@pytest.mark.parametrize('sparsity', [False, True])
+def test_dbm_assoc_update_matches_plain_version(cuda, N, M, n_in, n_out,
+                                                sparsity):
+    """W += dW = lr (mom dW + Ad^T Bd / N - Ap^T Bp / M - l2 W - pen) (the
+    penalty optional) against the plain version's arithmetic
+    (ops/dbm_ops.py dbm_update), within the bound; a rerun bit for bit."""
+    rng = np.random.RandomState(N + M + n_in + n_out)
+    Ad, Bd = assoc_sides(N, n_in, n_out, cuda, rng, gaussian=False)
+    Ap, Bp = assoc_sides(M, n_in, n_out, cuda, rng, gaussian=False)
+    W = torch.as_tensor(rng.randn(n_in, n_out) * 0.1, dtype=torch.float32,
+                        device=cuda)
+    dW = torch.as_tensor(rng.randn(n_in, n_out) * 0.01, dtype=torch.float32,
+                         device=cuda)
+    pen = torch.as_tensor(rng.randn(n_out) * 1e-3, dtype=torch.float32,
+                          device=cuda) if sparsity else None
+    lr, mom, l2 = 2e-3, 0.5, 1e-3
+    got = dbm_assoc_update_launch(Ad, Bd, Ap, Bp, pen, W, dW, lr, mom, l2)
+    again = dbm_assoc_update_launch(Ad, Bd, Ap, Bp, pen, W, dW, lr, mom, l2)
+    assoc = (Ad.T @ Bd) / N - (Ap.T @ Bp) / M
+    g = assoc - l2 * W
+    if pen is not None:
+        g = g - pen
+    want_dw = lr * (mom * dW + g)
+    want = (W + want_dw, want_dw)
+    torch.cuda.synchronize()
+    E = assoc_bound([(Ad, Bd), (Ap, Bp)], (1. / N, 1. / M), assoc)
+    terms = (mom * dW).abs() + assoc.abs() + (l2 * W).abs()
+    if pen is not None:
+        terms = terms + pen.abs()
+    assert_update_close(got, want, E, terms, lr)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize('V,H', [(784, 1024), (784, 512), (512, 1024),
+                                 (3072, 5000), (5000, 1000), (3072, 7800),
+                                 (24, 16), (130, 65)])
+def test_assoc_plan_is_the_kernels(cuda, V, H):
+    """The kernel picks its width as ops/gemm.py's assoc_plan does."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import library
+    n_sm = gemm.num_sms(cuda)
+    for sms in (n_sm, 114, 1):
+        assert library().bm_assoc_n_tile(V, H, sms) == \
+            gemm.assoc_plan(V, H, sms).n_tile

@@ -314,3 +314,105 @@ def test_single_accumulator_misses_the_card_tolerance(K, dist):
     A, W = operands(K, dist)
     assert excess_over_bound(tile_3xtf32(A, W, True), A, W) <= 0.
     assert excess_over_bound(tile_3xtf32(A, W, False), A, W) > 0.
+
+
+# ---------------------------------------------------------------------- #
+# the association kernel (csrc/assoc_tc.cuh)                              #
+# ---------------------------------------------------------------------- #
+# (V, H): the paths' associations -- rbm_mnist and the 784 x 1024 stats,
+# the DBM's two layers, the G-RBM, M-RBM and 3072 x 7800 stats -- and ragged
+# ones
+ASSOC_PATH = [(784, 1024), (784, 512), (512, 1024), (3072, 5000),
+              (5000, 1000), (3072, 7800)]
+ASSOC_RAGGED = [(1, 1), (24, 16), (37, 70), (130, 65), (50, 129), (129, 33),
+                (7800, 3072)]
+
+
+@pytest.mark.parametrize('V,H', ASSOC_PATH + ASSOC_RAGGED)
+@pytest.mark.parametrize('n_sm', [N_SM, 114, 1])
+def test_assoc_plan_covers_the_output_once(V, H, n_sm):
+    """A width the kernel is built for; the blocks tile V x H exactly (128
+    rows of V, n_tile columns of H each, every element one owner); 32-wide
+    only where that still fits in one wave and the 64-wide tiles would
+    leave more than a quarter of the SMs idle."""
+    p = gemm.assoc_plan(V, H, n_sm)
+    assert p.n_tile in gemm.ASSOC_N_TILES
+    assert p.row_tiles * gemm.TILE_M >= V > (p.row_tiles - 1) * gemm.TILE_M
+    assert p.col_tiles * p.n_tile >= H > (p.col_tiles - 1) * p.n_tile
+    assert p.blocks == p.row_tiles * p.col_tiles
+    wide = p.row_tiles * -(-H // 64)
+    if p.n_tile == 32:
+        assert p.blocks <= n_sm and 4 * wide < 3 * n_sm
+    else:
+        assert p.blocks == wide
+
+
+def test_assoc_plan_of_the_paths():
+    """About one wave at the small shapes (784 x 1024: 112 blocks; the DBM's
+    784 x 512 and 512 x 1024 narrowed to 32 columns: 112 and 128), 64
+    columns at the CIFAR shapes (many waves)."""
+    got = {vh: gemm.assoc_plan(*vh, N_SM) for vh in ASSOC_PATH}
+    assert {vh: (p.n_tile, p.blocks) for vh, p in got.items()} == {
+        (784, 1024): (64, 112), (784, 512): (32, 112), (512, 1024): (32, 128),
+        (3072, 5000): (64, 1896), (5000, 1000): (64, 640),
+        (3072, 7800): (64, 2928)}
+    with pytest.raises(ValueError, match='assoc_plan'):
+        gemm.assoc_plan(0, 10, N_SM)
+
+
+def assoc_3xtf32(pairs, scales):
+    """The association kernel's arithmetic: the products' 32-deep k-tiles
+    interleaved (tile j of product 0, then tile j of product 1), each stage
+    in 3xTF32 by tile_3xtf32's wgmma order into a zeroed accumulator, added
+    to the sum times its product's scale, rounded to nearest once (an
+    FMA)."""
+    d = np.zeros((pairs[0][0].shape[1], pairs[0][1].shape[1]), np.float32)
+    tiles = [[(A[k:k + gemm.TILE_K].T, B[k:k + gemm.TILE_K])
+              for k in range(0, A.shape[0], gemm.TILE_K)] for A, B in pairs]
+    order = []
+    for j in range(max(len(t) for t in tiles)):
+        order += [(i, j) for i in range(len(pairs)) if j < len(tiles[i])]
+    for i, j in order:
+        c = tile_3xtf32(*tiles[i][j], per_stage=False)
+        d = (d.astype(np.float64) +
+             c.astype(np.float64) * np.float64(np.float32(scales[i]))
+             ).astype(np.float32)
+    return d
+
+
+@pytest.mark.parametrize('B', [1, 10, 50, 100, 256])
+@pytest.mark.parametrize('dist', ['bernoulli', 'gaussian'])
+def test_stacked_association_within_the_card_tolerance(B, dist):
+    """X^T h0 - v^T h as one K loop of 2B (the sign as the second product's
+    scale, -1): each element within 2^-22 (ERR_SUM (|X|^T|h0| + |v|^T|h|) +
+    |assoc|) of the float64 association; and where v = X, h = h0 (k = 0)
+    exactly zero."""
+    rng = np.random.RandomState(B)
+    V, H = 40, 24
+    X = (rng.rand(B, V) < 0.3) if dist == 'bernoulli' else rng.randn(B, V)
+    v = (rng.rand(B, V) < 0.3) if dist == 'bernoulli' else rng.randn(B, V)
+    X, v = X.astype(np.float32), v.astype(np.float32)
+    h0, h = (rng.rand(B, H).astype(np.float32) for _ in range(2))
+    got = assoc_3xtf32([(X, h0), (v, h)], (1., -1.))
+    f = [a.astype(np.float64) for a in (X, h0, v, h)]
+    exact = f[0].T @ f[1] - f[2].T @ f[3]
+    l1 = np.abs(f[0]).T @ np.abs(f[1]) + np.abs(f[2]).T @ np.abs(f[3])
+    bound = 2. ** -22 * (gemm.ERR_SUM * l1 + np.abs(exact))
+    assert float((np.abs(got - exact) - bound).max()) <= 0.
+    assert not assoc_3xtf32([(X, h0), (X, h0)], (1., -1.)).any()
+
+
+def test_dbm_association_scales_within_the_card_tolerance():
+    """Ad^T Bd / N - Ap^T Bp / M with N != M: the scales 1/N and -1/M
+    (rounded to f32) applied to each stage as it is added stay within the
+    bound of the scaled terms."""
+    rng = np.random.RandomState(7)
+    N, M, V, H = 37, 100, 30, 20
+    Ad, Ap = ((rng.rand(n, V) < 0.5).astype(np.float32) for n in (N, M))
+    Bd, Bp = (rng.rand(n, H).astype(np.float32) for n in (N, M))
+    got = assoc_3xtf32([(Ad, Bd), (Ap, Bp)], (1. / N, -1. / M))
+    f = [a.astype(np.float64) for a in (Ad, Bd, Ap, Bp)]
+    exact = f[0].T @ f[1] / N - f[2].T @ f[3] / M
+    l1 = np.abs(f[0]).T @ np.abs(f[1]) / N + np.abs(f[2]).T @ np.abs(f[3]) / M
+    bound = 2. ** -22 * (gemm.ERR_SUM * l1 + np.abs(exact))
+    assert float((np.abs(got - exact) - bound).max()) <= 0.
