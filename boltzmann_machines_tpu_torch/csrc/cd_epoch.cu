@@ -30,7 +30,19 @@
 //   K2 cd_bias_stats    column sums over the batch (dvb, dhb, h_sum, msre
 //                       partial), the sparsity EMA and penalty, and the
 //                       vb/hb/dvb/dhb/q updates.  Replaces :353-356, :425-441
-//                       (tiled: :635-651).
+//                       (tiled: :635-651).  Bound by its bytes: X, v_states
+//                       and v_means (B x V), h0 and h_means (B x H) read
+//                       once, 7.7 MB at 3072x5000 and B = 100 (2.3 us at
+//                       3.35 TB/s), 176 KB at 784x1024 and B = 10, where
+//                       the launch's latency is the floor.  A block owns 32
+//                       columns, all visible or all hidden, and its eight
+//                       warps load the batch's rows at once, 16 bytes a
+//                       lane along rows (colwalk.cuh), so (V + H) / 32
+//                       blocks (253 at 3072x5000) share the loads that one
+//                       thread per column made in a chain; the terms are
+//                       staged in shared memory and added in row order, so
+//                       the sums keep the bits of that walk (and equal
+//                       K2s's, which the data-parallel checks pin).
 //   K3 cd_assoc_update  X^T h0 - v^T h (contraction over the batch) on the
 //                       tensor cores, with the momentum update of dW and W
 //                       in place as epilogue (assoc_tc.cuh); each (i, j) has
@@ -59,8 +71,10 @@
 //                       seed, :1096-1100).  Shard 0 draws what the epoch
 //                       kernels draw.
 //   K2s cd_stats_sums   dvb_sum = sum(X - v_states), dhb_sum = sum(h0 -
-//                       h_means), h_sum = sum(h_means) over the local batch:
-//                       K2's column sums without the update (:1148-1150).
+//                       h_means), h_sum = sum(h_means) over the local batch,
+//                       the column sums K2 takes, without the update
+//                       (:1148-1150); one thread per column walks the
+//                       batch in row order, K2's order of addition.
 //   K3s cd_assoc_stats  X^T h0 - v^T h (:1142-1147): K3's contraction without
 //                       the momentum epilogue.
 //
@@ -133,6 +147,7 @@
 #include <stdint.h>
 
 #include "assoc_tc.cuh"
+#include "colwalk.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 #include "philox.cuh"
@@ -145,6 +160,8 @@ using bm::softplus;
 
 constexpr int kMetThreads = 256;
 constexpr int kRowThreads = 256;
+// K2: batch rows staged in shared memory at a time (2 x 128 x 32 floats)
+constexpr int kK2Chunk = 128;
 constexpr int kStaticSmemLimit = 48 * 1024;
 
 // epilogues of cd_gemm_act (ops/cd_epoch.py ACT_*)
@@ -392,49 +409,109 @@ __global__ void __launch_bounds__(kRowThreads)
     states[row + h] = (float)counts[h];
 }
 
-// K2: one thread per visible column j < V, then per hidden column.
-__global__ void cd_bias_stats_kernel(
-    const float* __restrict__ X, const float* __restrict__ vs,
-    const float* __restrict__ vm, const float* __restrict__ h0,
-    const float* __restrict__ hm, int B, int V, int H, float* vb, float* dvb,
-    float* hb, float* dhb, float* q, float* __restrict__ pen,
-    float* __restrict__ msre_col, float lr, float mom, float damp,
-    float one_minus_damp, float cost, float target) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const float n = (float)B;
-  if (j < V) {
-    float s = 0.f, e = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const float x = X[(long long)b * V + j];
-      s += x - vs[(long long)b * V + j];
-      const float d = x - vm[(long long)b * V + j];
-      e = fmaf(d, d, e);
+// K2: block b owns kColTile consecutive columns, all visible (b < nv) or
+// all hidden.  Its row groups (colwalk.cuh) load a chunk of up to kK2Chunk
+// rows at once and stage each element's terms in shared memory; then one
+// thread per column adds them in row order, the order in which one thread
+// per column walked the batch before, so the sums are those bits, and
+// cd_stats_sums' (K2s) bit for bit.  Visible: s = sum(X - v_states),
+// e = sum((X - v_means)^2); hidden: s = sum(h0 - h_means), u =
+// sum(h_means).  Then the update, one thread per column.
+template <int VW>
+__global__ void __launch_bounds__(bm::col::kColThreads)
+    cd_bias_stats_kernel(const float* __restrict__ X,
+                         const float* __restrict__ vs,
+                         const float* __restrict__ vm,
+                         const float* __restrict__ h0,
+                         const float* __restrict__ hm, int B, int V, int H,
+                         float* vb, float* dvb, float* hb, float* dhb,
+                         float* q, float* __restrict__ pen,
+                         float* __restrict__ msre_col, float lr, float mom,
+                         float damp, float one_minus_damp, float cost,
+                         float target) {
+  using Map = bm::col::Map<VW>;
+  constexpr int T = bm::col::kColTile, G = Map::kGroups;
+  // [0]: x - v_states or h0 - h_means; [1]: x - v_means or h_means
+  __shared__ __align__(16) float stage[2][kK2Chunk][T];
+  const int nv = (V + T - 1) / T;
+  const bool visible = (int)blockIdx.x < nv;
+  const int n = visible ? V : H;
+  const int j0 = (visible ? (int)blockIdx.x : (int)blockIdx.x - nv) * T;
+  const int g = Map::group(), c = Map::col();
+  // with VW = 4 the width is a multiple of 4: a lane's columns are all in
+  // or all out
+  const bool in = j0 + c < n;
+  const float* A = visible ? X : h0;
+  const float* Bm = visible ? vs : hm;
+  float S = 0.f, U = 0.f;  // column threadIdx.x's sums (threads < T)
+  for (int b0 = 0; b0 < B; b0 += kK2Chunk) {
+    const int rows = min(kK2Chunk, B - b0);
+#pragma unroll 4
+    for (int r = g; in && r < rows; r += G) {
+      const long long idx = (long long)(b0 + r) * n + j0 + c;
+      float a[VW], x[VW];
+      bm::col::load<VW>(A + idx, a);
+      bm::col::load<VW>(Bm + idx, x);
+      if (visible) {
+        float m[VW];
+        bm::col::load<VW>(vm + idx, m);
+#pragma unroll
+        for (int k = 0; k < VW; ++k) {
+          stage[0][r][c + k] = a[k] - x[k];
+          stage[1][r][c + k] = a[k] - m[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < VW; ++k) {
+          stage[0][r][c + k] = a[k] - x[k];
+          stage[1][r][c + k] = x[k];
+        }
+      }
     }
-    const float acc = lr * (mom * dvb[j] + s / n);
+    __syncthreads();
+    if (threadIdx.x < T) {
+      // unrolled, so the shared-memory loads of 16 rows are in flight
+      // before their adds, which keep their order
+      const int t = threadIdx.x;
+      if (visible) {
+#pragma unroll 16
+        for (int r = 0; r < rows; ++r) {
+          S += stage[0][r][t];
+          U = fmaf(stage[1][r][t], stage[1][r][t], U);
+        }
+      } else {
+#pragma unroll 16
+        for (int r = 0; r < rows; ++r) {
+          S += stage[0][r][t];
+          U += stage[1][r][t];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int j = j0 + (int)threadIdx.x;
+  if (threadIdx.x >= T || j >= n) return;
+  const float nb = (float)B;
+  if (visible) {
+    const float acc = lr * (mom * dvb[j] + S / nb);
     dvb[j] = acc;
     vb[j] += acc;
-    msre_col[j] = e;
-  } else if (j < V + H) {
-    const int c = j - V;
-    float s = 0.f, hsum = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const float h = hm[(long long)b * H + c];
-      s += h0[(long long)b * H + c] - h;
-      hsum += h;
-    }
+    msre_col[j] = U;
+  } else {
     // sparsity acts on the batch SUM of the chain-end hidden means
-    const float qn = damp * q[c] + one_minus_damp * hsum;
+    const float qn = damp * q[j] + one_minus_damp * U;
     const float p = cost * (qn - target);
-    q[c] = qn;
-    pen[c] = p;
-    const float acc = lr * (mom * dhb[c] + s / n - p);
-    dhb[c] = acc;
-    hb[c] += acc;
+    q[j] = qn;
+    pen[j] = p;
+    const float acc = lr * (mom * dhb[j] + S / nb - p);
+    dhb[j] = acc;
+    hb[j] += acc;
   }
 }
 
 // K2s: K2's column sums of one local batch with no update -- the stats
-// kernels' psum-able dvb_sum, dhb_sum and h_sum, in K2's summation order.
+// kernels' psum-able dvb_sum, dhb_sum and h_sum -- in K2's order of
+// addition (the rows in order), by one thread per column.
 __global__ void cd_stats_sums_kernel(const float* __restrict__ X,
                                      const float* __restrict__ vs,
                                      const float* __restrict__ h0,
@@ -665,17 +742,27 @@ int bm_cd_softmax_sample(const float* in, int from_pre, int rows, int H,
   return (int)cudaGetLastError();
 }
 
+// One block per kColTile columns of V, then of H; 16 bytes a lane where V
+// and H are multiples of 4 and the batch-major inputs 16-byte aligned.
 int bm_cd_bias_stats(const float* X, const float* vs, const float* vm,
                      const float* h0, const float* hm, int B, int V, int H,
                      float* vb, float* dvb, float* hb, float* dhb, float* q,
                      float* pen, float* msre_col, float lr, float mom,
                      float damp, float one_minus_damp, float cost,
                      float target, void* stream) {
-  const int threads = 256;
-  const int blocks = (V + H + threads - 1) / threads;
-  cd_bias_stats_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr, mom,
-      damp, one_minus_damp, cost, target);
+  constexpr int T = bm::col::kColTile;
+  const int blocks = (V + T - 1) / T + (H + T - 1) / T;
+  const void* rows[] = {X, vs, vm, h0, hm};
+  const bool vec = V % 4 == 0 && H % 4 == 0 && bm::col::aligned16(rows, 5);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    cd_bias_stats_kernel<4><<<blocks, bm::col::kColThreads, 0, s>>>(
+        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
+        mom, damp, one_minus_damp, cost, target);
+  else
+    cd_bias_stats_kernel<1><<<blocks, bm::col::kColThreads, 0, s>>>(
+        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
+        mom, damp, one_minus_damp, cost, target);
   return (int)cudaGetLastError();
 }
 

@@ -38,7 +38,20 @@
 //   dbm_assoc_update data^T.data / N - particles^T.particles / M - l2 W -
 //                    penalty, and the momentum update of dW and W in place.
 //   dbm_max_norm     per-column max-norm of W after the update (a reduction
-//                    over rows, so its own pass).
+//                    over rows, so its own pass): the max-norm of
+//                    _dbm_epoch_kernel (pallas_dbm.py:271-274).  Bound by
+//                    W's bytes, read once and written once (1.6 MB at
+//                    784x512, 0.96 us at 3.35 TB/s; 2.1 MB, 1.25 us at
+//                    512x1024), W just written by the association, so in
+//                    L2.  A block per 8 columns holds all their rows (64
+//                    blocks for 784x512, 128 for 512x1024); its eight warps
+//                    split the rows, two lanes of 16 bytes reading each
+//                    row's 32 bytes (colwalk.cuh), and keep their values in
+//                    registers between the norm and the scale, so W is read
+//                    once; the column sums are added in a fixed order.  A
+//                    cluster of 8 blocks per 32 columns, adding the partial
+//                    norms over distributed shared memory, took longer on
+//                    the card (PERF.md).
 //   dbm_msre         the minibatch's msre (fixed-order block reduction) and
 //                    its mean-field update count.
 //   ais_logw         per-run log-weight update from the softplus partials,
@@ -69,11 +82,13 @@
 // cudaGetLastError() (the first error of a multi-launch entry).
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <vector>
 
 #include "assoc_tc.cuh"
+#include "colwalk.cuh"
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 #include "philox.cuh"
@@ -131,6 +146,10 @@ struct DbmGemmArgs {
 namespace {
 
 constexpr int kRedThreads = 256;
+// dbm_max_norm: columns per block, and the floats of W each thread keeps
+// in registers between its two passes (7 rows of 4 at VW = 4: 896 rows)
+constexpr int kNormTile = 8;
+constexpr int kNormHold = 28;
 
 // out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias, acc = A1.B1 +
 // A2.B2 by the tensor-core tile (gemm_tc.cuh); kSoftplusRows sums
@@ -257,21 +276,84 @@ __global__ void dbm_bias_update_kernel(
   b[j] += acc;
 }
 
-// One thread per column: W[:, j] *= min(|w|, c) / max(|w|, 1e-8).
-__global__ void dbm_max_norm_kernel(float* W, int n_in, int n_out,
-                                    float max_norm) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n_out) return;
-  float s = 0.f;
-  for (int i = 0; i < n_in; ++i) {
-    const float w = W[(long long)i * n_out + j];
-    s = fmaf(w, w, s);
+// W[:, j] *= min(|w_j|, c) / max(|w_j|, 1e-8), per column.  A block owns
+// kNormTile columns and all n_in rows; its row groups (colwalk.cuh: 2 lanes
+// of 16 bytes per row, 16 rows per warp) split the rows.  Pass 1 keeps up
+// to kNormHold of each thread's values in registers and sums their squares;
+// the lanes of a warp that hold the same columns add their sums by a
+// shuffle tree, the warps' sums are added in order in shared memory, and
+// one thread per column takes the norm.  Pass 2 scales the held values and
+// stores them; rows beyond what a thread holds (n_in > 896) are read a
+// second time.
+template <int VW>
+__global__ void __launch_bounds__(bm::col::kColThreads)
+    dbm_max_norm_kernel(float* W, int n_in, int n_out, float max_norm) {
+  using Map = bm::col::Map<VW, kNormTile>;
+  constexpr int T = kNormTile, G = Map::kGroups;
+  constexpr int LPR = Map::kLanesPerRow, P = kNormHold / VW;
+  __shared__ float red[bm::col::kColThreads / 32][T];
+  __shared__ float num[T], den[T];
+  const int j0 = (int)blockIdx.x * T;
+  const int g = Map::group(), c = Map::col();
+  const bool in = j0 + c < n_out;
+  float* col = W + j0 + c;
+
+  float held[P][VW], sq[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) sq[k] = 0.f;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int r = p * G + g;
+    if (!in || r >= n_in) continue;
+    bm::col::load<VW>(col + (long long)r * n_out, held[p]);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) sq[k] = fmaf(held[p][k], held[p][k], sq[k]);
   }
-  const float norm = sqrtf(s);
-  const float num = fminf(norm, max_norm), den = fmaxf(norm, 1e-8f);
-  for (int i = 0; i < n_in; ++i) {
-    const long long idx = (long long)i * n_out + j;
-    W[idx] = W[idx] * num / den;
+  for (int r = P * G + g; in && r < n_in; r += G) {
+    float w[VW];
+    bm::col::load<VW>(col + (long long)r * n_out, w);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) sq[k] = fmaf(w[k], w[k], sq[k]);
+  }
+  // lanes l and l ^ o (o >= LPR) hold the same columns of other rows
+#pragma unroll
+  for (int o = 16; o >= LPR; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < VW; ++k)
+      sq[k] += __shfl_xor_sync(0xffffffffu, sq[k], o);
+  if ((threadIdx.x & 31) < LPR)
+#pragma unroll
+    for (int k = 0; k < VW; ++k) red[threadIdx.x >> 5][c + k] = sq[k];
+  __syncthreads();
+  if (threadIdx.x < T) {
+    float t = 0.f;
+    for (int w = 0; w < bm::col::kColThreads / 32; ++w)
+      t += red[w][threadIdx.x];
+    const float norm = sqrtf(t);
+    num[threadIdx.x] = fminf(norm, max_norm);
+    den[threadIdx.x] = fmaxf(norm, 1e-8f);
+  }
+  __syncthreads();
+  float f_num[VW], f_den[VW];
+#pragma unroll
+  for (int k = 0; k < VW; ++k) {
+    f_num[k] = num[c + k];
+    f_den[k] = den[c + k];
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const int r = p * G + g;
+    if (!in || r >= n_in) continue;
+#pragma unroll
+    for (int k = 0; k < VW; ++k) held[p][k] = held[p][k] * f_num[k] / f_den[k];
+    bm::col::store<VW>(col + (long long)r * n_out, held[p]);
+  }
+  for (int r = P * G + g; in && r < n_in; r += G) {
+    float w[VW];
+    bm::col::load<VW>(col + (long long)r * n_out, w);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) w[k] = w[k] * f_num[k] / f_den[k];
+    bm::col::store<VW>(col + (long long)r * n_out, w);
   }
 }
 
@@ -426,11 +508,21 @@ int bm_dbm_assoc_update(const float* Ad, const float* Bd, const float* Ap,
                               (cudaStream_t)stream);
 }
 
+// One block per kNormTile columns; 16 bytes a lane where n_out is a
+// multiple of 4 and W 16-byte aligned.  A max-norm that is not finite
+// leaves W as it is (the plain version's rule) and launches nothing.
 int bm_dbm_max_norm(float* W, int n_in, int n_out, float max_norm,
                     void* stream) {
-  const int threads = 128;
-  dbm_max_norm_kernel<<<(n_out + threads - 1) / threads, threads, 0,
-                        (cudaStream_t)stream>>>(W, n_in, n_out, max_norm);
+  if (!isfinite(max_norm) || n_in <= 0 || n_out <= 0) return 0;
+  const int blocks = (n_out + kNormTile - 1) / kNormTile;
+  const void* w[] = {W};
+  const bool vec = n_out % 4 == 0 && bm::col::aligned16(w, 1);
+  if (vec)
+    dbm_max_norm_kernel<4><<<blocks, bm::col::kColThreads, 0,
+                             (cudaStream_t)stream>>>(W, n_in, n_out, max_norm);
+  else
+    dbm_max_norm_kernel<1><<<blocks, bm::col::kColThreads, 0,
+                             (cudaStream_t)stream>>>(W, n_in, n_out, max_norm);
   return (int)cudaGetLastError();
 }
 

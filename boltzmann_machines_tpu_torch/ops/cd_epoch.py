@@ -208,6 +208,24 @@ def v_sample_reference(cfg, means, sigma, seed, it, stream, shard=0):
     return bernoulli(means, seed, it, stream, shard)
 
 
+def bias_stats_reference(X, v_states, h0, h_means, p, lr, mom, damp, cost,
+                         target, v_means=None):
+    """K2's function (``bm_cd_bias_stats``) in torch ops: one step's bias
+    updates from p's vb, dvb, hb, dhb and q.  Sparsity acts on the batch SUM
+    of the chain-end hidden means (Queue C2); ``pen`` is the penalty that
+    the association update also subtracts.  With ``v_means``, also
+    ``msre_col``, the msre's column sums over the batch."""
+    dvb = lr * (mom * p['dvb'] + torch.mean(X - v_states, dim=0))
+    q = damp * p['q'] + (1. - damp) * torch.sum(h_means, dim=0)
+    pen = cost * (q - target)
+    dhb = lr * (mom * p['dhb'] + torch.mean(h0 - h_means, dim=0) - pen)
+    out = {'vb': p['vb'] + dvb, 'dvb': dvb, 'hb': p['hb'] + dhb,
+           'dhb': dhb, 'q': q, 'pen': pen}
+    if v_means is not None:
+        out['msre_col'] = torch.sum(torch.square(X - v_means), dim=0)
+    return out
+
+
 def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
     """The plain PyTorch version of the epoch (see module docstring)."""
     W, vb, hb, dW, dvb, dhb, q = (state[key] for key in STATE_KEYS)
@@ -237,18 +255,15 @@ def cd_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
                 if cfg.sample_h_states else h_means
 
         dW_grad = (X.T @ h0 - v_states.T @ h_means) / B - cfg.l2 * W
-        dvb_grad = torch.mean(X - v_states, dim=0)
-        dhb_grad = torch.mean(h0 - h_means, dim=0)
-        # sparsity acts on the batch SUM of the chain-end hidden means, and
-        # the penalty is subtracted from every row of dW (Queue C2)
-        q = damp * q + (1. - damp) * torch.sum(h_means, dim=0)
-        penalty = cfg.sparsity_cost * (q - cfg.sparsity_target)
-        dW = lr * (mom * dW + dW_grad - penalty)
-        dvb = lr * (mom * dvb + dvb_grad)
-        dhb = lr * (mom * dhb + dhb_grad - penalty)
+        bias = bias_stats_reference(
+            X, v_states, h0, h_means,
+            {'vb': vb, 'dvb': dvb, 'hb': hb, 'dhb': dhb, 'q': q}, lr, mom,
+            damp, cfg.sparsity_cost, cfg.sparsity_target)
+        # the penalty is also subtracted from every row of dW (Queue C2)
+        dW = lr * (mom * dW + dW_grad - bias['pen'])
         W = W + dW
-        vb = vb + dvb
-        hb = hb + dhb
+        vb, dvb, hb, dhb, q = (bias[key]
+                               for key in ('vb', 'dvb', 'hb', 'dhb', 'q'))
 
         # metrics read the UPDATED parameters (Queue C3)
         if it % cfg.metrics_every == 0:

@@ -147,9 +147,15 @@ def philox_uniform2(seed, it, stream, shape, device='cpu', shard=0):
 def normal(seed, it, stream, shape, device='cpu', shard=0):
     """float32 standard normals by Box-Muller on the uniform pairs of
     ``philox_uniform2``, as the TPU kernels' ``_normal_from_bits``
-    (pallas_ops.py:46-51): ``sqrt(-2 ln max(u1, 1e-7)) cos(2 pi u2)``."""
+    (pallas_ops.py:46-51): ``sqrt(-2 ln max(u1, 1e-7)) cos(2 pi u2)``.
+
+    The log is taken in float64 and rounded to float32: torch's CPU float32
+    ``log`` sometimes takes a path, on the first large call of a process,
+    that is off by ~1e-4 relative; float64's worst case there (~2e-10)
+    rounds away."""
     u1, u2 = philox_uniform2(seed, it, stream, shape, device, shard)
-    r = torch.sqrt(-2. * torch.log(torch.clamp(u1, min=1e-7)))
+    u1 = torch.clamp(u1, min=1e-7)
+    r = torch.sqrt(-2. * torch.log(u1.to(torch.float64)).to(torch.float32))
     return r * torch.cos(TWO_PI_F32 * u2)
 
 

@@ -5,7 +5,8 @@ NVIDIA GPU and check it.
 
 (``--readings`` and ``--assoc-readings`` print, instead of the smoke, what
 two checks' limits rest on and where the association kernel's time goes;
-see ``readings`` and ``assoc_readings``.)
+see ``readings`` and ``assoc_readings``.  ``--kernel-times`` runs phase 18
+alone; run from another checkout, it times that checkout's kernels.)
 
 Phases, each printing its lines before the last:
 
@@ -22,8 +23,9 @@ Phases, each printing its lines before the last:
 5. CD timings: a training epoch, kernels vs plain version;
 6. DBM kernels vs plain: the DBM epoch, sampler and AIS kernels against
    their plain versions at 784-512-1024 (examples/dbm_mnist.py's widths),
-   the epoch with mean-field that runs its whole budget and with
-   mean-field that converges;
+   the epoch with mean-field that runs its whole budget (once more with a
+   max-norm that scales half of W's columns down) and with mean-field that
+   converges;
 7. the DBM path of examples/dbm_mnist.py on the card: RBM #1 and RBM #2
    pretraining through the CD kernels, ``DBM.fit`` through the DBM epoch
    kernels, transform, ``sample_v`` and AIS ``log_Z`` through their
@@ -60,7 +62,8 @@ Phases, each printing its lines before the last:
     one-rank NCCL group at 3072 x 7800 against the CD epoch kernels, and
     its step timed beside theirs; then the main path of this slice, a
     2-rank ``fit`` through ``set_mesh(parallel.make_mesh())`` (two
-    processes on the one card over gloo) of dbm_cifar.py's 3072 x 7800
+    processes on the one card over gloo, each ``python3 chip_smoke.py
+    --dp-rank RANK WORLD TMPDIR``, waited for) of dbm_cifar.py's 3072 x 7800
     G-RBM and of a 784 x 1024 RBM at batch 256, launch counts checked on
     each rank, replicas bit for bit equal, rank 0 alone writing; the
     784 x 1024 fit against the single-process fit;
@@ -83,7 +86,18 @@ Phases, each printing its lines before the last:
     within the bound of tests/test_torch_cuda.py) and a second time on the
     same inputs (bit for bit), then timed by a CUDA graph beside the plain
     version, the former SIMT tile's recorded time and torch.matmul on the
-    stacked K = 2B product.
+    stacked K = 2B product;
+18. the column walks and every hand-written kernel not yet redesigned:
+    cd_bias_stats (each RBM path), dbm_max_norm (both DBM layers),
+    cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe,
+    dbm_bias_update, dbm_msre, dbm_mf_check and ais_logw, each launched
+    alone through its C entry point at its paths' shapes and timed by a
+    CUDA graph beside its plain version, a library yardstick where one
+    PyTorch call computes the function (torch.renorm, torch.sum over the
+    batch) and its bound, with its launches per step and per 1000 steps at
+    the examples' cadences; cd_bias_stats and dbm_max_norm also against
+    their plain versions and a same-input rerun bit for bit; then the DBM
+    step profiled: device time per kernel and busy share.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -505,10 +519,11 @@ def dbm_init(torch, X, seed=2222):
     }
 
 
-def dbm_config(sample, k=1, mf_tol=1e-7):
+def dbm_config(sample, k=1, mf_tol=1e-7, max_norm=6.):
     from boltzmann_machines_tpu_torch.ops.dbm_ops import DBMEpochConfig
     return DBMEpochConfig(DBM_SIZES, k, 50, mf_tol, sample, (sample, sample),
-                          1e-7, 6., SPARSITY_TARGET, SPARSITY_COST, 0.9)
+                          1e-7, max_norm, SPARSITY_TARGET, SPARSITY_COST,
+                          0.9)
 
 
 def dbm_diffs(got, want):
@@ -577,6 +592,16 @@ def dbm_kernels_vs_plain(torch):
     # minibatch runs the whole budget of 50 sweeps.
     d, _ = compare_epoch(torch, dbm_config(False), state, X, False)
     err['dbm_epoch'] = d['W'][0]
+    # max_norm 6 never bites on these weights (column norms ~0.7-0.9), so
+    # once more with each W's columns scaled to norms from 0.5 to 1.5 and a
+    # max_norm of 1: every step the max-norm kernel scales the columns above
+    # it down, and leaves the others (W * norm / norm)
+    capped = dict(state, W=tuple(
+        W * (0.5 + torch.arange(W.shape[1], device='cuda') / W.shape[1])
+        / torch.linalg.norm(W, dim=0) for W in state['W']))
+    d, _ = compare_epoch(torch, dbm_config(False, max_norm=1.), capped, X,
+                         False)
+    err['dbm_epoch'] = max(err['dbm_epoch'], d['W'][0])
     # At mf_tol = 1e-4 it converges after a few sweeps, so the done flag,
     # the change folded over all blocks by atomicMax and the skipped sweeps
     # are held against the plain loop.  The change crosses 1e-4 about three
@@ -1516,7 +1541,8 @@ def check_msre(model_dir, label):
 # the device kernel of each launch name, where it is not <name>_kernel: the
 # association entry points run the one kernel of csrc/assoc_tc.cuh
 KERNEL_SYMBOLS = {'cd_assoc_update': 'assoc_kernel',
-                  'cd_assoc_stats': 'assoc_kernel'}
+                  'cd_assoc_stats': 'assoc_kernel',
+                  'dbm_assoc_update': 'assoc_kernel'}
 
 
 def profile_kernels(torch, fn, names=None, wall=None):
@@ -1906,8 +1932,8 @@ def dp_world1(torch, tmpdir):
 
 
 def dp_rank(rank, world, tmpdir):
-    """One rank of the 2-rank fits, in a process of its own (spawned by
-    ``dp_fit``): joins the gloo group, fits each job of jobs.json on the
+    """One rank of the 2-rank fits, in a process of its own (``python3
+    chip_smoke.py --dp-rank RANK WORLD TMPDIR``, started by ``dp_fit``): joins the gloo group, fits each job of jobs.json on the
     mesh with the launch counts set to 0 just before and read just after,
     and writes its state arrays and counts."""
     import numpy as np
@@ -1969,7 +1995,6 @@ def dp_fit(torch, tmpdir):
     state within TOL, msre stream within 1e-6 + 1e-5 |ref|.  Returns the
     ranks' counts and timings."""
     import numpy as np
-    import torch.multiprocessing as mp
     from boltzmann_machines_tpu_torch import BernoulliRBM, GaussianRBM
     X = make_cifar(3550, seed=42)
     X_train, X_val = standardize(X[:3050], X[3050:])
@@ -1991,18 +2016,32 @@ def dp_fit(torch, tmpdir):
     with open(tmpdir + '/jobs.json', 'w') as f:
         json.dump(jobs, f)
     t0 = time.perf_counter()
-    ctx = mp.start_processes(dp_rank, args=(DP_WORLD, tmpdir),
-                             nprocs=DP_WORLD, join=False,
-                             start_method='spawn')
+    # plain child processes of this script, each waited for (and killed if
+    # the fit fails or overruns), so that no process outlives the smoke:
+    # multiprocessing's spawn would also start a resource tracker that ends
+    # only after this process has
+    procs = []
     try:
+        for rank in range(DP_WORLD):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--dp-rank',
+                 str(rank), str(DP_WORLD), tmpdir]))
         deadline = time.time() + 600
-        while not ctx.join(timeout=5):
+        while any(p.poll() is None for p in procs):
             if time.time() > deadline:
                 raise AssertionError('the 2-rank fit did not end in 600 s')
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        rcs = [p.poll() for p in procs]
+        if rcs != [0] * DP_WORLD:
+            raise AssertionError('the 2-rank fit failed: rank exit codes %s'
+                                 % rcs)
     finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
     say('2-rank fits (gloo, one card): %.1f s with process start-up' % (
         time.perf_counter() - t0))
     ranks = []
@@ -2557,6 +2596,405 @@ def ais_beta_work(V, H1, H2, R, k):
 
 
 # ---------------------------------------------------------------------- #
+# phase 18: the column-walk kernels and every hand-written kernel not    #
+# yet redesigned, each launched alone through its C entry point          #
+# ---------------------------------------------------------------------- #
+# Launches per 1000 steps on each kernel's path, at the examples' published
+# cadences: metrics every 1000 iterations (examples/rbm_mnist.py:99 and
+# dbm_cifar_naive.py:121, the G-RBM), every 500 (dbm_mnist.py:89 and :129,
+# the two RBMs) and every 400 (dbm_cifar_naive.py:153, the M-RBM); a DBM
+# step runs three bias updates, two max-norms, one msre and max_mf_updates
+# = 50 mean-field checks (enqueued whether or not mean-field converged), an
+# AIS beta one ais_logw, a data-parallel stats call one cd_stats_sums; the
+# free-energy probe is on no path.
+#
+# cd_bias_stats at each RBM path: (label, rows, V, H, Gaussian visible,
+# n_samples of multinomial hidden units, sparsity cost, launches per 1000
+# steps of cd_metrics there)
+BIAS_SHAPES = (
+    ('rbm_mnist', 10, 784, 1024, False, 0, 1e-5, 1),
+    ('dbm_rbm1', 48, 784, 512, False, 0, 1e-5, 2),
+    ('dbm_rbm2', 48, 512, 1024, False, 0, 1e-5, 2),
+    ('grbm', 100, 3072, 5000, True, 0, 0., 1),
+    ('mrbm', 100, 5000, 1000, False, N_SAMPLES, 0., 2.5),
+)
+# dbm_max_norm at the DBM's two weight matrices, max_norm of
+# examples/dbm_mnist.py:247
+NORM_SHAPES = (('dbm_w0', 784, 512), ('dbm_w1', 512, 1024))
+DBM_MAX_NORM = 6.
+# The two redesigned kernels against their plain versions, with the
+# tolerances of phases 3, 10 and 13: the updated biases, their accumulators
+# and the penalty as `state`; q as `q_means` (a batch sum: atol x rows);
+# msre_col, a column sum over the batch, and the max-norm's W (each column
+# scaled by a factor from a sum of n_in squares) as the stats' `sums`.
+KT_TOL = {'state': TOL['state'], 'q': TOL['q_means'],
+          'sums': STATS_TOL['sums']}
+
+
+def excess(got, want, tol, scale=1.):
+    """max(|got - want| - atol scale - rtol |want|): <= 0 is within."""
+    atol, rtol = tol
+    return float(((got - want).abs() - atol * scale
+                  - rtol * want.abs()).max())
+
+
+def bias_work(B, V, H):
+    """(0, other f32 operations, bytes) of one cd_bias_stats launch: the
+    five (B, .) inputs read once, vb, dvb, hb, dhb, q read and written once,
+    pen and msre_col written; ~4 operations per input element."""
+    return (0., 4. * B * (V + H),
+            4. * (3 * B * V + 2 * B * H + 5 * V + 7 * H))
+
+
+def kernel_times(torch):
+    """Phase 18.  Each of cd_bias_stats, cd_stats_sums, cd_softmax_sample,
+    cd_metrics, fe_probe, dbm_bias_update, dbm_max_norm, dbm_msre,
+    dbm_mf_check and ais_logw at its paths' shapes, launched alone through
+    its C entry point and timed by graph_ms beside its plain version (torch
+    ops, also in a CUDA graph), a library yardstick where one PyTorch call
+    computes (nearly) the same function -- torch.renorm for the max-norm,
+    torch.sum over dim 0 of one (rows, V + H) tensor for the column sums --
+    and its bound.  cd_bias_stats and dbm_max_norm are also held against
+    their plain versions (KT_TOL) and a second launch on the same inputs
+    bit for bit.  Returns {(kernel, label): numbers}."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        CDEpochConfig, bias_stats_reference, check_launch, library,
+        pll_flip_index, pll_from_flip, pll_h_hats, ptr)
+    from boltzmann_machines_tpu_torch.ops.philox import multinomial_counts
+    lib, dlib = library(), dbm_ops._library()
+    g = torch.Generator(device='cuda')
+    g.manual_seed(18)
+    f32 = dict(dtype=torch.float32, device='cuda')
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, **f32)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, **f32)
+
+    def stream():  # the current one: a graph capture's while timing
+        return torch.cuda.current_stream().cuda_stream
+
+    out = {}
+
+    def record(kernel, label, run, plain, work, library_ms=None, per_step=1,
+               per_1000=1000, err=None):
+        """Times one kernel; per_step and per_1000 are the launches at the
+        examples' published cadences, written down, not counted here: they
+        are printed and never returned."""
+        bound_ms, bound_by = bound(*work)
+        r = dict(ms=graph_ms(torch, run), plain_ms=graph_ms(torch, plain),
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 err=err)
+        say('%s %s: %.4f ms per launch, plain %.4f ms, library %s; bound '
+            '%.5f ms (%s); at the examples\' cadences %s launches per step, '
+            '%s per 1000 steps%s' % (
+                kernel, label, r['ms'], r['plain_ms'],
+                'null' if library_ms is None else '%.4f ms' % library_ms,
+                bound_ms, bound_by, per_step, per_1000,
+                '' if err is None else '; max|kernel-plain| %.3g, '
+                'same-input rerun bit-identical' % err))
+        out[(kernel, label)] = r
+
+    def colsum_ms(rows, width):
+        T = rand(rows, width)
+        return graph_ms(torch, lambda: torch.sum(T, 0))
+
+    lr, mom, damp, target = 0.05, 0.9, 0.9, 0.1
+    for label, B, V, H, gaussian, n, cost, _ in BIAS_SHAPES:
+        def vis(means=False):
+            if gaussian:
+                return randn(B, V)
+            return rand(B, V) if means else (rand(B, V) < 0.3).float()
+
+        def hid():
+            return n * torch.softmax(2. * randn(B, H), 1) if n else rand(B, H)
+        X, vs, vm, h0, hm = vis(), vis(), vis(True), hid(), hid()
+        p0 = {'vb': 0.1 * randn(V), 'dvb': 0.01 * randn(V),
+              'hb': 0.1 * randn(H), 'dhb': 0.01 * randn(H),
+              'q': 0.3 * B * rand(H) * (n if n else 1) / (H if n else 1),
+              'pen': torch.full((H,), float('nan'), **f32),
+              'msre_col': torch.full((V,), float('nan'), **f32)}
+
+        def launch(p):
+            check_launch(lib.bm_cd_bias_stats(
+                ptr(X), ptr(vs), ptr(vm), ptr(h0), ptr(hm), B, V, H,
+                ptr(p['vb']), ptr(p['dvb']), ptr(p['hb']), ptr(p['dhb']),
+                ptr(p['q']), ptr(p['pen']), ptr(p['msre_col']), lr, mom, damp,
+                1. - damp, cost, target, stream()), 'cd_bias_stats')
+            return p
+        got = launch({k: v.clone() for k, v in p0.items()})
+        again = launch({k: v.clone() for k, v in p0.items()})
+        want = bias_stats_reference(X, vs, h0, hm, p0, lr, mom, damp, cost,
+                                    target, v_means=vm)
+        torch.cuda.synchronize()
+        tols = {'q': (KT_TOL['q'], B), 'msre_col': (KT_TOL['sums'], 1.)}
+        bad = {k: e for k, e in (
+            (k, excess(got[k], want[k], *tols.get(k, (KT_TOL['state'], 1.))))
+            for k in want) if not e <= 0.}
+        same = all(torch.equal(got[k], again[k]) for k in got)
+        err = max(float((got[k] - want[k]).abs().max()) for k in want)
+        if bad or not same:
+            raise AssertionError('cd_bias_stats %s: kernel and plain version '
+                                 'disagree (excess %s, rerun identical %s)' % (
+                                     label, bad, same))
+        p = {k: v.clone() for k, v in p0.items()}
+        record('cd_bias_stats', label, lambda: launch(p),
+               lambda: bias_stats_reference(X, vs, h0, hm, p0, lr, mom, damp,
+                                            cost, target, v_means=vm),
+               bias_work(B, V, H), colsum_ms(B, V + H), err=err)
+
+    for label, n_in, n_out in NORM_SHAPES:
+        # columns with norms from 0.5 to 1.5 max_norm: half are scaled down
+        scale = DBM_MAX_NORM * (0.5 + torch.arange(n_out, **f32) / n_out)
+        W0 = randn(n_in, n_out) * scale / math.sqrt(n_in)
+
+        def launch(W):
+            dbm_ops._check(dlib.bm_dbm_max_norm(
+                ptr(W), n_in, n_out, DBM_MAX_NORM, stream()), 'dbm_max_norm')
+            return W
+        got, again = launch(W0.clone()), launch(W0.clone())
+        want = dbm_ops.apply_max_norm(W0, DBM_MAX_NORM)
+        torch.cuda.synchronize()
+        norms = torch.linalg.norm(W0, dim=0)
+        e = excess(got, want, KT_TOL['sums'])
+        same = torch.equal(got, again)
+        if not (e <= 0. and same) or not 0 < int(
+                (norms > DBM_MAX_NORM).sum()) < n_out:
+            raise AssertionError('dbm_max_norm %s: kernel and plain version '
+                                 'disagree (excess %.3g, rerun identical %s)'
+                                 % (label, e, same))
+        W = W0.clone()
+        mx = torch.tensor(DBM_MAX_NORM, **f32)
+
+        def plain(W=W0, mx=mx):  # apply_max_norm's body, mx made outside
+            norm = torch.linalg.norm(W, dim=0)
+            return W * torch.minimum(norm, mx) / torch.clamp(norm, min=1e-8)
+        record('dbm_max_norm', label, lambda: launch(W), plain,
+               (0., 3. * n_in * n_out, 8. * n_in * n_out),
+               graph_ms(torch, lambda: torch.renorm(W0, 2, 1, DBM_MAX_NORM)),
+               per_step=1, err=float((got - want).abs().max()))
+
+    # the data-parallel stats call's column sums (one per call)
+    for label, B, V, H in (('stats_784', 128, 784, 1024),
+                           ('stats_7800', 50, 3072, 7800)):
+        X, vs, h0, hm = randn(B, V), randn(B, V), rand(B, H), rand(B, H)
+        sums = torch.empty(V + 2 * H, **f32)
+
+        def run():
+            check_launch(lib.bm_cd_stats_sums(
+                ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums),
+                ptr(sums, V), ptr(sums, V + H), stream()), 'cd_stats_sums')
+        record('cd_stats_sums', label, run,
+               lambda: (torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
+                        torch.sum(hm, 0)),
+               (0., 3. * B * (V + H), 4. * (2 * B * V + 2 * B * H + V + 2 * H)),
+               colsum_ms(B, V + H))
+
+    # the M-RBM's hidden pass: n softmax(pre) and Multinomial(n) counts
+    B, H, n = CIFAR_B, MRBM[1], N_SAMPLES
+    pre = 2. * randn(B, H)
+    means, states = torch.empty(B, H, **f32), torch.empty(B, H, **f32)
+
+    def run():
+        check_launch(lib.bm_cd_softmax_sample(
+            ptr(pre), 1, B, H, n, ptr(means), ptr(states), 9, 3, 2, stream()),
+            'cd_softmax_sample')
+
+    def plain():
+        mu = float(n) * torch.softmax(pre, dim=1)
+        return mu, multinomial_counts(mu, n, 9, 3, 2)
+    record('cd_softmax_sample', 'mrbm', run, plain,
+           (0., 5. * B * H, 4. * 3 * B * H), per_step=2, per_1000=2000)
+
+    # the metrics of one logged step, PLL on, at each CIFAR and MNIST shape
+    l2 = 1e-4
+    for label, B, V, H, gaussian, n, _, per_1000 in BIAS_SHAPES:
+        if label.startswith('dbm_rbm'):
+            continue
+        X = randn(B, V) if gaussian else (rand(B, V) < 0.3).float()
+        vm = rand(B, V)
+        W, vb, hb = 0.01 * randn(V, H), 0.1 * randn(V), 0.1 * randn(H)
+        sigma = torch.ones(V, **f32) if gaussian else None
+        msre_col = torch.sum(torch.square(X - vm), 0)
+        partials = torch.empty(3 * B, **f32)
+        counter = torch.zeros(1, dtype=torch.int32, device='cuda')
+        rows = torch.empty(3, **f32)
+        cfg = CDEpochConfig(V, H, 1, False, False, 1., 1., l2, 0.1, 0., 0.9,
+                            1, True, 'gaussian' if gaussian else 'bernoulli',
+                            None, 'multinomial' if n else 'bernoulli',
+                            n or None)
+
+        def run():
+            check_launch(lib.bm_cd_metrics(
+                ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma), ptr(msre_col),
+                B, V, H, l2, 1, n, 7, 1000, ptr(partials), ptr(counter),
+                ptr(rows, 0), ptr(rows, 1), ptr(rows, 2), stream()),
+                'cd_metrics')
+
+        def plain():
+            flip = pll_flip_index(7, 1000, B, V, X.device)
+            return (torch.mean(torch.square(X - vm)),
+                    l2 * 0.5 * torch.sum(W * W),
+                    pll_from_flip(X, flip, W, vb, hb, cfg.visible,
+                                  cfg.hidden, sigma,
+                                  pll_h_hats(cfg, 7, 1000, X.device)))
+        # one product x.W (the flipped row's is x.W plus one row of W), W^2
+        record('cd_metrics', label, run, plain,
+               (2. * B * V * H, 2. * V * H + 10. * B * H,
+                4. * (B * V + V * H + V + 2 * H)),
+               per_step=per_1000 / 1000., per_1000=per_1000)
+        if label == 'mrbm':
+            probe_inputs = (X, W, vb, hb)
+
+    X, W, vb, hb = probe_inputs
+    B, (V, H), n = CIFAR_B, MRBM, N_SAMPLES
+    partials = torch.empty(B, **f32)
+    counter = torch.zeros(1, dtype=torch.int32, device='cuda')
+    fe, h_hat = torch.empty((), **f32), torch.empty(H, **f32)
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        make_free_energy_probe)
+    probe = make_free_energy_probe(V, H, B, 'bernoulli', 'multinomial', n)
+
+    def run():
+        check_launch(lib.bm_fe_probe(
+            ptr(X), ptr(W), ptr(vb), ptr(hb), None, B, V, H, n, 9,
+            ptr(partials), ptr(counter), ptr(fe), ptr(h_hat), stream()),
+            'fe_probe')
+    record('fe_probe', 'mrbm', run, lambda: probe.reference(X, W, vb, hb,
+                                                            None, 9),
+           (2. * B * V * H, 0., 4. * (B * V + V * H)), per_step=0,
+           per_1000=0)
+
+    # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1
+    N = M = DBM_B
+    for l, n_units in enumerate(DBM_SIZES):
+        label = 'dbm_vb' if l == 0 else 'dbm_hb%d' % (l - 1)
+        D = (rand(N, n_units) < 0.3).float() if l == 0 else rand(N, n_units)
+        P = (rand(M, n_units) < 0.3).float()
+        b, db = 0.1 * randn(n_units), 0.01 * randn(n_units)
+        if l:
+            q, mu = 0.2 * N * rand(n_units), 0.2 * N * rand(n_units)
+            pen = torch.empty(n_units, **f32)
+            cost, tgt = SPARSITY_COST[l - 1], SPARSITY_TARGET[l - 1]
+        else:
+            q = mu = pen = None
+            cost = tgt = 0.
+
+        def run():
+            dbm_ops._check(dlib.bm_dbm_bias_update(
+                ptr(D), ptr(P), N, M, n_units, ptr(b), ptr(db), ptr(q),
+                ptr(mu), ptr(pen), DBM_LR, DBM_MOM, 0.9, 0.1, cost, tgt,
+                stream()), 'dbm_bias_update')
+
+        def plain():
+            grad = D.sum(0) / N - P.sum(0) / M
+            if q is not None:
+                qn = 0.9 * q + 0.1 * P.sum(0)
+                mn = 0.9 * mu + 0.1 * D.sum(0)
+                grad = grad - (cost * (qn - tgt) + cost * (mn - tgt))
+            acc = DBM_LR * (DBM_MOM * db + grad)
+            return b + acc, acc
+        record('dbm_bias_update', label, run, plain,
+               (0., 4. * (N + M) * n_units,
+                4. * ((N + M) * n_units + 9 * n_units)),
+               colsum_ms(N + M, n_units))
+
+    # the DBM step's msre, and its mean-field check (through the sweep
+    # loop's entry with no layers: one check per sweep)
+    V = DBM_SIZES[0]
+    X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
+    ctrl = torch.zeros(3, dtype=torch.int32, device='cuda')
+    msre = torch.empty(2, **f32)
+
+    def run():
+        dbm_ops._check(dlib.bm_dbm_msre(
+            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), ptr(msre, 0),
+            ptr(msre, 1), stream()), 'dbm_msre')
+    record('dbm_msre', 'dbm', run,
+           lambda: (torch.mean(torch.square(X - vm)), ctrl[2].float()),
+           (0., 3. * DBM_B * V, 8. * DBM_B * V))
+
+    def run():
+        dbm_ops._check(dlib.bm_dbm_mf_loop(
+            None, 0, 1, ptr(ctrl), -1., 2 ** 30, stream()), 'dbm_mf_check')
+
+    def plain():  # n_mf += 1; done = !(delta > tol) || n >= max; delta = 0
+        n_mf = ctrl[2] + 1
+        return n_mf, (n_mf >= 2 ** 30).int(), torch.zeros_like(n_mf)
+    record('dbm_mf_check', 'dbm', run, plain, (0., 3., 24.), per_step=50,
+           per_1000=50000)
+
+    # one AIS beta's log-weight update, 100 runs
+    R, H1 = 100, DBM_SIZES[1]
+    nblk_v = dlib.bm_dbm_gemm_col_blocks(DBM_SIZES[0])
+    nblk_h2 = dlib.bm_dbm_gemm_col_blocks(DBM_SIZES[2])
+    x, hb0 = (rand(R, H1) < 0.5).float(), 0.1 * randn(H1)
+    part_v, part_h2 = randn(2 * R * nblk_v), randn(2 * R * nblk_h2)
+    log_w = torch.zeros(R, **f32)
+
+    def run():
+        dbm_ops._check(dlib.bm_ais_logw(
+            ptr(x), ptr(hb0), R, H1, ptr(part_v), nblk_v, ptr(part_h2),
+            nblk_h2, 0.37, 0.38, ptr(log_w), stream()), 'ais_logw')
+
+    def plain():
+        xh = x @ hb0
+        pv, ph = part_v.view(2, R, nblk_v), part_h2.view(2, R, nblk_h2)
+        lp_lo = 0.37 * xh + pv[0].sum(1) + ph[0].sum(1)
+        lp_hi = 0.38 * xh + pv[1].sum(1) + ph[1].sum(1)
+        return log_w - lp_lo + lp_hi
+    record('ais_logw', 'ais', run, plain,
+           (0., 2. * R * H1 + 2. * R * (nblk_v + nblk_h2),
+            4. * (R * H1 + H1 + 2 * R * (nblk_v + nblk_h2) + 2 * R)),
+           per_step=1, per_1000=1000)
+    return out
+
+
+def dbm_step_profile(torch):
+    """Phase 18's profile of the DBM step (784-512-1024, B = M = 100,
+    sampling on, mean-field from a random state, so all 50 sweeps run):
+    each kernel's device us per launch and per step (torch.profiler), and
+    their busy share over the unprofiled wall of the same epoch."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    nb = 20
+    X_all = make_data(nb * DBM_B, seed=5)
+    X = torch.as_tensor(X_all.reshape(nb, DBM_B, DBM_SIZES[0]),
+                        device='cuda')
+    state = dbm_init(torch, X_all)
+    cfg = dbm_config(True)
+
+    def epoch():
+        return dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 5, 0)
+    epoch()
+    dbm_ops.reset_launches()
+    epoch()
+    torch.cuda.synchronize()
+    per_step = {k: v / nb for k, v in dbm_ops.dbm_epoch.launches.items()}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    per, busy = profile_kernels(torch, epoch, dbm_ops.EPOCH_KERNELS,
+                                min(walls))
+    out = {'wall_ms': 1e3 * min(walls) / nb, 'busy': busy,
+           'kernel_us': per, 'launches_per_step': per_step}
+    if per is not None:
+        out['step_us'] = {k: round(per[k] * per_step[k], 1) for k in per}
+    say('dbm step 784-512-1024 B=M=100 n_mf 50, sampling on: %.4f ms per '
+        'step (unprofiled, best of %s); per-kernel device us per launch %s; '
+        'per step %s; launches per step %s; device busy %s' % (
+            out['wall_ms'], ' '.join('%.4f' % (1e3 * w / nb) for w in walls),
+            per, out.get('step_us'), per_step,
+            'not measured' if busy is None else '%.1f%%' % (100. * busy)))
+    return out
+
+
+# ---------------------------------------------------------------------- #
 # readings (python3 chip_smoke.py --readings): what two checks' limits   #
 # rest on -- not run by the smoke                                         #
 # ---------------------------------------------------------------------- #
@@ -2798,6 +3236,8 @@ def main():
     bern = bernoulli_vs_plain(torch)
     gs = gemm_shapes(torch)
     asc = assoc_shapes(torch)
+    kt = kernel_times(torch)
+    dbm_prof = dbm_step_profile(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         rbm_launches = main_path(torch, tmpdir)
     t = timings(torch)
@@ -2866,9 +3306,33 @@ def main():
                     plain_sampling_off_ms=tc[(name, False, 'plain')],
                     sampling_off_ms=tc[(name, False, 'kernel')])
 
+    def walk(kernel, *labels):
+        """Phase 18's numbers for the entry's launches of `kernel`."""
+        keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')
+        return {label: dict({k: kt[(kernel, label)][k] for k in keys},
+                            max_abs_err=kt[(kernel, label)]['err'])
+                for label in labels}
+
+    # each entry's kernels timed alone by phase 18, by shape
+    walks = {
+        'cd_epoch': (('cd_bias_stats', 'rbm_mnist', 'dbm_rbm1', 'dbm_rbm2'),
+                     ('cd_metrics', 'rbm_mnist')),
+        'dbm_epoch': (('dbm_max_norm', 'dbm_w0', 'dbm_w1'),
+                      ('dbm_bias_update', 'dbm_vb', 'dbm_hb0', 'dbm_hb1'),
+                      ('dbm_msre', 'dbm'), ('dbm_mf_check', 'dbm')),
+        'ais': (('ais_logw', 'ais'),),
+        'cd_epoch_gaussian': (('cd_bias_stats', 'grbm'),
+                              ('cd_metrics', 'grbm')),
+        'cd_epoch_multinomial': (('cd_bias_stats', 'mrbm'),
+                                 ('cd_softmax_sample', 'mrbm'),
+                                 ('cd_metrics', 'mrbm')),
+        'free_energy_probe': (('fe_probe', 'mrbm'),),
+        'cd_stats': (('cd_stats_sums', 'stats_7800', 'stats_784'),),
+    }
+
     # the card again, beside the numbers it gave
     say(card)
-    say(json.dumps({'kernels': [
+    kernels = [
         # per minibatch step of the RBM path (batch 10, sampled hiddens);
         # launches from the RBM path and the DBM path's pretraining
         entry('cd_epoch', 'cd_epoch.cu', cd_launches, worst,
@@ -2981,13 +3445,41 @@ def main():
               shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms'],
               device_ms=bern['device_ms'],
               library_device_ms=bern['library_device_ms']),
-    ]}))
+    ]
+    for e in kernels:
+        for kernel, *labels in walks.get(e['name'], ()):
+            e[kernel + '_shapes'] = walk(kernel, *labels)
+        if e['name'] == 'dbm_epoch':
+            e['step_profile'] = dbm_prof
+    say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
 
 
+def kernel_times_only():
+    """``python3 chip_smoke.py --kernel-times``: phase 18 alone, after the
+    environment and the build, with one JSON line of its numbers -- so that
+    this script times the kernels of another checkout (run it from there)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke: no CUDA device\n')
+        return 1
+    card = environment(torch)
+    build()
+    kt = kernel_times(torch)
+    prof = dbm_step_profile(torch)
+    say(card)
+    say(json.dumps({'kernel_times': {'%s %s' % k: v for k, v in kt.items()},
+                    'dbm_step_profile': prof}))
+    return 0
+
+
 if __name__ == '__main__':
-    sys.exit({'--readings': readings, '--assoc-readings': assoc_readings}
+    if sys.argv[1:2] == ['--dp-rank']:
+        rank, world, tmpdir = sys.argv[2:]
+        sys.exit(dp_rank(int(rank), int(world), tmpdir))
+    sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
+              '--kernel-times': kernel_times_only}
              .get(' '.join(sys.argv[1:]), main)())

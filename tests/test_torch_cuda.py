@@ -14,7 +14,7 @@ import torch
 
 from boltzmann_machines_tpu_torch.ops import dbm_ops
 from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-    CDEpochConfig, cd_epoch, cd_epoch_reference)
+    CDEpochConfig, bias_stats_reference, cd_epoch, cd_epoch_reference)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -1038,3 +1038,183 @@ def test_assoc_plan_is_the_kernels(cuda, V, H):
     for sms in (n_sm, 114, 1):
         assert library().bm_assoc_n_tile(V, H, sms) == \
             gemm.assoc_plan(V, H, sms).n_tile
+
+
+# ---------------------------------------------------------------------- #
+# the column walks: cd_bias_stats (K2) and dbm_max_norm                   #
+# ---------------------------------------------------------------------- #
+def aligned_or_not(t, aligned):
+    """`t` itself, or a copy of it that starts 4 bytes past a 16-byte
+    boundary (the kernels' scalar path)."""
+    if aligned:
+        return t
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def bias_stats_launch(X, vs, vm, h0, hm, p, lr, mom, damp, cost, target):
+    """One cd_bias_stats launch on copies of the parameters `p`."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    p = {k: v.clone() for k, v in p.items()}
+    (B, V), H = X.shape, h0.shape[1]
+    check_launch(library().bm_cd_bias_stats(
+        ptr(X), ptr(vs), ptr(vm), ptr(h0), ptr(hm), B, V, H, ptr(p['vb']),
+        ptr(p['dvb']), ptr(p['hb']), ptr(p['dhb']), ptr(p['q']),
+        ptr(p['pen']), ptr(p['msre_col']), lr, mom, damp, 1. - damp, cost,
+        target, torch.cuda.current_stream().cuda_stream), 'cd_bias_stats')
+    return p
+
+
+@pytest.mark.parametrize('B', [1, 10, 48, 100, 256])
+@pytest.mark.parametrize('V,H', [(784, 1024), (37, 70), (130, 65),
+                                 (24, 16)])
+@pytest.mark.parametrize('sparsity', [False, True])
+@pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
+def test_cd_bias_stats_matches_plain_version(cuda, B, V, H, sparsity,
+                                             visible):
+    """Every output of K2 (vb, dvb, hb, dhb, q, pen, msre_col) against the
+    plain arithmetic, with the tolerances of chip_smoke.py's phases 3 and
+    13: atol 1e-5 + rtol 1e-5 on the updates and the penalty, atol 1e-5 B +
+    rtol 1e-4 on q (an EMA of batch sums), atol 1e-5 + rtol 1e-5 on the
+    column sums msre_col; a same-input rerun bit for bit."""
+    rng = np.random.RandomState(B * 7 + V + H)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
+    if visible == 'gaussian':
+        X, vs, vm = (t(rng.randn(B, V)) for _ in range(3))
+    else:
+        X, vs = (t(rng.rand(B, V) < 0.3) for _ in range(2))
+        vm = t(rng.rand(B, V))
+    h0, hm = t(rng.rand(B, H)), t(rng.rand(B, H))
+    p = {'vb': t(rng.randn(V) * 0.1), 'dvb': t(rng.randn(V) * 0.01),
+         'hb': t(rng.randn(H) * 0.1), 'dhb': t(rng.randn(H) * 0.01),
+         'q': t(rng.rand(H) * B * 0.3),
+         'pen': t(np.full(H, np.nan)), 'msre_col': t(np.full(V, np.nan))}
+    args = (0.05, 0.9, 0.9, 1e-2 if sparsity else 0., 0.1)
+    got = bias_stats_launch(X, vs, vm, h0, hm, p, *args)
+    again = bias_stats_launch(X, vs, vm, h0, hm, p, *args)
+    want = bias_stats_reference(X, vs, h0, hm, p, *args, v_means=vm)
+    torch.cuda.synchronize()
+    for key in want:
+        atol, rtol = {'q': (1e-5 * B, 1e-4)}.get(key, (1e-5, 1e-5))
+        torch.testing.assert_close(got[key], want[key], rtol=rtol, atol=atol,
+                                   msg=key)
+        assert torch.equal(got[key], again[key]), key
+    assert bool((got['pen'] != 0).any()) == sparsity
+
+
+@pytest.mark.parametrize('B', [1, 10, 48, 100, 256])
+@pytest.mark.parametrize('V,H', [(784, 1024), (37, 70), (130, 65)])
+@pytest.mark.parametrize('aligned', [True, False])
+def test_cd_bias_stats_sums_are_cd_stats_sums(cuda, B, V, H, aligned):
+    """K2 adds the batch in row order, as K2s (cd_stats_sums) does: at lr 1,
+    momentum 0, no sparsity and damping 0 its outputs are the stats' sums
+    bit for bit -- dvb = dvb_sum / B, dhb = dhb_sum / B, q = h_sum -- on
+    both load paths and across its 128-row chunks (B = 256)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    rng = np.random.RandomState(B + V + H)
+    ins = [torch.as_tensor(rng.randn(B, n).astype(np.float32), device=cuda)
+           for n in (V, V, V, H, H)]
+    X, vs, vm, h0, hm = (aligned_or_not(x, aligned) for x in ins)
+    p = {key: torch.as_tensor(rng.rand(n).astype(np.float32), device=cuda)
+         for key, n in (('vb', V), ('dvb', V), ('hb', H), ('dhb', H),
+                        ('q', H), ('pen', H), ('msre_col', V))}
+    got = bias_stats_launch(X, vs, vm, h0, hm, p, 1., 0., 0., 0., 0.1)
+    sums = torch.empty(V + 2 * H, device=cuda)
+    check_launch(library().bm_cd_stats_sums(
+        ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums),
+        ptr(sums, V), ptr(sums, V + H),
+        torch.cuda.current_stream().cuda_stream), 'cd_stats_sums')
+    # a tensor divisor: torch divides by a Python number through its
+    # reciprocal, one rounding more than the kernel's division
+    n = torch.tensor(float(B), device=cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got['dvb'], sums[:V] / n)
+    assert torch.equal(got['dhb'], sums[V:V + H] / n)
+    assert torch.equal(got['q'], sums[V + H:])
+
+
+@pytest.mark.parametrize('aligned', [True, False])
+def test_cd_bias_stats_scalar_path(cuda, aligned):
+    """Inputs whose rows are not 16-byte aligned (widths multiples of 4,
+    the buffer 4 bytes off) take the scalar path: the same outputs as the
+    aligned launch on the same values, within the plain tolerance (the
+    two paths group the rows differently)."""
+    rng = np.random.RandomState(5)
+    B, V, H = 48, 784, 512
+    ins = [torch.as_tensor(rng.rand(B, n).astype(np.float32), device=cuda)
+           for n in (V, V, V, H, H)]
+    p = {key: torch.as_tensor(rng.rand(n).astype(np.float32), device=cuda)
+         for key, n in (('vb', V), ('dvb', V), ('hb', H), ('dhb', H),
+                        ('q', H), ('pen', H), ('msre_col', V))}
+    args = (0.05, 0.9, 0.9, 1e-2, 0.1)
+    ref = bias_stats_launch(*ins, p, *args)
+    got = bias_stats_launch(*(aligned_or_not(x, aligned) for x in ins), p,
+                            *args)
+    torch.cuda.synchronize()
+    for key in got:
+        atol, rtol = {'q': (1e-5 * B, 1e-4)}.get(key, (1e-5, 1e-5))
+        torch.testing.assert_close(got[key], ref[key], rtol=rtol, atol=atol,
+                                   msg=key)
+
+
+def max_norm_launch(W, max_norm):
+    W = W.clone()
+    dbm_ops._check(dbm_ops._library().bm_dbm_max_norm(
+        dbm_ops._ptr(W), W.shape[0], W.shape[1], max_norm,
+        torch.cuda.current_stream().cuda_stream), 'dbm_max_norm')
+    return W
+
+
+@pytest.mark.parametrize('n_in,n_out', [(784, 512), (512, 1024), (37, 101),
+                                        (130, 66), (1100, 40), (6, 5),
+                                        (1, 3)])
+def test_dbm_max_norm_matches_plain_version(cuda, n_in, n_out):
+    """W[:, j] *= min(|w_j|, c) / max(|w_j|, 1e-8) against apply_max_norm,
+    columns from 0.5 to 1.5 c (and one of zeros), atol 1e-5 + rtol 1e-5
+    (the norms are sums of n_in squares in another order); a rerun bit for
+    bit.  (1100, 40) has more rows than the kernel holds in registers;
+    101 and 66 columns take the scalar path."""
+    rng = np.random.RandomState(n_in + n_out)
+    c = 2.
+    scale = c * (0.5 + np.arange(n_out) / n_out) / np.sqrt(n_in)
+    W = rng.randn(n_in, n_out) * scale
+    W[:, n_out // 2] = 0.
+    W = torch.as_tensor(W.astype(np.float32), device=cuda)
+    got, again = max_norm_launch(W, c), max_norm_launch(W, c)
+    want = dbm_ops.apply_max_norm(W, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    norms = torch.linalg.norm(got, dim=0)
+    assert float(norms.max()) <= c * (1. + 1e-5)
+    assert not bool(got[:, n_out // 2].any())
+
+
+@pytest.mark.parametrize('aligned', [True, False])
+def test_dbm_max_norm_scalar_path(cuda, aligned):
+    """W 4 bytes past a 16-byte boundary (n_out a multiple of 4) takes the
+    scalar path, within the plain tolerance of the aligned launch."""
+    rng = np.random.RandomState(3)
+    W = torch.as_tensor((rng.randn(784, 512) * 0.2).astype(np.float32),
+                        device=cuda)
+    ref = max_norm_launch(W, 3.)
+    got = max_norm_launch(aligned_or_not(W, aligned), 3.)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_dbm_max_norm_infinite_leaves_w(cuda):
+    """max_norm = inf (or NaN) leaves W as it is, bit for bit, as
+    apply_max_norm does."""
+    W = torch.randn(784, 512, device=cuda)
+    for c in (float('inf'), float('nan')):
+        got = max_norm_launch(W, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, W)
+        assert torch.equal(dbm_ops.apply_max_norm(W, c), W)

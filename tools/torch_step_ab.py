@@ -17,7 +17,11 @@ run prints one JSON line:
   ``bm_cd_bias_stats`` (unchanged kernel, the control) at the step's
   shapes, a loop of 300 launches with the clock stopped before the
   synchronize (fewer launches than the queue holds, so the host never waits
-  for the card).
+  for the card);
+- ``stats``: per data-parallel stats call at chip_smoke.py's two local
+  shapes (3072x7800 / 50 rows, 784x1024 / 128 rows), chip_smoke.py's
+  ``stats_timings`` in that checkout: ms per call with sampling on and
+  off, the kernels' device us per call and their busy share.
 """
 import json
 import os
@@ -109,9 +113,12 @@ def one(root):
             torch.cuda.synchronize()
             best = t if best is None else min(best, t)
         host_us[name] = best
+    stats = {label: {k: r[k] for k in ('ms', 'ms_sampling_off', 'kernel_us',
+                                       'busy')}
+             for label, r in cs.stats_timings(torch).items()}
     return dict(root=root, step_us=step_us, step_us_100=step_us_100,
                 device_us=device_us, busy=device_us / min(step_us),
-                kernels_us_per_step=kernels, host_us=host_us,
+                kernels_us_per_step=kernels, host_us=host_us, stats=stats,
                 card=torch.cuda.get_device_name(0))
 
 
