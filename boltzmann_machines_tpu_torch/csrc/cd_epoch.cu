@@ -41,8 +41,9 @@
 //                       blocks (253 at 3072x5000) share the loads that one
 //                       thread per column made in a chain; the terms are
 //                       staged in shared memory and added in row order, so
-//                       the sums keep the bits of that walk (and equal
-//                       K2s's, which the data-parallel checks pin).
+//                       the sums keep the bits of that walk.  K2s runs the
+//                       same body, so its sums are K2's bit for bit (the
+//                       data-parallel checks pin it).
 //   K3 cd_assoc_update  X^T h0 - v^T h (contraction over the batch) on the
 //                       tensor cores, with the momentum update of dW and W
 //                       in place as epilogue (assoc_tc.cuh); each (i, j) has
@@ -73,8 +74,12 @@
 //   K2s cd_stats_sums   dvb_sum = sum(X - v_states), dhb_sum = sum(h0 -
 //                       h_means), h_sum = sum(h_means) over the local batch,
 //                       the column sums K2 takes, without the update
-//                       (:1148-1150); one thread per column walks the
-//                       batch in row order, K2's order of addition.
+//                       (:1148-1150): K2's kernel body with the update, the
+//                       v_means loads and the msre term compiled out, on
+//                       K2's grid ((V + H) / 32 blocks: 57 at 784x1024, 340
+//                       at 3072x7800).  Bound by its bytes, the four (B, .)
+//                       inputs read once: 1.86 MB at 784x1024 / 128 rows
+//                       (0.56 us at 3.35 TB/s), 4.4 MB at 3072x7800 / 50.
 //   K3s cd_assoc_stats  X^T h0 - v^T h (:1142-1147): K3's contraction without
 //                       the momentum epilogue.
 //
@@ -413,11 +418,15 @@ __global__ void __launch_bounds__(kRowThreads)
 // all hidden.  Its row groups (colwalk.cuh) load a chunk of up to kK2Chunk
 // rows at once and stage each element's terms in shared memory; then one
 // thread per column adds them in row order, the order in which one thread
-// per column walked the batch before, so the sums are those bits, and
-// cd_stats_sums' (K2s) bit for bit.  Visible: s = sum(X - v_states),
-// e = sum((X - v_means)^2); hidden: s = sum(h0 - h_means), u =
-// sum(h_means).  Then the update, one thread per column.
-template <int VW>
+// per column walked the batch before, so the sums are those bits.  Visible:
+// s = sum(X - v_states), e = sum((X - v_means)^2); hidden: s = sum(h0 -
+// h_means), u = sum(h_means).  Then the update, one thread per column.
+//
+// K2s (kSums, cd_stats_sums) is the same body without the update and
+// without v_means and e: it writes s and u as they are, into dvb (dvb_sum),
+// dhb (dhb_sum) and q (h_sum).  So K2's sums equal K2s' bit for bit by
+// construction (the data-parallel checks pin it).
+template <int VW, bool kSums>
 __global__ void __launch_bounds__(bm::col::kColThreads)
     cd_bias_stats_kernel(const float* __restrict__ X,
                          const float* __restrict__ vs,
@@ -453,12 +462,17 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
       bm::col::load<VW>(A + idx, a);
       bm::col::load<VW>(Bm + idx, x);
       if (visible) {
-        float m[VW];
-        bm::col::load<VW>(vm + idx, m);
+        if constexpr (kSums) {
 #pragma unroll
-        for (int k = 0; k < VW; ++k) {
-          stage[0][r][c + k] = a[k] - x[k];
-          stage[1][r][c + k] = a[k] - m[k];
+          for (int k = 0; k < VW; ++k) stage[0][r][c + k] = a[k] - x[k];
+        } else {
+          float m[VW];
+          bm::col::load<VW>(vm + idx, m);
+#pragma unroll
+          for (int k = 0; k < VW; ++k) {
+            stage[0][r][c + k] = a[k] - x[k];
+            stage[1][r][c + k] = a[k] - m[k];
+          }
         }
       } else {
 #pragma unroll
@@ -474,10 +488,15 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
       // before their adds, which keep their order
       const int t = threadIdx.x;
       if (visible) {
+        if constexpr (kSums) {
 #pragma unroll 16
-        for (int r = 0; r < rows; ++r) {
-          S += stage[0][r][t];
-          U = fmaf(stage[1][r][t], stage[1][r][t], U);
+          for (int r = 0; r < rows; ++r) S += stage[0][r][t];
+        } else {
+#pragma unroll 16
+          for (int r = 0; r < rows; ++r) {
+            S += stage[0][r][t];
+            U = fmaf(stage[1][r][t], stage[1][r][t], U);
+          }
         }
       } else {
 #pragma unroll 16
@@ -491,6 +510,15 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
   }
   const int j = j0 + (int)threadIdx.x;
   if (threadIdx.x >= T || j >= n) return;
+  if constexpr (kSums) {
+    if (visible) {
+      dvb[j] = S;
+    } else {
+      dhb[j] = S;
+      q[j] = U;
+    }
+    return;
+  }
   const float nb = (float)B;
   if (visible) {
     const float acc = lr * (mom * dvb[j] + S / nb);
@@ -506,36 +534,6 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
     const float acc = lr * (mom * dhb[j] + S / nb - p);
     dhb[j] = acc;
     hb[j] += acc;
-  }
-}
-
-// K2s: K2's column sums of one local batch with no update -- the stats
-// kernels' psum-able dvb_sum, dhb_sum and h_sum -- in K2's order of
-// addition (the rows in order), by one thread per column.
-__global__ void cd_stats_sums_kernel(const float* __restrict__ X,
-                                     const float* __restrict__ vs,
-                                     const float* __restrict__ h0,
-                                     const float* __restrict__ hm, int B,
-                                     int V, int H,
-                                     float* __restrict__ dvb_sum,
-                                     float* __restrict__ dhb_sum,
-                                     float* __restrict__ h_sum) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < V) {
-    float s = 0.f;
-    for (int b = 0; b < B; ++b)
-      s += X[(long long)b * V + j] - vs[(long long)b * V + j];
-    dvb_sum[j] = s;
-  } else if (j < V + H) {
-    const int c = j - V;
-    float s = 0.f, hsum = 0.f;
-    for (int b = 0; b < B; ++b) {
-      const float h = hm[(long long)b * H + c];
-      s += h0[(long long)b * H + c] - h;
-      hsum += h;
-    }
-    dhb_sum[c] = s;
-    h_sum[c] = hsum;
   }
 }
 
@@ -595,11 +593,8 @@ __global__ void __launch_bounds__(kMetThreads)
     partials[3 * blockIdx.x + 0] = block_sq;
     partials[3 * blockIdx.x + 1] = fe_row;
     partials[3 * blockIdx.x + 2] = fef_row;
-    __threadfence();
-    is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
   }
-  __syncthreads();
-  if (!is_last) return;
+  if (!bm::last_block(counter, &is_last)) return;
 
   float p_sq = 0.f, p_fe = 0.f, p_fef = 0.f, p_msre = 0.f;
   for (int g = tid; g < (int)gridDim.x; g += blockDim.x) {
@@ -666,13 +661,8 @@ __global__ void __launch_bounds__(kMetThreads)
   float fe;
   row_free_energies<false>(X + (long long)blockIdx.x * V, -1, W, vb, hb,
                            sigma, hhat, nullptr, V, H, red, &fe, nullptr);
-  if (tid == 0) {
-    partials[blockIdx.x] = fe;
-    __threadfence();
-    is_last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!is_last) return;
+  if (tid == 0) partials[blockIdx.x] = fe;
+  if (!bm::last_block(counter, &is_last)) return;
   float p = 0.f;
   for (int g = tid; g < B; g += blockDim.x) p += __ldcg(&partials[g]);
   const float t = block_sum(p, red);
@@ -691,6 +681,32 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// K2 or K2s: one block per kColTile columns of V, then of H; 16 bytes a
+// lane where V and H are multiples of 4 and the batch-major inputs (vm
+// only where K2 reads it) are 16-byte aligned.
+template <bool kSums>
+int launch_k2(const float* X, const float* vs, const float* vm,
+              const float* h0, const float* hm, int B, int V, int H,
+              float* vb, float* dvb, float* hb, float* dhb, float* q,
+              float* pen, float* msre_col, float lr, float mom, float damp,
+              float one_minus_damp, float cost, float target,
+              cudaStream_t s) {
+  constexpr int T = bm::col::kColTile;
+  const int blocks = (V + T - 1) / T + (H + T - 1) / T;
+  const void* rows[] = {X, vs, h0, hm, vm};
+  const bool vec = V % 4 == 0 && H % 4 == 0 &&
+                   bm::col::aligned16(rows, kSums ? 4 : 5);
+  if (vec)
+    cd_bias_stats_kernel<4, kSums><<<blocks, bm::col::kColThreads, 0, s>>>(
+        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
+        mom, damp, one_minus_damp, cost, target);
+  else
+    cd_bias_stats_kernel<1, kSums><<<blocks, bm::col::kColThreads, 0, s>>>(
+        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
+        mom, damp, one_minus_damp, cost, target);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -750,20 +766,9 @@ int bm_cd_bias_stats(const float* X, const float* vs, const float* vm,
                      float* pen, float* msre_col, float lr, float mom,
                      float damp, float one_minus_damp, float cost,
                      float target, void* stream) {
-  constexpr int T = bm::col::kColTile;
-  const int blocks = (V + T - 1) / T + (H + T - 1) / T;
-  const void* rows[] = {X, vs, vm, h0, hm};
-  const bool vec = V % 4 == 0 && H % 4 == 0 && bm::col::aligned16(rows, 5);
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (vec)
-    cd_bias_stats_kernel<4><<<blocks, bm::col::kColThreads, 0, s>>>(
-        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
-        mom, damp, one_minus_damp, cost, target);
-  else
-    cd_bias_stats_kernel<1><<<blocks, bm::col::kColThreads, 0, s>>>(
-        X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
-        mom, damp, one_minus_damp, cost, target);
-  return (int)cudaGetLastError();
+  return launch_k2<false>(X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q,
+                          pen, msre_col, lr, mom, damp, one_minus_damp, cost,
+                          target, (cudaStream_t)stream);
 }
 
 // X^T h0 - v^T h by the association kernel (assoc_tc.cuh), with the CD
@@ -778,15 +783,13 @@ int bm_cd_assoc_update(const float* X, const float* h0, const float* vs,
 }
 
 // Slices of the caller's flat statistics buffer: dvb_sum (V), dhb_sum and
-// h_sum (H each).
+// h_sum (H each).  K2's grid and load paths (bm_cd_bias_stats).
 int bm_cd_stats_sums(const float* X, const float* vs, const float* h0,
                      const float* hm, int B, int V, int H, float* dvb_sum,
                      float* dhb_sum, float* h_sum, void* stream) {
-  const int threads = 256;
-  const int blocks = (V + H + threads - 1) / threads;
-  cd_stats_sums_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      X, vs, h0, hm, B, V, H, dvb_sum, dhb_sum, h_sum);
-  return (int)cudaGetLastError();
+  return launch_k2<true>(X, vs, nullptr, h0, hm, B, V, H, nullptr, dvb_sum,
+                         nullptr, dhb_sum, h_sum, nullptr, nullptr, 0.f, 0.f,
+                         0.f, 0.f, 0.f, 0.f, (cudaStream_t)stream);
 }
 
 // `assoc` is the (V, H) head of the caller's flat statistics buffer.

@@ -1,18 +1,20 @@
 // Shared device code of the column-walk kernels: per-column reductions over
 // the rows of a row-major matrix, split across the warps of a block.  Used by
-// cd_bias_stats (cd_epoch.cu: column sums over the batch) and dbm_max_norm
-// (dbm_ops.cu: column norms of W).
+// cd_bias_stats and cd_stats_sums (cd_epoch.cu: one kernel body, column sums
+// over the batch with and without the update) and dbm_max_norm (dbm_ops.cu:
+// column norms of W); dbm_msre's grid reduction (dbm_ops.cu) takes its
+// 16-byte loads and alignment test.
 //
 // A block owns a tile of consecutive columns (kColTile = 32 for
-// cd_bias_stats, 8 for dbm_max_norm).  Its lanes read along rows: with VW =
-// 4 (every row 16-byte aligned), TILE / 4 lanes cover one row of the tile,
-// 16 bytes a lane; with VW = 1, TILE lanes do.  So a warp covers 32 VW /
-// TILE rows at once and the block's kColThreads threads form kGroups row
-// groups; group g reads rows g, g + kGroups, ...  The values are combined
-// in a fixed order, never by atomics (cd_bias_stats: staged and added in row
-// order; dbm_max_norm: per-group sums, a shuffle tree, then the warps in
-// order), so the results do not depend on the schedule and a rerun is bit
-// for bit.
+// cd_bias_stats and cd_stats_sums, 8 for dbm_max_norm).  Its lanes read
+// along rows: with VW = 4 (every row 16-byte aligned), TILE / 4 lanes cover
+// one row of the tile, 16 bytes a lane; with VW = 1, TILE lanes do.  So a
+// warp covers 32 VW / TILE rows at once and the block's kColThreads threads
+// form kGroups row groups; group g reads rows g, g + kGroups, ...  The
+// values are combined in a fixed order, never by atomics (cd_bias_stats,
+// cd_stats_sums: staged and added in row order; dbm_max_norm: per-group
+// sums, a shuffle tree, then the warps in order), so the results do not
+// depend on the schedule and a rerun is bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -52,8 +52,17 @@
 //                    cluster of 8 blocks per 32 columns, adding the partial
 //                    norms over distributed shared memory, took longer on
 //                    the card (PERF.md).
-//   dbm_msre         the minibatch's msre (fixed-order block reduction) and
-//                    its mean-field update count.
+//   dbm_msre         the minibatch's msre, mean((X - v_means)^2), and its
+//                    mean-field update count: JAX's jnp.mean(jnp.square(X -
+//                    v_means)) (pallas_dbm.py:287).  Bound by its bytes,
+//                    X and v_means read once (627 KB at 100x784, 0.19 us
+//                    at 3.35 TB/s), so by a launch's latency.  A grid
+//                    reduction: ~B V / 1024 blocks of 256 threads (77 at
+//                    100x784, at most 256) read 16 bytes a lane of each,
+//                    one trip to memory, and the last block to finish adds
+//                    the block sums in a fixed order (the last-block test
+//                    of cd_metrics); no float atomics, so a rerun is bit
+//                    for bit.
 //   ais_logw         per-run log-weight update from the softplus partials,
 //                    reduced in a fixed order, so log-weights are
 //                    deterministic.
@@ -357,22 +366,46 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
   }
 }
 
-// One block: msre = mean((X - v_means)^2) over B x V, and the mean-field
-// update count of the minibatch.
+// msre = mean((X - v_means)^2) over the n = B x V elements, and the
+// mean-field update count of the minibatch.  A grid of up to `max_blocks`
+// blocks walks the elements, VW at a time (16-byte loads with VW = 4); each
+// block adds its threads' sums by block_sum and writes one partial; the
+// last block to finish adds the partials in a fixed order (one a thread,
+// then block_sum), writes both outputs and re-arms the counter.  The grid
+// depends only on n, VW and max_blocks, and no float is added atomically,
+// so two launches on the same inputs give the same bits.
+template <int VW>
 __global__ void __launch_bounds__(kRedThreads)
     dbm_msre_kernel(const float* __restrict__ X,
                     const float* __restrict__ vm, long long n,
-                    const unsigned* ctrl, float* msre_out, float* nmf_out) {
+                    const unsigned* ctrl, float* partials, unsigned* counter,
+                    float* msre_out, float* nmf_out) {
   __shared__ float red[kRedThreads / 32];
+  __shared__ bool is_last;
   float s = 0.f;
-  for (long long e = threadIdx.x; e < n; e += blockDim.x) {
-    const float d = X[e] - vm[e];
-    s = fmaf(d, d, s);
+#pragma unroll 4
+  for (long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * VW;
+       e < n; e += (long long)gridDim.x * blockDim.x * VW) {
+    float x[VW], m[VW];
+    bm::col::load<VW>(X + e, x);
+    bm::col::load<VW>(vm + e, m);
+#pragma unroll
+    for (int k = 0; k < VW; ++k) {
+      const float d = x[k] - m[k];
+      s = fmaf(d, d, s);
+    }
   }
   const float t = block_sum(s, red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = t;
+  if (!bm::last_block(counter, &is_last)) return;
+  float p = 0.f;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += blockDim.x)
+    p += __ldcg(&partials[b]);
+  const float total = block_sum(p, red);
   if (threadIdx.x == 0) {
-    *msre_out = t / (float)n;
+    *msre_out = total / (float)n;
     *nmf_out = (float)reinterpret_cast<const int*>(ctrl)[2];
+    *counter = 0u;
   }
 }
 
@@ -526,11 +559,26 @@ int bm_dbm_max_norm(float* W, int n_in, int n_out, float max_norm,
   return (int)cudaGetLastError();
 }
 
+// `partials` holds max_blocks floats, `counter` one zeroed unsigned (left
+// at zero).  16 bytes a lane where n is a multiple of 4 and X and vm are
+// 16-byte aligned; blocks enough for one load a thread, at most max_blocks.
 int bm_dbm_msre(const float* X, const float* vm, long long n,
-                const unsigned* ctrl, float* msre_out, float* nmf_out,
+                const unsigned* ctrl, float* partials, int max_blocks,
+                unsigned* counter, float* msre_out, float* nmf_out,
                 void* stream) {
-  dbm_msre_kernel<<<1, kRedThreads, 0, (cudaStream_t)stream>>>(
-      X, vm, n, ctrl, msre_out, nmf_out);
+  if (n < 1 || max_blocks < 1) return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {X, vm};
+  const int vw = n % 4 == 0 && bm::col::aligned16(ptrs, 2) ? 4 : 1;
+  const long long per_block = (long long)kRedThreads * vw;
+  const long long want = (n + per_block - 1) / per_block;
+  const int blocks = (int)(want < max_blocks ? want : max_blocks);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vw == 4)
+    dbm_msre_kernel<4><<<blocks, kRedThreads, 0, s>>>(
+        X, vm, n, ctrl, partials, counter, msre_out, nmf_out);
+  else
+    dbm_msre_kernel<1><<<blocks, kRedThreads, 0, s>>>(
+        X, vm, n, ctrl, partials, counter, msre_out, nmf_out);
   return (int)cudaGetLastError();
 }
 

@@ -378,6 +378,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 
 ACT_IDENTITY, ACT_SIGMOID, ACT_SIGMOID_DELTA, ACT_SOFTPLUS_ROWS = range(4)
+#: the most blocks of a dbm_msre launch: the floats of its partials buffer
+MSRE_BLOCKS = 256
 
 
 class GemmArgs(ctypes.Structure):
@@ -403,7 +405,7 @@ _ARGTYPES = {
     'bm_dbm_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F,
                             _F, _F, _P],
     'bm_dbm_max_norm': [_P, _I, _I, _F, _P],
-    'bm_dbm_msre': [_P, _P, _L, _P, _P, _P, _P],
+    'bm_dbm_msre': [_P, _P, _L, _P, _P, _I, _P, _P, _P, _P],
     'bm_ais_logw': [_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P],
 }
 _BOUND = {}
@@ -540,6 +542,9 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     v_means = empty(B, V)
     # {max |change| as float bits, done flag, n_mf} of the current minibatch
     ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    # dbm_msre's block sums and its last-block counter (re-armed by it)
+    msre_part = empty(MSRE_BLOCKS)
+    msre_count = torch.zeros(1, dtype=torch.int32, device=dev)
     rows = torch.zeros((2, NB), dtype=torch.float32, device=dev)
     lr, mom = float(lr), float(momentum)
     one_minus_damp = float(1. - torch.tensor(cfg.sparsity_damping,
@@ -637,7 +642,8 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
         # msre on the mean-field mu0 with the UPDATED W0 and vb
         launch(recon_args)
         _check(lib.bm_dbm_msre(_ptr(X), _ptr(v_means), B * V, _ptr(ctrl),
-                               rows[0].data_ptr() + 4 * i,
+                               _ptr(msre_part), MSRE_BLOCKS,
+                               _ptr(msre_count), rows[0].data_ptr() + 4 * i,
                                rows[1].data_ptr() + 4 * i, stream),
                'dbm_msre')
         launches['dbm_msre'] += 1

@@ -87,17 +87,18 @@ Phases, each printing its lines before the last:
     same inputs (bit for bit), then timed by a CUDA graph beside the plain
     version, the former SIMT tile's recorded time and torch.matmul on the
     stacked K = 2B product;
-18. the column walks and every hand-written kernel not yet redesigned:
-    cd_bias_stats (each RBM path), dbm_max_norm (both DBM layers),
-    cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe,
+18. the redesigned reductions and every hand-written kernel not yet
+    redesigned: cd_bias_stats (each RBM path), dbm_max_norm (both DBM
+    layers), cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe,
     dbm_bias_update, dbm_msre, dbm_mf_check and ais_logw, each launched
     alone through its C entry point at its paths' shapes and timed by a
     CUDA graph beside its plain version, a library yardstick where one
     PyTorch call computes the function (torch.renorm, torch.sum over the
-    batch) and its bound, with its launches per step and per 1000 steps at
-    the examples' cadences; cd_bias_stats and dbm_max_norm also against
-    their plain versions and a same-input rerun bit for bit; then the DBM
-    step profiled: device time per kernel and busy share.
+    batch, F.mse_loss; "none" and why where there is none) and its bound,
+    with its launches per step and per 1000 steps at the examples'
+    cadences; cd_bias_stats, dbm_max_norm, cd_stats_sums and dbm_msre also
+    against their plain versions and a same-input rerun bit for bit; then
+    the DBM step profiled: device time per kernel and busy share.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -121,6 +122,7 @@ kernels' JSON line; the last line of standard output is one JSON object:
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1538,11 +1540,17 @@ def check_msre(model_dir, label):
                                                                      msre))
 
 
-# the device kernel of each launch name, where it is not <name>_kernel: the
-# association entry points run the one kernel of csrc/assoc_tc.cuh
-KERNEL_SYMBOLS = {'cd_assoc_update': 'assoc_kernel',
-                  'cd_assoc_stats': 'assoc_kernel',
-                  'dbm_assoc_update': 'assoc_kernel'}
+# the device kernel of each launch name (a pattern of the profiler's name,
+# demangled or not), where it is not <name>_kernel: the association entry
+# points run the one kernel of csrc/assoc_tc.cuh, cd_bias_stats and
+# cd_stats_sums one kernel body, told apart by its kSums argument
+KERNEL_SYMBOLS = {'cd_assoc_update': r'assoc_kernel',
+                  'cd_assoc_stats': r'assoc_kernel',
+                  'dbm_assoc_update': r'assoc_kernel',
+                  'cd_bias_stats':
+                      r'cd_bias_stats_kernel(?:<\d, (?:false|0)>|ILi\dELb0E)',
+                  'cd_stats_sums':
+                      r'cd_bias_stats_kernel(?:<\d, (?:true|1)>|ILi\dELb1E)'}
 
 
 def profile_kernels(torch, fn, names=None, wall=None):
@@ -1575,7 +1583,8 @@ def profile_kernels(torch, fn, names=None, wall=None):
         if t is None:
             t = getattr(ev, 'cuda_time_total', 0.)
         for name in names:
-            if KERNEL_SYMBOLS.get(name, name + '_kernel') in ev.key:
+            if re.search(KERNEL_SYMBOLS.get(name, name + '_kernel'),
+                         ev.key):
                 us, n = per.get(name, (0., 0))
                 per[name] = (us + t, n + ev.count)
                 busy += t
@@ -2629,6 +2638,16 @@ DBM_MAX_NORM = 6.
 # scaled by a factor from a sum of n_in squares) as the stats' `sums`.
 KT_TOL = {'state': TOL['state'], 'q': TOL['q_means'],
           'sums': STATS_TOL['sums']}
+# phase 18's kernels that no single PyTorch call computes, and why
+NO_LIBRARY = {
+    'cd_softmax_sample': 'softmax and Multinomial counts are two calls; '
+                         'distributions.Multinomial(...).sample() alone is '
+                         'timed in phase 10',
+    'cd_metrics': 'L2, msre and the PLL\'s flipped free energies',
+    'fe_probe': 'a free energy is a product, a softplus sum and a dot',
+    'dbm_mf_check': 'a counter and flag update on three words',
+    'ais_logw': 'a dot and two partial sums per run',
+}
 
 
 def excess(got, want, tol, scale=1.):
@@ -2653,10 +2672,12 @@ def kernel_times(torch):
     its C entry point and timed by graph_ms beside its plain version (torch
     ops, also in a CUDA graph), a library yardstick where one PyTorch call
     computes (nearly) the same function -- torch.renorm for the max-norm,
-    torch.sum over dim 0 of one (rows, V + H) tensor for the column sums --
-    and its bound.  cd_bias_stats and dbm_max_norm are also held against
-    their plain versions (KT_TOL) and a second launch on the same inputs
-    bit for bit.  Returns {(kernel, label): numbers}."""
+    torch.sum over dim 0 of one (rows, V + H) tensor for the column sums,
+    F.mse_loss for the msre -- and its bound.  cd_bias_stats, dbm_max_norm,
+    cd_stats_sums and dbm_msre are also held against their plain versions
+    (KT_TOL, STATS_TOL, DBM_TOL) and a second launch on the same inputs bit
+    for bit.  Returns {(kernel, label): numbers}."""
+    import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         CDEpochConfig, bias_stats_reference, check_launch, library,
@@ -2682,7 +2703,8 @@ def kernel_times(torch):
                per_1000=1000, err=None):
         """Times one kernel; per_step and per_1000 are the launches at the
         examples' published cadences, written down, not counted here: they
-        are printed and never returned."""
+        are printed and never returned.  library_ms is None where no single
+        PyTorch call computes the kernel's function (NO_LIBRARY says why)."""
         bound_ms, bound_by = bound(*work)
         r = dict(ms=graph_ms(torch, run), plain_ms=graph_ms(torch, plain),
                  library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -2691,7 +2713,8 @@ def kernel_times(torch):
             '%.5f ms (%s); at the examples\' cadences %s launches per step, '
             '%s per 1000 steps%s' % (
                 kernel, label, r['ms'], r['plain_ms'],
-                'null' if library_ms is None else '%.4f ms' % library_ms,
+                'none (%s)' % NO_LIBRARY[kernel] if library_ms is None
+                else '%.4f ms' % library_ms,
                 bound_ms, bound_by, per_step, per_1000,
                 '' if err is None else '; max|kernel-plain| %.3g, '
                 'same-input rerun bit-identical' % err))
@@ -2776,21 +2799,35 @@ def kernel_times(torch):
                graph_ms(torch, lambda: torch.renorm(W0, 2, 1, DBM_MAX_NORM)),
                per_step=1, err=float((got - want).abs().max()))
 
-    # the data-parallel stats call's column sums (one per call)
+    # the data-parallel stats call's column sums (one per call), held
+    # against the plain sums (STATS_TOL, atol x rows) and a rerun
     for label, B, V, H in (('stats_784', 128, 784, 1024),
                            ('stats_7800', 50, 3072, 7800)):
         X, vs, h0, hm = randn(B, V), randn(B, V), rand(B, H), rand(B, H)
-        sums = torch.empty(V + 2 * H, **f32)
 
-        def run():
+        def run(sums):
             check_launch(lib.bm_cd_stats_sums(
                 ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums),
                 ptr(sums, V), ptr(sums, V + H), stream()), 'cd_stats_sums')
-        record('cd_stats_sums', label, run,
-               lambda: (torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
-                        torch.sum(hm, 0)),
+            return sums
+
+        def plain():
+            return torch.cat([torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
+                              torch.sum(hm, 0)])
+        got = run(torch.full((V + 2 * H,), float('nan'), **f32))
+        again = run(torch.full((V + 2 * H,), float('nan'), **f32))
+        want = plain()
+        torch.cuda.synchronize()
+        e = excess(got, want, STATS_TOL['sums'], B)
+        same = torch.equal(got, again)
+        if not (e <= 0. and same):
+            raise AssertionError('cd_stats_sums %s: kernel and plain version '
+                                 'disagree (excess %.3g, rerun identical %s)'
+                                 % (label, e, same))
+        sums = torch.empty(V + 2 * H, **f32)
+        record('cd_stats_sums', label, lambda: run(sums), plain,
                (0., 3. * B * (V + H), 4. * (2 * B * V + 2 * B * H + V + 2 * H)),
-               colsum_ms(B, V + H))
+               colsum_ms(B, V + H), err=float((got - want).abs().max()))
 
     # the M-RBM's hidden pass: n softmax(pre) and Multinomial(n) counts
     B, H, n = CIFAR_B, MRBM[1], N_SAMPLES
@@ -2901,20 +2938,43 @@ def kernel_times(torch):
                 4. * ((N + M) * n_units + 9 * n_units)),
                colsum_ms(N + M, n_units))
 
-    # the DBM step's msre, and its mean-field check (through the sweep
-    # loop's entry with no layers: one check per sweep)
+    # the DBM step's msre, held against the plain one (DBM_TOL) and a
+    # rerun, with the count copied; and its mean-field check (through the
+    # sweep loop's entry with no layers: one check per sweep)
     V = DBM_SIZES[0]
     X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
-    ctrl = torch.zeros(3, dtype=torch.int32, device='cuda')
-    msre = torch.empty(2, **f32)
+    ctrl = torch.tensor([0, 0, 17], dtype=torch.int32, device='cuda')
+    # a checkout from before the grid reduction takes no partials and no
+    # counter (phase 18 times the parent's kernels too)
+    blocks = getattr(dbm_ops, 'MSRE_BLOCKS', None)
+    part = torch.empty(blocks or 1, **f32)
+    count = torch.zeros(1, dtype=torch.int32, device='cuda')
 
-    def run():
+    def run(msre):
+        ws = (ptr(part), blocks, ptr(count)) if blocks else ()
         dbm_ops._check(dlib.bm_dbm_msre(
-            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), ptr(msre, 0),
+            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), *ws, ptr(msre, 0),
             ptr(msre, 1), stream()), 'dbm_msre')
-    record('dbm_msre', 'dbm', run,
-           lambda: (torch.mean(torch.square(X - vm)), ctrl[2].float()),
-           (0., 3. * DBM_B * V, 8. * DBM_B * V))
+        return msre
+
+    def plain():
+        return torch.mean(torch.square(X - vm)), ctrl[2].float()
+    got = run(torch.full((2,), float('nan'), **f32))
+    again = run(torch.full((2,), float('nan'), **f32))
+    want = plain()
+    torch.cuda.synchronize()
+    err = abs(float(got[0]) - float(want[0]))
+    same = torch.equal(got, again)
+    if not (err <= DBM_TOL['msre'] and same and float(got[1]) == 17.
+            and int(count[0]) == 0):
+        raise AssertionError('dbm_msre: kernel and plain version disagree '
+                             '(%s against %s, rerun %s, counter %d)' % (
+                                 got.tolist(), float(want[0]), again.tolist(),
+                                 int(count[0])))
+    msre = torch.empty(2, **f32)
+    record('dbm_msre', 'dbm', lambda: run(msre), plain,
+           (0., 3. * DBM_B * V, 8. * DBM_B * V),
+           graph_ms(torch, lambda: F.mse_loss(vm, X)), err=err)
 
     def run():
         dbm_ops._check(dlib.bm_dbm_mf_loop(
@@ -3307,10 +3367,13 @@ def main():
                     sampling_off_ms=tc[(name, False, 'kernel')])
 
     def walk(kernel, *labels):
-        """Phase 18's numbers for the entry's launches of `kernel`."""
+        """Phase 18's numbers for the entry's launches of `kernel`; where no
+        PyTorch call computes its function, `no_library` says why."""
         keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')
+        extra = {'no_library': NO_LIBRARY[kernel]} if kernel in NO_LIBRARY \
+            else {}
         return {label: dict({k: kt[(kernel, label)][k] for k in keys},
-                            max_abs_err=kt[(kernel, label)]['err'])
+                            max_abs_err=kt[(kernel, label)]['err'], **extra)
                 for label in labels}
 
     # each entry's kernels timed alone by phase 18, by shape

@@ -1107,14 +1107,15 @@ def test_cd_bias_stats_matches_plain_version(cuda, B, V, H, sparsity,
     assert bool((got['pen'] != 0).any()) == sparsity
 
 
-@pytest.mark.parametrize('B', [1, 10, 48, 100, 256])
+@pytest.mark.parametrize('B', [1, 10, 48, 50, 100, 128, 256])
 @pytest.mark.parametrize('V,H', [(784, 1024), (37, 70), (130, 65)])
 @pytest.mark.parametrize('aligned', [True, False])
 def test_cd_bias_stats_sums_are_cd_stats_sums(cuda, B, V, H, aligned):
     """K2 adds the batch in row order, as K2s (cd_stats_sums) does: at lr 1,
     momentum 0, no sparsity and damping 0 its outputs are the stats' sums
     bit for bit -- dvb = dvb_sum / B, dhb = dhb_sum / B, q = h_sum -- on
-    both load paths and across its 128-row chunks (B = 256)."""
+    both load paths and across its 128-row chunks (B = 256); 50 and 128 are
+    the stats calls' local batches."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         check_launch, library, ptr)
     rng = np.random.RandomState(B + V + H)
@@ -1161,6 +1162,104 @@ def test_cd_bias_stats_scalar_path(cuda, aligned):
         atol, rtol = {'q': (1e-5 * B, 1e-4)}.get(key, (1e-5, 1e-5))
         torch.testing.assert_close(got[key], ref[key], rtol=rtol, atol=atol,
                                    msg=key)
+
+
+def stats_sums_launch(X, vs, h0, hm):
+    """One cd_stats_sums launch: [dvb_sum | dhb_sum | h_sum]."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    (B, V), H = X.shape, h0.shape[1]
+    sums = torch.full((V + 2 * H,), float('nan'), device=X.device)
+    check_launch(library().bm_cd_stats_sums(
+        ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums), ptr(sums, V),
+        ptr(sums, V + H), torch.cuda.current_stream().cuda_stream),
+        'cd_stats_sums')
+    return sums
+
+
+@pytest.mark.parametrize('B,V,H,aligned', [
+    (128, 784, 1024, True), (50, 3072, 7800, True), (50, 3072, 7800, False),
+    (3, 37, 70, True), (129, 130, 65, True)])
+def test_cd_stats_sums_matches_plain_version(cuda, B, V, H, aligned):
+    """K2s against the plain sums of ``cd_stats_reference`` -- sum(X -
+    v_states), sum(h0 - h_means), sum(h_means) over the rows -- with
+    chip_smoke.py's STATS_TOL (atol 1e-5 x rows, rtol 1e-5: f32 sums in
+    another order), and a same-input rerun bit for bit.  The stats calls'
+    local shapes (784x1024 / 128 rows, 3072x7800 / 50), the latter also 4
+    bytes off a 16-byte boundary (the scalar path); ragged widths, and 129
+    rows (two of K2's 128-row chunks)."""
+    rng = np.random.RandomState(B + V + H)
+    ins = [torch.as_tensor(f(B, n).astype(np.float32), device=cuda)
+           for f, n in ((rng.randn, V), (rng.randn, V), (rng.rand, H),
+                        (rng.rand, H))]
+    X, vs, h0, hm = (aligned_or_not(x, aligned) for x in ins)
+    got, again = stats_sums_launch(X, vs, h0, hm), stats_sums_launch(
+        X, vs, h0, hm)
+    want = torch.cat([torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
+                      torch.sum(hm, 0)])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * B)
+    assert torch.equal(got, again)
+
+
+def msre_launch(X, vm, ctrl, part, count):
+    """One dbm_msre launch: (msre, n_mf) as a 2-vector."""
+    out = torch.full((2,), float('nan'), device=X.device)
+    dbm_ops._check(dbm_ops._library().bm_dbm_msre(
+        dbm_ops._ptr(X), dbm_ops._ptr(vm), X.numel(), dbm_ops._ptr(ctrl),
+        dbm_ops._ptr(part), part.numel(), dbm_ops._ptr(count),
+        dbm_ops._ptr(out), dbm_ops._ptr(out) + 4,
+        torch.cuda.current_stream().cuda_stream), 'dbm_msre')
+    return out
+
+
+@pytest.mark.parametrize('rows,cols,aligned', [
+    (100, 784, True), (100, 784, False), (1, 1, True), (3, 7, True),
+    (2, 8, True), (256, 3072, True), (256, 3072, False)])
+def test_dbm_msre_matches_plain_version(cuda, rows, cols, aligned):
+    """mean((X - v_means)^2) against torch.mean(torch.square(X - vm)), atol
+    1e-6 (chip_smoke.py's DBM_TOL msre: f32 sums in another order), and
+    n_mf copied from ctrl[2].  A rerun gives the same bits and two launches
+    in a row both finish (the last block re-arms the counter to 0).  The
+    DBM step's 100x784, n = 1, n not a multiple of 4 (21), fewer elements
+    than one block's threads (16), 256x3072 (more elements than the grid
+    takes in one load a thread), and the scalar path (inputs 4 bytes off a
+    16-byte boundary)."""
+    rng = np.random.RandomState(rows + cols)
+    X = torch.as_tensor((rng.rand(rows, cols) < 0.3).astype(np.float32),
+                        device=cuda)
+    vm = torch.as_tensor(rng.rand(rows, cols).astype(np.float32),
+                         device=cuda)
+    X, vm = aligned_or_not(X, aligned), aligned_or_not(vm, aligned)
+    ctrl = torch.tensor([0, 1, 23], dtype=torch.int32, device=cuda)
+    part = torch.empty(dbm_ops.MSRE_BLOCKS, device=cuda)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = msre_launch(X, vm, ctrl, part, count)
+    again = msre_launch(X, vm, ctrl, part, count)
+    want = torch.mean(torch.square(X - vm))
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(want)) <= 1e-6
+    assert float(got[1]) == 23.
+    assert torch.equal(got, again)
+    assert int(count[0]) == 0
+
+
+def test_dbm_msre_grid_is_capped(cuda):
+    """A partials buffer smaller than the grid the elements ask for caps
+    the grid (each block walks more elements): the same msre within the
+    plain tolerance, and never a write past the buffer."""
+    rng = np.random.RandomState(7)
+    X = torch.as_tensor(rng.rand(100, 784).astype(np.float32), device=cuda)
+    vm = torch.as_tensor(rng.rand(100, 784).astype(np.float32), device=cuda)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=cuda)
+    count = torch.zeros(1, dtype=torch.int32, device=cuda)
+    buf = torch.full((6,), -7., device=cuda)
+    got = msre_launch(X, vm, ctrl, buf[:3], count)
+    want = torch.mean(torch.square(X - vm))
+    torch.cuda.synchronize()
+    assert abs(float(got[0]) - float(want)) <= 1e-6
+    assert torch.equal(buf[3:], torch.full((3,), -7., device=cuda))
+    assert int(count[0]) == 0
 
 
 def max_norm_launch(W, max_norm):
