@@ -27,14 +27,35 @@
 //                    states, sigmoid with the mean-field change
 //                    max |new - old| folded into a device scalar, and per-row
 //                    softplus sums at two betas written as per-block partials.
-//   dbm_mf_check     one thread: counts a mean-field sweep and raises the
-//                    `done` flag when the change is <= tol or the budget is
-//                    spent.  The mean-field loop stays on the device: the
-//                    host enqueues max_mf_updates sweeps unconditionally, and
-//                    every sweep launch returns at once when `done` is set.
-//   dbm_bias_update  bias statistics (data / N - particles / M), the
-//                    per-layer sparsity EMAs of batch sums with their penalty,
-//                    and the momentum update of a bias vector.
+//                    The mean-field loop's check rides on the layer
+//                    launches: each block of a sweep's first layer launch
+//                    reads the change of the sweep before (complete, as that
+//                    sweep's launches have ended) and returns at once when
+//                    it is <= tol or NaN, block 0 raising the `done` flag
+//                    and writing n_mf; the budget is the number of sweeps
+//                    the host enqueues (every sweep launch returns at once
+//                    when `done` is set), so the mean-field loop stays on
+//                    the device with no launch of its own for the check.
+//                    Three change words, one per sweep modulo 3: a sweep
+//                    folds into its own, its first launch reads the word of
+//                    the sweep before and re-arms the word of the sweep
+//                    after.  (A check launched on its own costs a launch's
+//                    floor, 1.2-1.3 us, once per sweep; one run by the last
+//                    block of a sweep's last launch to finish, after an
+//                    arrival counter over the output tiles, costs as much:
+//                    three dependent trips to L2, PERF.md.)
+//   dbm_bias_update  the bias statistics (data / N - particles / M), the
+//                    per-layer sparsity EMAs of batch sums with their
+//                    penalty, and the momentum update of every bias vector
+//                    of the step (vb and each hb_l) in one launch.  Bound by
+//                    its bytes, the (N + M) x n rows read once (0.2-0.3 us
+//                    per vector at 100 + 100 rows), so by a launch's
+//                    latency: one grid of blocks of 32 columns over all the
+//                    vectors (73 at 784-512-1024), whose eight warps load
+//                    the rows 16 bytes a lane (colwalk.cuh) and stage them
+//                    in shared memory; one warp adds the data rows, another
+//                    the particle rows, each column in row order (the bits
+//                    of one thread walking the column).
 //   dbm_assoc_update data^T.data / N - particles^T.particles / M - l2 W -
 //                    penalty, and the momentum update of dW and W in place.
 //   dbm_max_norm     per-column max-norm of W after the update (a reduction
@@ -150,6 +171,36 @@ struct GemmArgs {
 struct DbmGemmArgs {
   bm::tc::Tile t;
   GemmArgs a;
+  // the first layer launch of mean-field sweep `sweep` of bm_dbm_mf_loop:
+  // the control words (mf_change), and the check's tolerance and budget;
+  // null in every other launch
+  unsigned* ctrl;
+  int sweep, max_updates;
+  float tol;
+};
+
+// One bias vector of a dbm_bias_update launch; ops/dbm_ops.py mirrors the
+// layout.  D (N, n) holds the data-side rows, P (M, n) the particles';
+// q == nullptr: no sparsity (mu_m and pen unused).
+struct BiasVec {
+  const float* D;
+  const float* P;
+  float* b;
+  float* db;
+  float* q;
+  float* mu_m;
+  float* pen;
+  int n;
+  float cost, target;
+};
+
+constexpr int kMaxBias = 8;  // bias vectors per launch: a DBM of <= 7 layers
+
+struct BiasArgs {
+  BiasVec v[kMaxBias];
+  int first[kMaxBias + 1];  // the first block of each vector, then the grid
+  int n_vecs, N, M;
+  float lr, mom, damp, one_minus_damp;
 };
 
 namespace {
@@ -159,6 +210,43 @@ constexpr int kRedThreads = 256;
 // in registers between its two passes (7 rows of 4 at VW = 4: 896 rows)
 constexpr int kNormTile = 8;
 constexpr int kNormHold = 28;
+// dbm_bias_update: rows of each side staged per pass
+constexpr int kBiasChunk = 128;
+
+// The mean-field control words, zeroed before the first sweep: the change
+// of sweep s (max |new - old| as float bits, folded by atomicMax) in word
+// mf_change(s), the done flag in word 1, n_mf in word 2 (dbm_msre reads
+// it).
+__host__ __device__ __forceinline__ int mf_change(int sweep) {
+  return sweep % 3 == 0 ? 0 : 2 + sweep % 3;
+}
+
+// The check of sweep s - 1, at the start of sweep s's first layer launch,
+// in every block alike (no block of this launch writes the change word it
+// reads): whether sweep s runs.  The JAX loop runs while n < max and
+// delta > tol, so a NaN change stops it too; the budget is the sweeps the
+// host enqueues.
+// Block 0 writes what the launch decides: done and n_mf = s when the loop
+// stopped; else it re-arms the word of sweep s + 1 (that of sweep s - 2,
+// which sweep s - 1's check read in an earlier launch) and, in the budget's
+// last sweep, writes n_mf = max.
+__device__ __forceinline__ bool mf_sweep_runs(unsigned* ctrl, int s, float tol,
+                                              int max_updates) {
+  const bool lead = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+                    threadIdx.x == 0;
+  if (s > 0 && !(__uint_as_float(ctrl[mf_change(s - 1)]) > tol)) {
+    if (lead) {
+      ctrl[1] = 1u;
+      ctrl[2] = (unsigned)s;
+    }
+    return false;
+  }
+  if (lead) {
+    ctrl[mf_change(s + 1)] = 0u;
+    if (s == max_updates - 1) ctrl[2] = (unsigned)max_updates;
+  }
+  return true;
+}
 
 // out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias, acc = A1.B1 +
 // A2.B2 by the tensor-core tile (gemm_tc.cuh); kSoftplusRows sums
@@ -169,6 +257,9 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
   const GemmArgs& a = p.a;
   if (a.done != nullptr && *a.done != 0) return;  // mean-field converged
+  if (p.ctrl != nullptr &&
+      !mf_sweep_runs(p.ctrl, p.sweep, p.tol, p.max_updates))
+    return;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float rows[2][NT][4];  // kSoftplusRows: per row, per warp
   float* T;
@@ -242,47 +333,87 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
   }
 }
 
-// ctrl = {delta bits, done, n_mf}; zeroed before the first sweep.
-__global__ void dbm_mf_check_kernel(unsigned* ctrl, float tol,
-                                    int max_updates) {
-  int* done = reinterpret_cast<int*>(ctrl + 1);
-  int* n_mf = reinterpret_cast<int*>(ctrl + 2);
-  if (*done) return;
-  const int n = *n_mf + 1;
-  *n_mf = n;
-  const float delta = __uint_as_float(ctrl[0]);
-  // the JAX loop runs while n < max and delta > tol (a NaN change stops it)
-  if (!(delta > tol) || n >= max_updates) *done = 1;
-  ctrl[0] = 0u;
-}
-
-// One thread per column j < n: D is (N, n) data-side means, P (M, n)
-// particles.  grad = sum D / N - sum P / M; with sparsity (q != null) the
-// EMAs of the batch sums and the penalty cost (q - t) + cost (mu - t), which
-// is subtracted from grad and written to pen for the association update.
-__global__ void dbm_bias_update_kernel(
-    const float* __restrict__ D, const float* __restrict__ P, int N, int M,
-    int n, float* b, float* db, float* q, float* mu_m,
-    float* __restrict__ pen, float lr, float mom, float damp,
-    float one_minus_damp, float cost, float target) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  float sd = 0.f, sp = 0.f;
-  for (int r = 0; r < N; ++r) sd += D[(long long)r * n + j];
-  for (int r = 0; r < M; ++r) sp += P[(long long)r * n + j];
-  float g = sd / (float)N - sp / (float)M;
-  if (q != nullptr) {
-    const float qn = damp * q[j] + one_minus_damp * sp;
-    const float mn = damp * mu_m[j] + one_minus_damp * sd;
-    const float p = cost * (qn - target) + cost * (mn - target);
-    q[j] = qn;
-    mu_m[j] = mn;
-    pen[j] = p;
-    g = g - p;
+// Block b owns kColTile consecutive columns of one bias vector (the
+// vectors' blocks follow each other: a.first).  Its row groups (colwalk.cuh)
+// load a chunk of up to kBiasChunk rows of D and of P and stage them in
+// shared memory; then warp 0 adds D's column values in row order and warp 1
+// P's, the order of one thread walking each column, so the sums are those
+// bits.  Then, per column: grad = sum D / N - sum P / M; with sparsity the
+// EMAs of the batch sums and the penalty cost (q - t) + cost (mu - t),
+// subtracted from grad and written to pen for the association update; and
+// the momentum update of the bias.
+template <int VW>
+__global__ void __launch_bounds__(bm::col::kColThreads)
+    dbm_bias_update_kernel(const __grid_constant__ BiasArgs a) {
+  using Map = bm::col::Map<VW>;
+  constexpr int T = bm::col::kColTile, G = Map::kGroups;
+  __shared__ __align__(16) float stage[2][kBiasChunk][T];
+  __shared__ float sum_p[T];
+  int v = 0;
+  while (v + 1 < a.n_vecs && (int)blockIdx.x >= a.first[v + 1]) ++v;
+  const BiasVec& d = a.v[v];
+  const int n = d.n, j0 = ((int)blockIdx.x - a.first[v]) * T;
+  const int g = Map::group(), c = Map::col();
+  // with VW = 4 the width is a multiple of 4: a lane's columns are all in
+  // or all out
+  const bool in = j0 + c < n;
+  const int side = threadIdx.x / T, t = threadIdx.x % T;  // side < 2: adds
+  // the column's parameters, loaded while the rows are
+  const int j = j0 + t;
+  const bool owner = side == 0 && j < n;
+  float db = 0.f, bj = 0.f, qj = 0.f, mj = 0.f;
+  if (owner) {
+    db = d.db[j];
+    bj = d.b[j];
+    if (d.q != nullptr) {
+      qj = d.q[j];
+      mj = d.mu_m[j];
+    }
   }
-  const float acc = lr * (mom * db[j] + g);
-  db[j] = acc;
-  b[j] += acc;
+  float S = 0.f;
+  for (int r0 = 0; r0 < a.N || r0 < a.M; r0 += kBiasChunk) {
+    const int nd = min(kBiasChunk, a.N - r0), np = min(kBiasChunk, a.M - r0);
+#pragma unroll 4
+    for (int r = g; in && r < nd; r += G) {
+      float x[VW];
+      bm::col::load<VW>(d.D + (long long)(r0 + r) * n + j0 + c, x);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) stage[0][r][c + k] = x[k];
+    }
+#pragma unroll 4
+    for (int r = g; in && r < np; r += G) {
+      float x[VW];
+      bm::col::load<VW>(d.P + (long long)(r0 + r) * n + j0 + c, x);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) stage[1][r][c + k] = x[k];
+    }
+    __syncthreads();
+    if (side < 2) {
+      // unrolled, so the shared-memory loads of 16 rows are in flight
+      // before their adds, which keep their order
+      const int rows = side == 0 ? nd : np;
+#pragma unroll 16
+      for (int r = 0; r < rows; ++r) S += stage[side][r][t];
+    }
+    __syncthreads();
+  }
+  if (side == 1) sum_p[t] = S;
+  __syncthreads();
+  if (!owner) return;
+  const float sd = S, sp = sum_p[t];
+  float grad = sd / (float)a.N - sp / (float)a.M;
+  if (d.q != nullptr) {
+    const float qn = a.damp * qj + a.one_minus_damp * sp;
+    const float mn = a.damp * mj + a.one_minus_damp * sd;
+    const float p = d.cost * (qn - d.target) + d.cost * (mn - d.target);
+    d.q[j] = qn;
+    d.mu_m[j] = mn;
+    d.pen[j] = p;
+    grad = grad - p;
+  }
+  const float acc = a.lr * (a.mom * db + grad);
+  d.db[j] = acc;
+  d.b[j] = bj + acc;
 }
 
 // W[:, j] *= min(|w_j|, c) / max(|w_j|, 1e-8), per column.  A block owns
@@ -461,6 +592,9 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
                 w_trans};
   }
   p->a = a;
+  p->ctrl = nullptr;
+  p->sweep = p->max_updates = 0;
+  p->tol = 0.f;
   return bm::tc::setup_tile(&p->t, ops, n, a.M, a.N, a.n_tile, a.splits,
                             a.ws, a.counters);
 }
@@ -488,44 +622,77 @@ int bm_dbm_gemm_act(const GemmArgs* a, void* stream) {
   return err ? err : launch(p, (cudaStream_t)stream);
 }
 
-// Zero the mean-field control words {delta bits, done, n_mf}.
+// Zero the mean-field control words (five: mf_change).
 int bm_dbm_mf_reset(unsigned* ctrl, void* stream) {
-  cudaMemsetAsync(ctrl, 0, 3 * sizeof(unsigned), (cudaStream_t)stream);
+  cudaMemsetAsync(ctrl, 0, 5 * sizeof(unsigned), (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 
 // `n_sweeps` mean-field sweeps: per sweep the `n_layers` layer launches of
-// `layers` (each with delta_bits = ctrl and done = ctrl + 1), then one
-// dbm_mf_check.  The layers' tiles are set up once for all sweeps.
+// `layers` (each kSigmoidDelta), which fold their change into the sweep's
+// word of ctrl and return at once when ctrl's done flag is set; the first
+// of them also runs the check of the sweep before (tol, max_updates).  The
+// layers' tiles are set up once for all sweeps.  The budget is the sweeps
+// enqueued, so max_updates must equal n_sweeps.
 int bm_dbm_mf_loop(const GemmArgs* layers, int n_layers, int n_sweeps,
                    unsigned* ctrl, float tol, int max_updates, void* stream) {
+  if (n_layers < 1 || ctrl == nullptr || n_sweeps < 0 ||
+      max_updates != n_sweeps)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  std::vector<DbmGemmArgs> p(n_layers > 0 ? n_layers : 0);
+  std::vector<DbmGemmArgs> p(n_layers);
   for (int l = 0; l < n_layers; ++l) {
+    if (layers[l].act != kSigmoidDelta) return (int)cudaErrorInvalidValue;
     const int e = setup(&p[l], layers[l]);
     if (e) return e;
+    p[l].a.done = reinterpret_cast<const int*>(ctrl + 1);
   }
+  p[0].ctrl = ctrl;
+  p[0].tol = tol;
+  p[0].max_updates = max_updates;
   for (int it = 0; it < n_sweeps; ++it) {
+    p[0].sweep = it;
     for (int l = 0; l < n_layers; ++l) {
+      p[l].a.delta_bits = ctrl + mf_change(it);
       const int e = launch(p[l], s);
       if (e) return e;
     }
-    dbm_mf_check_kernel<<<1, 1, 0, s>>>(ctrl, tol, max_updates);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
   }
   return 0;
 }
 
-int bm_dbm_bias_update(const float* D, const float* P, int N, int M, int n,
-                       float* b, float* db, float* q, float* mu_m, float* pen,
+// The bias updates of `n_vecs` vectors (1 <= n_vecs <= kMaxBias) in one
+// launch: a block per 32 columns of each; 16 bytes a lane where every width
+// is a multiple of 4 and every D and P 16-byte aligned.
+int bm_dbm_bias_update(const BiasVec* vecs, int n_vecs, int N, int M,
                        float lr, float mom, float damp, float one_minus_damp,
-                       float cost, float target, void* stream) {
-  const int threads = 256;
-  dbm_bias_update_kernel<<<(n + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
-      D, P, N, M, n, b, db, q, mu_m, pen, lr, mom, damp, one_minus_damp, cost,
-      target);
+                       void* stream) {
+  if (n_vecs < 1 || n_vecs > kMaxBias || N < 1 || M < 1)
+    return (int)cudaErrorInvalidValue;
+  BiasArgs a;
+  a.first[0] = 0;
+  bool vec = true;
+  for (int i = 0; i < n_vecs; ++i) {
+    a.v[i] = vecs[i];
+    const void* ptrs[] = {vecs[i].D, vecs[i].P};
+    vec = vec && vecs[i].n % 4 == 0 && bm::col::aligned16(ptrs, 2);
+    a.first[i + 1] =
+        a.first[i] + (vecs[i].n + bm::col::kColTile - 1) / bm::col::kColTile;
+  }
+  a.n_vecs = n_vecs;
+  a.N = N;
+  a.M = M;
+  a.lr = lr;
+  a.mom = mom;
+  a.damp = damp;
+  a.one_minus_damp = one_minus_damp;
+  const int blocks = a.first[n_vecs];
+  if (blocks < 1) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    dbm_bias_update_kernel<4><<<blocks, bm::col::kColThreads, 0, s>>>(a);
+  else
+    dbm_bias_update_kernel<1><<<blocks, bm::col::kColThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

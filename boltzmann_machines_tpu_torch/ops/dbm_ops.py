@@ -59,8 +59,8 @@ STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
 #: keys whose value is a tuple with one tensor per layer
 LAYER_KEYS = ('hb', 'W', 'dhb', 'dW', 'q_means', 'mu_means', 'H')
 
-EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_mf_check', 'dbm_bias_update',
-                 'dbm_assoc_update', 'dbm_max_norm', 'dbm_msre')
+EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_bias_update', 'dbm_assoc_update',
+                 'dbm_max_norm', 'dbm_msre')
 SAMPLE_KERNELS = ('dbm_gemm_act',)
 AIS_KERNELS = ('dbm_gemm_act', 'ais_logw')
 
@@ -380,6 +380,8 @@ _F = ctypes.c_float
 ACT_IDENTITY, ACT_SIGMOID, ACT_SIGMOID_DELTA, ACT_SOFTPLUS_ROWS = range(4)
 #: the most blocks of a dbm_msre launch: the floats of its partials buffer
 MSRE_BLOCKS = 256
+#: the most bias vectors of one dbm_bias_update launch (kMaxBias)
+MAX_BIAS = 8
 
 
 class GemmArgs(ctypes.Structure):
@@ -395,13 +397,20 @@ class GemmArgs(ctypes.Structure):
         [(n, _U) for n in ('seed', 'it', 'stream_id')])
 
 
+class BiasVec(ctypes.Structure):
+    """The ``BiasVec`` struct of csrc/dbm_ops.cu (same field order): one
+    bias vector of a ``dbm_bias_update`` launch."""
+    _fields_ = ([(n, _P) for n in ('D', 'P', 'b', 'db', 'q', 'mu_m', 'pen')] +
+                [('n', _I), ('cost', _F), ('target', _F)])
+
+
 _ARGTYPES = {
     'bm_dbm_gemm_col_blocks': [_I],
     'bm_dbm_gemm_act': [ctypes.POINTER(GemmArgs), _P],
     'bm_dbm_mf_reset': [_P, _P],
     'bm_dbm_mf_loop': [ctypes.POINTER(GemmArgs), _I, _I, _P, _F, _I, _P],
-    'bm_dbm_bias_update': [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _F, _F,
-                           _F, _F, _F, _F, _P],
+    'bm_dbm_bias_update': [ctypes.POINTER(BiasVec), _I, _I, _I, _F, _F, _F,
+                           _F, _P],
     'bm_dbm_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F,
                             _F, _F, _P],
     'bm_dbm_max_norm': [_P, _I, _I, _F, _P],
@@ -540,8 +549,10 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     mu = [empty(B, h) for h in hs]
     pen = [empty(h) for h in hs]
     v_means = empty(B, V)
-    # {max |change| as float bits, done flag, n_mf} of the current minibatch
-    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    # the mean-field loop's control words of the current minibatch: the
+    # done flag, n_mf, and the max |change| of each sweep as float bits, in
+    # one of three words by the sweep (csrc/dbm_ops.cu mf_change)
+    ctrl = torch.zeros(5, dtype=torch.int32, device=dev)
     # dbm_msre's block sums and its last-block counter (re-armed by it)
     msre_part = empty(MSRE_BLOCKS)
     msre_count = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -573,8 +584,6 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
             A.append((mu[l + 1], W[l + 1], True))
         sweep[l] = _gemm_args(mu[l], A, c=T0 if l == 0 else None, bias=hb[l],
                               act=ACT_SIGMOID_DELTA, stream=stream)
-        sweep[l].delta_bits = ctrl.data_ptr()
-        sweep[l].done = ctrl.data_ptr() + 4
     gibbs = []
     for step in range(cfg.k):
         for l in range(L + 1):
@@ -593,12 +602,18 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
             gibbs.append(a)
     recon_args = _gemm_args(v_means, [(mu[0], W[0], True)], bias=s['vb'],
                             stream=stream)
-    # (data side, particle side, width, bias, its accumulator, sparsity
-    # EMAs q and mu, penalty, cost, target); the data side of vb is X
-    biases = [(None, s['v'], V, s['vb'], s['dvb'], None, None, None, 0., 0.)]
-    biases += [(mu[l], H[l], hs[l], hb[l], s['dhb'][l], s['q_means'][l],
-                s['mu_means'][l], pen[l], cfg.sparsity_cost[l],
-                cfg.sparsity_target[l]) for l in range(L)]
+    # vb and every hb_l: (data side, particle side, bias, its accumulator,
+    # sparsity EMAs q and mu, penalty, cost, target), at most MAX_BIAS a
+    # launch; the data side of vb is X, set per minibatch
+    vecs = [BiasVec(_ptr(D), _ptr(P), _ptr(b), _ptr(db), _ptr(q), _ptr(mm),
+                    _ptr(p), int(P.shape[1]), cost, target)
+            for D, P, b, db, q, mm, p, cost, target in
+            [(None, s['v'], s['vb'], s['dvb'], None, None, None, 0., 0.)] +
+            [(mu[l], H[l], hb[l], s['dhb'][l], s['q_means'][l],
+              s['mu_means'][l], pen[l], cfg.sparsity_cost[l],
+              cfg.sparsity_target[l]) for l in range(L)]]
+    chunks = [vecs[j:j + MAX_BIAS] for j in range(0, L + 1, MAX_BIAS)]
+    bias_launches = [(BiasVec * len(c))(*c) for c in chunks]
 
     for i in range(NB):
         X = X_batches[i]
@@ -608,24 +623,23 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
         for a in init_args:
             launch(a)
         # the mean-field loop, on the device: max_mf_updates sweeps are
-        # enqueued, those after convergence return at once
+        # enqueued, those after convergence return at once; each sweep's
+        # first layer launch runs the check of the sweep before
         _check(lib.bm_dbm_mf_reset(ctrl.data_ptr(), stream), 'dbm_mf_reset')
         _check(lib.bm_dbm_mf_loop(sweep, L, cfg.max_mf_updates,
                                   ctrl.data_ptr(), tol, cfg.max_mf_updates,
                                   stream), 'dbm_mf_loop')
         launches['dbm_gemm_act'] += L * cfg.max_mf_updates
-        launches['dbm_mf_check'] += cfg.max_mf_updates
         for a in gibbs:
             a.it = it
             launch(a)
-        # bias statistics, sparsity and the bias updates (the penalty
-        # vectors feed the association update)
-        for D, P, n, b, db, q, mm, p, cost, target in biases:
-            D = X if D is None else D
+        # bias statistics, sparsity and the bias updates of every vector
+        # in one launch (the penalty vectors feed the association update)
+        bias_launches[0][0].D = X.data_ptr()
+        for vs in bias_launches:
             _check(lib.bm_dbm_bias_update(
-                _ptr(D), _ptr(P), B, M, n, _ptr(b), _ptr(db), _ptr(q),
-                _ptr(mm), _ptr(p), lr, mom, cfg.sparsity_damping,
-                one_minus_damp, cost, target, stream), 'dbm_bias_update')
+                vs, len(vs), B, M, lr, mom, cfg.sparsity_damping,
+                one_minus_damp, stream), 'dbm_bias_update')
             launches['dbm_bias_update'] += 1
         for l in range(L):
             Ad, Ap = (X, s['v']) if l == 0 else (mu[l - 1], H[l - 1])

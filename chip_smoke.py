@@ -90,15 +90,22 @@ Phases, each printing its lines before the last:
 18. the redesigned reductions and every hand-written kernel not yet
     redesigned: cd_bias_stats (each RBM path), dbm_max_norm (both DBM
     layers), cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe,
-    dbm_bias_update, dbm_msre, dbm_mf_check and ais_logw, each launched
-    alone through its C entry point at its paths' shapes and timed by a
-    CUDA graph beside its plain version, a library yardstick where one
-    PyTorch call computes the function (torch.renorm, torch.sum over the
-    batch, F.mse_loss; "none" and why where there is none) and its bound,
-    with its launches per step and per 1000 steps at the examples'
-    cadences; cd_bias_stats, dbm_max_norm, cd_stats_sums and dbm_msre also
-    against their plain versions and a same-input rerun bit for bit; then
-    the DBM step profiled: device time per kernel and busy share.
+    dbm_bias_update (the step's one launch of vb, hb0 and hb1, and each
+    vector alone), dbm_msre and ais_logw, each launched alone through its
+    C entry point at its paths' shapes and timed by a CUDA graph beside its
+    plain version, a library yardstick where one PyTorch call computes the
+    function (torch.renorm, torch.sum over the batch, F.mse_loss; "none"
+    and why where there is none) and its bound, with its launches per step
+    and per 1000 steps at the examples' cadences; cd_bias_stats,
+    dbm_max_norm, cd_stats_sums, dbm_bias_update and dbm_msre also against
+    their plain versions and a same-input rerun bit for bit; the mean-field
+    check, fused into each sweep's first dbm_gemm_act launch, against its
+    plain rule (n_mf), timed as a one-layer loop against its launches
+    alone, and the whole
+    mean-field loop of a step (init and 50 sweeps); then the DBM step
+    profiled, from a random state (all 50 sweeps run) and at mf_tol 1e-4
+    (mean-field converges in a few): device time per kernel and busy
+    share.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -791,11 +798,15 @@ def dbm_mnist_path(torch, tmpdir):
             cd_launches, expect))
     n_iter = 2 * math.ceil(len(X_train) / DBM_B)
     L, max_mf = 2, 50
+    # 113 launches a step: 107 products (the mean-field check fused into
+    # each sweep's first), one bias update for vb, hb0 and hb1, two
+    # associations, two max-norms, one msre
     expect = {'dbm_gemm_act': n_iter * (1 + L + L * max_mf + (L + 1) + 1),
-              'dbm_mf_check': n_iter * max_mf,
-              'dbm_bias_update': n_iter * (L + 1),
+              'dbm_bias_update': n_iter,
               'dbm_assoc_update': n_iter * L, 'dbm_max_norm': n_iter * L,
               'dbm_msre': n_iter}
+    if sum(expect.values()) != 113 * n_iter:
+        raise AssertionError('the DBM schedule is not 113 launches a step')
     say('DBM.fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
         dbm.iter_, run['t_fit'], launches))
     say('  train msre per epoch %s; mean n_mf per epoch %s; val msre %s' % (
@@ -2612,10 +2623,11 @@ def ais_beta_work(V, H1, H2, R, k):
 # cadences: metrics every 1000 iterations (examples/rbm_mnist.py:99 and
 # dbm_cifar_naive.py:121, the G-RBM), every 500 (dbm_mnist.py:89 and :129,
 # the two RBMs) and every 400 (dbm_cifar_naive.py:153, the M-RBM); a DBM
-# step runs three bias updates, two max-norms, one msre and max_mf_updates
-# = 50 mean-field checks (enqueued whether or not mean-field converged), an
-# AIS beta one ais_logw, a data-parallel stats call one cd_stats_sums; the
-# free-energy probe is on no path.
+# step runs one bias update (vb, hb0 and hb1 in one launch), two max-norms
+# and one msre, and max_mf_updates = 50 mean-field checks, each fused into
+# its sweep's first dbm_gemm_act launch (enqueued whether or not mean-field
+# converged); an AIS beta one ais_logw, a data-parallel stats call one
+# cd_stats_sums; the free-energy probe is on no path.
 #
 # cd_bias_stats at each RBM path: (label, rows, V, H, Gaussian visible,
 # n_samples of multinomial hidden units, sparsity cost, launches per 1000
@@ -2645,7 +2657,8 @@ NO_LIBRARY = {
                          'timed in phase 10',
     'cd_metrics': 'L2, msre and the PLL\'s flipped free energies',
     'fe_probe': 'a free energy is a product, a softplus sum and a dot',
-    'dbm_mf_check': 'a counter and flag update on three words',
+    'dbm_mf_check': 'a counter and flag update on three words, fused into '
+                    'the first dbm_gemm_act launch of each mean-field sweep',
     'ais_logw': 'a dot and two partial sums per run',
 }
 
@@ -2667,16 +2680,22 @@ def bias_work(B, V, H):
 
 def kernel_times(torch):
     """Phase 18.  Each of cd_bias_stats, cd_stats_sums, cd_softmax_sample,
-    cd_metrics, fe_probe, dbm_bias_update, dbm_max_norm, dbm_msre,
-    dbm_mf_check and ais_logw at its paths' shapes, launched alone through
-    its C entry point and timed by graph_ms beside its plain version (torch
-    ops, also in a CUDA graph), a library yardstick where one PyTorch call
-    computes (nearly) the same function -- torch.renorm for the max-norm,
-    torch.sum over dim 0 of one (rows, V + H) tensor for the column sums,
-    F.mse_loss for the msre -- and its bound.  cd_bias_stats, dbm_max_norm,
-    cd_stats_sums and dbm_msre are also held against their plain versions
-    (KT_TOL, STATS_TOL, DBM_TOL) and a second launch on the same inputs bit
-    for bit.  Returns {(kernel, label): numbers}."""
+    cd_metrics, fe_probe, dbm_bias_update, dbm_max_norm, dbm_msre and
+    ais_logw at its paths' shapes, launched alone through its C entry point
+    and timed by graph_ms beside its plain version (torch ops, also in a
+    CUDA graph), a library yardstick where one PyTorch call computes
+    (nearly) the same function -- torch.renorm for the max-norm, torch.sum
+    over dim 0 of one (rows, V + H) tensor for the column sums, F.mse_loss
+    for the msre -- and its bound.  cd_bias_stats, dbm_max_norm,
+    cd_stats_sums, dbm_bias_update and dbm_msre are also held against their
+    plain versions (KT_TOL, STATS_TOL, DBM_TOL) and a second launch on the
+    same inputs bit for bit.  The mean-field check: n_mf against its plain
+    rule, and its cost per sweep (a one-layer loop of two sweeps less the
+    two launches alone); and the whole mean-field loop.  Run
+    in a checkout from before the one-launch bias update and the fused
+    check, it times that checkout's kernels the same way (one bias launch
+    per vector, the check as a launch of its own).  Returns {(kernel,
+    label): numbers}."""
     import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
@@ -2904,43 +2923,98 @@ def kernel_times(torch):
            (2. * B * V * H, 0., 4. * (B * V + V * H)), per_step=0,
            per_1000=0)
 
-    # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1
+    # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1; each
+    # vector alone and, as the step launches them, all three in one launch
+    # (a checkout whose dbm_ops has no BiasVec launches one vector a call:
+    # its 'dbm_step' is three launches)
     N = M = DBM_B
+    fused = hasattr(dbm_ops, 'BiasVec')
+    vecs = []
     for l, n_units in enumerate(DBM_SIZES):
-        label = 'dbm_vb' if l == 0 else 'dbm_hb%d' % (l - 1)
-        D = (rand(N, n_units) < 0.3).float() if l == 0 else rand(N, n_units)
-        P = (rand(M, n_units) < 0.3).float()
-        b, db = 0.1 * randn(n_units), 0.01 * randn(n_units)
+        v = {'D': (rand(N, n_units) < 0.3).float() if l == 0
+             else rand(N, n_units), 'P': (rand(M, n_units) < 0.3).float(),
+             'b': 0.1 * randn(n_units), 'db': 0.01 * randn(n_units),
+             'q': None, 'mu': None, 'pen': None, 'cost': 0., 'target': 0.}
         if l:
-            q, mu = 0.2 * N * rand(n_units), 0.2 * N * rand(n_units)
-            pen = torch.empty(n_units, **f32)
-            cost, tgt = SPARSITY_COST[l - 1], SPARSITY_TARGET[l - 1]
-        else:
-            q = mu = pen = None
-            cost = tgt = 0.
+            v.update(q=0.2 * N * rand(n_units), mu=0.2 * N * rand(n_units),
+                     pen=torch.empty(n_units, **f32),
+                     cost=SPARSITY_COST[l - 1], target=SPARSITY_TARGET[l - 1])
+        vecs.append(v)
+    params = ('b', 'db', 'q', 'mu', 'pen')
 
-        def run():
+    def bias_launch(vs):
+        """One launch of the vectors `vs` in place (one launch each in a
+        checkout without BiasVec)."""
+        if fused:
+            arr = (dbm_ops.BiasVec * len(vs))(*[dbm_ops.BiasVec(
+                *(ptr(v[k]) for k in ('D', 'P', 'b', 'db', 'q', 'mu', 'pen')),
+                v['b'].numel(), v['cost'], v['target']) for v in vs])
             dbm_ops._check(dlib.bm_dbm_bias_update(
-                ptr(D), ptr(P), N, M, n_units, ptr(b), ptr(db), ptr(q),
-                ptr(mu), ptr(pen), DBM_LR, DBM_MOM, 0.9, 0.1, cost, tgt,
-                stream()), 'dbm_bias_update')
+                arr, len(vs), N, M, DBM_LR, DBM_MOM, 0.9, 0.1, stream()),
+                'dbm_bias_update')
+            return
+        for v in vs:
+            dbm_ops._check(dlib.bm_dbm_bias_update(
+                ptr(v['D']), ptr(v['P']), N, M, v['b'].numel(), ptr(v['b']),
+                ptr(v['db']), ptr(v['q']), ptr(v['mu']), ptr(v['pen']),
+                DBM_LR, DBM_MOM, 0.9, 0.1, v['cost'], v['target'], stream()),
+                'dbm_bias_update')
 
-        def plain():
-            grad = D.sum(0) / N - P.sum(0) / M
-            if q is not None:
-                qn = 0.9 * q + 0.1 * P.sum(0)
-                mn = 0.9 * mu + 0.1 * D.sum(0)
-                grad = grad - (cost * (qn - tgt) + cost * (mn - tgt))
-            acc = DBM_LR * (DBM_MOM * db + grad)
-            return b + acc, acc
-        record('dbm_bias_update', label, run, plain,
-               (0., 4. * (N + M) * n_units,
-                4. * ((N + M) * n_units + 9 * n_units)),
-               colsum_ms(N + M, n_units))
+    def bias_plain(v):
+        sd, sp = v['D'].sum(0), v['P'].sum(0)
+        grad = sd / N - sp / M
+        out = {}
+        if v['q'] is not None:
+            out['q'] = 0.9 * v['q'] + 0.1 * sp
+            out['mu'] = 0.9 * v['mu'] + 0.1 * sd
+            out['pen'] = v['cost'] * (out['q'] - v['target']) + \
+                v['cost'] * (out['mu'] - v['target'])
+            grad = grad - out['pen']
+        out['db'] = DBM_LR * (DBM_MOM * v['db'] + grad)
+        out['b'] = v['b'] + out['db']
+        return out
+
+    def copies():
+        return [dict(v, **{k: v[k].clone() for k in params
+                           if v[k] is not None}) for v in vecs]
+    got, again = copies(), copies()
+    bias_launch(got)
+    bias_launch(again)
+    torch.cuda.synchronize()
+    errs = []
+    for l, (v, g_, a_) in enumerate(zip(vecs, got, again)):
+        want = bias_plain(v)
+        bad = {k: e for k, e in (
+            (k, excess(g_[k], want[k], *((KT_TOL['q'], N + M) if k in
+                                          ('q', 'mu') else
+                                          (KT_TOL['state'], 1.))))
+            for k in want) if not e <= 0.}
+        same = all(torch.equal(g_[k], a_[k]) for k in want)
+        if bad or not same:
+            raise AssertionError('dbm_bias_update vector %d: kernel and '
+                                 'plain version disagree (excess %s, rerun '
+                                 'identical %s)' % (l, bad, same))
+        errs.append(max(float((g_[k] - want[k]).abs().max()) for k in want))
+    work = [(0., 4. * (N + M) * v['b'].numel(),
+             4. * ((N + M) * v['b'].numel() + 9 * v['b'].numel()))
+            for v in vecs]
+    timed = copies()
+    for l, v in enumerate(timed):
+        label = 'dbm_vb' if l == 0 else 'dbm_hb%d' % (l - 1)
+        record('dbm_bias_update', label, lambda v=v: bias_launch([v]),
+               lambda v=v: bias_plain(v), work[l],
+               colsum_ms(N + M, v['b'].numel()), per_step=0 if fused else 1,
+               per_1000=0 if fused else 1000, err=errs[l])
+    T = rand(N + M, sum(DBM_SIZES))
+    record('dbm_bias_update', 'dbm_step', lambda: bias_launch(timed),
+           lambda: [bias_plain(v) for v in vecs],
+           tuple(sum(w[i] for w in work) for i in range(3)),
+           graph_ms(torch, lambda: torch.sum(T, 0)),
+           per_step=1 if fused else 3, per_1000=1000 if fused else 3000,
+           err=max(errs))
 
     # the DBM step's msre, held against the plain one (DBM_TOL) and a
-    # rerun, with the count copied; and its mean-field check (through the
-    # sweep loop's entry with no layers: one check per sweep)
+    # rerun, with the count copied
     V = DBM_SIZES[0]
     X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
     ctrl = torch.tensor([0, 0, 17], dtype=torch.int32, device='cuda')
@@ -2976,15 +3050,123 @@ def kernel_times(torch):
            (0., 3. * DBM_B * V, 8. * DBM_B * V),
            graph_ms(torch, lambda: F.mse_loss(vm, X)), err=err)
 
-    def run():
-        dbm_ops._check(dlib.bm_dbm_mf_loop(
-            None, 0, 1, ptr(ctrl), -1., 2 ** 30, stream()), 'dbm_mf_check')
+    # the mean-field loop at the step's shapes, from the random state of
+    # dbm_init's scale: one layer of it, the sweep's last (h1 =
+    # sigmoid(mu0.W1 + hb1), its change folded into ctrl), launched twice
+    # alone, and as two sweeps of a one-layer loop through the loop's entry,
+    # which adds the check wherever the checkout runs it (at the start of a
+    # sweep's first launch here; at the end of its last launch, or as a
+    # launch of its own after it, in earlier checkouts): the check's cost
+    # per sweep is half the difference.  Then the whole loop, init and 50
+    # sweeps.  ctrl holds five words, as many as any checkout's loop uses.
+    V, H1, H2 = DBM_SIZES
+    X = (rand(DBM_B, V) < 0.3).float()
+    Ws = (0.03 * randn(V, H1), 0.03 * randn(H1, H2))
+    hbs = (torch.full((H1,), -0.5, **f32), torch.full((H2,), -0.5, **f32))
+    T0, mu = torch.empty(DBM_B, H1, **f32), [rand(DBM_B, H1),
+                                             rand(DBM_B, H2)]
+    ctrl = torch.zeros(5, dtype=torch.int32, device='cuda')
+    s_ = torch.cuda.current_stream().cuda_stream
 
-    def plain():  # n_mf += 1; done = !(delta > tol) || n >= max; delta = 0
-        n_mf = ctrl[2] + 1
-        return n_mf, (n_mf >= 2 ** 30).int(), torch.zeros_like(n_mf)
-    record('dbm_mf_check', 'dbm', run, plain, (0., 3., 24.), per_step=50,
-           per_1000=50000)
+    def sweep_args(l, stream):
+        A = [(mu[0], Ws[1], False)] if l else [(mu[1], Ws[1], True)]
+        a = dbm_ops._gemm_args(mu[l], A, c=None if l else T0, bias=hbs[l],
+                               act=dbm_ops.ACT_SIGMOID_DELTA, stream=stream)
+        a.delta_bits, a.done = ctrl.data_ptr(), ctrl.data_ptr() + 4
+        return a
+    import ctypes
+    last = sweep_args(1, s_)
+
+    def layers_alone():
+        for _ in range(2):
+            dbm_ops._check(dlib.bm_dbm_gemm_act(ctypes.byref(last),
+                                                stream()), 'dbm_gemm_act')
+
+    def one_layer_loop(sweeps=2, tol=-1.):  # a budget of `sweeps`
+        dbm_ops._check(dlib.bm_dbm_mf_loop(
+            ctypes.byref(last), 1, sweeps, ptr(ctrl), tol, sweeps, stream()),
+            'dbm_mf_loop')
+
+    def check_plain(c=ctrl):  # n_mf += 1; done = !(delta > tol) || n >= max
+        n_mf = c[2] + 1
+        return n_mf, (n_mf >= 2).int(), torch.zeros_like(n_mf)
+    # n_mf against the plain rule: a budget of 3 sweeps at tol -1 runs all
+    # three; at tol 1 (every change of a mean is below it) the loop stops
+    # after one
+    counts = []
+    for tol in (-1., 1.):
+        ctrl.zero_()
+        one_layer_loop(3, tol)
+        torch.cuda.synchronize()
+        counts.append(int(ctrl[2]))
+    if counts != [3, 1]:
+        raise AssertionError('mean-field check: n_mf %s, its rule gives '
+                             '[3, 1]' % counts)
+    ctrl.zero_()
+    r = dict(layers_ms=graph_ms(torch, layers_alone),
+             loop_ms=graph_ms(torch, one_layer_loop))
+    ctrl.zero_()
+    r['ms'] = (r['loop_ms'] - r['layers_ms']) / 2.
+    bound_ms, bound_by = bound(0., 3., 24.)
+    plain_ms = graph_ms(torch, check_plain)
+    if fused:
+        r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                 bound_by=bound_by, err=0.,
+                 fused_into='the first dbm_gemm_act launch of each '
+                            'mean-field sweep')
+        out[('dbm_mf_check', 'fused')] = r
+    else:
+        def check_alone():
+            dbm_ops._check(dlib.bm_dbm_mf_loop(
+                None, 0, 1, ptr(ctrl), -1., 2 ** 30, stream()),
+                'dbm_mf_check')
+        record('dbm_mf_check', 'dbm', check_alone, check_plain,
+               (0., 3., 24.), per_step=50, per_1000=50000, err=0.)
+        out[('dbm_mf_check', 'dbm')].update(
+            {k: r[k] for k in ('layers_ms', 'loop_ms')}, per_sweep_ms=r['ms'])
+    say('dbm_mf_check: two launches of the sweep\'s last layer (100x1024, '
+        'K 512) %.4f ms alone, %.4f ms as a two-sweep loop; the check %.4f '
+        'ms per sweep (%s), plain %.4f ms; bound %.5f ms (%s); n_mf '
+        'against its plain rule: equal' % (
+            r['layers_ms'], r['loop_ms'], r['ms'],
+            'no launch of its own' if fused else 'its own launch',
+            plain_ms, bound_ms, bound_by))
+
+    # the whole mean-field loop of one step: the init launches (T0 = X.W0,
+    # mu0, mu1) and 50 sweeps, all run (tol -1)
+    loop = (dbm_ops.GemmArgs * 2)()
+    init = [dbm_ops._gemm_args(T0, [(X, Ws[0], False)],
+                               act=dbm_ops.ACT_IDENTITY, stream=s_),
+            dbm_ops._gemm_args(mu[0], c=T0, bias=hbs[0], alpha=2.,
+                               stream=s_),
+            dbm_ops._gemm_args(mu[1], [(mu[0], Ws[1], False)], bias=hbs[1],
+                               stream=s_)]
+
+    def mf_loop():
+        for a in init:
+            dbm_ops._check(dlib.bm_dbm_gemm_act(ctypes.byref(a), stream()),
+                           'dbm_gemm_act')
+        dbm_ops._check(dlib.bm_dbm_mf_reset(ptr(ctrl), stream()),
+                       'dbm_mf_reset')
+        dbm_ops._check(dlib.bm_dbm_mf_loop(loop, 2, 50, ptr(ctrl), -1., 50,
+                                           stream()), 'dbm_mf_loop')
+    for l in range(2):
+        loop[l] = sweep_args(l, s_)
+    mf_loop()
+    torch.cuda.synchronize()
+    if int(ctrl[2]) != 50:
+        raise AssertionError('the mean-field loop ran %d sweeps of 50'
+                             % int(ctrl[2]))
+    gemm = 2. * DBM_B * (V * H1 + H1 * H2) + 50 * 4. * DBM_B * H1 * H2
+    mf_bound = bound(gemm, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
+                                     + 2 * DBM_B * (H1 + H2)))
+    out[('dbm_mf_loop', 'mf_50')] = dict(
+        ms=graph_ms(torch, mf_loop, n=4), bound_ms=mf_bound[0],
+        bound_by=mf_bound[1])
+    say('dbm mean-field loop, init and 50 sweeps (%s launches): %.4f ms; '
+        'bound %.5f ms (%s)' % (
+            '103' if fused else '153', out[('dbm_mf_loop', 'mf_50')]['ms'],
+            mf_bound[0], mf_bound[1]))
 
     # one AIS beta's log-weight update, 100 runs
     R, H1 = 100, DBM_SIZES[1]
@@ -3014,43 +3196,53 @@ def kernel_times(torch):
 
 def dbm_step_profile(torch):
     """Phase 18's profile of the DBM step (784-512-1024, B = M = 100,
-    sampling on, mean-field from a random state, so all 50 sweeps run):
-    each kernel's device us per launch and per step (torch.profiler), and
-    their busy share over the unprofiled wall of the same epoch."""
+    sampling on) in two cases: from a random state at the examples'
+    mf_tol 1e-7, where all 50 mean-field sweeps run, and at mf_tol 1e-4,
+    where mean-field converges in a few sweeps and the rest of the 50
+    enqueued sweeps return at once.  For each: each kernel's device us per
+    launch and per step (torch.profiler), their busy share over the
+    unprofiled wall of the same epoch, the launches per step and the mean
+    n_mf."""
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     nb = 20
     X_all = make_data(nb * DBM_B, seed=5)
     X = torch.as_tensor(X_all.reshape(nb, DBM_B, DBM_SIZES[0]),
                         device='cuda')
     state = dbm_init(torch, X_all)
-    cfg = dbm_config(True)
+    out = {}
+    for case, tol in (('random', 1e-7), ('converged', 1e-4)):
+        cfg = dbm_config(True, mf_tol=tol)
 
-    def epoch():
-        return dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 5, 0)
-    epoch()
-    dbm_ops.reset_launches()
-    epoch()
-    torch.cuda.synchronize()
-    per_step = {k: v / nb for k, v in dbm_ops.dbm_epoch.launches.items()}
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        def epoch():
+            return dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 5, 0)
         epoch()
+        dbm_ops.reset_launches()
+        n_mf = float(epoch()[2].mean())
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    per, busy = profile_kernels(torch, epoch, dbm_ops.EPOCH_KERNELS,
-                                min(walls))
-    out = {'wall_ms': 1e3 * min(walls) / nb, 'busy': busy,
-           'kernel_us': per, 'launches_per_step': per_step}
-    if per is not None:
-        out['step_us'] = {k: round(per[k] * per_step[k], 1) for k in per}
-    say('dbm step 784-512-1024 B=M=100 n_mf 50, sampling on: %.4f ms per '
-        'step (unprofiled, best of %s); per-kernel device us per launch %s; '
-        'per step %s; launches per step %s; device busy %s' % (
-            out['wall_ms'], ' '.join('%.4f' % (1e3 * w / nb) for w in walls),
-            per, out.get('step_us'), per_step,
-            'not measured' if busy is None else '%.1f%%' % (100. * busy)))
+        per_step = {k: v / nb for k, v in dbm_ops.dbm_epoch.launches.items()}
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        per, busy = profile_kernels(torch, epoch, dbm_ops.EPOCH_KERNELS,
+                                    min(walls))
+        r = {'mf_tol': tol, 'mean_n_mf': n_mf,
+             'wall_ms': 1e3 * min(walls) / nb, 'busy': busy,
+             'kernel_us': per, 'launches_per_step': per_step}
+        if per is not None:
+            r['step_us'] = {k: round(per[k] * per_step[k], 1) for k in per}
+        say('dbm step 784-512-1024 B=M=100, sampling on, mf_tol %g (%s '
+            'state): mean n_mf %.2f; %.4f ms per step (unprofiled, best of '
+            '%s); per-kernel device us per launch %s; per step %s; launches '
+            'per step %s (%g in all); device busy %s' % (
+                tol, case, n_mf, r['wall_ms'],
+                ' '.join('%.4f' % (1e3 * w / nb) for w in walls), per,
+                r.get('step_us'), per_step, sum(per_step.values()),
+                'not measured' if busy is None else '%.1f%%' % (100. * busy)))
+        out[case] = r
     return out
 
 
@@ -3369,10 +3561,12 @@ def main():
     def walk(kernel, *labels):
         """Phase 18's numbers for the entry's launches of `kernel`; where no
         PyTorch call computes its function, `no_library` says why."""
-        keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')
+        keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+                'fused_into', 'layers_ms', 'loop_ms')
         extra = {'no_library': NO_LIBRARY[kernel]} if kernel in NO_LIBRARY \
             else {}
-        return {label: dict({k: kt[(kernel, label)][k] for k in keys},
+        return {label: dict({k: kt[(kernel, label)][k] for k in keys
+                             if k in kt[(kernel, label)]},
                             max_abs_err=kt[(kernel, label)]['err'], **extra)
                 for label in labels}
 
@@ -3381,8 +3575,9 @@ def main():
         'cd_epoch': (('cd_bias_stats', 'rbm_mnist', 'dbm_rbm1', 'dbm_rbm2'),
                      ('cd_metrics', 'rbm_mnist')),
         'dbm_epoch': (('dbm_max_norm', 'dbm_w0', 'dbm_w1'),
-                      ('dbm_bias_update', 'dbm_vb', 'dbm_hb0', 'dbm_hb1'),
-                      ('dbm_msre', 'dbm'), ('dbm_mf_check', 'dbm')),
+                      ('dbm_bias_update', 'dbm_step', 'dbm_vb', 'dbm_hb0',
+                       'dbm_hb1'),
+                      ('dbm_msre', 'dbm'), ('dbm_mf_check', 'fused')),
         'ais': (('ais_logw', 'ais'),),
         'cd_epoch_gaussian': (('cd_bias_stats', 'grbm'),
                               ('cd_metrics', 'grbm')),
@@ -3514,6 +3709,7 @@ def main():
             e[kernel + '_shapes'] = walk(kernel, *labels)
         if e['name'] == 'dbm_epoch':
             e['step_profile'] = dbm_prof
+            e['mf_loop_50_sweeps'] = kt[('dbm_mf_loop', 'mf_50')]
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

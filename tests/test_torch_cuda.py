@@ -501,8 +501,10 @@ def test_dbm_epoch_kernels_match_plain_version(cuda, sizes, B, M, sample,
 
 
 def test_dbm_epoch_launch_counts(cuda):
-    """Every minibatch enqueues the whole mean-field budget; the sweeps
-    after convergence return at once, and n_mf counts those that ran."""
+    """Every minibatch enqueues the whole mean-field budget, each sweep's
+    first layer launch checking the sweep before; the sweeps after convergence
+    return at once, and n_mf counts those that ran.  One bias launch
+    updates vb and every hb."""
     sizes, B, M, NB, k, max_mf = (24, 16, 12), 8, 8, 3, 2, 20
     X, state = make_dbm_inputs(sizes, B, M, NB, cuda)
     cfg = dbm_config(sizes, k, max_mf, 1e-4, False)
@@ -511,9 +513,8 @@ def test_dbm_epoch_launch_counts(cuda):
     L = 2
     assert dbm_ops.dbm_epoch.launches == {
         'dbm_gemm_act': NB * (1 + L + L * max_mf + k * (L + 1) + 1),
-        'dbm_mf_check': NB * max_mf, 'dbm_bias_update': NB * (L + 1),
-        'dbm_assoc_update': NB * L, 'dbm_max_norm': NB * L,
-        'dbm_msre': NB}
+        'dbm_bias_update': NB, 'dbm_assoc_update': NB * L,
+        'dbm_max_norm': NB * L, 'dbm_msre': NB}
     assert 1 <= float(n_mf.min()) and float(n_mf.max()) < max_mf
     # no max-norm pass when max_norm is infinite
     dbm_ops.reset_launches()
@@ -582,6 +583,144 @@ def test_dbm_wrappers_reject_bad_inputs(cuda):
     acfg = dbm_ops.AISConfig(24, 16, 12, 5, 1, False, False, False)
     with pytest.raises(ValueError, match='x0'):
         dbm_ops.ais(acfg, state, 1, torch.zeros((4, 15), device=cuda))
+
+
+def test_dbm_epoch_bias_vectors_past_one_launch(cuda):
+    """A DBM of 8 hidden layers has 9 bias vectors, one more than a
+    dbm_bias_update launch takes (MAX_BIAS): each minibatch updates them in
+    two launches, and the state equals the plain version's within its
+    tolerance."""
+    sizes, B, M, NB, k, max_mf = (20, 9, 13, 7, 5, 11, 6, 10, 4), 6, 5, 2, 1, 5
+    L = len(sizes) - 1
+    assert L + 1 > dbm_ops.MAX_BIAS
+    X, state = make_dbm_inputs(sizes, B, M, NB, cuda, seed=8)
+    cfg = dbm_config(sizes, k, max_mf, 1e-4, False)
+    dbm_ops.reset_launches()
+    got = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 0)
+    want = dbm_ops.dbm_epoch_reference(cfg, state, X, 0.05, 0.5, 3, 0)
+    torch.cuda.synchronize()
+    assert dbm_ops.dbm_epoch.launches['dbm_bias_update'] == NB * 2
+    assert dbm_ops.dbm_epoch.launches['dbm_gemm_act'] == \
+        NB * (1 + L + L * max_mf + k * (L + 1) + 1)
+    assert torch.equal(got[2], want[2])
+    assert_dbm_state_close(got[0], want[0], B, M)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
+
+# (case, max_mf_updates, mf_tol) of the mean-field loop's edges
+MF_CASES = [('converges', 50, 1e-4), ('tol_0', 4, 0.), ('budget_0', 0, 1e-4),
+            ('budget_1', 1, 1e-4), ('change_at_tol', 4, 0.),
+            ('nan_change', 10, 1e-4)]
+
+
+@pytest.mark.parametrize('sizes', [(70, 37), (70, 37, 65), (70, 37, 65, 20)])
+@pytest.mark.parametrize('case,max_mf,tol', MF_CASES)
+@pytest.mark.parametrize('splits', [None, 3])
+def test_dbm_mf_fused_check_edges(cuda, monkeypatch, sizes, case, max_mf,
+                                  tol, splits):
+    """The mean-field check, fused into each sweep's first layer launch,
+    at L = 1, 2, 3 and with the plan's split-K or 3 K slices everywhere (the
+    first layer's launch, mu1.W1^T + T0, then has 3 at L >= 2; at L = 1 it
+    has no product): the n_mf rows equal the plain version's, and the state
+    is within its tolerance.  Zero weights and biases change nothing after
+    the init, so the first change is exactly 0 = tol (change_at_tol); at
+    L = 1 a sweep reads no hidden layer, so at tol 0 its second sweep stops
+    the loop the same way; a NaN weight makes the change NaN, which stops
+    the loop after one sweep, as in the JAX loop.  (The expected count is
+    checked on the first minibatch: the update moves the zero weights
+    before the second.)"""
+    L = len(sizes) - 1
+    B, M = 5, 7
+    X, state = make_dbm_inputs(sizes, B, M, 2, cuda, seed=L)
+    if case == 'change_at_tol':
+        state = dict(state, W=tuple(torch.zeros_like(w) for w in state['W']),
+                     hb=tuple(torch.zeros_like(h) for h in state['hb']))
+    if case == 'nan_change':
+        W = [w.clone() for w in state['W']]
+        W[-1][0, 0] = float('nan')
+        state = dict(state, W=tuple(W))
+    if splits:
+        plan = dbm_ops.launch_plan
+        monkeypatch.setattr(dbm_ops, 'launch_plan',
+                            lambda *a: plan(*a[:-1], splits))
+        if L > 1:
+            stream = torch.cuda.current_stream().cuda_stream
+            assert plan(B, sizes[1], [sizes[2]], cuda, stream,
+                        splits)[0].splits > 1
+    cfg = dbm_config(sizes, 1, max_mf, tol, False)
+    got = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 10)
+    want = dbm_ops.dbm_epoch_reference(cfg, state, X, 0.05, 0.5, 3, 10)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], want[2]), (got[2], want[2])
+    expect = {'budget_0': 0., 'budget_1': 1., 'change_at_tol': 1.,
+              'nan_change': 1., 'tol_0': 2. if L == 1 else 4.}.get(case)
+    if expect is not None:
+        assert float(got[2][0]) == expect
+    if case != 'nan_change':
+        assert_dbm_state_close(got[0], want[0], B, M)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize('splits', [1, 3])
+def test_dbm_mf_check_stops_at_tol(cuda, splits):
+    """One layer launch through the sweep loop, zero weights and bias, so
+    every mean is sigmoid(0) = 0.5 exactly: from means of 0.25 the first
+    change is 0.25 exactly.  At tol 0.25 the loop stops after that sweep
+    (done raised, n_mf 1); at the float below 0.25 it runs a second, whose
+    change is 0 (n_mf 2); at a budget of 1 it stops after one whatever the
+    change; and at a budget of 3 with tol -1 it runs all three.  With the
+    plan's one K slice and with 3."""
+    import ctypes
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = dbm_ops._library()
+    x = torch.rand((30, 256), device=cuda)
+    W = torch.zeros((256, 200), device=cuda)
+    below = float(np.nextafter(np.float32(0.25), np.float32(0)))
+    for tol, budget, n_want, done in ((0.25, 5, 1, 1), (below, 5, 2, 1),
+                                      (below, 1, 1, None), (-1., 3, 3, None)):
+        out = torch.full((30, 200), 0.25, device=cuda)
+        ctrl = torch.zeros(5, dtype=torch.int32, device=cuda)
+        a = dbm_ops._gemm_args(out, [(x, W, False)],
+                               act=dbm_ops.ACT_SIGMOID_DELTA, stream=stream,
+                               splits=splits)
+        assert a.splits == splits
+        dbm_ops._check(lib.bm_dbm_mf_reset(ctrl.data_ptr(), stream),
+                       'dbm_mf_reset')
+        dbm_ops._check(lib.bm_dbm_mf_loop(ctypes.byref(a), 1, budget,
+                                          ctrl.data_ptr(), tol, budget,
+                                          stream), 'dbm_mf_loop')
+        torch.cuda.synchronize()
+        assert int(ctrl[2]) == n_want, (tol, budget, ctrl)
+        if done is not None:
+            assert int(ctrl[1]) == done, (tol, budget, ctrl)
+        assert bool((out == 0.5).all())
+
+
+def test_dbm_mf_loop_rejects_bad_layers(cuda):
+    """Every layer of the loop must fold its change (the mean-field
+    epilogue), or the check could never stop it; no layer at all is
+    refused too, and so is a budget other than the sweeps enqueued (the
+    budget is the sweeps enqueued: its last sweep writes n_mf)."""
+    import ctypes
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = dbm_ops._library()
+    out = torch.zeros((8, 16), device=cuda)
+    ctrl = torch.zeros(5, dtype=torch.int32, device=cuda)
+    a = dbm_ops._gemm_args(out, [(torch.rand((8, 24), device=cuda),
+                                  torch.rand((24, 16), device=cuda), False)],
+                           stream=stream)
+    assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, 1, ctrl.data_ptr(), 0.,
+                              1, stream) != 0
+    a.act = dbm_ops.ACT_SIGMOID_DELTA
+    assert lib.bm_dbm_mf_loop(None, 0, 1, ctrl.data_ptr(), 0., 1,
+                              stream) != 0
+    for sweeps, budget in ((1, 2), (2, 1), (2, 2 ** 30)):
+        assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, sweeps,
+                                  ctrl.data_ptr(), 0., budget, stream) != 0
+    assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, 1, ctrl.data_ptr(), 0.,
+                              1, stream) == 0
+    torch.cuda.synchronize()
+    assert int(ctrl[2]) == 1
 
 
 # ---------------------------------------------------------------------- #
@@ -1317,3 +1456,128 @@ def test_dbm_max_norm_infinite_leaves_w(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, W)
         assert torch.equal(dbm_ops.apply_max_norm(W, c), W)
+
+
+# ---------------------------------------------------------------------- #
+# dbm_bias_update: every bias vector of the DBM step in one launch        #
+# ---------------------------------------------------------------------- #
+def bias_vectors(widths, N, M, sparse, dev, seed=0):
+    """Inputs of one dbm_bias_update per width: data rows D (N, n),
+    particle rows P (M, n) and the parameters; with sparsity (sparse[i]) q,
+    mu and a penalty vector, and a cost and target."""
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
+    out = []
+    for i, n in enumerate(widths):
+        v = {'D': t(rng.rand(N, n)), 'P': t(rng.rand(M, n) < 0.3),
+             'b': t(rng.randn(n) * 0.1), 'db': t(rng.randn(n) * 0.01),
+             'cost': 0., 'target': 0.}
+        if sparse[i]:
+            v.update(q=t(rng.rand(n) * M * 0.3), mu=t(rng.rand(n) * N * 0.5),
+                     pen=t(np.full(n, np.nan)), cost=1e-2 * (i + 1),
+                     target=0.1 * (i + 1))
+        out.append(v)
+    return out
+
+
+def bias_update_launch(vecs, N, M, lr, mom, damp):
+    """One dbm_bias_update launch over `vecs` on copies of the parameters;
+    returns them."""
+    keys = ('b', 'db', 'q', 'mu', 'pen')
+    vecs = [dict(v, **{k: v[k].clone() for k in keys if k in v})
+            for v in vecs]
+    arr = (dbm_ops.BiasVec * len(vecs))(*[dbm_ops.BiasVec(
+        *(dbm_ops._ptr(v.get(k)) for k in ('D', 'P', 'b', 'db', 'q', 'mu',
+                                           'pen')),
+        v['b'].numel(), v['cost'], v['target']) for v in vecs])
+    one_minus = float(1. - torch.tensor(damp, dtype=torch.float32))
+    dbm_ops._check(dbm_ops._library().bm_dbm_bias_update(
+        arr, len(vecs), N, M, lr, mom, damp, one_minus,
+        torch.cuda.current_stream().cuda_stream), 'dbm_bias_update')
+    return [{k: v[k] for k in keys if k in v} for v in vecs]
+
+
+def bias_update_plain(v, N, M, lr, mom, damp):
+    """dbm_update's arithmetic for one bias vector."""
+    sd, sp = v['D'].sum(0), v['P'].sum(0)
+    grad = sd / N - sp / M
+    out = {}
+    if 'q' in v:
+        d = torch.tensor(damp, dtype=torch.float32)
+        out['q'] = d * v['q'] + (1. - d) * sp
+        out['mu'] = d * v['mu'] + (1. - d) * sd
+        out['pen'] = v['cost'] * (out['q'] - v['target']) + \
+            v['cost'] * (out['mu'] - v['target'])
+        grad = grad - out['pen']
+    out['db'] = lr * (mom * v['db'] + grad)
+    out['b'] = v['b'] + out['db']
+    return out
+
+
+# (widths, N, M, sparsity per vector): the DBM step's three vectors at
+# 784-512-1024; vb alone and hb with sparsity alone, ragged (no multiple of
+# 4 or 32) with N != M; more rows than one staged chunk (128); a DBM of 7
+# layers (8 vectors, the most of one launch)
+BIAS_CASES = [((784, 512, 1024), 100, 100, (False, True, True)),
+              ((37,), 7, 10, (False,)), ((70,), 50, 100, (True,)),
+              ((130, 65, 33), 129, 300, (False, True, True)),
+              ((5, 3, 9, 2, 31, 64, 1, 40), 3, 2, (False,) + (True,) * 7)]
+
+
+@pytest.mark.parametrize('widths,N,M,sparse', BIAS_CASES)
+def test_dbm_bias_update_matches_plain_version(cuda, widths, N, M, sparse):
+    """Every output (b, db, and with sparsity q, mu and the penalty) against
+    the plain arithmetic with chip_smoke.py's DBM tolerances: atol 1e-5 +
+    rtol 1e-5 on b, db and the penalty, atol 1e-5 (N + M) + rtol 1e-4 on q
+    and mu (EMAs of batch sums); a same-input rerun bit for bit, and each
+    vector launched alone equal to it in the launch of all, bit for bit."""
+    vecs = bias_vectors(widths, N, M, sparse, cuda, seed=N + M)
+    args = (N, M, 0.05, 0.5, 0.9)
+    got = bias_update_launch(vecs, *args)
+    again = bias_update_launch(vecs, *args)
+    alone = [bias_update_launch([v], *args)[0] for v in vecs]
+    torch.cuda.synchronize()
+    for i, v in enumerate(vecs):
+        want = bias_update_plain(v, *args)
+        for key in want:
+            atol, rtol = (1e-5 * (N + M), 1e-4) if key in ('q', 'mu') \
+                else (1e-5, 1e-5)
+            torch.testing.assert_close(got[i][key], want[key], rtol=rtol,
+                                       atol=atol, msg='%d %s' % (i, key))
+            assert torch.equal(got[i][key], again[i][key]), (i, key)
+            assert torch.equal(got[i][key], alone[i][key]), (i, key)
+
+
+@pytest.mark.parametrize('aligned', [True, False])
+def test_dbm_bias_update_scalar_path(cuda, aligned):
+    """D and P 4 bytes past a 16-byte boundary (widths multiples of 4) take
+    the scalar path: its sums are added in the same row order, so its
+    outputs equal the aligned launch's bit for bit."""
+    vecs = bias_vectors((784, 512), 100, 100, (False, True), cuda, seed=3)
+    args = (100, 100, 0.05, 0.5, 0.9)
+    ref = bias_update_launch(vecs, *args)
+    moved = [dict(v, D=aligned_or_not(v['D'], aligned),
+                  P=aligned_or_not(v['P'], aligned)) for v in vecs]
+    got = bias_update_launch(moved, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+
+
+def test_dbm_bias_update_sums_in_row_order(cuda):
+    """At lr 1, momentum 0 and no sparsity db is sum D / N - sum P / M
+    exactly, and each column sum is the one of adding the rows in order
+    (float32 np.cumsum), on both load paths."""
+    N, M = 100, 150
+    for n in (784, 37):
+        v = bias_vectors((n,), N, M, (False,), cuda, seed=n)[0]
+        got = bias_update_launch([v], N, M, 1., 0., 0.9)[0]
+        torch.cuda.synchronize()
+        sd = np.cumsum(v['D'].cpu().numpy(), 0, dtype=np.float32)[-1]
+        sp = np.cumsum(v['P'].cpu().numpy(), 0, dtype=np.float32)[-1]
+        want = sd / np.float32(N) - sp / np.float32(M)
+        assert np.array_equal(got['db'].cpu().numpy(), want), n
+

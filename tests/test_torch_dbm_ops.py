@@ -62,16 +62,28 @@ def assert_state_close(jax_state, state, atol, keys=dbm_ops.STATE_KEYS):
                                            key, i))
 
 
-def test_epoch_matches_jax_kernel_interpret(tmp_path):
+# (layer sizes, max_mf_updates, mf_tol): the mean-field loop's edges
+MF_EDGES = [
+    ((12, 8, 6), 10, 1e-7),    # runs its budget or converges
+    ((12, 8, 6), 1, 1e-7),     # a budget of one sweep
+    ((12, 8, 6), 0, 1e-7),     # no sweep: the bottom-up init alone
+    ((12, 8, 6), 10, 0.),      # tol 0: stops only at a change of exactly 0
+    ((12, 8, 6), 10, 1.),      # every change is below 1: stops after one
+    ((13, 9, 7), 10, 1e-7),    # widths no multiples of 4
+]
+
+
+@pytest.mark.parametrize('sizes,max_mf,tol', MF_EDGES)
+def test_epoch_matches_jax_kernel_interpret(tmp_path, sizes, max_mf, tol):
     """#9: the epoch op's plain version against ``make_dbm_epoch_kernel(...,
     interpret=True)`` (the setup of tests/test_pallas_ops.py:495, with L2
-    and sparsity on): state with particles atol 2e-5, msre 1e-5, n_mf
-    equal.  The mean-field counts agree at mf_tol 1e-7 here."""
-    jdbm, X = jax_dbm((12, 8, 6), str(tmp_path) + '/')
+    and sparsity on) at the mean-field loop's edges (MF_EDGES): state with
+    particles atol 2e-5, msre 1e-5, the n_mf rows equal."""
+    jdbm, X = jax_dbm(sizes, str(tmp_path) + '/')
     full, rem, _ = jdbm._stage_batches(X)
     assert rem is None
-    args = ([12, 8, 6], 8, 8, 2, 10, 1e-7, False, [False, False], 1e-4, 4.,
-            [0.2, 0.1], [1e-2, 5e-3], 0.9)
+    args = (list(sizes), 8, 8, 2, max_mf, tol, False, [False, False], 1e-4,
+            4., [0.2, 0.1], [1e-2, 5e-3], 0.9)
     state = torch_state(jdbm)
     s_j, msre_j, nmf_j = jax_make_dbm_epoch_kernel(*args, interpret=True)(
         jax.tree_util.tree_map(jnp.copy, jdbm._state), full, 0.01, 0.5, 7)
@@ -80,6 +92,11 @@ def test_epoch_matches_jax_kernel_interpret(tmp_path):
     assert_state_close(s_j, s_t, 2e-5)
     np.testing.assert_allclose(msre_t.numpy(), np.asarray(msre_j), atol=1e-5)
     np.testing.assert_array_equal(nmf_t.numpy(), np.asarray(nmf_j))
+    want = {1: [1.] * 4, 0: [0.] * 4}.get(max_mf)
+    if tol == 1.:
+        want = [1.] * 4
+    if want is not None:
+        assert nmf_t.tolist() == want
     # the input state is not modified
     assert_state_close(jdbm._state, state, 0.)
 
