@@ -23,10 +23,11 @@
 //                       pre-activation mult*(acc + bias) for K1b.  Replaces
 //                       the chain of :300-345 (tiled: :584-633).
 //   K1b cd_softmax_sample  multinomial hidden units only, after each hidden
-//                       K1: one block per row computes means = n softmax(pre)
-//                       (:307-314) and, when sampling, exact Multinomial(n,
-//                       means/n) counts (`_multinomial_sample_bits`, :130-182,
-//                       the body of the TPU's `multinomial_sample`).
+//                       K1: one block of 512 threads per row computes means
+//                       = n softmax(pre) (:307-314) and, when sampling, exact
+//                       Multinomial(n, means/n) counts
+//                       (`_multinomial_sample_bits`, :130-182, the body of
+//                       the TPU's `multinomial_sample`).
 //   K2 cd_bias_stats    column sums over the batch (dvb, dhb, h_sum, msre
 //                       partial), the sparsity EMA and penalty, and the
 //                       vb/hb/dvb/dhb/q updates.  Replaces :353-356, :425-441
@@ -56,9 +57,15 @@
 //                       (:185-205, the body of `make_free_energy_probe`):
 //                       Gaussian 0.5 sum (x - vb/sigma)^2, multinomial
 //                       -x.vb - (xW).h_hat with one uniform-multinomial h_hat
-//                       per evaluation drawn by K1b's device functions.
-//                       Replaces :443-509 (the tiled kernel had no PLL).
-//
+//                       per evaluation.  Replaces :443-509 (the tiled kernel
+//                       had no PLL).  One launch without the PLL, two with:
+//                       Bernoulli hidden units first run X.W on K1's tile
+//                       with a free-energy epilogue (the flipped row's
+//                       product is x.W plus one row of W), multinomial ones
+//                       first draw the two count vectors; then one pass over
+//                       W adds |W|^2, the multinomial hidden terms x.(W
+//                       h_hat), the visible terms and the msre, and its last
+//                       block writes the rows.
 // The data-parallel epoch's per-shard statistics (the TPU's
 // `make_cd_stats_kernel` / `_cd_stats_kernel`, :1206, body :1086-1151, and
 // its W-streaming twin `make_tiled_cd_stats_kernel` /
@@ -116,21 +123,27 @@
 // graphs or one persistent kernel per epoch are later work.
 //
 // The multinomial pass is bound by neither: per row it scans H entries and
-// binary-searches n draws.  Its design choices are about exactness, not
-// speed.  The CDF of means/n is accumulated in float64 (warp 0, 32 chunks)
-// and rounded to float32 per entry, as the plain version does with a float64
-// cumsum, so both build the same CDF except in ties at float64 rounding; the
-// counts are integers in a shared-memory histogram (atomicAdd), exact and
-// independent of order.  This replaces the TPU's n*B*H bucket compares and
-// its two HIGHEST-precision matmuls, whose bf16 default broke the counts
-// (:138-147): integer histograms cannot round.
+// binary-searches n draws, so its time is the latency of its chain (the
+// row's loads, two block reductions, the CDF's scan, the draws).  All 512
+// threads of a row's block share every step: each owns a contiguous chunk
+// of the row, which it alone reads and writes, so the row needs five
+// barriers; the CDF of means/n is accumulated in float64 (each chunk's
+// total, then a block-wide exclusive scan of the totals) and rounded to
+// float32 per entry, as the plain version does with a float64 cumsum, so
+// both build the same CDF except in ties at float64 rounding; each thread
+// takes n / 512 draws; the counts are integers in a shared-memory
+// histogram (atomicAdd), exact and independent of order.  This replaces the
+// TPU's n*B*H bucket compares and its two HIGHEST-precision matmuls, whose
+// bf16 default broke the counts (:138-147): integer histograms cannot round.
 //
-// K4 and bm_fe_probe give each of B blocks one row x and let each thread
-// walk whole columns of W (from L2): 2BVH operations against a bound of
-// ~15 us at 5000x1000, B = 100, but each thread's column walk waits on its
-// loads.  The loop is unrolled 8 deep to keep eight loads in flight, and
-// the probe (no flipped row) skips the flipped sums.  Turning the walk into
-// a GEMM over the batch is later work.
+// K4 is bound by W's bytes (3072x5000: 61 MB, 18 us at 3.35 TB/s) and, with
+// Bernoulli hidden units, by the product X.W (as K1's propup).  The product
+// runs on the tile, where each block streams its own rows of W once; the
+// pass over W gives each warp whole rows of W (16 bytes a lane), ~3 blocks
+// per SM, and adds the (B, V) terms per block of columns; no block reads W
+// or the batch twice.  bm_fe_probe still gives each of B blocks one row x
+// and lets each thread walk whole columns of W (2BVH operations, W read B
+// times from L2); moving it onto K4's design is later work.
 //
 // The Gaussian epilogue writes fl(fl(acc*sigma) + vb) times the multiplier
 // (1 or 2, so exact) with __fmul_rn/__fadd_rn, and the sample
@@ -164,7 +177,11 @@ using bm::sigmoid;
 using bm::softplus;
 
 constexpr int kMetThreads = 256;
-constexpr int kRowThreads = 256;
+// K1b and cd_metrics' draws: threads per row (one block a row; 512 beat
+// 1024 and 256 at 100x1000, n 1000: chip_smoke.py --softmax-readings)
+constexpr int kRowThreads = 512;
+// K4's pass over W: most rows of W per block (ops/cd_epoch.py metrics_plan)
+constexpr int kMaxWRows = 64;
 // K2: batch rows staged in shared memory at a time (2 x 128 x 32 floats)
 constexpr int kK2Chunk = 128;
 constexpr int kStaticSmemLimit = 48 * 1024;
@@ -176,143 +193,200 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return x < 0.f ? x - log1pf(expf(x)) : -log1pf(expf(-x));
 }
 
-// Max (is_max) or sum over the block, returned to every thread.  `red`
-// holds one float per warp plus one.  Must be called by all threads.
-__device__ float block_reduce_all(float v, float* red, bool is_max) {
+// The PLL's flipped unit of batch row b: floor(u V), u the Philox uniform
+// of element b on kStreamPll (ops/cd_epoch.py pll_flip_index).
+__device__ __forceinline__ int pll_flip(unsigned seed, unsigned it, int b,
+                                        int V) {
+  return (int)(bm::philox_uniform(seed, it, bm::kStreamPll, (unsigned)b) *
+               (float)V);
+}
+
+// Max (is_max) or sum over the block, returned to every thread: a shuffle
+// tree per warp, one __syncthreads, then every warp combines the warps'
+// results by the same shuffle tree, a lane each (commutative steps, so every
+// lane of every warp holds the same bits).  `red` holds 32 floats and serves
+// this one call.  All threads call it.
+__device__ __forceinline__ float block_allreduce(float v, float* red,
+                                                 bool is_max) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const float t = __shfl_down_sync(0xffffffffu, v, o);
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
     v = is_max ? fmaxf(v, t) : v + t;
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = (int)(blockDim.x >> 5);
-  __syncthreads();  // `red` may still be read by a previous call
-  if (lane == 0) red[warp] = v;
+  if (lane == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = red[0];
-    for (int w = 1; w < n_warps; ++w) t = is_max ? fmaxf(t, red[w]) : t + red[w];
-    red[n_warps] = t;
+  v = lane < (int)(blockDim.x >> 5) ? red[lane] : (is_max ? -INFINITY : 0.f);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float t = __shfl_xor_sync(0xffffffffu, v, o);
+    v = is_max ? fmaxf(v, t) : v + t;
   }
-  __syncthreads();
-  return red[n_warps];
+  return v;
 }
 
-// In place: buf[0..H) holds expected counts (means), leaves the float32 CDF
-// of means/n with buf[H-1] = +inf (the last bucket absorbs rounding).  The
-// running sum is float64, as the plain version's float64 cumsum; warp 0
-// sums 32 contiguous chunks and scans their totals.  All threads call it.
-__device__ void build_cdf(float* buf, int H, int n) {
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const int chunk = (H + 31) / 32;
-    const int lo = min(lane * chunk, H), hi = min(lo + chunk, H);
-    const double dn = (double)n;
-    double s = 0.0;
-    for (int i = lo; i < hi; ++i) s += (double)buf[i] / dn;
-    double incl = s;
+// This thread's contiguous chunk [lo, hi) of a row of H entries: c =
+// ceil(H / blockDim.x) entries (returned), the last chunks short or empty.
+__device__ __forceinline__ int row_chunk(int H, int& lo, int& hi) {
+  const int c = (H + (int)blockDim.x - 1) / (int)blockDim.x;
+  lo = min((int)threadIdx.x * c, H);
+  hi = min(lo + c, H);
+  return c;
+}
+
+// Exclusive scan over the block, in thread order, of every thread's float64
+// s: shuffles within each warp, one __syncthreads, then each warp adds the
+// totals of the warps before it by a shuffle tree, a lane each.  `tot`
+// holds 32 doubles and serves this one call.  All threads call it.
+__device__ __forceinline__ double block_exclusive_scan(double s,
+                                                       double* tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  double incl = s;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const double t = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += t;
-    }
-    double run = __shfl_up_sync(0xffffffffu, incl, 1);
-    if (lane == 0) run = 0.0;
+  for (int o = 1; o < 32; o <<= 1) {
+    const double t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+  if (lane == 31) tot[warp] = incl;
+  __syncthreads();
+  double pre = lane < warp ? tot[lane] : 0.0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) pre += __shfl_xor_sync(0xffffffffu, pre, o);
+  return pre + excl;
+}
+
+// Dynamic shared memory of a row's sampling: the CDF (H floats) and the
+// counts (H ints).
+__host__ __device__ __forceinline__ size_t row_smem(int H) {
+  return (size_t)H * (sizeof(float) + sizeof(int));
+}
+
+// In place: buf[0..H) holds a row's expected counts (means); leaves the
+// float32 CDF of means/n with buf[H-1] = +inf (the last bucket absorbs
+// rounding).  The running sum is float64, as the plain version's float64
+// cumsum, and each term is the true float64 quotient means/n, as there.
+// The whole block builds it: each thread sums the quotients of its chunk
+// (row_chunk; up to kHold of them kept in registers, so each is divided
+// once), a block-wide exclusive scan gives every chunk its start, and the
+// thread writes its chunk's running sums rounded to float32.  A thread
+// touches only its own chunk, so the caller needs no barrier before (the
+// chunk holds what this thread wrote); ends with __syncthreads.
+constexpr int kHold = 16;
+__device__ __forceinline__ void build_cdf(float* buf, int H, int n,
+                                          double* tot) {
+  int lo, hi;
+  const int c = row_chunk(H, lo, hi);
+  const double dn = (double)n;
+  double s = 0.0;
+  if (c <= kHold) {  // the same for every thread
+    double q[kHold];
+#pragma unroll
+    for (int k = 0; k < kHold; ++k)
+      if (lo + k < hi) {
+        q[k] = (double)buf[lo + k] / dn;
+        s += q[k];
+      }
+    double run = block_exclusive_scan(s, tot);
+#pragma unroll
+    for (int k = 0; k < kHold; ++k)
+      if (lo + k < hi) {
+        run += q[k];
+        buf[lo + k] = lo + k == H - 1 ? INFINITY : (float)run;
+      }
+  } else {
+    for (int i = lo; i < hi; ++i) s += (double)buf[i] / dn;
+    double run = block_exclusive_scan(s, tot);
     for (int i = lo; i < hi; ++i) {
       run += (double)buf[i] / dn;
-      buf[i] = (float)run;
+      buf[i] = i == H - 1 ? INFINITY : (float)run;
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) buf[H - 1] = INFINITY;
-  __syncthreads();
 }
 
-// The uniform-multinomial CDF of the Monte Carlo free energy: means
-// float32(n) / float32(H) in every bucket.
-__device__ void uniform_cdf(float* buf, int H, int n) {
+// The uniform-multinomial CDF of the Monte Carlo free energy (means
+// float32(n) / float32(H) in every bucket), with this thread's chunk of
+// `counts` zeroed for multinomial_draw.  All threads call it.
+__device__ __forceinline__ void uniform_cdf(float* buf, int* counts, int H,
+                                            int n, double* tot) {
   const float m = (float)n / (float)H;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) buf[h] = m;
-  build_cdf(buf, H, n);
+  int lo, hi;
+  row_chunk(H, lo, hi);
+  for (int h = lo; h < hi; ++h) {
+    buf[h] = m;
+    counts[h] = 0;
+  }
+  build_cdf(buf, H, n, tot);
 }
 
-// counts[0..H) = histogram of n draws over `cdf`: draw j is the Philox
+// counts[0..H) += the histogram of n draws over `cdf` (counts zeroed and
+// the CDF complete before the last __syncthreads): draw j is the Philox
 // uniform at element idx0 + j and lands in the first bucket whose CDF
-// exceeds it (binary search; cdf[H-1] = +inf).  All threads call it.
-__device__ void multinomial_draw(const float* cdf, int H, int n,
-                                 unsigned seed, unsigned it, unsigned stream,
-                                 unsigned idx0, int* counts) {
-  for (int h = threadIdx.x; h < H; h += blockDim.x) counts[h] = 0;
-  __syncthreads();
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+// exceeds it, the number of entries <= it (a search of a fixed number of
+// steps, log2 of `top`, the largest power of two <= H; cdf[H-1] = +inf is
+// never <= u).  Each thread takes its draws two at a time, j and j +
+// blockDim.x, whose two searches run side by side.  Integer counts in
+// shared memory, exact in any order.  Ends with __syncthreads.  All
+// threads call it.
+__device__ __forceinline__ void multinomial_draw(const float* cdf, int H,
+                                                 int n, unsigned seed,
+                                                 unsigned it, unsigned stream,
+                                                 unsigned idx0, int* counts) {
+  int top = 1;
+  while (2 * top <= H) top *= 2;
+  const int T = blockDim.x;
+  for (int j = threadIdx.x; j < n; j += 2 * T) {
+    const bool two = j + T < n;
     const float u = bm::philox_uniform(seed, it, stream, idx0 + (unsigned)j);
-    int lo = 0, hi = H - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (u < cdf[mid])
-        hi = mid;
-      else
-        lo = mid + 1;
+    const float u2 = two ? bm::philox_uniform(seed, it, stream,
+                                              idx0 + (unsigned)(j + T))
+                         : 0.f;
+    int pos = 0, pos2 = 0;
+    for (int s = top; s > 0; s >>= 1) {
+      if (pos + s < H && cdf[pos + s - 1] <= u) pos += s;
+      if (pos2 + s < H && cdf[pos2 + s - 1] <= u2) pos2 += s;
     }
-    atomicAdd(&counts[lo], 1);
+    atomicAdd(&counts[pos], 1);
+    if (two) atomicAdd(&counts[pos2], 1);
   }
   __syncthreads();
 }
 
-// Free energy of the row x and, when kFlip, of x with unit `flip` set to
-// 1 - x, block-wide, valid in thread 0 -- `_free_energy_sum` for one row:
-// visible term -x.vb (Bernoulli, sigma == nullptr) or 0.5 sum (x -
-// vb/sigma)^2 (Gaussian), hidden term -sum softplus(xW + hb) (Bernoulli,
-// hhat == nullptr) or -(xW).hhat (multinomial; hhat_f for the flipped row).
-// Without kFlip (the probe) the flipped sums are not formed at all.
-template <bool kFlip>
-__device__ void row_free_energies(const float* __restrict__ x, int flip,
-                                  const float* __restrict__ W,
-                                  const float* __restrict__ vb,
-                                  const float* __restrict__ hb,
-                                  const float* __restrict__ sigma,
-                                  const int* hhat, const int* hhat_f, int V,
-                                  int H, float* red, float* fe, float* fef) {
+// Free energy of the row x, block-wide, valid in thread 0 --
+// `_free_energy_sum` for one row: visible term -x.vb (Bernoulli, sigma ==
+// nullptr) or 0.5 sum (x - vb/sigma)^2 (Gaussian), hidden term -sum
+// softplus(xW + hb) (Bernoulli, hhat == nullptr) or -(xW).hhat
+// (multinomial).  The free-energy probe's row walk.
+__device__ float row_free_energy(const float* __restrict__ x,
+                                 const float* __restrict__ W,
+                                 const float* __restrict__ vb,
+                                 const float* __restrict__ hb,
+                                 const float* __restrict__ sigma,
+                                 const int* hhat, int V, int H, float* red) {
   const int tid = threadIdx.x;
-  float tv = 0.f, tvf = 0.f;
+  float tv = 0.f;
   for (int v = tid; v < V; v += blockDim.x) {
-    const float xv = x[v], xf = v == flip ? 1.f - xv : xv;
+    const float xv = x[v];
     if (sigma) {
-      const float c = vb[v] / sigma[v], d = xv - c, df = xf - c;
+      const float d = xv - vb[v] / sigma[v];
       tv = fmaf(d, d, tv);
-      if (kFlip) tvf = fmaf(df, df, tvf);
     } else {
       tv = fmaf(xv, vb[v], tv);
-      if (kFlip) tvf = fmaf(xf, vb[v], tvf);
     }
   }
-  float th = 0.f, thf = 0.f;
+  float th = 0.f;
   for (int h = tid; h < H; h += blockDim.x) {
-    float a = 0.f, af = 0.f;
+    float a = 0.f;
     // the walk down column h of W is bound by the latency of its loads, not
     // by the FMAs: unrolled 8 deep, eight loads are in flight per thread
-    // (the sums keep their order, so the result bits do not change)
 #pragma unroll 8
-    for (int v = 0; v < V; ++v) {
-      const float xv = x[v], w = W[(long long)v * H + h];
-      a = fmaf(xv, w, a);
-      if (kFlip) af = fmaf(v == flip ? 1.f - xv : xv, w, af);
-    }
-    if (hhat) {
-      th = fmaf(a, (float)hhat[h], th);
-      if (kFlip) thf = fmaf(af, (float)hhat_f[h], thf);
-    } else {
-      th += softplus(a + hb[h]);
-      if (kFlip) thf += softplus(af + hb[h]);
-    }
+    for (int v = 0; v < V; ++v) a = fmaf(x[v], W[(long long)v * H + h], a);
+    th = hhat ? fmaf(a, (float)hhat[h], th) : th + softplus(a + hb[h]);
   }
   const float s_tv = block_sum(tv, red), s_th = block_sum(th, red);
-  *fe = sigma ? 0.5f * s_tv - s_th : -s_tv - s_th;
-  if (kFlip) {
-    const float s_tvf = block_sum(tvf, red), s_thf = block_sum(thf, red);
-    *fef = sigma ? 0.5f * s_tvf - s_thf : -s_tvf - s_thf;
-  }
+  return sigma ? 0.5f * s_tv - s_th : -s_tv - s_th;
 }
 
 // Arguments of one cd_gemm_act launch (a kernel parameter, so the tensor
@@ -368,50 +442,55 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
   }
 }
 
-// K1b: block b owns row b.  from_pre: `in` holds pre-activations and the
+// K1b: block b owns row b, each of its kRowThreads threads a contiguous
+// chunk of it (row_chunk).  from_pre: `in` holds pre-activations and the
 // means n softmax(pre) go to `means`; else `in` holds the means.  With
 // `states`, Multinomial(n, means/n) counts of the draws at elements b*n + j.
-// Dynamic shared memory: H floats and H ints.
+// Every pass but the two reductions and the CDF's scan touches only the
+// thread's own chunk, so the row takes five barriers: the max, the sum, the
+// scan, the finished CDF, the finished counts.  Dynamic shared memory:
+// row_smem(H).
 __global__ void __launch_bounds__(kRowThreads)
     cd_softmax_sample_kernel(const float* __restrict__ in, int from_pre,
                              int H, int n, float* __restrict__ means,
                              float* __restrict__ states, unsigned seed,
                              unsigned it, unsigned stream_id) {
   extern __shared__ float smem[];
-  __shared__ float red[kRowThreads / 32 + 1];
+  __shared__ float red[2][32];
+  __shared__ double tot[32];
   float* buf = smem;
   int* counts = reinterpret_cast<int*>(smem + H);
   const long long row = (long long)blockIdx.x * H;
+  int lo, hi;
+  row_chunk(H, lo, hi);
+  float m = -INFINITY;
+  for (int h = lo; h < hi; ++h) {
+    const float x = in[row + h];
+    buf[h] = x;
+    m = fmaxf(m, x);
+  }
   if (from_pre) {
-    float m = -INFINITY;
-    for (int h = threadIdx.x; h < H; h += blockDim.x) {
-      const float x = in[row + h];
-      buf[h] = x;
-      m = fmaxf(m, x);
-    }
-    m = block_reduce_all(m, red, true);
+    m = block_allreduce(m, red[0], true);
     float s = 0.f;
-    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    for (int h = lo; h < hi; ++h) {
       const float e = expf(buf[h] - m);
       buf[h] = e;
       s += e;
     }
-    s = block_reduce_all(s, red, false);
+    s = block_allreduce(s, red[1], false);
     const float fn = (float)n;
-    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    for (int h = lo; h < hi; ++h) {
       const float mu = fn * (buf[h] / s);
       buf[h] = mu;
       means[row + h] = mu;
     }
-  } else {
-    for (int h = threadIdx.x; h < H; h += blockDim.x) buf[h] = in[row + h];
   }
   if (!states) return;
-  build_cdf(buf, H, n);
+  for (int h = lo; h < hi; ++h) counts[h] = 0;
+  build_cdf(buf, H, n, tot);
   multinomial_draw(buf, H, n, seed, it, stream_id,
                    (unsigned)blockIdx.x * (unsigned)n, counts);
-  for (int h = threadIdx.x; h < H; h += blockDim.x)
-    states[row + h] = (float)counts[h];
+  for (int h = lo; h < hi; ++h) states[row + h] = (float)counts[h];
 }
 
 // K2: block b owns kColTile consecutive columns, all visible (b < nv) or
@@ -537,80 +616,270 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
   }
 }
 
-// K4: grid of B blocks (block b owns batch row b for the PLL); every block
-// also sums a grid-strided slice of W^2.  The last block to finish reduces
-// the per-block partials in a fixed order (deterministic) and writes the
-// three metric rows, then re-arms the counter for the next launch.  With a
-// multinomial PLL (n > 0) every block draws the same two count vectors
-// (deterministic Philox) into dynamic shared memory: H floats, 2H ints.
+// K4's first launch with Bernoulli hidden units and the PLL on: the
+// product A = X.W on the tensor-core tile (as K1's propup), with a
+// free-energy epilogue.  Row x_f of the PLL differs from x in its flipped
+// unit f alone, so its product is a_f = a + d W[f, .] with d = x_f[f] -
+// x[f] = 1 - 2 x[f]: no second product.  Element (b, h) adds softplus(a +
+// hb[h]) and softplus(a_f + hb[h]); each row's 128 columns of the block are
+// summed in a fixed order (a shuffle tree, then the four warps' sums, as
+// dbm_gemm_act's softplus rows) into rows[b * tiles + tile] and, flipped,
+// rows[(B + b) * tiles + tile], tiles = the grid's model tiles.
+struct CdMetricsFeArgs {
+  bm::tc::Tile t;
+  const float* X;  // (B, V), rows V apart
+  const float* W;  // (V, H)
+  const float* hb;
+  int V;
+  unsigned seed, it;
+  float* rows;
+};
+
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    cd_metrics_fe_kernel(const __grid_constant__ CdMetricsFeArgs a) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __shared__ float part[2][NT][4];  // per row, per warp of its 128 columns
+  __shared__ float d_s[NT];
+  __shared__ int flip_s[NT];
+  constexpr int TM = bm::tc::kTileM;
+  // the staged product and, after it, the rows W[flip, m0 .. m0 + 128)
+  // fit in the ring's memory, free once the product is staged
+  static_assert(NT * (bm::tc::kTileStride + TM) * 4 <=
+                    bm::tc::ring_bytes(NT, false),
+                "the staged rows of W do not fit");
+  float* T;
+  if (!bm::tc::tile_product<NT>(a.t, tc_smem, T)) return;
+  const int H = a.t.nm, B = a.t.nb;
+  const int m0 = blockIdx.x * TM, b0 = blockIdx.y * NT;
+  const int warp = threadIdx.x >> 5;
+  for (int r = threadIdx.x; r < NT; r += bm::tc::kThreads) {
+    const int b = b0 + r;
+    int f = 0;
+    float d = 0.f;
+    if (b < B) {
+      f = pll_flip(a.seed, a.it, b, a.V);
+      const float x = a.X[(long long)b * a.V + f];
+      d = (1.f - x) - x;
+    }
+    flip_s[r] = f;
+    d_s[r] = d;
+  }
+  __syncthreads();
+  // each row's flipped row of W, gathered by asynchronous copies that are
+  // all in flight at once (zeros past the edges)
+  float* Wf = T + NT * bm::tc::kTileStride;
+  for (int e = threadIdx.x; e < TM * NT; e += bm::tc::kThreads) {
+    const int h = m0 + e % TM, r = e / TM;
+    const bool ok = h < H && b0 + r < B;
+    bm::tc::cp_async4(Wf + e, ok ? a.W + (long long)flip_s[r] * H + h : a.W,
+                      ok);
+  }
+  bm::tc::cp_async_commit();
+  bm::tc::cp_async_wait<0>();
+  __syncthreads();
+  // 256 threads cover two rows of 128 columns per pass: warps 0-3 the
+  // first, warps 4-7 the second
+  for (int e = threadIdx.x; e < TM * NT; e += bm::tc::kThreads) {
+    const int c = e % TM, r = e / TM;
+    const int h = m0 + c, b = b0 + r;
+    float s = 0.f, sf = 0.f;
+    if (h < H && b < B) {
+      const float acc = T[r * bm::tc::kTileStride + c], bias = a.hb[h];
+      s = softplus(acc + bias);
+      const float af = __fmaf_rn(d_s[r], Wf[e], acc);
+      sf = softplus(af + bias);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      sf += __shfl_xor_sync(0xffffffffu, sf, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      part[0][r][warp & 3] = s;
+      part[1][r][warp & 3] = sf;
+    }
+  }
+  __syncthreads();
+  const int tiles = gridDim.x;
+  for (int r = threadIdx.x; r < NT; r += bm::tc::kThreads) {
+    const int b = b0 + r;
+    if (b >= B) continue;
+    a.rows[(long long)b * tiles + blockIdx.x] =
+        (part[0][r][0] + part[0][r][1]) + (part[0][r][2] + part[0][r][3]);
+    a.rows[((long long)B + b) * tiles + blockIdx.x] =
+        (part[1][r][0] + part[1][r][1]) + (part[1][r][2] + part[1][r][3]);
+  }
+}
+
+// K4's first launch with multinomial hidden units and the PLL on: block z
+// draws the count vector of fe(x) (z = 0, stream kStreamPllHhat) or of
+// fe(x_f) (z = 1, kStreamPllHhatFlip), n draws at elements 0..n-1 of the
+// uniform CDF, into hh[z H .. z H + H) as floats -- once per logged step,
+// where every block of the row walk drew both before.  Dynamic shared
+// memory: row_smem(H).
+__global__ void __launch_bounds__(kRowThreads)
+    cd_metrics_draw_kernel(int H, int n, unsigned seed, unsigned it,
+                           float* __restrict__ hh) {
+  extern __shared__ float smem[];
+  __shared__ double tot[32];
+  float* buf = smem;
+  int* counts = reinterpret_cast<int*>(smem + H);
+  uniform_cdf(buf, counts, H, n, tot);
+  multinomial_draw(buf, H, n, seed, it,
+                   blockIdx.x ? bm::kStreamPllHhatFlip : bm::kStreamPllHhat,
+                   0u, counts);
+  int lo, hi;
+  row_chunk(H, lo, hi);
+  for (int h = lo; h < hi; ++h)
+    hh[(long long)blockIdx.x * H + h] = (float)counts[h];
+}
+
+// Six sums over the block at once, valid in thread 0 (in v): a shuffle tree
+// per warp, one __syncthreads, then warp 0 adds the warps' sums by a shuffle
+// tree.  `red` holds 6 x kWarps floats.  All threads call it.
+template <int kWarps>
+__device__ __forceinline__ void block_sums6(float (&v)[6],
+                                            float (&red)[6][kWarps]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    if (lane == 0) red[k][warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      v[k] = lane < kWarps ? red[k][lane] : 0.f;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    }
+  }
+}
+
+// K4's pass over W, the metrics' last launch: block j owns rows [j R, j R +
+// R) of W (R = w_rows) and the same columns of X.  One warp a row of W, VW
+// floats a lane: |W|^2 and, multinomial PLL, u = W.hh and u_f = W.hh_f
+// (the hidden terms x.W.hh = x.u).  Then one thread a batch row over the
+// block's columns: the visible terms of x and x_f (-x.vb, or 0.5 (x -
+// vb/sigma)^2), and the multinomial hidden terms x.u and x_f.u_f; with
+// Bernoulli hidden units instead a grid-strided slice of the first
+// launch's row sums.  fe and fe(x_f) stay two sums, visible and hidden
+// parts apart, as the plain version forms them.  Each block writes six
+// sums (|W|^2, msre_col, the two visible and two hidden terms); the last
+// block to finish adds them in block order (deterministic), writes the
+// metric rows and re-arms the counter.
+template <int VW>
 __global__ void __launch_bounds__(kMetThreads)
     cd_metrics_kernel(const float* __restrict__ X, const float* __restrict__ W,
                       const float* __restrict__ vb,
-                      const float* __restrict__ hb,
                       const float* __restrict__ sigma,
                       const float* __restrict__ msre_col, int B, int V, int H,
-                      float l2, int compute_pll, int n, unsigned seed,
-                      unsigned it, float* partials, unsigned* counter,
-                      float* msre_out, float* pll_out, float* l2_out) {
-  extern __shared__ float smem[];
-  __shared__ float red[kMetThreads / 32];
-  __shared__ int flip;
+                      int w_rows, float l2, int compute_pll, int n,
+                      const float* __restrict__ hh,
+                      const float* __restrict__ fe_rows, int fe_tiles,
+                      unsigned seed, unsigned it, float* partials,
+                      unsigned* counter, float* msre_out, float* pll_out,
+                      float* l2_out) {
+  __shared__ float red[6][kMetThreads / 32];
+  __shared__ float u_s[2][kMaxWRows];
   __shared__ bool is_last;
-  const int tid = threadIdx.x;
+  constexpr int kWarps = kMetThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int v0 = blockIdx.x * w_rows, v1 = min(v0 + w_rows, V);
+  const bool multi = compute_pll && n > 0;
 
-  const long long nw = (long long)V * H;
   float sq = 0.f;
-  for (long long e = (long long)blockIdx.x * blockDim.x + tid; e < nw;
-       e += (long long)gridDim.x * blockDim.x) {
-    const float w = W[e];
-    sq = fmaf(w, w, sq);
-  }
-  const float block_sq = block_sum(sq, red);
-
-  float fe_row = 0.f, fef_row = 0.f;
-  if (compute_pll && (int)blockIdx.x < B) {
-    const int b = blockIdx.x;
-    int *hhat = nullptr, *hhat_f = nullptr;
-    if (n > 0) {
-      // independent draws for fe(x) and fe(x_flipped) (pallas_ops.py:484)
-      hhat = reinterpret_cast<int*>(smem + H);
-      hhat_f = hhat + H;
-      uniform_cdf(smem, H, n);
-      multinomial_draw(smem, H, n, seed, it, bm::kStreamPllHhat, 0u, hhat);
-      multinomial_draw(smem, H, n, seed, it, bm::kStreamPllHhatFlip, 0u,
-                       hhat_f);
+  for (int v = v0 + warp; v < v1; v += kWarps) {
+    const float* w = W + (long long)v * H;
+    float a = 0.f, af = 0.f;
+#pragma unroll 4
+    for (int h = lane * VW; h < H; h += 32 * VW) {
+      float x[VW];
+      bm::col::load<VW>(w + h, x);
+#pragma unroll
+      for (int k = 0; k < VW; ++k) sq = fmaf(x[k], x[k], sq);
+      if (multi) {
+        float p[VW], q[VW];
+        bm::col::load<VW>(hh + h, p);
+        bm::col::load<VW>(hh + H + h, q);
+#pragma unroll
+        for (int k = 0; k < VW; ++k) {
+          a = fmaf(x[k], p[k], a);
+          af = fmaf(x[k], q[k], af);
+        }
+      }
     }
-    if (tid == 0) {
-      const float u = bm::philox_uniform(seed, it, bm::kStreamPll, b);
-      flip = (int)(u * (float)V);
+    if (multi) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        a += __shfl_xor_sync(0xffffffffu, a, o);
+        af += __shfl_xor_sync(0xffffffffu, af, o);
+      }
+      if (lane == 0) {
+        u_s[0][v - v0] = a;
+        u_s[1][v - v0] = af;
+      }
     }
-    __syncthreads();
-    row_free_energies<true>(X + (long long)b * V, flip, W, vb, hb, sigma,
-                            hhat, hhat_f, V, H, red, &fe_row, &fef_row);
   }
+  __syncthreads();
 
-  if (tid == 0) {
-    partials[3 * blockIdx.x + 0] = block_sq;
-    partials[3 * blockIdx.x + 1] = fe_row;
-    partials[3 * blockIdx.x + 2] = fef_row;
+  float ms = 0.f, tv = 0.f, tvf = 0.f, th = 0.f, thf = 0.f;
+  for (int v = v0 + tid; v < v1; v += kMetThreads) ms += msre_col[v];
+  if (compute_pll) {
+    for (int b = tid; b < B; b += kMetThreads) {
+      const int f = pll_flip(seed, it, b, V);
+      const float* x = X + (long long)b * V;
+      for (int v = v0; v < v1; ++v) {
+        const float xv = x[v], xf = v == f ? 1.f - xv : xv;
+        if (sigma) {
+          const float c = vb[v] / sigma[v], d = xv - c, df = xf - c;
+          tv = fmaf(d, d, tv);
+          tvf = fmaf(df, df, tvf);
+        } else {
+          tv = fmaf(xv, vb[v], tv);
+          tvf = fmaf(xf, vb[v], tvf);
+        }
+        if (multi) {
+          th = fmaf(xv, u_s[0][v - v0], th);
+          thf = fmaf(xf, u_s[1][v - v0], thf);
+        }
+      }
+    }
+    if (!multi) {
+      const long long nr = (long long)B * fe_tiles;
+      for (long long e = (long long)blockIdx.x * kMetThreads + tid; e < nr;
+           e += (long long)gridDim.x * kMetThreads) {
+        th += fe_rows[e];
+        thf += fe_rows[nr + e];
+      }
+    }
   }
+  float sums[6] = {sq, ms, tv, tvf, th, thf};
+  const int G = gridDim.x;
+  block_sums6(sums, red);
+  if (tid == 0)
+    for (int k = 0; k < 6; ++k) partials[k * G + blockIdx.x] = sums[k];
   if (!bm::last_block(counter, &is_last)) return;
 
-  float p_sq = 0.f, p_fe = 0.f, p_fef = 0.f, p_msre = 0.f;
-  for (int g = tid; g < (int)gridDim.x; g += blockDim.x) {
-    p_sq += __ldcg(&partials[3 * g + 0]);
-    p_fe += __ldcg(&partials[3 * g + 1]);
-    p_fef += __ldcg(&partials[3 * g + 2]);
-  }
-  for (int v = tid; v < V; v += blockDim.x) p_msre += msre_col[v];
-  const float t_sq = block_sum(p_sq, red), t_fe = block_sum(p_fe, red);
-  const float t_fef = block_sum(p_fef, red), t_msre = block_sum(p_msre, red);
+  float tot[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int g = tid; g < G; g += kMetThreads)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) tot[k] += __ldcg(&partials[k * G + g]);
+  block_sums6(tot, red);
   if (tid == 0) {
-    *msre_out = t_msre / ((float)B * (float)V);
-    *l2_out = l2 * 0.5f * t_sq;
+    *msre_out = tot[1] / ((float)B * (float)V);
+    *l2_out = l2 * 0.5f * tot[0];
     if (compute_pll) {
       // batch-MEAN free energies, x n_visible, no dbm doubling
-      const float fe = t_fe / (float)B, fef = t_fef / (float)B;
+      const float vis = sigma ? 0.5f * tot[2] : -tot[2];
+      const float vis_f = sigma ? 0.5f * tot[3] : -tot[3];
+      const float fe = (vis - tot[4]) / (float)B;
+      const float fef = (vis_f - tot[5]) / (float)B;
       *pll_out = (float)V * log_sigmoid(fef - fe);
     }
     *counter = 0u;
@@ -640,7 +909,7 @@ __global__ void bernoulli_sample_kernel(const float* __restrict__ p,
 // The TPU's `make_free_energy_probe`: block b owns row b; the last block
 // reduces the row free energies in a fixed order and writes the batch mean
 // and the count vector (every block drew the same one; zeros for Bernoulli
-// hidden units).  Dynamic shared memory for n > 0: H floats and H ints.
+// hidden units).  Dynamic shared memory for n > 0: row_smem(H).
 __global__ void __launch_bounds__(kMetThreads)
     fe_probe_kernel(const float* __restrict__ X, const float* __restrict__ W,
                     const float* __restrict__ vb,
@@ -650,17 +919,17 @@ __global__ void __launch_bounds__(kMetThreads)
                     float* fe_out, float* hhat_out) {
   extern __shared__ float smem[];
   __shared__ float red[kMetThreads / 32];
+  __shared__ double tot[32];
   __shared__ bool is_last;
   const int tid = threadIdx.x;
   int* hhat = nullptr;
   if (n > 0) {
     hhat = reinterpret_cast<int*>(smem + H);
-    uniform_cdf(smem, H, n);
+    uniform_cdf(smem, hhat, H, n, tot);
     multinomial_draw(smem, H, n, seed, 0u, bm::kStreamPllHhat, 0u, hhat);
   }
-  float fe;
-  row_free_energies<false>(X + (long long)blockIdx.x * V, -1, W, vb, hb,
-                           sigma, hhat, nullptr, V, H, red, &fe, nullptr);
+  const float fe = row_free_energy(X + (long long)blockIdx.x * V, W, vb, hb,
+                                   sigma, hhat, V, H, red);
   if (tid == 0) partials[blockIdx.x] = fe;
   if (!bm::last_block(counter, &is_last)) return;
   float p = 0.f;
@@ -749,7 +1018,7 @@ int bm_cd_gemm_act(const float* A, long long sam, long long sak,
 int bm_cd_softmax_sample(const float* in, int from_pre, int rows, int H,
                          int n, float* means, float* states, unsigned seed,
                          unsigned it, unsigned stream_id, void* stream) {
-  const size_t smem = (size_t)H * (sizeof(float) + sizeof(int));
+  const size_t smem = row_smem(H);
   const cudaError_t err = allow_smem(cd_softmax_sample_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cd_softmax_sample_kernel<<<rows, kRowThreads, smem,
@@ -807,22 +1076,71 @@ int bm_assoc_n_tile(int V, int H, int n_sm) {
   return bm::tc::assoc_n_tile(V, H, n_sm);
 }
 
-// `partials` holds 3 * B floats; `counter` one zeroed unsigned.  sigma ==
-// nullptr: Bernoulli visible units; n == 0: Bernoulli hidden units.
+// K4's first launch, Bernoulli hidden units, PLL on: X (B, V) . W (V, H)
+// on the tensor-core tile with the plan (n_tile, splits, ws, counters) of
+// ops/gemm.py, as bm_cd_gemm_act's propup; `rows` holds 2 x B x
+// ceil(H / 128) floats.
+int bm_cd_metrics_fe(const float* X, const float* W, const float* hb, int B,
+                     int V, int H, unsigned seed, unsigned it, int n_tile,
+                     int splits, float* ws, unsigned* counters, float* rows,
+                     void* stream) {
+  const bm::tc::Operand op = {X, W, V, H, V, 0};
+  CdMetricsFeArgs a;
+  int err = bm::tc::setup_tile(&a.t, &op, 1, B, H, n_tile, splits, ws,
+                               counters);
+  if (err) return err;
+  a.X = X;
+  a.W = W;
+  a.hb = hb;
+  a.V = V;
+  a.seed = seed;
+  a.it = it;
+  a.rows = rows;
+  BM_TC_DISPATCH(cd_metrics_fe_kernel, a.t, a, (cudaStream_t)stream, err);
+  return err;
+}
+
+// K4's first launch, multinomial hidden units, PLL on: the two count
+// vectors into `hh` (2 x H floats).
+int bm_cd_metrics_draw(int H, int n, unsigned seed, unsigned it, float* hh,
+                       void* stream) {
+  const size_t smem = row_smem(H);
+  const cudaError_t err = allow_smem(cd_metrics_draw_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cd_metrics_draw_kernel<<<2, kRowThreads, smem, (cudaStream_t)stream>>>(
+      H, n, seed, it, hh);
+  return (int)cudaGetLastError();
+}
+
+// K4's pass over W and the metric rows: ceil(V / w_rows) blocks (w_rows <=
+// kMaxWRows).  `hh` (multinomial PLL: bm_cd_metrics_draw's counts) or
+// `fe_rows` with its `fe_tiles` (Bernoulli PLL: bm_cd_metrics_fe's row
+// sums) come from the first launch; `partials` holds 6 floats per block,
+// `counter` one zeroed unsigned.  sigma == nullptr: Bernoulli visible
+// units; n == 0: Bernoulli hidden units.  16-byte loads of W (and hh)
+// where H is a multiple of 4 and they are 16-byte aligned.
 int bm_cd_metrics(const float* X, const float* W, const float* vb,
-                  const float* hb, const float* sigma, const float* msre_col,
-                  int B, int V, int H, float l2, int compute_pll, int n,
+                  const float* sigma, const float* msre_col, int B, int V,
+                  int H, int w_rows, float l2, int compute_pll, int n,
+                  const float* hh, const float* fe_rows, int fe_tiles,
                   unsigned seed, unsigned it, float* partials,
                   unsigned* counter, float* msre_out, float* pll_out,
                   float* l2_out, void* stream) {
-  const size_t smem =
-      compute_pll && n > 0 ? (size_t)H * (sizeof(float) + 2 * sizeof(int))
-                           : 0;
-  const cudaError_t err = allow_smem(cd_metrics_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cd_metrics_kernel<<<B, kMetThreads, smem, (cudaStream_t)stream>>>(
-      X, W, vb, hb, sigma, msre_col, B, V, H, l2, compute_pll, n, seed, it,
-      partials, counter, msre_out, pll_out, l2_out);
+  if (w_rows < 1 || w_rows > kMaxWRows) return (int)cudaErrorInvalidValue;
+  const int blocks = (V + w_rows - 1) / w_rows;
+  const void* ptrs[] = {W, hh};
+  const bool vec = H % 4 == 0 &&
+                   bm::col::aligned16(ptrs, compute_pll && n > 0 ? 2 : 1);
+  if (vec)
+    cd_metrics_kernel<4><<<blocks, kMetThreads, 0, (cudaStream_t)stream>>>(
+        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
+        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
+        l2_out);
+  else
+    cd_metrics_kernel<1><<<blocks, kMetThreads, 0, (cudaStream_t)stream>>>(
+        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
+        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
+        l2_out);
   return (int)cudaGetLastError();
 }
 
@@ -854,7 +1172,7 @@ int bm_fe_probe(const float* X, const float* W, const float* vb,
                 const float* hb, const float* sigma, int B, int V, int H,
                 int n, unsigned seed, float* partials, unsigned* counter,
                 float* fe_out, float* hhat_out, void* stream) {
-  const size_t smem = n > 0 ? (size_t)H * (sizeof(float) + sizeof(int)) : 0;
+  const size_t smem = n > 0 ? row_smem(H) : 0;
   const cudaError_t err = allow_smem(fe_probe_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   fe_probe_kernel<<<B, kMetThreads, smem, (cudaStream_t)stream>>>(

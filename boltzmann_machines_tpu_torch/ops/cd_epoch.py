@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .gemm import check_operand, launch_plan
+from .gemm import TILE_M, check_operand, launch_plan, num_sms
 from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
                      STREAM_PLL_HHAT_FLIP, bernoulli, multinomial_counts,
                      normal, philox_uniform, stream_h, stream_v)
@@ -176,6 +176,23 @@ def pll_h_hats(cfg, seed, it, device):
                  for s in (STREAM_PLL_HHAT, STREAM_PLL_HHAT_FLIP))
 
 
+def metrics_reference(cfg, X, W, vb, hb, msre_col, seed, it):
+    """The metric rows of one logged step in torch ops -- K4's function
+    (``_launch_metrics``): (msre, pll, l2) given the batch `X`, the updated
+    `W`, `vb`, `hb` and ``msre_col``, K2's column sums of (X - v_means)^2;
+    pll is 0 without ``compute_pll``."""
+    B, V = X.shape
+    msre = torch.sum(msre_col) / (B * V)
+    l2 = cfg.l2 * 0.5 * torch.sum(W * W)
+    pll = torch.zeros((), dtype=X.dtype, device=X.device)
+    if cfg.compute_pll:
+        pll = pll_from_flip(X, pll_flip_index(seed, it, B, V, X.device), W,
+                            vb, hb, cfg.visible, cfg.hidden,
+                            sigma_row(cfg, X.device),
+                            pll_h_hats(cfg, seed, it, X.device))
+    return msre, pll, l2
+
+
 def h_means_reference(cfg, v, W, hb):
     """Hidden means given visible rows: sigmoid or n softmax of
     ``up * (v W + hb)``."""
@@ -294,8 +311,11 @@ _ARGTYPES = {
                          _P, _P, _F, _F, _F, _F, _F, _F, _P],
     'bm_cd_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F,
                            _F, _P],
-    'bm_cd_metrics': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _U, _U,
-                      _P, _P, _P, _P, _P, _P],
+    'bm_cd_metrics_fe': [_P, _P, _P, _I, _I, _I, _U, _U, _I, _I, _P, _P, _P,
+                         _P],
+    'bm_cd_metrics_draw': [_I, _I, _U, _U, _P, _P],
+    'bm_cd_metrics': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
+                      _I, _U, _U, _P, _P, _P, _P, _P, _P],
     'bm_cd_stats_sums': [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     'bm_cd_assoc_stats': [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     'bm_bernoulli_sample': [_P, _P, _L, _U, _U, _P],
@@ -306,6 +326,10 @@ _ARGTYPES = {
 }
 # epilogues of cd_gemm_act (csrc/cd_epoch.cu)
 ACT_SIGMOID, ACT_GAUSSIAN, ACT_PRE = 0, 1, 2
+#: cd_metrics' pass over W (csrc/cd_epoch.cu): at most this many rows of W
+#: a block (the kernel's kMaxWRows), about this many blocks an SM
+METRICS_MAX_ROWS = 64
+METRICS_BLOCKS_PER_SM = 4
 _BOUND = {}
 
 
@@ -388,6 +412,83 @@ def _launch_v_pass(lib, stream, cfg, A, W, vb, sigma, means, states, seed,
     act = ACT_SIGMOID if sigma is None else ACT_GAUSSIAN
     _launch_gemm_act(lib, stream, A, W, True, vb, sigma, cfg.propdown_mult,
                      act, means, states, seed, it, stream_id, shard, launches)
+
+
+def metrics_plan(V, n_sm):
+    """(rows of W a block, blocks) of cd_metrics' pass over W on a card of
+    `n_sm` SMs: a multiple of 8 rows (one a warp) that gives about
+    METRICS_BLOCKS_PER_SM blocks an SM, at most METRICS_MAX_ROWS."""
+    rows = min(METRICS_MAX_ROWS,
+               8 * -(-V // (8 * METRICS_BLOCKS_PER_SM * n_sm)))
+    return rows, -(-V // rows)
+
+
+def metrics_workspace(V, H, B, device):
+    """The scratch of cd_metrics' launches at batch B: the first launch's
+    row sums (Bernoulli hidden units) or count vectors (multinomial), six
+    partial sums per block of the pass over W, and its zeroed counter."""
+    rows, blocks = metrics_plan(V, num_sms(device))
+
+    def empty(n):
+        return torch.empty(n, dtype=torch.float32, device=device)
+    return {'w_rows': rows, 'rows': empty(2 * B * -(-H // TILE_M)),
+            'hh': empty(2 * H), 'partials': empty(6 * blocks),
+            'counter': torch.zeros(1, dtype=torch.int32, device=device)}
+
+
+def _launch_metrics(lib, stream, cfg, X, W, vb, hb, sigma, msre_col, seed,
+                    it, ws, outs, launches=None):
+    """cd_metrics of one logged step on the contiguous batch `X` (B, V):
+    with the PLL, first X.W on the tensor-core tile with the free-energy
+    epilogue (Bernoulli hidden units; the plan of ``ops/gemm.py``) or the
+    two count vectors (multinomial), then the pass over W, whose last block
+    writes msre, pll and l2 to the addresses `outs`.  `ws` is
+    ``metrics_workspace``'s; each launch counts in `launches` (default: the
+    epoch's)."""
+    B, V = X.shape
+    H = W.shape[1]
+    n = cfg.n_samples if cfg.hidden == 'multinomial' else 0
+    count = cd_epoch.launches if launches is None else launches
+    fe_tiles = 0
+    if cfg.compute_pll and n:
+        check_launch(lib.bm_cd_metrics_draw(H, n, seed, it, ptr(ws['hh']),
+                                            stream), 'cd_metrics')
+        count['cd_metrics'] += 1
+    elif cfg.compute_pll:
+        plan, tws, counters = launch_plan(B, H, V, X.device, stream)
+        check_launch(lib.bm_cd_metrics_fe(
+            ptr(X), ptr(W), ptr(hb), B, V, H, seed, it, plan.n_tile,
+            plan.splits, ptr(tws), ptr(counters), ptr(ws['rows']), stream),
+            'cd_metrics')
+        count['cd_metrics'] += 1
+        fe_tiles = plan.model_tiles
+    check_launch(lib.bm_cd_metrics(
+        ptr(X), ptr(W), ptr(vb), ptr(sigma), ptr(msre_col), B, V, H,
+        ws['w_rows'], cfg.l2, int(cfg.compute_pll), n, ptr(ws['hh']),
+        ptr(ws['rows']), fe_tiles, seed, it, ptr(ws['partials']),
+        ptr(ws['counter']), *outs, stream), 'cd_metrics')
+    count['cd_metrics'] += 1
+
+
+def _metrics(cfg, X, W, vb, hb, msre_col, seed, it):
+    """(msre, pll, l2) of one logged step -- on CUDA tensors by K4's
+    launches (``_launch_metrics``), on CPU tensors by
+    ``metrics_reference``.  A test hook; the epoch launches K4 itself."""
+    dev = X.device
+    if dev.type == 'cpu':
+        return metrics_reference(cfg, X, W, vb, hb, msre_col, seed, it)
+    B, V = X.shape
+    H = cfg.n_hidden
+    check_tensors([(X, 'X'), (W, 'W'), (vb, 'vb'), (hb, 'hb'),
+                   (msre_col, 'msre_col')], dev,
+                  {'X': (B, V), 'W': (V, H), 'vb': (V,), 'hb': (H,),
+                   'msre_col': (V,)})
+    out = torch.zeros(3, dtype=torch.float32, device=dev)
+    _launch_metrics(library(), torch.cuda.current_stream(dev).cuda_stream,
+                    cfg, X, W, vb, hb, sigma_row(cfg, dev), msre_col,
+                    int(seed), int(it), metrics_workspace(V, H, B, dev),
+                    [ptr(out, j) for j in range(3)])
+    return out[0], out[1], out[2]
 
 
 # test hooks: one pass of the chain, kernel vs plain, draw by draw; no
@@ -475,8 +576,7 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     v_samp = empty(B, V) if cfg.sample_v_states else None
     pre = empty(B, H) if multinomial else None
     pen, msre_col = empty(H), empty(V)
-    partials = empty(3 * B)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    met_ws = metrics_workspace(V, H, B, dev)
     msre_rows, pll_rows, l2_rows = (torch.zeros(NB, dtype=torch.float32,
                                                 device=dev)
                                     for _ in range(3))
@@ -515,12 +615,10 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
         launches['cd_assoc_update'] += 1
 
         if it % cfg.metrics_every == 0:
-            check_launch(lib.bm_cd_metrics(
-                ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma), ptr(msre_col),
-                B, V, H, cfg.l2, int(cfg.compute_pll), n, seed, it,
-                ptr(partials), ptr(counter), ptr(msre_rows, i),
-                ptr(pll_rows, i), ptr(l2_rows, i), stream), 'cd_metrics')
-            launches['cd_metrics'] += 1
+            _launch_metrics(lib, stream, cfg, X, W, vb, hb, sigma, msre_col,
+                            seed, it, met_ws, [ptr(msre_rows, i),
+                                               ptr(pll_rows, i),
+                                               ptr(l2_rows, i)])
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
     return new_state, msre_rows, pll_rows, l2_rows
 

@@ -3,9 +3,11 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
-(``--readings`` and ``--assoc-readings`` print, instead of the smoke, what
-two checks' limits rest on and where the association kernel's time goes;
-see ``readings`` and ``assoc_readings``.  ``--kernel-times`` runs phase 18
+(``--readings``, ``--assoc-readings`` and ``--softmax-readings`` print,
+instead of the smoke, what two checks' limits rest on, where the association
+kernel's time goes and how cd_softmax_sample's time moves with the threads
+of its block; see ``readings``, ``assoc_readings`` and
+``softmax_readings``.  ``--kernel-times`` runs phase 18
 alone; run from another checkout, it times that checkout's kernels.)
 
 Phases, each printing its lines before the last:
@@ -381,9 +383,10 @@ def main_path(torch, tmpdir):
     dt = time.perf_counter() - t0
     launches = dict(cd_epoch.launches)
     n_iter = epochs * math.ceil(len(X_train) / B)
+    # the PLL on: two cd_metrics launches a logged step
     expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
               'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
-              'cd_metrics': n_iter // every}
+              'cd_metrics': 2 * (n_iter // every)}
     say('fit: %d epochs, %d iterations in %.2f s; launches %s' % (
         epochs, rbm.iter_, dt, launches))
     if launches != expect or rbm.iter_ != n_iter:
@@ -786,11 +789,12 @@ def dbm_mnist_path(torch, tmpdir):
     cd_launches = dict(cd_epoch.launches)
     launches = dict(dbm_ops.dbm_epoch.launches)
     dbm, msre, n_mf, val = run['dbm'], run['msre'], run['n_mf'], run['val']
-    # k = 1 then k = 2: 1 + 2k GEMM launches per step
+    # k = 1 then k = 2: 1 + 2k GEMM launches per step; the PLL on: two
+    # cd_metrics launches a logged step
     expect = {'cd_gemm_act': n_rbm_iter // 2 * (3 + 3 + 3 + 5),
               'cd_softmax_sample': 0, 'cd_bias_stats': 2 * n_rbm_iter,
               'cd_assoc_update': 2 * n_rbm_iter,
-              'cd_metrics': 2 * (n_rbm_iter // 100)}
+              'cd_metrics': 2 * 2 * (n_rbm_iter // 100)}
     say('pretraining: RBM #1 and RBM #2, %d iterations each, in %.2f s; '
         'launches %s' % (n_rbm_iter, run['t_pre'], cd_launches))
     if cd_launches != expect:
@@ -1471,6 +1475,7 @@ def cifar_naive_path(torch, tmpdir):
     torch.cuda.synchronize()
     t_g = time.perf_counter() - t0
     g_launches = dict(cd_epoch.launches)
+    # the PLL off: one cd_metrics launch a logged step
     expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
               'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
               'cd_metrics': n_iter}
@@ -1502,9 +1507,10 @@ def cifar_naive_path(torch, tmpdir):
     torch.cuda.synchronize()
     t_m = time.perf_counter() - t0
     m_launches = dict(cd_epoch.launches)
+    # the PLL on: two cd_metrics launches a logged step
     expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 2 * n_iter,
               'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
-              'cd_metrics': n_iter}
+              'cd_metrics': 2 * n_iter}
     say('M-RBM fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
         mrbm.iter_, t_m, m_launches))
     if m_launches != expect or mrbm.iter_ != n_iter:
@@ -1554,8 +1560,10 @@ def check_msre(model_dir, label):
 # the device kernel of each launch name (a pattern of the profiler's name,
 # demangled or not), where it is not <name>_kernel: the association entry
 # points run the one kernel of csrc/assoc_tc.cuh, cd_bias_stats and
-# cd_stats_sums one kernel body, told apart by its kSums argument
-KERNEL_SYMBOLS = {'cd_assoc_update': r'assoc_kernel',
+# cd_stats_sums one kernel body, told apart by its kSums argument, and
+# cd_metrics three kernels (its first launch, then the pass over W)
+KERNEL_SYMBOLS = {'cd_metrics': r'cd_metrics_(?:fe_|draw_)?kernel',
+                  'cd_assoc_update': r'assoc_kernel',
                   'cd_assoc_stats': r'assoc_kernel',
                   'dbm_assoc_update': r'assoc_kernel',
                   'cd_bias_stats':
@@ -2074,9 +2082,10 @@ def dp_fit(torch, tmpdir):
     n_full, n_iter = 3050 // CIFAR_B, 2 * (3050 // CIFAR_B + 1)
     expect_stats = {'cd_gemm_act': 3 * 2 * n_full, 'cd_stats_sums': 2 * n_full,
                     'cd_assoc_stats': 2 * n_full}
+    # the remainder batch of each epoch through the CD epoch kernels, PLL on
     expect_epoch = {'cd_gemm_act': 3 * 2, 'cd_softmax_sample': 0,
                     'cd_bias_stats': 2, 'cd_assoc_update': 2,
-                    'cd_metrics': 2}
+                    'cd_metrics': 2 * 2}
     for r, rk in enumerate(ranks):
         g = rk['grbm']
         say('G-RBM 3072x7800 rank %d: %d iterations in %.2f s; stats '
@@ -2650,6 +2659,10 @@ DBM_MAX_NORM = 6.
 # scaled by a factor from a sum of n_in squares) as the stats' `sums`.
 KT_TOL = {'state': TOL['state'], 'q': TOL['q_means'],
           'sums': STATS_TOL['sums']}
+# cd_softmax_sample's means against n softmax(pre) in torch: the row's max,
+# exponentials and sum in another order, each mean within a few ulps of n
+# (1000) times its probability
+SOFTMAX_TOL = (1e-5, 1e-5)
 # phase 18's kernels that no single PyTorch call computes, and why
 NO_LIBRARY = {
     'cd_softmax_sample': 'softmax and Multinomial counts are two calls; '
@@ -2687,15 +2700,15 @@ def kernel_times(torch):
     (nearly) the same function -- torch.renorm for the max-norm, torch.sum
     over dim 0 of one (rows, V + H) tensor for the column sums, F.mse_loss
     for the msre -- and its bound.  cd_bias_stats, dbm_max_norm,
-    cd_stats_sums, dbm_bias_update and dbm_msre are also held against their
-    plain versions (KT_TOL, STATS_TOL, DBM_TOL) and a second launch on the
-    same inputs bit for bit.  The mean-field check: n_mf against its plain
-    rule, and its cost per sweep (a one-layer loop of two sweeps less the
-    two launches alone); and the whole mean-field loop.  Run
-    in a checkout from before the one-launch bias update and the fused
-    check, it times that checkout's kernels the same way (one bias launch
-    per vector, the check as a launch of its own).  Returns {(kernel,
-    label): numbers}."""
+    cd_stats_sums, cd_softmax_sample, cd_metrics, dbm_bias_update and
+    dbm_msre are also held against their plain versions (KT_TOL, STATS_TOL,
+    SOFTMAX_TOL, TOL and CIFAR_TOL, DBM_TOL) and a second launch on the
+    same inputs bit for bit; cd_softmax_sample is also timed in parts, and
+    each cd_metrics launch alone.  The mean-field check: n_mf against its
+    plain rule, and its cost per sweep (a one-layer loop of two sweeps less
+    the two launches alone); and the whole mean-field loop.  Run in the
+    checkout of c85a061, it times that checkout's one-launch cd_metrics the
+    same way.  Returns {(kernel, label): numbers}."""
     import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
@@ -2848,23 +2861,62 @@ def kernel_times(torch):
                (0., 3. * B * (V + H), 4. * (2 * B * V + 2 * B * H + V + 2 * H)),
                colsum_ms(B, V + H), err=float((got - want).abs().max()))
 
-    # the M-RBM's hidden pass: n softmax(pre) and Multinomial(n) counts
+    # the M-RBM's hidden pass: n softmax(pre) and Multinomial(n) counts,
+    # held against the plain softmax (SOFTMAX_TOL), multinomial_counts on
+    # the kernel's own means (equal), rows summing to n, and a rerun; then
+    # timed whole and in parts: the means alone (no states), the means and
+    # the CDF with one draw (n = 1), the draws on given means (from_pre 0)
     B, H, n = CIFAR_B, MRBM[1], N_SAMPLES
     pre = 2. * randn(B, H)
     means, states = torch.empty(B, H, **f32), torch.empty(B, H, **f32)
 
-    def run():
+    given = float(n) * torch.softmax(pre, dim=1)  # the given-means input
+
+    def softmax_run(means=means, states=states, from_pre=1, n=n):
         check_launch(lib.bm_cd_softmax_sample(
-            ptr(pre), 1, B, H, n, ptr(means), ptr(states), 9, 3, 2, stream()),
-            'cd_softmax_sample')
+            ptr(pre if from_pre else given), from_pre, B, H, n, ptr(means),
+            ptr(states), 9, 3, 2, stream()), 'cd_softmax_sample')
+        return means, states
 
     def plain():
         mu = float(n) * torch.softmax(pre, dim=1)
         return mu, multinomial_counts(mu, n, 9, 3, 2)
-    record('cd_softmax_sample', 'mrbm', run, plain,
-           (0., 5. * B * H, 4. * 3 * B * H), per_step=2, per_1000=2000)
+    got = softmax_run(torch.empty(B, H, **f32), torch.empty(B, H, **f32))
+    again = softmax_run(torch.empty(B, H, **f32), torch.empty(B, H, **f32))
+    want_mu = plain()[0]
+    counts = multinomial_counts(got[0], n, 9, 3, 2)
+    torch.cuda.synchronize()
+    e = excess(got[0], want_mu, SOFTMAX_TOL)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not (e <= 0. and same and torch.equal(got[1], counts)
+            and bool((got[1].sum(1) == n).all())):
+        raise AssertionError(
+            'cd_softmax_sample: kernel and plain version disagree (means '
+            'excess %.3g, counts equal %s, rerun identical %s)' % (
+                e, torch.equal(got[1], counts), same))
+    record('cd_softmax_sample', 'mrbm', softmax_run, plain,
+           (0., 5. * B * H, 4. * 3 * B * H), per_step=2, per_1000=2000,
+           err=float((got[0] - want_mu).abs().max()))
+    parts = {
+        'means_only_ms': lambda: check_launch(lib.bm_cd_softmax_sample(
+            ptr(pre), 1, B, H, n, ptr(means), None, 9, 3, 2, stream()),
+            'cd_softmax_sample'),
+        'cdf_one_draw_ms': lambda: softmax_run(n=1),
+        'given_means_ms': lambda: softmax_run(from_pre=0)}
+    softmax_run()
+    parts = {k: graph_ms(torch, fn) for k, fn in parts.items()}
+    out[('cd_softmax_sample', 'mrbm')].update(parts)
+    say('cd_softmax_sample mrbm parts: %s' % ' '.join(
+        '%s %.4f' % kv for kv in parts.items()))
 
-    # the metrics of one logged step, PLL on, at each CIFAR and MNIST shape
+    # the metrics of one logged step, PLL on, at each CIFAR and MNIST shape:
+    # the step's launches (cd_metrics_fe or cd_metrics_draw, then the pass
+    # over W), held against the plain metric rows (TOL, CIFAR_TOL) and a
+    # rerun, timed whole and each launch alone
+    import importlib
+    # the module (the package's `cd_epoch` is the function of that name)
+    cd_mod = importlib.import_module(
+        'boltzmann_machines_tpu_torch.ops.cd_epoch')
     l2 = 1e-4
     for label, B, V, H, gaussian, n, _, per_1000 in BIAS_SHAPES:
         if label.startswith('dbm_rbm'):
@@ -2874,33 +2926,99 @@ def kernel_times(torch):
         W, vb, hb = 0.01 * randn(V, H), 0.1 * randn(V), 0.1 * randn(H)
         sigma = torch.ones(V, **f32) if gaussian else None
         msre_col = torch.sum(torch.square(X - vm), 0)
-        partials = torch.empty(3 * B, **f32)
-        counter = torch.zeros(1, dtype=torch.int32, device='cuda')
-        rows = torch.empty(3, **f32)
         cfg = CDEpochConfig(V, H, 1, False, False, 1., 1., l2, 0.1, 0., 0.9,
                             1, True, 'gaussian' if gaussian else 'bernoulli',
                             None, 'multinomial' if n else 'bernoulli',
                             n or None)
+        # PR 9's tree (c85a061) has one launch a logged step, with its own
+        # signature: kept for PR 10's A/B call; delete in the next PR
+        new = hasattr(cd_mod, 'metrics_workspace')
+        if new:
+            ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
+        else:
+            partials = torch.empty(3 * B, **f32)
+            counter = torch.zeros(1, dtype=torch.int32, device='cuda')
 
-        def run():
-            check_launch(lib.bm_cd_metrics(
-                ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma), ptr(msre_col),
-                B, V, H, l2, 1, n, 7, 1000, ptr(partials), ptr(counter),
-                ptr(rows, 0), ptr(rows, 1), ptr(rows, 2), stream()),
-                'cd_metrics')
+        def run(rows):
+            if new:
+                cd_mod._launch_metrics(
+                    lib, stream(), cfg, X, W, vb, hb, sigma, msre_col, 7,
+                    1000, ws, [ptr(rows, j) for j in range(3)], launches={
+                        'cd_metrics': 0})
+            else:
+                check_launch(lib.bm_cd_metrics(
+                    ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma),
+                    ptr(msre_col), B, V, H, l2, 1, n, 7, 1000, ptr(partials),
+                    ptr(counter), ptr(rows, 0), ptr(rows, 1), ptr(rows, 2),
+                    stream()), 'cd_metrics')
+            return rows
 
         def plain():
             flip = pll_flip_index(7, 1000, B, V, X.device)
             return (torch.mean(torch.square(X - vm)),
-                    l2 * 0.5 * torch.sum(W * W),
                     pll_from_flip(X, flip, W, vb, hb, cfg.visible,
                                   cfg.hidden, sigma,
-                                  pll_h_hats(cfg, 7, 1000, X.device)))
-        # one product x.W (the flipped row's is x.W plus one row of W), W^2
-        record('cd_metrics', label, run, plain,
-               (2. * B * V * H, 2. * V * H + 10. * B * H,
-                4. * (B * V + V * H + V + 2 * H)),
-               per_step=per_1000 / 1000., per_1000=per_1000)
+                                  pll_h_hats(cfg, 7, 1000, X.device)),
+                    l2 * 0.5 * torch.sum(W * W))
+        got = run(torch.full((3,), float('nan'), **f32))
+        again = run(torch.full((3,), float('nan'), **f32))
+        want = plain()
+        torch.cuda.synchronize()
+        tols = CIFAR_TOL if label in ('grbm', 'mrbm') else TOL
+        bad = {k: e for k, e in (
+            (k, excess(got[j], want[j], tols[k]))
+            for j, k in enumerate(ROWS)) if not e <= 0.}
+        same = torch.equal(got, again)
+        if bad or not same:
+            raise AssertionError('cd_metrics %s: kernel and plain version '
+                                 'disagree (rows %s against %s, excess %s, '
+                                 'rerun identical %s)' % (
+                                     label, got.tolist(),
+                                     [float(w) for w in want], bad, same))
+        rows = torch.empty(3, **f32)
+        # one product x.W (the flipped row's is x.W plus one row of W) and
+        # W^2 with Bernoulli hidden units; with multinomial ones no product:
+        # W^2, u = W.hh and u_f = W.hh_f, then x.u per row
+        work = ((0., 6. * V * H + 8. * B * V) if n else
+                (2. * B * V * H, 2. * V * H + 12. * B * H + 6. * B * V)) + (
+            4. * (B * V + V * H + 3 * V + H),)
+        record('cd_metrics', label, lambda: run(rows), plain, work,
+               per_step=per_1000 / 1000., per_1000=per_1000,
+               err=max(float(abs(g - w)) for g, w in zip(got, want)))
+        if new:
+            # each launch alone: the first (the product with its epilogue,
+            # or the two count vectors), then the pass over W
+            plan = cd_mod.launch_plan(B, H, V, X.device, stream())[0]
+
+            def first():
+                if n:
+                    check_launch(lib.bm_cd_metrics_draw(
+                        H, n, 7, 1000, ptr(ws['hh']), stream()), 'cd_metrics')
+                    return
+                # the split-K workspace of the stream in use (a capture's)
+                _, tws, cnt = cd_mod.launch_plan(B, H, V, X.device, stream())
+                check_launch(lib.bm_cd_metrics_fe(
+                    ptr(X), ptr(W), ptr(hb), B, V, H, 7, 1000, plan.n_tile,
+                    plan.splits, ptr(tws), ptr(cnt), ptr(ws['rows']),
+                    stream()), 'cd_metrics')
+
+            def w_pass():
+                check_launch(lib.bm_cd_metrics(
+                    ptr(X), ptr(W), ptr(vb), ptr(sigma), ptr(msre_col), B, V,
+                    H, ws['w_rows'], l2, 1, n, ptr(ws['hh']), ptr(ws['rows']),
+                    0 if n else plan.model_tiles, 7, 1000,
+                    ptr(ws['partials']), ptr(ws['counter']), ptr(rows, 0),
+                    ptr(rows, 1), ptr(rows, 2), stream()), 'cd_metrics')
+            parts = {'first_launch_ms': graph_ms(torch, first),
+                     'w_pass_ms': graph_ms(torch, w_pass),
+                     'w_rows': ws['w_rows'],
+                     'w_blocks': -(-V // ws['w_rows'])}
+            out[('cd_metrics', label)].update(parts)
+            say('cd_metrics %s launches alone: %s %.4f ms, pass over W '
+                '(%d rows of W a block, %d blocks) %.4f ms' % (
+                    label, 'draws' if n else 'product', parts[
+                        'first_launch_ms'], parts['w_rows'],
+                    parts['w_blocks'], parts['w_pass_ms']))
         if label == 'mrbm':
             probe_inputs = (X, W, vb, hb)
 
@@ -2925,10 +3043,7 @@ def kernel_times(torch):
 
     # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1; each
     # vector alone and, as the step launches them, all three in one launch
-    # (a checkout whose dbm_ops has no BiasVec launches one vector a call:
-    # its 'dbm_step' is three launches)
     N = M = DBM_B
-    fused = hasattr(dbm_ops, 'BiasVec')
     vecs = []
     for l, n_units in enumerate(DBM_SIZES):
         v = {'D': (rand(N, n_units) < 0.3).float() if l == 0
@@ -2943,22 +3058,13 @@ def kernel_times(torch):
     params = ('b', 'db', 'q', 'mu', 'pen')
 
     def bias_launch(vs):
-        """One launch of the vectors `vs` in place (one launch each in a
-        checkout without BiasVec)."""
-        if fused:
-            arr = (dbm_ops.BiasVec * len(vs))(*[dbm_ops.BiasVec(
-                *(ptr(v[k]) for k in ('D', 'P', 'b', 'db', 'q', 'mu', 'pen')),
-                v['b'].numel(), v['cost'], v['target']) for v in vs])
-            dbm_ops._check(dlib.bm_dbm_bias_update(
-                arr, len(vs), N, M, DBM_LR, DBM_MOM, 0.9, 0.1, stream()),
-                'dbm_bias_update')
-            return
-        for v in vs:
-            dbm_ops._check(dlib.bm_dbm_bias_update(
-                ptr(v['D']), ptr(v['P']), N, M, v['b'].numel(), ptr(v['b']),
-                ptr(v['db']), ptr(v['q']), ptr(v['mu']), ptr(v['pen']),
-                DBM_LR, DBM_MOM, 0.9, 0.1, v['cost'], v['target'], stream()),
-                'dbm_bias_update')
+        """One launch of the vectors `vs` in place."""
+        arr = (dbm_ops.BiasVec * len(vs))(*[dbm_ops.BiasVec(
+            *(ptr(v[k]) for k in ('D', 'P', 'b', 'db', 'q', 'mu', 'pen')),
+            v['b'].numel(), v['cost'], v['target']) for v in vs])
+        dbm_ops._check(dlib.bm_dbm_bias_update(
+            arr, len(vs), N, M, DBM_LR, DBM_MOM, 0.9, 0.1, stream()),
+            'dbm_bias_update')
 
     def bias_plain(v):
         sd, sp = v['D'].sum(0), v['P'].sum(0)
@@ -3003,32 +3109,28 @@ def kernel_times(torch):
         label = 'dbm_vb' if l == 0 else 'dbm_hb%d' % (l - 1)
         record('dbm_bias_update', label, lambda v=v: bias_launch([v]),
                lambda v=v: bias_plain(v), work[l],
-               colsum_ms(N + M, v['b'].numel()), per_step=0 if fused else 1,
-               per_1000=0 if fused else 1000, err=errs[l])
+               colsum_ms(N + M, v['b'].numel()), per_step=0, per_1000=0,
+               err=errs[l])
     T = rand(N + M, sum(DBM_SIZES))
     record('dbm_bias_update', 'dbm_step', lambda: bias_launch(timed),
            lambda: [bias_plain(v) for v in vecs],
            tuple(sum(w[i] for w in work) for i in range(3)),
-           graph_ms(torch, lambda: torch.sum(T, 0)),
-           per_step=1 if fused else 3, per_1000=1000 if fused else 3000,
-           err=max(errs))
+           graph_ms(torch, lambda: torch.sum(T, 0)), per_step=1,
+           per_1000=1000, err=max(errs))
 
     # the DBM step's msre, held against the plain one (DBM_TOL) and a
     # rerun, with the count copied
     V = DBM_SIZES[0]
     X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
     ctrl = torch.tensor([0, 0, 17], dtype=torch.int32, device='cuda')
-    # a checkout from before the grid reduction takes no partials and no
-    # counter (phase 18 times the parent's kernels too)
-    blocks = getattr(dbm_ops, 'MSRE_BLOCKS', None)
-    part = torch.empty(blocks or 1, **f32)
+    part = torch.empty(dbm_ops.MSRE_BLOCKS, **f32)
     count = torch.zeros(1, dtype=torch.int32, device='cuda')
 
     def run(msre):
-        ws = (ptr(part), blocks, ptr(count)) if blocks else ()
         dbm_ops._check(dlib.bm_dbm_msre(
-            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), *ws, ptr(msre, 0),
-            ptr(msre, 1), stream()), 'dbm_msre')
+            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), ptr(part),
+            dbm_ops.MSRE_BLOCKS, ptr(count), ptr(msre, 0), ptr(msre, 1),
+            stream()), 'dbm_msre')
         return msre
 
     def plain():
@@ -3054,11 +3156,9 @@ def kernel_times(torch):
     # dbm_init's scale: one layer of it, the sweep's last (h1 =
     # sigmoid(mu0.W1 + hb1), its change folded into ctrl), launched twice
     # alone, and as two sweeps of a one-layer loop through the loop's entry,
-    # which adds the check wherever the checkout runs it (at the start of a
-    # sweep's first launch here; at the end of its last launch, or as a
-    # launch of its own after it, in earlier checkouts): the check's cost
-    # per sweep is half the difference.  Then the whole loop, init and 50
-    # sweeps.  ctrl holds five words, as many as any checkout's loop uses.
+    # which adds the check at the start of a sweep's first launch: the
+    # check's cost per sweep is half the difference.  Then the whole loop,
+    # init and 50 sweeps.  ctrl holds the loop's five words.
     V, H1, H2 = DBM_SIZES
     X = (rand(DBM_B, V) < 0.3).float()
     Ws = (0.03 * randn(V, H1), 0.03 * randn(H1, H2))
@@ -3109,28 +3209,17 @@ def kernel_times(torch):
     r['ms'] = (r['loop_ms'] - r['layers_ms']) / 2.
     bound_ms, bound_by = bound(0., 3., 24.)
     plain_ms = graph_ms(torch, check_plain)
-    if fused:
-        r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                 bound_by=bound_by, err=0.,
-                 fused_into='the first dbm_gemm_act launch of each '
-                            'mean-field sweep')
-        out[('dbm_mf_check', 'fused')] = r
-    else:
-        def check_alone():
-            dbm_ops._check(dlib.bm_dbm_mf_loop(
-                None, 0, 1, ptr(ctrl), -1., 2 ** 30, stream()),
-                'dbm_mf_check')
-        record('dbm_mf_check', 'dbm', check_alone, check_plain,
-               (0., 3., 24.), per_step=50, per_1000=50000, err=0.)
-        out[('dbm_mf_check', 'dbm')].update(
-            {k: r[k] for k in ('layers_ms', 'loop_ms')}, per_sweep_ms=r['ms'])
+    r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+             bound_by=bound_by, err=0.,
+             fused_into='the first dbm_gemm_act launch of each mean-field '
+                        'sweep')
+    out[('dbm_mf_check', 'fused')] = r
     say('dbm_mf_check: two launches of the sweep\'s last layer (100x1024, '
         'K 512) %.4f ms alone, %.4f ms as a two-sweep loop; the check %.4f '
-        'ms per sweep (%s), plain %.4f ms; bound %.5f ms (%s); n_mf '
-        'against its plain rule: equal' % (
-            r['layers_ms'], r['loop_ms'], r['ms'],
-            'no launch of its own' if fused else 'its own launch',
-            plain_ms, bound_ms, bound_by))
+        'ms per sweep (no launch of its own), plain %.4f ms; bound %.5f ms '
+        '(%s); n_mf against its plain rule: equal' % (
+            r['layers_ms'], r['loop_ms'], r['ms'], plain_ms, bound_ms,
+            bound_by))
 
     # the whole mean-field loop of one step: the init launches (T0 = X.W0,
     # mu0, mu1) and 50 sweeps, all run (tol -1)
@@ -3163,10 +3252,9 @@ def kernel_times(torch):
     out[('dbm_mf_loop', 'mf_50')] = dict(
         ms=graph_ms(torch, mf_loop, n=4), bound_ms=mf_bound[0],
         bound_by=mf_bound[1])
-    say('dbm mean-field loop, init and 50 sweeps (%s launches): %.4f ms; '
-        'bound %.5f ms (%s)' % (
-            '103' if fused else '153', out[('dbm_mf_loop', 'mf_50')]['ms'],
-            mf_bound[0], mf_bound[1]))
+    say('dbm mean-field loop, init and 50 sweeps (103 launches): %.4f ms; '
+        'bound %.5f ms (%s)' % (out[('dbm_mf_loop', 'mf_50')]['ms'],
+                                mf_bound[0], mf_bound[1]))
 
     # one AIS beta's log-weight update, 100 runs
     R, H1 = 100, DBM_SIZES[1]
@@ -3276,6 +3364,20 @@ TILE_VARIANTS = {
     'assoc_no_epilogue': (
         ('assoc_tc.cuh', '  if (prefetch) mbar_wait(ebar, 0);\n',
          '  if (prefetch) mbar_wait(ebar, 0);\n  if (p.mode >= 0) return;\n'),),
+    # cd_softmax_sample with 1024 or 256 threads a row instead of 512; and,
+    # for its time alone (the results are wrong), the CDF's quotients as
+    # products by 1/n, the CDF without its scan, the draws skipped
+    'rows_1024': (('cd_epoch.cu', 'constexpr int kRowThreads = 512;',
+                   'constexpr int kRowThreads = 1024;'),),
+    'rows_256': (('cd_epoch.cu', 'constexpr int kRowThreads = 512;',
+                  'constexpr int kRowThreads = 256;'),),
+    'cdf_reciprocal': (('cd_epoch.cu', 'q[k] = (double)buf[lo + k] / dn;',
+                        'q[k] = (double)buf[lo + k] * (1.0 / dn);'),),
+    'cdf_no_scan': (('cd_epoch.cu', 'block_exclusive_scan(s, tot);',
+                     '(__syncthreads(), s);'),),
+    'no_draws': (('cd_epoch.cu',
+                  'for (int j = threadIdx.x; j < n; j += 2 * T) {',
+                  'for (int j = threadIdx.x; j < 0 * n; j += 2 * T) {'),),
 }
 
 
@@ -3444,6 +3546,51 @@ def assoc_readings():
                         '%.1f' % (1e3 * graph_ms(torch, run))
                         for _ in range(3))))
         use_tile(tmpdir)
+    return 0
+
+
+def softmax_readings():
+    """The shape of cd_softmax_sample's block: the M-RBM's hidden pass
+    (100 x 1000, n = 1000) timed by graph_ms whole and in parts (as phase
+    18: the means alone, the means and CDF with one draw, the draws on
+    given means) with 512 threads a row, as committed, with 1024 and 256,
+    and, for the time of each part alone, with the CDF's quotients taken as
+    products, without the CDF's scan and without the draws (those three
+    give wrong counts and are timed only)."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke --softmax-readings: no CUDA device\n')
+        return 1
+    environment(torch)
+    import importlib
+    ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
+    g = torch.Generator(device='cuda')
+    g.manual_seed(44)
+    B, H, n = CIFAR_B, MRBM[1], N_SAMPLES
+    pre = 2. * torch.randn((B, H), generator=g, device='cuda')
+    means, states = torch.empty_like(pre), torch.empty_like(pre)
+    given = float(n) * torch.softmax(pre, dim=1)  # the given-means input
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for variant in (None, 'rows_1024', 'rows_256', 'cdf_reciprocal',
+                        'cdf_no_scan', 'no_draws', None):
+            use_tile(tmpdir, variant)
+            lib = ce.library()
+
+            def run(from_pre=1, n=n, states=states):
+                ce.check_launch(lib.bm_cd_softmax_sample(
+                    ce.ptr(pre if from_pre else given), from_pre, B, H, n,
+                    ce.ptr(means), ce.ptr(states), 9, 3, 2,
+                    torch.cuda.current_stream().cuda_stream),
+                    'cd_softmax_sample')
+            run()
+            parts = {'whole': run, 'means_only': lambda: run(states=None),
+                     'cdf_one_draw': lambda: run(n=1),
+                     'given_means': lambda: run(from_pre=0)}
+            say('  %s cd_softmax_sample (%d x %d, n %d), us: %s' % (
+                variant or 'committed (512 threads)', B, H, n, '; '.join(
+                    '%s %s' % (k, ' '.join('%.2f' % (1e3 * graph_ms(torch, f))
+                                           for _ in range(2)))
+                    for k, f in parts.items())))
     return 0
 
 
@@ -3740,5 +3887,6 @@ if __name__ == '__main__':
         rank, world, tmpdir = sys.argv[2:]
         sys.exit(dp_rank(int(rank), int(world), tmpdir))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
+              '--softmax-readings': softmax_readings,
               '--kernel-times': kernel_times_only}
              .get(' '.join(sys.argv[1:]), main)())

@@ -98,7 +98,8 @@ def test_launch_counts(cuda):
     before = dict(cd_epoch.launches)
     cd_epoch(cfg, state, X, 0.05, 0.9, 3, 1)
     diff = {n: cd_epoch.launches[n] - before[n] for n in before}
-    # iterations 2..7; metrics where it % 4 == 0 (it = 4)
+    # iterations 2..7; metrics where it % 4 == 0 (it = 4), PLL off: the
+    # pass over W alone
     assert diff == {'cd_gemm_act': NB * (1 + 2 * k), 'cd_softmax_sample': 0,
                     'cd_bias_stats': NB, 'cd_assoc_update': NB,
                     'cd_metrics': 1}
@@ -195,16 +196,18 @@ def test_flavour_kernels_match_plain_version_sampling_on(cuda, V, H, B,
 
 def test_flavour_launch_counts(cuda):
     """Multinomial hidden units: every hidden GEMM is followed by one row
-    kernel; PLL every 2 iterations."""
+    kernel; PLL every 2 iterations, two cd_metrics launches each."""
     V, H, B, NB, k = 24, 16, 8, 6, 2
     X, state = flavour_inputs(V, H, B, NB, cuda, 'multinomial')
     cfg = flavour_config(V, H, k, True, 'multinomial')
     before = dict(cd_epoch.launches)
     cd_epoch(cfg, state, X, 0.01, 0.9, 3, 0)
     diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    # the PLL on: the metrics draw their two count vectors, then pass over
+    # W -- two launches a logged step
     assert diff == {'cd_gemm_act': NB * (1 + 2 * k),
                     'cd_softmax_sample': NB * (1 + k), 'cd_bias_stats': NB,
-                    'cd_assoc_update': NB, 'cd_metrics': NB // 2}
+                    'cd_assoc_update': NB, 'cd_metrics': 2 * (NB // 2)}
 
 
 @pytest.mark.parametrize('flavour,layer', [
@@ -256,6 +259,116 @@ def test_multinomial_sample_kernel_matches_plain_version(cuda, H, n):
     assert multinomial_sample.launches['multinomial_sample'] == before + 1
     assert torch.equal(got, want)
     assert bool((got.sum(1) == n).all())
+
+
+@pytest.mark.parametrize('H,n', [(5, 3), (1500, 1000), (7800, 513)])
+def test_cd_softmax_sample_matches_plain_version(cuda, H, n):
+    """K1b from pre-activations, as the epoch's multinomial hidden pass
+    launches it: the means within 1e-5 of n softmax(pre) (the row's sums in
+    another order), the counts equal to ``multinomial_counts`` on the
+    kernel's own means (both build the CDF in float64, so they differ only
+    at float64 ties), every row summing to n, a rerun bit for bit.  H = 5
+    is below a warp, 1500 not a multiple of the block's 1024 threads
+    (chunks of 2, the last ones short or empty), 7800 the widest path's
+    (62 KB of dynamic shared memory)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        check_launch, library, ptr)
+    from boltzmann_machines_tpu_torch.ops.philox import multinomial_counts
+    rows = 37
+    rng = np.random.RandomState(H)
+    pre = torch.as_tensor(2. * rng.randn(rows, H), dtype=torch.float32,
+                          device=cuda)
+    lib, stream = library(), torch.cuda.current_stream().cuda_stream
+
+    def run():
+        means = torch.full((rows, H), float('nan'), device=cuda)
+        states = torch.full((rows, H), float('nan'), device=cuda)
+        check_launch(lib.bm_cd_softmax_sample(
+            ptr(pre), 1, rows, H, n, ptr(means), ptr(states), 9, 3, 2,
+            stream), 'cd_softmax_sample')
+        return means, states
+    (means, states), (m2, s2) = run(), run()
+    want = float(n) * torch.softmax(pre, dim=1)
+    counts = multinomial_counts(means, n, 9, 3, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(means, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(states, counts)
+    assert bool((states.sum(1) == n).all())
+    assert torch.equal(means, m2) and torch.equal(states, s2)
+
+
+# (V, H, B): a batch of 1, one above a batch tile (two tiles of 128 rows),
+# V and H not multiples of 4, and a split-K plan (K = 1000 in 32 k-tiles,
+# three model tiles) at widths that take the 16-byte loads of W
+METRICS_SHAPES = [(37, 70, 1), (130, 65, 131), (50, 129, 67),
+                  (1000, 300, 10)]
+METRICS_FLAVOURS = [('bernoulli', 'bernoulli'), ('gaussian', 'bernoulli'),
+                    ('bernoulli', 'multinomial'),
+                    ('gaussian', 'multinomial')]
+
+
+@pytest.mark.parametrize('V,H,B', METRICS_SHAPES)
+@pytest.mark.parametrize('visible,hidden', METRICS_FLAVOURS)
+def test_cd_metrics_matches_plain_version(cuda, V, H, B, visible, hidden):
+    """K4 (the product's free-energy epilogue or the two count vectors,
+    then the pass over W) against ``metrics_reference`` -- ``pll_from_flip``
+    on the same flips and count vectors, the plain L2 and msre -- on the
+    same inputs, with the tolerances of the epoch tests: pll rtol 1e-3,
+    atol 1e-3; msre atol 1e-6 (and rtol 1e-5 for Gaussian rows, ~1); l2
+    rtol 1e-5.  Two launches a logged step; a rerun bit for bit."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _metrics, metrics_reference)
+    from boltzmann_machines_tpu_torch.ops.gemm import gemm_plan, num_sms
+    rng = np.random.RandomState(V + H + B)
+    gaussian = visible == 'gaussian'
+    sigma = (rng.rand(V) + 0.5).astype(np.float32) if gaussian else None
+    cfg = CDEpochConfig(V, H, 1, False, False, 1., 1., 1e-4, 0.1, 0., 0.9, 1,
+                        True, visible, sigma, hidden,
+                        40 if hidden == 'multinomial' else None)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    X = t(rng.randn(B, V) if gaussian else rng.rand(B, V) < 0.3)
+    W, vb, hb = t(0.1 * rng.randn(V, H)), t(0.1 * rng.randn(V)), \
+        t(0.1 * rng.randn(H))
+    msre_col = torch.sum(torch.square(X - t(rng.rand(B, V))), 0)
+    before = cd_epoch.launches['cd_metrics']
+    got = _metrics(cfg, X, W, vb, hb, msre_col, 7, 1000)
+    again = _metrics(cfg, X, W, vb, hb, msre_col, 7, 1000)
+    want = metrics_reference(cfg, X, W, vb, hb, msre_col, 7, 1000)
+    torch.cuda.synchronize()
+    assert cd_epoch.launches['cd_metrics'] == before + 4
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5 if gaussian else 0,
+                               atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert float(got[1]) < 0
+    if V == 1000:
+        assert gemm_plan(B, H, V, num_sms(cuda)).splits > 1
+
+
+def test_cd_metrics_without_pll(cuda):
+    """PLL off: the pass over W alone (one launch), msre and l2 as above,
+    the pll row untouched (0)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _metrics, metrics_reference)
+    V, H, B = 50, 129, 67
+    rng = np.random.RandomState(2)
+    cfg = CDEpochConfig(V, H, 1, False, False, 1., 1., 1e-4, 0.1, 0., 0.9, 1,
+                        False)
+    X, W, vb, hb, vm = (torch.as_tensor(a, dtype=torch.float32, device=cuda)
+                        for a in (rng.rand(B, V) < 0.3, rng.randn(V, H),
+                                  rng.randn(V), rng.randn(H), rng.rand(B, V)))
+    msre_col = torch.sum(torch.square(X - vm), 0)
+    before = cd_epoch.launches['cd_metrics']
+    got = _metrics(cfg, X, W, vb, hb, msre_col, 7, 1000)
+    want = metrics_reference(cfg, X, W, vb, hb, msre_col, 7, 1000)
+    torch.cuda.synchronize()
+    assert cd_epoch.launches['cd_metrics'] == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
+    assert float(got[1]) == 0.
 
 
 def test_normal_sample_kernel_matches_plain_version(cuda):
