@@ -113,7 +113,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                     b0 + 32 * i, m0, ebar);
   }
   float d[NT / 2];
-  tile_accumulate<NT, true>(p.t, assoc_smem, d);  // one slice: always true
+  NoPrologue none;
+  tile_accumulate<NT, true>(p.t, assoc_smem, d, none);  // one slice: true
   if (prefetch) mbar_wait(ebar, 0);
 
   // thread's accumulator (wgmma_tf32.cuh): rows v = 16 warp + g (+ 8),

@@ -141,9 +141,12 @@
 // runs on the tile, where each block streams its own rows of W once; the
 // pass over W gives each warp whole rows of W (16 bytes a lane), ~3 blocks
 // per SM, and adds the (B, V) terms per block of columns; no block reads W
-// or the batch twice.  bm_fe_probe still gives each of B blocks one row x
-// and lets each thread walk whole columns of W (2BVH operations, W read B
-// times from L2); moving it onto K4's design is later work.
+// or the batch twice.  bm_fe_probe is the same two launches for one batch
+// without the flipped rows: Bernoulli hidden units X.W on the tile with the
+// softplus-row epilogue, multinomial ones one block drawing the count
+// vector; then the pass over W in its probe mode (u = W.hh where there
+// are counts; no |W|^2, msre or flips), whose last block writes the
+// batch-mean free energy.
 //
 // The Gaussian epilogue writes fl(fl(acc*sigma) + vb) times the multiplier
 // (1 or 2, so exact) with __fmul_rn/__fadd_rn, and the sample
@@ -352,41 +355,6 @@ __device__ __forceinline__ void multinomial_draw(const float* cdf, int H,
     if (two) atomicAdd(&counts[pos2], 1);
   }
   __syncthreads();
-}
-
-// Free energy of the row x, block-wide, valid in thread 0 --
-// `_free_energy_sum` for one row: visible term -x.vb (Bernoulli, sigma ==
-// nullptr) or 0.5 sum (x - vb/sigma)^2 (Gaussian), hidden term -sum
-// softplus(xW + hb) (Bernoulli, hhat == nullptr) or -(xW).hhat
-// (multinomial).  The free-energy probe's row walk.
-__device__ float row_free_energy(const float* __restrict__ x,
-                                 const float* __restrict__ W,
-                                 const float* __restrict__ vb,
-                                 const float* __restrict__ hb,
-                                 const float* __restrict__ sigma,
-                                 const int* hhat, int V, int H, float* red) {
-  const int tid = threadIdx.x;
-  float tv = 0.f;
-  for (int v = tid; v < V; v += blockDim.x) {
-    const float xv = x[v];
-    if (sigma) {
-      const float d = xv - vb[v] / sigma[v];
-      tv = fmaf(d, d, tv);
-    } else {
-      tv = fmaf(xv, vb[v], tv);
-    }
-  }
-  float th = 0.f;
-  for (int h = tid; h < H; h += blockDim.x) {
-    float a = 0.f;
-    // the walk down column h of W is bound by the latency of its loads, not
-    // by the FMAs: unrolled 8 deep, eight loads are in flight per thread
-#pragma unroll 8
-    for (int v = 0; v < V; ++v) a = fmaf(x[v], W[(long long)v * H + h], a);
-    th = hhat ? fmaf(a, (float)hhat[h], th) : th + softplus(a + hb[h]);
-  }
-  const float s_tv = block_sum(tv, red), s_th = block_sum(th, red);
-  return sigma ? 0.5f * s_tv - s_th : -s_tv - s_th;
 }
 
 // Arguments of one cd_gemm_act launch (a kernel parameter, so the tensor
@@ -624,13 +592,14 @@ __global__ void __launch_bounds__(bm::col::kColThreads)
 // hb[h]) and softplus(a_f + hb[h]); each row's 128 columns of the block are
 // summed in a fixed order (a shuffle tree, then the four warps' sums, as
 // dbm_gemm_act's softplus rows) into rows[b * tiles + tile] and, flipped,
-// rows[(B + b) * tiles + tile], tiles = the grid's model tiles.
+// rows[(B + b) * tiles + tile], tiles = the grid's model tiles.  With flip
+// == 0 (the free-energy probe) only the rows of x.
 struct CdMetricsFeArgs {
   bm::tc::Tile t;
   const float* X;  // (B, V), rows V apart
   const float* W;  // (V, H)
   const float* hb;
-  int V;
+  int V, flip;
   unsigned seed, it;
   float* rows;
 };
@@ -653,31 +622,33 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
   const int H = a.t.nm, B = a.t.nb;
   const int m0 = blockIdx.x * TM, b0 = blockIdx.y * NT;
   const int warp = threadIdx.x >> 5;
-  for (int r = threadIdx.x; r < NT; r += bm::tc::kThreads) {
-    const int b = b0 + r;
-    int f = 0;
-    float d = 0.f;
-    if (b < B) {
-      f = pll_flip(a.seed, a.it, b, a.V);
-      const float x = a.X[(long long)b * a.V + f];
-      d = (1.f - x) - x;
-    }
-    flip_s[r] = f;
-    d_s[r] = d;
-  }
-  __syncthreads();
-  // each row's flipped row of W, gathered by asynchronous copies that are
-  // all in flight at once (zeros past the edges)
   float* Wf = T + NT * bm::tc::kTileStride;
-  for (int e = threadIdx.x; e < TM * NT; e += bm::tc::kThreads) {
-    const int h = m0 + e % TM, r = e / TM;
-    const bool ok = h < H && b0 + r < B;
-    bm::tc::cp_async4(Wf + e, ok ? a.W + (long long)flip_s[r] * H + h : a.W,
-                      ok);
+  if (a.flip) {
+    for (int r = threadIdx.x; r < NT; r += bm::tc::kThreads) {
+      const int b = b0 + r;
+      int f = 0;
+      float d = 0.f;
+      if (b < B) {
+        f = pll_flip(a.seed, a.it, b, a.V);
+        const float x = a.X[(long long)b * a.V + f];
+        d = (1.f - x) - x;
+      }
+      flip_s[r] = f;
+      d_s[r] = d;
+    }
+    __syncthreads();
+    // each row's flipped row of W, gathered by asynchronous copies that
+    // are all in flight at once (zeros past the edges)
+    for (int e = threadIdx.x; e < TM * NT; e += bm::tc::kThreads) {
+      const int h = m0 + e % TM, r = e / TM;
+      const bool ok = h < H && b0 + r < B;
+      bm::tc::cp_async4(Wf + e,
+                        ok ? a.W + (long long)flip_s[r] * H + h : a.W, ok);
+    }
+    bm::tc::cp_async_commit();
+    bm::tc::cp_async_wait<0>();
+    __syncthreads();
   }
-  bm::tc::cp_async_commit();
-  bm::tc::cp_async_wait<0>();
-  __syncthreads();
   // 256 threads cover two rows of 128 columns per pass: warps 0-3 the
   // first, warps 4-7 the second
   for (int e = threadIdx.x; e < TM * NT; e += bm::tc::kThreads) {
@@ -687,8 +658,7 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     if (h < H && b < B) {
       const float acc = T[r * bm::tc::kTileStride + c], bias = a.hb[h];
       s = softplus(acc + bias);
-      const float af = __fmaf_rn(d_s[r], Wf[e], acc);
-      sf = softplus(af + bias);
+      if (a.flip) sf = softplus(__fmaf_rn(d_s[r], Wf[e], acc) + bias);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) {
@@ -707,8 +677,9 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     if (b >= B) continue;
     a.rows[(long long)b * tiles + blockIdx.x] =
         (part[0][r][0] + part[0][r][1]) + (part[0][r][2] + part[0][r][3]);
-    a.rows[((long long)B + b) * tiles + blockIdx.x] =
-        (part[1][r][0] + part[1][r][1]) + (part[1][r][2] + part[1][r][3]);
+    if (a.flip)
+      a.rows[((long long)B + b) * tiles + blockIdx.x] =
+          (part[1][r][0] + part[1][r][1]) + (part[1][r][2] + part[1][r][3]);
   }
 }
 
@@ -716,8 +687,9 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
 // draws the count vector of fe(x) (z = 0, stream kStreamPllHhat) or of
 // fe(x_f) (z = 1, kStreamPllHhatFlip), n draws at elements 0..n-1 of the
 // uniform CDF, into hh[z H .. z H + H) as floats -- once per logged step,
-// where every block of the row walk drew both before.  Dynamic shared
-// memory: row_smem(H).
+// where every block of the row walk drew both before.  The free-energy
+// probe launches block 0 alone at it = 0.  Dynamic shared memory:
+// row_smem(H).
 __global__ void __launch_bounds__(kRowThreads)
     cd_metrics_draw_kernel(int H, int n, unsigned seed, unsigned it,
                            float* __restrict__ hh) {
@@ -773,7 +745,13 @@ __device__ __forceinline__ void block_sums6(float (&v)[6],
 // sums (|W|^2, msre_col, the two visible and two hidden terms); the last
 // block to finish adds them in block order (deterministic), writes the
 // metric rows and re-arms the counter.
-template <int VW>
+//
+// kProbe (the free-energy probe, bm_fe_probe): the same pass for one batch
+// with no |W|^2, msre or flipped rows -- W is read only for u = W.hh with
+// multinomial hidden units (n > 0) -- and the last block writes the
+// batch-mean free energy to fe_out; with Bernoulli hidden units the blocks
+// write zeros into the H floats of zeros_out (the probe's count vector).
+template <int VW, bool kProbe>
 __global__ void __launch_bounds__(kMetThreads)
     cd_metrics_kernel(const float* __restrict__ X, const float* __restrict__ W,
                       const float* __restrict__ vb,
@@ -784,7 +762,7 @@ __global__ void __launch_bounds__(kMetThreads)
                       const float* __restrict__ fe_rows, int fe_tiles,
                       unsigned seed, unsigned it, float* partials,
                       unsigned* counter, float* msre_out, float* pll_out,
-                      float* l2_out) {
+                      float* l2_out, float* fe_out, float* zeros_out) {
   __shared__ float red[6][kMetThreads / 32];
   __shared__ float u_s[2][kMaxWRows];
   __shared__ bool is_last;
@@ -793,24 +771,31 @@ __global__ void __launch_bounds__(kMetThreads)
   const int v0 = blockIdx.x * w_rows, v1 = min(v0 + w_rows, V);
   const bool multi = compute_pll && n > 0;
 
+  if (kProbe && !multi)
+    for (int h = blockIdx.x * kMetThreads + tid; h < H;
+         h += gridDim.x * kMetThreads)
+      zeros_out[h] = 0.f;
   float sq = 0.f;
-  for (int v = v0 + warp; v < v1; v += kWarps) {
+  for (int v = v0 + warp; v < v1 && (!kProbe || multi); v += kWarps) {
     const float* w = W + (long long)v * H;
     float a = 0.f, af = 0.f;
 #pragma unroll 4
     for (int h = lane * VW; h < H; h += 32 * VW) {
       float x[VW];
       bm::col::load<VW>(w + h, x);
+      if (!kProbe)
 #pragma unroll
-      for (int k = 0; k < VW; ++k) sq = fmaf(x[k], x[k], sq);
+        for (int k = 0; k < VW; ++k) sq = fmaf(x[k], x[k], sq);
       if (multi) {
-        float p[VW], q[VW];
+        float p[VW];
         bm::col::load<VW>(hh + h, p);
-        bm::col::load<VW>(hh + H + h, q);
 #pragma unroll
-        for (int k = 0; k < VW; ++k) {
-          a = fmaf(x[k], p[k], a);
-          af = fmaf(x[k], q[k], af);
+        for (int k = 0; k < VW; ++k) a = fmaf(x[k], p[k], a);
+        if (!kProbe) {
+          float q[VW];
+          bm::col::load<VW>(hh + H + h, q);
+#pragma unroll
+          for (int k = 0; k < VW; ++k) af = fmaf(x[k], q[k], af);
         }
       }
     }
@@ -829,24 +814,25 @@ __global__ void __launch_bounds__(kMetThreads)
   __syncthreads();
 
   float ms = 0.f, tv = 0.f, tvf = 0.f, th = 0.f, thf = 0.f;
-  for (int v = v0 + tid; v < v1; v += kMetThreads) ms += msre_col[v];
+  if (!kProbe)
+    for (int v = v0 + tid; v < v1; v += kMetThreads) ms += msre_col[v];
   if (compute_pll) {
     for (int b = tid; b < B; b += kMetThreads) {
-      const int f = pll_flip(seed, it, b, V);
+      const int f = kProbe ? -1 : pll_flip(seed, it, b, V);
       const float* x = X + (long long)b * V;
       for (int v = v0; v < v1; ++v) {
         const float xv = x[v], xf = v == f ? 1.f - xv : xv;
         if (sigma) {
           const float c = vb[v] / sigma[v], d = xv - c, df = xf - c;
           tv = fmaf(d, d, tv);
-          tvf = fmaf(df, df, tvf);
+          if (!kProbe) tvf = fmaf(df, df, tvf);
         } else {
           tv = fmaf(xv, vb[v], tv);
-          tvf = fmaf(xf, vb[v], tvf);
+          if (!kProbe) tvf = fmaf(xf, vb[v], tvf);
         }
         if (multi) {
           th = fmaf(xv, u_s[0][v - v0], th);
-          thf = fmaf(xf, u_s[1][v - v0], thf);
+          if (!kProbe) thf = fmaf(xf, u_s[1][v - v0], thf);
         }
       }
     }
@@ -855,7 +841,7 @@ __global__ void __launch_bounds__(kMetThreads)
       for (long long e = (long long)blockIdx.x * kMetThreads + tid; e < nr;
            e += (long long)gridDim.x * kMetThreads) {
         th += fe_rows[e];
-        thf += fe_rows[nr + e];
+        if (!kProbe) thf += fe_rows[nr + e];
       }
     }
   }
@@ -871,6 +857,14 @@ __global__ void __launch_bounds__(kMetThreads)
 #pragma unroll
     for (int k = 0; k < 6; ++k) tot[k] += __ldcg(&partials[k * G + g]);
   block_sums6(tot, red);
+  if (kProbe) {
+    if (tid == 0) {
+      const float vis = sigma ? 0.5f * tot[2] : -tot[2];
+      *fe_out = (vis - tot[4]) / (float)B;
+      *counter = 0u;
+    }
+    return;
+  }
   if (tid == 0) {
     *msre_out = tot[1] / ((float)B * (float)V);
     *l2_out = l2 * 0.5f * tot[0];
@@ -906,43 +900,6 @@ __global__ void bernoulli_sample_kernel(const float* __restrict__ p,
     out[i] = bm::philox_uniform(w0, w1, 0u, (unsigned)i) < p[i] ? 1.f : 0.f;
 }
 
-// The TPU's `make_free_energy_probe`: block b owns row b; the last block
-// reduces the row free energies in a fixed order and writes the batch mean
-// and the count vector (every block drew the same one; zeros for Bernoulli
-// hidden units).  Dynamic shared memory for n > 0: row_smem(H).
-__global__ void __launch_bounds__(kMetThreads)
-    fe_probe_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                    const float* __restrict__ vb,
-                    const float* __restrict__ hb,
-                    const float* __restrict__ sigma, int B, int V, int H,
-                    int n, unsigned seed, float* partials, unsigned* counter,
-                    float* fe_out, float* hhat_out) {
-  extern __shared__ float smem[];
-  __shared__ float red[kMetThreads / 32];
-  __shared__ double tot[32];
-  __shared__ bool is_last;
-  const int tid = threadIdx.x;
-  int* hhat = nullptr;
-  if (n > 0) {
-    hhat = reinterpret_cast<int*>(smem + H);
-    uniform_cdf(smem, hhat, H, n, tot);
-    multinomial_draw(smem, H, n, seed, 0u, bm::kStreamPllHhat, 0u, hhat);
-  }
-  const float fe = row_free_energy(X + (long long)blockIdx.x * V, W, vb, hb,
-                                   sigma, hhat, V, H, red);
-  if (tid == 0) partials[blockIdx.x] = fe;
-  if (!bm::last_block(counter, &is_last)) return;
-  float p = 0.f;
-  for (int g = tid; g < B; g += blockDim.x) p += __ldcg(&partials[g]);
-  const float t = block_sum(p, red);
-  for (int h = tid; h < H; h += blockDim.x)
-    hhat_out[h] = hhat ? (float)hhat[h] : 0.f;
-  if (tid == 0) {
-    *fe_out = t / (float)B;
-    *counter = 0u;
-  }
-}
-
 // Dynamic shared memory above the 48 KB default must be granted per kernel.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -975,6 +932,72 @@ int launch_k2(const float* X, const float* vs, const float* vm,
     cd_bias_stats_kernel<1, kSums><<<blocks, bm::col::kColThreads, 0, s>>>(
         X, vs, vm, h0, hm, B, V, H, vb, dvb, hb, dhb, q, pen, msre_col, lr,
         mom, damp, one_minus_damp, cost, target);
+  return (int)cudaGetLastError();
+}
+
+// K4's product X (B, V) . W (V, H) on the tensor-core tile with the
+// free-energy epilogue (cd_metrics_fe_kernel): `rows` holds (flip ? 2 : 1)
+// x B x ceil(H / 128) floats.
+int launch_fe_rows(const float* X, const float* W, const float* hb, int B,
+                   int V, int H, int flip, unsigned seed, unsigned it,
+                   int n_tile, int splits, float* ws, unsigned* counters,
+                   float* rows, cudaStream_t s) {
+  const bm::tc::Operand op = {X, W, V, H, V, 0};
+  CdMetricsFeArgs a;
+  int err = bm::tc::setup_tile(&a.t, &op, 1, B, H, n_tile, splits, ws,
+                               counters);
+  if (err) return err;
+  a.X = X;
+  a.W = W;
+  a.hb = hb;
+  a.V = V;
+  a.flip = flip;
+  a.seed = seed;
+  a.it = it;
+  a.rows = rows;
+  BM_TC_DISPATCH(cd_metrics_fe_kernel, a.t, a, s, err);
+  return err;
+}
+
+// K4's draws: `blocks` count vectors (block z on stream kStreamPllHhat or
+// kStreamPllHhatFlip) into hh.
+int launch_draws(int blocks, int H, int n, unsigned seed, unsigned it,
+                 float* hh, cudaStream_t s) {
+  const size_t smem = row_smem(H);
+  const cudaError_t err = allow_smem(cd_metrics_draw_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  cd_metrics_draw_kernel<<<blocks, kRowThreads, smem, s>>>(H, n, seed, it,
+                                                           hh);
+  return (int)cudaGetLastError();
+}
+
+// K4's pass over W (cd_metrics_kernel): ceil(V / w_rows) blocks, 16-byte
+// loads of W (and hh) where H is a multiple of 4 and they are 16-byte
+// aligned.
+template <bool kProbe>
+int launch_w_pass(const float* X, const float* W, const float* vb,
+                  const float* sigma, const float* msre_col, int B, int V,
+                  int H, int w_rows, float l2, int compute_pll, int n,
+                  const float* hh, const float* fe_rows, int fe_tiles,
+                  unsigned seed, unsigned it, float* partials,
+                  unsigned* counter, float* msre_out, float* pll_out,
+                  float* l2_out, float* fe_out, float* zeros_out,
+                  cudaStream_t s) {
+  if (w_rows < 1 || w_rows > kMaxWRows) return (int)cudaErrorInvalidValue;
+  const int blocks = (V + w_rows - 1) / w_rows;
+  const void* ptrs[] = {W, hh};
+  const bool vec = H % 4 == 0 &&
+                   bm::col::aligned16(ptrs, compute_pll && n > 0 ? 2 : 1);
+  if (vec)
+    cd_metrics_kernel<4, kProbe><<<blocks, kMetThreads, 0, s>>>(
+        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
+        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
+        l2_out, fe_out, zeros_out);
+  else
+    cd_metrics_kernel<1, kProbe><<<blocks, kMetThreads, 0, s>>>(
+        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
+        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
+        l2_out, fe_out, zeros_out);
   return (int)cudaGetLastError();
 }
 
@@ -1084,32 +1107,15 @@ int bm_cd_metrics_fe(const float* X, const float* W, const float* hb, int B,
                      int V, int H, unsigned seed, unsigned it, int n_tile,
                      int splits, float* ws, unsigned* counters, float* rows,
                      void* stream) {
-  const bm::tc::Operand op = {X, W, V, H, V, 0};
-  CdMetricsFeArgs a;
-  int err = bm::tc::setup_tile(&a.t, &op, 1, B, H, n_tile, splits, ws,
-                               counters);
-  if (err) return err;
-  a.X = X;
-  a.W = W;
-  a.hb = hb;
-  a.V = V;
-  a.seed = seed;
-  a.it = it;
-  a.rows = rows;
-  BM_TC_DISPATCH(cd_metrics_fe_kernel, a.t, a, (cudaStream_t)stream, err);
-  return err;
+  return launch_fe_rows(X, W, hb, B, V, H, 1, seed, it, n_tile, splits, ws,
+                        counters, rows, (cudaStream_t)stream);
 }
 
 // K4's first launch, multinomial hidden units, PLL on: the two count
 // vectors into `hh` (2 x H floats).
 int bm_cd_metrics_draw(int H, int n, unsigned seed, unsigned it, float* hh,
                        void* stream) {
-  const size_t smem = row_smem(H);
-  const cudaError_t err = allow_smem(cd_metrics_draw_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  cd_metrics_draw_kernel<<<2, kRowThreads, smem, (cudaStream_t)stream>>>(
-      H, n, seed, it, hh);
-  return (int)cudaGetLastError();
+  return launch_draws(2, H, n, seed, it, hh, (cudaStream_t)stream);
 }
 
 // K4's pass over W and the metric rows: ceil(V / w_rows) blocks (w_rows <=
@@ -1126,22 +1132,10 @@ int bm_cd_metrics(const float* X, const float* W, const float* vb,
                   unsigned seed, unsigned it, float* partials,
                   unsigned* counter, float* msre_out, float* pll_out,
                   float* l2_out, void* stream) {
-  if (w_rows < 1 || w_rows > kMaxWRows) return (int)cudaErrorInvalidValue;
-  const int blocks = (V + w_rows - 1) / w_rows;
-  const void* ptrs[] = {W, hh};
-  const bool vec = H % 4 == 0 &&
-                   bm::col::aligned16(ptrs, compute_pll && n > 0 ? 2 : 1);
-  if (vec)
-    cd_metrics_kernel<4><<<blocks, kMetThreads, 0, (cudaStream_t)stream>>>(
-        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
-        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
-        l2_out);
-  else
-    cd_metrics_kernel<1><<<blocks, kMetThreads, 0, (cudaStream_t)stream>>>(
-        X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
-        fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
-        l2_out);
-  return (int)cudaGetLastError();
+  return launch_w_pass<false>(
+      X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
+      fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
+      l2_out, nullptr, nullptr, (cudaStream_t)stream);
 }
 
 int bm_normal_sample(float* out, long long count, unsigned seed, unsigned it,
@@ -1166,19 +1160,32 @@ int bm_bernoulli_sample(const float* p, float* out, long long count,
   return (int)cudaGetLastError();
 }
 
-// `partials` holds B floats; `counter` one zeroed unsigned; `hhat_out` H
-// floats.  sigma == nullptr: Bernoulli visible; n == 0: Bernoulli hidden.
+// The TPU's make_free_energy_probe in two launches of K4's kernels.
+// Bernoulli hidden units (n == 0): X.W on the tensor-core tile with the
+// softplus-row epilogue and the plan (n_tile, splits, ws, counters) of
+// ops/gemm.py, `rows` holding B x ceil(H / 128) floats; multinomial ones:
+// one block draws the count vector under key (seed, 0) on kStreamPllHhat
+// straight into `hhat_out` (H floats).  Then the pass over W in its probe
+// mode (w_rows as ops/cd_epoch.py's metrics_plan; `partials` 6 floats per
+// block, `counter` one zeroed unsigned, re-armed): fe_out gets the
+// batch-mean free energy and, with Bernoulli hidden units, hhat_out zeros.
+// sigma == nullptr: Bernoulli visible units.
 int bm_fe_probe(const float* X, const float* W, const float* vb,
                 const float* hb, const float* sigma, int B, int V, int H,
-                int n, unsigned seed, float* partials, unsigned* counter,
-                float* fe_out, float* hhat_out, void* stream) {
-  const size_t smem = n > 0 ? row_smem(H) : 0;
-  const cudaError_t err = allow_smem(fe_probe_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  fe_probe_kernel<<<B, kMetThreads, smem, (cudaStream_t)stream>>>(
-      X, W, vb, hb, sigma, B, V, H, n, seed, partials, counter, fe_out,
-      hhat_out);
-  return (int)cudaGetLastError();
+                int n, unsigned seed, int w_rows, int n_tile, int splits,
+                float* ws, unsigned* counters, float* rows, float* partials,
+                unsigned* counter, float* fe_out, float* hhat_out,
+                void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int err = n > 0 ? launch_draws(1, H, n, seed, 0u, hhat_out, s)
+                        : launch_fe_rows(X, W, hb, B, V, H, 0, seed, 0u,
+                                         n_tile, splits, ws, counters, rows,
+                                         s);
+  if (err) return err;
+  return launch_w_pass<true>(
+      X, W, vb, sigma, nullptr, B, V, H, w_rows, 0.f, 1, n, hhat_out, rows,
+      (H + bm::tc::kTileM - 1) / bm::tc::kTileM, seed, 0u, partials,
+      counter, nullptr, nullptr, nullptr, fe_out, hhat_out, s);
 }
 
 }  // extern "C"

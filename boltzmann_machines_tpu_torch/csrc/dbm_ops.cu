@@ -84,9 +84,27 @@
 //                    the block sums in a fixed order (the last-block test
 //                    of cd_metrics); no float atomics, so a rerun is bit
 //                    for bit.
-//   ais_logw         per-run log-weight update from the softplus partials,
-//                    reduced in a fixed order, so log-weights are
-//                    deterministic.
+//   ais_logw         the log-weight update of an AIS beta: per run r,
+//                    log_w[r] -= lp(beta_lo); log_w[r] += lp(beta_hi), lp
+//                    from x_r . hb0 and the softplus partials of the beta's
+//                    two kSoftplusRows launches.  Bound by a launch's
+//                    latency (its bytes, ~0.2 MB at 100 runs, take 0.07
+//                    us), so it has no launch of its own but one per AIS
+//                    run: beta j's update rides on beta j + 1's first
+//                    dbm_gemm_act launch (which reads x and writes v only;
+//                    the partials alternate between two buffers by the
+//                    beta's parity, so beta j + 1's launches never write
+//                    what the update reads), and one standalone launch
+//                    applies the last beta's.  Both run one device
+//                    function, one warp a run: each lane adds its strided
+//                    terms in order, then a shuffle tree, so log-weights
+//                    are the same bits wherever a run's warp sits.  In
+//                    the GEMM launch (ais_gemm_act_kernel, the
+//                    dbm_gemm_act body in a kernel of its own, so that the
+//                    other launches keep their registers) the warps of the
+//                    runs are spread over the blocks (one warp of each
+//                    block while runs <= blocks) and run once the ring's
+//                    first loads are issued, while they are in flight.
 //
 // Mean-field without a ping-pong buffer: the update of layer l reads layers
 // l-1 and l+1 but never l, so each element's owner reads its old value,
@@ -166,6 +184,20 @@ struct GemmArgs {
   unsigned seed, it, stream_id;
 };
 
+// The log-weight update of one AIS beta (ais_logw); ops/dbm_ops.py mirrors
+// the layout.  x (R, H1) the runs' states, part_v and part_h2 the partials
+// of the beta's two kSoftplusRows launches (2 x R x nblk floats each: the
+// rows at beta_lo, then at beta_hi).  log_w == nullptr: none pending.
+struct AisLogw {
+  const float* x;
+  const float* hb0;
+  const float* part_v;
+  const float* part_h2;
+  float* log_w;
+  int R, H1, nblk_v, nblk_h2;
+  float beta_lo, beta_hi;
+};
+
 // The kernel's parameter: the launch's arguments and its tile (tensor maps
 // in parameter space).
 struct DbmGemmArgs {
@@ -177,6 +209,8 @@ struct DbmGemmArgs {
   unsigned* ctrl;
   int sweep, max_updates;
   float tol;
+  // the first launch of an AIS beta: the update of the beta before
+  AisLogw pending;
 };
 
 // One bias vector of a dbm_bias_update launch; ops/dbm_ops.py mirrors the
@@ -248,13 +282,115 @@ __device__ __forceinline__ bool mf_sweep_runs(unsigned* ctrl, int s, float tol,
   return true;
 }
 
+// Run r's log-weight update by the calling warp (all its lanes):
+//   lp(beta) = beta (x_r . hb0) + sum_v softplus(beta (x.W0^T + vb))_r
+//              + sum_h2 softplus(beta (x.W1 + hb1))_r,
+// the sums from the per-block partials at beta_lo and beta_hi; then
+// log_w -= lp(beta_lo); log_w += lp(beta_hi), the JAX kernel's order of
+// operations.  Each lane adds the terms at its lane + 32 i in order, then a
+// shuffle tree adds the lanes: the same bits in any warp of any launch.
+// In two parts: logw_load issues the loads of the lane's first terms (all
+// of them where H1 <= 32 kLogwHold and each partial count <= 32) into
+// registers, logw_finish adds them (and loads any others), so that the
+// loads can be in flight while the caller does other work.
+constexpr int kLogwHold = 16;
+
+struct LogwTerms {
+  float x[kLogwHold], h[kLogwHold];  // x_r and hb0 at lane + 32 i
+  float pv[2], ph[2];  // the partials at lane, at beta_lo and beta_hi
+  float w0;            // log_w[r] (lane 0)
+};
+
+__device__ __forceinline__ void logw_load(const AisLogw& u, int r,
+                                          LogwTerms& t) {
+  const int lane = threadIdx.x & 31;
+  const float* xr = u.x + (long long)r * u.H1;
+#pragma unroll
+  for (int i = 0; i < kLogwHold; ++i) {
+    const int j = lane + 32 * i;
+    t.x[i] = j < u.H1 ? xr[j] : 0.f;
+    t.h[i] = j < u.H1 ? u.hb0[j] : 0.f;
+  }
+  const bool v = lane < u.nblk_v, h2 = lane < u.nblk_h2;
+  t.pv[0] = v ? u.part_v[(long long)r * u.nblk_v + lane] : 0.f;
+  t.pv[1] = v ? u.part_v[((long long)u.R + r) * u.nblk_v + lane] : 0.f;
+  t.ph[0] = h2 ? u.part_h2[(long long)r * u.nblk_h2 + lane] : 0.f;
+  t.ph[1] = h2 ? u.part_h2[((long long)u.R + r) * u.nblk_h2 + lane] : 0.f;
+  t.w0 = lane == 0 ? u.log_w[r] : 0.f;
+}
+
+__device__ __forceinline__ void logw_finish(const AisLogw& u, int r,
+                                            const LogwTerms& t) {
+  const int lane = threadIdx.x & 31;
+  const float* xr = u.x + (long long)r * u.H1;
+  // x.hb0, v lo, v hi, h2 lo, h2 hi
+  float s[5] = {0.f, t.pv[0], t.pv[1], t.ph[0], t.ph[1]};
+#pragma unroll
+  for (int i = 0; i < kLogwHold; ++i) s[0] = fmaf(t.x[i], t.h[i], s[0]);
+  for (int j = lane + 32 * kLogwHold; j < u.H1; j += 32)
+    s[0] = fmaf(xr[j], u.hb0[j], s[0]);
+  for (int b = lane + 32; b < u.nblk_v; b += 32) {
+    s[1] += u.part_v[(long long)r * u.nblk_v + b];
+    s[2] += u.part_v[((long long)u.R + r) * u.nblk_v + b];
+  }
+  for (int b = lane + 32; b < u.nblk_h2; b += 32) {
+    s[3] += u.part_h2[(long long)r * u.nblk_h2 + b];
+    s[4] += u.part_h2[((long long)u.R + r) * u.nblk_h2 + b];
+  }
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+  if (lane == 0) {
+    const float lp_lo = u.beta_lo * s[0] + s[1] + s[3];
+    const float lp_hi = u.beta_hi * s[0] + s[2] + s[4];
+    const float w = t.w0 - lp_lo;
+    u.log_w[r] = w + lp_hi;
+  }
+}
+
+// The tile's prologue in an AIS beta's first launch (gemm_tc.cuh
+// tile_accumulate): the update of the beta before, run r on warp 7 - r /
+// blocks of block r % blocks (and so on past 8 runs a block), so the runs
+// spread over the blocks first.  start() issues the loads of the warp's
+// first run before the ring's first loads; finish(), after them, adds and
+// writes it, then runs any other run of the warp whole.
+struct PendingLogw {
+  const AisLogw& u;
+  int r0;
+  LogwTerms t;
+
+  __device__ explicit PendingLogw(const AisLogw& pending) : u(pending) {
+    const int blocks = gridDim.x * gridDim.y * gridDim.z;
+    const int b =
+        blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+    r0 = (kWarpsPerBlock - 1 - (int)(threadIdx.x >> 5)) * blocks + b;
+  }
+  static constexpr int kWarpsPerBlock = bm::tc::kThreads / 32;
+
+  __device__ void start() {
+    if (r0 < u.R) logw_load(u, r0, t);
+  }
+  __device__ void finish() {
+    if (r0 >= u.R) return;
+    logw_finish(u, r0, t);
+    const int step = kWarpsPerBlock * gridDim.x * gridDim.y * gridDim.z;
+    for (int r = r0 + step; r < u.R; r += step) {
+      LogwTerms more;
+      logw_load(u, r, more);
+      logw_finish(u, r, more);
+    }
+  }
+};
+
 // out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias, acc = A1.B1 +
-// A2.B2 by the tensor-core tile (gemm_tc.cuh); kSoftplusRows sums
-// softplus(alpha (acc + C + bias)) and the same at alpha2 over the row's 128
-// columns of this block instead.
-template <int NT>
-__global__ void __launch_bounds__(bm::tc::kThreads, 1)
-    dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
+// A2.B2 by the tensor-core tile (gemm_tc.cuh), with the tile's prologue
+// `pro`; kSoftplusRows sums softplus(alpha (acc + C + bias)) and the same at
+// alpha2 over the row's 128 columns of this block instead.
+template <int NT, class Prologue>
+__device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
+                                         Prologue& pro) {
   const GemmArgs& a = p.a;
   if (a.done != nullptr && *a.done != 0) return;  // mean-field converged
   if (p.ctrl != nullptr &&
@@ -263,7 +399,7 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float rows[2][NT][4];  // kSoftplusRows: per row, per warp
   float* T;
-  if (!bm::tc::tile_product<NT>(p.t, tc_smem, T)) return;
+  if (!bm::tc::tile_product<NT>(p.t, tc_smem, T, pro)) return;
   const int m0 = blockIdx.y * NT, n0 = blockIdx.x * bm::tc::kTileM;
   const int warp = threadIdx.x >> 5;
   float dmax = 0.f;
@@ -331,6 +467,24 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
           (rows[1][r][0] + rows[1][r][1]) + (rows[1][r][2] + rows[1][r][3]);
     }
   }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
+  bm::tc::NoPrologue pro;
+  gemm_act<NT>(p, pro);
+}
+
+// An AIS beta's first launch: the update of the beta before (p.pending) in
+// the tile's prologue, while the ring's first loads are in flight.  A
+// kernel of its own, so that the prologue's registers stay out of every
+// other launch's main loop.
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    ais_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
+  PendingLogw pro(p.pending);
+  gemm_act<NT>(p, pro);
 }
 
 // Block b owns kColTile consecutive columns of one bias vector (the
@@ -540,38 +694,14 @@ __global__ void __launch_bounds__(kRedThreads)
   }
 }
 
-// One block per run r:
-//   lp(beta) = beta (x_r . hb0) + sum_v softplus(beta (x.W0^T + vb))_r
-//              + sum_h2 softplus(beta (x.W1 + hb1))_r
-// from the per-block partials of the two dbm_gemm_act launches (sets 0 and 1
-// at beta_lo and beta_hi), then log_w -= lp(beta_lo); log_w += lp(beta_hi),
-// the JAX kernel's order of operations.
+// The last beta's update of an AIS run, launched alone: one warp a run.
 __global__ void __launch_bounds__(kRedThreads)
-    ais_logw_kernel(const float* __restrict__ x,
-                    const float* __restrict__ hb0, int R, int H1,
-                    const float* __restrict__ part_v, int nblk_v,
-                    const float* __restrict__ part_h2, int nblk_h2,
-                    float beta_lo, float beta_hi, float* log_w) {
-  __shared__ float red[kRedThreads / 32];
-  const int r = blockIdx.x;
-  float s = 0.f;
-  for (int j = threadIdx.x; j < H1; j += blockDim.x)
-    s = fmaf(x[(long long)r * H1 + j], hb0[j], s);
-  const float xh = block_sum(s, red);
-  if (threadIdx.x != 0) return;
-  float sv_lo = 0.f, sv_hi = 0.f, sh_lo = 0.f, sh_hi = 0.f;
-  for (int b = 0; b < nblk_v; ++b) {
-    sv_lo += part_v[(long long)r * nblk_v + b];
-    sv_hi += part_v[((long long)R + r) * nblk_v + b];
-  }
-  for (int b = 0; b < nblk_h2; ++b) {
-    sh_lo += part_h2[(long long)r * nblk_h2 + b];
-    sh_hi += part_h2[((long long)R + r) * nblk_h2 + b];
-  }
-  const float lp_lo = beta_lo * xh + sv_lo + sh_lo;
-  const float lp_hi = beta_hi * xh + sv_hi + sh_hi;
-  log_w[r] = log_w[r] - lp_lo;
-  log_w[r] = log_w[r] + lp_hi;
+    ais_logw_kernel(const __grid_constant__ AisLogw u) {
+  const int r = blockIdx.x * (kRedThreads / 32) + (int)(threadIdx.x >> 5);
+  if (r >= u.R) return;
+  LogwTerms t;
+  logw_load(u, r, t);
+  logw_finish(u, r, t);
 }
 
 // The products of `a` as the tile's operands, and its plan.
@@ -595,6 +725,7 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
   p->ctrl = nullptr;
   p->sweep = p->max_updates = 0;
   p->tol = 0.f;
+  p->pending = AisLogw();
   return bm::tc::setup_tile(&p->t, ops, n, a.M, a.N, a.n_tile, a.splits,
                             a.ws, a.counters);
 }
@@ -602,6 +733,12 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
 int launch(const DbmGemmArgs& p, cudaStream_t stream) {
   int err = 0;
   BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err);
+  return err;
+}
+
+int launch_ais(const DbmGemmArgs& p, cudaStream_t stream) {
+  int err = 0;
+  BM_TC_DISPATCH(ais_gemm_act_kernel, p.t, p, stream, err);
   return err;
 }
 
@@ -620,6 +757,18 @@ int bm_dbm_gemm_act(const GemmArgs* a, void* stream) {
   DbmGemmArgs p;
   const int err = setup(&p, *a);
   return err ? err : launch(p, (cudaStream_t)stream);
+}
+
+// The first launch of an AIS beta: bm_dbm_gemm_act with the log-weight
+// update of the beta before (`pending`, may be null: none) in its prologue.
+// The update must read nothing that this launch writes.
+int bm_ais_gemm_act(const GemmArgs* a, const AisLogw* pending, void* stream) {
+  DbmGemmArgs p;
+  const int err = setup(&p, *a);
+  if (err) return err;
+  if (pending == nullptr) return launch(p, (cudaStream_t)stream);
+  p.pending = *pending;
+  return launch_ais(p, (cudaStream_t)stream);
 }
 
 // Zero the mean-field control words (five: mf_change).
@@ -749,13 +898,18 @@ int bm_dbm_msre(const float* X, const float* vm, long long n,
   return (int)cudaGetLastError();
 }
 
+// The update of one AIS beta alone (the last of a run): kRedThreads / 32
+// runs a block.
 int bm_ais_logw(const float* x, const float* hb0, int R, int H1,
                 const float* part_v, int nblk_v, const float* part_h2,
                 int nblk_h2, float beta_lo, float beta_hi, float* log_w,
                 void* stream) {
-  ais_logw_kernel<<<R, kRedThreads, 0, (cudaStream_t)stream>>>(
-      x, hb0, R, H1, part_v, nblk_v, part_h2, nblk_h2, beta_lo, beta_hi,
-      log_w);
+  if (R < 1) return (int)cudaErrorInvalidValue;
+  const AisLogw u = {x,  hb0,    part_v,  part_h2, log_w,
+                     R,  H1,     nblk_v,  nblk_h2, beta_lo, beta_hi};
+  constexpr int kRuns = kRedThreads / 32;
+  ais_logw_kernel<<<(R + kRuns - 1) / kRuns, kRedThreads, 0,
+                    (cudaStream_t)stream>>>(u);
   return (int)cudaGetLastError();
 }
 

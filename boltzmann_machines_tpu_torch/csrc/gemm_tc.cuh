@@ -264,17 +264,27 @@ __device__ __forceinline__ void ktile(int kt, int nk0, int nk1,
   k0 = j * kTileK;
 }
 
+// A prologue that does nothing (tile_accumulate's default).
+struct NoPrologue {
+  __device__ void start() {}
+  __device__ void finish() {}
+};
+
 // Accumulates the block's slice of the product into d, in wgmma's
 // accumulator layout (wgmma_tf32.cuh); with split-K, the sum over all
 // slices (returns false in the blocks that are not the last of their tile,
 // which then stop).  kTransA: every product's A is (k, rows) (Operand::
 // a_trans), staged as it lies and written K-major by the split, and the
-// products' k-tiles interleave.  Must be called by all kThreads threads;
-// `smem_raw` is the dynamic shared memory.
-template <int NT, bool kTransA>
+// products' k-tiles interleave.  `pro.start()` runs in every thread before
+// the ring's first loads are issued and `pro.finish()` once they are, while
+// they are in flight (an AIS beta's first dbm_gemm_act launch runs the
+// log-weight update of the beta before there).  Must be called by all
+// kThreads threads; `smem_raw` is the dynamic shared memory.
+template <int NT, bool kTransA, class Prologue>
 __device__ __forceinline__ bool tile_accumulate(const Tile& t,
                                                 unsigned char* smem_raw,
-                                                float (&d)[NT / 2]) {
+                                                float (&d)[NT / 2],
+                                                Prologue& pro) {
   constexpr int S = stages(NT, kTransA);
   constexpr int kABytes = NT * kTileK * 4;
   constexpr int kStageBytes = kWBytes + kABytes;
@@ -296,6 +306,7 @@ __device__ __forceinline__ bool tile_accumulate(const Tile& t,
   const int kt1 = (int)((long long)(blockIdx.z + 1) * nkt / t.splits);
   const int n_local = kt1 - kt0;
 
+  pro.start();
   if (t.tma && tid == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&bars[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
@@ -503,6 +514,7 @@ __device__ __forceinline__ bool tile_accumulate(const Tile& t,
     if (j < n_local) issue(j);
     if (!t.tma) cp_async_commit();
   }
+  pro.finish();
   uint32_t fa[2][4][4], fb[2][4][4];
   if (n_local > 0) {
     prepare(0, fa);
@@ -562,13 +574,14 @@ __device__ __forceinline__ bool tile_accumulate(const Tile& t,
   return true;
 }
 
-// tile_accumulate, then the 128 x n_tile result staged in shared memory for
-// the epilogue, out_tile[b * kTileStride + m] (batch column b, model row m).
-template <int NT>
+// tile_accumulate (with its prologue `pro`), then the 128 x n_tile result
+// staged in shared memory for the epilogue, out_tile[b * kTileStride + m]
+// (batch column b, model row m).
+template <int NT, class Prologue>
 __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
-                             float*& out_tile) {
+                             float*& out_tile, Prologue& pro) {
   float d[NT / 2];
-  if (!tile_accumulate<NT, false>(t, smem_raw, d)) return false;
+  if (!tile_accumulate<NT, false>(t, smem_raw, d, pro)) return false;
   // no copy is in flight any more, so the ring's memory is free
   const int warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2,
             q = threadIdx.x & 3;
@@ -585,6 +598,13 @@ __device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
   __syncthreads();
   out_tile = T;
   return true;
+}
+
+template <int NT>
+__device__ bool tile_product(const Tile& t, unsigned char* smem_raw,
+                             float*& out_tile) {
+  NoPrologue none;
+  return tile_product<NT>(t, smem_raw, out_tile, none);
 }
 
 // ------------------------------------------------------------ host side

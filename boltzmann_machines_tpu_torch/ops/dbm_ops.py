@@ -397,6 +397,15 @@ class GemmArgs(ctypes.Structure):
         [(n, _U) for n in ('seed', 'it', 'stream_id')])
 
 
+class AisLogw(ctypes.Structure):
+    """The ``AisLogw`` struct of csrc/dbm_ops.cu (same field order): the
+    log-weight update of one AIS beta."""
+    _fields_ = ([(n, _P) for n in ('x', 'hb0', 'part_v', 'part_h2',
+                                   'log_w')] +
+                [(n, _I) for n in ('R', 'H1', 'nblk_v', 'nblk_h2')] +
+                [(n, _F) for n in ('beta_lo', 'beta_hi')])
+
+
 class BiasVec(ctypes.Structure):
     """The ``BiasVec`` struct of csrc/dbm_ops.cu (same field order): one
     bias vector of a ``dbm_bias_update`` launch."""
@@ -407,6 +416,8 @@ class BiasVec(ctypes.Structure):
 _ARGTYPES = {
     'bm_dbm_gemm_col_blocks': [_I],
     'bm_dbm_gemm_act': [ctypes.POINTER(GemmArgs), _P],
+    'bm_ais_gemm_act': [ctypes.POINTER(GemmArgs), ctypes.POINTER(AisLogw),
+                        _P],
     'bm_dbm_mf_reset': [_P, _P],
     'bm_dbm_mf_loop': [ctypes.POINTER(GemmArgs), _I, _I, _P, _F, _I, _P],
     'bm_dbm_bias_update': [ctypes.POINTER(BiasVec), _I, _I, _I, _F, _F, _F,
@@ -713,9 +724,10 @@ def _dbm_sample_cuda(cfg, state, n_steps, seed):
 
 def _ais_cuda(cfg, state, seed, x0):
     """Launch the kernels of ``csrc/dbm_ops.cu``: per beta, 3 per Gibbs step
-    of the transition and 3 for the pair of log p~ evaluations (two GEMMs
-    with softplus row sums at beta_lo and beta_hi, one log-weight
-    update)."""
+    of the transition and 2 for the pair of log p~ evaluations (GEMMs with
+    softplus row sums at beta_lo and beta_hi); each beta's log-weight
+    update rides on the next beta's first launch, and one ``ais_logw``
+    launch applies the last beta's."""
     V, H1, H2 = cfg.n_visible, cfg.n_h1, cfg.n_h2
     dev = x0.device
     if x0.dim() != 2 or x0.shape[1] != H1 or x0.shape[0] < 1:
@@ -738,7 +750,9 @@ def _ais_cuda(cfg, state, seed, x0):
     x, v, h2 = x0.clone(), empty(R, V), empty(R, H2)
     nblk_v = lib.bm_dbm_gemm_col_blocks(V)
     nblk_h2 = lib.bm_dbm_gemm_col_blocks(H2)
-    part_v, part_h2 = empty(2 * R * nblk_v), empty(2 * R * nblk_h2)
+    # the softplus partials of beta j in set j % 2: beta j + 1's launches
+    # write the other set while the first of them reads beta j's
+    part_v, part_h2 = empty(2, 2 * R * nblk_v), empty(2, 2 * R * nblk_h2)
     log_w = torch.zeros(R, dtype=torch.float32, device=dev)
     trans = []
     for step in range(cfg.k):
@@ -757,23 +771,31 @@ def _ais_cuda(cfg, state, seed, x0):
                       stream=stream)
     lp_h2 = _gemm_args(h2, [(x, W1, False)], bias=hb1, act=ACT_SOFTPLUS_ROWS,
                        stream=stream)
-    lp_v.out, lp_h2.out = part_v.data_ptr(), part_h2.data_ptr()
+    pending = None  # the update of the beta before
     for j, (beta_t, beta_lo, beta_hi) in enumerate(
             ais_schedule(cfg.n_betas).tolist(), start=1):
         for a in trans:
             a.alpha = a.gamma = beta_t
             a.it = j
-            _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
-                   'dbm_gemm_act')
         for a in (lp_v, lp_h2):
             a.alpha, a.alpha2 = beta_lo, beta_hi
+        lp_v.out, lp_h2.out = part_v[j % 2].data_ptr(), \
+            part_h2[j % 2].data_ptr()
+        first, *rest = trans + [lp_v, lp_h2]
+        _check(lib.bm_ais_gemm_act(ctypes.byref(first), pending, stream),
+               'dbm_gemm_act')
+        for a in rest:
             _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
                    'dbm_gemm_act')
         launches['dbm_gemm_act'] += len(trans) + 2
-        _check(lib.bm_ais_logw(_ptr(x), _ptr(hb0), R, H1, _ptr(part_v),
-                               nblk_v, _ptr(part_h2), nblk_h2, beta_lo,
-                               beta_hi, _ptr(log_w), stream), 'ais_logw')
-        launches['ais_logw'] += 1
+        pending = AisLogw(_ptr(x), _ptr(hb0), part_v[j % 2].data_ptr(),
+                          part_h2[j % 2].data_ptr(), _ptr(log_w), R, H1,
+                          nblk_v, nblk_h2, beta_lo, beta_hi)
+    p = pending
+    _check(lib.bm_ais_logw(p.x, p.hb0, R, H1, p.part_v, nblk_v, p.part_h2,
+                           nblk_h2, beta_lo, beta_hi, p.log_w, stream),
+           'ais_logw')
+    launches['ais_logw'] += 1
     return log_w
 
 

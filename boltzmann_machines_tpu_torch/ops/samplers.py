@@ -1,8 +1,8 @@
 """Standalone samplers and the free-energy probe.
 
-Ports of four TPU kernels of boltzmann_machines_tpu/ops/pallas_ops.py,
-each one launch over the device functions of the CD epoch kernels
-(``csrc/cd_epoch.cu``):
+Ports of four TPU kernels of boltzmann_machines_tpu/ops/pallas_ops.py
+over the device functions and kernels of the CD epoch (``csrc/cd_epoch.cu``),
+one launch each but the probe's two:
 
 * ``bernoulli_sample(seed, probs)`` -- Bernoulli states, the threshold
   draw of the epoch kernels' Bernoulli epilogue (``bernoulli_sample``, :74;
@@ -15,7 +15,9 @@ each one launch over the device functions of the CD epoch kernels
 * ``make_free_energy_probe(V, H, B, visible, hidden, n_samples)`` -- the
   batch-mean free energy the epoch's PLL uses, with the drawn count vector
   of multinomial hidden units (``make_free_energy_probe``, :208;
-  ``pallas_call`` at :241).
+  ``pallas_call`` at :241): the metrics' two launches (``cd_metrics``),
+  X.W on the tensor-core tile with a softplus-row epilogue or the count
+  vector's draw, then the pass over W.
 
 Each has a plain PyTorch version (``*_reference``) that draws the same
 Philox numbers (key (seed, 0), or the two words of a two-word seed for
@@ -28,8 +30,9 @@ import numpy as np
 import torch
 
 from .cd_epoch import (check_flavour, check_launch, check_tensors,
-                       free_energy_sum, library, ptr, sigma_tensor,
-                       uniform_h_hat)
+                       free_energy_sum, library, metrics_workspace, ptr,
+                       sigma_tensor, uniform_h_hat)
+from .gemm import launch_plan
 from .philox import (STREAM_PLL_HHAT, multinomial_counts, normal,
                      philox_uniform)
 
@@ -195,15 +198,12 @@ def make_free_energy_probe(n_visible, n_hidden, batch_size, visible,
             if visible == 'gaussian' else None
         check_tensors([(X, 'X'), (W, 'W'), (vb, 'vb'), (hb, 'hb')], device,
                       {'X': (B, V), 'W': (V, H), 'vb': (V,), 'hb': (H,)})
-        partials = torch.empty(B, dtype=torch.float32, device=device)
-        counter = torch.zeros(1, dtype=torch.int32, device=device)
         fe = torch.empty((), dtype=torch.float32, device=device)
         h_hat = torch.empty(H, dtype=torch.float32, device=device)
-        check_launch(library().bm_fe_probe(
-            ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sig), B, V, H, n,
-            int(seed), ptr(partials), ptr(counter), ptr(fe), ptr(h_hat),
-            _stream(device)), 'fe_probe')
-        make_free_energy_probe.launches['fe_probe'] += 1
+        launch_probe(X, W, vb, hb, sig, n, int(seed),
+                     metrics_workspace(V, H, B, device), fe, h_hat,
+                     _stream(device))
+        make_free_energy_probe.launches['fe_probe'] += 2
         return fe, h_hat
 
     probe.reference = reference
@@ -211,6 +211,25 @@ def make_free_energy_probe(n_visible, n_hidden, batch_size, visible,
 
 
 make_free_energy_probe.launches = {'fe_probe': 0}
+
+
+def launch_probe(X, W, vb, hb, sigma, n, seed, ws, fe, h_hat, stream):
+    """``bm_fe_probe`` on the CUDA stream `stream` (the handle): the probe's
+    two launches, writing `fe` and `h_hat`; `ws` is
+    ``ops/cd_epoch.metrics_workspace``'s scratch, and the product of
+    Bernoulli hidden units takes the tile's plan (``ops/gemm.py``) with
+    that stream's split-K workspace."""
+    B, V = X.shape
+    H = W.shape[1]
+    n_tile, splits, tws, counters = 0, 0, None, None
+    if not n:
+        plan, tws, counters = launch_plan(B, H, V, X.device, stream)
+        n_tile, splits = plan.n_tile, plan.splits
+    check_launch(library().bm_fe_probe(
+        ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma), B, V, H, n, seed,
+        ws['w_rows'], n_tile, splits, ptr(tws), ptr(counters),
+        ptr(ws['rows']), ptr(ws['partials']), ptr(ws['counter']), ptr(fe),
+        ptr(h_hat), stream), 'fe_probe')
 
 
 def reset_launches():

@@ -3,12 +3,14 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
-(``--readings``, ``--assoc-readings`` and ``--softmax-readings`` print,
-instead of the smoke, what two checks' limits rest on, where the association
-kernel's time goes and how cd_softmax_sample's time moves with the threads
-of its block; see ``readings``, ``assoc_readings`` and
-``softmax_readings``.  ``--kernel-times`` runs phase 18
-alone; run from another checkout, it times that checkout's kernels.)
+(``--readings``, ``--assoc-readings``, ``--softmax-readings`` and
+``--pll-readings`` print, instead of the smoke, what two checks' limits
+rest on, where the association kernel's time goes, how cd_softmax_sample's
+time moves with the threads of its block, and the PLL's error against its
+plain version in float32 and float64; see ``readings``,
+``assoc_readings``, ``softmax_readings`` and ``pll_readings``.
+``--kernel-times`` runs phase 18 alone; run from another checkout, it
+times that checkout's kernels.)
 
 Phases, each printing its lines before the last:
 
@@ -89,21 +91,22 @@ Phases, each printing its lines before the last:
     same inputs (bit for bit), then timed by a CUDA graph beside the plain
     version, the former SIMT tile's recorded time and torch.matmul on the
     stacked K = 2B product;
-18. the redesigned reductions and every hand-written kernel not yet
-    redesigned: cd_bias_stats (each RBM path), dbm_max_norm (both DBM
-    layers), cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe,
-    dbm_bias_update (the step's one launch of vb, hb0 and hb1, and each
-    vector alone), dbm_msre and ais_logw, each launched alone through its
-    C entry point at its paths' shapes and timed by a CUDA graph beside its
-    plain version, a library yardstick where one PyTorch call computes the
-    function (torch.renorm, torch.sum over the batch, F.mse_loss; "none"
-    and why where there is none) and its bound, with its launches per step
-    and per 1000 steps at the examples' cadences; cd_bias_stats,
-    dbm_max_norm, cd_stats_sums, dbm_bias_update and dbm_msre also against
-    their plain versions and a same-input rerun bit for bit; the mean-field
-    check, fused into each sweep's first dbm_gemm_act launch, against its
-    plain rule (n_mf), timed as a one-layer loop against its launches
-    alone, and the whole
+18. every hand-written kernel but the products and the associations:
+    cd_bias_stats (each RBM path), dbm_max_norm (both DBM layers),
+    cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe (its two
+    launches, at the M-RBM's and the G-RBM's shapes), dbm_bias_update (the
+    step's one launch of vb, hb0 and hb1, and each vector alone), dbm_msre
+    and ais_logw, each launched alone through its C entry point at its
+    paths' shapes and timed by a CUDA graph beside its plain version, a
+    library yardstick where one PyTorch call computes the function
+    (torch.renorm, torch.sum over the batch, F.mse_loss; "none" and why
+    where there is none) and its bound, with its launches per step and per
+    1000 steps at the examples' cadences; each also against its plain
+    version and a same-input rerun bit for bit; ais_logw also riding on an
+    AIS beta's first dbm_gemm_act launch (the same bits as alone), that
+    launch timed with and without it; the mean-field check, fused into
+    each sweep's first dbm_gemm_act launch, against its plain rule (n_mf),
+    timed as a one-layer loop against its launches alone, and the whole
     mean-field loop of a step (init and 50 sweeps); then the DBM step
     profiled, from a random state (all 50 sweeps run) and at mf_tol 1e-4
     (mean-field converges in a few): device time per kernel and busy
@@ -869,7 +872,9 @@ def dbm_mnist_path(torch, tmpdir):
     n_ais = dict(dbm_ops.ais.launches)
     say('log Z = %.2f [%.2f, %.2f] (AIS, %d betas, 100 runs, k=5) in %.2f s;'
         ' launches %s' % (log_mean, log_low, log_high, N_BETAS, t_ais, n_ais))
-    if n_ais != {'dbm_gemm_act': N_BETAS * (3 * 5 + 2), 'ais_logw': N_BETAS}:
+    # per beta 3 per Gibbs step and 2 for log p~; each beta's log-weight
+    # update rides on the next beta's first launch, the last one alone
+    if n_ais != {'dbm_gemm_act': N_BETAS * (3 * 5 + 2), 'ais_logw': 1}:
         raise AssertionError('AIS launch counts %s' % n_ais)
     # low = log(mean - std) of the importance weights exp(values) exists
     # only while their std is below their mean.  On this model the
@@ -978,12 +983,14 @@ def ais_vs_bruteforce(torch, tmpdir):
         np.log1p(np.exp(Hs @ W0.T + s['weights/vb'])).sum(1) + \
         np.log1p(np.exp(Hs @ W1 + s['weights/hb_1'])).sum(1)
     exact = log_sum_exp(logp)
-    before = dbm_ops.ais.launches['ais_logw']
+    before = dict(dbm_ops.ais.launches)
     log_mean, (low, high), _ = dbm.log_Z(n_betas=1000, n_runs=256,
                                          n_gibbs_steps=1)
     say('6-5-4 DBM trained on the card: AIS log Z %.4f [%.4f, %.4f], '
         'brute force %.4f' % (log_mean, low, high, exact))
-    if dbm_ops.ais.launches['ais_logw'] - before != 1000 or \
+    # one log_Z call: 3 + 2 launches a beta, one ais_logw
+    if {k: dbm_ops.ais.launches[k] - before[k] for k in before} != {
+            'dbm_gemm_act': 1000 * (3 + 2), 'ais_logw': 1} or \
             not abs(log_mean - exact) < 0.1:
         raise AssertionError('AIS on the card is off the exact log Z')
     return abs(log_mean - exact)
@@ -1359,8 +1366,9 @@ def samplers_vs_plain(torch):
                 'free_energy_probe': samplers.make_free_energy_probe.launches[
                     'fe_probe']}
     say('standalone launchers driven once each: %s' % json.dumps(launches))
+    # the probe: two launches a call
     if launches != {'normal_sample': 1, 'multinomial_sample': 1,
-                    'free_energy_probe': len(probes)}:
+                    'free_energy_probe': 2 * len(probes)}:
         raise AssertionError('launch counts of the standalone launchers: %s'
                              % launches)
 
@@ -1426,9 +1434,11 @@ def samplers_vs_plain(torch):
                                  'disagree (%s)' % label)
         err = max(err, d)
         if label == 'M-RBM':
+            # the draw, u = W.hh and x.u per row, and the visible terms:
+            # no product (phase 18's count)
             out['free_energy_probe'] = dict(
-                work=(2. * CIFAR_B * V * H, 0.,
-                      4. * (CIFAR_B * V + V * H)),
+                work=(0., 2. * V * H + 4. * CIFAR_B * V,
+                      4. * (CIFAR_B * V + V * H + 2 * V + 2 * H)),
                 ms=event_ms(torch, lambda: probe(*args), 20),
                 plain_ms=event_ms(torch, lambda: probe.reference(*args), 5))
     out['free_energy_probe']['err'] = err
@@ -2635,8 +2645,10 @@ def ais_beta_work(V, H1, H2, R, k):
 # step runs one bias update (vb, hb0 and hb1 in one launch), two max-norms
 # and one msre, and max_mf_updates = 50 mean-field checks, each fused into
 # its sweep's first dbm_gemm_act launch (enqueued whether or not mean-field
-# converged); an AIS beta one ais_logw, a data-parallel stats call one
-# cd_stats_sums; the free-energy probe is on no path.
+# converged); an AIS run one ais_logw (each beta's update rides on the next
+# beta's first dbm_gemm_act launch; dbm_mnist.py's runs have 20 000
+# betas), a data-parallel stats call one cd_stats_sums; the free-energy
+# probe is on no path.
 #
 # cd_bias_stats at each RBM path: (label, rows, V, H, Gaussian visible,
 # n_samples of multinomial hidden units, sparsity cost, launches per 1000
@@ -2699,16 +2711,15 @@ def kernel_times(torch):
     CUDA graph), a library yardstick where one PyTorch call computes
     (nearly) the same function -- torch.renorm for the max-norm, torch.sum
     over dim 0 of one (rows, V + H) tensor for the column sums, F.mse_loss
-    for the msre -- and its bound.  cd_bias_stats, dbm_max_norm,
-    cd_stats_sums, cd_softmax_sample, cd_metrics, dbm_bias_update and
-    dbm_msre are also held against their plain versions (KT_TOL, STATS_TOL,
-    SOFTMAX_TOL, TOL and CIFAR_TOL, DBM_TOL) and a second launch on the
-    same inputs bit for bit; cd_softmax_sample is also timed in parts, and
-    each cd_metrics launch alone.  The mean-field check: n_mf against its
-    plain rule, and its cost per sweep (a one-layer loop of two sweeps less
-    the two launches alone); and the whole mean-field loop.  Run in the
-    checkout of c85a061, it times that checkout's one-launch cd_metrics the
-    same way.  Returns {(kernel, label): numbers}."""
+    for the msre -- and its bound.  Each is also held against its plain
+    version (KT_TOL, STATS_TOL, SOFTMAX_TOL, TOL and CIFAR_TOL, DBM_TOL,
+    phase 10's probe tolerance) and a second launch on the same inputs bit
+    for bit; cd_softmax_sample is also timed in parts, and each cd_metrics
+    launch alone; ais_logw also riding on the next beta's first launch (the
+    same bits as alone), that launch timed with and without it.  The
+    mean-field check: n_mf against its plain rule, and its cost per sweep
+    (a one-layer loop of two sweeps less the two launches alone); and the
+    whole mean-field loop.  Returns {(kernel, label): numbers}."""
     import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
@@ -2930,27 +2941,13 @@ def kernel_times(torch):
                             1, True, 'gaussian' if gaussian else 'bernoulli',
                             None, 'multinomial' if n else 'bernoulli',
                             n or None)
-        # PR 9's tree (c85a061) has one launch a logged step, with its own
-        # signature: kept for PR 10's A/B call; delete in the next PR
-        new = hasattr(cd_mod, 'metrics_workspace')
-        if new:
-            ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
-        else:
-            partials = torch.empty(3 * B, **f32)
-            counter = torch.zeros(1, dtype=torch.int32, device='cuda')
+        ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
 
         def run(rows):
-            if new:
-                cd_mod._launch_metrics(
-                    lib, stream(), cfg, X, W, vb, hb, sigma, msre_col, 7,
-                    1000, ws, [ptr(rows, j) for j in range(3)], launches={
-                        'cd_metrics': 0})
-            else:
-                check_launch(lib.bm_cd_metrics(
-                    ptr(X), ptr(W), ptr(vb), ptr(hb), ptr(sigma),
-                    ptr(msre_col), B, V, H, l2, 1, n, 7, 1000, ptr(partials),
-                    ptr(counter), ptr(rows, 0), ptr(rows, 1), ptr(rows, 2),
-                    stream()), 'cd_metrics')
+            cd_mod._launch_metrics(
+                lib, stream(), cfg, X, W, vb, hb, sigma, msre_col, 7, 1000,
+                ws, [ptr(rows, j) for j in range(3)],
+                launches={'cd_metrics': 0})
             return rows
 
         def plain():
@@ -2985,61 +2982,89 @@ def kernel_times(torch):
         record('cd_metrics', label, lambda: run(rows), plain, work,
                per_step=per_1000 / 1000., per_1000=per_1000,
                err=max(float(abs(g - w)) for g, w in zip(got, want)))
-        if new:
-            # each launch alone: the first (the product with its epilogue,
-            # or the two count vectors), then the pass over W
-            plan = cd_mod.launch_plan(B, H, V, X.device, stream())[0]
+        # each launch alone: the first (the product with its epilogue, or
+        # the two count vectors), then the pass over W
+        plan = cd_mod.launch_plan(B, H, V, X.device, stream())[0]
 
-            def first():
-                if n:
-                    check_launch(lib.bm_cd_metrics_draw(
-                        H, n, 7, 1000, ptr(ws['hh']), stream()), 'cd_metrics')
-                    return
-                # the split-K workspace of the stream in use (a capture's)
-                _, tws, cnt = cd_mod.launch_plan(B, H, V, X.device, stream())
-                check_launch(lib.bm_cd_metrics_fe(
-                    ptr(X), ptr(W), ptr(hb), B, V, H, 7, 1000, plan.n_tile,
-                    plan.splits, ptr(tws), ptr(cnt), ptr(ws['rows']),
-                    stream()), 'cd_metrics')
+        def first():
+            if n:
+                check_launch(lib.bm_cd_metrics_draw(
+                    H, n, 7, 1000, ptr(ws['hh']), stream()), 'cd_metrics')
+                return
+            # the split-K workspace of the stream in use (a capture's)
+            _, tws, cnt = cd_mod.launch_plan(B, H, V, X.device, stream())
+            check_launch(lib.bm_cd_metrics_fe(
+                ptr(X), ptr(W), ptr(hb), B, V, H, 7, 1000, plan.n_tile,
+                plan.splits, ptr(tws), ptr(cnt), ptr(ws['rows']),
+                stream()), 'cd_metrics')
 
-            def w_pass():
-                check_launch(lib.bm_cd_metrics(
-                    ptr(X), ptr(W), ptr(vb), ptr(sigma), ptr(msre_col), B, V,
-                    H, ws['w_rows'], l2, 1, n, ptr(ws['hh']), ptr(ws['rows']),
-                    0 if n else plan.model_tiles, 7, 1000,
-                    ptr(ws['partials']), ptr(ws['counter']), ptr(rows, 0),
-                    ptr(rows, 1), ptr(rows, 2), stream()), 'cd_metrics')
-            parts = {'first_launch_ms': graph_ms(torch, first),
-                     'w_pass_ms': graph_ms(torch, w_pass),
-                     'w_rows': ws['w_rows'],
-                     'w_blocks': -(-V // ws['w_rows'])}
-            out[('cd_metrics', label)].update(parts)
-            say('cd_metrics %s launches alone: %s %.4f ms, pass over W '
-                '(%d rows of W a block, %d blocks) %.4f ms' % (
-                    label, 'draws' if n else 'product', parts[
-                        'first_launch_ms'], parts['w_rows'],
-                    parts['w_blocks'], parts['w_pass_ms']))
-        if label == 'mrbm':
-            probe_inputs = (X, W, vb, hb)
+        def w_pass():
+            check_launch(lib.bm_cd_metrics(
+                ptr(X), ptr(W), ptr(vb), ptr(sigma), ptr(msre_col), B, V,
+                H, ws['w_rows'], l2, 1, n, ptr(ws['hh']), ptr(ws['rows']),
+                0 if n else plan.model_tiles, 7, 1000,
+                ptr(ws['partials']), ptr(ws['counter']), ptr(rows, 0),
+                ptr(rows, 1), ptr(rows, 2), stream()), 'cd_metrics')
+        parts = {'first_launch_ms': graph_ms(torch, first),
+                 'w_pass_ms': graph_ms(torch, w_pass),
+                 'w_rows': ws['w_rows'],
+                 'w_blocks': -(-V // ws['w_rows'])}
+        out[('cd_metrics', label)].update(parts)
+        say('cd_metrics %s launches alone: %s %.4f ms, pass over W '
+            '(%d rows of W a block, %d blocks) %.4f ms' % (
+                label, 'draws' if n else 'product', parts[
+                    'first_launch_ms'], parts['w_rows'],
+                parts['w_blocks'], parts['w_pass_ms']))
 
-    X, W, vb, hb = probe_inputs
-    B, (V, H), n = CIFAR_B, MRBM, N_SAMPLES
-    partials = torch.empty(B, **f32)
-    counter = torch.zeros(1, dtype=torch.int32, device='cuda')
-    fe, h_hat = torch.empty((), **f32), torch.empty(H, **f32)
+    # the free-energy probe at the M-RBM's shape (multinomial hidden units)
+    # and the G-RBM's (Gaussian visible, Bernoulli hidden), B 100: its two
+    # launches through bm_fe_probe, held against the plain version (the
+    # count vectors equal, fe within 1e-5 max(1, |fe|) as in phase 10) and
+    # a rerun bit for bit, then timed
     from boltzmann_machines_tpu_torch.ops.samplers import (
-        make_free_energy_probe)
-    probe = make_free_energy_probe(V, H, B, 'bernoulli', 'multinomial', n)
+        launch_probe, make_free_energy_probe)
+    for label, (V, H), gaussian, n in (('mrbm', MRBM, False, N_SAMPLES),
+                                       ('grbm', GRBM, True, 0)):
+        B = CIFAR_B
+        X = randn(B, V) if gaussian else rand(B, V)
+        W, vb, hb = 0.01 * randn(V, H), 0.1 * randn(V), 0.1 * randn(H)
+        sigma = torch.full((V,), 1.5, **f32) if gaussian else None
+        probe = make_free_energy_probe(
+            V, H, B, 'gaussian' if gaussian else 'bernoulli',
+            'multinomial' if n else 'bernoulli', n or None)
+        ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
 
-    def run():
-        check_launch(lib.bm_fe_probe(
-            ptr(X), ptr(W), ptr(vb), ptr(hb), None, B, V, H, n, 9,
-            ptr(partials), ptr(counter), ptr(fe), ptr(h_hat), stream()),
-            'fe_probe')
-    record('fe_probe', 'mrbm', run, lambda: probe.reference(X, W, vb, hb,
-                                                            None, 9),
-           (2. * B * V * H, 0., 4. * (B * V + V * H)), per_step=0,
-           per_1000=0)
+        def run(fe=torch.empty((), **f32), h_hat=torch.empty(H, **f32)):
+            launch_probe(X, W, vb, hb, sigma, n, 9, ws, fe, h_hat, stream())
+            return fe, h_hat
+
+        def plain(zeros=torch.zeros(H, **f32)):
+            if n:
+                return probe.reference(X, W, vb, hb, None, 9)
+            # the reference's body on sigma on the card (a CUDA graph holds
+            # no copy from the host)
+            return cd_mod.free_energy_sum(X, X @ W, vb, hb, 'gaussian',
+                                          'bernoulli', sigma) / B, zeros
+        got = run(torch.empty((), **f32), torch.full((H,), 7., **f32))
+        again = run(torch.empty((), **f32), torch.full((H,), 7., **f32))
+        want = plain()
+        torch.cuda.synchronize()
+        err = abs(float(got[0]) - float(want[0]))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not (err <= 1e-5 * max(1., abs(float(want[0]))) and same
+                and torch.equal(got[1], want[1].reshape(-1))):
+            raise AssertionError('fe_probe %s: kernel and plain version '
+                                 'disagree (%s against %s, rerun identical '
+                                 '%s)' % (label, float(got[0]),
+                                          float(want[0]), same))
+        # multinomial hidden units: the draw, u = W.hh and x.u per row, no
+        # product; Bernoulli ones: the product X.W and a softplus an entry;
+        # both: the visible terms
+        work = ((0., 2. * V * H + 4. * B * V) if n else
+                (2. * B * V * H, 6. * B * H + 4. * B * V)) + (
+            4. * (B * V + V * H + 2 * V + 2 * H),)
+        record('fe_probe', label, run, plain, work, per_step=0, per_1000=0,
+               err=err)
 
     # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1; each
     # vector alone and, as the step launches them, all three in one launch
@@ -3256,29 +3281,67 @@ def kernel_times(torch):
         'bound %.5f ms (%s)' % (out[('dbm_mf_loop', 'mf_50')]['ms'],
                                 mf_bound[0], mf_bound[1]))
 
-    # one AIS beta's log-weight update, 100 runs
-    R, H1 = 100, DBM_SIZES[1]
-    nblk_v = dlib.bm_dbm_gemm_col_blocks(DBM_SIZES[0])
-    nblk_h2 = dlib.bm_dbm_gemm_col_blocks(DBM_SIZES[2])
+    # one AIS beta's log-weight update, 100 runs: launched alone (an AIS
+    # run's last beta) and riding on the next beta's first launch (v =
+    # sigmoid(beta (x.W0^T + vb)), 100 x 784, K 512), each held against the
+    # plain update and the other bit for bit; the first launch timed with
+    # and without it
+    R, (V, H1, H2) = 100, DBM_SIZES
+    nblk_v = dlib.bm_dbm_gemm_col_blocks(V)
+    nblk_h2 = dlib.bm_dbm_gemm_col_blocks(H2)
     x, hb0 = (rand(R, H1) < 0.5).float(), 0.1 * randn(H1)
     part_v, part_h2 = randn(2 * R * nblk_v), randn(2 * R * nblk_h2)
-    log_w = torch.zeros(R, **f32)
+    log_w0 = randn(R)
+    W0, vb, v = 0.03 * randn(V, H1), 0.1 * randn(V), torch.empty(R, V, **f32)
 
-    def run():
+    def update(log_w):
+        return dbm_ops.AisLogw(ptr(x), ptr(hb0), ptr(part_v), ptr(part_h2),
+                               ptr(log_w), R, H1, nblk_v, nblk_h2, 0.37, 0.38)
+
+    def run(log_w):
+        u = update(log_w)
         dbm_ops._check(dlib.bm_ais_logw(
-            ptr(x), ptr(hb0), R, H1, ptr(part_v), nblk_v, ptr(part_h2),
-            nblk_h2, 0.37, 0.38, ptr(log_w), stream()), 'ais_logw')
+            u.x, u.hb0, R, H1, u.part_v, nblk_v, u.part_h2, nblk_h2, 0.37,
+            0.38, u.log_w, stream()), 'ais_logw')
+        return log_w
 
-    def plain():
+    def first_launch(pending=None):
+        a = dbm_ops._gemm_args(v, [(x, W0, True)], bias=vb, stream=stream())
+        a.alpha = a.gamma = 0.4
+        dbm_ops._check(dlib.bm_ais_gemm_act(ctypes.byref(a), pending,
+                                            stream()), 'dbm_gemm_act')
+
+    def plain(log_w=log_w0):
         xh = x @ hb0
         pv, ph = part_v.view(2, R, nblk_v), part_h2.view(2, R, nblk_h2)
         lp_lo = 0.37 * xh + pv[0].sum(1) + ph[0].sum(1)
         lp_hi = 0.38 * xh + pv[1].sum(1) + ph[1].sum(1)
         return log_w - lp_lo + lp_hi
-    record('ais_logw', 'ais', run, plain,
+    alone, again, fused = (run(log_w0.clone()), run(log_w0.clone()),
+                           log_w0.clone())
+    first_launch(update(fused))
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((alone - want).abs().max())
+    if not (err <= 1e-4 * float(want.abs().max()) and
+            torch.equal(alone, again) and torch.equal(alone, fused)):
+        raise AssertionError('ais_logw: kernel and plain version disagree '
+                             '(max |d| %.3g), or the fused update differs '
+                             'from the launch alone' % err)
+    log_w = log_w0.clone()
+    record('ais_logw', 'ais', lambda: run(log_w), plain,
            (0., 2. * R * H1 + 2. * R * (nblk_v + nblk_h2),
             4. * (R * H1 + H1 + 2 * R * (nblk_v + nblk_h2) + 2 * R)),
-           per_step=1, per_1000=1000)
+           per_step=1. / N_BETAS, per_1000=1000. / N_BETAS, err=err)
+    pend = update(log_w)
+    r = out[('ais_logw', 'ais')]
+    r.update(first_launch_ms=graph_ms(torch, first_launch),
+             first_launch_fused_ms=graph_ms(torch, lambda: first_launch(pend)))
+    say('ais_logw fused: the beta\'s first launch %.4f ms alone, %.4f ms with '
+        'the beta before\'s update (+%.4f ms); the fused update equals the '
+        'launch alone bit for bit' % (
+            r['first_launch_ms'], r['first_launch_fused_ms'],
+            r['first_launch_fused_ms'] - r['first_launch_ms']))
     return out
 
 
@@ -3549,6 +3612,59 @@ def assoc_readings():
     return 0
 
 
+def pll_readings():
+    """What the PLL's error against the plain version at the G-RBM shapes
+    is made of: at 3072 x 5000 and 3072 x 7800, B 100 (Gaussian visible
+    units, sigma 1, Bernoulli hidden ones, as phase 10), over three seeds --
+    each its own weights, two kernel CD steps from them and its own logged
+    batch and flipped units -- the PLL of one logged step by the metrics
+    kernels (``ops/cd_epoch._metrics``: the tile's product with the flipped
+    rows, then the pass over W), by the plain version in float32 and by the
+    plain version in float64, all on the same parameters, batch and flips.
+    The PLL is V log sigmoid(fe(x_f) - fe(x)), a difference of two batch-mean
+    free energies of ~1e3 each, so float32 rounding of those sums alone
+    moves it; the kernel's error is noise if |kernel - f64| stays within
+    the spread of |plain f32 - f64|."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke --pll-readings: no CUDA device\n')
+        return 1
+    environment(torch)
+    build()
+    import importlib
+    ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
+    rows = []
+    for V, H in (GRBM, GRBM_WIDE):
+        cfg = grbm_cfg(V, H, False, 1)
+        for seed in (1, 2, 3):
+            X = cifar_inputs(torch, 3, 'grbm', seed=10 + seed)
+            s = ce.cd_epoch(cfg, cifar_state(torch, V, H, 0.0008, seed=seed),
+                            X[:2], GRBM_LR, MOMENTUM, 7, 0)[0]
+            it = 20 + seed
+            args = (X[2], s['W'], s['vb'], s['hb'],
+                    torch.zeros(V, device='cuda'))
+            kernel = float(ce._metrics(cfg, *args, 7, it)[1])
+            f32 = float(ce.metrics_reference(cfg, *args, 7, it)[1])
+            f64 = float(ce.metrics_reference(
+                cfg, *(a.double() for a in args), 7, it)[1])
+            rows.append((V, H, seed, kernel, f32, f64))
+            say('pll %dx%d seed %d: kernel %.4f, plain f32 %.4f, plain f64 '
+                '%.4f; |kernel - f64| %.4f, |f32 - f64| %.4f, |kernel - '
+                'f32| %.4f' % (V, H, seed, kernel, f32, f64, abs(kernel - f64),
+                               abs(f32 - f64), abs(kernel - f32)))
+    k64 = [abs(k - d) for *_, k, _, d in rows]
+    p64 = [abs(p - d) for *_, p, d in rows]
+    within = max(k64) <= max(p64)
+    say('pll readings: |kernel - f64| %.4f-%.4f, |plain f32 - f64| '
+        '%.4f-%.4f: the kernel\'s error is %s the plain float32 version\'s '
+        'own spread' % (min(k64), max(k64), min(p64), max(p64),
+                        'within' if within else 'OUTSIDE'))
+    say(json.dumps({'pll_readings': [dict(zip(
+        ('V', 'H', 'seed', 'kernel', 'plain_f32', 'plain_f64'), r))
+        for r in rows], 'kernel_within_f32_spread': within}))
+    return 0
+
+
 def softmax_readings():
     """The shape of cd_softmax_sample's block: the M-RBM's hidden pass
     (100 x 1000, n = 1000) timed by graph_ms whole and in parts (as phase
@@ -3709,7 +3825,8 @@ def main():
         """Phase 18's numbers for the entry's launches of `kernel`; where no
         PyTorch call computes its function, `no_library` says why."""
         keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
-                'fused_into', 'layers_ms', 'loop_ms')
+                'fused_into', 'layers_ms', 'loop_ms', 'first_launch_ms',
+                'first_launch_fused_ms')
         extra = {'no_library': NO_LIBRARY[kernel]} if kernel in NO_LIBRARY \
             else {}
         return {label: dict({k: kt[(kernel, label)][k] for k in keys
@@ -3731,7 +3848,7 @@ def main():
         'cd_epoch_multinomial': (('cd_bias_stats', 'mrbm'),
                                  ('cd_softmax_sample', 'mrbm'),
                                  ('cd_metrics', 'mrbm')),
-        'free_energy_probe': (('fe_probe', 'mrbm'),),
+        'free_energy_probe': (('fe_probe', 'mrbm', 'grbm'),),
         'cd_stats': (('cd_stats_sums', 'stats_7800', 'stats_784'),),
     }
 
@@ -3888,5 +4005,6 @@ if __name__ == '__main__':
         sys.exit(dp_rank(int(rank), int(world), tmpdir))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
               '--softmax-readings': softmax_readings,
+              '--pll-readings': pll_readings,
               '--kernel-times': kernel_times_only}
              .get(' '.join(sys.argv[1:]), main)())

@@ -388,6 +388,34 @@ def test_free_energy_probe_matches_jax(visible):
     assert abs(float(fe_bad) - float(fe_jax)) > 1e-2
 
 
+# the widths of the probe's edge tests on the card (tests/test_torch_cuda.py
+# PROBE_EDGE_SHAPES): H not a multiple of 4, V not a multiple of the pass's
+# rows of W a block, B above one tile's 128 rows
+@pytest.mark.parametrize('Vp,Hp,Bp', [(70, 65, 37), (37, 130, 131)])
+@pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
+def test_free_energy_probe_matches_jax_at_edge_widths(Vp, Hp, Bp, visible):
+    """The port's probe against JAX's in interpret mode at the card tests'
+    edge widths, Gaussian visible units with a per-unit sigma: the
+    batch-mean free energy within rtol 1e-5 (a sum of B (V + H) terms in
+    another order), zero count vector."""
+    rng = np.random.RandomState(5)
+    W = (rng.randn(Vp, Hp) * 0.1).astype(np.float32)
+    vb = (rng.randn(Vp) * 0.5).astype(np.float32)
+    hb = (rng.randn(Hp) * 0.5).astype(np.float32)
+    X = make_X(visible, (Bp, Vp), 6)
+    sigma = (0.5 + rng.rand(Vp)).astype(np.float32) \
+        if visible == 'gaussian' else None
+    fe_jax, hh_jax = jax_make_free_energy_probe(
+        Vp, Hp, Bp, visible, 'bernoulli', interpret=True)(X, W, vb, hb,
+                                                          sigma, 0)
+    probe = make_free_energy_probe(Vp, Hp, Bp, visible, 'bernoulli')
+    fe, h_hat = probe(*[torch.as_tensor(a) for a in (X, W, vb, hb)],
+                      sigma, 0)
+    np.testing.assert_allclose(float(fe), float(fe_jax), rtol=1e-5,
+                               atol=1e-5)
+    assert float(h_hat.abs().sum()) == 0. == float(np.abs(hh_jax).sum())
+
+
 def test_free_energy_probe_multinomial_exact_given_draw():
     """tests/test_pallas_ops.py:947 on the port: given the probe's own
     count vector, fe == mean(-X vb) - mean((X W) h_hat), which JAX's

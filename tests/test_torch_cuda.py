@@ -404,6 +404,47 @@ def test_free_energy_probe_kernel_matches_plain_version(cuda, visible,
     assert torch.equal(h_hat, h_hat_p.reshape(-1))
 
 
+# (V, H, B) at the probe's edges: H not a multiple of 4 (scalar loads of W
+# and the counts), V not a multiple of the pass's rows of W a block (8 at
+# these widths: ops/cd_epoch.metrics_plan), B above one tile's 128 rows
+PROBE_EDGE_SHAPES = [(70, 65, 37), (37, 130, 131), (300, 66, 200)]
+
+
+@pytest.mark.parametrize('V,H,B', PROBE_EDGE_SHAPES)
+@pytest.mark.parametrize('visible,hidden', [
+    ('bernoulli', 'bernoulli'), ('gaussian', 'bernoulli'),
+    ('bernoulli', 'multinomial')])
+def test_free_energy_probe_edge_shapes(cuda, V, H, B, visible, hidden):
+    """The probe's two launches at ragged shapes: fe within rtol / atol
+    1e-5 of plain, the count vector equal (zeros for Bernoulli hidden
+    units), two launches a call, and a second call the same bits."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import metrics_plan
+    from boltzmann_machines_tpu_torch.ops.gemm import num_sms
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        make_free_energy_probe)
+    rows, _ = metrics_plan(V, num_sms(cuda))
+    assert H % 4 or V % rows or B > 128
+    X, state = flavour_inputs(V, H, B, 1, cuda,
+                              'gaussian' if visible == 'gaussian'
+                              else 'multinomial')
+    probe = make_free_energy_probe(V, H, B, visible, hidden, n_samples=90)
+    args = (X[0], state['W'], state['vb'], state['hb'],
+            0.7 if visible == 'gaussian' else None, 11)
+    before = make_free_energy_probe.launches['fe_probe']
+    fe, h_hat = probe(*args)
+    fe2, h_hat2 = probe(*args)
+    fe_p, h_hat_p = probe.reference(*args)
+    torch.cuda.synchronize()
+    assert make_free_energy_probe.launches['fe_probe'] == before + 4
+    torch.testing.assert_close(fe, fe_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h_hat, h_hat_p.reshape(-1))
+    assert torch.equal(fe, fe2) and torch.equal(h_hat, h_hat2)
+    if hidden == 'multinomial':
+        assert float(h_hat.sum()) == 90.
+    else:
+        assert float(h_hat.abs().sum()) == 0.
+
+
 def test_free_energy_probe_multinomial_seeded_mean(cuda):
     """tests/test_pallas_ops.py:979-997 on the card: seeded probe
     estimates vary and their mean is within 6 standard errors of the closed
@@ -669,8 +710,38 @@ def test_ais_kernel_matches_plain_version(cuda, sizes, R, sample):
     want = dbm_ops.ais_reference(cfg, state, 5, x0)
     torch.cuda.synchronize()
     assert dbm_ops.ais.launches == {'dbm_gemm_act': 50 * (3 * 2 + 2),
-                                    'ais_logw': 50}
+                                    'ais_logw': 1}
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+# (sizes, R): V and H2 with other column-block counts (3 and 2 blocks of
+# 128), runs not a multiple of the 8 warps of a block
+AIS_EDGE_SHAPES = [((300, 37, 140), 13), ((24, 16, 12), 8)]
+
+
+@pytest.mark.parametrize('sizes,R', AIS_EDGE_SHAPES)
+@pytest.mark.parametrize('n_betas,k', [(1, 2), (2, 2), (50, 2), (3, 0)])
+def test_ais_fused_update_edges(cuda, sizes, R, n_betas, k):
+    """Each beta's log-weight update rides on the next beta's first launch
+    and the last one runs alone: at n_betas 1 (no next beta), 2 and 50, and
+    at k = 0 (the next beta's first launch is its log p~ product, which
+    writes the other set of partials), log_w within the atol 2e-3 of
+    test_ais_kernel_matches_plain_version; 3k + 2 launches a beta and one
+    ais_logw a call; a second call on the same stream the same bits.
+    Sampling off: a draw within rounding of its mean would part a run from
+    its plain twin, and the update is what is tested here."""
+    _, state = make_dbm_inputs(sizes, 4, 4, 1, cuda, seed=3)
+    cfg = dbm_ops.AISConfig(*sizes, n_betas, k, False, False, False)
+    x0 = (torch.rand((R, sizes[1]), device=cuda) < 0.5).float()
+    dbm_ops.reset_launches()
+    got = dbm_ops.ais(cfg, state, 7, x0)
+    assert dbm_ops.ais.launches == {'dbm_gemm_act': n_betas * (3 * k + 2),
+                                    'ais_logw': 1}
+    again = dbm_ops.ais(cfg, state, 7, x0)
+    want = dbm_ops.ais_reference(cfg, state, 7, x0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    assert torch.equal(got, again)
 
 
 def test_dbm_wrappers_reject_bad_inputs(cuda):
