@@ -100,11 +100,12 @@
 // association written once (192 MB, 0.057 ms).  K1 runs on the tensor-core
 // tile, K3s on the association kernel, as in the epoch.
 //
-// Three standalone launchers share these device functions: bm_normal_sample
-// (the TPU's `normal_sample`, :95), bm_bernoulli_sample (`bernoulli_sample`,
-// :74, the threshold of K1's Bernoulli epilogue) and bm_fe_probe
-// (`make_free_energy_probe`, :208); bm_cd_softmax_sample on given means is
-// `multinomial_sample` (:106).
+// Standalone launchers: bm_normal_sample (the TPU's `normal_sample`, :95)
+// and bm_bernoulli_sample (`bernoulli_sample`, :74, the threshold of K1's
+// Bernoulli epilogue), kernels of their own on the epoch's Philox and
+// Box-Muller device functions (philox.cuh); bm_fe_probe
+// (`make_free_energy_probe`, :208) on K4's kernels; bm_cd_softmax_sample on
+// given means is `multinomial_sample` (:106).
 //
 // Ordering: every K1 of a step reads the old vb/hb before K2 writes them; K3
 // needs K2's penalty vector; K4 reads the new W, vb, hb.  One stream, in
@@ -880,24 +881,107 @@ __global__ void __launch_bounds__(kMetThreads)
   }
 }
 
-// The TPU's `normal_sample`: out[i] = Box-Muller of counter (i, stream).
-__global__ void normal_sample_kernel(float* __restrict__ out,
-                                     long long count, unsigned seed,
-                                     unsigned it, unsigned stream_id) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x)
-    out[i] = bm::philox_normal(seed, it, stream_id, (unsigned)i);
+// The standalone samplers, bernoulli_sample_kernel and normal_sample_kernel.
+// They replace the TPU's `bernoulli_sample` and `normal_sample`
+// (boltzmann_machines_tpu/ops/pallas_ops.py:74-103, `_bernoulli_kernel` and
+// `_normal_kernel`).  Element i (row-major) takes Philox counter (i, 0, 0, 0):
+// the stream id and the shard are 0 at compile time here, unlike in the epoch
+// kernels' draws, so the first round's products of the zero words fold away.
+//
+// What bounds them on an H100: each element costs one Philox4x32-10, ten
+// rounds of two 32x32->64-bit products and two three-way xors: 36 integer
+// SASS instructions in the Bernoulli kernel, 32 in the normal one (whose key
+// word 1 is 0), on the SM's 64 INT32 lanes (read from this library's SASS
+// by chip_smoke.py's `--sampler-readings`).  At (100, 7800) Bernoulli draws
+// move 6.2 MB (1.86 us at 3.35 TB/s) and run 28 M integer instructions
+// (1.68 us at 64 x 132 lanes x 1.98 GHz): bytes bound them, integers close
+// behind.  At (100, 3072) normals move 1.2 MB (0.37 us) and run 9.8 M
+// integer instructions (0.59 us) beside Box-Muller's ~30 f32 operations an
+// element: integers bound them.
+//
+// The design: four consecutive elements a thread, in one wave (count / 512
+// blocks of 128 threads: no grid-stride loop, 32-bit indices, count < 2^32
+// checked by the wrapper; 128 rather than 256 threads a block spread the
+// normals' 600 blocks more evenly over the 132 SMs: 2.82-3.01 against
+// 3.02-3.49 us, `--sampler-readings`); the thread starts its 16-byte load
+// of p before any Philox work, then runs four independent Philox chains,
+// which hide each other's latency, and writes one 16-byte store.  Where a
+// pointer is not 16 bytes aligned (a contiguous view at a storage offset)
+// or the thread holds the tail (count % 4), the same thread takes the
+// scalar path: guarded 4-byte loads and stores of the same elements.
+constexpr int kSampleThreads = 128;
+constexpr int kSamplePerThread = 4;
+
+// Whether the thread at `base` (< count) holds four whole elements at
+// 16-byte aligned addresses of a and b.
+__device__ __forceinline__ bool sample_vector(const void* a, const void* b,
+                                              unsigned base,
+                                              unsigned count) {
+  return count - base >= kSamplePerThread &&
+         ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15u) == 0;
 }
 
-// The TPU's `bernoulli_sample`: out[i] = 1 if the Philox uniform of counter
-// (i, 0) under key (w0, w1) is below p[i], else 0 -- K1's Bernoulli draw.
-__global__ void bernoulli_sample_kernel(const float* __restrict__ p,
-                                        float* __restrict__ out,
-                                        long long count, unsigned w0,
-                                        unsigned w1) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x)
-    out[i] = bm::philox_uniform(w0, w1, 0u, (unsigned)i) < p[i] ? 1.f : 0.f;
+// out[i] = 1 if the uniform of counter (i, 0, 0, 0) under key (w0, w1) is
+// below p[i], else 0 -- K1's Bernoulli draw.
+__global__ void __launch_bounds__(kSampleThreads)
+    bernoulli_sample_kernel(const float* __restrict__ p,
+                            float* __restrict__ out, unsigned count,
+                            unsigned w0, unsigned w1) {
+  const unsigned base =
+      kSamplePerThread * (blockIdx.x * kSampleThreads + threadIdx.x);
+  if (base >= count) return;
+  const bool vec = sample_vector(p, out, base, count);
+  float pv[kSamplePerThread];
+  if (vec) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p + base));
+    pv[0] = q.x, pv[1] = q.y, pv[2] = q.z, pv[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSamplePerThread; ++j)
+      pv[j] = base + j < count ? __ldg(p + base + j) : 0.f;
+  }
+  unsigned idx[kSamplePerThread], r0[kSamplePerThread], r1[kSamplePerThread];
+#pragma unroll
+  for (int j = 0; j < kSamplePerThread; ++j) idx[j] = base + j;
+  bm::philox_zero_words(idx, make_uint2(w0, w1), r0, r1);
+  float s[kSamplePerThread];
+#pragma unroll
+  for (int j = 0; j < kSamplePerThread; ++j)
+    s[j] = bm::uniform_from_bits(r0[j]) < pv[j] ? 1.f : 0.f;
+  if (vec) {
+    *reinterpret_cast<float4*>(out + base) = make_float4(s[0], s[1], s[2],
+                                                         s[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSamplePerThread; ++j)
+      if (base + j < count) out[base + j] = s[j];
+  }
+}
+
+// out[i] = Box-Muller of counter (i, 0, 0, 0) under key (seed, 0).
+__global__ void __launch_bounds__(kSampleThreads)
+    normal_sample_kernel(float* __restrict__ out, unsigned count,
+                         unsigned seed) {
+  const unsigned base =
+      kSamplePerThread * (blockIdx.x * kSampleThreads + threadIdx.x);
+  if (base >= count) return;
+  unsigned idx[kSamplePerThread], r0[kSamplePerThread], r1[kSamplePerThread];
+#pragma unroll
+  for (int j = 0; j < kSamplePerThread; ++j) idx[j] = base + j;
+  bm::philox_zero_words(idx, make_uint2(seed, 0u), r0, r1);
+  float z[kSamplePerThread];
+#pragma unroll
+  for (int j = 0; j < kSamplePerThread; ++j)
+    z[j] = bm::box_muller(r0[j], r1[j]);
+  if (sample_vector(out, out, base, count)) {
+    *reinterpret_cast<float4*>(out + base) = make_float4(z[0], z[1], z[2],
+                                                         z[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSamplePerThread; ++j)
+      if (base + j < count) out[base + j] = z[j];
+  }
 }
 
 // Dynamic shared memory above the 48 KB default must be granted per kernel.
@@ -1138,25 +1222,24 @@ int bm_cd_metrics(const float* X, const float* W, const float* vb,
       l2_out, nullptr, nullptr, (cudaStream_t)stream);
 }
 
-int bm_normal_sample(float* out, long long count, unsigned seed, unsigned it,
-                     unsigned stream_id, void* stream) {
-  const int threads = 256;
-  const long long want = (count + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1)
-                                           : 132 * 16);
-  normal_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      out, count, seed, it, stream_id);
+// The standalone samplers: one wave of ceil(count / 512) blocks (at least
+// one, so that a call is always one launch); count < 2^32.
+static unsigned sample_blocks(unsigned count) {
+  const unsigned long long per_block = kSampleThreads * kSamplePerThread;
+  return count ? (unsigned)((count + per_block - 1) / per_block) : 1u;
+}
+
+int bm_normal_sample(float* out, unsigned count, unsigned seed,
+                     void* stream) {
+  normal_sample_kernel<<<sample_blocks(count), kSampleThreads, 0,
+                         (cudaStream_t)stream>>>(out, count, seed);
   return (int)cudaGetLastError();
 }
 
-int bm_bernoulli_sample(const float* p, float* out, long long count,
+int bm_bernoulli_sample(const float* p, float* out, unsigned count,
                         unsigned w0, unsigned w1, void* stream) {
-  const int threads = 256;
-  const long long want = (count + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 16 ? (want > 0 ? want : 1)
-                                           : 132 * 16);
-  bernoulli_sample_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, out, count, w0, w1);
+  bernoulli_sample_kernel<<<sample_blocks(count), kSampleThreads, 0,
+                            (cudaStream_t)stream>>>(p, out, count, w0, w1);
   return (int)cudaGetLastError();
 }
 

@@ -318,8 +318,8 @@ _ARGTYPES = {
                       _I, _U, _U, _P, _P, _P, _P, _P, _P],
     'bm_cd_stats_sums': [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     'bm_cd_assoc_stats': [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-    'bm_bernoulli_sample': [_P, _P, _L, _U, _U, _P],
-    'bm_normal_sample': [_P, _L, _U, _U, _U, _P],
+    'bm_bernoulli_sample': [_P, _P, _U, _U, _U, _P],
+    'bm_normal_sample': [_P, _U, _U, _P],
     'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P],
     'bm_assoc_n_tile': [_I, _I, _I],

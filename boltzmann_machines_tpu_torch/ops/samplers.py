@@ -26,6 +26,8 @@ Philox numbers (key (seed, 0), or the two words of a two-word seed for
 runs the plain version, a CUDA one launches the kernel or raises.
 """
 
+import math
+
 import numpy as np
 import torch
 
@@ -37,21 +39,37 @@ from .philox import (STREAM_PLL_HHAT, multinomial_counts, normal,
                      philox_uniform)
 
 
+_NOT_32_BITS = 'seed and draw indices must fit in 32 bits'
+
+
 def _check_seed(seed, n_draws):
     if not (0 <= int(seed) < 2 ** 32 and 0 <= int(n_draws) < 2 ** 32):
-        raise ValueError('seed and draw indices must fit in 32 bits')
+        raise ValueError(_NOT_32_BITS)
+
+
+# the devices named so far: a name always names the same device, and
+# torch.device() costs a microsecond of host a call (--sampler-readings)
+_DEVICES = {}
 
 
 def _device_of(device):
-    device = torch.device(device)
-    if device.type not in ('cpu', 'cuda'):
+    known = _DEVICES.get(device)
+    if known is not None:
+        return known
+    parsed = torch.device(device)
+    if parsed.type not in ('cpu', 'cuda'):
         raise ValueError('runs on CUDA (kernel) or the CPU (plain version), '
-                         'not on {0}'.format(device))
-    return device
+                         'not on {0}'.format(parsed))
+    _DEVICES[device] = parsed
+    return parsed
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of the current CUDA stream of `device` (a device or its
+    index), as the kernels take it: torch.accelerator's stream costs a
+    third to a half of torch.cuda.current_stream's host time
+    (--sampler-readings)."""
+    return torch.accelerator.current_stream(device).native_handle
 
 
 # ---------------------------------------------------------------------- #
@@ -61,17 +79,20 @@ def key_words(seed):
     """The Philox key (w0, w1) of `seed`: an int gives (seed, 0), two
     uint32 words (a sequence, array or tensor of 2) give (w0, w1) -- the
     TPU's ``_seed_words`` (pallas_ops.py:57-65)."""
-    if isinstance(seed, torch.Tensor):
-        seed = seed.tolist()
-    a = np.asarray(seed)
-    if a.ndim == 0:
-        words = (int(a), 0)
-    elif a.size == 2:
-        words = tuple(int(w) for w in a.reshape(-1))
+    if type(seed) is int:  # the common case, without numpy
+        words = (seed, 0)
     else:
-        raise ValueError('seed must be an int or two uint32 words, got '
-                         'shape {0}'.format(a.shape))
-    if not all(0 <= w < 2 ** 32 for w in words):
+        if isinstance(seed, torch.Tensor):
+            seed = seed.tolist()
+        a = np.asarray(seed)
+        if a.ndim == 0:
+            words = (int(a), 0)
+        elif a.size == 2:
+            words = tuple(int(w) for w in a.reshape(-1))
+        else:
+            raise ValueError('seed must be an int or two uint32 words, got '
+                             'shape {0}'.format(a.shape))
+    if not (0 <= words[0] < 2 ** 32 and 0 <= words[1] < 2 ** 32):
         raise ValueError('seed words must fit in 32 bits')
     return words
 
@@ -86,16 +107,19 @@ def bernoulli_sample(seed, probs):
     """float32 states of the float32 `probs` (any shape): element ``i``
     (row-major) is 1 where the Philox uniform of counter (i, 0) under the
     key of `seed` (``key_words``) is below ``probs[i]``, else 0."""
-    words = key_words(seed)
-    _check_seed(0, probs.numel())
-    device = _device_of(probs.device)
-    if device.type == 'cpu':
+    w0, w1 = key_words(seed)
+    count = probs.numel()
+    if count >= 2 ** 32:
+        raise ValueError(_NOT_32_BITS)
+    if not probs.is_cuda:
+        _device_of(probs.device)
         return bernoulli_sample_reference(seed, probs)
-    check_tensors([(probs, 'probs')], device, {})
+    if probs.dtype != torch.float32 or not probs.is_contiguous():
+        check_tensors([(probs, 'probs')], probs.device, {})
     out = torch.empty_like(probs)
     check_launch(library().bm_bernoulli_sample(
-        ptr(probs), ptr(out), probs.numel(), words[0], words[1],
-        _stream(device)), 'bernoulli_sample')
+        probs.data_ptr(), out.data_ptr(), count, w0, w1,
+        _stream(probs.get_device())), 'bernoulli_sample')
     bernoulli_sample.launches['bernoulli_sample'] += 1
     return out
 
@@ -114,13 +138,17 @@ def normal_sample(seed, shape, device='cuda'):
     """float32 standard normals of `shape`, element ``i`` (row-major) from
     Philox counter (i, 0) under key (seed, 0)."""
     device = _device_of(device)
-    shape = tuple(int(d) for d in shape)
-    _check_seed(seed, int(np.prod(shape, dtype=np.int64)))
+    shape = tuple(map(int, shape))
+    count, seed = math.prod(shape), int(seed)
+    if not (0 <= seed < 2 ** 32 and 0 <= count < 2 ** 32):
+        raise ValueError(_NOT_32_BITS)
     if device.type == 'cpu':
         return normal_sample_reference(seed, shape, device)
-    out = torch.empty(shape, dtype=torch.float32, device=device)
+    # the sizes as separate ints: torch parses them faster than one tuple
+    out = (torch.empty(*shape, dtype=torch.float32, device=device) if shape
+           else torch.empty((), dtype=torch.float32, device=device))
     check_launch(library().bm_normal_sample(
-        ptr(out), out.numel(), int(seed), 0, 0, _stream(device)),
+        out.data_ptr(), count, seed, _stream(out.get_device())),
         'normal_sample')
     normal_sample.launches['normal_sample'] += 1
     return out

@@ -3,12 +3,14 @@ NVIDIA GPU and check it.
 
     python3 chip_smoke.py
 
-(``--readings``, ``--assoc-readings``, ``--softmax-readings`` and
-``--pll-readings`` print, instead of the smoke, what two checks' limits
-rest on, where the association kernel's time goes, how cd_softmax_sample's
-time moves with the threads of its block, and the PLL's error against its
-plain version in float32 and float64; see ``readings``,
-``assoc_readings``, ``softmax_readings`` and ``pll_readings``.
+(``--readings``, ``--assoc-readings``, ``--softmax-readings``,
+``--sampler-readings`` and ``--pll-readings`` print, instead of the smoke,
+what two checks' limits rest on, where the association kernel's time goes,
+how cd_softmax_sample's time moves with the threads of its block, where a
+standalone sampler's call and device time go, and the PLL's error against
+its plain version in float32 and float64; see ``readings``,
+``assoc_readings``, ``softmax_readings``, ``sampler_readings`` and
+``pll_readings``.
 ``--kernel-times`` runs phase 18 alone; run from another checkout, it
 times that checkout's kernels.)
 
@@ -43,10 +45,11 @@ Phases, each printing its lines before the last:
     (examples/dbm_cifar.py's, a ragged H) and the multinomial-hidden ones at
     5000 x 1000, n = 1000 (the M-RBM, dbm_last, PLL on every checked
     iteration), batch 100, sampling off and on; the standalone samplers
-    and the free-energy probe driven once each between a reset and a read
-    of their launch counts, those outputs against their plain versions,
-    and each timed per call beside its plain version and, where one
-    PyTorch call computes the same function, that call;
+    and the free-energy probe driven once each (normal_sample also at
+    SAMPLER_EDGE_SHAPES) between a reset and a read of their launch
+    counts, those outputs against their plain versions, and each timed
+    per call beside its plain version and, where one PyTorch call
+    computes the same function, that call;
 11. the generative half of examples/dbm_cifar_naive.py on the card:
     ``GaussianRBM(3072, 5000).fit``, ``transform``,
     ``MultinomialRBM(5000, 1000, n_samples=1000).fit``, ``transform``, save
@@ -60,8 +63,9 @@ Phases, each printing its lines before the last:
     1024 with 128 rows and 3072 x 7800 with 50 (Gaussian, dbm_first),
     shards 0 and 1, k = 0 and 1, sampling off (sums within STATS_TOL) and on
     (one pass's states draw by draw; shard 0's draws the CD epoch
-    kernels'); ``bernoulli_sample`` driven once at (10, 1024) and
-    (100, 7800), bit for bit against plain;
+    kernels'); ``bernoulli_sample`` driven once at (10, 1024),
+    (100, 7800), SAMPLER_EDGE_SHAPES and a view 4 bytes past a 16-byte
+    boundary, bit for bit against plain;
 14. the data-parallel path on the card: the epoch driven directly on a
     one-rank NCCL group at 3072 x 7800 against the CD epoch kernels, and
     its step timed beside theirs; then the main path of this slice, a
@@ -120,11 +124,13 @@ its plain version's (``plain_ms``), the least time the card could take for
 the same work (``bound_ms``: the larger of the bytes it must move over
 3.35 TB/s and its operations over the card's peaks for their type -- the
 products, run at f32 accuracy on the tensor cores in 3xTF32, at 495 / 3 =
-165 TFLOP/s, the other f32 operations at 67 TFLOP/s -- from this run's
-shapes; ``bound_by`` says which), and ``library_ms``, the time of one PyTorch call
-computing the same function where there is one (else null).  The entries of
-the paths whose products run on the tensor-core tile carry phase 16's
-numbers for those products (``*_gemm_act_shapes``).
+165 TFLOP/s, the other f32 operations at 67 TFLOP/s, and the standalone
+samplers' Philox integer instructions on 64 INT32 lanes an SM at the SM
+clock nvidia-smi reads -- from this run's shapes; ``bound_by`` says
+which), and ``library_ms``, the time of one PyTorch call computing the
+same function where there is one (else null).  The entries of the paths
+whose products run on the tensor-core tile carry phase 16's numbers for
+those products (``*_gemm_act_shapes``).
 
 Any failure raises (non-zero exit).  The line before the last is the
 kernels' JSON line; the last line of standard output is one JSON object:
@@ -162,17 +168,51 @@ REPLACES = {
 # tensor cores, TF32 on them (an f32-accurate product in 3xTF32 runs three
 # tf32 products: 495 / 3 TFLOP/s), and device memory
 PEAK_F32, PEAK_3XTF32, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
+# 32-bit integer instructions: 64 INT32 lanes an SM (the Hopper architecture
+# white paper), times the SMs, times the SM clock nvidia-smi reads
+INT32_LANES = 64
+# integer SASS instructions of one Philox4x32-10 of counter (i, 0, 0, 0) in
+# each standalone sampler kernel (csrc/cd_epoch.cu): the kernel's integer
+# instructions less those of a copy whose Philox is the identity, over its
+# four elements (`python3 chip_smoke.py --sampler-readings` reads them)
+PHILOX_INT_OPS = {'bernoulli_sample': 36., 'normal_sample': 32.}
 
 
-def bound(gemm_flops, flops, nbytes):
-    """(bound_ms, bound_by): the least time for `gemm_flops` operations of
-    products (matrix products at f32 accuracy, which the card runs on its
-    tensor cores in 3xTF32), `flops` other f32 operations and `nbytes`
-    bytes moved: the larger of the operations' time, each kind over its
-    peak, and the bytes'."""
-    t_op = gemm_flops / PEAK_3XTF32 + flops / PEAK_F32
-    t_b = nbytes / PEAK_BYTES
-    return 1e3 * max(t_op, t_b), 'operations' if t_op >= t_b else 'bytes'
+def int_peak():
+    """Integer instructions a second: INT32_LANES x the SMs x the SM clock
+    (``clocks.max.sm``), read once from the card."""
+    if not hasattr(int_peak, 'rate'):
+        import torch
+        mhz = subprocess.run(
+            ['nvidia-smi', '--query-gpu=clocks.max.sm',
+             '--format=csv,noheader,nounits'], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        int_peak.rate = INT32_LANES * sms * float(mhz) * 1e6
+        say('integer peak: %d lanes x %d SMs x %s MHz = %.4g /s' % (
+            INT32_LANES, sms, mhz, int_peak.rate))
+    return int_peak.rate
+
+
+def bound_parts(gemm_flops, flops, nbytes, int_ops=0.):
+    """The least times, in ms, of `nbytes` bytes moved, of `gemm_flops`
+    operations of products (matrix products at f32 accuracy, which the card
+    runs on its tensor cores in 3xTF32) and `flops` other f32 operations,
+    each kind over its peak and the two added, and of `int_ops` 32-bit
+    integer instructions."""
+    return {'bytes_ms': 1e3 * nbytes / PEAK_BYTES,
+            'float_ms': 1e3 * (gemm_flops / PEAK_3XTF32 + flops / PEAK_F32),
+            'int_ms': 1e3 * int_ops / int_peak() if int_ops else 0.}
+
+
+def bound(*work):
+    """(bound_ms, bound_by) of the work (bound_parts' arguments): the larger
+    of the bytes' time and the operations', where the integers run on lanes
+    of their own beside the floating-point work."""
+    parts = bound_parts(*work)
+    t_op = max(parts['float_ms'], parts['int_ms'])
+    return (max(t_op, parts['bytes_ms']),
+            'operations' if t_op >= parts['bytes_ms'] else 'bytes')
 
 
 def cd_step_work(V, H, B, k=1, n_samples=0):
@@ -1062,6 +1102,9 @@ GRBM = (3072, 5000)
 GRBM_WIDE = (3072, 7800)      # examples/dbm_cifar.py:266, N_SMALL_HIDDEN * 26
 MRBM = (5000, 1000)
 CIFAR_B, N_SAMPLES = 100, 1000
+# the standalone samplers' ragged shapes: one element (the scalar path
+# alone), and tails of 3 after the 16-byte path
+SAMPLER_EDGE_SHAPES = ((1, 1), (3, 5), (7, 1001))
 GRBM_LR, MRBM_LR = 5e-4, 1e-4   # the example's learning rates
 GRBM_L2, MRBM_L2 = 0.01, 0.05
 
@@ -1355,7 +1398,8 @@ def samplers_vs_plain(torch):
 
     torch.cuda.synchronize()
     samplers.reset_launches()
-    got_normal = samplers.normal_sample(5, shape, 'cuda')
+    got_normal = {s: samplers.normal_sample(5, s, 'cuda')
+                  for s in (shape,) + SAMPLER_EDGE_SHAPES}
     got_counts = samplers.multinomial_sample(6, means, N_SAMPLES)
     got_fe = [probe(*args) for _, _, _, probe, args in probes]
     torch.cuda.synchronize()
@@ -1367,24 +1411,32 @@ def samplers_vs_plain(torch):
                     'fe_probe']}
     say('standalone launchers driven once each: %s' % json.dumps(launches))
     # the probe: two launches a call
-    if launches != {'normal_sample': 1, 'multinomial_sample': 1,
+    if launches != {'normal_sample': len(got_normal), 'multinomial_sample': 1,
                     'free_energy_probe': 2 * len(probes)}:
         raise AssertionError('launch counts of the standalone launchers: %s'
                              % launches)
 
-    # ~30 f32 operations per normal (log, sqrt, cos and their scaling)
-    got = got_normal
-    want = samplers.normal_sample_reference(5, shape, 'cuda')
-    d = (got - want).abs()
-    ulps = float((d / torch.finfo(torch.float32).eps
-                  / want.abs().clamp(min=1.)).max())
-    say('normal_sample %s: max|kernel-plain|=%.3g (%.1f ulp); mean %.4f, '
-        'var %.4f' % (shape, float(d.max()), ulps, float(got.mean()),
-                      float(got.var())))
-    if not float(d.max()) <= 4e-6 * max(1., float(want.abs().max())):
-        raise AssertionError('normal_sample kernel and plain disagree')
+    # each shape within 4e-6 of plain (the 1-element one on the scalar path
+    # alone, the others on the 16-byte path and its tail)
+    for s, got in got_normal.items():
+        want = samplers.normal_sample_reference(5, s, 'cuda')
+        d = (got - want).abs()
+        ulps = float((d / torch.finfo(torch.float32).eps
+                      / want.abs().clamp(min=1.)).max())
+        say('normal_sample %s: max|kernel-plain|=%.3g (%.1f ulp); mean %.4f, '
+            'var %.4f' % (s, float(d.max()), ulps, float(got.mean()),
+                          float(got.var()) if got.numel() > 1 else 0.))
+        if not float(d.max()) <= 4e-6 * max(1., float(want.abs().max())):
+            raise AssertionError('normal_sample kernel and plain disagree at '
+                                 '%s' % (s,))
+    got = got_normal[shape]
+    n = got.numel()
+    # ~30 f32 operations per normal (log, sqrt, cos and their scaling), and
+    # one Philox an element on the integer lanes
     out['normal_sample'] = dict(
-        err=float(d.max()), work=(0., 30. * got.numel(), 4. * got.numel()),
+        err=float((got - samplers.normal_sample_reference(
+            5, shape, 'cuda')).abs().max()),
+        work=(0., 30. * n, 4. * n, PHILOX_INT_OPS['normal_sample'] * n),
         ms=event_ms(torch, lambda: samplers.normal_sample(5, shape, 'cuda'),
                     50),
         plain_ms=event_ms(torch, lambda: samplers.normal_sample_reference(
@@ -1397,6 +1449,8 @@ def samplers_vs_plain(torch):
             5, shape, 'cuda')),
         library_device_ms=graph_ms(torch, lambda: torch.randn(
             shape, device='cuda')))
+    out['normal_sample']['bound_parts'] = bound_parts(
+        *out['normal_sample']['work'])
 
     got, probs = got_counts, means / N_SAMPLES
     want = samplers.multinomial_sample_reference(6, means, N_SAMPLES)
@@ -1791,36 +1845,42 @@ def stats_vs_plain(torch):
 
 def bernoulli_vs_plain(torch):
     """``bernoulli_sample`` driven once at (10, 1024) (rbm_mnist's hidden
-    draw) and once at (100, 7800) (dbm_cifar's G-RBM's) between a reset and
-    a read of its launch count, each output bit for bit against the plain
-    version (an int seed and a two-word key); then timed per call at
-    (100, 7800) beside the plain version and torch.bernoulli."""
+    draw), (100, 7800) (dbm_cifar's G-RBM's), the ragged
+    SAMPLER_EDGE_SHAPES and on a contiguous view 4 bytes past a 16-byte
+    boundary (the scalar path) between a reset and a read of its launch
+    count, each output bit for bit against the plain version (an int seed
+    and a two-word key); then timed per call at (100, 7800) beside the
+    plain version and torch.bernoulli."""
     from boltzmann_machines_tpu_torch.ops import samplers
     g = torch.Generator(device='cuda')
     g.manual_seed(5)
-    probs = {shape: torch.rand(shape, generator=g, device='cuda')
-             for shape in ((10, H), (CIFAR_B, GRBM_WIDE[1]))}
-    seeds = {(10, H): 12345, (CIFAR_B, GRBM_WIDE[1]): (7, 99)}
+    wide = (CIFAR_B, GRBM_WIDE[1])
+    cases = [('%s' % (s,), 12345 if s == (10, H) else (7, 99),
+              torch.rand(s, generator=g, device='cuda'))
+             for s in ((10, H), wide) + SAMPLER_EDGE_SHAPES]
+    flat = torch.rand(7 * 1001 + 1, generator=g, device='cuda')
+    cases.append(('(7, 1001) at a 4-byte offset', 99,
+                  flat[1:].view(7, 1001)))
     torch.cuda.synchronize()
     samplers.reset_launches()
-    got = {shape: samplers.bernoulli_sample(seeds[shape], p)
-           for shape, p in probs.items()}
+    got = [samplers.bernoulli_sample(seed, p) for _, seed, p in cases]
     torch.cuda.synchronize()
     launches = samplers.bernoulli_sample.launches['bernoulli_sample']
-    for shape, p in probs.items():
-        want = samplers.bernoulli_sample_reference(seeds[shape], p)
-        n_diff = int((got[shape] != want).sum())
+    for (label, seed, p), s in zip(cases, got):
+        want = samplers.bernoulli_sample_reference(seed, p)
+        n_diff = int((s != want).sum())
         say('bernoulli_sample %s seed %s: %d of %d states differ from plain; '
-            'mean %.4f (p %.4f)' % (shape, seeds[shape], n_diff, p.numel(),
-                                    float(got[shape].mean()),
-                                    float(p.mean())))
+            'mean %.4f (p %.4f)' % (label, seed, n_diff, p.numel(),
+                                    float(s.mean()), float(p.mean())))
         if n_diff:
             raise AssertionError('bernoulli_sample kernel and plain differ')
-    if launches != len(probs):
+    if launches != len(cases):
         raise AssertionError('bernoulli_sample launches %d' % launches)
-    p = probs[(CIFAR_B, GRBM_WIDE[1])]
+    p, small = cases[1][2], cases[0][2]
+    n = p.numel()
     out = dict(
-        launches=launches, err=0., work=(0., 1. * p.numel(), 8. * p.numel()),
+        launches=launches, err=0.,
+        work=(0., 1. * n, 8. * n, PHILOX_INT_OPS['bernoulli_sample'] * n),
         ms=event_ms(torch, lambda: samplers.bernoulli_sample(7, p), 50),
         plain_ms=event_ms(torch, lambda: samplers.bernoulli_sample_reference(
             7, p), 5),
@@ -1828,16 +1888,16 @@ def bernoulli_vs_plain(torch):
         library_ms=event_ms(torch, lambda: torch.bernoulli(p, generator=g),
                             50),
         small_ms=event_ms(torch, lambda: samplers.bernoulli_sample(
-            7, probs[(10, H)]), 50),
+            7, small), 50),
         # device times alone (a CUDA graph of calls: no host launch time)
         device_ms=graph_ms(torch, lambda: samplers.bernoulli_sample(7, p)),
         library_device_ms=graph_ms(torch, lambda: torch.bernoulli(p)))
-    say('bernoulli_sample (%d, %d): %.4f ms per call, plain %.4f ms, '
+    out['bound_parts'] = bound_parts(*out['work'])
+    say('bernoulli_sample %s: %.4f ms per call, plain %.4f ms, '
         'torch.bernoulli %.4f ms; (10, %d) %.4f ms; device time alone %.4f '
         'ms, torch.bernoulli %.4f ms' % (
-            CIFAR_B, GRBM_WIDE[1], out['ms'], out['plain_ms'],
-            out['library_ms'], H, out['small_ms'], out['device_ms'],
-            out['library_device_ms']))
+            wide, out['ms'], out['plain_ms'], out['library_ms'], H,
+            out['small_ms'], out['device_ms'], out['library_device_ms']))
     return out
 
 
@@ -3441,6 +3501,21 @@ TILE_VARIANTS = {
     'no_draws': (('cd_epoch.cu',
                   'for (int j = threadIdx.x; j < n; j += 2 * T) {',
                   'for (int j = threadIdx.x; j < 0 * n; j += 2 * T) {'),),
+    # the standalone samplers with the Philox of their counters replaced by
+    # the counter and key (wrong draws): what the Philox costs them in
+    # integer instructions and in time
+    'no_philox': (('philox.cuh',
+                   'const uint4 r = philox4x32_10(make_uint4(idx[j], 0u, 0u, '
+                   '0u), k);',
+                   'const uint4 r = make_uint4(idx[j] ^ k.x, idx[j] ^ k.y, '
+                   '0u, 0u);'),),
+    # the standalone samplers with 256 or 64 threads a block instead of 128
+    'sample_threads_256': (('cd_epoch.cu',
+                            'constexpr int kSampleThreads = 128;',
+                            'constexpr int kSampleThreads = 256;'),),
+    'sample_threads_64': (('cd_epoch.cu',
+                           'constexpr int kSampleThreads = 128;',
+                           'constexpr int kSampleThreads = 64;'),),
 }
 
 
@@ -3710,6 +3785,229 @@ def softmax_readings():
     return 0
 
 
+# the integer pipe's SASS opcodes (before the first '.'); the uniform
+# datapath's (U...) run once a warp and are not counted
+INT_OPCODES = frozenset((
+    'IMAD', 'IADD3', 'IADD', 'IMUL', 'LOP3', 'LOP', 'SHF', 'SHL', 'SHR',
+    'LEA', 'ISETP', 'IMNMX', 'IABS', 'SEL', 'PRMT', 'POPC', 'FLO', 'BREV',
+    'BMSK', 'SGXT', 'IDP'))
+
+
+def sass_counts(lib, names):
+    """{name: (integer instructions, all instructions, IMAD.WIDE and
+    IMAD.HI products)} of each kernel whose symbol holds `name`, from
+    ``cuobjdump -sass`` of the library `lib` (static counts)."""
+    from boltzmann_machines_tpu_torch.ops._build import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), 'cuobjdump')
+    text = subprocess.run([tool, '-sass', lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    op = re.compile(r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)')
+    out = {}
+    for block in text.split('Function : ')[1:]:
+        symbol = block.split()[0]
+        for name in names:
+            if name in symbol:
+                ops = op.findall(block)
+                out[name] = (
+                    sum(o.split('.')[0] in INT_OPCODES for o in ops),
+                    len(ops),
+                    sum(o.startswith(('IMAD.WIDE', 'IMAD.HI')) for o in ops))
+    missing = set(names) - set(out)
+    if missing:
+        raise AssertionError('no SASS for %s in %s' % (sorted(missing), lib))
+    return out
+
+
+def host_us(torch, fn, n=1000, reps=5):
+    """Host microseconds per call of `fn`: the best of `reps` runs of n calls
+    by the host clock, the card synchronised before and after each run
+    (outside the clock)."""
+    fn()
+    best = float('inf')
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * best / n
+
+
+def sampler_readings():
+    """Where one call of the standalone samplers goes: each piece of
+    ``bernoulli_sample`` at (100, 7800) and ``normal_sample`` at
+    (100, 3072) timed alone by the host clock (``host_us``: 1000 calls,
+    best of five), beside the whole wrapper and torch.bernoulli /
+    torch.randn in the same process (the host varies from process to
+    process, so they are the yardstick only here); per call by CUDA events
+    (50 calls, as phase 10 and 13 time them) and device time alone
+    (graph_ms), also on the scalar path (a view 4 bytes off); then the
+    integer SASS instructions of one Philox evaluation in each kernel (the
+    committed kernels' less a copy's whose Philox is the identity, over the
+    four elements a thread) and that copy's device times."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke --sampler-readings: no CUDA device\n')
+        return 1
+    environment(torch)
+    import importlib
+    ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
+    from boltzmann_machines_tpu_torch.ops import _build, samplers
+    g = torch.Generator(device='cuda')
+    g.manual_seed(5)
+    shape = (CIFAR_B, GRBM[0])
+    p = torch.rand((CIFAR_B, GRBM_WIDE[1]), generator=g, device='cuda')
+    view = torch.rand(p.numel() + 1, generator=g, device='cuda')[1:].view(
+        p.shape)
+    dev, idx, n, n_normal = p.device, p.get_device(), p.numel(), 307200
+    lib = ce.library()
+    out_b, out_n = torch.empty_like(p), torch.empty(shape, device=dev)
+    handle = torch.cuda.current_stream(idx).cuda_stream
+    args_b = (p.data_ptr(), out_b.data_ptr(), n, 7, 0, handle)
+    args_n = (out_n.data_ptr(), n_normal, 5, handle)
+    private = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    accel = getattr(torch, 'accelerator', None)
+    if accel is not None and hasattr(accel.current_stream(idx),
+                                     'native_handle'):
+        say('  torch.accelerator.current_stream(index).native_handle %s '
+            'torch.cuda.current_stream(index).cuda_stream' % (
+                '==' if accel.current_stream(idx).native_handle == handle
+                else '!='))
+    else:
+        accel = None
+    cuda = torch.device('cuda')
+    pieces = [
+        ('an empty lambda', lambda: None),
+        ('key_words(7)', lambda: samplers.key_words(7)),
+        ('key_words((7, 99))', lambda: samplers.key_words((7, 99))),
+        ('key_words(np.int64(7)): the numpy route',
+         lambda: samplers.key_words(np.int64(7))),
+        ('_check_seed(5, 307200)', lambda: samplers._check_seed(5, n_normal)),
+        ("_device_of('cuda')", lambda: samplers._device_of('cuda')),
+        ('_device_of(p.device)', lambda: samplers._device_of(p.device)),
+        ('p.is_cuda', lambda: p.is_cuda),
+        ('p.device', lambda: p.device),
+        ('p.get_device()', lambda: p.get_device()),
+        ('p.numel()', lambda: p.numel()),
+        ('math.prod(shape)', lambda: math.prod(shape)),
+        ('int(np.prod(shape, dtype=np.int64))',
+         lambda: int(np.prod(shape, dtype=np.int64))),
+        ('tuple(map(int, shape))', lambda: tuple(map(int, shape))),
+        ('tuple(int(d) for d in shape)',
+         lambda: tuple(int(d) for d in shape)),
+        ('check_tensors([(p, probs)], p.device, {})',
+         lambda: ce.check_tensors([(p, 'probs')], dev, {})),
+        ('p.dtype and p.is_contiguous()',
+         lambda: p.dtype != torch.float32 or not p.is_contiguous()),
+        ('current_stream(p.device).cuda_stream',
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ('current_stream(index).cuda_stream',
+         lambda: torch.cuda.current_stream(idx).cuda_stream),
+        ('current_stream().cuda_stream',
+         lambda: torch.cuda.current_stream().cuda_stream),
+        ("torch.device('cuda')", lambda: torch.device('cuda')),
+        ('count >= 2 ** 32', lambda: n >= 2 ** 32),
+        ('torch.empty_like(p)', lambda: torch.empty_like(p)),
+        ('torch.empty(shape, dtype, device)',
+         lambda: torch.empty(shape, dtype=torch.float32, device=dev)),
+        ("torch.empty(shape, dtype, device=torch.device('cuda'))",
+         lambda: torch.empty(shape, dtype=torch.float32, device=cuda)),
+        ("torch.empty(shape, dtype, device='cuda')",
+         lambda: torch.empty(shape, dtype=torch.float32, device='cuda')),
+        ('torch.empty(shape, dtype, device=index)',
+         lambda: torch.empty(shape, dtype=torch.float32, device=idx)),
+        ('torch.empty(*shape, dtype, device)',
+         lambda: torch.empty(*shape, dtype=torch.float32, device=dev)),
+        ('p.new_empty(shape)', lambda: p.new_empty(shape)),
+        ('p.data_ptr()', lambda: p.data_ptr()),
+        ('library()', ce.library),
+        ('ctypes, no launch: bm_assoc_n_tile',
+         lambda: lib.bm_assoc_n_tile(784, 1024, 132)),
+        ('ctypes, a launch: bm_bernoulli_sample',
+         lambda: lib.bm_bernoulli_sample(*args_b)),
+        ('ctypes, a launch: bm_normal_sample',
+         lambda: lib.bm_normal_sample(*args_n)),
+        ('bernoulli_sample(7, p)', lambda: samplers.bernoulli_sample(7, p)),
+        ('bernoulli_sample((7, 99), p)',
+         lambda: samplers.bernoulli_sample((7, 99), p)),
+        ('torch.bernoulli(p, generator=g)',
+         lambda: torch.bernoulli(p, generator=g)),
+        ("normal_sample(5, shape, 'cuda')",
+         lambda: samplers.normal_sample(5, shape, 'cuda')),
+        ("torch.randn(shape, generator=g, device='cuda')",
+         lambda: torch.randn(shape, generator=g, device='cuda')),
+    ]
+    if accel is not None:
+        pieces.append(('torch.accelerator.current_stream(index).'
+                       'native_handle',
+                       lambda: accel.current_stream(idx).native_handle))
+    if private is not None:
+        pieces.append(('torch._C._cuda_getCurrentRawStream(index) (private, '
+                       'not used)', lambda: private(idx)))
+    host = {}
+    for label, fn in pieces:
+        host[label] = host_us(torch, fn)
+        say('  host %-52s %.3f us' % (label, host[label]))
+    calls = {
+        'bernoulli_sample': lambda: samplers.bernoulli_sample(7, p),
+        'torch.bernoulli': lambda: torch.bernoulli(p, generator=g),
+        'normal_sample': lambda: samplers.normal_sample(5, shape, 'cuda'),
+        'torch.randn': lambda: torch.randn(shape, generator=g,
+                                           device='cuda')}
+    per_call = {k: [] for k in calls}
+    for _ in range(7):  # in turns: the host drifts within a process too
+        for k, fn in calls.items():
+            per_call[k].append(event_ms(torch, fn, 50))
+    say('  per call, CUDA events over 50 calls, ms, seven turns: %s; '
+        'medians %s' % (json.dumps(per_call), json.dumps(
+            {k: sorted(v)[3] for k, v in per_call.items()})))
+    device, sass = {}, {}
+    names = ('bernoulli_sample_kernel', 'normal_sample_kernel')
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for variant in (None, 'no_philox', 'sample_threads_256',
+                        'sample_threads_64', None):
+            use_tile(tmpdir, variant)
+            key = variant or ('committed, again' if device else 'committed')
+            lib_path = _build.library_path('cd_epoch')
+            sass[key] = sass_counts(lib_path, names)
+            with open(lib_path + '.log') as f:
+                log = f.read().split('Compiling entry function')
+            for name in names:
+                say('  %s %s: %s' % (key, name, ' '.join(
+                    line.strip() for part in log if name in part.split()[0]
+                    for line in part.splitlines() if 'Used' in line)))
+            device[key] = {
+                'bernoulli_sample': graph_ms(
+                    torch, lambda: samplers.bernoulli_sample(7, p)),
+                'bernoulli_sample at a 4-byte offset': graph_ms(
+                    torch, lambda: samplers.bernoulli_sample(7, view)),
+                'normal_sample': graph_ms(
+                    torch, lambda: samplers.normal_sample(5, shape, 'cuda'))}
+            say('  %s: device time alone (graph_ms), ms: %s; SASS (integer, '
+                'all, products): %s' % (key, json.dumps(device[key]),
+                                        json.dumps(sass[key])))
+    device['torch.bernoulli'] = graph_ms(torch, lambda: torch.bernoulli(p))
+    device['torch.randn'] = graph_ms(
+        torch, lambda: torch.randn(shape, device='cuda'))
+    philox = {name: (sass['committed'][name][0] - sass['no_philox'][name][0])
+              / 4. for name in names}
+    say('  integer SASS instructions of one Philox evaluation: %s'
+        % json.dumps(philox))
+    rate = int_peak()
+    for name, elems, nbytes in (
+            ('bernoulli_sample_kernel', n, 8. * n),
+            ('normal_sample_kernel', n_normal, 4. * n_normal)):
+        say('  %s: %d elements: integers %.4f us, bytes %.4f us' % (
+            name, elems, 1e6 * philox[name] * elems / rate,
+            1e6 * nbytes / PEAK_BYTES))
+    say(json.dumps({'sampler_readings': {
+        'host_us': host, 'per_call_ms': per_call, 'device_ms': device,
+        'sass': sass, 'philox_int_ops': philox, 'int_peak': rate}}))
+    return 0
+
+
 def readings():
     """The readings behind two limits: the card tests' tolerance of the
     tensor-core tile (the committed tile against the single-accumulator
@@ -3917,7 +4215,8 @@ def main():
                 sampler[name].get('library_ms'),
                 path_launches=path_launches, shape=shape,
                 **{k: sampler[name][k] for k in ('device_ms',
-                                                 'library_device_ms')
+                                                 'library_device_ms',
+                                                 'bound_parts')
                    if k in sampler[name]})
           for name, path_launches, shape in (
               ('normal_sample',
@@ -3966,7 +4265,8 @@ def main():
                                                 for r in dp_stats)},
               shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms'],
               device_ms=bern['device_ms'],
-              library_device_ms=bern['library_device_ms']),
+              library_device_ms=bern['library_device_ms'],
+              bound_parts=bern['bound_parts']),
     ]
     for e in kernels:
         for kernel, *labels in walks.get(e['name'], ()):
@@ -4005,6 +4305,7 @@ if __name__ == '__main__':
         sys.exit(dp_rank(int(rank), int(world), tmpdir))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
               '--softmax-readings': softmax_readings,
+              '--sampler-readings': sampler_readings,
               '--pll-readings': pll_readings,
               '--kernel-times': kernel_times_only}
              .get(' '.join(sys.argv[1:]), main)())

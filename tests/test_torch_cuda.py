@@ -371,13 +371,21 @@ def test_cd_metrics_without_pll(cuda):
     assert float(got[1]) == 0.
 
 
-def test_normal_sample_kernel_matches_plain_version(cuda):
+# the standalone samplers' shapes: the path's, one element (the scalar
+# path alone), and tails of 3 after the 16-byte path
+SAMPLER_SHAPES = [(1, 1), (3, 5), (7, 1001)]
+
+
+@pytest.mark.parametrize('shape', [(100, 3072)] + SAMPLER_SHAPES)
+def test_normal_sample_kernel_matches_plain_version(cuda, shape):
     """Box-Muller in the kernel (logf, cosf, sqrtf without fast math) and
-    in torch agree within a few ulps: 4e-6."""
+    in torch agree within a few ulps: 4e-6; one launch a call."""
     from boltzmann_machines_tpu_torch.ops.samplers import (
         normal_sample, normal_sample_reference)
-    got = normal_sample(9, (100, 3072))
-    want = normal_sample_reference(9, (100, 3072), cuda)
+    before = normal_sample.launches['normal_sample']
+    got = normal_sample(9, shape)
+    assert normal_sample.launches['normal_sample'] == before + 1
+    want = normal_sample_reference(9, shape, cuda)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=4e-6, atol=4e-6)
     assert abs(float(got.mean())) < 6 / np.sqrt(got.numel())
@@ -552,21 +560,26 @@ def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, visible):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize('shape', [(10, 1024), (100, 7800)])
-def test_bernoulli_sample_kernel_matches_plain_version(cuda, shape):
-    """Bit for bit, under an int seed and a two-word key; one launch
-    each."""
+@pytest.mark.parametrize('shape', [(10, 1024), (100, 7800)] + SAMPLER_SHAPES)
+@pytest.mark.parametrize('offset', [0, 1])
+def test_bernoulli_sample_kernel_matches_plain_version(cuda, shape, offset):
+    """Bit for bit, under an int seed and a two-word key, on probabilities at
+    a 16-byte boundary and on a contiguous view `offset` floats past it
+    (the scalar path); one launch a call."""
     from boltzmann_machines_tpu_torch.ops.samplers import (
         bernoulli_sample, bernoulli_sample_reference)
-    probs = torch.rand(shape, device=cuda)
-    before = bernoulli_sample.launches['bernoulli_sample']
+    n = shape[0] * shape[1]
+    probs = torch.rand(n + offset, device=cuda)[offset:].view(shape)
+    assert probs.is_contiguous() and probs.storage_offset() == offset
     for seed in (12345, (7, 99)):
+        before = bernoulli_sample.launches['bernoulli_sample']
         got = bernoulli_sample(seed, probs)
+        assert bernoulli_sample.launches['bernoulli_sample'] == before + 1
         want = bernoulli_sample_reference(seed, probs)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-    assert bernoulli_sample.launches['bernoulli_sample'] == before + 2
-    assert abs(float(got.mean()) - float(probs.mean())) < 0.02
+    if n >= 10000:  # the path's shapes: the draws' mean
+        assert abs(float(got.mean()) - float(probs.mean())) < 0.02
 
 
 def test_cd_stats_wrapper_rejects_bad_inputs(cuda):
