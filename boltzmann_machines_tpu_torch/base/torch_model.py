@@ -47,6 +47,49 @@ def resolve_device(device=None):
     return torch.device(device)
 
 
+def device_histogram(x, n_buckets=64):
+    """Linear-bucket histogram of a tensor, reduced on its device (the JAX
+    package's ``base/jax_model.device_histogram``).
+
+    Returns a small dict of tensors on that device -- ``counts`` (int32,
+    `n_buckets`), ``min``, ``max``, ``sum``, ``sum_sq`` and
+    ``n_nonfinite`` -- for ``SummaryWriter.add_device_histogram`` once
+    `to_host` has fetched it: the whole tensor never leaves the device.
+    Non-finite entries are left out of the buckets, min/max and moments
+    and counted apart (an all-bad tensor gives min = max = 0); the bucket
+    of x is ``clip(int((x - min) / span * n), 0, n - 1)`` with ``span =
+    max(max - min, 1e-30)``, in float32 in that order, as the JAX package
+    computes it."""
+    x = x.reshape(-1).to(torch.float32)
+    finite = torch.isfinite(x)
+    n_bad = torch.sum(~finite).to(torch.int32)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    xf = torch.where(finite, x, zero)
+    big = torch.full((), 3.4e38, dtype=torch.float32, device=x.device)
+    vmin = torch.min(torch.where(finite, x, big))
+    vmax = torch.max(torch.where(finite, x, -big))
+    vmin = torch.where(vmin > vmax, zero, vmin)
+    vmax = torch.where(vmax < vmin, zero, vmax)
+    span = torch.clamp(vmax - vmin, min=1e-30)
+    idx = torch.clamp(((xf - vmin) / span * n_buckets).to(torch.int32),
+                      0, n_buckets - 1)
+    counts = torch.zeros((n_buckets,), dtype=torch.int32,
+                         device=x.device).index_add_(
+                             0, idx, finite.to(torch.int32))
+    return {'counts': counts, 'min': vmin, 'max': vmax,
+            'sum': torch.sum(xf), 'sum_sq': torch.sum(xf * xf),
+            'n_nonfinite': n_bad}
+
+
+def to_host(tree):
+    """Numpy copies of the tensors of a dict / list / tuple tree."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    return tree.detach().cpu().numpy() if torch.is_tensor(tree) else tree
+
+
 class TorchModel(BaseModel, DtypeMixin):
     def __init__(self, model_path='torch_model/', paths=None,
                  json_params=None, device=None, *args, **kwargs):

@@ -8,7 +8,9 @@ module, so ``.to(device)`` and ``state_dict()`` work, and saves them under
 the same keys.  A DBM's state (``DBMState``) is the JAX package's DBM
 pytree -- per-layer weights, accumulators, sparsity EMAs and the persistent
 chains -- under the npz keys of ``DBM_ARRAY_KEYS``.  A checkpoint directory
-written by either package therefore loads in the other.
+written by either package therefore loads in the other.  An
+``MLPClassifier``'s parameters and batch-norm stats move between the
+packages with ``mlp_from_jax`` / ``mlp_to_jax``.
 """
 
 import json
@@ -143,6 +145,34 @@ def dbm_state_to_numpy(state):
         else:
             out[npz_key] = state[key].detach().cpu().numpy()
     return out
+
+
+def mlp_from_jax(params, bn_stats, mlp):
+    """Load the JAX ``MLPClassifier``'s ``_params`` (per layer ``{'W' (in,
+    out), 'b'[, 'gamma', 'beta']}``, the head included) and ``_bn_stats``
+    (``{'mean', 'var'}`` or None per layer), as numpy arrays, into the
+    port's `mlp`, on its device; returns `mlp`.  Its next `fit` starts
+    from this state with a fresh Adam state, as the JAX one does."""
+    mlp._build_net([{k: np.asarray(v) for k, v in p.items()}
+                    for p in params],
+                   [None if st is None else
+                    {k: np.asarray(v) for k, v in st.items()}
+                    for st in bn_stats])
+    return mlp
+
+
+def mlp_to_jax(mlp):
+    """The port ``MLPClassifier``'s state as the JAX one's ``(_params,
+    _bn_stats)``, numpy arrays."""
+    params, bn_stats = [], []
+    for layer in mlp._net.dense:
+        p = {k: v.detach().cpu().numpy()
+             for k, v in layer.named_parameters()}
+        params.append(p)
+        bn_stats.append({'mean': layer.mean.cpu().numpy(),
+                         'var': layer.var.cpu().numpy()}
+                        if layer.batch_norm else None)
+    return params, bn_stats
 
 
 def load_model(model_path, device=None):

@@ -14,12 +14,17 @@ The counterpart of the JAX package's ``dbm.py`` for all-Bernoulli DBMs:
   ``log_proba`` is plain PyTorch, as the JAX package leaves it to XLA;
 * randomness: each call draws one op seed from the persisted host RNG;
   per-epoch seeds derive from it and key the Philox streams of
-  ``ops/philox.py``.
+  ``ops/philox.py``;
+* every summary epoch (a train step logged in it, and the epoch a multiple
+  of ``summaries_every_epoch``) writes histograms of vb and of each W_l and
+  hb_l, reduced on the device (``device_histogram``), the first
+  ``display_filters`` columns of each cumulative filter W_0 @ ... @ W_l as
+  a grid, and the first ``display_particles`` persistent chains as an
+  image.
 
 Not ported yet (ROADMAP.md): Gaussian and multinomial layers, the
-``adaptive`` beta ladder, ``base_rate`` and BDMC of ``log_Z``, histogram and
-image summaries (``display_filters`` or ``display_particles`` above 0 make
-``fit`` raise) and device meshes (``set_mesh`` raises).  One deliberate
+``adaptive`` beta ladder, ``base_rate`` and BDMC of ``log_Z``, and device
+meshes (``set_mesh`` raises).  One deliberate
 difference: ``load_rbms`` on a model that is already initialized (trained,
 or loaded from a checkpoint) keeps its state; the JAX package discards it,
 so its ``examples/dbm_mnist.py`` would re-stack a cached DBM from the
@@ -31,6 +36,7 @@ import math
 import numpy as np
 import torch
 
+from .base.torch_model import device_histogram, to_host
 from .convert import DBMState, dbm_state_from_jax_arrays, dbm_state_to_numpy
 from .ebm import EnergyBasedModel
 from .layers import BaseLayer, BernoulliLayer
@@ -347,11 +353,48 @@ class DBM(EnergyBasedModel):
             return float('nan'), float('nan')
         return float(np.mean(msres)), float(np.mean(n_mfs))
 
+    def _summary_device_stats(self, state):
+        """Device-side reduction for the epoch summaries, fetched to the
+        host: bucketed histograms of the weights and biases, per-layer
+        cumulative-filter columns (the W_0 @ ... @ W_l products stay on the
+        device, only the first ``display_filters`` visible-space columns
+        come back), and the first ``display_particles`` persistent
+        chains."""
+        out = {'vb': device_histogram(state['vb']),
+               'W': [device_histogram(w) for w in state['W']],
+               'hb': [device_histogram(b) for b in state['hb']]}
+        if self.display_filters:
+            cum = state['W'][0]
+            filters = [cum[:, :self.display_filters]]
+            for l in range(1, self.n_layers_):
+                cum = cum @ state['W'][l]
+                filters.append(cum[:, :self.display_filters])
+            out['W_filters'] = filters
+        if self.display_particles:
+            out['particles'] = state['v'][:self.display_particles]
+        return to_host(out)
+
+    def _write_epoch_summaries(self, s, step):
+        """Per-epoch weight/bias histograms, cumulative-filter images per
+        layer (reference dbm.py:312-322), and negative-particle images
+        (dbm.py:531-547)."""
+        from .utils.plot_utils import filter_grid_image
+        w = self._train_writer
+        w.add_device_histogram('vb', s['vb'], step)
+        for l in range(self.n_layers_):
+            w.add_device_histogram('W_{0}'.format(l), s['W'][l], step)
+            w.add_device_histogram('hb_{0}'.format(l), s['hb'][l], step)
+        if self.display_filters:
+            for l in range(self.n_layers_):
+                img = filter_grid_image(s['W_filters'][l], self.v_shape,
+                                        self.display_filters)
+                w.add_image('W_filters_{0}'.format(l), img, step)
+        if self.display_particles:
+            img = filter_grid_image(s['particles'].T, self.v_shape,
+                                    self.display_particles)
+            w.add_image('negative_particles', img, step)
+
     def _fit(self, X, X_val=None, *args, **kwargs):
-        if self.display_filters or self.display_particles:
-            raise NotImplementedError(
-                'display_filters / display_particles: image summaries are '
-                'not ported yet (ROADMAP.md Queue A10)')
         self._fit_seed = self.make_random_seed()
         self._init_writers()
         epoch_fn = dbm_epoch if self._kernel_eligible() \
@@ -405,6 +448,9 @@ class DBM(EnergyBasedModel):
                 self._val_writer.add_scalar('mean_squared_recon_error',
                                             val_msre, step)
                 self._val_writer.add_scalar('n_mf_updates', val_n_mf, step)
+            if mask.any() and self.epoch_ % self.summaries_every_epoch == 0:
+                self._write_epoch_summaries(
+                    self._summary_device_stats(self._state.as_dict()), step)
             self._train_writer.flush()
             self._val_writer.flush()
 

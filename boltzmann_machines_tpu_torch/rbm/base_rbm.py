@@ -28,8 +28,12 @@ Semantics follow the reference exactly: the momentum rule
 ``acc <- lr * (m * acc + grad); param += acc``, the EMA sparsity penalty on
 summed hidden means, dbm_first/dbm_last input doubling, PLL via a single
 randomly flipped unit scaled by n_visible, and the free-energy gap.
-Histogram and image summaries are not ported yet: ``display_filters`` or
-``display_hidden_activations`` above 0 makes ``fit`` raise.
+Every summary epoch (a train metric logged in it, and the epoch a multiple
+of ``summaries_every_epoch``) writes histograms of W, vb, hb, dW, dvb and
+dhb, reduced on the device (``device_histogram``), the first
+``display_filters`` columns of W as a filter grid, and the hidden
+activation means of the first batch's first ``display_hidden_activations``
+units as an image.
 """
 
 import numpy as np
@@ -38,6 +42,7 @@ import torch.nn.functional as F
 
 from ..base import is_attribute_name
 from ..base.mixin import make_generator
+from ..base.torch_model import device_histogram, to_host
 from ..convert import RBMState, state_from_jax_arrays, state_to_numpy
 from ..ebm import EnergyBasedModel
 from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
@@ -54,6 +59,7 @@ from ..utils.testing import assert_len, assert_shape
 _VAL_SALT = 100000
 _FEG_SALT = 200000
 _SHARD_SALT = 300000
+_HIDDEN_SALT = 400000
 
 
 def derive_seed(seed, salt):
@@ -687,11 +693,58 @@ class BaseRBM(EnergyBasedModel):
         'pll': 'pseudo_loglikelihood',
     }
 
+    _summary_tensor_names = ('W', 'vb', 'hb', 'dW', 'dvb', 'dhb')
+
+    def _any_train_metric(self):
+        """True when at least one train scalar metric is enabled -- the
+        summaries cadence keys off a metric having been logged (as in the
+        reference, where summaries ride the merged train-metric op)."""
+        m = self.metrics_config
+        return bool(m['msre'] or m['pll'] or m['l2_loss'])
+
+    def _summary_device_stats(self, state):
+        """Device-side reduction for the epoch summaries: bucketed
+        histograms of every learned tensor plus the first
+        ``display_filters`` weight columns, fetched to the host -- a few KB
+        instead of the full (V, H) state."""
+        out = {name: device_histogram(state[name])
+               for name in self._summary_tensor_names}
+        if self.display_filters:
+            out['W_filters'] = state['W'][:, :self.display_filters]
+        return to_host(out)
+
+    def _write_epoch_summaries(self, stats, step):
+        """Per-epoch histograms of all learned tensors and (optionally)
+        filter-grid images (reference base_rbm.py:295-323, 300-306)."""
+        for name in self._summary_tensor_names:
+            self._train_writer.add_device_histogram(name, stats[name], step)
+        if self.display_filters:
+            from ..utils.plot_utils import filter_grid_image
+            img = filter_grid_image(stats['W_filters'], self.v_shape,
+                                    self.display_filters)
+            self._train_writer.add_image('W_filters', img, step)
+
+    def _hidden_activations(self, X_probe):
+        """The hidden-activation probe: ``transform``'s chain on the first
+        batch, from a seed of this epoch (the host RNG is not drawn), its
+        first ``display_hidden_activations`` units (reference
+        base_rbm.py:429-435)."""
+        g = make_generator(derive_seed(self._fit_seed,
+                                       _HIDDEN_SALT + self.epoch_),
+                           self._device)
+        k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
+        h = self._transform_batch(self._state.as_dict(), X_probe, k, g)
+        return h[:, :self.display_hidden_activations]
+
+    def _write_hidden_activations_img(self, h, step):
+        h = to_host(h)
+        mx = float(h.max())
+        if mx > 1.:  # e.g. multinomial expected counts
+            h = h / mx
+        img = (np.clip(h, 0., 1.) * 255.).astype(np.uint8)
+        self._train_writer.add_image('hidden_activation_means', img, step)
+
     def _fit(self, X, X_val=None, *args, **kwargs):
-        if self.display_filters or self.display_hidden_activations:
-            raise NotImplementedError(
-                'display_filters / display_hidden_activations: image '
-                'summaries are not ported yet (ROADMAP.md Queue A10)')
         self._fit_seed = self.make_random_seed()
         mesh = self._mesh
         if mesh is not None:
@@ -752,7 +805,23 @@ class BaseRBM(EnergyBasedModel):
                     self.epoch_ % mc['feg_every_epoch'] == 0:
                 feg = self._feg(staged_feg, staged_val)
             if writes:
+                want_summaries = bool(mask.any()) and \
+                    self._any_train_metric() and \
+                    self.epoch_ % self.summaries_every_epoch == 0
+                if want_summaries and self.display_hidden_activations:
+                    # the first batch of the whole data (a rank on the mesh
+                    # holds only its rows of it)
+                    probe = torch.as_tensor(
+                        self._preprocess(np.asarray(X)[:self.batch_size]),
+                        device=self._device)
+                    self._write_hidden_activations_img(
+                        self._hidden_activations(probe), self.iter_)
                 self._log_epoch(train_results, val_results, feg)
+                if want_summaries:
+                    self._write_epoch_summaries(
+                        self._summary_device_stats(self._state.as_dict()),
+                        self.iter_)
+                    self._train_writer.flush()
             if self.save_after_each_epoch and \
                     self.epoch_ % self.checkpoint_every_epoch == 0:
                 self._save_model()
@@ -811,6 +880,12 @@ class BaseRBM(EnergyBasedModel):
         self._state = None
         self._programs = {}
 
+    def _transform_batch(self, state, X_batch, k, generator):
+        """Chain-final hidden means of one batch."""
+        X_b = self._maybe_dropout(generator, X_batch)
+        _, h_states = self._h_states0(state, X_b, generator)
+        return self._gibbs_chain(state, h_states, k, generator)[3]
+
     def transform(self, X, np_dtype=None):
         """Hidden activation probabilities after the k-step chain
         (reference base_rbm.py:437-440: chain-final h_means; stochastic when
@@ -820,12 +895,8 @@ class BaseRBM(EnergyBasedModel):
         _, g = self.make_generator(self._device)
         k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
         state = self._state.as_dict()
-        H = []
-        for X_batch in self._batches(self._stage_batches(X)):
-            X_b = self._maybe_dropout(g, X_batch)
-            _, h_states = self._h_states0(state, X_b, g)
-            _, _, _, h_means = self._gibbs_chain(state, h_states, k, g)
-            H.append(h_means)
+        H = [self._transform_batch(state, X_batch, k, g)
+             for X_batch in self._batches(self._stage_batches(X))]
         if not H:
             return np.zeros((0, self.n_hidden), dtype=np_dtype)
         return torch.cat(H).cpu().numpy().astype(np_dtype)

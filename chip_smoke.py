@@ -23,8 +23,9 @@ Phases, each printing its lines before the last:
    version (``cd_epoch_reference``) at 784 x 1024, batch 10 and 256, with
    sampling off and on;
 4. the RBM path: ``BernoulliRBM(784, 1024).fit`` with the hyperparameters
-   of examples/rbm_mnist.py on synthetic MNIST, through the kernels (their
-   launch counts checked against the schedule), then transform, save and
+   of examples/rbm_mnist.py on synthetic MNIST, its summaries included
+   (30 filters, 24 hidden activations), through the kernels (their launch
+   counts checked against the schedule), then transform, save and
    load_model on the card;
 5. CD timings: a training epoch, kernels vs plain version;
 6. DBM kernels vs plain: the DBM epoch, sampler and AIS kernels against
@@ -34,10 +35,11 @@ Phases, each printing its lines before the last:
    converges;
 7. the DBM path of examples/dbm_mnist.py on the card: RBM #1 and RBM #2
    pretraining through the CD kernels, ``DBM.fit`` through the DBM epoch
-   kernels, transform, ``sample_v`` and AIS ``log_Z`` through their
-   kernels, ``log_proba``, save and load_model -- launch counts checked;
-   then the AIS kernel against its plain version on the trained DBM,
-   sampling on;
+   kernels, with the example's summaries (the DBM's 10 cumulative filters
+   a layer and 20 particles), transform, ``sample_v`` and AIS ``log_Z``
+   through their kernels, ``log_proba``, save and load_model -- launch
+   counts and summary tags checked; then the AIS kernel against its plain
+   version on the trained DBM, sampling on;
 8. AIS on the card against a brute-force log Z of a 6-5-4 DBM;
 9. DBM timings: epoch step, sampler sweep and AIS beta, kernels vs plain;
 10. CIFAR kernels vs plain: the Gaussian-visible CD kernels at 3072 x 5000
@@ -115,6 +117,21 @@ Phases, each printing its lines before the last:
     profiled, from a random state (all 50 sweeps run) and at mf_tol 1e-4
     (mean-field converges in a few): device time per kernel and busy
     share.
+
+19. the MNIST examples end to end: examples/torch_rbm_mnist.py and
+    examples/torch_dbm_mnist.py at their published widths (784-1024-10 and
+    784-512-1024-10), 10 000 synthetic rows, one epoch a stage and two MLP
+    epochs, AIS at 200 betas x 100 runs, each in a process of its own
+    (``python3 chip_smoke.py --example SCRIPT OUT_JSON ARGS...``, waited
+    for): exit code 0, every stage's kernel launches as the schedule
+    implies (counts set to 0 just before the script, read just after), the
+    MLP's parameters on the card, test accuracy above chance, each stage's
+    wall time;
+20. the fine-tuning MLP (plain PyTorch, no kernel of its own) on the card
+    against the CPU from one carried-over state, at both examples' widths:
+    losses of every epoch within rtol 1e-4, the final parameters within
+    atol 2e-4; then the seconds of one MLP epoch at the examples'
+    published rows.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -394,6 +411,30 @@ def recon_msre(rbm, X):
     return float(np.mean((X - Vm) ** 2))
 
 
+RBM_SUMMARY_TAGS = ('W', 'vb', 'hb', 'dW', 'dvb', 'dhb', 'W_filters',
+                    'hidden_activation_means')
+DBM_SUMMARY_TAGS = ('vb', 'W_0', 'hb_0', 'W_1', 'hb_1', 'W_filters_0',
+                    'W_filters_1', 'negative_particles')
+
+
+def check_summaries(logdir, tags, n_images):
+    """The TensorBoard event files of `logdir` hold every tag of `tags` and
+    `n_images` PNG images."""
+    data = b''
+    for name in sorted(os.listdir(logdir)):
+        if name.startswith('events.out'):
+            with open(os.path.join(logdir, name), 'rb') as f:
+                data += f.read()
+    missing = [t for t in tags if t.encode() not in data]
+    n_png = data.count(b'\x89PNG')
+    say('summaries in %s: %d PNG images, tags %s%s' % (
+        os.path.basename(os.path.dirname(os.path.dirname(logdir))), n_png,
+        ' '.join(tags), ' (missing %s)' % missing if missing else ''))
+    if missing or n_png != n_images:
+        raise AssertionError('summaries: missing tags %s, %d images (%d '
+                             'expected)' % (missing, n_png, n_images))
+
+
 def main_path(torch, tmpdir):
     import numpy as np
     from boltzmann_machines_tpu_torch import BernoulliRBM, logit_mean
@@ -414,7 +455,7 @@ def main_path(torch, tmpdir):
                             train_metrics_every_iter=every,
                             val_metrics_every_epoch=2, feg_every_epoch=2,
                             n_batches_for_feg=50),
-        verbose=True, display_filters=0, display_hidden_activations=0,
+        verbose=True, display_filters=30, display_hidden_activations=24,
         random_seed=1337, device='cuda', model_path=tmpdir + '/rbm/')
     # mean-field reconstruction error of the validation rows, before and
     # after training (the per-epoch train msre above is one logged batch)
@@ -443,6 +484,10 @@ def main_path(torch, tmpdir):
     if len(msre) != epochs or not all(map(math.isfinite, msre)) \
             or not msre[-1] < msre[0]:
         raise AssertionError('msre not finite and falling: %s' % msre)
+    # a train metric is logged in every epoch, so every epoch writes its
+    # summaries: six histograms, the filter grid and the hidden image
+    check_summaries(tmpdir + '/rbm/logs/train', RBM_SUMMARY_TAGS,
+                    2 * epochs)
 
     msre_val1 = recon_msre(rbm, X_val)
     say('validation mean-field msre: %.5f before, %.5f after' % (
@@ -765,7 +810,8 @@ def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0):
         sample_v_states=True, sparsity_cost=0., dbm_first=True,
         metrics_config=dict(msre=True, pll=True,
                             train_metrics_every_iter=100),
-        verbose=True, random_seed=1337 + seed, device='cuda',
+        verbose=True, display_filters=30, display_hidden_activations=24,
+        v_shape=(28, 28), random_seed=1337 + seed, device='cuda',
         model_path=tmpdir + '/rbm1/'))
     rbm1.fit(X_train)
     Q = rbm1.transform(X_train).astype('float32')
@@ -776,7 +822,8 @@ def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0):
         sample_h_states=True, sample_v_states=True, sparsity_cost=0.,
         dbm_last=True, metrics_config=dict(msre=True, pll=True,
                                            train_metrics_every_iter=100),
-        verbose=True, random_seed=1111 + seed, device='cuda',
+        verbose=True, display_hidden_activations=24,
+        random_seed=1111 + seed, device='cuda',
         model_path=tmpdir + '/rbm2/'))
     rbm2.fit(Q)
     G = rbm2.transform(Q).astype('float32')
@@ -793,8 +840,9 @@ def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0):
         sample_h_states=(True, True), sparsity_target=SPARSITY_TARGET,
         sparsity_cost=SPARSITY_COST, sparsity_damping=0.9,
         train_metrics_every_iter=20, val_metrics_every_epoch=1,
-        random_seed=2222 + seed, verbose=True, display_filters=0,
-        display_particles=0, device='cuda', model_path=tmpdir + '/dbm/'))
+        random_seed=2222 + seed, verbose=True, display_filters=10,
+        display_particles=20, v_shape=(28, 28), device='cuda',
+        model_path=tmpdir + '/dbm/'))
     t0 = time.perf_counter()
     dbm.fit(X_train, X_val)
     torch.cuda.synchronize()
@@ -815,8 +863,10 @@ def dbm_mnist_path(torch, tmpdir):
     k = 1, 2 and lr = 0.01, 0.005 over those 2 epochs (one step each;
     schedules are indexed by the 1-based epoch, as in the example), the
     metric cadences (500 and 400 iterations) cut to 100 and 20 so that they
-    log within the run, validation every epoch (2 in the example), no image
-    summaries (not ported)."""
+    log within the run, validation every epoch (2 in the example); the
+    example's summaries (RBM #1: 30 filters and 24 hidden activations, RBM
+    #2: 24, the DBM: 10 cumulative filters a layer and 20 particles) every
+    epoch."""
     import numpy as np
     from boltzmann_machines_tpu_torch import DBM
     from boltzmann_machines_tpu_torch.ops import dbm_ops
@@ -861,6 +911,11 @@ def dbm_mnist_path(torch, tmpdir):
     if launches != expect or dbm.iter_ != n_iter:
         raise AssertionError('DBM launch counts %s, schedule implies %s' % (
             launches, expect))
+    # every stage logs a train metric each epoch: its summaries each epoch
+    check_summaries(tmpdir + '/rbm1/logs/train', RBM_SUMMARY_TAGS, 2 * 2)
+    check_summaries(tmpdir + '/rbm2/logs/train',
+                    ('W', 'dhb', 'hidden_activation_means'), 2)
+    check_summaries(tmpdir + '/dbm/logs/train', DBM_SUMMARY_TAGS, 2 * 3)
     # The same three stages through the plain versions (the reference), on
     # the same data and seeds.  Both runs sample their chains, so they part
     # at the first draw that rounding moves; the reference too need not
@@ -4033,6 +4088,277 @@ def readings():
     return 0
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the MNIST examples end to end; phase 20: the MLP on the card  #
+# --------------------------------------------------------------------- #
+#: the examples' arguments on the card: published widths (the scripts'
+#: defaults, 784-1024-10 and 784-512-1024-10), 10 000 synthetic rows, one
+#: epoch a stage (RBM #2's schedule step cut to that epoch), two MLP epochs,
+#: AIS at 200 betas x 100 runs
+EXAMPLES = (
+    ('torch_rbm_mnist.py', ['--n-train', '9000', '--n-val', '1000',
+                            '--epochs', '1', '--mlp-epochs', '2']),
+    ('torch_dbm_mnist.py', ['--n-train', '9000', '--n-val', '1000',
+                            '--epochs', '1', '1', '1',
+                            '--increase-n-gibbs-steps-every', '1',
+                            '--mlp-epochs', '2', '--n-betas', '200',
+                            '--n-ais-runs', '100']),
+)
+
+
+def example_paths(script, tmpdir):
+    """Where an example's stages and outputs go: under `tmpdir`."""
+    if script == 'torch_rbm_mnist.py':
+        return ['--model-dirpath', tmpdir + '/rbm/',
+                '--mlp-save-prefix', tmpdir + '/out/rbm_']
+    return ['--rbm1-dirpath', tmpdir + '/rbm1/',
+            '--rbm2-dirpath', tmpdir + '/rbm2/',
+            '--dbm-dirpath', tmpdir + '/dbm/',
+            '--ais-save-path', tmpdir + '/out/ais.npz',
+            '--mlp-save-prefix', tmpdir + '/out/dbm_']
+
+
+def example_launches(script):
+    """The kernel launches the example's schedule implies at EXAMPLES'
+    arguments (kernels launched no time left out)."""
+    n_train, L, max_mf = 9000, 2, 50
+    if script == 'torch_rbm_mnist.py':
+        n = math.ceil(n_train / 10)      # B 10, k 1, no metric logged
+        return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
+                             'cd_assoc_update': n}}
+    n = 2 * math.ceil(n_train / 48)      # RBM #1 and #2, B 48, k 1
+    n_dbm = n_train // 100               # B 100, a 50-sweep budget
+    return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
+                         'cd_assoc_update': n},
+            'dbm_epoch': {'dbm_gemm_act': n_dbm * (1 + L + L * max_mf +
+                                                    (L + 1) + 1),
+                          'dbm_bias_update': n_dbm,
+                          'dbm_assoc_update': n_dbm * L,
+                          'dbm_max_norm': n_dbm * L, 'dbm_msre': n_dbm},
+            'ais': {'dbm_gemm_act': 200 * (3 * 5 + 2), 'ais_logw': 1}}
+
+
+def example_child(script, out_path, args):
+    """One example in a process of its own (``python3 chip_smoke.py
+    --example SCRIPT OUT_JSON ARGS...``, started by ``examples_path``): the
+    launch counts set to 0 just before the script's main and read just
+    after; each stage timed (to a synchronize); the MLP's parameters'
+    devices; written to OUT_JSON."""
+    import runpy
+    import torch
+    from boltzmann_machines_tpu_torch import DBM, finetune
+    from boltzmann_machines_tpu_torch.finetune import MLPClassifier
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, reset_launches)
+    from boltzmann_machines_tpu_torch.rbm import BaseRBM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages, mlps = [], []
+
+    def timed(cls, name):
+        method = getattr(cls, name)
+
+        def run(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = method(self, *a, **kw)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            label = '%s.%s' % (type(self).__name__, name)
+            if hasattr(self, '_model_dirpath'):
+                label += ' ' + os.path.basename(
+                    os.path.normpath(self._model_dirpath))
+            stages.append([label, dt])
+            if cls is MLPClassifier and name == 'fit':
+                # the epochs alone: less the optimizer's construction
+                dt_adam = stages[-2][1] if stages[-2][0] == 'multi_adam' \
+                    else 0.
+                mlps.append({'devices': sorted(
+                    {p.device.type for p in self._net.parameters()}),
+                    'epochs': len(self.history_), 'multi_adam_s': dt_adam,
+                    'seconds_per_epoch': (dt - dt_adam) /
+                    max(len(self.history_), 1),
+                    'history': self.history_})
+            return out
+
+        setattr(cls, name, run)
+
+    for cls, names in ((BaseRBM, ('fit', 'transform')),
+                       (DBM, ('fit', 'log_Z', 'log_proba')),
+                       (MLPClassifier, ('fit', 'predict_proba'))):
+        for name in names:
+            timed(cls, name)
+    make_adam = finetune.multi_adam
+
+    def multi_adam(*a, **kw):
+        # the first torch.optim optimizer of a process imports torch._dynamo
+        t0 = time.perf_counter()
+        opt = make_adam(*a, **kw)
+        stages.append(['multi_adam', time.perf_counter() - t0])
+        return opt
+
+    finetune.multi_adam = multi_adam
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'examples', script)
+    sys.argv = [path] + args
+    torch.cuda.synchronize()
+    reset_launches()
+    dbm_ops.reset_launches()
+    t0 = time.perf_counter()
+    runpy.run_path(path, run_name='__main__')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {'cd_epoch': dict(cd_epoch.launches),
+                'dbm_epoch': dict(dbm_ops.dbm_epoch.launches),
+                'dbm_sample': dict(dbm_ops.dbm_sample.launches),
+                'ais': dict(dbm_ops.ais.launches)}
+    with open(out_path, 'w') as f:
+        json.dump({'wall': wall, 'stages': stages, 'mlps': mlps,
+                   'launches': launches}, f)
+    return 0
+
+
+def examples_path(torch, tmpdir):
+    """Phase 19: examples/torch_rbm_mnist.py and torch_dbm_mnist.py end to
+    end on the card, each in a process of its own (waited for, killed at
+    its time limit), at EXAMPLES' arguments: exit code 0, the kernels of
+    each stage launched as the schedule implies, the MLP's parameters on
+    the card, the test accuracy above chance (0.1), each stage's wall."""
+    out = {}
+    for script, args in EXAMPLES:
+        d = '%s/%s' % (tmpdir, script[:-3])
+        os.makedirs(d)
+        res = d + '/result.json'
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--example', script,
+             res] + args + example_paths(script, d),
+            cwd=d, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError('%s: exit code %d\n%s\n%s' % (
+                script, p.returncode, p.stdout[-3000:], p.stderr[-3000:]))
+        with open(res) as f:
+            r = json.load(f)
+        lines = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith(('Test accuracy', 'log Z', 'average test',
+                                   'mlp epoch'))]
+        for ln in lines:
+            say('  %s:' % script, ln)
+        acc = float(re.search(r'Test accuracy: ([0-9.]+)',
+                              p.stdout).group(1))
+        got = {op: {k: v for k, v in counts.items() if v}
+               for op, counts in r['launches'].items()}
+        got = {op: counts for op, counts in got.items() if counts}
+        expect = example_launches(script)
+        say('%s: %.2f s in its process (%.2f s with start-up); launches %s'
+            % (script, r['wall'], wall, got))
+        for label, dt in r['stages']:
+            say('  stage %s: %.3f s' % (label, dt))
+        for m in r['mlps']:
+            say('  MLP: %d epochs, %.3f s an epoch after %.3f s to build its '
+                'optimizer, parameters on %s' % (
+                    m['epochs'], m['seconds_per_epoch'], m['multi_adam_s'],
+                    m['devices']))
+        if got != expect:
+            raise AssertionError('%s: launch counts %s, schedule implies %s'
+                                 % (script, got, expect))
+        if not r['mlps'] or any(m['devices'] != ['cuda'] or m['epochs'] != 2
+                                for m in r['mlps']):
+            raise AssertionError('%s: the MLP did not train 2 epochs on the '
+                                 'card: %s' % (script, r['mlps']))
+        if not acc > 0.1:
+            raise AssertionError('%s: test accuracy %.4f, not above chance'
+                                 % (script, acc))
+        out[script] = dict(r, accuracy=acc, process_wall=wall)
+    return out
+
+
+def mlp_fit(torch, device, layers, X, y, X_val, y_val, epochs, params):
+    from boltzmann_machines_tpu_torch.convert import mlp_from_jax
+    from boltzmann_machines_tpu_torch.finetune import MLPClassifier
+    mlp = MLPClassifier(n_inputs=X.shape[1], layers=layers, n_classes=10,
+                        max_epoch=epochs, batch_size=128, random_seed=1,
+                        verbose=False, device=device)
+    mlp_from_jax(params, [None] * len(params), mlp)
+    mlp.fit(X, y, X_val, y_val)
+    return mlp
+
+
+def mlp_card_vs_cpu(torch):
+    """Phase 20: the fine-tuning MLP (plain PyTorch, no kernel of its own)
+    on the card against the same MLP on the CPU from one carried-over state
+    (random warm-start weights, a glorot head, numpy from a seed), dropout
+    off, TF32 off, 2048 synthetic rows, B 128, 3 epochs, at 784-1024-10 and
+    784-512-1024-10 with the examples' multipliers: the train and val loss
+    of every epoch within rtol 1e-4, val acc equal, the final parameters
+    within atol 2e-4 (tests/test_torch_finetune.py's tolerances).  Then the
+    seconds of one epoch on the card at the examples' published rows
+    (55 000 and 59 000, B 128; one epoch to warm up, then three timed)."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch.convert import mlp_to_jax
+    from boltzmann_machines_tpu_torch.utils.dataset import \
+        make_synthetic_mnist
+    X, y = make_synthetic_mnist(2560, seed=3)
+    X = (X / 255.).astype(np.float32)
+    rng = np.random.RandomState(0)
+    out = {}
+    for label, widths, mults in (('784-1024-10', (1024,), (0.1,)),
+                                 ('784-512-1024-10', (512, 1024),
+                                  (0.01, 0.1))):
+        layers = [dict(units=u, activation='sigmoid', lr_multiplier=m)
+                  for u, m in zip(widths, mults)]
+        fans = (784,) + widths + (10,)
+        params = [{'W': (rng.randn(a, b) * 0.01).astype(np.float32),
+                   'b': np.zeros(b, np.float32)}
+                  for a, b in zip(fans[:-2], fans[1:-1])]
+        lim = math.sqrt(6. / (fans[-2] + 10))
+        params.append({'W': rng.uniform(-lim, lim, (fans[-2], 10))
+                       .astype(np.float32), 'b': np.zeros(10, np.float32)})
+        runs = {dev: mlp_fit(torch, dev, layers, X[:2048], y[:2048],
+                             X[2048:], y[2048:], 3, params)
+                for dev in ('cuda', 'cpu')}
+        card, cpu = runs['cuda'], runs['cpu']
+        hc, hp = card.history_, cpu.history_
+        say('MLP %s, card vs CPU: loss %s vs %s; val_loss %s vs %s; val_acc '
+            '%s vs %s' % (label, [h['loss'] for h in hc],
+                          [h['loss'] for h in hp],
+                          [h['val_loss'] for h in hc],
+                          [h['val_loss'] for h in hp],
+                          [h['val_acc'] for h in hc],
+                          [h['val_acc'] for h in hp]))
+        if {p.device.type for p in card._net.parameters()} != {'cuda'}:
+            raise AssertionError('MLP parameters left the card')
+        for key in ('loss', 'val_loss'):
+            np.testing.assert_allclose([h[key] for h in hc],
+                                       [h[key] for h in hp], rtol=1e-4)
+        if [h['val_acc'] for h in hc] != [h['val_acc'] for h in hp]:
+            raise AssertionError('MLP val acc differs between card and CPU')
+        err = 0.
+        for pc, pp in zip(mlp_to_jax(card)[0], mlp_to_jax(cpu)[0]):
+            for k in pc:
+                err = max(err, float(np.abs(pc[k] - pp[k]).max()))
+        say('  final parameters: max |card - CPU| %.3g (atol 2e-4)' % err)
+        if not err <= 2e-4:
+            raise AssertionError('MLP parameters differ: %g' % err)
+
+        n = 55000 if len(widths) == 1 else 59000
+        Xb = (rng.rand(n, 784) < 0.3).astype(np.float32)
+        yb = rng.randint(0, 10, n)
+        mlp = mlp_fit(torch, 'cuda', layers, Xb, yb, None, None, 1, params)
+        mlp.max_epoch = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mlp.fit(Xb, yb)
+        torch.cuda.synchronize()
+        per_epoch = (time.perf_counter() - t0) / 3
+        say('  MLP %s epoch on the card: %.4f s (%d rows, B 128, %d steps)'
+            % (label, per_epoch, n, math.ceil(n / 128)))
+        out[label] = dict(seconds_per_epoch=per_epoch, rows=n,
+                          max_abs_err=err)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4070,6 +4396,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         dp = dp_fit(torch, tmpdir)
     ts = stats_timings(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ex = examples_path(torch, tmpdir)
+    mlp_card_vs_cpu(torch)
     cd_launches = {k: rbm_launches[k] + dbm_launches['cd_epoch'][k]
                    for k in rbm_launches}
     dp_stats = [r['grbm']['stats'] for r in dp['ranks']]
@@ -4271,6 +4600,12 @@ def main():
     for e in kernels:
         for kernel, *labels in walks.get(e['name'], ()):
             e[kernel + '_shapes'] = walk(kernel, *labels)
+        # the launches of phase 19's examples, which drive these kernels
+        # through the scripts a user runs
+        runs = {script: r['launches'][e['name']] for script, r in ex.items()
+                if any(r['launches'].get(e['name'], {}).values())}
+        if runs:
+            e['example_launches'] = runs
         if e['name'] == 'dbm_epoch':
             e['step_profile'] = dbm_prof
             e['mf_loop_50_sweeps'] = kt[('dbm_mf_loop', 'mf_50')]
@@ -4303,6 +4638,8 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--dp-rank']:
         rank, world, tmpdir = sys.argv[2:]
         sys.exit(dp_rank(int(rank), int(world), tmpdir))
+    if sys.argv[1:2] == ['--example']:
+        sys.exit(example_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
               '--softmax-readings': softmax_readings,
               '--sampler-readings': sampler_readings,

@@ -235,9 +235,14 @@ def test_unported_options_raise(trained, data, tmp_path):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             dbm.log_Z(n_betas=10, n_runs=8, **kw)
     tmp = str(tmp_path) + '/'
-    d = make_dbm(pretrain_rbms(data, tmp), tmp, display_particles=2)
-    with pytest.raises(NotImplementedError, match='display'):
-        d.fit(data)
+    # image summaries are ported: asking for them no longer raises
+    d = make_dbm(pretrain_rbms(data, tmp), tmp, display_particles=2,
+                 v_shape=(2, 3))
+    d.fit(data)
+    logdir = d._train_summary_dirpath
+    assert any(b'negative_particles' in open(os.path.join(logdir, p),
+                                             'rb').read()
+               for p in os.listdir(logdir) if p.startswith('events'))
     with pytest.raises(ValueError, match='pallas'):
         make_dbm(pretrain_rbms(data, tmp), tmp, kernel='pallas').fit(data)
 

@@ -230,9 +230,17 @@ def test_init_from(X, tmp_path):
 
 
 def test_display_summaries_raise(X, tmp_path):
-    """Image summaries are not ported: asking for them fails loudly."""
+    """Image summaries are ported: asking for them no longer raises, and
+    the fit writes the filter grid and the hidden-activation image
+    (tests/test_torch_summaries.py holds them against the JAX package)."""
     rbm = BernoulliRBM(device='cpu', n_visible=N_VISIBLE, n_hidden=N_HIDDEN,
-                       display_filters=2, verbose=False,
+                       display_filters=2, display_hidden_activations=3,
+                       v_shape=(3, 4), verbose=False,
+                       metrics_config=dict(msre=True,
+                                           train_metrics_every_iter=1),
                        model_path=str(tmp_path) + '/')
-    with pytest.raises(NotImplementedError, match='display'):
-        rbm.fit(X)
+    rbm.fit(X)
+    logdir = rbm._train_summary_dirpath
+    data = b''.join(open(os.path.join(logdir, p), 'rb').read()
+                    for p in os.listdir(logdir) if p.startswith('events'))
+    assert b'W_filters' in data and b'hidden_activation_means' in data
