@@ -8,11 +8,14 @@ AIS log Z, and the RBMs' data-parallel epoch on ``torch.distributed``
 (``parallel``): on a CUDA device they run in hand-written kernels
 (``csrc/cd_epoch.cu`` and ``csrc/dbm_ops.cu``, built with nvcc on first
 use), on the CPU -- asked for with ``device='cpu'`` -- in plain PyTorch.
-The MNIST pipelines run end to end (examples/torch_rbm_mnist.py and
-examples/torch_dbm_mnist.py): the fine-tuning MLP (``finetune``, Adam with
-per-layer rates from ``utils.optimizers``) in plain PyTorch, and the
-models' histogram and image summaries (``utils.plot_utils``).  Checkpoints
-load in both packages.
+DBMs with Gaussian or multinomial layers (the CIFAR pipelines'
+Gaussian-Bernoulli-Multinomial DBM) run their plain program on the model's
+device, their sampled layers drawn by the standalone sampler kernels on
+CUDA.  The five example pipelines run end to end (examples/torch_*.py):
+the fine-tuning MLP (``finetune``, Adam with per-layer rates from
+``utils.optimizers``) in plain PyTorch, the models' histogram and image
+summaries (``utils.plot_utils``), and CIFAR's x10 augmentation
+(``utils.augmentation``).  Checkpoints load in both packages.
 """
 
 __version__ = '0.1.0'

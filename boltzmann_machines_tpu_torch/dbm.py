@@ -1,17 +1,25 @@
 """Deep Boltzmann Machine with PCD and mean-field inference, in PyTorch.
 
-The counterpart of the JAX package's ``dbm.py`` for all-Bernoulli DBMs:
+The counterpart of the JAX package's ``dbm.py``:
 
-* the model is stacked from pretrained ``BernoulliRBM``s (halving the middle
-  layers, averaging shared biases) and its state is a ``DBMState`` module
-  holding the JAX package's pytree (``convert.py``): weights, momentum
-  accumulators, sparsity EMAs and the persistent chains;
+* the model is stacked from pretrained RBMs (halving the middle layers,
+  averaging shared biases) and adopts their unit layers: Bernoulli,
+  Gaussian (a ``GaussianRBM``'s visible layer, its sigma) or multinomial
+  (a ``MultinomialRBM``'s hidden layer, its n_samples), as in the CIFAR
+  pipelines' Gaussian-Bernoulli-Multinomial DBM.  Its state is a
+  ``DBMState`` module holding the JAX package's pytree (``convert.py``):
+  weights, momentum accumulators, sparsity EMAs and the persistent chains;
 * training, ``sample_v`` and ``log_Z`` run the device programs of
-  ``ops/dbm_ops.py``: on a CUDA device a float32 model goes through the
-  hand-written kernels (decided once from the configuration, as the JAX
-  package picks its Pallas kernels on a TPU), otherwise through their plain
-  versions.  Mean-field for validation, ``transform``, ``reconstruct`` and
-  ``log_proba`` is plain PyTorch, as the JAX package leaves it to XLA;
+  ``ops/dbm_ops.py``: on a CUDA device a float32 all-Bernoulli model goes
+  through the hand-written kernels (decided once from the configuration,
+  as the JAX package picks its Pallas kernels on a TPU), otherwise through
+  their plain versions.  A float32 model with Gaussian or multinomial
+  layers on a CUDA device runs the plain program there (as the JAX package
+  runs it on XLA), its sampled layers drawn by the standalone sampler
+  kernels.  Mean-field for validation, ``transform``, ``reconstruct`` and
+  ``log_proba`` is plain PyTorch, as the JAX package leaves it to XLA.  The
+  DBM takes its inputs raw: a Gaussian layer's mean is x sigma + b (no
+  division by sigma, unlike ``GaussianRBM``);
 * randomness: each call draws one op seed from the persisted host RNG;
   per-epoch seeds derive from it and key the Philox streams of
   ``ops/philox.py``;
@@ -22,13 +30,13 @@ The counterpart of the JAX package's ``dbm.py`` for all-Bernoulli DBMs:
   a grid, and the first ``display_particles`` persistent chains as an
   image.
 
-Not ported yet (ROADMAP.md): Gaussian and multinomial layers, the
-``adaptive`` beta ladder, ``base_rate`` and BDMC of ``log_Z``, and device
-meshes (``set_mesh`` raises).  One deliberate
-difference: ``load_rbms`` on a model that is already initialized (trained,
-or loaded from a checkpoint) keeps its state; the JAX package discards it,
-so its ``examples/dbm_mnist.py`` would re-stack a cached DBM from the
-RBMs.
+``log_Z`` and ``log_proba`` take all-Bernoulli 2-layer DBMs, as the JAX
+package's do.  Not ported yet (ROADMAP.md Queue A): the ``adaptive`` beta
+ladder, ``base_rate`` and BDMC of ``log_Z``, and device meshes
+(``set_mesh`` raises).  One deliberate difference: ``load_rbms`` on a model
+that is already initialized (trained, or loaded from a checkpoint) keeps
+its state; the JAX package discards it, so its ``examples/dbm_mnist.py``
+would re-stack a cached DBM from the RBMs.
 """
 
 import math
@@ -39,11 +47,11 @@ import torch
 from .base.torch_model import device_histogram, to_host
 from .convert import DBMState, dbm_state_from_jax_arrays, dbm_state_to_numpy
 from .ebm import EnergyBasedModel
-from .layers import BaseLayer, BernoulliLayer
+from .layers import BaseLayer
 from .ops.dbm_ops import (AISConfig, DBMEpochConfig, DBMSampleConfig, ais,
                           ais_reference, dbm_epoch, dbm_epoch_reference,
-                          dbm_sample, dbm_sample_reference, mean_field,
-                          reconstruction_means)
+                          all_bernoulli, dbm_sample, dbm_sample_reference,
+                          mean_field, reconstruction_means)
 from .rbm.base_rbm import derive_seed
 from .utils import (make_list_from, epoch_iter, schedule_value,
                     write_during_training, log_sum_exp, log_diff_exp,
@@ -149,12 +157,6 @@ class DBM(EnergyBasedModel):
         already initialized keeps its state (see the module docstring)."""
         if rbms is None:
             return
-        for r in rbms:
-            if not (isinstance(r._v_layer, BernoulliLayer)
-                    and isinstance(r._h_layer, BernoulliLayer)):
-                raise NotImplementedError(
-                    'DBMs with Gaussian or multinomial layers are not ported '
-                    'yet (ROADMAP.md Queue A6)')
         sizes = [rbms[0].n_visible] + [r.n_hidden for r in rbms]
         keep = self._state is not None and self.initialized_
         if keep and sizes != [self.n_visible_] + list(self.n_hiddens_):
@@ -192,10 +194,6 @@ class DBM(EnergyBasedModel):
                 raise RuntimeError('DBM has no layers: construct with '
                                    '`rbms=[...]` or call `load_rbms`')
             layers = [BaseLayer.from_config(c) for c in self.layers_config_]
-            if not all(isinstance(layer, BernoulliLayer) for layer in layers):
-                raise NotImplementedError(
-                    'DBMs with Gaussian or multinomial layers are not ported '
-                    'yet (ROADMAP.md Queue A6)')
             self._v_layer = layers[0]
             self._h_layers = layers[1:]
 
@@ -277,21 +275,42 @@ class DBM(EnergyBasedModel):
         """The DBM's data-parallel epoch (sharded batch and particles, the
         mean-field test as an all_reduce(MAX)) is not ported yet."""
         raise NotImplementedError('DBM.set_mesh: the DBM mesh epoch is not '
-                                  'ported yet (ROADMAP.md Queue A6.4)')
+                                  'ported yet (ROADMAP.md Queue A7)')
+
+    def _units(self):
+        """The layer objects, visible first (``ops/dbm_ops``' ``units``)."""
+        self._ensure_layers()
+        return tuple([self._v_layer] + list(self._h_layers))
 
     def _kernel_eligible(self):
-        """The CUDA DBM kernels cover all-Bernoulli float32 DBMs on a CUDA
-        device -- decided from the configuration (JAX
-        ``_pallas_epoch_eligible``, dbm.py:605-618), never from a
-        failure."""
+        """Whether training and ``sample_v`` take the device programs'
+        wrappers (``dbm_epoch``, ``dbm_sample``) rather than their plain
+        versions: a float32 model on a CUDA device -- the DBM kernels for an
+        all-Bernoulli one, the standalone sampler kernels' draws for one with
+        Gaussian or multinomial layers -- decided from the configuration
+        (JAX ``_pallas_epoch_eligible``, dbm.py:605-618), never from a
+        failure.  ``kernel='pallas'`` asks for the DBM kernels, which take
+        all-Bernoulli float32 models on a CUDA device alone."""
         self._ensure_layers()
         if self.kernel == 'xla':
             return False
         ok = self.dtype == 'float32' and self._device.type == 'cuda'
-        if self.kernel == 'pallas' and not ok:
+        if self.kernel == 'pallas' and not (ok and self._all_bernoulli()):
             raise ValueError('kernel="pallas" requested but the model is '
                              'not eligible for the CUDA DBM kernels')
         return ok
+
+    def _all_bernoulli(self):
+        return all_bernoulli(self._units())
+
+    def _require_bernoulli(self, name):
+        """``log_Z`` and ``log_proba`` take all-Bernoulli 2-layer DBMs, as
+        the JAX package asserts (dbm.py:1585-1587, :1663-1665)."""
+        if self.n_layers_ != 2:
+            raise ValueError('{0} needs a 2-layer DBM'.format(name))
+        if not self._all_bernoulli():
+            raise ValueError('{0} needs Bernoulli layers, got {1}'.format(
+                name, [type(u).__name__ for u in self._units()]))
 
     def _layer_sizes(self):
         return tuple([self.n_visible_] + list(self.n_hiddens_))
@@ -304,12 +323,13 @@ class DBM(EnergyBasedModel):
             float(self.max_norm), tuple(float(t) for t in
                                         self.sparsity_target),
             tuple(float(c) for c in self.sparsity_cost),
-            float(self.sparsity_damping))
+            float(self.sparsity_damping), self._units())
 
     def _mf(self, X):
         state = self._state.as_dict()
         return mean_field(X, state['W'], state['hb'],
-                          int(self.max_mf_updates), float(self.mf_tol))
+                          int(self.max_mf_updates), float(self.mf_tol),
+                          self._units())
 
     # ================================================================== #
     # fit loop                                                            #
@@ -346,7 +366,7 @@ class DBM(EnergyBasedModel):
         state = self._state.as_dict()
         for X in self._batches(staged_val):
             mu, n_mf = self._mf(X)
-            v_means = reconstruction_means(state, mu[0])
+            v_means = reconstruction_means(state, mu[0], self._units())
             msres.append(float(torch.mean(torch.square(X - v_means))))
             n_mfs.append(n_mf)
         if not msres:
@@ -493,7 +513,8 @@ class DBM(EnergyBasedModel):
         """p(v | h0 = mu0(x)) reconstruction means (JAX dbm.py:1520)."""
         return self._per_batch(
             X, lambda X_b: reconstruction_means(self._state.as_dict(),
-                                                self._mf(X_b)[0][0]),
+                                                self._mf(X_b)[0][0],
+                                                self._units()),
             (self.n_visible_,))
 
     def sample_v(self, n_gibbs_steps=0, save_model=False):
@@ -503,7 +524,8 @@ class DBM(EnergyBasedModel):
         self._ensure_state()
         seed = self.make_random_seed()
         cfg = DBMSampleConfig(self._layer_sizes(), bool(self.sample_v_states),
-                              tuple(bool(s) for s in self.sample_h_states))
+                              tuple(bool(s) for s in self.sample_h_states),
+                              self._units())
         fn = dbm_sample if self._kernel_eligible() else dbm_sample_reference
         state, v = fn(cfg, self._state.as_dict(), int(n_gibbs_steps), seed)
         self._state.update(state)
@@ -516,18 +538,17 @@ class DBM(EnergyBasedModel):
     def log_Z(self, n_betas=100, n_runs=100, n_gibbs_steps=5,
               beta_schedule='linear', base_rate=None,
               bdmc=False, bdmc_burn_in=200):
-        """AIS estimate of the log partition function of a 2-layer DBM,
-        annealed on h1 with v and h2 summed out, along the linear beta
-        ladder from the uniform base (JAX dbm.py:1562-1658).  Returns
-        (log_mean, (log_low, log_high), values) with low / high
+        """AIS estimate of the log partition function of a 2-layer
+        all-Bernoulli DBM, annealed on h1 with v and h2 summed out, along the
+        linear beta ladder from the uniform base (JAX dbm.py:1562-1658).
+        Returns (log_mean, (log_low, log_high), values) with low / high
         log(Z_mean -+ std(Z))."""
         if beta_schedule != 'linear' or base_rate is not None or bdmc:
             raise NotImplementedError(
                 "log_Z: beta_schedule='adaptive', base_rate and bdmc are "
                 'not ported yet (ROADMAP.md Queue A6)')
         self._ensure_state()
-        if self.n_layers_ != 2:
-            raise ValueError('log_Z needs a 2-layer DBM')
+        self._require_bernoulli('log_Z')
         V, H1, H2 = self.n_visible_, self.n_hiddens_[0], self.n_hiddens_[1]
         seed, g = self.make_generator(self._device)
         x0 = (torch.rand((n_runs, H1), generator=g, dtype=self._torch_dtype,
@@ -568,7 +589,6 @@ class DBM(EnergyBasedModel):
         """Variational lower bound on log p(x) minus `log_Z` (JAX
         dbm.py:1660-1677)."""
         self._ensure_state()
-        if self.n_layers_ != 2:
-            raise ValueError('log_proba needs a 2-layer DBM')
+        self._require_bernoulli('log_proba')
         P = self._per_batch(X_test, self._log_proba_batch, ())
         return P.astype(np.float64) - log_Z

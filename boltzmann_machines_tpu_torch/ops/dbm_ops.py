@@ -1,5 +1,5 @@
-"""The all-Bernoulli DBM's device programs: the PCD / mean-field training
-epoch, the particle sampler and the AIS sweep.
+"""The DBM's device programs: the PCD / mean-field training epoch, the
+particle sampler and the AIS sweep.
 
 Port of the TPU's kernels of boltzmann_machines_tpu/ops/pallas_dbm.py, with
 the same factory names and contracts::
@@ -41,6 +41,20 @@ Each program has three parts:
 Random draws come from the Philox streams of ``ops/philox.py``, which the
 kernels reproduce exactly, so kernel and plain version draw the same
 uniforms.
+
+The kernels cover all-Bernoulli float32 DBMs, as the TPU's do.  A DBM with
+Gaussian or multinomial layers (the CIFAR pipelines' Gaussian-Bernoulli-
+Multinomial DBM, which the JAX package runs on XLA) names its layers in
+the configs' ``units`` (the layer objects of ``layers.py``, visible
+first; None, the default, is all-Bernoulli) and runs the plain program on
+its own device, each layer's activation its unit's (sigmoid(x + b), n
+softmax(x + b), x sigma + b).  Its sampled layers draw through the
+standalone samplers of ``ops/samplers.py`` (``bernoulli_sample``,
+``normal_sample`` for ``means + sigma eps``, ``multinomial_sample``), each
+under a key of its own (``draw_key``): on CUDA tensors the wrappers
+(``dbm_epoch``, ``dbm_sample``) launch the samplers' kernels, one launch a
+sampled layer a sweep; the plain versions draw the same numbers through
+the samplers' ``*_reference`` functions.
 """
 
 import ctypes
@@ -51,6 +65,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..layers import BernoulliLayer
+from . import samplers
 from .gemm import check_operand, launch_plan
 from .philox import AIS_H1, AIS_H2, AIS_V, bernoulli, stream_ais, stream_dbm
 
@@ -64,12 +80,17 @@ EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_bias_update', 'dbm_assoc_update',
 SAMPLE_KERNELS = ('dbm_gemm_act',)
 AIS_KERNELS = ('dbm_gemm_act', 'ais_logw')
 
+# `units`: the layer objects (layers.py) of the visible and each hidden
+# layer, or None (the default) for an all-Bernoulli DBM
 DBMEpochConfig = namedtuple('DBMEpochConfig', (
     'layer_sizes', 'k', 'max_mf_updates', 'mf_tol', 'sample_v', 'sample_h',
     'l2', 'max_norm', 'sparsity_target', 'sparsity_cost',
-    'sparsity_damping'))
+    'sparsity_damping', 'units'), defaults=(None,))
 DBMSampleConfig = namedtuple('DBMSampleConfig', (
-    'layer_sizes', 'sample_v', 'sample_h'))
+    'layer_sizes', 'sample_v', 'sample_h', 'units'), defaults=(None,))
+#: the standalone samplers a DBM with Gaussian or multinomial layers draws
+#: through, one launch a sampled layer a sweep on CUDA tensors
+SAMPLER_KERNELS = ('bernoulli_sample', 'normal_sample', 'multinomial_sample')
 AISConfig = namedtuple('AISConfig', (
     'n_visible', 'n_h1', 'n_h2', 'n_betas', 'k', 'sample_v', 'sample_h0',
     'sample_h1'))
@@ -137,44 +158,68 @@ def make_ais_kernel(n_visible, n_h1, n_h2, n_betas, k, n_runs,
 # ---------------------------------------------------------------------- #
 # plain version                                                           #
 # ---------------------------------------------------------------------- #
-def mean_field(X, W, hb, max_mf_updates, mf_tol):
+def all_bernoulli(units):
+    """Whether `units` (a config's ``units``) is an all-Bernoulli stack."""
+    return units is None or all(isinstance(u, BernoulliLayer) for u in units)
+
+
+def activation(unit, x, b):
+    """Mean activation of a layer of `unit` (a layer object of
+    ``layers.py``, None for Bernoulli) given the total input `x` and the
+    bias `b` (JAX layers.py:54, :82, :135): sigmoid(x + b), n softmax(x +
+    b), or x sigma + b -- the DBM does not divide by sigma."""
+    if unit is None or isinstance(unit, BernoulliLayer):
+        return torch.sigmoid(x + b)
+    return unit.activation(x, b)
+
+
+def _hidden_units(units, L):
+    return (None,) * L if units is None else tuple(units[1:])
+
+
+def mean_field(X, W, hb, max_mf_updates, mf_tol, units=None):
     """Mean-field fixed point of the hidden layers given `X` (JAX
     ``DBM._mf``, dbm.py:412-481): the bottom-up init with doubled inputs
-    below the top layer, then sweeps until the largest change of any unit
-    is <= `mf_tol` (compared in X's dtype) or `max_mf_updates` sweeps ran.
-    Returns (mu, n_updates); syncs with the host once per sweep."""
+    below the top layer (inside each layer's activation), then sweeps until
+    the largest change of any unit -- in its own scale, counts for a
+    multinomial layer -- is <= `mf_tol` (compared in X's dtype) or
+    `max_mf_updates` sweeps ran.  Returns (mu, n_updates); syncs with the
+    host once per sweep."""
     L = len(W)
+    hu = _hidden_units(units, L)
     T0 = X @ W[0]  # loop-invariant, hoisted as in the JAX package
-    mu = [torch.sigmoid(2. * T0 + hb[0])]
+    mu = [activation(hu[0], 2. * T0, hb[0])]
     for l in range(1, L):
         T = mu[-1] @ W[l]
         if l < L - 1:
             T = 2. * T
-        mu.append(torch.sigmoid(T + hb[l]))
+        mu.append(activation(hu[l], T, hb[l]))
     tol = float(torch.tensor(mf_tol, dtype=X.dtype))
     n, delta = 0, math.inf
     while n < max_mf_updates and delta > tol:
         new = list(mu)
         T = T0 + mu[1] @ W[1].T if L >= 2 else T0
-        new[0] = torch.sigmoid(T + hb[0])
+        new[0] = activation(hu[0], T, hb[0])
         for l in range(1, L - 1):
             T = new[l - 1] @ W[l] + mu[l + 1] @ W[l + 1].T
-            new[l] = torch.sigmoid(T + hb[l])
+            new[l] = activation(hu[l], T, hb[l])
         if L >= 2:
-            new[L - 1] = torch.sigmoid(new[L - 2] @ W[L - 1] + hb[L - 1])
+            new[L - 1] = activation(hu[L - 1], new[L - 2] @ W[L - 1],
+                                    hb[L - 1])
         delta = float(torch.stack([torch.max(torch.abs(a - b))
                                    for a, b in zip(new, mu)]).max())
         mu, n = new, n + 1
     return mu, n
 
 
-def gibbs_sweep(W, vb, hb, v, H, draw=None):
+def gibbs_sweep(W, vb, hb, v, H, draw=None, units=None):
     """One layer-parallel block-Gibbs sweep of the chains (v, H) (JAX
     ``DBM._particles_gibbs_step``, dbm.py:356-388): layer l sees the fresh
     layer l-1 and the stale layer l+1; v is drawn last from the fresh
     H[0].  ``draw(means, layer)`` returns the states of hidden layer
     `layer` (``len(W)`` for v); without it the sweep keeps the means."""
     L = len(W)
+    hu = _hidden_units(units, L)
     if draw is None:
         def draw(p, _):
             return p
@@ -182,20 +227,22 @@ def gibbs_sweep(W, vb, hb, v, H, draw=None):
     T = v @ W[0]
     if L >= 2:
         T = T + H[1] @ W[1].T
-    Hn[0] = draw(torch.sigmoid(T + hb[0]), 0)
+    Hn[0] = draw(activation(hu[0], T, hb[0]), 0)
     for l in range(1, L - 1):
         T = Hn[l - 1] @ W[l] + H[l + 1] @ W[l + 1].T
-        Hn[l] = draw(torch.sigmoid(T + hb[l]), l)
+        Hn[l] = draw(activation(hu[l], T, hb[l]), l)
     if L >= 2:
-        Hn[L - 1] = draw(torch.sigmoid(Hn[L - 2] @ W[L - 1] + hb[L - 1]),
-                         L - 1)
-    vn = draw(torch.sigmoid(Hn[0] @ W[0].T + vb), L)
+        Hn[L - 1] = draw(activation(hu[L - 1], Hn[L - 2] @ W[L - 1],
+                                    hb[L - 1]), L - 1)
+    vn = draw(activation(None if units is None else units[0],
+                         Hn[0] @ W[0].T, vb), L)
     return vn, tuple(Hn)
 
 
 def philox_draw(sample_v, sample_h, seed, it, stream_of_layer):
-    """``draw`` for `gibbs_sweep`: Bernoulli states of the layers whose
-    sampling is on, from key (`seed`, `it`) on ``stream_of_layer(l)``."""
+    """``draw`` for `gibbs_sweep` of an all-Bernoulli DBM: Bernoulli states
+    of the layers whose sampling is on, from key (`seed`, `it`) on
+    ``stream_of_layer(l)``, as the kernels draw them."""
     L = len(sample_h)
 
     def draw(p, l):
@@ -203,6 +250,64 @@ def philox_draw(sample_v, sample_h, seed, it, stream_of_layer):
         return bernoulli(p, seed, it, stream_of_layer(l)) if on else p
 
     return draw
+
+
+def draw_key(seed, it, sweep, layer):
+    """The 32-bit key of one layer's draw in one Gibbs sweep of a DBM with
+    Gaussian or multinomial layers: the standalone samplers take one key
+    word and count from 0, so each (seed, iteration, sweep, layer) hashes
+    (numpy's SeedSequence) to a key of its own."""
+    ss = np.random.SeedSequence([int(seed), int(it), int(sweep), int(layer)])
+    return int(ss.generate_state(1, np.uint32)[0])
+
+
+def sample_states(unit, means, key, reference=False):
+    """States of a layer of `unit` with these means under `key`, through
+    the standalone samplers (JAX ``layer.sample``): Bernoulli thresholds,
+    ``means + sigma eps`` with standard normals eps, or per-row
+    Multinomial(n, means / n) counts.  The wrappers launch their kernels on
+    CUDA tensors; `reference` takes the plain versions (the same numbers)
+    on any device."""
+    if unit is None or isinstance(unit, BernoulliLayer):
+        fn = samplers.bernoulli_sample_reference if reference \
+            else samplers.bernoulli_sample
+        return fn(key, means)
+    if hasattr(unit, 'sigma'):
+        if reference:
+            eps = samplers.normal_sample_reference(key, means.shape,
+                                                   means.device)
+        else:
+            eps = samplers.normal_sample(key, means.shape, means.device)
+        return means + eps * unit._sigma(means)
+    fn = samplers.multinomial_sample_reference if reference \
+        else samplers.multinomial_sample
+    return fn(key, means, unit.n_samples)
+
+
+def unit_draw(units, sample_v, sample_h, key_of_layer, reference=False):
+    """``draw`` for `gibbs_sweep` of a DBM with Gaussian or multinomial
+    layers: the states of each layer whose sampling is on, by
+    `sample_states` under ``key_of_layer(l)``."""
+    L = len(sample_h)
+
+    def draw(p, l):
+        on = sample_v if l == L else sample_h[l]
+        if not on:
+            return p
+        return sample_states(units[0] if l == L else units[l + 1], p,
+                             key_of_layer(l), reference)
+
+    return draw
+
+
+def _sweep_draw(cfg, seed, it, sweep, stream_of_layer, reference):
+    """The draws of one sampled sweep: the kernels' Philox streams for an
+    all-Bernoulli DBM, the standalone samplers otherwise."""
+    if all_bernoulli(cfg.units):
+        return philox_draw(cfg.sample_v, cfg.sample_h, seed, it,
+                           stream_of_layer)
+    return unit_draw(cfg.units, cfg.sample_v, cfg.sample_h,
+                     lambda l: draw_key(seed, it, sweep, l), reference)
 
 
 def apply_max_norm(W, max_norm):
@@ -256,52 +361,69 @@ def dbm_update(cfg, state, X, mu, v, H, lr, momentum):
     }
 
 
-def reconstruction_means(state, mu0):
-    """p(v | h0 = mu0) means (JAX ``DBM._reconstruction_means``)."""
-    return torch.sigmoid(mu0 @ state['W'][0].T + state['vb'])
+def reconstruction_means(state, mu0, units=None):
+    """p(v | h0 = mu0) means (JAX ``DBM._reconstruction_means``); a
+    Gaussian visible layer's are mu0 W0^T sigma + vb."""
+    return activation(None if units is None else units[0],
+                      mu0 @ state['W'][0].T, state['vb'])
 
 
-def dbm_step(cfg, state, X, lr, momentum, seed, it):
+def dbm_step(cfg, state, X, lr, momentum, seed, it, reference=True):
     """One PCD / mean-field update on minibatch `X` at iteration `it`
     (JAX ``DBM._train_step``, dbm.py:587-595); returns (state, msre,
-    n_mf).  msre reads the UPDATED W0 and vb."""
+    n_mf).  msre reads the UPDATED W0 and vb.  `reference`: a DBM with
+    Gaussian or multinomial layers draws through the samplers' plain
+    versions (else their wrappers)."""
     L = len(cfg.layer_sizes) - 1
     mu, n_mf = mean_field(X, state['W'], state['hb'], cfg.max_mf_updates,
-                          cfg.mf_tol)
+                          cfg.mf_tol, cfg.units)
     v, H = state['v'], state['H']
     for s in range(cfg.k):
-        draw = philox_draw(cfg.sample_v, cfg.sample_h, seed, it,
-                           lambda l, s=s: stream_dbm(s, l, L))
-        v, H = gibbs_sweep(state['W'], state['vb'], state['hb'], v, H, draw)
+        draw = _sweep_draw(cfg, seed, it, s,
+                           lambda l, s=s: stream_dbm(s, l, L), reference)
+        v, H = gibbs_sweep(state['W'], state['vb'], state['hb'], v, H, draw,
+                           cfg.units)
     state = dbm_update(cfg, state, X, mu, v, H, lr, momentum)
-    msre = torch.mean(torch.square(X - reconstruction_means(state, mu[0])))
+    msre = torch.mean(torch.square(
+        X - reconstruction_means(state, mu[0], cfg.units)))
     return state, msre, n_mf
 
 
-def dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
-    """The plain PyTorch version of the epoch (see module docstring)."""
+def _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed, iter0,
+                     reference):
     NB = X_batches.shape[0]
     rows = torch.zeros((2, NB), dtype=X_batches.dtype,
                        device=X_batches.device)
     for i in range(NB):
         state, msre, n_mf = dbm_step(cfg, state, X_batches[i], lr, momentum,
-                                     seed, int(iter0) + i + 1)
+                                     seed, int(iter0) + i + 1, reference)
         rows[0, i] = msre
         rows[1, i] = n_mf
     return state, rows[0], rows[1]
 
 
-def dbm_sample_reference(cfg, state, n_steps, seed):
-    """The plain PyTorch version of the sampler (JAX ``_sample_v_program``,
-    dbm.py:1027-1039): sweep ``s`` draws from key (`seed`, `s`), layer l on
-    stream l."""
+def dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
+    """The plain PyTorch version of the epoch (see module docstring)."""
+    return _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed, iter0,
+                            True)
+
+
+def _dbm_sample_plain(cfg, state, n_steps, seed, reference):
     v, H = state['v'], state['H']
     W, vb, hb = state['W'], state['vb'], state['hb']
     for s in range(int(n_steps)):
-        draw = philox_draw(cfg.sample_v, cfg.sample_h, seed, s, lambda l: l)
-        v, H = gibbs_sweep(W, vb, hb, v, H, draw)
-    v_means, _ = gibbs_sweep(W, vb, hb, v, H)
+        draw = _sweep_draw(cfg, seed, s, s, lambda l: l, reference)
+        v, H = gibbs_sweep(W, vb, hb, v, H, draw, cfg.units)
+    v_means, _ = gibbs_sweep(W, vb, hb, v, H, units=cfg.units)
     return dict(state, v=v_means, H=tuple(H)), v_means
+
+
+def dbm_sample_reference(cfg, state, n_steps, seed):
+    """The plain PyTorch version of the sampler (JAX ``_sample_v_program``,
+    dbm.py:1027-1039): sweep ``s`` of an all-Bernoulli DBM draws from key
+    (`seed`, `s`), layer l on stream l; a DBM with Gaussian or multinomial
+    layers under ``draw_key(seed, s, s, l)``."""
+    return _dbm_sample_plain(cfg, state, n_steps, seed, True)
 
 
 def ais_schedule(n_betas):
@@ -811,20 +933,28 @@ def _route(device, name):
 
 def dbm_epoch(cfg, state, X_batches, lr, momentum, seed, iter0):
     """One PCD / mean-field DBM epoch: the CUDA kernels for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if _route(X_batches.device, 'dbm_epoch') == 'cuda':
+    the plain version for a CPU tensor.  A DBM with Gaussian or multinomial
+    layers runs the plain program on its device, its draws through the
+    standalone samplers' wrappers (their kernels on CUDA)."""
+    if _route(X_batches.device, 'dbm_epoch') == 'cpu':
+        return dbm_epoch_reference(cfg, state, X_batches, lr, momentum,
+                                   seed, iter0)
+    if all_bernoulli(cfg.units):
         return _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed,
                                iter0)
-    return dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed,
-                               iter0)
+    return _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed,
+                            iter0, False)
 
 
 def dbm_sample(cfg, state, n_steps, seed):
     """The particle sampler: the CUDA kernels for CUDA particles, the plain
-    version for CPU particles."""
-    if _route(state['v'].device, 'dbm_sample') == 'cuda':
+    version for CPU particles; a DBM with Gaussian or multinomial layers
+    as ``dbm_epoch`` runs it."""
+    if _route(state['v'].device, 'dbm_sample') == 'cpu':
+        return dbm_sample_reference(cfg, state, n_steps, seed)
+    if all_bernoulli(cfg.units):
         return _dbm_sample_cuda(cfg, state, n_steps, seed)
-    return dbm_sample_reference(cfg, state, n_steps, seed)
+    return _dbm_sample_plain(cfg, state, n_steps, seed, False)
 
 
 def ais(cfg, state, seed, x0):

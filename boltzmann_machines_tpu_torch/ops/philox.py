@@ -43,6 +43,10 @@ The DBM kernels (``ops/dbm_ops.py``) keep the same rule -- the key is
   step ``s`` of the transition draws v, h2 and h1 on ``stream_ais(s, g)``
   with ``g`` = ``AIS_V``, ``AIS_H2``, ``AIS_H1``.
 
+A DBM with Gaussian or multinomial layers draws each sampled layer through
+the standalone samplers, under a key of its own for every (seed,
+iteration, sweep, layer) (``ops/dbm_ops.draw_key``).
+
 A uniform is built from the first output word with the mantissa trick of
 the TPU kernels (``bitcast((bits >> 9) | 0x3f800000) - 1``), which equals
 ``(bits >> 9) * 2^-23`` exactly.

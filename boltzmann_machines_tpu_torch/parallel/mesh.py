@@ -6,7 +6,7 @@ replica of the model; minibatch rows are split over the ranks, and the
 gradient statistics are summed across them by ``all_reduce``.  Models take
 a mesh through ``model.set_mesh(make_mesh())``.  The ``model`` axis
 (hidden columns of W split over devices) is not ported (ROADMAP.md Queue
-A9).
+A8).
 """
 
 import torch
@@ -54,7 +54,7 @@ def shard_batch(mesh, X):
 def shard_model_columns(mesh, W, axis='model'):
     raise NotImplementedError('tensor-parallel W (hidden columns split over '
                               'devices) is not ported yet (ROADMAP.md Queue '
-                              'A9)')
+                              'A8)')
 
 
 def replicate(mesh, tree):

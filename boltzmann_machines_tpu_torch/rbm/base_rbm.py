@@ -219,7 +219,11 @@ class BaseRBM(EnergyBasedModel):
         V, H = self.n_visible, self.n_hidden
 
         def tensor(x):
-            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+            # contiguous whatever the init's layout (a transposed W_init,
+            # as examples/dbm_cifar.py's quilted one): the kernels take
+            # contiguous state
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=dev)
 
         def param(init, n):
             if hasattr(init, '__iter__'):
@@ -266,7 +270,7 @@ class BaseRBM(EnergyBasedModel):
         W) is not ported."""
         if model_axis is not None:
             raise NotImplementedError('model_axis: tensor-parallel W is not '
-                                      'ported yet (ROADMAP.md Queue A9)')
+                                      'ported yet (ROADMAP.md Queue A8)')
         if data_axis not in mesh.axis_names:
             raise ValueError('the mesh has no axis {0!r}'.format(data_axis))
         self._mesh = mesh

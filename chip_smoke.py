@@ -12,7 +12,8 @@ its plain version in float32 and float64; see ``readings``,
 ``assoc_readings``, ``softmax_readings``, ``sampler_readings`` and
 ``pll_readings``.
 ``--kernel-times`` runs phase 18 alone; run from another checkout, it
-times that checkout's kernels.)
+times that checkout's kernels.  ``--cifar-phases`` runs phases 21-24
+alone.)
 
 Phases, each printing its lines before the last:
 
@@ -131,7 +132,27 @@ Phases, each printing its lines before the last:
     against the CPU from one carried-over state, at both examples' widths:
     losses of every epoch within rtol 1e-4, the final parameters within
     atol 2e-4; then the seconds of one MLP epoch at the examples'
-    published rows.
+    published rows;
+21. the Gaussian-Bernoulli-Multinomial DBM of the CIFAR pipelines at both
+    published widths (3072-5000-1000, n 1000; 3072-7800-512, n 512), B =
+    M = 100, 50 mean-field sweeps: the plain program on the card against
+    the CPU with sampling off (per field, GBM_TOL), and with sampling on
+    the path through the standalone sampler kernels against the same path
+    through their plain versions, both on the card, with one launch of
+    each sampler a sampled sweep; then its step timed (sampler kernels,
+    their plain versions, sampling off), its device busy share and n_mf;
+22. the CD epoch kernels against their plain versions at
+    examples/dbm_cifar.py's other shapes: the patch RBMs (192 x 300,
+    Gaussian, B 48) and the M-RBM (7800 x 512, n 512), sampling off and on,
+    with phase 10's tolerances, and their step times;
+23. examples/torch_dbm_cifar_naive.py and torch_dbm_cifar.py end to end at
+    their published widths, on synthetic rows (3 000, and 1 000 augmented
+    x10), one epoch a stage (two for the DBM), each in a process of its
+    own as phase 19 runs them: launch counts per the schedule (the CD
+    kernels, one launch of each sampler a DBM step, no all-Bernoulli DBM
+    kernel), the MLP on the card, every ``[stage]`` wall;
+24. examples/torch_semi_supervised.py --quick the same way: its table of
+    the four label subsets.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -1188,8 +1209,9 @@ GRBM_L2, MRBM_L2 = 0.01, 0.05
 # per cent, so msre by <= 1e-2 relative and q_means (sums over 100 rows) by
 # <= 1e-2 relative; the PLL as CIFAR_TOL.  A probe step (lr 1, momentum 0,
 # no metrics) from the same state shows the moved draws: dvb = mean(X -
-# v_states) moves by <= max|W| sigma / B per flipped or moved draw, and
-# must stay within 20 of them.
+# v_states) moves by <= max|W| sigma / B per flipped or moved draw (by 1 / B
+# per flipped visible state where Bernoulli visible states are sampled, as
+# in examples/dbm_cifar.py's M-RBM), and must stay within 20 of them.
 CIFAR_TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4),
              'msre': (1e-6, 1e-5), 'l2': (0., 1e-5), 'pll': (1., 1e-3)}
 SAMPLED_TOL = dict(CIFAR_TOL, q_means=(1e-5, 1e-2), msre=(1e-6, 1e-2))
@@ -1260,15 +1282,15 @@ def cifar_inputs(torch, nb, kind, seed=3):
                            device='cuda')
 
 
-def compare_cifar(torch, label, cfg, state, X, lr):
-    """Kernel vs plain over the batches of X, sampling off; raises beyond
-    CIFAR_TOL.  Returns the max |W kernel - plain|."""
+def compare_cifar(torch, label, cfg, state, X, lr, B=CIFAR_B):
+    """Kernel vs plain over the batches of X (of `B` rows), sampling off;
+    raises beyond CIFAR_TOL.  Returns the max |W kernel - plain|."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         cd_epoch, cd_epoch_reference)
     got = cd_epoch(cfg, state, X, lr, MOMENTUM, 7, 0)
     want = cd_epoch_reference(cfg, state, X, lr, MOMENTUM, 7, 0)
     torch.cuda.synchronize()
-    d = diffs(got, want, CIFAR_B, CIFAR_TOL)
+    d = diffs(got, want, B, CIFAR_TOL)
     say('%s sampling off, %d steps, max|kernel-plain|: %s' % (
         label, len(X), ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items())))
     say('  rows kernel: msre %s pll %s' % (
@@ -1285,9 +1307,9 @@ def compare_cifar(torch, label, cfg, state, X, lr):
     return d['W'][0]
 
 
-def compare_cifar_sampled(torch, label, cfg, state, X, lr):
-    """Sampling on, each step from the kernel's state (see CIFAR_TOL).
-    Returns the share of exact probe steps."""
+def compare_cifar_sampled(torch, label, cfg, state, X, lr, B=CIFAR_B):
+    """Sampling on, each step from the kernel's state (see CIFAR_TOL), X's
+    batches of `B` rows.  Returns the share of exact probe steps."""
     import numpy as np
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         cd_epoch, cd_epoch_reference)
@@ -1298,17 +1320,22 @@ def compare_cifar_sampled(torch, label, cfg, state, X, lr):
         Xi = X[i:i + 1]
         got = cd_epoch(cfg, s, Xi, lr, MOMENTUM, 11, i)
         want = cd_epoch_reference(cfg, s, Xi, lr, MOMENTUM, 11, i)
-        d = diffs(got, want, CIFAR_B, CIFAR_TOL)
+        d = diffs(got, want, B, CIFAR_TOL)
         n_exact += all(v[1] <= 0 for v in d.values())
-        wide = diffs(got, want, CIFAR_B, SAMPLED_TOL)
+        wide = diffs(got, want, B, SAMPLED_TOL)
         if any(v[1] > 0 for v in wide.values()):
             raise AssertionError('%s sampled step %d beyond moved draws: %s' % (
                 label, i, wide))
         max_d = max(max_d, d['W'][0])
         pg = cd_epoch(probe, s, Xi, 1., 0., 13, i)
         pw = cd_epoch_reference(probe, s, Xi, 1., 0., 13, i)
-        dp = diffs(pg, pw, CIFAR_B, CIFAR_TOL)
-        per_draw = float(s['W'].abs().max()) * sigma / CIFAR_B
+        dp = diffs(pg, pw, B, CIFAR_TOL)
+        # a moved draw's share of dvb = mean(X - v_states): a sampled
+        # Bernoulli visible state that flips moves it by 1 / B, a Gaussian
+        # or mean-valued visible unit by at most max|W| sigma / B
+        per_draw = 1. / B if cfg.sample_v_states and \
+            cfg.visible == 'bernoulli' else \
+            float(s['W'].abs().max()) * sigma / B
         exact += all(v[1] <= 0 for v in dp.values())
         moved.append(dp['dvb'][0] / per_draw)
         if dp['dvb'][0] > 20 * per_draw:
@@ -4148,7 +4175,7 @@ def example_child(script, out_path, args):
     import torch
     from boltzmann_machines_tpu_torch import DBM, finetune
     from boltzmann_machines_tpu_torch.finetune import MLPClassifier
-    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    from boltzmann_machines_tpu_torch.ops import dbm_ops, samplers
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         cd_epoch, reset_launches)
     from boltzmann_machines_tpu_torch.rbm import BaseRBM
@@ -4204,6 +4231,7 @@ def example_child(script, out_path, args):
     torch.cuda.synchronize()
     reset_launches()
     dbm_ops.reset_launches()
+    samplers.reset_launches()
     t0 = time.perf_counter()
     runpy.run_path(path, run_name='__main__')
     torch.cuda.synchronize()
@@ -4211,7 +4239,9 @@ def example_child(script, out_path, args):
     launches = {'cd_epoch': dict(cd_epoch.launches),
                 'dbm_epoch': dict(dbm_ops.dbm_epoch.launches),
                 'dbm_sample': dict(dbm_ops.dbm_sample.launches),
-                'ais': dict(dbm_ops.ais.launches)}
+                'ais': dict(dbm_ops.ais.launches),
+                'samplers': {name: getattr(samplers, name).launches[name]
+                             for name in dbm_ops.SAMPLER_KERNELS}}
     with open(out_path, 'w') as f:
         json.dump({'wall': wall, 'stages': stages, 'mlps': mlps,
                    'launches': launches}, f)
@@ -4359,6 +4389,499 @@ def mlp_card_vs_cpu(torch):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phases 21-24: the CIFAR pipelines (examples/torch_dbm_cifar_naive.py,   #
+# torch_dbm_cifar.py, torch_semi_supervised.py)                            #
+# ---------------------------------------------------------------------- #
+# The Gaussian-Bernoulli-Multinomial DBM at both published widths, as the
+# two scripts configure it: (label, layer sizes, n_samples, lr, l2,
+# sparsity targets, sparsity costs); B = M = 100, 50 mean-field sweeps at
+# mf_tol 1e-11, max_norm 4, k = 1, momentum 0.5 (the first of its
+# schedule).  It runs the plain program on the card (torch.matmul in true
+# f32, as the JAX package runs it on XLA), its sampled layers drawn by the
+# standalone sampler kernels.
+GBM_WIDTHS = (
+    ('3072-5000-1000', (3072, 5000, 1000), 1000, 8e-5, 1e-8, (0.1, 0.1),
+     (0., 0.)),                                   # dbm_cifar_naive.py:176
+    ('3072-7800-512', (3072, 7800, 512), 512, 4e-5, 0., (0.2, 0.2),
+     (1e-4, 1e-3)),                               # dbm_cifar.py:343
+)
+GBM_MAX_MF, GBM_MF_TOL = 50, 1e-11
+GBM_B = GBM_M = 100
+# Tolerances of the G-B-M DBM on the card against the same program on the
+# CPU, sampling off (true f32 on both sides, sums in another order):
+#   state:  |d| <= 1e-5 + 1e-4 |ref|  (W, biases, accumulators, particles:
+#           the products run over K <= 7800 terms, each within ~sqrt(K) eps
+#           of the other order relative to the sum of |terms|, and the
+#           multinomial layer's n softmax carries a pre-activation's
+#           absolute error into its counts as a relative one; 50 sweeps and
+#           2 steps)
+#   sums:   |d| <= 1e-5 (B + M) n_max + 1e-4 |ref|  (the sparsity EMAs sum
+#           100 rows of means, counts up to n for the multinomial layer)
+#   msre:   |d| <= 1e-6 + 1e-5 |ref|  (a mean of 3e5 squares of ~1)
+#   n_mf:   |d| <= 1 sweep            (mf_tol 1e-11 is below every unit's
+#           f32 rounding: mean-field stops where a sweep changes nothing,
+#           which the two sum orders may reach a sweep apart)
+# Sampling on, both on the card: the path through the sampler kernels
+# against the same path through their plain versions, each step from the
+# kernel path's state.  Both compute the same means with the same torch
+# ops, so a Bernoulli or multinomial draw can only differ where the means
+# do (never, with a deterministic product), and a Gaussian state by the
+# Box-Muller's ulps: within 4e-6 (1 + |v|) sigma.  States that moved
+# beyond that are reported as a share of the draws.
+GBM_TOL = {'state': (1e-5, 1e-4), 'msre': (1e-6, 1e-5), 'n_mf': 1}
+
+
+def gbm_units(sizes, n):
+    from boltzmann_machines_tpu_torch import (BernoulliLayer, GaussianLayer,
+                                              MultinomialLayer)
+    return (GaussianLayer(sizes[0], sigma=1.), BernoulliLayer(sizes[1]),
+            MultinomialLayer(sizes[2], n_samples=n))
+
+
+def gbm_config(width, sample):
+    from boltzmann_machines_tpu_torch.ops.dbm_ops import DBMEpochConfig
+    _, sizes, n, _, l2, target, cost = width
+    return DBMEpochConfig(sizes, 1, GBM_MAX_MF, GBM_MF_TOL, sample,
+                          (sample, sample), l2, 4., target, cost, 0.9,
+                          gbm_units(sizes, n))
+
+
+def gbm_inputs(torch, width, nb, seed=2222):
+    """(nb, 100, 3072) standardized synthetic CIFAR batches and a G-B-M
+    state as the scripts stack it: W0 and W1 small random weights (the
+    G-RBM's and the M-RBM's), zero biases, the particles v from data, h0
+    from uniform means and h1 from the M-RBM transform's probabilities
+    (rows summing to 1, not integers: examples/dbm_cifar_naive.py:182)."""
+    import numpy as np
+    _, (V, H1, H2), n, *_ = width
+    X, = standardize(make_cifar(nb * GBM_B + GBM_M, seed=seed))
+    rng = np.random.RandomState(seed)
+    f32 = dict(dtype=torch.float32, device='cuda')
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), **f32)
+
+    hs = (H1, H2)
+    zeros = [torch.zeros(h, **f32) for h in hs]
+    state = {
+        'vb': torch.zeros(V, **f32), 'hb': tuple(zeros),
+        'W': (t(0.001 * rng.randn(V, H1)), t(0.01 * rng.randn(H1, H2))),
+        'dvb': torch.zeros(V, **f32), 'dhb': tuple(zeros),
+        'dW': (torch.zeros((V, H1), **f32), torch.zeros((H1, H2), **f32)),
+        'q_means': tuple(zeros), 'mu_means': tuple(zeros),
+        'v': t(X[-GBM_M:]), 'H': (t(rng.rand(GBM_M, H1)),
+                                  t(rng.dirichlet(np.ones(H2), GBM_M))),
+    }
+    return t(X[:nb * GBM_B].reshape(nb, GBM_B, V)), state
+
+
+def to_device(state, device):
+    return {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple)
+                else v.to(device)) for k, v in state.items()}
+
+
+def to_device_result(res, device):
+    state, msre, n_mf = res
+    return to_device(state, device), msre.to(device), n_mf.to(device)
+
+
+def gbm_diffs(got, want, n):
+    """{name: (max |d|, max excess over GBM_TOL)} of two epoch results."""
+    from boltzmann_machines_tpu_torch.ops.dbm_ops import STATE_KEYS
+    out = {}
+    for key in STATE_KEYS:
+        a, b = got[0][key], want[0][key]
+        pairs = list(zip(a, b)) if isinstance(b, tuple) else [(a, b)]
+        atol, rtol = GBM_TOL['state']
+        if key in ('q_means', 'mu_means'):
+            atol *= (GBM_B + GBM_M) * n
+        out[key] = (max(float((x - y).abs().max()) for x, y in pairs),
+                    max(float(((x - y).abs() - atol - rtol * y.abs()).max())
+                        for x, y in pairs))
+    atol, rtol = GBM_TOL['msre']
+    d = (got[1] - want[1]).abs()
+    out['msre'] = (float(d.max()),
+                   float((d - atol - rtol * want[1].abs()).max()))
+    d = float((got[2] - want[2]).abs().max())
+    out['n_mf'] = (d, d - GBM_TOL['n_mf'])
+    return out
+
+
+def gbm_vs_plain(torch):
+    """Phase 21: the G-B-M DBM at both published widths, B = M = 100, 50
+    mean-field sweeps.  Sampling off: 2 steps on the card (the plain
+    program on CUDA tensors) against the same 2 steps on the CPU, per
+    field within GBM_TOL, no DBM kernel launched.  Sampling on: 4 steps,
+    each from the kernel path's state, through the sampler kernels against
+    the same path through their plain versions, both on the card; the
+    launches of each sampler (one a sampled sweep) and the share of states
+    that moved.  Returns {label: results}."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops, samplers
+    out = {}
+    for width in GBM_WIDTHS:
+        label, sizes, n, lr = width[:4]
+        X, state = gbm_inputs(torch, width, 4)
+        r = {}
+        cfg = gbm_config(width, False)
+        dbm_ops.reset_launches()
+        got = dbm_ops.dbm_epoch(cfg, state, X[:2], lr, 0.5, 7, 0)
+        torch.cuda.synchronize()
+        if any(dbm_ops.dbm_epoch.launches.values()):
+            raise AssertionError('G-B-M DBM launched the all-Bernoulli DBM '
+                                 'kernels: %s' % dbm_ops.dbm_epoch.launches)
+        want = dbm_ops.dbm_epoch_reference(cfg, to_device(state, 'cpu'),
+                                           X[:2].cpu(), lr, 0.5, 7, 0)
+        d = gbm_diffs(to_device_result(got, 'cpu'), want, n)
+        say('G-B-M DBM %s sampling off, 2 steps, card vs CPU, max|d|: %s; '
+            'n_mf card %s CPU %s; msre card %s' % (
+                label, ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items()),
+                got[2].tolist(), want[2].tolist(),
+                ['%.5f' % v for v in got[1].tolist()]))
+        bad = [k for k, v in d.items() if v[1] > 0]
+        if bad:
+            raise AssertionError('G-B-M DBM %s: card and CPU disagree on %s: '
+                                 '%s' % (label, bad, d))
+        if not all(math.isfinite(v) for v in got[1].tolist()):
+            raise AssertionError('G-B-M DBM %s: msre not finite' % label)
+        r['err'] = d['W'][0]
+        r['card_vs_cpu'] = {k: v[0] for k, v in d.items()}
+
+        cfg = gbm_config(width, True)
+        s, moved, d_v, exact = state, {'h0': 0, 'h1': 0}, 0., 0
+        launches = dict.fromkeys(dbm_ops.SAMPLER_KERNELS, 0)
+        for i in range(4):
+            samplers.reset_launches()
+            got = dbm_ops.dbm_epoch(cfg, s, X[i:i + 1], lr, 0.5, 11, i)
+            torch.cuda.synchronize()
+            for name in launches:
+                launches[name] += getattr(samplers, name).launches[name]
+            want = dbm_ops.dbm_epoch_reference(cfg, s, X[i:i + 1], lr, 0.5,
+                                               11, i)
+            (g0, g1), (w0, w1) = got[0]['H'], want[0]['H']
+            moved['h0'] += int((g0 != w0).sum())
+            moved['h1'] += int((g1 - w1).abs().sum()) // 2
+            if not bool((g1.sum(1) == n).all()):
+                raise AssertionError('G-B-M DBM %s: multinomial particles do '
+                                     'not sum to n' % label)
+            dv = float(((got[0]['v'] - want[0]['v']).abs()
+                        / (1. + want[0]['v'].abs())).max())
+            d_v = max(d_v, dv)
+            dd = gbm_diffs(got, want, n)
+            exact += all(v[1] <= 0 for v in dd.values())
+            s = got[0]
+        share = {'h0': moved['h0'] / (4. * GBM_M * sizes[1]),
+                 'h1': moved['h1'] / (4. * GBM_M * n)}
+        say('G-B-M DBM %s sampling on, 4 steps from the same state, sampler '
+            'kernels vs their plain versions on the card: launches %s; %d '
+            'steps within the sampling-off tolerances; moved draws: h0 %.3g, '
+            'h1 %.3g of the draws; v max |d| / (1 + |v|) %.3g (limit 4e-6)' % (
+                label, launches, exact, share['h0'], share['h1'], d_v))
+        if launches != dict.fromkeys(dbm_ops.SAMPLER_KERNELS, 4):
+            raise AssertionError('G-B-M DBM %s: sampler launches %s, one a '
+                                 'sampled sweep implies 4 each' % (label,
+                                                                   launches))
+        if share['h0'] > 1e-5 or share['h1'] > 1e-3 or d_v > 4e-6:
+            raise AssertionError('G-B-M DBM %s: sampled states differ beyond '
+                                 'the samplers\' tolerances' % label)
+        r.update(sampled_steps_exact=exact / 4., moved_share=share,
+                 v_max_rel_err=d_v, launches=launches)
+        # the multinomial draw's plain version on the card: its peak memory
+        # beyond the means (a CDF and n uniforms a row, binary-searched:
+        # B x n, never the B x H x n compares of the broadcast form)
+        means = s['H'][1].clone()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        samplers.multinomial_sample_reference(5, means, n)
+        torch.cuda.synchronize()
+        r['multinomial_plain_peak_mb'] = (torch.cuda.max_memory_allocated()
+                                          - base) / 2. ** 20
+        say('  the multinomial draw\'s plain version at (%d, %d), n %d: peak '
+            '%.2f MB beyond its inputs (B x H x n bytes would be %.0f MB)' % (
+                GBM_M, sizes[2], n, r['multinomial_plain_peak_mb'],
+                GBM_M * sizes[2] * n / 2. ** 20))
+        out[label] = r
+    return out
+
+
+def device_busy(torch, fn, wall):
+    """The device time of every kernel of one call of `fn` (torch.profiler:
+    the device-side events alone, since a CPU op's device time counts its
+    kernels again) over `wall`, the call's unprofiled wall in seconds; None
+    where the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(ev.device_time_total for ev in prof.key_averages()
+             if ev.device_type != DeviceType.CPU)
+    return us * 1e-6 / wall if us else None
+
+
+def gbm_timings(torch):
+    """The G-B-M DBM step at both widths: ms per step on the host clock
+    (10 steps to a synchronize, best of two after a warm-up), sampling on
+    (the sampler kernels) and off, and with the plain versions' draws; the
+    device busy share of the sampled step; the mean n_mf."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    nb = 10
+    out = {}
+    for width in GBM_WIDTHS:
+        label, sizes, n, lr = width[:4]
+        X, state = gbm_inputs(torch, width, nb, seed=7)
+        r = {}
+        for key, fn, sample in (
+                ('kernel', dbm_ops.dbm_epoch, True),
+                ('plain', dbm_ops.dbm_epoch_reference, True),
+                ('sampling_off', dbm_ops.dbm_epoch, False)):
+            cfg = gbm_config(width, sample)
+
+            def epoch(fn=fn, cfg=cfg):
+                return fn(cfg, state, X, lr, 0.5, 5, 0)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = epoch()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            r[key + '_ms'] = 1e3 * min(walls[1:]) / nb
+            # the mean-field count of each variant: the chains' draws
+            # steer the parameters, and with them the sweeps a step runs
+            r[key + '_n_mf'] = float(res[2].mean())
+            if key == 'kernel':
+                r['mean_n_mf'] = r['kernel_n_mf']
+                r['busy'] = device_busy(torch, epoch, min(walls[1:]))
+        say('G-B-M DBM step %s, B=M=100, %d mean-field sweeps at mf_tol %g: '
+            '%.4f ms per step sampled through the sampler kernels (mean n_mf '
+            '%.2f), %.4f through their plain versions (%.2f), %.4f sampling '
+            'off (%.2f); device busy %s (host clock, best of two runs of %d '
+            'steps)' % (
+                label, GBM_MAX_MF, GBM_MF_TOL, r['kernel_ms'],
+                r['kernel_n_mf'], r['plain_ms'], r['plain_n_mf'],
+                r['sampling_off_ms'], r['sampling_off_n_mf'],
+                'not measured' if r['busy'] is None
+                else '%.1f%%' % (100. * r['busy']), nb))
+        out[label] = r
+    return out
+
+
+# The CD kernels at examples/dbm_cifar.py's other two shapes: the 26 small
+# patch RBMs (192 x 300, Gaussian visible, sigma 1, dbm_first, batch 48,
+# examples/dbm_cifar.py:135-152) and the M-RBM (7800 x 512, n_samples 512,
+# dbm_last, both layers sampled, :305-321), with phase 10's tolerances.
+SMALL_RBM, SMALL_B = (192, 300), 48
+WIDE_MRBM, WIDE_N = (7800, 512), 512
+
+
+def small_cfg(sample, metrics_every):
+    import numpy as np
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import CDEpochConfig
+    return CDEpochConfig(*SMALL_RBM, 1, sample, sample, 2., 1., 1e-3, 0.1,
+                         1e-3, 0.9, metrics_every, True, 'gaussian',
+                         np.ones(SMALL_RBM[0], np.float32))
+
+
+def wide_mrbm_cfg(sample, metrics_every):
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import CDEpochConfig
+    return CDEpochConfig(*WIDE_MRBM, 1, sample, sample, 1., 2., 5e-3, 0.2,
+                         1e-4, 0.9, metrics_every, True, 'bernoulli', None,
+                         'multinomial', WIDE_N)
+
+
+def cifar_rbm_shapes(torch):
+    """Phase 22: the CD epoch kernels against their plain versions at
+    192 x 300 (B 48) and 7800 x 512 (n 512, B 100), sampling off (5 steps,
+    CIFAR_TOL) and on (20 steps, each from the kernel's state, with phase
+    10's moved-draw tolerance), the M-RBM's sampled hidden states of one
+    pass draw by draw; then ms per step, kernel and plain, sampling on.
+    Returns {label: results}."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, cd_epoch_reference)
+    out = {}
+    rng = np.random.RandomState(17)
+    Xs = torch.as_tensor(rng.randn(20, SMALL_B, SMALL_RBM[0]),
+                         dtype=torch.float32, device='cuda')
+    Xm = torch.as_tensor(np.random.RandomState(9).rand(20, CIFAR_B,
+                                                       WIDE_MRBM[0]),
+                         dtype=torch.float32, device='cuda')
+    for label, make_cfg, (V, H), B, X, w_init, lr in (
+            ('small RBM 192x300 B=48', small_cfg, SMALL_RBM, SMALL_B, Xs,
+             0.001, 1e-3),
+            ('M-RBM 7800x512 n=512', wide_mrbm_cfg, WIDE_MRBM, CIFAR_B, Xm,
+             0.001, 5e-5)):
+        state = cifar_state(torch, V, H, w_init, seed=V)
+        r = {'err': compare_cifar(torch, label, make_cfg(False, 1), state,
+                                  X[:5], lr, B=B)}
+        cfg = make_cfg(True, 1)
+        r['sampled_steps_exact'] = compare_cifar_sampled(
+            torch, label, cfg, state, X, lr, B=B)
+        if cfg.hidden == 'multinomial':
+            r['h_draws_differing'] = compare_passes(
+                torch, label, cfg, 'h', X, state['W'], state['hb'], 5)
+        times = {'kernel': [], 'plain': []}
+        nb = 10
+        for which in ('plain', 'kernel', 'plain', 'kernel', 'kernel',
+                      'plain'):
+            fn = cd_epoch if which == 'kernel' else cd_epoch_reference
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(make_cfg(True, 10 ** 6), state, X[:nb], lr, MOMENTUM, 5, 0)
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        r['ms'] = 1e3 * min(times['kernel'][1:]) / nb
+        r['plain_ms'] = 1e3 * min(times['plain'][1:]) / nb
+        r['work'] = cd_step_work(V, H, B, n_samples=cfg.n_samples or 0)
+        say('%s sampling on: %.4f ms per step, plain %.4f ms (host clock, '
+            'best of two runs of %d steps)' % (label, r['ms'], r['plain_ms'],
+                                               nb))
+        out[label] = r
+    return out
+
+
+# phases 23-24: the three scripts on the card in processes of their own, at
+# the published widths (the scripts' defaults: 3072-5000-1000, n 1000;
+# 26 x 192-300, 3072-7800-512, n 512; 784-1024), on synthetic rows, one
+# epoch a stage (two for the DBMs, so that their validation runs), one MLP
+# epoch; dbm_cifar.py's x10 augmentation on 1000 rows (10 000 training
+# rows); semi_supervised.py --quick (its own 4096 rows, two epochs)
+CIFAR_EXAMPLES = (
+    ('torch_dbm_cifar_naive.py', ['--n-train', '3000', '--n-val', '500',
+                                  '--epochs', '1', '1', '2',
+                                  '--mlp-epochs', '1']),
+    ('torch_dbm_cifar.py', ['--n-train', '1000', '--n-val', '500',
+                            '--small-epochs', '1', '--epochs', '1', '1', '2',
+                            '--increase-n-gibbs-steps-every', '1',
+                            '--mlp-epochs', '1']),
+    ('torch_semi_supervised.py', ['--quick']),
+)
+
+
+def cifar_example_paths(script, tmpdir):
+    if script == 'torch_semi_supervised.py':
+        return ['--model-dirpath', tmpdir + '/rbm/', '--data-path',
+                tmpdir + '/data', '--out', tmpdir + '/out/semi.md']
+    args = ['--data-path', tmpdir + '/data',
+            '--grbm-dirpath', tmpdir + '/grbm/',
+            '--mrbm-dirpath', tmpdir + '/mrbm/',
+            '--dbm-dirpath', tmpdir + '/dbm/',
+            '--mlp-save-prefix', tmpdir + '/out/c_']
+    if script == 'torch_dbm_cifar.py':
+        args += ['--small-dirpath-prefix', tmpdir + '/small_']
+    return args
+
+
+def cifar_example_launches(script):
+    """The kernel launches the schedule implies at CIFAR_EXAMPLES'
+    arguments (metrics are logged every 400 or more iterations, past these
+    runs; validation and the FEG run in plain PyTorch)."""
+    if script == 'torch_semi_supervised.py':
+        n = 2 * math.ceil(4096 / 100)      # RBM 784 x 1024, B 100, k 1
+        return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
+                             'cd_assoc_update': n}}
+    if script == 'torch_dbm_cifar_naive.py':
+        n = 3000 // 100                    # G-RBM and M-RBM steps
+        dbm = 2 * n                        # two DBM epochs
+        return {'cd_epoch': {'cd_gemm_act': 6 * n,
+                             'cd_softmax_sample': 2 * n,
+                             'cd_bias_stats': 2 * n,
+                             'cd_assoc_update': 2 * n},
+                'samplers': dict.fromkeys(
+                    ('bernoulli_sample', 'normal_sample',
+                     'multinomial_sample'), dbm)}
+    rows = 10 * 1000
+    small = 26 * math.ceil(rows / 48)      # the 26 patch RBMs, B 48
+    n = rows // 100
+    return {'cd_epoch': {'cd_gemm_act': 3 * small + 6 * n,
+                         'cd_softmax_sample': 2 * n,
+                         'cd_bias_stats': small + 2 * n,
+                         'cd_assoc_update': small + 2 * n},
+            'samplers': dict.fromkeys(
+                ('bernoulli_sample', 'normal_sample', 'multinomial_sample'),
+                2 * n)}
+
+
+def cifar_examples_path(torch, tmpdir):
+    """Phases 23-24: each script of CIFAR_EXAMPLES on the card in a process
+    of its own (``python3 chip_smoke.py --example``, waited for): exit code
+    0, every stage's kernel launches as the schedule implies (the CD epoch
+    kernels for the RBMs, one launch of each standalone sampler per sampled
+    DBM sweep, no all-Bernoulli DBM kernel), the MLPs' parameters on the
+    card, finite test accuracies, every ``[stage]`` wall; the
+    semi-supervised table of both label subsets' accuracies."""
+    out = {}
+    for script, args in CIFAR_EXAMPLES:
+        d = '%s/%s' % (tmpdir, script[:-3])
+        os.makedirs(d)
+        res = d + '/result.json'
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--example', script,
+             res] + args + cifar_example_paths(script, d),
+            cwd=d, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError('%s: exit code %d\n%s\n%s' % (
+                script, p.returncode, p.stdout[-3000:], p.stderr[-3000:]))
+        with open(res) as f:
+            r = json.load(f)
+        got = {op: {k: v for k, v in counts.items() if v}
+               for op, counts in r['launches'].items()}
+        got = {op: counts for op, counts in got.items() if counts}
+        expect = cifar_example_launches(script)
+        walls = [ln for ln in p.stdout.splitlines()
+                 if ln.startswith('[stage]   ')]
+        say('%s: %.2f s in its process (%.2f s with start-up); launches %s'
+            % (script, r['wall'], wall, got))
+        for ln in walls:
+            say('  %s' % ln)
+        # the 26 patch RBMs' fits on one line
+        small = [dt for label, dt in r['stages']
+                 if label.startswith('GaussianRBM.fit small_')]
+        for label, dt in r['stages']:
+            if not label.startswith('GaussianRBM.fit small_'):
+                say('  stage %s: %.3f s' % (label, dt))
+        if small:
+            say('  stage GaussianRBM.fit small_*: %d fits, %.3f s in all, '
+                '%.3f-%.3f s each' % (len(small), sum(small), min(small),
+                                      max(small)))
+        for m in r['mlps']:
+            say('  MLP: %d epochs, %.3f s an epoch after %.3f s to build its '
+                'optimizer, parameters on %s' % (
+                    m['epochs'], m['seconds_per_epoch'], m['multi_adam_s'],
+                    m['devices']))
+        if got != expect:
+            raise AssertionError('%s: launch counts %s, schedule implies %s'
+                                 % (script, got, expect))
+        if not r['mlps'] or any(m['devices'] != ['cuda'] for m in r['mlps']):
+            raise AssertionError('%s: an MLP left the card: %s' % (
+                script, r['mlps']))
+        if script == 'torch_semi_supervised.py':
+            rows = [ln for ln in p.stdout.splitlines()
+                    if re.match(r'\| \d+k? \(', ln)]
+            for ln in rows:
+                say('  %s' % ln)
+            if len(rows) != 4 or len(r['mlps']) != 8:
+                raise AssertionError('semi-supervised: %d table rows, %d MLP '
+                                     'fits' % (len(rows), len(r['mlps'])))
+            acc = None
+        else:
+            acc = float(re.search(r'Test accuracy: ([0-9.]+)',
+                                  p.stdout).group(1))
+            say('  test accuracy %.4f (synthetic rows with random labels: '
+                'chance)' % acc)
+            if not 0. <= acc <= 1. or not walls:
+                raise AssertionError('%s: no accuracy or stage walls' %
+                                     script)
+        out[script] = dict(r, accuracy=acc, process_wall=wall,
+                           stage_walls=walls)
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4399,6 +4922,23 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         ex = examples_path(torch, tmpdir)
     mlp_card_vs_cpu(torch)
+    gbm = gbm_vs_plain(torch)
+    tg = gbm_timings(torch)
+    crs = cifar_rbm_shapes(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cex = cifar_examples_path(torch, tmpdir)
+    say(json.dumps({'gbm_dbm': {label: dict(gbm[label], **tg[label])
+                                for label in gbm}}))
+    # the standalone samplers' launches on this slice's main path: the
+    # G-B-M DBM's sampled sweeps in the two CIFAR scripts
+    gbm_launches = {name: sum(r['launches']['samplers'][name]
+                              for r in cex.values())
+                    for name in ('bernoulli_sample', 'normal_sample',
+                                 'multinomial_sample')}
+    gbm_path = {label: {k: dict(gbm[label], **tg[label])[k] for k in (
+        'kernel_ms', 'plain_ms', 'sampling_off_ms', 'busy', 'mean_n_mf',
+        'err', 'moved_share', 'v_max_rel_err', 'launches')}
+        for label in gbm}
     cd_launches = {k: rbm_launches[k] + dbm_launches['cd_epoch'][k]
                    for k in rbm_launches}
     dp_stats = [r['grbm']['stats'] for r in dp['ranks']]
@@ -4533,15 +5073,23 @@ def main():
               cd_gemm_act_shapes=shapes('mrbm_h', 'mrbm_v'),
               cd_assoc_update_shapes=assoc('mrbm'), **stage('mrbm')),
         # the three standalone launchers at the path's shapes: `launches`
-        # is their own count from the phase that drives them once each;
-        # `path_launches` the measured launches, on the dbm_cifar_naive
+        # of the two samplers is their count on this slice's main path (the
+        # G-B-M DBM's sampled sweeps in the two CIFAR scripts, phase 23;
+        # `gbm_dbm_path` that program's numbers at both widths), the
+        # probe's its own count from the phase that drives it once (no path
+        # calls it); `standalone_launches` that phase's count;
+        # `path_launches` the measured launches, on the dbm_cifar_naive RBM
         # path, of the epoch kernel whose launches carry the same device
         # functions (a third of the G-RBM's cd_gemm_act launches are its
         # sampled Gaussian visible pass)
-        *(entry(name, 'cd_epoch.cu', sampler[name]['launches'],
+        *(entry(name, 'cd_epoch.cu',
+                gbm_launches.get(name, sampler[name]['launches']),
                 sampler[name]['err'], sampler[name]['ms'],
                 sampler[name]['plain_ms'], sampler[name]['work'],
                 sampler[name].get('library_ms'),
+                standalone_launches=sampler[name]['launches'],
+                **({'gbm_dbm_path': gbm_path} if name in gbm_launches
+                   else {}),
                 path_launches=path_launches, shape=shape,
                 **{k: sampler[name][k] for k in ('device_ms',
                                                  'library_device_ms',
@@ -4585,11 +5133,14 @@ def main():
                                         'stats_784_h', 'stats_784_v'),
               cd_assoc_stats_shapes=assoc('stats_7800', 'stats_784')),
         # per call at (100, 7800), the G-RBM's hidden draw; `launches` its
-        # own count from the phase that drives it once per shape;
-        # `path_launches` the stats kernels' cd_gemm_act launches that
-        # carry its body (the Bernoulli hidden draws) on the 2-rank fit
-        entry('bernoulli_sample', 'cd_epoch.cu', bern['launches'], bern['err'],
+        # count on this slice's main path (the G-B-M DBM's h0 draws, phase
+        # 23), `standalone_launches` that of the phase that drives it once
+        # per shape; `path_launches` the stats kernels' cd_gemm_act launches
+        # that carry its body (the Bernoulli hidden draws) on the 2-rank fit
+        entry('bernoulli_sample', 'cd_epoch.cu',
+              gbm_launches['bernoulli_sample'], bern['err'],
               bern['ms'], bern['plain_ms'], bern['work'], bern['library_ms'],
+              standalone_launches=bern['launches'], gbm_dbm_path=gbm_path,
               path_launches={'cd_gemm_act': sum(r['cd_gemm_act']
                                                 for r in dp_stats)},
               shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms'],
@@ -4604,15 +5155,61 @@ def main():
         # through the scripts a user runs
         runs = {script: r['launches'][e['name']] for script, r in ex.items()
                 if any(r['launches'].get(e['name'], {}).values())}
+        # and of phases 23-24's CIFAR and semi-supervised scripts: their
+        # CD kernels (Gaussian, multinomial and Bernoulli stages together)
+        # and the samplers of the G-B-M DBM
+        key = {'cd_epoch_gaussian': 'cd_epoch',
+               'cd_epoch_multinomial': 'cd_epoch'}.get(e['name'])
+        for script, r in cex.items():
+            if key:
+                runs[script] = r['launches'][key]
+            elif r['launches']['samplers'].get(e['name']):
+                runs[script] = {e['name']:
+                                r['launches']['samplers'][e['name']]}
         if runs:
             e['example_launches'] = runs
         if e['name'] == 'dbm_epoch':
             e['step_profile'] = dbm_prof
             e['mf_loop_50_sweeps'] = kt[('dbm_mf_loop', 'mf_50')]
+        # phase 22's shapes of examples/dbm_cifar.py
+        for name, label, key in (
+                ('cd_epoch_gaussian', 'small RBM 192x300 B=48',
+                 'step_192x300_b48'),
+                ('cd_epoch_multinomial', 'M-RBM 7800x512 n=512',
+                 'step_7800x512_n512')):
+            if e['name'] == name:
+                r = crs[label]
+                bound_ms, bound_by = bound(*r['work'])
+                e[key] = dict({k: v for k, v in r.items() if k != 'work'},
+                              bound_ms=bound_ms, bound_by=bound_by)
     say(json.dumps({'kernels': kernels}))
     say(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+    return 0
+
+
+def cifar_phases_only():
+    """``python3 chip_smoke.py --cifar-phases``: phases 21-24 alone, after
+    the environment and the build, with one JSON line of their numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke: no CUDA device\n')
+        return 1
+    card = environment(torch)
+    build()
+    gbm = gbm_vs_plain(torch)
+    tg = gbm_timings(torch)
+    crs = cifar_rbm_shapes(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        cex = cifar_examples_path(torch, tmpdir)
+    say(card)
+    say(json.dumps({'gbm_dbm': {label: dict(gbm[label], **tg[label])
+                                for label in gbm},
+                    'cifar_rbm_shapes': crs,
+                    'examples': {k: {kk: v[kk] for kk in (
+                        'wall', 'process_wall', 'launches', 'stage_walls',
+                        'accuracy')} for k, v in cex.items()}}))
     return 0
 
 
@@ -4644,5 +5241,6 @@ if __name__ == '__main__':
               '--softmax-readings': softmax_readings,
               '--sampler-readings': sampler_readings,
               '--pll-readings': pll_readings,
-              '--kernel-times': kernel_times_only}
+              '--kernel-times': kernel_times_only,
+              '--cifar-phases': cifar_phases_only}
              .get(' '.join(sys.argv[1:]), main)())

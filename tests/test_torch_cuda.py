@@ -1778,3 +1778,145 @@ def test_dbm_bias_update_sums_in_row_order(cuda):
         want = sd / np.float32(N) - sp / np.float32(M)
         assert np.array_equal(got['db'].cpu().numpy(), want), n
 
+
+
+# ---------------------------------------------------------------------- #
+# the CIFAR pipelines: the CD kernels at examples/torch_dbm_cifar.py's    #
+# new shapes, and the Gaussian-Bernoulli-Multinomial DBM                   #
+# ---------------------------------------------------------------------- #
+# (V, H, B, flavour config): the 26 small patch RBMs (Gaussian, sigma 1,
+# dbm_first, batch 48) and the M-RBM 7800 -> 512 (n_samples 512, dbm_last,
+# both layers sampled), examples/dbm_cifar.py:135-152 and :305-321
+CIFAR_RBM_SHAPES = [
+    (192, 300, 48, dict(visible='gaussian', sigma=np.float32(1.)), (2., 1.)),
+    (7800, 512, 100, dict(hidden='multinomial', n_samples=512), (1., 2.)),
+]
+
+
+@pytest.mark.parametrize('V,H,B,kw,mult', CIFAR_RBM_SHAPES)
+@pytest.mark.parametrize('sample', [False, True])
+def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
+    """Sampling off: the flavour tests' tolerances over 3 steps.  Sampling
+    on, each step from the same state: all but one of 4 steps within rtol
+    1e-4, atol 1e-4 (x B for q_means) -- a multinomial draw moves across a
+    CDF boundary now and then (the means' rounding, trap C14)."""
+    rng = np.random.RandomState(V)
+    X = torch.as_tensor(rng.randn(4, B, V) if 'sigma' in kw
+                        else rng.rand(4, B, V), dtype=torch.float32,
+                        device=cuda)
+    _, state = make_inputs(V, H, B, 1, cuda, seed=2)
+    state['W'] = state['W'] * 0.1
+    cfg = CDEpochConfig(V, H, 1, sample, sample, mult[0], mult[1], 1e-3,
+                        0.1, 1e-3, 0.9, 1, True, **kw)
+    if not sample:
+        got = cd_epoch(cfg, state, X[:3], 1e-3, 0.9, 3, 0)
+        want = cd_epoch_reference(cfg, state, X[:3], 1e-3, 0.9, 3, 0)
+        torch.cuda.synchronize()
+        for key in got[0]:
+            atol = 1e-5 * (B if key == 'q_means' else 1)
+            torch.testing.assert_close(got[0][key], want[0][key], rtol=1e-5,
+                                       atol=atol, msg=key)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1.)
+        return
+    bad = 0
+    for i in range(4):
+        got = cd_epoch(cfg, state, X[i:i + 1], 1e-3, 0.9, 17, i)
+        want = cd_epoch_reference(cfg, state, X[i:i + 1], 1e-3, 0.9, 17, i)
+        bad += not all(torch.allclose(
+            got[0][key], want[0][key], rtol=1e-4,
+            atol=1e-4 * (B if key == 'q_means' else 1)) for key in got[0])
+        state = got[0]
+    assert bad <= 1
+
+
+def gbm_setup(dev, sizes=(24, 16, 12), B=8, M=8, NB=3, n=7, seed=0):
+    """A Gaussian (per-unit sigma) - Bernoulli - multinomial (n) DBM: its
+    layers, a random state with count particles, standardized batches."""
+    from boltzmann_machines_tpu_torch import (BernoulliLayer, GaussianLayer,
+                                              MultinomialLayer)
+    V, H1, H2 = sizes
+    rng = np.random.RandomState(seed)
+    units = (GaussianLayer(V, sigma=(rng.rand(V) + 0.5).astype(np.float32)),
+             BernoulliLayer(H1), MultinomialLayer(H2, n_samples=n))
+    _, state = make_dbm_inputs(sizes, B, M, 1, dev, seed=seed)
+    state['v'] = torch.as_tensor(rng.randn(M, V), dtype=torch.float32,
+                                 device=dev)
+    p = rng.dirichlet(np.ones(H2), size=M)
+    state['H'] = (state['H'][0], torch.as_tensor(
+        n * p, dtype=torch.float32, device=dev))
+    X = torch.as_tensor(rng.randn(NB, B, V), dtype=torch.float32, device=dev)
+    return units, state, X
+
+
+def gbm_config(sizes, units, sample, k=1, max_mf=20, tol=1e-7):
+    return dbm_ops.DBMEpochConfig(
+        tuple(sizes), k, max_mf, tol, sample, (sample, sample), 1e-4, 2.,
+        (0.2, 0.2), (1e-2, 1e-3), 0.9, units)
+
+
+def test_gbm_dbm_epoch_card_matches_cpu_sampling_off(cuda):
+    """Sampling off, the plain program on the card (torch.matmul in true
+    f32) against the CPU's: the DBM state tolerances (the EMAs are batch
+    sums, of counts up to n for the multinomial layer), msre atol 1e-5,
+    n_mf within one sweep; no DBM kernel launched."""
+    units, state, X = gbm_setup(cuda)
+    cfg = gbm_config((24, 16, 12), units, False)
+    dbm_ops.reset_launches()
+    got = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 10)
+    cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+               else v.cpu()) for k, v in state.items()}
+    want = dbm_ops.dbm_epoch_reference(cfg, cpu, X.cpu(), 0.05, 0.5, 3, 10)
+    assert not any(dbm_ops.dbm_epoch.launches.values())
+    got_cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                   else v.cpu()) for k, v in got[0].items()}
+    assert_dbm_state_close(got_cpu, want[0], 8, 8 * 7, atol=1e-5)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=1e-5)
+    assert float((got[2].cpu() - want[2]).abs().max()) <= 1.
+
+
+def test_gbm_dbm_sampler_kernels_match_reference_draws(cuda):
+    """Sampling on: the path through the sampler kernels against the same
+    path through their plain versions, both on the card, each step from
+    the same state: one bernoulli_sample, normal_sample and
+    multinomial_sample launch a sampled sweep; the Bernoulli and multinomial
+    states equal (same means, same keys), the Gaussian ones within the
+    Box-Muller's 4e-6 (1 + |v|) sigma, so the state within rtol 1e-4."""
+    from boltzmann_machines_tpu_torch.ops import samplers
+    units, state, X = gbm_setup(cuda, NB=4, seed=1)
+    cfg = gbm_config((24, 16, 12), units, True, k=2)
+    for i in range(4):
+        samplers.reset_launches()
+        got = dbm_ops.dbm_epoch(cfg, state, X[i:i + 1], 0.05, 0.5, 5, i)
+        assert samplers.bernoulli_sample.launches['bernoulli_sample'] == 2
+        assert samplers.normal_sample.launches['normal_sample'] == 2
+        assert samplers.multinomial_sample.launches[
+            'multinomial_sample'] == 2
+        want = dbm_ops.dbm_epoch_reference(cfg, state, X[i:i + 1], 0.05, 0.5,
+                                           5, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0]['H'][0], want[0]['H'][0])
+        assert torch.equal(got[0]['H'][1], want[0]['H'][1])
+        assert bool((got[0]['H'][1].sum(1) == 7).all())
+        assert float(((got[0]['v'] - want[0]['v']).abs()
+                      / (1. + want[0]['v'].abs())).max()) <= 1e-5
+        assert_dbm_state_close(got[0], want[0], 8, 8 * 7, atol=1e-4)
+        state = got[0]
+
+
+def test_gbm_dbm_sample_launches_the_samplers(cuda):
+    """sample_v's sweeps: one launch of each sampler a sampled sweep, none
+    of the DBM kernels; the visible means against the plain version's."""
+    from boltzmann_machines_tpu_torch.ops import samplers
+    units, state, _ = gbm_setup(cuda, seed=2)
+    cfg = dbm_ops.DBMSampleConfig((24, 16, 12), True, (True, True), units)
+    samplers.reset_launches()
+    dbm_ops.reset_launches()
+    got = dbm_ops.dbm_sample(cfg, state, 3, 21)
+    want = dbm_ops.dbm_sample_reference(cfg, state, 3, 21)
+    torch.cuda.synchronize()
+    assert samplers.normal_sample.launches['normal_sample'] == 3
+    assert samplers.bernoulli_sample.launches['bernoulli_sample'] == 3
+    assert samplers.multinomial_sample.launches['multinomial_sample'] == 3
+    assert not any(dbm_ops.dbm_sample.launches.values())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)

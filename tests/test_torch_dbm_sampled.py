@@ -86,3 +86,56 @@ def test_sampled_fit_spread_matches_jax(sampled_fits):
     ratio = b.var(ddof=1) / a.var(ddof=1)
     assert 1. / F_999 <= ratio <= F_999, (
         'variance of mean |dW0| over the seeds: port / JAX = %.3g' % ratio)
+
+
+# The same checks for the CIFAR pipelines' Gaussian-Bernoulli-Multinomial
+# DBM: Gaussian v 12 with a per-unit sigma other than 1, Bernoulli 8,
+# multinomial 6 with n 5; the port's draws through the standalone
+# samplers' plain versions (ops/dbm_ops.py ``unit_draw``), JAX's through
+# its layers' ``sample``.
+GBM_SIGMA = np.linspace(0.5, 2., 12).astype(np.float32)
+
+
+@pytest.fixture(scope='module')
+def sampled_gbm_fits(tmp_path_factory):
+    """{package: (n_seeds, 2) array of summary() over SEEDS} of the G-B-M
+    DBM."""
+    from boltzmann_machines_tpu import GaussianRBM as JaxGaussianRBM
+    from boltzmann_machines_tpu import MultinomialRBM as JaxMultinomialRBM
+    from boltzmann_machines_tpu_torch import GaussianRBM, MultinomialRBM
+    d = str(tmp_path_factory.mktemp('dbm_gbm_sampled')) + '/'
+    rng = np.random.RandomState(0)
+    X = rng.randn(64, 12).astype(np.float32)
+    X_val = rng.randn(32, 12).astype(np.float32)
+    jr1 = JaxGaussianRBM(n_visible=12, n_hidden=8, sigma=GBM_SIGMA.tolist(),
+                         dbm_first=True, max_epoch=1, batch_size=8,
+                         random_seed=1, verbose=False,
+                         model_path=d + 'r1/').fit(X)
+    jr2 = JaxMultinomialRBM(n_visible=8, n_hidden=6, n_samples=5,
+                            dbm_last=True, max_epoch=1, batch_size=8,
+                            random_seed=2, verbose=False,
+                            model_path=d + 'r2/')
+    jr2.fit(jr1.transform(X))
+    tr1 = GaussianRBM.load_model(d + 'r1/', device='cpu')
+    tr2 = MultinomialRBM.load_model(d + 'r2/', device='cpu')
+    W0_init = jr1.get_params_arrays()['weights/W']
+    cfg = dict(CFG, learning_rate=0.01)
+    out = {'jax': [], 'torch': []}
+    for seed in SEEDS:
+        jd = JaxDBM(rbms=[jr1, jr2], model_path=d + 'jd%d/' % seed,
+                    random_seed=seed, **cfg).fit(X, X_val)
+        td = DBM(rbms=[tr1, tr2], device='cpu', model_path=d + 'td%d/' % seed,
+                 random_seed=seed, **cfg).fit(X, X_val)
+        out['jax'].append(summary(jd, X_val, W0_init))
+        out['torch'].append(summary(td, X_val, W0_init))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize('stat', ['val_msre', 'mean_abs_dW0'])
+def test_sampled_gbm_fit_matches_jax_in_distribution(sampled_gbm_fits,
+                                                     stat):
+    test_sampled_fit_matches_jax_in_distribution(sampled_gbm_fits, stat)
+
+
+def test_sampled_gbm_fit_spread_matches_jax(sampled_gbm_fits):
+    test_sampled_fit_spread_matches_jax(sampled_gbm_fits)

@@ -204,12 +204,12 @@ def test_mesh_helpers_on_one_rank(one_rank):
     tree = {'a': torch.ones(3), 'b': [torch.zeros(2)]}
     assert parallel.replicate(one_rank, tree) is tree
     assert parallel.process_local_slice(10) == (0, 10)
-    with pytest.raises(NotImplementedError, match='A9'):
+    with pytest.raises(NotImplementedError, match='A8'):
         parallel.shard_model_columns(one_rank, torch.zeros(4, 4))
     rbm = BernoulliRBM(n_visible=4, n_hidden=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='A9'):
+    with pytest.raises(NotImplementedError, match='A8'):
         rbm.set_mesh(one_rank, model_axis='model')
-    with pytest.raises(NotImplementedError, match='A6.4'):
+    with pytest.raises(NotImplementedError, match='A7'):
         DBM(rbms=[rbm], device='cpu').set_mesh(one_rank)
 
 

@@ -1,10 +1,12 @@
 """Quality parity of the port (boltzmann_machines_tpu_torch) with the
-reference's published numbers (README.md:155-193), on the card: the gates
-of tests/test_quality_parity.py.
+reference's published numbers (README.md:155-193, :256), on the card: the
+gates of tests/test_quality_parity.py.
 
 They run the real training recipes, so they enable only when the genuine
-MNIST dataset is on disk (data/mnist/ or $BMT_DATA_DIR/mnist/) and a CUDA
-device is present; without either they skip.  This file imports no JAX:
+dataset is on disk (MNIST: data/mnist/ or $BMT_DATA_DIR/mnist/; CIFAR-10:
+the python batches under data/cifar-10-batches-py/ or
+$BMT_DATA_DIR/cifar-10-batches-py/) and a CUDA device is present; without
+either they skip.  This file imports no JAX:
 
     BMT_TEST_TPU=1 python -m pytest tests/test_torch_quality_parity.py -q
 
@@ -13,8 +15,12 @@ Targets (reference, GTX 1060):
 * DBM log Z-hat: two independent AIS estimates (fresh seeds; the port runs
   the linear ladder only) agree within +-0.5 nats, and the full
   examples/torch_dbm_mnist.py recipe reproduces log Z-hat = 1040.39 within
-  +-0.5 nats and the average test ELBO -86.37 within 1 nat.
+  +-0.5 nats and the average test ELBO -86.37 within 1 nat;
+* CIFAR-10, examples/torch_dbm_cifar_naive.py's G-RBM and fine-tuned MLP:
+  59.78% test accuracy -> assert >= 58%.
 """
+
+import json
 
 import os
 import subprocess
@@ -24,16 +30,14 @@ import numpy as np
 import pytest
 import torch
 
-from boltzmann_machines_tpu_torch.utils.dataset import (load_mnist,
-                                                        real_mnist_available)
+from boltzmann_machines_tpu_torch.utils.dataset import (
+    load_mnist, real_cifar_available, real_mnist_available)
 
-pytestmark = [
-    pytest.mark.requires_cuda,
-    pytest.mark.skipif(
-        not (real_mnist_available() and torch.cuda.is_available()),
-        reason='quality-parity tests need the genuine MNIST IDX files '
-               '(data/mnist/ or $BMT_DATA_DIR/mnist/) and a CUDA device'),
-]
+pytestmark = pytest.mark.requires_cuda
+requires_real_mnist = pytest.mark.skipif(
+    not (real_mnist_available() and torch.cuda.is_available()),
+    reason='quality-parity tests need the genuine MNIST IDX files '
+           '(data/mnist/ or $BMT_DATA_DIR/mnist/) and a CUDA device')
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,6 +53,7 @@ def mnist():
     return X[:55000], y[:55000], X[55000:], y[55000:], X_test, y_test
 
 
+@requires_real_mnist
 def test_rbm_mnist_finetuned_error(mnist, tmp_path):
     """examples/torch_rbm_mnist.py recipe: 784x1024 CD-1, 120 epochs, then
     a 784-1024-10 MLP warm-started from (W, hb).  Reference: 1.27%."""
@@ -86,6 +91,7 @@ def test_rbm_mnist_finetuned_error(mnist, tmp_path):
     assert error <= 0.016
 
 
+@requires_real_mnist
 def test_dbm_mnist_logZ_self_consistency(mnist, tmp_path):
     """Shortened dbm_mnist recipe, then two independent AIS estimates
     (fresh seeds) within +-0.5 nats, each interval under 1 nat."""
@@ -126,6 +132,7 @@ def test_dbm_mnist_logZ_self_consistency(mnist, tmp_path):
     assert (hi_a - lo_a) < 1.0
 
 
+@requires_real_mnist
 def test_dbm_mnist_published_logZ_and_elbo(tmp_path):
     """The full examples/torch_dbm_mnist.py recipe (RBM1 64 epochs, RBM2
     120 with the stepped CD-k/lr schedule, DBM 500 epochs), then AIS at
@@ -150,3 +157,30 @@ def test_dbm_mnist_published_logZ_and_elbo(tmp_path):
           'ELBO {1:.2f} (target -86.37 +-1)'.format(log_Z, elbo))
     assert abs(log_Z - 1040.39) <= 0.5
     assert abs(elbo - (-86.37)) <= 1.0
+
+
+def test_cifar_naive_grbm_accuracy(tmp_path):
+    """CIFAR gate: examples/torch_dbm_cifar_naive.py's G-RBM + fine-tune
+    recipe (120 G-RBM epochs, the M-RBM and DBM stages skipped) must reach
+    >= 58% test accuracy (reference README.md:256 reports 59.78%;
+    tests/test_quality_parity.py:169 holds the JAX package to the same)."""
+    if not (real_cifar_available() and torch.cuda.is_available()):
+        pytest.skip('the CIFAR gate needs the genuine CIFAR-10 python '
+                    'batches (data/cifar-10-batches-py/ or '
+                    '$BMT_DATA_DIR/cifar-10-batches-py/) and a CUDA device')
+    r = subprocess.run(
+        [sys.executable, 'torch_dbm_cifar_naive.py',
+         '--grbm-dirpath', str(tmp_path / 'grbm') + '/',
+         '--mrbm-dirpath', str(tmp_path / 'mrbm') + '/',
+         '--dbm-dirpath', str(tmp_path / 'dbm') + '/',
+         '--mlp-save-prefix', str(tmp_path / 'mlp_'),
+         '--checkpoint-every', '25', '--summaries-every', '25',
+         '--epochs', '120', '0', '0'],  # G-RBM + fine-tune only
+        cwd=os.path.join(REPO, 'examples'), capture_output=True, text=True,
+        timeout=10800)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(str(tmp_path / 'mlp_') + 'accuracy.json') as f:
+        acc = json.load(f)['test_accuracy']
+    print('CIFAR naive G-RBM fine-tuned accuracy: {0:.4f} '
+          '(target >= 0.58)'.format(acc))
+    assert acc >= 0.58

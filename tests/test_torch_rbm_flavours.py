@@ -332,3 +332,19 @@ def test_multinomial_free_energy_adds_lgamma_constant():
     g = make_generator(12)
     fes = {float(rbm._free_energy(state, X, g)) for _ in range(6)}
     assert len(fes) > 1
+
+
+def test_array_inits_give_contiguous_state(tmp_path):
+    """A W_init given as a transposed array (examples/dbm_cifar.py's
+    quilted G-RBM init, ``im_flatten(W).T``) starts a contiguous state: the
+    CD kernels take contiguous W only (ROADMAP Queue C22)."""
+    rng = np.random.RandomState(0)
+    W = rng.randn(7, 5).astype(np.float32).T        # (5, 7), not C-ordered
+    assert not W.flags['C_CONTIGUOUS']
+    rbm = GaussianRBM(n_visible=5, n_hidden=7, W_init=W,
+                      vb_init=rng.randn(5), hb_init=rng.randn(7),
+                      device='cpu', model_path=str(tmp_path) + '/g/')
+    rbm.init()
+    for key, t in rbm._state.as_dict().items():
+        assert t.is_contiguous(), key
+    np.testing.assert_array_equal(rbm.get_params_arrays()['weights/W'], W)
