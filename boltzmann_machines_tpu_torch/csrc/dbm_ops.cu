@@ -105,6 +105,15 @@
 //                    runs are spread over the blocks (one warp of each
 //                    block while runs <= blocks) and run once the ring's
 //                    first loads are issued, while they are in flight.
+//                    The options of log_Z run on the same launches: any
+//                    beta ladder (the host sets each launch's betas), a
+//                    base rate b0 (the h1 transition's second bias,
+//                    gamma2 b0 with gamma2 = 1 - beta, in a kernel of its
+//                    own, dbm_gemm_act_bias2_kernel, and (1 - beta) x.b0
+//                    in lp at both betas), and the reverse run of BDMC,
+//                    whose step launches its pair before its transition,
+//                    so the step's update rides on the transition's first
+//                    launch (which writes v, not x).
 //
 // Mean-field without a ping-pong buffer: the update of layer l reads layers
 // l-1 and l+1 but never l, so each element's owner reads its old value,
@@ -182,12 +191,17 @@ struct GemmArgs {
   int n_tile, splits;
   float alpha, alpha2, gamma;
   unsigned seed, it, stream_id;
+  // a second bias scaled apart (AIS with a base rate b0: the h1 update's
+  // bias is beta hb0 + (1 - beta) b0); null: none
+  const float* bias2;
+  float gamma2;
 };
 
 // The log-weight update of one AIS beta (ais_logw); ops/dbm_ops.py mirrors
 // the layout.  x (R, H1) the runs' states, part_v and part_h2 the partials
 // of the beta's two kSoftplusRows launches (2 x R x nblk floats each: the
-// rows at beta_lo, then at beta_hi).  log_w == nullptr: none pending.
+// rows at beta_lo, then at beta_hi).  log_w == nullptr: none pending.  b0
+// (H1) a base rate, adding (1 - beta) x.b0 to lp at both betas; null: none.
 struct AisLogw {
   const float* x;
   const float* hb0;
@@ -196,6 +210,7 @@ struct AisLogw {
   float* log_w;
   int R, H1, nblk_v, nblk_h2;
   float beta_lo, beta_hi;
+  const float* b0;
 };
 
 // The kernel's parameter: the launch's arguments and its tile (tensor maps
@@ -283,7 +298,8 @@ __device__ __forceinline__ bool mf_sweep_runs(unsigned* ctrl, int s, float tol,
 }
 
 // Run r's log-weight update by the calling warp (all its lanes):
-//   lp(beta) = beta (x_r . hb0) + sum_v softplus(beta (x.W0^T + vb))_r
+//   lp(beta) = beta (x_r . hb0) [+ (1 - beta) (x_r . b0)]
+//              + sum_v softplus(beta (x.W0^T + vb))_r
 //              + sum_h2 softplus(beta (x.W1 + hb1))_r,
 // the sums from the per-block partials at beta_lo and beta_hi; then
 // log_w -= lp(beta_lo); log_w += lp(beta_hi), the JAX kernel's order of
@@ -323,12 +339,26 @@ __device__ __forceinline__ void logw_finish(const AisLogw& u, int r,
                                             const LogwTerms& t) {
   const int lane = threadIdx.x & 31;
   const float* xr = u.x + (long long)r * u.H1;
-  // x.hb0, v lo, v hi, h2 lo, h2 hi
-  float s[5] = {0.f, t.pv[0], t.pv[1], t.ph[0], t.ph[1]};
+  // x.hb0, v lo, v hi, h2 lo, h2 hi, x.b0
+  float s[6] = {0.f, t.pv[0], t.pv[1], t.ph[0], t.ph[1], 0.f};
+  if (u.b0 == nullptr) {
 #pragma unroll
-  for (int i = 0; i < kLogwHold; ++i) s[0] = fmaf(t.x[i], t.h[i], s[0]);
-  for (int j = lane + 32 * kLogwHold; j < u.H1; j += 32)
-    s[0] = fmaf(xr[j], u.hb0[j], s[0]);
+    for (int i = 0; i < kLogwHold; ++i) s[0] = fmaf(t.x[i], t.h[i], s[0]);
+    for (int j = lane + 32 * kLogwHold; j < u.H1; j += 32)
+      s[0] = fmaf(xr[j], u.hb0[j], s[0]);
+  } else {
+    // the base rate's dot product in the same loop, b0 loaded here
+#pragma unroll
+    for (int i = 0; i < kLogwHold; ++i) {
+      const int j = lane + 32 * i;
+      s[0] = fmaf(t.x[i], t.h[i], s[0]);
+      s[5] = fmaf(t.x[i], j < u.H1 ? u.b0[j] : 0.f, s[5]);
+    }
+    for (int j = lane + 32 * kLogwHold; j < u.H1; j += 32) {
+      s[0] = fmaf(xr[j], u.hb0[j], s[0]);
+      s[5] = fmaf(xr[j], u.b0[j], s[5]);
+    }
+  }
   for (int b = lane + 32; b < u.nblk_v; b += 32) {
     s[1] += u.part_v[(long long)r * u.nblk_v + b];
     s[2] += u.part_v[((long long)u.R + r) * u.nblk_v + b];
@@ -342,9 +372,20 @@ __device__ __forceinline__ void logw_finish(const AisLogw& u, int r,
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+  if (u.b0 != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s[5] += __shfl_xor_sync(0xffffffffu, s[5], o);
+  }
   if (lane == 0) {
-    const float lp_lo = u.beta_lo * s[0] + s[1] + s[3];
-    const float lp_hi = u.beta_hi * s[0] + s[2] + s[4];
+    float lp_lo, lp_hi;
+    if (u.b0 == nullptr) {
+      lp_lo = u.beta_lo * s[0] + s[1] + s[3];
+      lp_hi = u.beta_hi * s[0] + s[2] + s[4];
+    } else {
+      lp_lo = u.beta_lo * s[0] + (1.f - u.beta_lo) * s[5] + s[1] + s[3];
+      lp_hi = u.beta_hi * s[0] + (1.f - u.beta_hi) * s[5] + s[2] + s[4];
+    }
     const float w = t.w0 - lp_lo;
     u.log_w[r] = w + lp_hi;
   }
@@ -384,11 +425,12 @@ struct PendingLogw {
   }
 };
 
-// out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias, acc = A1.B1 +
-// A2.B2 by the tensor-core tile (gemm_tc.cuh), with the tile's prologue
-// `pro`; kSoftplusRows sums softplus(alpha (acc + C + bias)) and the same at
-// alpha2 over the row's 128 columns of this block instead.
-template <int NT, class Prologue>
+// out(m, n) = act(pre), pre = alpha (acc + C) + gamma bias [+ gamma2
+// bias2 where kBias2], acc = A1.B1 + A2.B2 by the tensor-core tile
+// (gemm_tc.cuh), with the tile's prologue `pro`; kSoftplusRows sums
+// softplus(alpha (acc + C + bias)) and the same at alpha2 over the row's
+// 128 columns of this block instead.
+template <int NT, bool kBias2, class Prologue>
 __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
                                          Prologue& pro) {
   const GemmArgs& a = p.a;
@@ -431,7 +473,8 @@ __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
       continue;
     }
     if (!in) continue;
-    const float pre = a.alpha * t + a.gamma * b;
+    float pre = a.alpha * t + a.gamma * b;
+    if constexpr (kBias2) pre += a.gamma2 * a.bias2[n];
     if (a.act == kIdentity) {
       a.out[idx] = pre;
       continue;
@@ -473,7 +516,17 @@ template <int NT>
 __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
   bm::tc::NoPrologue pro;
-  gemm_act<NT>(p, pro);
+  gemm_act<NT, false>(p, pro);
+}
+
+// A launch with a second bias (an AIS h1 transition from a base rate), in
+// a kernel of its own: a test of bias2 in every launch's epilogue cost the
+// AIS beta 3-8 us of device time (tools/torch_ais_probe_ab.py, PERF.md).
+template <int NT>
+__global__ void __launch_bounds__(bm::tc::kThreads, 1)
+    dbm_gemm_act_bias2_kernel(const __grid_constant__ DbmGemmArgs p) {
+  bm::tc::NoPrologue pro;
+  gemm_act<NT, true>(p, pro);
 }
 
 // An AIS beta's first launch: the update of the beta before (p.pending) in
@@ -484,7 +537,7 @@ template <int NT>
 __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     ais_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
   PendingLogw pro(p.pending);
-  gemm_act<NT>(p, pro);
+  gemm_act<NT, false>(p, pro);
 }
 
 // Block b owns kColTile consecutive columns of one bias vector (the
@@ -732,7 +785,10 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
 
 int launch(const DbmGemmArgs& p, cudaStream_t stream) {
   int err = 0;
-  BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err);
+  if (p.a.bias2 != nullptr)
+    BM_TC_DISPATCH(dbm_gemm_act_bias2_kernel, p.t, p, stream, err);
+  else
+    BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err);
   return err;
 }
 
@@ -761,12 +817,14 @@ int bm_dbm_gemm_act(const GemmArgs* a, void* stream) {
 
 // The first launch of an AIS beta: bm_dbm_gemm_act with the log-weight
 // update of the beta before (`pending`, may be null: none) in its prologue.
-// The update must read nothing that this launch writes.
+// The update must read nothing that this launch writes; the launch has no
+// second bias (it is a v or softplus-row launch).
 int bm_ais_gemm_act(const GemmArgs* a, const AisLogw* pending, void* stream) {
   DbmGemmArgs p;
   const int err = setup(&p, *a);
   if (err) return err;
   if (pending == nullptr) return launch(p, (cudaStream_t)stream);
+  if (a->bias2 != nullptr) return (int)cudaErrorInvalidValue;
   p.pending = *pending;
   return launch_ais(p, (cudaStream_t)stream);
 }
@@ -899,14 +957,14 @@ int bm_dbm_msre(const float* X, const float* vm, long long n,
 }
 
 // The update of one AIS beta alone (the last of a run): kRedThreads / 32
-// runs a block.
+// runs a block.  b0: the base rate, or null.
 int bm_ais_logw(const float* x, const float* hb0, int R, int H1,
                 const float* part_v, int nblk_v, const float* part_h2,
                 int nblk_h2, float beta_lo, float beta_hi, float* log_w,
-                void* stream) {
+                const float* b0, void* stream) {
   if (R < 1) return (int)cudaErrorInvalidValue;
-  const AisLogw u = {x,  hb0,    part_v,  part_h2, log_w,
-                     R,  H1,     nblk_v,  nblk_h2, beta_lo, beta_hi};
+  const AisLogw u = {x,      hb0,    part_v,  part_h2, log_w,   R,
+                     H1,     nblk_v, nblk_h2, beta_lo, beta_hi, b0};
   constexpr int kRuns = kRedThreads / 32;
   ais_logw_kernel<<<(R + kRuns - 1) / kRuns, kRedThreads, 0,
                     (cudaStream_t)stream>>>(u);

@@ -28,15 +28,25 @@ The counterpart of the JAX package's ``dbm.py``:
   hb_l, reduced on the device (``device_histogram``), the first
   ``display_filters`` columns of each cumulative filter W_0 @ ... @ W_l as
   a grid, and the first ``display_particles`` persistent chains as an
-  image.
+  image;
+* with a data-parallel mesh (``set_mesh(parallel.make_mesh())``, one
+  process a rank, every rank calling ``fit`` with the whole data) each
+  rank keeps its contiguous ``n_particles / size`` rows of the chains and
+  takes its rows of every batch: mean-field stops at the sweep the whole
+  batch would (the change reduced by all_reduce(MAX)), the raw statistics
+  are summed in one all_reduce a step and every rank applies the same
+  update (``ops/dbm_ops.dbm_mesh_epoch``; its draws by the standalone
+  samplers, keyed with the rank).  ``sample_v`` and ``log_Z`` run the
+  ranks' rows and gather them; checkpoints hold the gathered chains, and
+  only rank 0 writes.
 
-``log_Z`` and ``log_proba`` take all-Bernoulli 2-layer DBMs, as the JAX
-package's do.  Not ported yet (ROADMAP.md Queue A): the ``adaptive`` beta
-ladder, ``base_rate`` and BDMC of ``log_Z``, and device meshes
-(``set_mesh`` raises).  One deliberate difference: ``load_rbms`` on a model
-that is already initialized (trained, or loaded from a checkpoint) keeps
-its state; the JAX package discards it, so its ``examples/dbm_mnist.py``
-would re-stack a cached DBM from the RBMs.
+``log_Z`` (the linear or ``adaptive`` ladder, a ``base_rate``, BDMC) and
+``log_proba`` take all-Bernoulli 2-layer DBMs, as the JAX package's do; on
+a CUDA device a float32 model runs every ``log_Z`` option on the AIS
+kernels.  One deliberate difference: ``load_rbms`` on a model that is
+already initialized (trained, or loaded from a checkpoint) keeps its
+state; the JAX package discards it, so its ``examples/dbm_mnist.py`` would
+re-stack a cached DBM from the RBMs.
 """
 
 import math
@@ -44,20 +54,53 @@ import math
 import numpy as np
 import torch
 
+from .base.mixin import make_generator
 from .base.torch_model import device_histogram, to_host
 from .convert import DBMState, dbm_state_from_jax_arrays, dbm_state_to_numpy
 from .ebm import EnergyBasedModel
 from .layers import BaseLayer
 from .ops.dbm_ops import (AISConfig, DBMEpochConfig, DBMSampleConfig, ais,
-                          ais_reference, dbm_epoch, dbm_epoch_reference,
-                          all_bernoulli, dbm_sample, dbm_sample_reference,
-                          mean_field, reconstruction_means)
+                          ais_burn_in, ais_burn_in_reference, ais_reference,
+                          all_bernoulli, dbm_epoch, dbm_epoch_reference,
+                          dbm_mesh_epoch, dbm_sample, dbm_sample_reference,
+                          mean_field, reconstruction_means, reverse_ais,
+                          reverse_ais_reference, tile_h1)
+from .parallel.mesh import all_gather_rows, replicate
 from .rbm.base_rbm import derive_seed
 from .utils import (make_list_from, epoch_iter, schedule_value,
                     write_during_training, log_sum_exp, log_diff_exp,
                     log_mean_exp, log_std_exp)
 
-_AIS_SALT = 1
+# salts of the seeds derived from one call's seed: the forward AIS run, the
+# BDMC burn-in and reverse run, and (plus the rank) a mesh rank's draws
+_AIS_SALT, _BURN_SALT, _RAIS_SALT, _RANK_SALT = 1, 2, 3, 1000
+
+
+def make_beta_schedule(n_betas, kind='linear'):
+    """Inverse-temperature ladder (length n_betas + 1, 0 -> 1) for AIS
+    (JAX dbm.py:48-73).
+
+    'linear' is the reference's uniform spacing.  'adaptive' allocates
+    betas as Salakhutdinov & Murray (2008) do for their large runs --
+    sparse early, dense near beta = 1 where the importance-weight variance
+    concentrates (~3.5% of betas on [0, 0.5), ~27.5% on [0.5, 0.9), ~69% on
+    [0.9, 1])."""
+    if kind == 'linear':
+        return np.linspace(0., 1., n_betas + 1)
+    if kind != 'adaptive':
+        raise ValueError("beta_schedule must be 'linear' or 'adaptive'")
+    if n_betas < 3:  # too few steps for three bands; uniform is exact
+        return np.linspace(0., 1., n_betas + 1)
+    n1 = max(int(round(0.035 * n_betas)), 1)
+    n3 = max(int(round(0.69 * n_betas)), 1)
+    n2 = n_betas - n1 - n3
+    if n2 < 1:  # small ladders: keep the total exactly n_betas
+        n3 = max(n_betas - n1 - 1, 1)
+        n2 = n_betas - n1 - n3
+    return np.concatenate([
+        np.linspace(0., 0.5, n1, endpoint=False),
+        np.linspace(0.5, 0.9, n2, endpoint=False),
+        np.linspace(0.9, 1., n3 + 1)])
 
 
 class DBM(EnergyBasedModel):
@@ -72,6 +115,11 @@ class DBM(EnergyBasedModel):
     kernels (the JAX values, kept so checkpoints load both ways).  `device`
     is the torch device of the state (private, never persisted).
     """
+
+    # the data-parallel mesh (``set_mesh``), and whether the state holds
+    # only this rank's rows of the particles
+    _mesh = None
+    _sharded = False
 
     def __init__(self, rbms=None,
                  n_particles=100, v_particle_init=None, h_particles_init=None,
@@ -261,21 +309,109 @@ class DBM(EnergyBasedModel):
             self._init_state()
 
     def _get_state_arrays(self):
+        """The state's arrays, the particles whole (gathered from every
+        rank of a mesh: every rank must call this then)."""
         self._ensure_state()
-        return dbm_state_to_numpy(self._state)
+        return dbm_state_to_numpy(self._full_state())
 
     def _set_state_arrays(self, arrays):
         self._state = dbm_state_from_jax_arrays(arrays, self._device,
                                                 self._torch_dtype)
+        self._sharded = False
+
+    def _save_model(self):
+        # the gather of a mesh's particles runs on every rank; rank 0 writes
+        arrays = self._get_state_arrays()
+        if self._writes_files():
+            params, rng_state = self._checkpoint_payload()
+            self._write_checkpoint(params, rng_state, arrays)
 
     # ================================================================== #
     # device programs                                                     #
     # ================================================================== #
     def set_mesh(self, mesh, data_axis='data'):
-        """The DBM's data-parallel epoch (sharded batch and particles, the
-        mean-field test as an all_reduce(MAX)) is not ported yet."""
-        raise NotImplementedError('DBM.set_mesh: the DBM mesh epoch is not '
-                                  'ported yet (ROADMAP.md Queue A7)')
+        """Attach a data-parallel mesh (``parallel.make_mesh()``; JAX
+        dbm.py:313-328): minibatch rows, persistent particles and AIS runs
+        are split over its ranks along `data_axis`, the statistics summed by
+        all_reduce; returns the model."""
+        if data_axis not in mesh.axis_names:
+            raise ValueError('the mesh has no axis {0!r}'.format(data_axis))
+        self._unshard()
+        self._mesh = mesh
+        return self
+
+    def _writes_files(self):
+        """Rank 0 of a mesh alone writes checkpoints and summaries."""
+        return self._mesh is None or self._mesh.rank == 0
+
+    def _shardmap_eligible(self):
+        """Mesh training runs the data-parallel epoch (per-rank rows of the
+        batch and of the particles, all_reduced statistics) unless the user
+        forced kernel='xla' or the batch or the particles do not split over
+        the ranks; then every rank trains whole batches through the
+        single-device path (JAX ``_shardmap_eligible``, dbm.py:620-647,
+        whose GSPMD fallback gives that result)."""
+        if self._mesh is None or self.kernel == 'xla':
+            return False
+        n = self._mesh.size
+        return self.batch_size % n == 0 and self.n_particles % n == 0
+
+    def _splits_particles(self):
+        """Whether this mesh runs the data-parallel epoch on the ranks'
+        rows: a one-rank mesh keeps the single-device kernels, as the JAX
+        package keeps its Pallas epoch on a one-device mesh."""
+        return self._shardmap_eligible() and not (
+            self._mesh.size == 1 and self._kernel_eligible())
+
+    def _rows(self, n):
+        """This rank's contiguous block of `n` rows split over the mesh."""
+        m = n // self._mesh.size
+        return slice(self._mesh.rank * m, (self._mesh.rank + 1) * m)
+
+    def _rank_seed(self, seed):
+        return derive_seed(seed, _RANK_SALT + self._mesh.rank)
+
+    def _set_layout(self):
+        """Bring the chains to the layout this configuration trains in:
+        this rank's rows where the mesh splits them (a collective if they
+        were split before), else whole; returns whether they are split."""
+        split = self._splits_particles()
+        if not split:
+            self._unshard()
+        elif not self._sharded:
+            self._keep_rows(self._state.as_dict())
+            self._sharded = True
+        return split
+
+    def _keep_rows(self, state):
+        """`state` as the model's, with only this rank's rows of its
+        (whole) chains."""
+        rows = self._rows(self.n_particles)
+        self._state.update(dict(state, v=state['v'][rows].clone(),
+                                H=tuple(h[rows].clone() for h in state['H'])))
+
+    def _full_state(self):
+        """The state dict with the particles whole (gathered on a mesh:
+        a collective while they are split)."""
+        state = self._state.as_dict()
+        if not self._sharded:
+            return state
+        return dict(state, v=all_gather_rows(self._mesh, state['v']),
+                    H=tuple(all_gather_rows(self._mesh, h)
+                            for h in state['H']))
+
+    def _unshard(self):
+        if self._sharded:
+            self._state.update(self._full_state())
+            self._sharded = False
+
+    def _replicated_seed(self, seed):
+        """`seed`, or on a mesh rank 0's."""
+        if self._mesh is None:
+            return seed
+        t = torch.tensor([seed], device=self._device)
+        replicate(self._mesh, t)
+        return int(t)
 
     def _units(self):
         """The layer objects, visible first (``ops/dbm_ops``' ``units``)."""
@@ -334,15 +470,18 @@ class DBM(EnergyBasedModel):
     # ================================================================== #
     # fit loop                                                            #
     # ================================================================== #
-    def _stage_batches(self, X):
+    def _stage_batches(self, X, rows=None):
         """Split X into (full_batches, remainder, n_full) tensors on the
-        model's device."""
+        model's device; `rows` (a slice) keeps only those rows of every
+        full batch (a rank's share on the mesh)."""
         X = np.asarray(X, dtype=self._np_dtype)
         B = self.batch_size
         n_full = len(X) // B
-        full = torch.as_tensor(
-            X[:n_full * B].reshape(n_full, B, self.n_visible_),
-            device=self._device)
+        full = X[:n_full * B].reshape(n_full, B, self.n_visible_)
+        if rows is not None:
+            full = full[:, rows]
+        full = torch.as_tensor(np.ascontiguousarray(full),
+                               device=self._device)
         rem = X[n_full * B:]
         rem = torch.as_tensor(np.ascontiguousarray(rem),
                               device=self._device) if len(rem) else None
@@ -414,37 +553,93 @@ class DBM(EnergyBasedModel):
                                     self.display_particles)
             w.add_image('negative_particles', img, step)
 
+    def _train_epoch_shardmap(self, full, rem, lr, mom, k, seed, epoch_fn):
+        """One epoch over the mesh (JAX ``_shardmap_epoch_core`` and its
+        remainder step, dbm.py:648-735): `full` holds this rank's rows of
+        every full batch, run by ``dbm_mesh_epoch`` with this rank's seed;
+        the local squared errors are reduced in one all_reduce an epoch.
+        The remainder batch runs replicated: `epoch_fn`, the single-device
+        step, on the whole chains with the epoch's seed, the same on every
+        rank.  Returns the (msre, n_mf) rows of every iteration."""
+        import torch.distributed as dist
+        mesh = self._mesh
+        cfg = self._epoch_config(k)
+
+        def reduce_sum(t):
+            dist.all_reduce(t, group=mesh.group)
+
+        def reduce_max(t):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.group)
+
+        rows = []
+        nb = int(full.shape[0])
+        if nb:
+            state, sq, n_mf = dbm_mesh_epoch(
+                cfg, self._state.as_dict(), full, lr, mom,
+                self._rank_seed(seed), self.iter_, self.batch_size,
+                self.n_particles, reduce_sum, reduce_max)
+            self._state.update(state)
+            self.iter_ += nb
+            reduce_sum(sq)
+            rows.append(torch.stack(
+                [sq / (self.batch_size * self.n_visible_), n_mf]))
+        if rem is not None:
+            state, msre, n_mf = epoch_fn(cfg, self._full_state(), rem[None],
+                                         lr, mom, seed, self.iter_)
+            self._keep_rows(state)
+            self.iter_ += 1
+            rows.append(torch.stack([msre, n_mf]))
+        return rows
+
+    def _train_epoch(self, full, rem, lr, mom, k, seed, epoch_fn):
+        """One epoch on one device: the full batches in one call of
+        `epoch_fn`, then the remainder batch with its own row count.
+        Returns the (msre, n_mf) rows of every iteration."""
+        cfg = self._epoch_config(k)
+        rows = []
+        for X_batches in (full, None if rem is None else rem[None]):
+            if X_batches is None or not X_batches.shape[0]:
+                continue
+            state, msre, n_mf = epoch_fn(cfg, self._state.as_dict(),
+                                         X_batches, lr, mom, seed,
+                                         self.iter_)
+            self._state.update(state)
+            self.iter_ += int(X_batches.shape[0])
+            rows.append(torch.stack([msre, n_mf]))
+        return rows
+
     def _fit(self, X, X_val=None, *args, **kwargs):
         self._fit_seed = self.make_random_seed()
-        self._init_writers()
+        if self._mesh is not None:
+            # every rank starts from rank 0's state (the chains whole) and
+            # seed
+            self._unshard()
+            replicate(self._mesh, list(self._state.as_dict().values()))
+            self._fit_seed = self._replicated_seed(self._fit_seed)
+        writes = self._writes_files()
+        if writes:
+            self._init_writers()
         epoch_fn = dbm_epoch if self._kernel_eligible() \
             else dbm_epoch_reference
-        full, rem, _ = self._stage_batches(X)
+        split = self._set_layout()
+        train_epoch = self._train_epoch_shardmap if split \
+            else self._train_epoch
+        full, rem, _ = self._stage_batches(
+            X, rows=self._rows(self.batch_size) if split else None)
         staged_val = self._stage_batches(X_val) if X_val is not None \
             else None
         every = int(self.train_metrics_every_iter)
 
         for self.epoch_ in epoch_iter(start_epoch=self.epoch_,
                                       max_epoch=self.max_epoch,
-                                      verbose=self.verbose):
+                                      verbose=self.verbose and writes):
             lr = float(schedule_value(self.learning_rate, self.epoch_))
             mom = float(schedule_value(self.momentum, self.epoch_))
             k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
-            cfg = self._epoch_config(k)
-            seed = derive_seed(self._fit_seed, self.epoch_)
             iter0 = self.iter_
-            rows = []
-            # the full batches in one call, then the remainder batch with
-            # its own row count
-            for X_batches in (full, None if rem is None else rem[None]):
-                if X_batches is None or not X_batches.shape[0]:
-                    continue
-                state, msre, n_mf = epoch_fn(cfg, self._state.as_dict(),
-                                             X_batches, lr, mom, seed,
-                                             self.iter_)
-                self._state.update(state)
-                self.iter_ += int(X_batches.shape[0])
-                rows.append(torch.stack([msre, n_mf]))
+            rows = train_epoch(full, rem, lr, mom, k,
+                               derive_seed(self._fit_seed, self.epoch_),
+                               epoch_fn)
             rows = torch.cat(rows, dim=1).cpu().numpy() if rows \
                 else np.zeros((2, 0), self._np_dtype)
             mask = (iter0 + 1 + np.arange(rows.shape[1])) % every == 0
@@ -459,22 +654,27 @@ class DBM(EnergyBasedModel):
                 val_msre, val_n_mf = self._val_metrics(staged_val)
 
             step = self.iter_
-            if train_msre is not None:
+            if writes and train_msre is not None:
                 self._train_writer.add_scalar('mean_squared_recon_error',
                                               train_msre, step)
                 self._train_writer.add_scalar('n_mf_updates', train_n_mf,
                                               step)
-            if val_msre is not None and np.isfinite(val_msre):
+            if writes and val_msre is not None and np.isfinite(val_msre):
                 self._val_writer.add_scalar('mean_squared_recon_error',
                                             val_msre, step)
                 self._val_writer.add_scalar('n_mf_updates', val_n_mf, step)
             if mask.any() and self.epoch_ % self.summaries_every_epoch == 0:
-                self._write_epoch_summaries(
-                    self._summary_device_stats(self._state.as_dict()), step)
-            self._train_writer.flush()
-            self._val_writer.flush()
+                # the chains gathered on every rank of a mesh, if shown
+                state = self._full_state() if self.display_particles \
+                    else self._state.as_dict()
+                if writes:
+                    self._write_epoch_summaries(
+                        self._summary_device_stats(state), step)
+            if writes:
+                self._train_writer.flush()
+                self._val_writer.flush()
 
-            if self.verbose:
+            if self.verbose and writes:
                 s = 'epoch: {0:{1}}/{2}'.format(
                     self.epoch_, len(str(self.max_epoch)), self.max_epoch)
                 if train_msre is not None:
@@ -520,49 +720,152 @@ class DBM(EnergyBasedModel):
     def sample_v(self, n_gibbs_steps=0, save_model=False):
         """Visible activation means of the persistent chains after
         `n_gibbs_steps` sampled sweeps (JAX dbm.py:1537-1560).  Mutates (and
-        with `save_model` persists) the chains."""
+        with `save_model` persists) the chains.  On a mesh each rank runs
+        its rows of the chains with the rank in the seed, and every rank
+        returns the whole (n_particles, V) means."""
         self._ensure_state()
-        seed = self.make_random_seed()
+        seed = self._replicated_seed(self.make_random_seed())
         cfg = DBMSampleConfig(self._layer_sizes(), bool(self.sample_v_states),
                               tuple(bool(s) for s in self.sample_h_states),
                               self._units())
         fn = dbm_sample if self._kernel_eligible() else dbm_sample_reference
+        split = self._set_layout()
+        if split:
+            seed = self._rank_seed(seed)
         state, v = fn(cfg, self._state.as_dict(), int(n_gibbs_steps), seed)
         self._state.update(state)
+        if split:
+            v = all_gather_rows(self._mesh, v)
         v = v.cpu().numpy()
         if save_model:
             self.n_samples_generated_ += int(n_gibbs_steps)
             self._save_model()
         return v
 
+    def _base_rate(self, base_rate):
+        """The base rate b0 of ``log_Z`` as a tensor, or None."""
+        if isinstance(base_rate, str):
+            if base_rate != 'hidden_bias':
+                raise ValueError("base_rate must be an array, None, or "
+                                 "'hidden_bias'")
+            return self._state.as_dict()['hb'][0].clone()
+        if base_rate is None:
+            return None
+        b0 = np.asarray(base_rate, dtype=self._np_dtype)
+        if b0.shape != (self.n_hiddens_[0],):
+            raise ValueError('base_rate must have shape ({0},), got {1}'
+                             .format(self.n_hiddens_[0], b0.shape))
+        return torch.as_tensor(b0, device=self._device)
+
+    def _ais_log_Z0(self, b0=None):
+        """log Z of the AIS base distribution p0 (v, h2 uniform; h1 uniform
+        or base-rate biased; JAX dbm.py:1129-1136)."""
+        log_Z0 = (self.n_visible_ + self.n_hiddens_[1]) * math.log(2.)
+        if b0 is None:
+            return log_Z0 + self.n_hiddens_[0] * math.log(2.)
+        return log_Z0 + float(np.sum(np.logaddexp(
+            0., b0.cpu().numpy().astype(np.float64))))
+
+    def _runs(self, n_runs):
+        """This rank's runs of a mesh, where `n_runs` splits over its ranks;
+        else None (every rank runs them all)."""
+        if self._mesh is None or self._mesh.size == 1 or \
+                n_runs % self._mesh.size:
+            return None
+        return self._rows(n_runs)
+
+    def _run_ais(self, fn, cfg, seed, x0, runs, b0):
+        """`fn` (an AIS wrapper or plain version) on the runs `x0`: this
+        rank's rows `runs` of a mesh, with the rank in the seed, gathered;
+        or all of them (`runs` None).  Returns the per-run values on the
+        host, float64."""
+        if runs is None:
+            out = fn(cfg, self._state.as_dict(), seed, x0, b0)
+        else:
+            out = all_gather_rows(self._mesh, fn(
+                cfg, self._state.as_dict(), self._rank_seed(seed), x0, b0))
+        return out.cpu().numpy().astype(np.float64)
+
+    def _model_h1_samples(self, n_runs, burn_in, seed, runs=None):
+        """Approximate samples from p1(h1) (JAX ``_model_h1_samples``,
+        dbm.py:1182-1196): the persistent particles' h1 tiled to `n_runs`,
+        binarized where h1 is sampled, then `burn_in` tempered Gibbs steps
+        at beta = 1 under `seed` (the AIS kernels' transition launches on a
+        CUDA float32 model); `runs`: this rank's rows, the rank in the
+        seed."""
+        cfg = self._ais_config(1, 1)
+        x0 = tile_h1(self._full_state()['H'][0], n_runs,
+                     bool(self.sample_h_states[0]))
+        if runs is not None:
+            x0, seed = x0[runs].contiguous(), self._rank_seed(seed)
+        if burn_in <= 0:
+            return x0
+        fn = ais_burn_in if self._kernel_eligible() else ais_burn_in_reference
+        return fn(cfg, self._state.as_dict(), seed, x0, int(burn_in))
+
+    def _ais_config(self, n_betas, n_gibbs_steps, ladder=None):
+        return AISConfig(self.n_visible_, self.n_hiddens_[0],
+                         self.n_hiddens_[1], int(n_betas), int(n_gibbs_steps),
+                         bool(self.sample_v_states),
+                         bool(self.sample_h_states[0]),
+                         bool(self.sample_h_states[1]), ladder)
+
     def log_Z(self, n_betas=100, n_runs=100, n_gibbs_steps=5,
               beta_schedule='linear', base_rate=None,
               bdmc=False, bdmc_burn_in=200):
         """AIS estimate of the log partition function of a 2-layer
-        all-Bernoulli DBM, annealed on h1 with v and h2 summed out, along the
-        linear beta ladder from the uniform base (JAX dbm.py:1562-1658).
+        all-Bernoulli DBM, annealed on h1 with v and h2 summed out (JAX
+        dbm.py:1562-1658).
+
+        `beta_schedule='adaptive'` takes the Salakhutdinov-Murray ladder
+        (``make_beta_schedule``); `base_rate` anneals from p0(h1) propto
+        exp(h1.b0) -- an (H1,) array, or 'hidden_bias' for the model's hb0
+        -- instead of the uniform base; `bdmc=True` also runs the annealing
+        backward from (approximate) model samples, the particles' h1 after
+        `bdmc_burn_in` steps at beta = 1 (bidirectional Monte Carlo), whose
+        estimate is a stochastic upper bound on log Z.  The forward run, the
+        burn-in and the reverse run draw under seeds of their own.
+
         Returns (log_mean, (log_low, log_high), values) with low / high
-        log(Z_mean -+ std(Z))."""
-        if beta_schedule != 'linear' or base_rate is not None or bdmc:
-            raise NotImplementedError(
-                "log_Z: beta_schedule='adaptive', base_rate and bdmc are "
-                'not ported yet (ROADMAP.md Queue A6)')
+        log(Z_mean -+ std(Z)); with bdmc=True the interval is the BDMC
+        sandwich (log_mean, log_upper) and `values` a dict of the forward
+        values, the reverse log-weights and both bounds.  On a mesh the
+        runs split over the ranks where they divide (each rank's with the
+        rank in its seed), and every rank returns the same values."""
         self._ensure_state()
         self._require_bernoulli('log_Z')
-        V, H1, H2 = self.n_visible_, self.n_hiddens_[0], self.n_hiddens_[1]
-        seed, g = self.make_generator(self._device)
+        ladder = make_beta_schedule(n_betas, beta_schedule)
+        b0 = self._base_rate(base_rate)
+        H1 = self.n_hiddens_[0]
+        seed = self._replicated_seed(self.make_random_seed())
+        g = make_generator(seed, self._device)
+        # x0 from the base distribution itself
+        p0 = 0.5 if b0 is None else torch.sigmoid(b0)
         x0 = (torch.rand((n_runs, H1), generator=g, dtype=self._torch_dtype,
-                         device=self._device) < 0.5).to(self._torch_dtype)
-        cfg = AISConfig(V, H1, H2, int(n_betas), int(n_gibbs_steps),
-                        bool(self.sample_v_states),
-                        bool(self.sample_h_states[0]),
-                        bool(self.sample_h_states[1]))
-        fn = ais if self._kernel_eligible() else ais_reference
-        log_w = fn(cfg, self._state.as_dict(), derive_seed(seed, _AIS_SALT),
-                   x0)
-        values = log_w.cpu().numpy().astype(np.float64) + \
-            (V + H1 + H2) * math.log(2.)
+                         device=self._device) < p0).to(self._torch_dtype)
+        # the linear ladder in the JAX kernel's float32 arithmetic
+        cfg = self._ais_config(n_betas, n_gibbs_steps, None
+                               if beta_schedule == 'linear' else ladder)
+        eligible = self._kernel_eligible()
+        runs = self._runs(n_runs)
+        values = self._run_ais(
+            ais if eligible else ais_reference, cfg,
+            derive_seed(seed, _AIS_SALT),
+            x0 if runs is None else x0[runs].contiguous(), runs, b0) + \
+            self._ais_log_Z0(b0)
         log_mean = log_mean_exp(values)
+        if bdmc:
+            x1 = self._model_h1_samples(n_runs, bdmc_burn_in,
+                                        derive_seed(seed, _BURN_SALT), runs)
+            w_rev = self._run_ais(
+                reverse_ais if eligible else reverse_ais_reference, cfg,
+                derive_seed(seed, _RAIS_SALT), x1, runs, b0)
+            log_upper = self._ais_log_Z0(b0) - log_mean_exp(w_rev)
+            return log_mean, (log_mean, log_upper), {
+                'forward': values, 'reverse': w_rev,
+                'log_Z_lower': log_mean, 'log_Z_upper': log_upper,
+                'bdmc_gap': log_upper - log_mean,
+            }
         log_std = log_std_exp(values, log_mean_exp_x=log_mean)
         log_high = log_sum_exp([log_std, log_mean])
         log_low = log_diff_exp([log_std, log_mean])[0]

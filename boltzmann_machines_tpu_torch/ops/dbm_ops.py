@@ -19,6 +19,12 @@ the same factory names and contracts::
                           sample_v, sample_h0, sample_h1)
     log_w = ais(state, seed, x0)          # (n_runs,), before + log Z0
 
+The AIS wrappers also run ``log_Z``'s options (JAX dbm.py:1042-1196, which
+computes them on XLA): any beta ladder (``AISConfig.ladder``), a base rate
+``b0`` (the base distribution p0(h1) propto exp(h1.b0)), the reverse run of
+BDMC (``reverse_ais``) and the burn-in of its start at beta = 1
+(``ais_burn_in``), on the same kernels.
+
 `state` is the JAX package's DBM pytree: {vb, hb, W, dvb, dhb, dW, q_means,
 mu_means, v, H} with per-layer tuples.  The epoch follows the CD epoch's
 ``iter0`` convention (ops/cd_epoch.py): minibatch ``i`` is global iteration
@@ -27,6 +33,11 @@ minibatch's msre and mean-field update count.  The epoch takes any batch
 size (a fit's remainder batch runs through it with its own row count).
 Input states are not modified.  ``n_runs`` may be any positive number (the
 TPU's multiple-of-8 rule was a sublane limit).
+
+``dbm_mesh_epoch`` is one rank's data-parallel epoch (the JAX package's
+shard_map epoch): the plain program on the rank's rows of every batch and
+of the particles, its draws through the standalone samplers, the raw
+statistics summed over the ranks in one buffer.
 
 Each program has three parts:
 
@@ -91,9 +102,12 @@ DBMSampleConfig = namedtuple('DBMSampleConfig', (
 #: the standalone samplers a DBM with Gaussian or multinomial layers draws
 #: through, one launch a sampled layer a sweep on CUDA tensors
 SAMPLER_KERNELS = ('bernoulli_sample', 'normal_sample', 'multinomial_sample')
+# `ladder`: the float64 beta ladder 0 = b_0 < ... < b_n_betas = 1
+# (``make_beta_schedule``), or None (the default) for the linear ladder in
+# the JAX kernel's float32 arithmetic (``ais_schedule``)
 AISConfig = namedtuple('AISConfig', (
     'n_visible', 'n_h1', 'n_h2', 'n_betas', 'k', 'sample_v', 'sample_h0',
-    'sample_h1'))
+    'sample_h1', 'ladder'), defaults=(None,))
 
 
 def make_dbm_epoch_kernel(layer_sizes, batch_size, n_particles, k,
@@ -177,14 +191,17 @@ def _hidden_units(units, L):
     return (None,) * L if units is None else tuple(units[1:])
 
 
-def mean_field(X, W, hb, max_mf_updates, mf_tol, units=None):
+def mean_field(X, W, hb, max_mf_updates, mf_tol, units=None,
+               reduce_max=None):
     """Mean-field fixed point of the hidden layers given `X` (JAX
     ``DBM._mf``, dbm.py:412-481): the bottom-up init with doubled inputs
     below the top layer (inside each layer's activation), then sweeps until
     the largest change of any unit -- in its own scale, counts for a
     multinomial layer -- is <= `mf_tol` (compared in X's dtype) or
     `max_mf_updates` sweeps ran.  Returns (mu, n_updates); syncs with the
-    host once per sweep."""
+    host once per sweep.  `reduce_max` (a mesh's rows of one batch) takes
+    each sweep's change, a (1,) tensor, to its max over the ranks in place,
+    so that every rank stops where the whole batch would (JAX's pmax)."""
     L = len(W)
     hu = _hidden_units(units, L)
     T0 = X @ W[0]  # loop-invariant, hoisted as in the JAX package
@@ -206,8 +223,12 @@ def mean_field(X, W, hb, max_mf_updates, mf_tol, units=None):
         if L >= 2:
             new[L - 1] = activation(hu[L - 1], new[L - 2] @ W[L - 1],
                                     hb[L - 1])
-        delta = float(torch.stack([torch.max(torch.abs(a - b))
-                                   for a, b in zip(new, mu)]).max())
+        d = torch.stack([torch.max(torch.abs(a - b))
+                         for a, b in zip(new, mu)]).max()
+        if reduce_max is not None:
+            d = d.reshape(1)
+            reduce_max(d)
+        delta = float(d)
         mu, n = new, n + 1
     return mu, n
 
@@ -319,27 +340,78 @@ def apply_max_norm(W, max_norm):
     return W * torch.minimum(norm, mx) / torch.clamp(norm, min=1e-8)
 
 
+#: the raw statistics of a minibatch, in the order of a mesh's buffer
+SUM_KEYS = ('sum_X', 'sum_v', 'pos', 'neg', 'sum_mu', 'sum_H')
+
+
+def dbm_sums(X, mu, v, H):
+    """The raw sums of one minibatch's statistics (JAX ``DBM._dbm_stats``,
+    dbm.py:494-527), which add over a mesh's ranks to the whole batch's:
+    sum_X, sum_v, the associations pos (data) and neg (particles) of each
+    layer, and each layer's sums of mu and of H."""
+    L = len(H)
+    return {'sum_X': X.sum(0), 'sum_v': v.sum(0),
+            'pos': [X.T @ mu[0]] + [mu[l - 1].T @ mu[l] for l in range(1, L)],
+            'neg': [v.T @ H[0]] + [H[l - 1].T @ H[l] for l in range(1, L)],
+            'sum_mu': [m.sum(0) for m in mu],
+            'sum_H': [h.sum(0) for h in H]}
+
+
+def flatten_sums(sums):
+    """`sums` as one flat tensor and a function that views a flat tensor
+    of that layout as such a dict (a mesh's one all_reduce a step)."""
+    leaves = [(key, l, t) for key in SUM_KEYS
+              for l, t in (enumerate(sums[key]) if isinstance(sums[key], list)
+                           else [(None, sums[key])])]
+    flat = torch.cat([t.reshape(-1) for _, _, t in leaves])
+
+    def view(buf):
+        out = {key: ([] if isinstance(sums[key], list) else None)
+               for key in SUM_KEYS}
+        i = 0
+        for key, l, t in leaves:
+            part = buf[i:i + t.numel()].view(t.shape)
+            i += t.numel()
+            if l is None:
+                out[key] = part
+            else:
+                out[key].append(part)
+        return out
+
+    return flat, view
+
+
 def dbm_update(cfg, state, X, mu, v, H, lr, momentum):
     """The parameter update of one minibatch (JAX ``DBM._dbm_stats`` and
-    ``_apply_dbm_update``, dbm.py:494-586): data statistics / N minus
-    particle statistics / M with L2, the per-layer sparsity EMAs of the
-    batch sums of both H and mu with their penalty on every row of dW and
-    on dhb, the momentum rule ``acc <- lr (m acc + g); param += acc``, and
-    the column max-norm of the new W."""
+    ``_apply_dbm_update``, dbm.py:494-586) from its data `X`, mean-field
+    `mu` and advanced particles (v, H)."""
+    return apply_dbm_update(cfg, state, dbm_sums(X, mu, v, H), X.shape[0],
+                            v.shape[0], v, H, lr, momentum)
+
+
+def apply_dbm_update(cfg, state, sums, N, M, v, H, lr, momentum):
+    """The update from a minibatch's raw sums (``dbm_sums``, over N data
+    rows and M particles; JAX ``_apply_dbm_update``, dbm.py:529-586): data
+    statistics / N minus particle statistics / M with L2, the per-layer
+    sparsity EMAs of the batch sums of both H and mu with their penalty on
+    every row of dW and on dhb, the momentum rule ``acc <- lr (m acc + g);
+    param += acc``, and the column max-norm of the new W.  (v, H) become
+    the particles."""
     L = len(state['W'])
-    N, M = X.shape[0], v.shape[0]
     W = state['W']
-    dvb = X.sum(0) / N - v.sum(0) / M
-    pos = [X.T @ mu[0]] + [mu[l - 1].T @ mu[l] for l in range(1, L)]
-    neg = [v.T @ H[0]] + [H[l - 1].T @ H[l] for l in range(1, L)]
-    dW = [pos[l] / N - neg[l] / M - cfg.l2 * W[l] for l in range(L)]
-    dhb = [mu[l].sum(0) / N - H[l].sum(0) / M for l in range(L)]
+    dvb = sums['sum_X'] / N - sums['sum_v'] / M
+    dW = [sums['pos'][l] / N - sums['neg'][l] / M - cfg.l2 * W[l]
+          for l in range(L)]
+    dhb = [sums['sum_mu'][l] / N - sums['sum_H'][l] / M for l in range(L)]
     # 1 - damping in the model's dtype, as the JAX package computes it
-    damp = torch.tensor(cfg.sparsity_damping, dtype=X.dtype, device=X.device)
+    vb = state['vb']
+    damp = torch.tensor(cfg.sparsity_damping, dtype=vb.dtype,
+                        device=vb.device)
     q_means, mu_means = [], []
     for l in range(L):
-        q_new = damp * state['q_means'][l] + (1. - damp) * H[l].sum(0)
-        m_new = damp * state['mu_means'][l] + (1. - damp) * mu[l].sum(0)
+        q_new = damp * state['q_means'][l] + (1. - damp) * sums['sum_H'][l]
+        m_new = damp * state['mu_means'][l] + \
+            (1. - damp) * sums['sum_mu'][l]
         cost, target = cfg.sparsity_cost[l], cfg.sparsity_target[l]
         penalty = cost * (q_new - target) + cost * (m_new - target)
         dW[l] = dW[l] - penalty
@@ -426,14 +498,20 @@ def dbm_sample_reference(cfg, state, n_steps, seed):
     return _dbm_sample_plain(cfg, state, n_steps, seed, True)
 
 
-def ais_schedule(n_betas):
+def ais_schedule(ladder):
     """(n_betas, 3) float32 array: row ``j - 1`` holds the beta of the
     transition that makes x_j and the pair (beta_lo, beta_hi) at which
-    log p~(x_j) is subtracted, then added.  In float32 exactly as the JAX
-    kernel computes them: delta = f32(1 / n_betas), beta_i = f32(i) delta,
-    transition at beta_i + delta, and the last beta_hi is 1 (so these
-    differ from ``make_beta_schedule``'s float64 linspace by rounding)."""
-    M = int(n_betas)
+    log p~(x_j) is subtracted, then added.  `ladder` is n_betas, the linear
+    ladder in float32 exactly as the JAX kernel computes it: delta = f32(1 /
+    n_betas), beta_i = f32(i) delta, transition at beta_i + delta, and the
+    last beta_hi is 1 (so these differ from ``make_beta_schedule``'s float64
+    linspace by rounding); or a float64 ladder b_0, ..., b_n, whose row
+    ``j - 1`` is (b_j, b_{j-1}, b_j) rounded to float32 (a descending one
+    is the reverse run's)."""
+    if np.ndim(ladder):
+        b = np.asarray(ladder, dtype=np.float64).astype(np.float32)
+        return np.stack([b[1:], b[:-1], b[1:]], axis=1)
+    M = int(ladder)
     f32 = np.float32
     delta = f32(1. / M)
     j = np.arange(1, M + 1, dtype=f32)
@@ -447,47 +525,151 @@ def ais_schedule(n_betas):
     return out
 
 
-def ais_log_p(x, beta, W0, W1, vb, hb0, hb1):
+def _ais_rows(cfg, reverse=False):
+    """The schedule of `cfg`'s forward run, or of its reverse run (its
+    ladder descending, the linear one as the float64 linspace, as the JAX
+    package's ``_reverse_ais_program`` takes it)."""
+    if not reverse:
+        return ais_schedule(cfg.n_betas if cfg.ladder is None
+                            else cfg.ladder)
+    ladder = np.linspace(0., 1., cfg.n_betas + 1) if cfg.ladder is None \
+        else np.asarray(cfg.ladder, dtype=np.float64)
+    return ais_schedule(ladder[::-1])
+
+
+def ais_log_p(x, beta, W0, W1, vb, hb0, hb1, b0=None):
     """log p~_beta(h1 = x) with v and h2 summed out (JAX
-    ``_ais_unnorm_log_prob_h1``, dbm.py:1042-1055), per run."""
+    ``_ais_unnorm_log_prob_h1``, dbm.py:1042-1055), per run; a base rate
+    `b0` adds (1 - beta) x.b0."""
     lp = beta * (x @ hb0)
+    if b0 is not None:
+        lp = lp + (1. - beta) * (x @ b0)
     lp = lp + torch.sum(F.softplus(beta * (x @ W0.T + vb)), dim=1)
     return lp + torch.sum(F.softplus(beta * (x @ W1 + hb1)), dim=1)
 
 
-def ais_transition(x, beta, k, W0, W1, vb, hb0, hb1, draw=None):
+def ais_transition(x, beta, k, W0, W1, vb, hb0, hb1, draw=None, b0=None):
     """k-step tempered Gibbs transition on h1 (JAX ``_ais_transition``,
-    dbm.py:1057-1078); ``draw(means, step, group)`` samples."""
+    dbm.py:1057-1078); ``draw(means, step, group)`` samples.  With a base
+    rate `b0` the h1 bias is beta hb0 + (1 - beta) b0."""
     if draw is None:
         def draw(p, *_):
             return p
+    bias = beta * hb0 if b0 is None else beta * hb0 + (1. - beta) * b0
     for s in range(k):
         v = draw(torch.sigmoid(beta * (x @ W0.T) + beta * vb), s, AIS_V)
         h2 = draw(torch.sigmoid(beta * (x @ W1) + beta * hb1), s, AIS_H2)
         T = v @ W0 + h2 @ W1.T
-        x = draw(torch.sigmoid(beta * T + beta * hb0), s, AIS_H1)
+        x = draw(torch.sigmoid(beta * T + bias), s, AIS_H1)
     return x
 
 
-def ais_reference(cfg, state, seed, x0):
-    """The plain PyTorch version of the AIS sweep, in the JAX kernel's
-    order: x1 = T(x0, delta), log_w = -log p~(x1, 0); then per beta
-    log_w += log p~(x, beta_i), x <- T(x, beta_i + delta),
-    log_w -= log p~(x, beta_i); finally log_w += log p~(x, 1)."""
-    W0, W1 = state['W']
-    hb0, hb1 = state['hb']
-    vb = state['vb']
+def _ais_draw(cfg, seed, j):
+    """``draw`` of the transitions keyed (`seed`, `j`), as the kernels
+    draw them."""
     on = {AIS_V: cfg.sample_v, AIS_H2: cfg.sample_h1, AIS_H1: cfg.sample_h0}
+
+    def draw(p, s, g):
+        return bernoulli(p, seed, j, stream_ais(s, g)) if on[g] else p
+    return draw
+
+
+def _ais_params(state):
+    (W0, W1), (hb0, hb1), vb = state['W'], state['hb'], state['vb']
+    return W0, W1, vb, hb0, hb1
+
+
+def ais_reference(cfg, state, seed, x0, b0=None):
+    """The plain PyTorch version of the AIS sweep, in the JAX kernel's
+    order: x1 = T(x0, beta_1), log_w = -log p~(x1, 0); then per beta
+    log_w += log p~(x, beta_i), x <- T(x, beta_{i+1}),
+    log_w -= log p~(x, beta_i); finally log_w += log p~(x, 1).  The
+    transition of beta j draws from key (`seed`, j).  `b0`: the base rate,
+    or None for the uniform base."""
+    params = _ais_params(state)
     log_w = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
     x = x0
-    for j, (beta_t, beta_lo, beta_hi) in enumerate(
-            ais_schedule(cfg.n_betas).tolist(), start=1):
-        def draw(p, s, g, j=j):
-            return bernoulli(p, seed, j, stream_ais(s, g)) if on[g] else p
-        x = ais_transition(x, beta_t, cfg.k, W0, W1, vb, hb0, hb1, draw)
-        log_w = log_w - ais_log_p(x, beta_lo, W0, W1, vb, hb0, hb1)
-        log_w = log_w + ais_log_p(x, beta_hi, W0, W1, vb, hb0, hb1)
+    for j, (beta_t, beta_lo, beta_hi) in enumerate(_ais_rows(cfg).tolist(),
+                                                   start=1):
+        x = ais_transition(x, beta_t, cfg.k, *params,
+                           _ais_draw(cfg, seed, j), b0)
+        log_w = log_w - ais_log_p(x, beta_lo, *params, b0)
+        log_w = log_w + ais_log_p(x, beta_hi, *params, b0)
     return log_w
+
+
+def reverse_ais_reference(cfg, state, seed, x0, b0=None):
+    """The plain PyTorch version of the reverse run of BDMC (JAX
+    ``_reverse_ais_program``, dbm.py:1137-1180): from (approximate) model
+    samples `x0`, along the ladder g descending from 1 to 0, step j does
+    w += log p~(x, g_j) - log p~(x, g_{j-1}), then x <- T(x, g_j) with the
+    draws of key (`seed`, j).  log Z0 - log mean exp(w) is a stochastic
+    upper bound on log Z."""
+    params = _ais_params(state)
+    w = torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device)
+    x = x0
+    for j, (g_next, g, _) in enumerate(_ais_rows(cfg, True).tolist(),
+                                       start=1):
+        w = w + ais_log_p(x, g_next, *params, b0) - \
+            ais_log_p(x, g, *params, b0)
+        x = ais_transition(x, g_next, cfg.k, *params,
+                           _ais_draw(cfg, seed, j), b0)
+    return w
+
+
+def ais_burn_in_reference(cfg, state, seed, x0, n_steps):
+    """The plain version of the BDMC start's burn-in (JAX
+    ``_model_h1_samples``, dbm.py:1182-1196): `n_steps` tempered Gibbs
+    steps on h1 at beta = 1, the draws of key (`seed`, 0)."""
+    return ais_transition(x0, 1., int(n_steps), *_ais_params(state),
+                          _ais_draw(cfg, seed, 0))
+
+
+def tile_h1(H0, n_runs, binarize):
+    """The start of the reverse run: the particles' h1 rows tiled to
+    `n_runs`, states above 0.5 where `binarize` (JAX dbm.py:1188-1193)."""
+    reps = -(-int(n_runs) // H0.shape[0])
+    x0 = H0.repeat(reps, 1)[:int(n_runs)]
+    return (x0 > 0.5).to(x0.dtype) if binarize else x0.clone()
+
+
+def dbm_mesh_epoch(cfg, state, X_batches, lr, momentum, seed, iter0, N, M,
+                   reduce_sum, reduce_max):
+    """One rank's epoch of a data-parallel mesh (JAX
+    ``_shardmap_epoch_core``, dbm.py:648-700).  `X_batches` holds the rank's
+    rows of every full batch and state's v and H its rows of the particles;
+    `reduce_sum` / `reduce_max` take a tensor to its sum / max over the
+    ranks in place.  Per minibatch ``it = iter0 + i + 1``: mean-field on the
+    local rows, each sweep's change reduced to the ranks' max; `k` sampled
+    sweeps of the local particles, each layer drawn by the standalone
+    samplers (their kernels on CUDA tensors) under ``draw_key(seed, it,
+    sweep, layer)`` -- `seed` is the rank's; the raw sums (``dbm_sums``) in
+    one buffer, summed over the ranks; the update with the whole batch's N
+    and the whole chain's M, the same on every rank.  Returns (state, the
+    local rows' sums of squared reconstruction errors, n_mf rows)."""
+    L = len(cfg.layer_sizes) - 1
+    units = cfg.units if cfg.units is not None else (None,) * (L + 1)
+    NB = X_batches.shape[0]
+    sq = torch.zeros(NB, dtype=X_batches.dtype, device=X_batches.device)
+    n_mf_rows = torch.zeros_like(sq)
+    for i in range(NB):
+        X, it = X_batches[i], int(iter0) + i + 1
+        mu, n_mf = mean_field(X, state['W'], state['hb'], cfg.max_mf_updates,
+                              cfg.mf_tol, cfg.units, reduce_max)
+        v, H = state['v'], state['H']
+        for s in range(cfg.k):
+            draw = unit_draw(units, cfg.sample_v, cfg.sample_h,
+                             lambda l, s=s: draw_key(seed, it, s, l))
+            v, H = gibbs_sweep(state['W'], state['vb'], state['hb'], v, H,
+                               draw, cfg.units)
+        flat, view = flatten_sums(dbm_sums(X, mu, v, H))
+        reduce_sum(flat)
+        state = apply_dbm_update(cfg, state, view(flat), N, M, v, H, lr,
+                                 momentum)
+        sq[i] = torch.sum(torch.square(
+            X - reconstruction_means(state, mu[0], cfg.units)))
+        n_mf_rows[i] = n_mf
+    return state, sq, n_mf_rows
 
 
 # ---------------------------------------------------------------------- #
@@ -516,7 +698,8 @@ class GemmArgs(ctypes.Structure):
         [(n, _I) for n in ('k1', 'k2', 'M', 'N', 'act', 'sample', 'n_tile',
                            'splits')] +
         [(n, _F) for n in ('alpha', 'alpha2', 'gamma')] +
-        [(n, _U) for n in ('seed', 'it', 'stream_id')])
+        [(n, _U) for n in ('seed', 'it', 'stream_id')] +
+        [('bias2', _P), ('gamma2', _F)])
 
 
 class AisLogw(ctypes.Structure):
@@ -525,7 +708,7 @@ class AisLogw(ctypes.Structure):
     _fields_ = ([(n, _P) for n in ('x', 'hb0', 'part_v', 'part_h2',
                                    'log_w')] +
                 [(n, _I) for n in ('R', 'H1', 'nblk_v', 'nblk_h2')] +
-                [(n, _F) for n in ('beta_lo', 'beta_hi')])
+                [(n, _F) for n in ('beta_lo', 'beta_hi')] + [('b0', _P)])
 
 
 class BiasVec(ctypes.Structure):
@@ -548,7 +731,7 @@ _ARGTYPES = {
                             _F, _F, _P],
     'bm_dbm_max_norm': [_P, _I, _I, _F, _P],
     'bm_dbm_msre': [_P, _P, _L, _P, _P, _I, _P, _P, _P, _P],
-    'bm_ais_logw': [_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P],
+    'bm_ais_logw': [_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P],
 }
 _BOUND = {}
 
@@ -844,12 +1027,9 @@ def _dbm_sample_cuda(cfg, state, n_steps, seed):
     return dict(state, v=v, H=H), v
 
 
-def _ais_cuda(cfg, state, seed, x0):
-    """Launch the kernels of ``csrc/dbm_ops.cu``: per beta, 3 per Gibbs step
-    of the transition and 2 for the pair of log p~ evaluations (GEMMs with
-    softplus row sums at beta_lo and beta_hi); each beta's log-weight
-    update rides on the next beta's first launch, and one ``ais_logw``
-    launch applies the last beta's."""
+def _ais_setup(cfg, state, x0, b0):
+    """Validate the inputs of an AIS launch sequence; returns the library,
+    the stream, the parameters and the buffers x (a copy of `x0`), v, h2."""
     V, H1, H2 = cfg.n_visible, cfg.n_h1, cfg.n_h2
     dev = x0.device
     if x0.dim() != 2 or x0.shape[1] != H1 or x0.shape[0] < 1:
@@ -859,25 +1039,25 @@ def _ais_cuda(cfg, state, seed, x0):
     if len(state['W']) != 2:
         raise ValueError('AIS needs a 2-layer DBM')
     _validate([('x0', x0, (R, H1))] +
-              _state_specs(state, (V, H1, H2), 1, ('vb', 'hb', 'W')), dev)
-    _check_seed(seed, cfg.n_betas)
+              _state_specs(state, (V, H1, H2), 1, ('vb', 'hb', 'W')) +
+              ([] if b0 is None else [('b0', b0, (H1,))]), dev)
     lib = _library()
-    launches = ais.launches
     stream = torch.cuda.current_stream(dev).cuda_stream
-    (W0, W1), (hb0, hb1), vb = state['W'], state['hb'], state['vb']
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    x, v, h2 = x0.clone(), empty(R, V), empty(R, H2)
-    nblk_v = lib.bm_dbm_gemm_col_blocks(V)
-    nblk_h2 = lib.bm_dbm_gemm_col_blocks(H2)
-    # the softplus partials of beta j in set j % 2: beta j + 1's launches
-    # write the other set while the first of them reads beta j's
-    part_v, part_h2 = empty(2, 2 * R * nblk_v), empty(2, 2 * R * nblk_h2)
-    log_w = torch.zeros(R, dtype=torch.float32, device=dev)
+    return (lib, stream, _ais_params(state), x0.clone(), empty(R, V),
+            empty(R, H2))
+
+
+def _transition_args(cfg, k, params, x, v, h2, b0, seed, stream):
+    """The 3 k launches of a k-step transition (v, h2, then h1 of each
+    step), its betas set by ``_set_beta``; with a base rate, the h1
+    launches' second bias is b0."""
+    W0, W1, vb, hb0, hb1 = params
     trans = []
-    for step in range(cfg.k):
+    for step in range(k):
         for out, A, bias, g, on in (
                 (v, [(x, W0, True)], vb, AIS_V, cfg.sample_v),
                 (h2, [(x, W1, False)], hb1, AIS_H2, cfg.sample_h1),
@@ -886,39 +1066,99 @@ def _ais_cuda(cfg, state, seed, x0):
             a = _gemm_args(out, A, bias=bias, stream=stream)
             a.sample, a.seed = int(on), int(seed)
             a.stream_id = stream_ais(step, g)
+            if g == AIS_H1 and b0 is not None:
+                a.bias2 = b0.data_ptr()
             trans.append(a)
+    return trans
+
+
+def _set_beta(trans, beta, it):
+    """A transition at `beta`, its draws keyed by iteration `it`:
+    sigmoid(beta (product + bias) [+ (1 - beta) b0])."""
+    for a in trans:
+        a.alpha = a.gamma = beta
+        a.gamma2 = 1. - beta
+        a.it = it
+
+
+def _ais_cuda(cfg, state, seed, x0, b0=None, reverse=False):
+    """Launch the kernels of ``csrc/dbm_ops.cu``: per beta, 3 per Gibbs step
+    of the transition and 2 for the pair of log p~ evaluations (GEMMs with
+    softplus row sums at beta_lo and beta_hi).  Each pair's log-weight
+    update rides on the launch after it, which reads x and writes v (or a
+    softplus row pair, at k = 0): in the forward run the next beta's first
+    launch, and one ``ais_logw`` launch applies the last beta's; in the
+    reverse run (`reverse`: the pair before the transition) its own
+    transition's first launch, so no ``ais_logw`` launch but at k = 0."""
+    V, H1, H2 = cfg.n_visible, cfg.n_h1, cfg.n_h2
+    lib, stream, params, x, v, h2 = _ais_setup(cfg, state, x0, b0)
+    W0, W1, vb, hb0, hb1 = params
+    R, dev = int(x0.shape[0]), x0.device
+    rows = _ais_rows(cfg, reverse)
+    _check_seed(seed, len(rows))
+    launches = ais.launches
+    nblk_v = lib.bm_dbm_gemm_col_blocks(V)
+    nblk_h2 = lib.bm_dbm_gemm_col_blocks(H2)
+    # the softplus partials of beta j in set j % 2: beta j + 1's launches
+    # write the other set while the first of them reads beta j's
+    part_v = torch.empty((2, 2 * R * nblk_v), dtype=torch.float32,
+                         device=dev)
+    part_h2 = torch.empty((2, 2 * R * nblk_h2), dtype=torch.float32,
+                          device=dev)
+    log_w = torch.zeros(R, dtype=torch.float32, device=dev)
+    trans = _transition_args(cfg, cfg.k, params, x, v, h2, b0, seed, stream)
     # softplus(beta (x.W0^T + vb)) and softplus(beta (x.W1 + hb1)), row sums
     # at both betas of the pair from one product each
     lp_v = _gemm_args(v, [(x, W0, True)], bias=vb, act=ACT_SOFTPLUS_ROWS,
                       stream=stream)
     lp_h2 = _gemm_args(h2, [(x, W1, False)], bias=hb1, act=ACT_SOFTPLUS_ROWS,
                        stream=stream)
-    pending = None  # the update of the beta before
-    for j, (beta_t, beta_lo, beta_hi) in enumerate(
-            ais_schedule(cfg.n_betas).tolist(), start=1):
-        for a in trans:
-            a.alpha = a.gamma = beta_t
-            a.it = j
+    pending = None  # the update of the last pair
+    for j, (beta_t, beta_lo, beta_hi) in enumerate(rows.tolist(), start=1):
+        _set_beta(trans, beta_t, j)
         for a in (lp_v, lp_h2):
             a.alpha, a.alpha2 = beta_lo, beta_hi
         lp_v.out, lp_h2.out = part_v[j % 2].data_ptr(), \
             part_h2[j % 2].data_ptr()
-        first, *rest = trans + [lp_v, lp_h2]
-        _check(lib.bm_ais_gemm_act(ctypes.byref(first), pending, stream),
-               'dbm_gemm_act')
-        for a in rest:
-            _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
-                   'dbm_gemm_act')
-        launches['dbm_gemm_act'] += len(trans) + 2
-        pending = AisLogw(_ptr(x), _ptr(hb0), part_v[j % 2].data_ptr(),
-                          part_h2[j % 2].data_ptr(), _ptr(log_w), R, H1,
-                          nblk_v, nblk_h2, beta_lo, beta_hi)
-    p = pending
-    _check(lib.bm_ais_logw(p.x, p.hb0, R, H1, p.part_v, nblk_v, p.part_h2,
-                           nblk_h2, beta_lo, beta_hi, p.log_w, stream),
-           'ais_logw')
-    launches['ais_logw'] += 1
+        # None: the pair's update is pending from here
+        seq = [lp_v, lp_h2, None] + trans if reverse \
+            else trans + [lp_v, lp_h2, None]
+        for a in seq:
+            if a is None:
+                pending = AisLogw(_ptr(x), _ptr(hb0), part_v[j % 2].data_ptr(),
+                                  part_h2[j % 2].data_ptr(), _ptr(log_w), R,
+                                  H1, nblk_v, nblk_h2, beta_lo, beta_hi,
+                                  _ptr(b0))
+                continue
+            if pending is None:
+                _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
+                       'dbm_gemm_act')
+            else:
+                _check(lib.bm_ais_gemm_act(ctypes.byref(a),
+                                           ctypes.byref(pending), stream),
+                       'dbm_gemm_act')
+                pending = None
+            launches['dbm_gemm_act'] += 1
+    if pending is not None:
+        p = pending
+        _check(lib.bm_ais_logw(p.x, p.hb0, R, H1, p.part_v, nblk_v,
+                               p.part_h2, nblk_h2, p.beta_lo, p.beta_hi,
+                               p.log_w, p.b0, stream), 'ais_logw')
+        launches['ais_logw'] += 1
     return log_w
+
+
+def _ais_burn_in_cuda(cfg, state, seed, x0, n_steps):
+    """The burn-in's 3 `n_steps` transition launches at beta = 1."""
+    lib, stream, params, x, v, h2 = _ais_setup(cfg, state, x0, None)
+    _check_seed(seed, 0)
+    trans = _transition_args(cfg, int(n_steps), params, x, v, h2, None, seed,
+                             stream)
+    _set_beta(trans, 1., 0)
+    for a in trans:
+        _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream), 'dbm_gemm_act')
+        ais.launches['dbm_gemm_act'] += 1
+    return x
 
 
 # ---------------------------------------------------------------------- #
@@ -957,12 +1197,29 @@ def dbm_sample(cfg, state, n_steps, seed):
     return _dbm_sample_plain(cfg, state, n_steps, seed, False)
 
 
-def ais(cfg, state, seed, x0):
+def ais(cfg, state, seed, x0, b0=None):
     """The AIS sweep: the CUDA kernels for a CUDA `x0`, the plain version
-    for a CPU one."""
+    for a CPU one.  `b0`: a base rate (H1,), or None."""
     if _route(x0.device, 'ais') == 'cuda':
-        return _ais_cuda(cfg, state, seed, x0)
-    return ais_reference(cfg, state, seed, x0)
+        return _ais_cuda(cfg, state, seed, x0, b0)
+    return ais_reference(cfg, state, seed, x0, b0)
+
+
+def reverse_ais(cfg, state, seed, x0, b0=None):
+    """The reverse run of BDMC on the AIS kernels (a CUDA `x0`) or its
+    plain version (a CPU one); its launches count in ``ais.launches``."""
+    if _route(x0.device, 'reverse_ais') == 'cuda':
+        return _ais_cuda(cfg, state, seed, x0, b0, reverse=True)
+    return reverse_ais_reference(cfg, state, seed, x0, b0)
+
+
+def ais_burn_in(cfg, state, seed, x0, n_steps):
+    """The BDMC start's burn-in on the AIS kernels' transition launches (a
+    CUDA `x0`) or its plain version (a CPU one); its launches count in
+    ``ais.launches``."""
+    if _route(x0.device, 'ais_burn_in') == 'cuda':
+        return _ais_burn_in_cuda(cfg, state, seed, x0, n_steps)
+    return ais_burn_in_reference(cfg, state, seed, x0, n_steps)
 
 
 dbm_epoch.launches = dict.fromkeys(EPOCH_KERNELS, 0)

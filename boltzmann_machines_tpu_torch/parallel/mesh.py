@@ -70,3 +70,16 @@ def replicate(mesh, tree):
         for v in tree:
             replicate(mesh, v)
     return tree
+
+
+def all_gather_rows(mesh, x):
+    """The rows of every rank's `x` (each rank's the same shape), stacked in
+    rank order, on every rank: one all_reduce(SUM) of a zero buffer holding
+    this rank's rows at its place (exact, as each element adds zeros to one
+    value), so that it runs on any backend and device."""
+    n = x.shape[0]
+    out = torch.zeros((mesh.size * n,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    out[mesh.rank * n:(mesh.rank + 1) * n] = x
+    dist.all_reduce(out, group=mesh.group)
+    return out

@@ -13,7 +13,7 @@ its plain version in float32 and float64; see ``readings``,
 ``pll_readings``.
 ``--kernel-times`` runs phase 18 alone; run from another checkout, it
 times that checkout's kernels.  ``--cifar-phases`` runs phases 21-24
-alone.)
+alone, ``--dbm-phases`` phases 25-27.)
 
 Phases, each printing its lines before the last:
 
@@ -152,7 +152,23 @@ Phases, each printing its lines before the last:
     kernels, one launch of each sampler a DBM step, no all-Bernoulli DBM
     kernel), the MLP on the card, every ``[stage]`` wall;
 24. examples/torch_semi_supervised.py --quick the same way: its table of
-    the four label subsets.
+    the four label subsets;
+25. log_Z's options on the AIS kernels, at 784-512-1024 on phase 7's
+    trained DBM, 200 betas x 100 runs, k 5: the adaptive ladder, the base
+    rate, both, the reverse run of BDMC and its burn-in, each against its
+    plain version with sampling off and on (launch counts checked), their
+    ms per beta beside the linear ladder's; then DBM.log_Z on phase 8's
+    6-5-4 DBM: the adaptive ladder and the base rate against brute force,
+    the BDMC bracket around it;
+26. the DBM mesh: a 2-rank fit (two processes on the one card over gloo,
+    each ``python3 chip_smoke.py --dbm-rank RANK WORLD TMPDIR``, waited
+    for) at 784-512-1024, B = M = 100, with sampling off against the
+    one-process fit on the DBM kernels and with it on (bernoulli_sample
+    launches counted), ranks bit for bit equal, rank 1 writing nothing, ms
+    per mesh step; sample_v and log_Z on the 2 ranks; the mesh epoch on a
+    one-rank NCCL group against the DBM kernels, both timed;
+27. utils/profiler.trace around a DBM step on the kernels: its trace file
+    names dbm_gemm_act's device kernel.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -1075,7 +1091,8 @@ def ais_trained_vs_plain(torch, dbm):
 
 def ais_vs_bruteforce(torch, tmpdir):
     """A 6-5-4 DBM pretrained and trained on the card: its kernel AIS log Z
-    within 0.1 nats of the enumerated one."""
+    within 0.1 nats of the enumerated one.  Returns the DBM and its
+    enumerated log Z (phase 25 holds log_Z's options against it)."""
     import itertools
     import numpy as np
     from boltzmann_machines_tpu_torch import BernoulliRBM, DBM
@@ -1109,7 +1126,7 @@ def ais_vs_bruteforce(torch, tmpdir):
             'dbm_gemm_act': 1000 * (3 + 2), 'ais_logw': 1} or \
             not abs(log_mean - exact) < 0.1:
         raise AssertionError('AIS on the card is off the exact log Z')
-    return abs(log_mean - exact)
+    return dbm, exact
 
 
 def dbm_timings(torch):
@@ -2196,32 +2213,8 @@ def dp_fit(torch, tmpdir):
     with open(tmpdir + '/jobs.json', 'w') as f:
         json.dump(jobs, f)
     t0 = time.perf_counter()
-    # plain child processes of this script, each waited for (and killed if
-    # the fit fails or overruns), so that no process outlives the smoke:
-    # multiprocessing's spawn would also start a resource tracker that ends
-    # only after this process has
-    procs = []
-    try:
-        for rank in range(DP_WORLD):
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), '--dp-rank',
-                 str(rank), str(DP_WORLD), tmpdir]))
-        deadline = time.time() + 600
-        while any(p.poll() is None for p in procs):
-            if time.time() > deadline:
-                raise AssertionError('the 2-rank fit did not end in 600 s')
-            if any(p.returncode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.5)
-        rcs = [p.poll() for p in procs]
-        if rcs != [0] * DP_WORLD:
-            raise AssertionError('the 2-rank fit failed: rank exit codes %s'
-                                 % rcs)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+    run_children(lambda r: ['--dp-rank', str(r), str(DP_WORLD), tmpdir],
+                 DP_WORLD, 'the 2-rank fit')
     say('2-rank fits (gloo, one card): %.1f s with process start-up' % (
         time.perf_counter() - t0))
     ranks = []
@@ -3444,7 +3437,7 @@ def kernel_times(torch):
         u = update(log_w)
         dbm_ops._check(dlib.bm_ais_logw(
             u.x, u.hb0, R, H1, u.part_v, nblk_v, u.part_h2, nblk_h2, 0.37,
-            0.38, u.log_w, stream()), 'ais_logw')
+            0.38, u.log_w, None, stream()), 'ais_logw')
         return log_w
 
     def first_launch(pending=None):
@@ -4882,6 +4875,497 @@ def cifar_examples_path(torch, tmpdir):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 25: log_Z's options on the AIS kernels; phase 26: the DBM mesh;    #
+# phase 27: utils/profiler.py around a DBM step                            #
+# ---------------------------------------------------------------------- #
+# the AIS options' ladder and runs: torch_dbm_mnist.py's widths, 200 betas
+# x 100 runs, k = 5 (the ms per beta of phase 9), and BDMC's burn-in
+OPT_BETAS, OPT_RUNS, OPT_K, OPT_BURN_IN = 200, 100, 5, 200
+
+
+def ais_options_vs_plain(torch, state, small, exact):
+    """Phase 25.  On `state`, the DBM phase 7 trained (784-512-1024):
+    each option of log_Z on the AIS kernels against its plain version at
+    200 betas x 100 runs, k 5 -- the adaptive ladder, the base rate (the
+    model's hb0), both, the reverse run (linear, and adaptive with the base
+    rate) and the burn-in (200 steps at beta 1) -- sampling off, log-weights
+    within DBM_TOL['ais'] (states within DBM_TOL['sample']), launches 17 a
+    beta + 1 a run (the reverse run: none but its steps'); sampling on over
+    20 betas, at least 90 of 100 runs within the tolerance (as phase 7's
+    check).  Then ms per beta of the linear, adaptive, base-rate and reverse
+    runs, sampling on, in turns; and DBM.log_Z on the 6-5-4 DBM of phase 8
+    (`small`, its enumerated log Z `exact`): the adaptive ladder and the
+    base rate within 0.1 nats, the BDMC bracket within 0.15 with a gap
+    below 1 -- the launches of these entry-point calls counted."""
+    from boltzmann_machines_tpu_torch.dbm import make_beta_schedule
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    b0 = state['hb'][0].clone()
+    adaptive = tuple(make_beta_schedule(OPT_BETAS, 'adaptive'))
+    g = torch.Generator(device='cuda')
+    g.manual_seed(25)
+    x0 = (torch.rand((OPT_RUNS, DBM_SIZES[1]), generator=g, device='cuda')
+          < 0.5).float()
+    out = {'err': {}}
+    per_beta = 3 * OPT_K + 2
+    cases = (
+        ('adaptive', dbm_ops.ais, dbm_ops.ais_reference, adaptive, None),
+        ('base_rate', dbm_ops.ais, dbm_ops.ais_reference, None, b0),
+        ('adaptive_base_rate', dbm_ops.ais, dbm_ops.ais_reference, adaptive,
+         b0),
+        ('reverse', dbm_ops.reverse_ais, dbm_ops.reverse_ais_reference, None,
+         None),
+        ('reverse_adaptive_base_rate', dbm_ops.reverse_ais,
+         dbm_ops.reverse_ais_reference, adaptive, b0))
+    for label, fn, plain, ladder, b in cases:
+        for sample, n_betas in ((False, OPT_BETAS), (True, 20)):
+            lad = ladder if ladder is None or n_betas == OPT_BETAS else \
+                tuple(make_beta_schedule(n_betas, 'adaptive'))
+            cfg = dbm_ops.AISConfig(*DBM_SIZES, n_betas, OPT_K, sample,
+                                    sample, sample, lad)
+            dbm_ops.reset_launches()
+            got = fn(cfg, state, 31, x0, b)
+            launches = dict(dbm_ops.ais.launches)
+            want = plain(cfg, state, 31, x0, b)
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            agree = int((d <= DBM_TOL['ais']).sum())
+            reverse = label.startswith('reverse')
+            expect = {'dbm_gemm_act': n_betas * per_beta,
+                      'ais_logw': 0 if reverse else 1}
+            say('ais option %s sampling %s, %d runs x %d betas, k=%d: %d of '
+                '%d runs within %g, max|log_w kernel-plain| %.3g; launches '
+                '%s' % (label, 'on' if sample else 'off', OPT_RUNS, n_betas,
+                        OPT_K, agree, OPT_RUNS, DBM_TOL['ais'],
+                        float(d.max()), launches))
+            if launches != expect or not bool(torch.isfinite(got).all()) \
+                    or agree < (90 if sample else OPT_RUNS):
+                raise AssertionError('AIS option %s on the kernels and its '
+                                     'plain version disagree (launches %s, '
+                                     'expected %s)' % (label, launches,
+                                                       expect))
+            if not sample:
+                out['err'][label] = float(d.max())
+    for sample in (False, True):
+        cfg = dbm_ops.AISConfig(*DBM_SIZES, 1, 1, sample, sample, sample)
+        dbm_ops.reset_launches()
+        got = dbm_ops.ais_burn_in(cfg, state, 33, x0, OPT_BURN_IN)
+        launches = dict(dbm_ops.ais.launches)
+        want = dbm_ops.ais_burn_in_reference(cfg, state, 33, x0, OPT_BURN_IN)
+        torch.cuda.synchronize()
+        d = float((got - want).abs().max())
+        rows = int(((got - want).abs() <= DBM_TOL['sample']).all(1).sum())
+        say('ais burn-in sampling %s, %d runs x %d steps at beta 1: %d of %d '
+            'runs equal within %g, max|x kernel-plain| %.3g; launches %s' % (
+                'on' if sample else 'off', OPT_RUNS, OPT_BURN_IN, rows,
+                OPT_RUNS, DBM_TOL['sample'], d, launches))
+        if launches != {'dbm_gemm_act': 3 * OPT_BURN_IN, 'ais_logw': 0} \
+                or rows < (90 if sample else OPT_RUNS):
+            raise AssertionError('the burn-in on the kernels and its plain '
+                                 'version disagree')
+        if not sample:
+            out['err']['burn_in'] = d
+
+    # ms per beta, sampling on, in turns (the first run a warm-up)
+    runs = {'linear': (dbm_ops.ais, None, None),
+            'adaptive': (dbm_ops.ais, adaptive, None),
+            'base_rate': (dbm_ops.ais, None, b0),
+            'reverse': (dbm_ops.reverse_ais, None, None)}
+    times = {k: [] for k in runs}
+    for _ in range(3):
+        for label, (fn, ladder, b) in runs.items():
+            cfg = dbm_ops.AISConfig(*DBM_SIZES, OPT_BETAS, OPT_K, True, True,
+                                    True, ladder)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(cfg, state, 5, x0, b)
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    out['ms_per_beta'] = {k: 1e3 * min(ts[1:]) / OPT_BETAS
+                          for k, ts in times.items()}
+    say('ais ms per beta, %d runs, k=%d, sampling on: %s (runs %s)' % (
+        OPT_RUNS, OPT_K, ' '.join('%s %.4f' % kv for kv in
+                                  out['ms_per_beta'].items()),
+        {k: ['%.4f' % (1e3 * t / OPT_BETAS) for t in ts]
+         for k, ts in times.items()}))
+
+    # the entry point on the 6-5-4 DBM against brute force
+    dbm_ops.reset_launches()
+    checks = {}
+    for label, kw in (('adaptive', dict(beta_schedule='adaptive')),
+                      ('base_rate', dict(base_rate='hidden_bias'))):
+        log_mean = small.log_Z(n_betas=1000, n_runs=256, n_gibbs_steps=1,
+                               **kw)[0]
+        checks[label] = log_mean - exact
+    log_mean, (low, up), info = small.log_Z(
+        n_betas=1000, n_runs=256, n_gibbs_steps=1, bdmc=True,
+        bdmc_burn_in=OPT_BURN_IN)
+    out['launches'] = dict(dbm_ops.ais.launches)
+    out['bdmc'] = dict(low=low, up=up, exact=exact, gap=info['bdmc_gap'])
+    say('6-5-4 DBM: log Z adaptive %+.4f, base rate %+.4f off brute force '
+        '%.4f; BDMC [%.4f, %.4f], gap %.4f; launches of the three log_Z '
+        'calls %s' % (checks['adaptive'], checks['base_rate'], exact, low,
+                      up, info['bdmc_gap'], out['launches']))
+    # three forward runs (17 / 5 launches a beta at k 1, + 1 a run), the
+    # burn-in and the reverse run
+    expect = {'dbm_gemm_act': 4 * 1000 * 5 + 3 * OPT_BURN_IN,
+              'ais_logw': 3}
+    if out['launches'] != expect or \
+            not all(abs(v) < 0.1 for v in checks.values()) or \
+            not (low <= exact + 0.15 and up >= exact - 0.15 and
+                 info['bdmc_gap'] < 1.):
+        raise AssertionError('log_Z options off the exact log Z, or '
+                             'launches %s (expected %s)' % (
+                                 out['launches'], expect))
+    return out
+
+
+MESH_WORLD = 2
+MESH_NB = 5          # full batches of the 2-rank DBM fit, + a remainder
+MESH_BETAS = 20
+
+
+def mesh_dbm(torch, cfg, model_path):
+    """A DBM at torch_dbm_mnist.py's widths over two RBMs whose weights are
+    made from seeds (no pretraining), its particles from seeds: the same
+    model in every process."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch import BernoulliRBM, DBM
+    rng = np.random.RandomState(26)
+    V, H1, H2 = DBM_SIZES
+    kw = dict(device='cuda', verbose=False)
+    r1 = BernoulliRBM(n_visible=V, n_hidden=H1, dbm_first=True,
+                      W_init=(0.03 * rng.randn(V, H1)).astype(np.float32),
+                      **kw)
+    r2 = BernoulliRBM(n_visible=H1, n_hidden=H2, dbm_last=True,
+                      W_init=(0.03 * rng.randn(H1, H2)).astype(np.float32),
+                      **kw)
+    return DBM(rbms=[r1, r2], n_particles=DBM_M,
+               v_particle_init=rng.rand(DBM_M, V).astype(np.float32),
+               h_particles_init=(rng.rand(DBM_M, H1).astype(np.float32),
+                                 rng.rand(DBM_M, H2).astype(np.float32)),
+               model_path=model_path, **dict(kw, **cfg))
+
+
+def mesh_cfg(sample):
+    return dict(n_gibbs_steps=1, max_mf_updates=50, mf_tol=1e-7,
+                learning_rate=DBM_LR, momentum=DBM_MOM, max_epoch=1,
+                batch_size=DBM_B, l2=1e-7, max_norm=6.,
+                sample_v_states=sample, sample_h_states=(sample, sample),
+                sparsity_target=SPARSITY_TARGET, sparsity_cost=SPARSITY_COST,
+                train_metrics_every_iter=1, random_seed=2626)
+
+
+def dbm_rank(rank, world, tmpdir):
+    """One rank of phase 26's 2-rank DBM runs, in a process of its own
+    (``python3 chip_smoke.py --dbm-rank RANK WORLD TMPDIR``): joins the
+    gloo group; fits the DBM with sampling off and with it on on the mesh,
+    each with the launch counts set to 0 just before and read just after;
+    times mesh steps; runs sample_v and log_Z; writes its arrays and
+    counts."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import parallel
+    from boltzmann_machines_tpu_torch.ops import dbm_ops, samplers
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize('file://' + tmpdir + '/store_dbm', world, rank,
+                        backend='gloo')
+    try:
+        data = np.load(tmpdir + '/mesh.npz')
+        out = {}
+        for sample in (False, True):
+            name = 'on' if sample else 'off'
+            dbm = mesh_dbm(torch, mesh_cfg(sample),
+                           '%s/mesh_%s_rank%d/' % (tmpdir, name, rank))
+            dbm.set_mesh(parallel.make_mesh())
+            torch.cuda.synchronize()
+            dbm_ops.reset_launches()
+            samplers.reset_launches()
+            t0 = time.perf_counter()
+            dbm.fit(data['X'], data['X_val'])
+            torch.cuda.synchronize()
+            r = dict(seconds=time.perf_counter() - t0, iter_=dbm.iter_,
+                     sharded=dbm._sharded,
+                     dbm_epoch=dict(dbm_ops.dbm_epoch.launches),
+                     samplers=dict(samplers.bernoulli_sample.launches))
+            np.savez('%s/mesh_%s_out%d.npz' % (tmpdir, name, rank),
+                     **dbm.get_params_arrays())
+            out[name] = r
+        # ms per mesh step (sampling on, the path): the full batches of an
+        # epoch driven directly, twice, the second kept
+        full, _, _ = dbm._stage_batches(data['X'],
+                                        rows=dbm._rows(DBM_B))
+        walls = []
+        for _ in range(2):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dbm._train_epoch_shardmap(full, None, DBM_LR, DBM_MOM, 1, 7,
+                                      dbm_ops.dbm_epoch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        out['ms_per_step'] = [1e3 * w / MESH_NB for w in walls]
+        # where a mesh step's time goes: its collectives alone, the 50
+        # scalar MAX all_reduces (one a sweep, each read on the host) and
+        # the SUM of the raw sums' buffer (V + V + V H1 + H1 H2 + 2 (H1 +
+        # H2) floats, 3.7 MB), best of three
+        V, H1, H2 = DBM_SIZES
+        d = torch.zeros(1, device='cuda')
+        buf = torch.zeros(2 * V + V * H1 + H1 * H2 + 2 * (H1 + H2),
+                          device='cuda')
+        t_max, t_sum = [], []
+        for _ in range(3):
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                dist.all_reduce(d, op=dist.ReduceOp.MAX)
+                float(d)
+            t_max.append(time.perf_counter() - t0)
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            t_sum.append(time.perf_counter() - t0)
+        out['collectives_ms'] = {'max_50_sweeps': 1e3 * min(t_max),
+                                 'sum_buffer': 1e3 * min(t_sum),
+                                 'sum_buffer_bytes': 4 * buf.numel()}
+        dbm_ops.reset_launches()
+        v = dbm.sample_v(n_gibbs_steps=5)
+        out['sample_v'] = dict(dbm_ops.dbm_sample.launches)
+        values = dbm.log_Z(n_betas=MESH_BETAS, n_runs=DBM_B,
+                           n_gibbs_steps=5)[2]
+        out['log_Z'] = dict(dbm_ops.ais.launches)
+        np.savez('%s/mesh_calls%d.npz' % (tmpdir, rank), v=v, values=values)
+        with open('%s/dbm_rank%d.json' % (tmpdir, rank), 'w') as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_children(args_of_rank, world, what, timeout=600):
+    """Start `world` child processes of this script (``args_of_rank(r)``
+    after the script's path), wait for all of them, kill any left; raise
+    unless all exit 0.  Plain child processes, each waited for, so that no
+    process outlives the smoke: multiprocessing's spawn would also start a
+    resource tracker that ends only after this process has."""
+    procs = []
+    try:
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__)] +
+                args_of_rank(rank)))
+        deadline = time.time() + timeout
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline:
+                raise AssertionError('%s did not end in %d s' % (what,
+                                                                 timeout))
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        rcs = [p.poll() for p in procs]
+        if rcs != [0] * world:
+            raise AssertionError('%s failed: exit codes %s' % (what, rcs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def dbm_mesh_path(torch, tmpdir):
+    """Phase 26.  (a) The DBM's data-parallel fit through the public API on
+    2 ranks, each a process of its own on the one card over gloo, at
+    784-512-1024, B = M = 100, 5 full batches and a remainder of 50, a
+    validation set: with sampling off against the one-process fit (the
+    DBM kernels), state within DBM_TOL; the ranks' states bit for bit
+    equal; rank 1 writing nothing; with sampling on, one bernoulli_sample
+    launch a sampled layer a sweep of the full batches and the remainder
+    step on the DBM kernels (113 launches); ms per mesh step (the MAX
+    all_reduce of each of 50 sweeps and the SUM of the 2.5 MB of sums
+    through the host).  sample_v (3 launches a sweep + 2 a rank) and log_Z
+    (its 50 runs a rank, 17 a beta + 1) on the mesh, the same values on
+    both ranks.  (b) The mesh epoch on a one-rank NCCL group at the same
+    widths against the DBM kernels, sampling off, 5 steps, both timed."""
+    import numpy as np
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import parallel
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    Xall = make_data(MESH_NB * DBM_B + DBM_B // 2 + 200, seed=26)
+    X, X_val = Xall[:-200], Xall[-200:]
+    np.savez(tmpdir + '/mesh.npz', X=X, X_val=X_val)
+    t0 = time.perf_counter()
+    run_children(lambda r: ['--dbm-rank', str(r), str(MESH_WORLD), tmpdir],
+                 MESH_WORLD, 'the 2-rank DBM runs')
+    say('2-rank DBM runs (gloo, one card): %.1f s with process start-up' % (
+        time.perf_counter() - t0))
+    ranks = []
+    for r in range(MESH_WORLD):
+        with open('%s/dbm_rank%d.json' % (tmpdir, r)) as f:
+            ranks.append(json.load(f))
+    out = {'ranks': ranks}
+    n_iter = MESH_NB + 1
+    # the remainder step on the DBM kernels: 3 + L + 2 L x 50 ... as phase
+    # 7 counts them: 107 products, a bias update, 2 assoc, 2 max-norms, msre
+    expect_rem = {'dbm_gemm_act': 2 + 1 + 2 * 50 + 3 + 1,
+                  'dbm_bias_update': 1, 'dbm_assoc_update': 2,
+                  'dbm_max_norm': 2, 'dbm_msre': 1}
+    for r, rk in enumerate(ranks):
+        for name in ('off', 'on'):
+            g = rk[name]
+            draws = 3 * MESH_NB if name == 'on' else 0
+            say('DBM mesh fit sampling %s rank %d: %d iterations in %.2f s, '
+                'sharded %s; bernoulli_sample launches %s, DBM kernel '
+                'launches %s' % (name, r, g['iter_'], g['seconds'],
+                                 g['sharded'], g['samplers'], g['dbm_epoch']))
+            if g['iter_'] != n_iter or not g['sharded'] or \
+                    g['samplers'] != {'bernoulli_sample': draws} or \
+                    g['dbm_epoch'] != expect_rem:
+                raise AssertionError('rank %d mesh fit: launches %s / %s, '
+                                     'the schedule implies %d / %s' % (
+                                         r, g['samplers'], g['dbm_epoch'],
+                                         draws, expect_rem))
+        say('DBM mesh step rank %d (sampling on, B = M = 100, 50 sweeps): '
+            '%s ms; its collectives alone: 50 scalar MAX all_reduces %.3f '
+            'ms, the SUM of %d bytes %.3f ms' % (
+                r, ' '.join('%.3f' % t for t in rk['ms_per_step']),
+                rk['collectives_ms']['max_50_sweeps'],
+                rk['collectives_ms']['sum_buffer_bytes'],
+                rk['collectives_ms']['sum_buffer']))
+        if rk['sample_v'] != {'dbm_gemm_act': 3 * 5 + 2} or \
+                rk['log_Z'] != {'dbm_gemm_act': MESH_BETAS * 17,
+                                'ais_logw': 1}:
+            raise AssertionError('rank %d sample_v / log_Z launches %s / %s'
+                                 % (r, rk['sample_v'], rk['log_Z']))
+    for name in ('mesh_off_out', 'mesh_on_out', 'mesh_calls'):
+        a, b = (np.load('%s/%s%d.npz' % (tmpdir, name, r)) for r in (0, 1))
+        if not all(np.array_equal(a[k], b[k]) for k in a.files):
+            raise AssertionError('the ranks\' %s differ' % name)
+    calls = np.load(tmpdir + '/mesh_calls0.npz')
+    if calls['v'].shape != (DBM_M, DBM_SIZES[0]) or \
+            calls['values'].shape != (DBM_B,) or \
+            not np.all(np.isfinite(calls['values'])):
+        raise AssertionError('sample_v / log_Z on the mesh: shapes %s %s' % (
+            calls['v'].shape, calls['values'].shape))
+    say('DBM mesh: both ranks\' states, sample_v means %s and log_Z values '
+        '%s bit for bit equal; log_Z values in [%.1f, %.1f]' % (
+            calls['v'].shape, calls['values'].shape, calls['values'].min(),
+            calls['values'].max()))
+    for name in ('off', 'on'):
+        if os.path.exists('%s/mesh_%s_rank1/' % (tmpdir, name)):
+            raise AssertionError('rank 1 wrote files')
+    msre = [v for _, v in read_tag(
+        tmpdir + '/mesh_on_rank0/logs/train/scalars.jsonl',
+        'mean_squared_recon_error')]
+    say('  DBM 2-rank sampled fit: train msre %s' % msre)
+    if len(msre) != 1 or not all(map(math.isfinite, msre)):
+        raise AssertionError('the sampled mesh fit\'s msre: %s' % msre)
+
+    # sampling off: 2 ranks against the one-process fit on the kernels
+    ref = mesh_dbm(torch, mesh_cfg(False), tmpdir + '/mesh_ref/')
+    ref.fit(X, X_val)
+    got = np.load(tmpdir + '/mesh_off_out0.npz')
+    worst, excess = {}, {}
+    for key, v in ref.get_params_arrays().items():
+        atol, rtol = DBM_TOL['sums' if 'means' in key else 'state']
+        d = np.abs(got[key] - v)
+        worst[key] = float(d.max())
+        excess[key] = float((d - atol - rtol * np.abs(v)).max())
+    say('DBM 2-rank fit vs the one-process fit (kernels), sampling off: '
+        'max|d| %s' % ' '.join('%s=%.3g' % (k.split('/')[-1], v)
+                               for k, v in worst.items()))
+    if any(e > 0 for e in excess.values()):
+        raise AssertionError('the 2-rank DBM fit and the one-process fit '
+                             'disagree: %s' % excess)
+    out['err'] = worst['weights/W_0']
+
+    # (b) one rank, NCCL
+    info = parallel.initialize('file://' + tmpdir + '/store_dbm_w1', 1, 0)
+    try:
+        say('one-rank NCCL group: %s' % json.dumps(info))
+        state = dbm_init(torch, X)
+        Xb = torch.as_tensor(X[:MESH_NB * DBM_B].reshape(
+            MESH_NB, DBM_B, DBM_SIZES[0]), device='cuda')
+        cfg = dbm_config(False)
+        group = parallel.make_mesh().group
+
+        def reduce(op):
+            return lambda t: dist.all_reduce(t, op=op, group=group)
+
+        def mesh_epoch():
+            return dbm_ops.dbm_mesh_epoch(
+                cfg, state, Xb, DBM_LR, DBM_MOM, 7, 0, DBM_B, DBM_M,
+                reduce(dist.ReduceOp.SUM), reduce(dist.ReduceOp.MAX))
+
+        def kernels():
+            return dbm_ops.dbm_epoch(cfg, state, Xb, DBM_LR, DBM_MOM, 7, 0)
+        got, sq, n_mf = mesh_epoch()
+        want = kernels()
+        torch.cuda.synchronize()
+        d = dbm_diffs((got, sq / (DBM_B * DBM_SIZES[0]), n_mf), want)
+        say('one-rank NCCL mesh epoch vs the DBM kernels, 784-512-1024, %d '
+            'steps, sampling off: max|d| %s' % (MESH_NB, ' '.join(
+                '%s=%.3g' % (k, v[0]) for k, v in d.items())))
+        if any(v[1] > 0 for v in d.values()):
+            raise AssertionError('one-rank mesh epoch and the DBM kernels '
+                                 'disagree: %s' % d)
+        times = {'mesh': [], 'kernels': []}
+        for which in ('kernels', 'mesh', 'kernels', 'mesh', 'mesh',
+                      'kernels'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (mesh_epoch if which == 'mesh' else kernels)()
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        out['world1_ms'] = {k: 1e3 * min(ts[1:]) / MESH_NB
+                            for k, ts in times.items()}
+        out['world1_err'] = d['W'][0]
+        say('one-rank NCCL DBM step, sampling off: mesh %.4f ms, kernels '
+            '%.4f ms' % (out['world1_ms']['mesh'],
+                         out['world1_ms']['kernels']))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def profiler_trace(torch, tmpdir):
+    """Phase 27: utils/profiler.trace around one DBM step on the kernels
+    (784-512-1024, B = M = 100): the trace file it writes names
+    dbm_gemm_act's device kernel; StepTimer times the step."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    from boltzmann_machines_tpu_torch.utils import profiler
+    X_all = make_data(DBM_B, seed=27)
+    X = torch.as_tensor(X_all[None], device='cuda')
+    state = dbm_init(torch, X_all)
+    cfg = dbm_config(True)
+    dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 3, 0)  # warm-up
+    timer = profiler.StepTimer()
+    logdir = tmpdir + '/prof'
+    with profiler.trace(logdir, name='dbm_step'):
+        with profiler.annotate('dbm_step'):
+            timer.start()
+            rows = dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 3, 0)
+            timer.stop(sync_value=rows[1])
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    with open(files[0]) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    named = [e for e in kernels if 'dbm_gemm_act' in e.get('name', '')]
+    say('profiler.trace: %s, %d bytes, %d kernel events, %d of '
+        'dbm_gemm_act (%.1f us of device time), the annotated step %.3f ms '
+        'by StepTimer' % (os.path.basename(files[0]),
+                          os.path.getsize(files[0]), len(kernels),
+                          len(named), sum(e.get('dur', 0.) for e in named),
+                          1e3 * timer.mean()))
+    if len(files) != 1 or not named or \
+            not any(e.get('name') == 'dbm_step' for e in events):
+        raise AssertionError('the profiler trace names no dbm_gemm_act '
+                             'kernel or no annotation')
+    return {'kernel_events': len(kernels), 'dbm_gemm_act_events': len(named),
+            'step_ms': 1e3 * timer.mean()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4908,8 +5392,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmpdir:
         dbm_launches, dbm = dbm_mnist_path(torch, tmpdir)
         dbm_err['ais'] = max(dbm_err['ais'], ais_trained_vs_plain(torch, dbm))
-        ais_vs_bruteforce(torch, tmpdir)
-    del dbm
+        small, exact = ais_vs_bruteforce(torch, tmpdir)
+        opt = ais_options_vs_plain(torch, dbm._state.as_dict(), small, exact)
+    del dbm, small
     td = dbm_timings(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         g_launches, m_launches = cifar_naive_path(torch, tmpdir)
@@ -4927,8 +5412,31 @@ def main():
     crs = cifar_rbm_shapes(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         cex = cifar_examples_path(torch, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        mesh = dbm_mesh_path(torch, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        prof = profiler_trace(torch, tmpdir)
     say(json.dumps({'gbm_dbm': {label: dict(gbm[label], **tg[label])
                                 for label in gbm}}))
+    # the DBM mesh path's launches, both ranks: the samplers' draws of its
+    # sampled fit, the DBM kernels of its remainder steps, sample_v, log_Z
+    mesh_sum = {key: {} for key in ('samplers', 'dbm_epoch', 'sample_v',
+                                    'log_Z')}
+    for rk in mesh['ranks']:
+        for key, counts in (('samplers', rk['on']['samplers']),
+                            ('dbm_epoch', rk['on']['dbm_epoch']),
+                            ('dbm_epoch', rk['off']['dbm_epoch']),
+                            ('sample_v', rk['sample_v']),
+                            ('log_Z', rk['log_Z'])):
+            for k, v in counts.items():
+                mesh_sum[key][k] = mesh_sum[key].get(k, 0) + v
+
+    def add(*counts):
+        out = {}
+        for c in counts:
+            for k, v in c.items():
+                out[k] = out.get(k, 0) + v
+        return out
     # the standalone samplers' launches on this slice's main path: the
     # G-B-M DBM's sampled sweeps in the two CIFAR scripts
     gbm_launches = {name: sum(r['launches']['samplers'][name]
@@ -5032,26 +5540,48 @@ def main():
               cd_gemm_act_shapes=shapes('rbm_mnist_h', 'rbm_mnist_v'),
               cd_assoc_update_shapes=assoc('rbm_mnist')),
         # per minibatch step at B = M = 100, n_mf 50, sampling on
-        entry('dbm_epoch', 'dbm_ops.cu', dbm_launches['dbm_epoch'],
+        entry('dbm_epoch', 'dbm_ops.cu',
+              add(dbm_launches['dbm_epoch'], mesh_sum['dbm_epoch']),
               dbm_err['dbm_epoch'], td[('dbm_epoch', True, 'kernel')],
               td[('dbm_epoch', True, 'plain')],
               dbm_step_work(*DBM_SIZES, DBM_B, DBM_M, 50),
               dbm_gemm_act_library_ms=td['matmul_ms'],
               dbm_gemm_act_shapes=shapes(*dbm_step_shapes),
-              dbm_assoc_update_shapes=assoc('dbm_w0', 'dbm_w1')),
+              dbm_assoc_update_shapes=assoc('dbm_w0', 'dbm_w1'),
+              launches_per_path={'dbm_mnist': dbm_launches['dbm_epoch'],
+                                 'mesh_remainder_steps':
+                                     mesh_sum['dbm_epoch']},
+              mesh=dict(ms_per_step=[rk['ms_per_step']
+                                     for rk in mesh['ranks']],
+                        collectives_ms=[rk['collectives_ms']
+                                        for rk in mesh['ranks']],
+                        fit_max_abs_err=mesh['err'],
+                        world1_ms=mesh['world1_ms'],
+                        world1_max_abs_err=mesh['world1_err']),
+              profiler_trace=prof),
         # per Gibbs sweep of 100 particles, sampling on
-        entry('dbm_sample', 'dbm_ops.cu', dbm_launches['dbm_sample'],
+        entry('dbm_sample', 'dbm_ops.cu',
+              add(dbm_launches['dbm_sample'], mesh_sum['sample_v']),
               dbm_err['dbm_sample'], td[('dbm_sample', True, 'kernel')],
               td[('dbm_sample', True, 'plain')],
               dbm_sweep_work(*DBM_SIZES, DBM_M),
-              dbm_gemm_act_shapes=shapes(*dbm_step_shapes[3:])),
+              dbm_gemm_act_shapes=shapes(*dbm_step_shapes[3:]),
+              launches_per_path={'dbm_mnist': dbm_launches['dbm_sample'],
+                                 'mesh_sample_v': mesh_sum['sample_v']}),
         # per beta of 100 runs with k = 5; the plain version with sampling
         # off (its Philox emulation would dominate)
-        entry('ais', 'dbm_ops.cu', dbm_launches['ais'], dbm_err['ais'],
+        entry('ais', 'dbm_ops.cu',
+              add(dbm_launches['ais'], opt['launches'], mesh_sum['log_Z']),
+              max([dbm_err['ais']] + list(opt['err'].values())),
               td[('ais', True, 'kernel')], td[('ais', False, 'plain')],
               ais_beta_work(*DBM_SIZES, 100, 5), plain_sampling='off',
               dbm_gemm_act_shapes=shapes('ais_v', 'ais_h2', 'ais_h1',
-                                         'ais_lp_v', 'ais_lp_h2')),
+                                         'ais_lp_v', 'ais_lp_h2'),
+              launches_per_path={'dbm_mnist': dbm_launches['ais'],
+                                 'log_Z_options_6_5_4': opt['launches'],
+                                 'mesh_log_Z': mesh_sum['log_Z']},
+              options_ms_per_beta=opt['ms_per_beta'],
+              options_max_abs_err=opt['err'], bdmc_6_5_4=opt['bdmc']),
         # per G-RBM step, 3072 x 5000, B = 100, k = 1, states sampled;
         # launches from the dbm_cifar_naive G-RBM fit
         entry('cd_epoch_gaussian', 'cd_epoch.cu', g_launches,
@@ -5138,11 +5668,16 @@ def main():
         # per shape; `path_launches` the stats kernels' cd_gemm_act launches
         # that carry its body (the Bernoulli hidden draws) on the 2-rank fit
         entry('bernoulli_sample', 'cd_epoch.cu',
-              gbm_launches['bernoulli_sample'], bern['err'],
+              gbm_launches['bernoulli_sample'] +
+              mesh_sum['samplers']['bernoulli_sample'], bern['err'],
               bern['ms'], bern['plain_ms'], bern['work'], bern['library_ms'],
               standalone_launches=bern['launches'], gbm_dbm_path=gbm_path,
               path_launches={'cd_gemm_act': sum(r['cd_gemm_act']
                                                 for r in dp_stats)},
+              launches_per_path={
+                  'gbm_dbm': gbm_launches['bernoulli_sample'],
+                  'dbm_mesh_sampled_fit':
+                      mesh_sum['samplers']['bernoulli_sample']},
               shape=[CIFAR_B, GRBM_WIDE[1]], ms_10x1024=bern['small_ms'],
               device_ms=bern['device_ms'],
               library_device_ms=bern['library_device_ms'],
@@ -5213,6 +5748,31 @@ def cifar_phases_only():
     return 0
 
 
+def dbm_phases_only():
+    """``python3 chip_smoke.py --dbm-phases``: phases 25-27 alone, after the
+    environment, the build and phase 8's 6-5-4 DBM (phase 25 on a DBM state
+    made from a seed instead of phase 7's trained one), with one JSON line
+    of their numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke: no CUDA device\n')
+        return 1
+    card = environment(torch)
+    build()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        small, exact = ais_vs_bruteforce(torch, tmpdir)
+        state = dbm_init(torch, make_data(DBM_M, seed=25))
+        opt = ais_options_vs_plain(torch, state, small, exact)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        mesh = dbm_mesh_path(torch, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        prof = profiler_trace(torch, tmpdir)
+    say(card)
+    say(json.dumps({'ais_options': opt, 'dbm_mesh': mesh,
+                    'profiler_trace': prof}))
+    return 0
+
+
 def kernel_times_only():
     """``python3 chip_smoke.py --kernel-times``: phase 18 alone, after the
     environment and the build, with one JSON line of its numbers -- so that
@@ -5235,6 +5795,9 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--dp-rank']:
         rank, world, tmpdir = sys.argv[2:]
         sys.exit(dp_rank(int(rank), int(world), tmpdir))
+    if sys.argv[1:2] == ['--dbm-rank']:
+        rank, world, tmpdir = sys.argv[2:]
+        sys.exit(dbm_rank(int(rank), int(world), tmpdir))
     if sys.argv[1:2] == ['--example']:
         sys.exit(example_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
@@ -5242,5 +5805,6 @@ if __name__ == '__main__':
               '--sampler-readings': sampler_readings,
               '--pll-readings': pll_readings,
               '--kernel-times': kernel_times_only,
-              '--cifar-phases': cifar_phases_only}
+              '--cifar-phases': cifar_phases_only,
+              '--dbm-phases': dbm_phases_only}
              .get(' '.join(sys.argv[1:]), main)())

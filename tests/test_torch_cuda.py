@@ -757,6 +757,126 @@ def test_ais_fused_update_edges(cuda, sizes, R, n_betas, k):
     assert torch.equal(got, again)
 
 
+def ais_options(sizes, option, dev):
+    """The ladder (AISConfig.ladder) and base rate of a log_Z option at 50
+    betas."""
+    from boltzmann_machines_tpu_torch.dbm import make_beta_schedule
+    ladder = tuple(make_beta_schedule(50, 'adaptive')) \
+        if option in ('adaptive', 'both') else None
+    b0 = None
+    if option in ('base_rate', 'both'):
+        rng = np.random.RandomState(4)
+        b0 = torch.as_tensor((rng.randn(sizes[1]) * 0.5).astype(np.float32),
+                             device=dev)
+    return ladder, b0
+
+
+@pytest.mark.parametrize('sizes,R', [((24, 16, 12), 8), ((70, 37, 65), 13)])
+@pytest.mark.parametrize('option', ['adaptive', 'base_rate', 'both'])
+@pytest.mark.parametrize('sample', [False, True])
+def test_ais_options_kernel_matches_plain_version(cuda, sizes, R, option,
+                                                  sample):
+    """log_Z's options on the AIS kernels: the adaptive ladder (the host
+    sets each launch's betas) and the base rate (the h1 launches' second
+    bias (1 - beta) b0, (1 - beta) x.b0 in the log-weight update) against
+    the plain version, the same Philox draws: log-weights within the atol
+    2e-3 of test_ais_kernel_matches_plain_version, 3k + 2 launches a beta
+    and one ais_logw, a rerun the same bits."""
+    _, state = make_dbm_inputs(sizes, 4, 4, 1, cuda, seed=3)
+    ladder, b0 = ais_options(sizes, option, cuda)
+    cfg = dbm_ops.AISConfig(*sizes, 50, 2, sample, sample, sample, ladder)
+    x0 = (torch.rand((R, sizes[1]), device=cuda) < 0.5).float()
+    dbm_ops.reset_launches()
+    got = dbm_ops.ais(cfg, state, 5, x0, b0)
+    assert dbm_ops.ais.launches == {'dbm_gemm_act': 50 * (3 * 2 + 2),
+                                    'ais_logw': 1}
+    again = dbm_ops.ais(cfg, state, 5, x0, b0)
+    want = dbm_ops.ais_reference(cfg, state, 5, x0, b0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('sizes,R', AIS_EDGE_SHAPES)
+@pytest.mark.parametrize('k', [0, 1, 2])
+@pytest.mark.parametrize('option', ['linear', 'both'])
+def test_reverse_ais_kernel_matches_plain_version(cuda, sizes, R, k, option):
+    """The reverse run of BDMC on the AIS kernels: each step's softplus pair
+    before its transition, the pair's update riding on the transition's
+    first launch (no ais_logw) or, at k = 0, on the next step's pair (one
+    ais_logw for the last step).  Sampling on at k = 2; log-weights within
+    atol 2e-3 of the plain version; 3k + 2 launches a step."""
+    _, state = make_dbm_inputs(sizes, 4, 4, 1, cuda, seed=3)
+    ladder, b0 = ais_options(sizes, option, cuda)
+    sample = k == 2
+    cfg = dbm_ops.AISConfig(*sizes, 50, k, sample, sample, sample, ladder)
+    x0 = (torch.rand((R, sizes[1]), device=cuda) < 0.5).float()
+    dbm_ops.reset_launches()
+    got = dbm_ops.reverse_ais(cfg, state, 9, x0, b0)
+    assert dbm_ops.ais.launches == {'dbm_gemm_act': 50 * (3 * k + 2),
+                                    'ais_logw': int(k == 0)}
+    want = dbm_ops.reverse_ais_reference(cfg, state, 9, x0, b0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize('sample', [False, True])
+def test_ais_burn_in_kernel_matches_plain_version(cuda, sample):
+    """The BDMC start's burn-in: 20 transition steps at beta = 1 on the
+    AIS kernels (60 launches) against the plain version, the same Philox
+    draws: states within 1e-5."""
+    sizes = (70, 37, 65)
+    _, state = make_dbm_inputs(sizes, 4, 4, 1, cuda, seed=3)
+    cfg = dbm_ops.AISConfig(*sizes, 1, 1, sample, sample, sample)
+    x0 = (torch.rand((13, sizes[1]), device=cuda) < 0.5).float()
+    dbm_ops.reset_launches()
+    got = dbm_ops.ais_burn_in(cfg, state, 11, x0, 20)
+    assert dbm_ops.ais.launches == {'dbm_gemm_act': 60, 'ais_logw': 0}
+    want = dbm_ops.ais_burn_in_reference(cfg, state, 11, x0, 20)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize('sample', [False, True])
+def test_dbm_mesh_step_one_rank_nccl(cuda, tmp_path, sample):
+    """The DBM mesh epoch driven directly on a one-rank NCCL group (the
+    plain program on the card, its draws by the sampler kernels, the
+    change's MAX and the sums' SUM all_reduce) against the single-device
+    DBM kernels, sampling off: the state within assert_dbm_state_close,
+    msre within 1e-6, the n_mf rows equal.  Sampling on: one
+    bernoulli_sample launch a sampled layer a sweep, a finite state."""
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import parallel
+    from boltzmann_machines_tpu_torch.ops import samplers
+    sizes, B, M = (24, 16, 12), 8, 8
+    X, state = make_dbm_inputs(sizes, B, M, 3, cuda)
+    cfg = dbm_config(sizes, 2, 50, 1e-4, sample)
+    parallel.initialize('file://' + str(tmp_path) + '/store', 1, 0)
+    try:
+        group = parallel.make_mesh().group
+
+        def reduce(op):
+            return lambda t: dist.all_reduce(t, op=op, group=group)
+        samplers.reset_launches()
+        got, sq, n_mf = dbm_ops.dbm_mesh_epoch(
+            cfg, state, X, 0.05, 0.5, 3, 10, B, M,
+            reduce(dist.ReduceOp.SUM), reduce(dist.ReduceOp.MAX))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    if sample:
+        assert samplers.bernoulli_sample.launches == {
+            'bernoulli_sample': 3 * 2 * 3}
+        assert all(bool(torch.isfinite(t).all()) for t in got['W'])
+        return
+    want = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 10)
+    torch.cuda.synchronize()
+    assert_dbm_state_close(got, want[0], B, M)
+    torch.testing.assert_close(sq / (B * sizes[0]), want[1], rtol=0,
+                               atol=1e-6)
+    assert torch.equal(n_mf, want[2])
+
+
 def test_dbm_wrappers_reject_bad_inputs(cuda):
     sizes = (24, 16, 12)
     X, state = make_dbm_inputs(sizes, 8, 8, 2, cuda)

@@ -229,11 +229,19 @@ def test_max_norm_constraint(data, tmp_path):
 
 
 def test_unported_options_raise(trained, data, tmp_path):
+    """log_Z's options, once unported, return finite results (their
+    agreement with the JAX package and with brute force is in
+    tests/test_torch_ais_options.py)."""
     dbm, _ = trained
     for kw in (dict(beta_schedule='adaptive'), dict(base_rate='hidden_bias'),
                dict(bdmc=True)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            dbm.log_Z(n_betas=10, n_runs=8, **kw)
+        log_mean, bounds, values = dbm.log_Z(n_betas=10, n_runs=8, **kw)
+        assert np.isfinite(log_mean) and np.isfinite(bounds[1])
+        if kw.get('bdmc'):
+            assert np.isfinite(bounds[0]) and values['reverse'].shape == (8,)
+            assert np.all(np.isfinite(values['reverse']))
+        else:
+            assert values.shape == (8,) and np.all(np.isfinite(values))
     tmp = str(tmp_path) + '/'
     # image summaries are ported: asking for them no longer raises
     d = make_dbm(pretrain_rbms(data, tmp), tmp, display_particles=2,

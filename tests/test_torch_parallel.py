@@ -196,7 +196,8 @@ def test_world1_epoch_equals_generic_epoch(tmp_path, one_rank):
 
 def test_mesh_helpers_on_one_rank(one_rank):
     """make_mesh / shard_batch / replicate over one rank; the parts that
-    are not ported raise, naming their ROADMAP item."""
+    are not ported raise, naming their ROADMAP item; DBM.set_mesh returns
+    the model."""
     assert one_rank.rank == 0 and one_rank.size == 1
     assert one_rank.axis_names == ('data',)
     X = torch.arange(12.).reshape(6, 2)
@@ -209,8 +210,9 @@ def test_mesh_helpers_on_one_rank(one_rank):
     rbm = BernoulliRBM(n_visible=4, n_hidden=2, device='cpu')
     with pytest.raises(NotImplementedError, match='A8'):
         rbm.set_mesh(one_rank, model_axis='model')
-    with pytest.raises(NotImplementedError, match='A7'):
-        DBM(rbms=[rbm], device='cpu').set_mesh(one_rank)
+    # the DBM mesh is ported (tests/test_torch_dbm_parallel.py)
+    dbm = DBM(rbms=[rbm], device='cpu')
+    assert dbm.set_mesh(one_rank) is dbm and dbm._mesh is one_rank
 
 
 def test_initialize_single_process_gloo(tmp_path):
