@@ -5,7 +5,8 @@ held against; this one imports neither JAX nor that package.  Its slices so
 far are the Bernoulli, Gaussian and multinomial RBMs trained by CD-k and
 the all-Bernoulli DBM trained by PCD with mean-field, with its sampler and
 AIS log Z, and the RBMs' data-parallel epoch on ``torch.distributed``
-(``parallel``): on a CUDA device they run in hand-written kernels
+(``parallel``; with a (data, model) mesh also tensor-parallel W, its hidden
+columns split over the model axis): on a CUDA device they run in hand-written kernels
 (``csrc/cd_epoch.cu`` and ``csrc/dbm_ops.cu``, built with nvcc on first
 use), on the CPU -- asked for with ``device='cpu'`` -- in plain PyTorch.
 DBMs with Gaussian or multinomial layers (the CIFAR pipelines'

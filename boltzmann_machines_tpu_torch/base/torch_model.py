@@ -193,14 +193,17 @@ class TorchModel(BaseModel, DtypeMixin):
 
     def _writes_files(self):
         """Whether this process writes checkpoints and summaries (all but
-        rank 0 of a data-parallel mesh stay silent)."""
+        rank 0 of a mesh stay silent)."""
         return True
 
     def _save_model(self):
-        if not self._writes_files():
-            return
-        params, rng_state = self._checkpoint_payload()
-        self._write_checkpoint(params, rng_state, self._get_state_arrays())
+        # the state's arrays first, on every rank: on a mesh whose ranks
+        # hold parts of the state (a DBM's particles, a tensor-parallel W)
+        # they are gathered by a collective; one rank writes
+        arrays = self._get_state_arrays()
+        if self._writes_files():
+            params, rng_state = self._checkpoint_payload()
+            self._write_checkpoint(params, rng_state, arrays)
 
     @classmethod
     def load_model(cls, model_path, device=None):

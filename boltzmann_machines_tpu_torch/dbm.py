@@ -38,7 +38,13 @@ The counterpart of the JAX package's ``dbm.py``:
   update (``ops/dbm_ops.dbm_mesh_epoch``; its draws by the standalone
   samplers, keyed with the rank).  ``sample_v`` and ``log_Z`` run the
   ranks' rows and gather them; checkpoints hold the gathered chains, and
-  only rank 0 writes.
+  only the mesh's rank 0 writes.  On a 2-D ('data', 'model') mesh the DBM
+  trains data-parallel over the data axis and the model axis's ranks
+  repeat the same work, as JAX's shard_map over such a mesh does; its W
+  stays whole (JAX ``DBM.set_mesh`` takes no model axis).  Built from
+  tensor-parallel RBMs it takes their gathered weights (``load_rbms``
+  reads ``get_params_arrays``, a collective that every rank calls); a W
+  that is a column block in its state is refused.
 
 ``log_Z`` (the linear or ``adaptive`` ladder, a ``base_rate``, BDMC) and
 ``log_proba`` take all-Bernoulli 2-layer DBMs, as the JAX package's do; on
@@ -319,13 +325,6 @@ class DBM(EnergyBasedModel):
                                                 self._torch_dtype)
         self._sharded = False
 
-    def _save_model(self):
-        # the gather of a mesh's particles runs on every rank; rank 0 writes
-        arrays = self._get_state_arrays()
-        if self._writes_files():
-            params, rng_state = self._checkpoint_payload()
-            self._write_checkpoint(params, rng_state, arrays)
-
     # ================================================================== #
     # device programs                                                     #
     # ================================================================== #
@@ -334,15 +333,31 @@ class DBM(EnergyBasedModel):
         dbm.py:313-328): minibatch rows, persistent particles and AIS runs
         are split over its ranks along `data_axis`, the statistics summed by
         all_reduce; returns the model."""
-        if data_axis not in mesh.axis_names:
-            raise ValueError('the mesh has no axis {0!r}'.format(data_axis))
+        if data_axis != mesh.axis_names[0]:
+            raise ValueError('the mesh has no axis {0!r} (its data axis is '
+                             '{1!r})'.format(data_axis, mesh.axis_names[0]))
         self._unshard()
         self._mesh = mesh
         return self
 
     def _writes_files(self):
-        """Rank 0 of a mesh alone writes checkpoints and summaries."""
-        return self._mesh is None or self._mesh.rank == 0
+        """The mesh's rank 0 alone writes checkpoints and summaries."""
+        return self._mesh is None or self._mesh.global_rank == 0
+
+    def _check_whole_weights(self):
+        """Refuse a state whose W is not whole: the port has no sharded
+        tensor, so a column block of a tensor-parallel W (where JAX routes
+        a hand-sharded W to its GSPMD epoch, dbm.py:620-647) would train
+        silently as a smaller model."""
+        sizes = self._layer_sizes()
+        for i, W in enumerate(self._state.as_dict()['W']):
+            want = (sizes[i], sizes[i + 1])
+            if tuple(W.shape) != want:
+                raise ValueError(
+                    'W_{0} has shape {1}, the DBM\'s layers need {2}: a '
+                    'column block of a tensor-parallel W? The DBM takes '
+                    'whole weights (get_params_arrays gathers them)'.format(
+                        i, tuple(W.shape), want))
 
     def _shardmap_eligible(self):
         """Mesh training runs the data-parallel epoch (per-rank rows of the
@@ -609,6 +624,7 @@ class DBM(EnergyBasedModel):
         return rows
 
     def _fit(self, X, X_val=None, *args, **kwargs):
+        self._check_whole_weights()
         self._fit_seed = self.make_random_seed()
         if self._mesh is not None:
             # every rank starts from rank 0's state (the chains whole) and

@@ -5,8 +5,39 @@ Each layer object is a small config (unit count + distribution params); all
 math is plain tensor code on whatever device the inputs live on.
 """
 
+from collections import namedtuple
+
 import numpy as np
 import torch
+
+
+class Block(namedtuple('Block', 'batch rows width cols')):
+    """Where a rank's block of a tensor lies in the one-process tensor:
+    rows `rows` (a slice, or None for all) of `batch`, columns `cols` (a
+    slice, or None for all) of `width` -- the rows of a data-parallel rank,
+    the hidden columns of a tensor-parallel one."""
+
+
+def draw(fn, generator, shape, like, block=None):
+    """`fn` (``torch.rand`` or ``torch.randn``) of `shape` from `generator`,
+    in the dtype and on the device of `like`.  With a `block`, the
+    one-process draw of its whole batch and width, of which the block's
+    rows and columns are kept: ranks that hold blocks of one tensor then
+    draw the one-process stream, each its own part of it."""
+    full = list(shape)
+    if block is not None:
+        if block.rows is not None:
+            full[0] = block.batch
+        if block.cols is not None:
+            full[-1] = block.width
+    t = fn(tuple(full), generator=generator, dtype=like.dtype,
+           device=like.device)
+    if block is not None:
+        if block.rows is not None:
+            t = t[block.rows]
+        if block.cols is not None:
+            t = t[..., block.cols]
+    return t
 
 
 class BaseLayer(object):
@@ -24,8 +55,9 @@ class BaseLayer(object):
         """Mean activation given total input `x` (excluding bias) and bias."""
         raise NotImplementedError
 
-    def sample(self, generator, means):
-        """Draw states from the conditional distribution with these means."""
+    def sample(self, generator, means, block=None):
+        """Draw states from the conditional distribution with these means
+        (a `block` of the one-process tensor: see ``draw``)."""
         raise NotImplementedError
 
     # serialization hooks so a DBM checkpoint can rebuild its layers
@@ -54,9 +86,8 @@ class BernoulliLayer(BaseLayer):
     def activation(self, x, b):
         return torch.sigmoid(x + b)
 
-    def sample(self, generator, means):
-        u = torch.rand(means.shape, generator=generator, dtype=means.dtype,
-                       device=means.device)
+    def sample(self, generator, means, block=None):
+        u = draw(torch.rand, generator, means.shape, means, block)
         return (u < means).to(means.dtype)
 
 
@@ -80,13 +111,16 @@ class MultinomialLayer(BaseLayer):
     def activation(self, x, b):
         return float(self.n_samples) * torch.softmax(x + b, dim=-1)
 
-    def sample(self, generator, means):
+    def sample(self, generator, means, block=None):
+        """A row's draw spans all its units: `block` may split rows, not
+        columns."""
+        if block is not None and block.cols is not None:
+            raise ValueError('a multinomial unit draws whole rows')
         probs = means / torch.sum(means, dim=-1, keepdim=True)
         cdf = torch.cumsum(probs, dim=-1)
         cdf[..., -1] = float('inf')
-        u = torch.rand(means.shape[:-1] + (self.n_samples,),
-                       generator=generator, dtype=means.dtype,
-                       device=means.device)
+        u = draw(torch.rand, generator, means.shape[:-1] + (self.n_samples,),
+                 means, block)
         pos = torch.sum(u[..., None, :] < cdf[..., :, None], dim=-1)
         counts = torch.diff(pos, dim=-1, prepend=torch.zeros_like(pos[..., :1]))
         return counts.to(means.dtype)
@@ -116,9 +150,8 @@ class GaussianLayer(BaseLayer):
     def activation(self, x, b):
         return x * self._sigma(x) + b
 
-    def sample(self, generator, means):
-        eps = torch.randn(means.shape, generator=generator, dtype=means.dtype,
-                          device=means.device)
+    def sample(self, generator, means, block=None):
+        eps = draw(torch.randn, generator, means.shape, means, block)
         return means + eps * self._sigma(means)
 
     def get_config(self):

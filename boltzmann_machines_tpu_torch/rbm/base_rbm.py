@@ -17,8 +17,18 @@ The counterpart of the JAX package's ``rbm/base_rbm.py``:
   each rank trains on its rows of every minibatch: the CD-k sums of its
   rows (the stats kernels of ``ops/cd_stats.py`` on CUDA, else the generic
   body), one ``all_reduce`` of them per step, and the same update on every
-  rank -- the JAX package's shard_map epoch.  Only rank 0 writes
+  rank -- the JAX package's shard_map epoch.  Only the mesh's rank 0 writes
   checkpoints, summaries and the verbose lines;
+* with a model axis (``set_mesh(make_mesh(shape=(D, M)),
+  model_axis='model')``) W's hidden columns, with hb, dW, dhb and q_means,
+  are split over the M ranks of the axis (``parallel.column_blocks``) --
+  the JAX package's tensor-parallel W, which it trains on its GSPMD epoch.
+  Here the generic body runs on this rank's rows and columns with explicit
+  collectives (``_train_epoch_tensor_parallel``); every rank draws the
+  one-process stream and keeps its block of each draw, so the fit is the
+  one-process generic fit.  ``get_params_arrays``, checkpoints,
+  ``transform`` and the summaries gather the columns: collectives that
+  every rank of the mesh calls;
 * randomness: each ``fit`` draws one op seed from the persisted host RNG
   (on a mesh, rank 0's, with its state broadcast to every rank); per-epoch
   seeds derive from it, seeding a ``torch.Generator`` (generic path) or
@@ -45,10 +55,11 @@ from ..base.mixin import make_generator
 from ..base.torch_model import device_histogram, to_host
 from ..convert import RBMState, state_from_jax_arrays, state_to_numpy
 from ..ebm import EnergyBasedModel
-from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
+from ..layers import (Block, BernoulliLayer, GaussianLayer,
+                      MultinomialLayer, draw)
 from ..ops.cd_epoch import make_cd_epoch_kernel, pll_flip_index
 from ..ops.cd_stats import make_cd_stats_kernel, split_stats
-from ..parallel.mesh import replicate
+from ..parallel.mesh import all_gather_columns, column_block, replicate
 from ..utils import (make_list_from, epoch_iter, schedule_value,
                      write_during_training)
 from ..utils.testing import assert_len, assert_shape
@@ -60,6 +71,10 @@ _VAL_SALT = 100000
 _FEG_SALT = 200000
 _SHARD_SALT = 300000
 _HIDDEN_SALT = 400000
+
+# the state tensors whose last dimension is the hidden units: a
+# tensor-parallel rank holds its block of their columns
+_COLUMN_KEYS = ('W', 'dW', 'hb', 'dhb', 'q_means')
 
 
 def derive_seed(seed, salt):
@@ -198,6 +213,8 @@ class BaseRBM(EnergyBasedModel):
         self._state = None
         # data-parallel mesh (parallel.make_mesh()), None for one device
         self._mesh = None
+        # this rank's hidden columns (a slice) on a tensor-parallel mesh
+        self._tp = None
         # cache of built epoch programs, invalidated when hyperparams change
         self._programs = {}
 
@@ -246,39 +263,98 @@ class BaseRBM(EnergyBasedModel):
             'dhb': acc(self._dhb_init, (H,)),
             'q_means': torch.zeros((H,), dtype=dtype, device=dev),
         })
+        self._keep_columns()
 
     def _ensure_state(self):
         if self._state is None:
             self._init_state()
 
     def _get_state_arrays(self):
+        """The state's arrays, the columns whole (gathered on a
+        tensor-parallel mesh: every rank must call this then)."""
         self._ensure_state()
-        return state_to_numpy(self._state)
+        return state_to_numpy(self._whole_state())
 
     def _set_state_arrays(self, arrays):
         self._state = state_from_jax_arrays(arrays, self._device,
                                             self._torch_dtype)
+        self._keep_columns()
+
+    def _keep_columns(self):
+        """On a tensor-parallel mesh, cut the (whole) state to this rank's
+        columns."""
+        if self._tp is not None:
+            self._state.update({
+                k: v[..., self._tp].contiguous() if k in _COLUMN_KEYS else v
+                for k, v in self._state.as_dict().items()})
+
+    def _whole_state(self):
+        """The state dict with the columns whole (gathered over the model
+        axis: a collective on a tensor-parallel mesh)."""
+        state = self._state.as_dict()
+        if self._tp is None:
+            return state
+        return {k: all_gather_columns(self._mesh, v, self.n_hidden)
+                if k in _COLUMN_KEYS else v for k, v in state.items()}
 
     def set_params(self, **params):
         self._programs = {}  # hyperparams may have changed -> rebuild
         return super(BaseRBM, self).set_params(**params)
 
     def set_mesh(self, mesh, data_axis='data', model_axis=None):
-        """Attach a data-parallel mesh (``parallel.make_mesh()``): training
-        batches are split over its ranks along `data_axis`, their CD
-        statistics summed by ``all_reduce``.  A `model_axis` (tensor-parallel
-        W) is not ported."""
+        """Attach a mesh (``parallel.make_mesh()``): training batches are
+        split over its ranks along `data_axis`, their CD statistics summed
+        by ``all_reduce``.  With `model_axis`, W's hidden columns (and hb,
+        dW, dhb and q_means) are split over that axis's ranks and the state
+        is cut to this rank's block now; vb and dvb stay whole (JAX
+        base_rbm.py:261-281).  Returns the model."""
+        names = tuple(mesh.axis_names)
+        if data_axis != names[0]:
+            raise ValueError('the mesh has no axis {0!r} (its data axis is '
+                             '{1!r})'.format(data_axis, names[0]))
+        if model_axis is not None and names[1:] != (model_axis,):
+            raise ValueError('the mesh has no axis {0!r} (its axes are {1})'
+                             .format(model_axis, names))
         if model_axis is not None:
-            raise NotImplementedError('model_axis: tensor-parallel W is not '
-                                      'ported yet (ROADMAP.md Queue A8)')
-        if data_axis not in mesh.axis_names:
-            raise ValueError('the mesh has no axis {0!r}'.format(data_axis))
+            self._ensure_state()
+        # a state split by an earlier mesh is gathered first
+        whole = self._whole_state() if self._state is not None else None
         self._mesh = mesh
+        self._tp = slice(*column_block(mesh, self.n_hidden)) \
+            if model_axis is not None else None
+        if whole is not None:
+            self._state.update(whole)
+            self._keep_columns()
         self._programs = {}
         return self
 
     def _writes_files(self):
-        return self._mesh is None or self._mesh.rank == 0
+        """The mesh's rank 0 alone writes checkpoints and summaries."""
+        return self._mesh is None or self._mesh.global_rank == 0
+
+    # ------------------- tensor-parallel collectives -------------------- #
+    def _model_sum(self, t):
+        """`t` summed over the model axis, in place (a tensor-parallel
+        rank's partial sum over its hidden columns); `t` elsewhere."""
+        if self._tp is not None and self._mesh.model_size > 1:
+            import torch.distributed as dist
+            dist.all_reduce(t, group=self._mesh.model_group)
+        return t
+
+    def _data_sum(self, t):
+        """`t` summed over the data axis, in place (a rank's partial sum
+        over its rows of the batch)."""
+        if self._mesh.size > 1:
+            import torch.distributed as dist
+            dist.all_reduce(t, group=self._mesh.group)
+        return t
+
+    def _local_columns(self, t):
+        return t if self._tp is None else t[..., self._tp]
+
+    def _whole_columns(self, t):
+        return t if self._tp is None else \
+            all_gather_columns(self._mesh, t, self.n_hidden)
 
     # ================================================================== #
     # pure ops (the generic path)                                         #
@@ -294,14 +370,40 @@ class BaseRBM(EnergyBasedModel):
     def _means_h_given_v(self, state, v):
         m = self._propup_multiplier
         x = m * (v @ state['W'])
+        if self._tp is not None and isinstance(self._h_layer,
+                                               MultinomialLayer):
+            # the softmax spans the whole row: the layer runs at full width
+            # on the gathered inputs, and this rank keeps its columns
+            whole = self._whole_columns(x + m * state['hb'])
+            return self._local_columns(self._h_layer.activation(whole, 0.))
         return self._h_layer.activation(x, m * state['hb'])
 
     def _means_v_given_h(self, state, h):
         m = self._propdown_multiplier
-        x = m * (h @ state['W'].T)
+        x = m * self._model_sum(h @ state['W'].T)
         return self._v_layer.activation(x, m * state['vb'])
 
-    def _gibbs_chain(self, state, h_states, k, generator):
+    # Draws.  `rows` (a (batch, slice) pair, or None for a whole batch)
+    # names the rows of the one-process batch that a rank of a
+    # tensor-parallel mesh's data axis holds; a tensor-parallel rank keeps
+    # its columns of each hidden draw.
+    def _sample_v(self, generator, means, rows=None):
+        block = None if rows is None else Block(rows[0], rows[1], None, None)
+        return self._v_layer.sample(generator, means, block)
+
+    def _sample_h(self, generator, means, rows=None):
+        if self._tp is None:
+            return self._h_layer.sample(generator, means)
+        batch, r = rows if rows is not None else (None, None)
+        if isinstance(self._h_layer, MultinomialLayer):
+            states = self._h_layer.sample(generator,
+                                          self._whole_columns(means),
+                                          Block(batch, r, None, None))
+            return self._local_columns(states)
+        return self._h_layer.sample(generator, means,
+                                    Block(batch, r, self.n_hidden, self._tp))
+
+    def _gibbs_chain(self, state, h_states, k, generator, rows=None):
         """Run `k` block-Gibbs steps starting from hidden states; returns
         the final (v_states, v_means, h_states, h_means)."""
         B = h_states.shape[0]
@@ -309,36 +411,37 @@ class BaseRBM(EnergyBasedModel):
         h_means = torch.zeros_like(h_states)
         for _ in range(k):
             v_means = self._means_v_given_h(state, h_states)
-            v_states = (self._v_layer.sample(generator, v_means)
+            v_states = (self._sample_v(generator, v_means, rows)
                         if self.sample_v_states else v_means)
             h_means = self._means_h_given_v(state, v_states)
-            h_states = (self._h_layer.sample(generator, h_means)
+            h_states = (self._sample_h(generator, h_means, rows)
                         if self.sample_h_states else h_means)
         return v_states, v_means, h_states, h_means
 
-    def _maybe_dropout(self, generator, X):
+    def _maybe_dropout(self, generator, X, rows=None):
         """Dropout on the input, seen by every consumer (reference
         base_rbm.py:417-418)."""
         if self.dropout is None:
             return X
         keep = float(self.dropout)
-        mask = torch.rand(X.shape, generator=generator, dtype=X.dtype,
-                          device=X.device) < keep
+        block = None if rows is None else Block(rows[0], rows[1], None, None)
+        mask = draw(torch.rand, generator, X.shape, X, block) < keep
         return torch.where(mask, X / keep, torch.zeros_like(X))
 
-    def _h_states0(self, state, X, generator):
+    def _h_states0(self, state, X, generator, rows=None):
         h0_means = self._means_h_given_v(state, X)
-        h_states = (self._h_layer.sample(generator, h0_means)
+        h_states = (self._sample_h(generator, h0_means, rows)
                     if self.sample_h_states else h0_means)
         return h0_means, h_states
 
-    def _cd_stats(self, state, X_batch, k, generator):
-        """CD-k sufficient statistics of one minibatch: the raw *sums*.
-        Returns (stats, aux); `_apply_cd_update` completes the update."""
-        X = self._maybe_dropout(generator, X_batch)
-        h0_means, h_states = self._h_states0(state, X, generator)
+    def _cd_stats(self, state, X_batch, k, generator, rows=None):
+        """CD-k sufficient statistics of one minibatch (or of this rank's
+        `rows` of it): the raw *sums*.  Returns (stats, aux);
+        `_apply_cd_update` completes the update."""
+        X = self._maybe_dropout(generator, X_batch, rows)
+        h0_means, h_states = self._h_states0(state, X, generator, rows)
         v_states, v_means, _, h_means = self._gibbs_chain(state, h_states, k,
-                                                          generator)
+                                                          generator, rows)
         stats = {
             'assoc': X.T @ h0_means - v_states.T @ h_means,
             'dvb_sum': torch.sum(X - v_states, dim=0),
@@ -381,26 +484,49 @@ class BaseRBM(EnergyBasedModel):
                                           lr, momentum)
         return new_state, aux
 
-    def _pll(self, state, X, generator):
+    def _free_energy_terms(self, state, v, generator=None):
+        """Per row of `v`: the free energy's visible term and its hidden
+        term over this rank's hidden units (all of them off a
+        tensor-parallel mesh)."""
+        raise NotImplementedError('`_free_energy_terms` is not implemented')
+
+    def _free_energy_constant(self):
+        return 0.
+
+    def _free_energy(self, state, v, generator=None, rows=None):
+        """Batch-mean free energy of `v` (or of the whole batch whose
+        `rows` this rank holds): the hidden term summed over the model
+        axis, the rows over the data axis."""
+        visible, hidden = self._free_energy_terms(state, v, generator)
+        fe = visible + self._model_sum(hidden)
+        mean = torch.mean(fe, dim=0) if rows is None else \
+            self._data_sum(torch.sum(fe, dim=0)) / rows[0]
+        return mean + self._free_energy_constant()
+
+    def _pll(self, state, X, generator, rows=None):
         """Pseudo-log-likelihood proxy: corrupt one random unit per sample,
         PLL = n_visible * log_sigmoid(FE(x~) - FE(x)) with batch-mean free
         energies."""
         B = X.shape[0]
-        idx = torch.randint(0, self.n_visible, (B,), generator=generator,
-                            device=X.device)
-        rows = torch.arange(B, device=X.device)
+        batch, mine = rows if rows is not None else (B, slice(None))
+        idx = torch.randint(0, self.n_visible, (batch,), generator=generator,
+                            device=X.device)[mine]
+        r = torch.arange(B, device=X.device)
         flipped = X.clone()
-        flipped[rows, idx] = 1. - X[rows, idx]
-        fe_x = self._free_energy(state, X, generator)
-        fe_flipped = self._free_energy(state, flipped, generator)
+        flipped[r, idx] = 1. - X[r, idx]
+        fe_x = self._free_energy(state, X, generator, rows)
+        fe_flipped = self._free_energy(state, flipped, generator, rows)
         return self.n_visible * F.logsigmoid(fe_flipped - fe_x)
 
-    def _metrics(self, state, X, v_means, generator):
-        out = {'msre': torch.mean(torch.square(X - v_means))}
-        out['pll'] = (self._pll(state, X, generator)
+    def _metrics(self, state, X, v_means, generator, rows=None):
+        sq = torch.square(X - v_means)
+        out = {'msre': torch.mean(sq) if rows is None else
+               self._data_sum(torch.sum(sq)) / (rows[0] * self.n_visible)}
+        out['pll'] = (self._pll(state, X, generator, rows)
                       if self.metrics_config['pll'] else torch.zeros_like(
                           out['msre']))
-        out['l2_loss'] = self.l2 * 0.5 * torch.sum(torch.square(state['W']))
+        out['l2_loss'] = self.l2 * 0.5 * self._model_sum(
+            torch.sum(torch.square(state['W'])))
         return out
 
     # ================================================================== #
@@ -430,14 +556,16 @@ class BaseRBM(EnergyBasedModel):
     def _kernel_eligible(self):
         """The CUDA CD epoch kernels cover Bernoulli or Gaussian visible
         units with Bernoulli or multinomial hidden units, in float32 without
-        dropout, on a CUDA device, at any size and with PLL -- decided once
-        per fit from the configuration."""
+        dropout, on a CUDA device, at any size and with PLL, W whole (not
+        on a tensor-parallel mesh, as JAX base_rbm.py:891-902 asks for one
+        device) -- decided once per fit from the configuration."""
         if self.kernel == 'xla':
             return False
         ok = (self._kernel_flavours() is not None
               and self.dtype == 'float32'
               and self.dropout is None
-              and self._device.type == 'cuda')
+              and self._device.type == 'cuda'
+              and self._tp is None)
         if self.kernel == 'pallas' and not ok:
             raise ValueError('kernel="pallas" requested but the model is '
                              'not eligible for the CUDA CD epoch kernels')
@@ -481,8 +609,9 @@ class BaseRBM(EnergyBasedModel):
         all_reduce, a replicated update) unless the user forced
         kernel='xla' or the batch does not split over the ranks; then every
         rank trains the whole batches through the single-device path (JAX
-        base_rbm.py:503-526, whose GSPMD fallback gives that result)."""
-        if self._mesh is None or self.kernel == 'xla':
+        base_rbm.py:503-526, whose GSPMD fallback gives that result).  A
+        tensor-parallel W takes its own epoch, as JAX keeps it on GSPMD."""
+        if self._mesh is None or self.kernel == 'xla' or self._tp is not None:
             return False
         return self.batch_size % self._mesh.size == 0
 
@@ -582,6 +711,54 @@ class BaseRBM(EnergyBasedModel):
                 if self._kernel_eligible() else \
                 self._train_epoch_generic((), rem, lr, mom, k, seed)
         return out
+
+    def _train_epoch_tensor_parallel(self, full, rem, lr, mom, k, seed):
+        """One epoch on a tensor-parallel mesh (JAX's GSPMD epoch of a W
+        whose hidden columns are split over 'model').  `full` holds this
+        rank's rows of every full batch (all of them where the batch does
+        not split over 'data'), `rem` the whole remainder batch.  Every rank
+        seeds the one-process generator and draws the whole batch's shapes
+        in the one-process order, keeping its rows and columns, so the fit
+        is the one-process generic fit up to the order of its sums.  Per
+        batch: the chain on this rank's rows and columns (the visible input
+        one all_reduce over 'model' a half-step), the CD sums of its rows
+        in one flat buffer [assoc | dvb_sum | dhb_sum | h_sum] summed over
+        'data', and the update of its columns.  Returns the (msre, pll, l2)
+        rows of every iteration."""
+        import torch.distributed as dist
+        mesh = self._mesh
+        every = int(self.metrics_config['train_metrics_every_iter'])
+        V, B = self.n_visible, self.batch_size
+        Hr = self._tp.stop - self._tp.start
+        dev, dtype = self._device, self._torch_dtype
+        g = make_generator(seed, dev)
+        split = full.shape[1] != B
+        b = int(full.shape[1])
+        rows = (B, slice(mesh.rank * b, (mesh.rank + 1) * b)) if split \
+            else None
+        if split:
+            flat = torch.empty(V * Hr + V + 2 * Hr, dtype=dtype, device=dev)
+            sums = split_stats(flat, V, Hr)
+        batches = [(X, rows) for X in full] + \
+            ([] if rem is None else [(rem, None)])
+        out = torch.zeros((3, len(batches)), dtype=dtype, device=dev)
+        state = self._state.as_dict()
+        for i, (X, r) in enumerate(batches):
+            self.iter_ += 1
+            stats, aux = self._cd_stats(state, X, k, g, r)
+            if r is not None:
+                for key, view in sums.items():
+                    view.copy_(stats[key])
+                dist.all_reduce(flat, group=mesh.group)
+                stats = sums
+            state = self._apply_cd_update(state, stats,
+                                          B if r is not None else X.shape[0],
+                                          lr, mom)
+            if self.iter_ % every == 0:
+                m = self._metrics(state, aux['X'], aux['v_means'], g, r)
+                out[:, i] = torch.stack([m['msre'], m['pll'], m['l2_loss']])
+        self._state.update(state)
+        return [out]
 
     def _train_epoch_generic(self, full, rem, lr, mom, k, seed):
         """One epoch on the generic path (the JAX package's XLA epoch plus
@@ -751,10 +928,17 @@ class BaseRBM(EnergyBasedModel):
     def _fit(self, X, X_val=None, *args, **kwargs):
         self._fit_seed = self.make_random_seed()
         mesh = self._mesh
+        tp = self._tp is not None
         if mesh is not None:
-            # every rank starts from rank 0's state and seed
+            # every rank starts from the mesh's rank 0's seed and state; a
+            # tensor-parallel rank takes its columns from the data axis's
+            # rank 0, which holds the same ones
+            state = self._state.as_dict()
             seed = torch.tensor([self._fit_seed], device=self._device)
-            replicate(mesh, [seed] + list(self._state.as_dict().values()))
+            replicate(mesh, [seed] + [v for k, v in state.items()
+                                      if not (tp and k in _COLUMN_KEYS)])
+            if tp:
+                replicate(mesh, [state[k] for k in _COLUMN_KEYS], axis='data')
             self._fit_seed = int(seed)
         writes = self._writes_files()
         if writes:
@@ -765,11 +949,18 @@ class BaseRBM(EnergyBasedModel):
         # package keeps its whole-epoch kernel on a one-device mesh
         shardmap = self._shardmap_eligible() and \
             not (use_kernel and mesh.size == 1)
-        if shardmap:
+        # a tensor-parallel mesh splits rows over 'data' where they split
+        split = shardmap or (tp and mesh.size > 1 and
+                             self.batch_size % mesh.size == 0)
+        if split:
             b = self.batch_size // mesh.size
             staged_train = self._stage_batches(
                 X, rows=slice(mesh.rank * b, (mesh.rank + 1) * b))
-            train_epoch = self._train_epoch_shardmap
+            train_epoch = self._train_epoch_tensor_parallel if tp \
+                else self._train_epoch_shardmap
+        elif tp:
+            staged_train = self._stage_batches(X)
+            train_epoch = self._train_epoch_tensor_parallel
         else:
             staged_train = self._stage_batches(X)
             train_epoch = self._train_epoch_kernel if use_kernel \
@@ -778,7 +969,7 @@ class BaseRBM(EnergyBasedModel):
         staged_val = self._stage_batches(X_val) if X_val is not None \
             else None
         staged_feg = staged_train
-        if shardmap and X_val is not None and mc['feg']:
+        if split and X_val is not None and mc['feg']:
             # the FEG reads whole training batches, the same on every rank
             n, B = mc['n_batches_for_feg'], self.batch_size
             staged_feg = self._stage_batches(
@@ -808,23 +999,27 @@ class BaseRBM(EnergyBasedModel):
             if X_val is not None and mc['feg'] and \
                     self.epoch_ % mc['feg_every_epoch'] == 0:
                 feg = self._feg(staged_feg, staged_val)
-            if writes:
-                want_summaries = bool(mask.any()) and \
-                    self._any_train_metric() and \
-                    self.epoch_ % self.summaries_every_epoch == 0
-                if want_summaries and self.display_hidden_activations:
+            want_summaries = bool(mask.any()) and \
+                self._any_train_metric() and \
+                self.epoch_ % self.summaries_every_epoch == 0
+            hidden = stats = None
+            # on a tensor-parallel mesh the probe and the summaries gather
+            # columns: every rank takes part, and rank 0 writes
+            if want_summaries and (writes or tp):
+                if self.display_hidden_activations:
                     # the first batch of the whole data (a rank on the mesh
                     # holds only its rows of it)
                     probe = torch.as_tensor(
                         self._preprocess(np.asarray(X)[:self.batch_size]),
                         device=self._device)
-                    self._write_hidden_activations_img(
-                        self._hidden_activations(probe), self.iter_)
+                    hidden = self._hidden_activations(probe)
+                stats = self._summary_device_stats(self._whole_state())
+            if writes:
+                if hidden is not None:
+                    self._write_hidden_activations_img(hidden, self.iter_)
                 self._log_epoch(train_results, val_results, feg)
                 if want_summaries:
-                    self._write_epoch_summaries(
-                        self._summary_device_stats(self._state.as_dict()),
-                        self.iter_)
+                    self._write_epoch_summaries(stats, self.iter_)
                     self._train_writer.flush()
             if self.save_after_each_epoch and \
                     self.epoch_ % self.checkpoint_every_epoch == 0:
@@ -885,15 +1080,17 @@ class BaseRBM(EnergyBasedModel):
         self._programs = {}
 
     def _transform_batch(self, state, X_batch, k, generator):
-        """Chain-final hidden means of one batch."""
+        """Chain-final hidden means of one batch, all the columns."""
         X_b = self._maybe_dropout(generator, X_batch)
         _, h_states = self._h_states0(state, X_b, generator)
-        return self._gibbs_chain(state, h_states, k, generator)[3]
+        return self._whole_columns(
+            self._gibbs_chain(state, h_states, k, generator)[3])
 
     def transform(self, X, np_dtype=None):
         """Hidden activation probabilities after the k-step chain
         (reference base_rbm.py:437-440: chain-final h_means; stochastic when
-        intermediate hidden states are sampled)."""
+        intermediate hidden states are sampled).  On a tensor-parallel mesh
+        every rank calls it and gets all the columns."""
         self._ensure_state()
         np_dtype = np_dtype or self._np_dtype
         _, g = self.make_generator(self._device)

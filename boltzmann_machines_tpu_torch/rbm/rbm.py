@@ -19,12 +19,11 @@ class BernoulliRBM(BaseRBM):
                                            model_path=model_path,
                                            *args, **kwargs)
 
-    def _free_energy(self, state, v, generator=None):
-        """F(v) = -v.vb - sum softplus(vW + hb), batch-mean
-        (reference rbm.py:17-22)."""
+    def _free_energy_terms(self, state, v, generator=None):
+        """F(v) = -v.vb - sum softplus(vW + hb) (reference rbm.py:17-22)."""
         T1 = -(v @ state['vb'])
         T2 = -torch.sum(F.softplus(v @ state['W'] + state['hb']), dim=1)
-        return torch.mean(T1 + T2, dim=0)
+        return T1, T2
 
 
 class MultinomialRBM(BaseRBM):
@@ -49,7 +48,9 @@ class MultinomialRBM(BaseRBM):
             model_path=model_path, *args, **kwargs)
 
     def _draw_h_hat(self, generator, like):
-        """One (H,) count vector of the uniform Multinomial(M, 1/K)."""
+        """One (H,) count vector of the uniform Multinomial(M, 1/K), drawn
+        whole (on a tensor-parallel mesh every rank draws it and keeps its
+        columns)."""
         means = torch.full((1, self.n_hidden),
                            float(self.n_samples) / float(self.n_hidden),
                            dtype=like.dtype, device=like.device)
@@ -59,11 +60,14 @@ class MultinomialRBM(BaseRBM):
         K, M = float(self.n_hidden), float(self.n_samples)
         return -math.lgamma(M + K) + math.lgamma(M + 1.) + math.lgamma(K)
 
-    def _free_energy(self, state, v, generator=None):
-        h_hat = self._draw_h_hat(generator, v)
+    def _free_energy_constant(self):
+        return self._lgamma_constant()
+
+    def _free_energy_terms(self, state, v, generator=None):
+        h_hat = self._local_columns(self._draw_h_hat(generator, v))
         T1 = -(v @ state['vb'])
         T3 = -(v @ state['W']) @ h_hat
-        return torch.mean(T1 + T3, dim=0) + self._lgamma_constant()
+        return T1, T3
 
     def transform(self, *args, **kwargs):
         """Expected softmax probabilities: counts / n_samples
@@ -102,13 +106,13 @@ class GaussianRBM(BaseRBM):
         X = np.asarray(X, dtype=self._np_dtype)
         return X / self._sigma_arr[None, :]
 
-    def _free_energy(self, state, v, generator=None):
+    def _free_energy_terms(self, state, v, generator=None):
         sigma = torch.as_tensor(self._sigma_arr, dtype=v.dtype,
                                 device=v.device)
         T1 = state['vb'] / sigma
         T3 = 0.5 * torch.sum(torch.square(v - T1[None, :]), dim=1)
         T4 = -torch.sum(F.softplus(v @ state['W'] + state['hb']), dim=1)
-        return torch.mean(T3 + T4, dim=0)
+        return T3, T4
 
 
 def logit_mean(X):

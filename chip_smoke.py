@@ -13,7 +13,7 @@ its plain version in float32 and float64; see ``readings``,
 ``pll_readings``.
 ``--kernel-times`` runs phase 18 alone; run from another checkout, it
 times that checkout's kernels.  ``--cifar-phases`` runs phases 21-24
-alone, ``--dbm-phases`` phases 25-27.)
+alone, ``--dbm-phases`` phases 25-27, ``--tp-phases`` phase 28.)
 
 Phases, each printing its lines before the last:
 
@@ -168,7 +168,20 @@ Phases, each printing its lines before the last:
     per mesh step; sample_v and log_Z on the 2 ranks; the mesh epoch on a
     one-rank NCCL group against the DBM kernels, both timed;
 27. utils/profiler.trace around a DBM step on the kernels: its trace file
-    names dbm_gemm_act's device kernel.
+    names dbm_gemm_act's device kernel;
+28. tensor-parallel W: ``set_mesh(make_mesh(shape=(1, 2)),
+    model_axis='model')`` on 2 ranks (processes of their own on the one
+    card over gloo, each ``python3 chip_smoke.py --tp-rank RANK WORLD
+    TMPDIR``, waited for) fitting examples/dbm_cifar.py's 3072 x 7800
+    G-RBM, B 100, one epoch of 5 batches and a remainder, with sampling off
+    and on: each against the one-process ``kernel='xla'`` fit on the card
+    (state within 1e-5), the sampling-off one also against the CD epoch
+    kernels' fit (CIFAR_TOL); no CD kernel launched on the ranks (JAX runs
+    this path on XLA, with no Pallas kernel); ranks bit for bit equal and
+    only the mesh's rank 0 writing; ms per tensor-parallel step and per
+    all_reduce of its visible input beside the one-process step; then a
+    (2, 2) mesh of 4 ranks fitting a 784 x 1024 RBM at batch 256, sampling
+    on, against the one-process xla fit.
 
 The DBM path (7) also runs its three training stages through the plain
 versions and holds the kernels' validation error against that reference's.
@@ -5329,6 +5342,322 @@ def dbm_mesh_path(torch, tmpdir):
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 28: tensor-parallel W on a (data, model) mesh                      #
+# ---------------------------------------------------------------------- #
+TP_NB = 5            # full batches of the tensor-parallel G-RBM fit, + 50
+TP_MNIST_B = 256     # the (2, 2) mesh's 784 x 1024 batch, 128 rows a rank
+# one-process fits on the card against which the ranks' fits are held:
+# every state array within 1e-5 (q_means, a sum over the batch's rows,
+# within 1e-5 x B), every train and validation metric within 1e-5 absolute
+# or relative
+TP_TOL = 1e-5
+
+
+def tp_jobs(world):
+    """The fits of the (1, 2) mesh (world 2: dbm_cifar.py's 3072 x 7800
+    G-RBM, one epoch, sampling off, then on) or of the (2, 2) mesh (world
+    4: a 784 x 1024 RBM at batch 256, two epochs, sampling on)."""
+    if world == 2:
+        return [dict(name=name, data='tp_grbm', cls='GaussianRBM',
+                     cfg=grbm_wide(sample, 1, max_epoch=1, verbose=False,
+                                   metrics_config=dict(
+                                       msre=True, pll=True, l2_loss=True,
+                                       feg=True, train_metrics_every_iter=1,
+                                       feg_every_epoch=1,
+                                       n_batches_for_feg=2)))
+                for name, sample in (('off', False), ('on', True))]
+    cfg = dict(n_visible=V, n_hidden=H, W_init=0.01, n_gibbs_steps=1,
+               learning_rate=LR, momentum=[0.5, 0.9], max_epoch=2,
+               batch_size=TP_MNIST_B, l2=1e-5, sample_v_states=True,
+               sample_h_states=True, sparsity_target=0.1, sparsity_cost=1e-5,
+               metrics_config=dict(msre=True, pll=True, l2_loss=True,
+                                   train_metrics_every_iter=2),
+               random_seed=1337, verbose=False, device='cuda')
+    return [dict(name='mnist', data='tp_mnist', cls='BernoulliRBM', cfg=cfg)]
+
+
+def tp_rank(rank, world, tmpdir):
+    """One rank of phase 28's tensor-parallel fits, in a process of its own
+    (``python3 chip_smoke.py --tp-rank RANK WORLD TMPDIR``): joins the gloo
+    group, builds the (1, 2) or (2, 2) mesh, fits each job with
+    ``set_mesh(mesh, model_axis='model')`` and kernel 'auto', the CD
+    kernels' launch counts set to 0 just before and read just after, and
+    writes its gathered state arrays, its counts and, on the (1, 2) mesh,
+    the ms of a tensor-parallel step and of its all_reduce alone."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from boltzmann_machines_tpu_torch import (BernoulliRBM, GaussianRBM,
+                                              parallel)
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        cd_epoch, reset_launches as reset_epoch_launches)
+    from boltzmann_machines_tpu_torch.ops.cd_stats import (
+        cd_stats, reset_launches as reset_stats_launches)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.initialize('file://%s/store_tp%d' % (tmpdir, world), world, rank,
+                        backend='gloo')
+    try:
+        mesh = parallel.make_mesh(shape=(world // 2, 2))
+        out = {'shape': mesh.shape, 'model_rank': mesh.model_rank}
+        for job in tp_jobs(world):
+            data = np.load('%s/%s.npz' % (tmpdir, job['data']))
+            cls = {'GaussianRBM': GaussianRBM,
+                   'BernoulliRBM': BernoulliRBM}[job['cls']]
+            rbm = cls(model_path='%s/tp%d_%s_rank%d/' % (
+                tmpdir, world, job['name'], rank), **job['cfg'])
+            rbm.set_mesh(mesh, model_axis='model')
+            torch.cuda.synchronize()
+            reset_epoch_launches()
+            reset_stats_launches()
+            t0 = time.perf_counter()
+            rbm.fit(data['X'], data['X_val'])
+            torch.cuda.synchronize()
+            out[job['name']] = dict(
+                seconds=time.perf_counter() - t0, iter_=rbm.iter_,
+                columns=[rbm._tp.start, rbm._tp.stop],
+                launches=sum(cd_epoch.launches.values()) +
+                sum(cd_stats.launches.values()))
+            np.savez('%s/tp%d_%s_out%d.npz' % (tmpdir, world, job['name'],
+                                               rank),
+                     **rbm.get_params_arrays())
+        if world == 2:
+            # ms per tensor-parallel step (sampling on, the path; metrics off
+            # the cadence): the full batches driven directly, twice, the
+            # second kept; then its collective alone, the all_reduce of the
+            # (100, 3072) visible input over 'model' (one a half-step, two a
+            # CD-1 step), best of three runs of 20
+            rbm.set_params(metrics_config=dict(
+                rbm.metrics_config, train_metrics_every_iter=10 ** 6))
+            full, _, _ = rbm._stage_batches(data['X'])
+            walls = []
+            for _ in range(2):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rbm._train_epoch_tensor_parallel(full, None, GRBM_LR,
+                                                 MOMENTUM, 1, 28)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out['ms_per_step'] = [1e3 * w / TP_NB for w in walls]
+            buf = torch.zeros(CIFAR_B, GRBM_WIDE[0], device='cuda')
+            reps = []
+            for _ in range(3):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    dist.all_reduce(buf, group=mesh.model_group)
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+            out['all_reduce_ms'] = 1e3 * min(reps) / 20
+            out['all_reduce_bytes'] = 4 * buf.numel()
+        with open('%s/tp_rank%d_%d.json' % (tmpdir, rank, world), 'w') as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_compare(label, got, want, B):
+    """max |d| of every state array and its excess over TP_TOL (q_means,
+    a batch sum, TP_TOL x B); raise on any excess."""
+    import numpy as np
+    worst = {}
+    for key, v in want.items():
+        atol = TP_TOL * (B if key.endswith('q_means') else 1)
+        d = np.abs(got[key] - v)
+        worst[key.split('/')[-1]] = float(d.max())
+        if float((d - atol).max()) > 0:
+            raise AssertionError('%s: %s off by %.3g (tolerance %.3g)' % (
+                label, key, float(d.max()), atol))
+    say('%s: max|d| %s' % (label, ' '.join('%s=%.3g' % kv
+                                           for kv in worst.items())))
+    return worst
+
+
+def tp_compare_logs(label, got_dir, want_dir):
+    """Every train and validation scalar of two fits within TP_TOL,
+    absolute or relative; the PLL and the FEG, differences of two float32
+    free energies of ~1e3 (the PLL times V), within CIFAR_TOL's PLL
+    tolerance."""
+    worst = 0.
+    for sub in ('logs/train', 'logs/val'):
+        rows = {}
+        for d in (got_dir, want_dir):
+            with open(d + sub + '/scalars.jsonl') as f:
+                rows[d] = {(r['tag'], r['step']): r['value']
+                           for r in map(json.loads, f)}
+        a, b = rows[got_dir], rows[want_dir]
+        if sorted(a) != sorted(b) or not a:
+            raise AssertionError('%s: %s tags differ: %s / %s' % (
+                label, sub, sorted(a), sorted(b)))
+        for key, v in b.items():
+            d = abs(a[key] - v)
+            if key[0] in ('pseudo_loglikelihood', 'free_energy_gap'):
+                atol, rtol = CIFAR_TOL['pll']
+                tol = atol + rtol * abs(v)
+            else:
+                worst = max(worst, d)
+                tol = TP_TOL * max(1., abs(v))
+            if d > tol:
+                raise AssertionError('%s: %s %s is %r, one process %r' % (
+                    label, sub, key, a[key], v))
+    say('%s: msre and l2 within %.0e (max |d| %.3g), PLL and FEG within '
+        'CIFAR_TOL\'s PLL tolerance' % (label, TP_TOL, worst))
+    return worst
+
+
+def tp_path(torch, tmpdir):
+    """Phase 28.  Tensor-parallel W (``set_mesh(make_mesh(shape=(D, M)),
+    model_axis='model')``) through the public API, each rank a process of
+    its own on the one card over gloo.  (a) The (1, 2) mesh: dbm_cifar.py's
+    3072 x 7800 G-RBM (B 100, dbm_first, metrics every step, a validation
+    set and the FEG), one epoch of 5 batches and a remainder of 50, with
+    sampling off and then on: each against the one-process
+    ``kernel='xla'`` fit on the card (state within TP_TOL, every scalar
+    within TP_TOL), the sampling-off one also against the CD epoch kernels'
+    fit (CIFAR_TOL); no CD kernel launched on the ranks (their path is the
+    plain program with collectives, as JAX's is XLA's); the ranks' gathered
+    states bit for bit equal; only the mesh's rank 0 writes, and its
+    checkpoint loads; ms per tensor-parallel step and per all_reduce of
+    its visible input, beside the one-process kernel and plain steps
+    timed here.  (b) The (2, 2) mesh of 4 ranks: a 784 x 1024 RBM, B 256
+    (128 rows a data rank), sampling on, against the one-process xla
+    fit."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch import (BernoulliRBM, GaussianRBM,
+                                              load_model)
+    X = make_cifar(TP_NB * CIFAR_B + CIFAR_B // 2 + 200, seed=28)
+    X_train, X_val = standardize(X[:-200], X[-200:])
+    np.savez(tmpdir + '/tp_grbm.npz', X=X_train, X_val=X_val)
+    Xm = make_data(2 * TP_MNIST_B + TP_MNIST_B // 2 + 200, seed=28)
+    np.savez(tmpdir + '/tp_mnist.npz', X=Xm[:-200], X_val=Xm[-200:])
+    out = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        run_children(lambda r: ['--tp-rank', str(r), str(world), tmpdir],
+                     world, 'the tensor-parallel fits on %d ranks' % world,
+                     timeout=300)
+        say('tensor-parallel fits, (%d, 2) mesh (gloo, one card): %.1f s '
+            'with process start-up' % (world // 2, time.perf_counter() - t0))
+    ranks = {}
+    for world in (2, 4):
+        ranks[world] = []
+        for r in range(world):
+            with open('%s/tp_rank%d_%d.json' % (tmpdir, r, world)) as f:
+                ranks[world].append(json.load(f))
+        for job in tp_jobs(world):
+            name = job['name']
+            arrays = [np.load('%s/tp%d_%s_out%d.npz' % (tmpdir, world, name,
+                                                        r))
+                      for r in range(world)]
+            if not all(np.array_equal(a[k], arrays[0][k])
+                       for a in arrays for k in arrays[0].files):
+                raise AssertionError('(%d, 2) %s: the ranks\' gathered '
+                                     'states differ' % (world // 2, name))
+            for r, rk in enumerate(ranks[world]):
+                if rk[name]['launches']:
+                    raise AssertionError('(%d, 2) %s rank %d launched %d CD '
+                                         'kernels' % (world // 2, name, r,
+                                                      rk[name]['launches']))
+                if r and os.path.exists('%s/tp%d_%s_rank%d/' % (
+                        tmpdir, world, name, r)):
+                    raise AssertionError('rank %d wrote files' % r)
+            say('(%d, 2) %s: columns by rank %s; %d iterations in %s s; no '
+                'CD kernel launched; gathered states bit for bit equal; rank '
+                '0 alone wrote' % (
+                    world // 2, name, [rk[name]['columns']
+                                       for rk in ranks[world]],
+                    ranks[world][0][name]['iter_'],
+                    ' '.join('%.2f' % rk[name]['seconds']
+                             for rk in ranks[world])))
+    # (a) the G-RBM against the one-process fits on the card
+    for job in tp_jobs(2):
+        name, cfg = job['name'], job['cfg']
+        ref = GaussianRBM(model_path='%s/tp_xla_%s/' % (tmpdir, name),
+                          kernel='xla', **cfg).fit(X_train, X_val)
+        got = np.load('%s/tp2_%s_out0.npz' % (tmpdir, name))
+        out[name] = tp_compare(
+            '3072x7800 G-RBM sampling %s, (1, 2) mesh vs one-process xla fit'
+            % name, got, ref.get_params_arrays(), CIFAR_B)
+        out[name + '_scalars'] = tp_compare_logs(
+            '  its scalars', '%s/tp2_%s_rank0/' % (tmpdir, name),
+            '%s/tp_xla_%s/' % (tmpdir, name))
+        if name == 'off':
+            kern = GaussianRBM(model_path=tmpdir + '/tp_kernel_off/',
+                               **cfg).fit(X_train, X_val)
+            want = kern.get_params_arrays()
+            worst = {}
+            for key, v in want.items():
+                atol, rtol = CIFAR_TOL['q_means' if key.endswith('q_means')
+                                       else 'state']
+                if key.endswith('q_means'):
+                    atol *= CIFAR_B
+                d = np.abs(got[key] - v)
+                worst[key.split('/')[-1]] = float(d.max())
+                if float((d - atol - rtol * np.abs(v)).max()) > 0:
+                    raise AssertionError('(1, 2) mesh vs the CD epoch '
+                                         'kernels\' fit: %s off by %.3g' % (
+                                             key, float(d.max())))
+            out['off_vs_kernels'] = worst
+            say('3072x7800 G-RBM sampling off, (1, 2) mesh vs the CD epoch '
+                'kernels\' fit: max|d| %s (CIFAR_TOL)' % ' '.join(
+                    '%s=%.3g' % kv for kv in worst.items()))
+    loaded = load_model(tmpdir + '/tp2_on_rank0/', device='cuda')
+    s = loaded.get_params_arrays()
+    got = np.load(tmpdir + '/tp2_on_out0.npz')
+    if any(not np.array_equal(s[k], got[k]) for k in got.files):
+        raise AssertionError('rank 0\'s checkpoint does not hold the '
+                             'gathered state')
+    say('rank 0\'s checkpoint loads on the card with the gathered state')
+    # (b) the (2, 2) mesh against the one-process xla fit
+    job = tp_jobs(4)[0]
+    ref = BernoulliRBM(model_path=tmpdir + '/tp_xla_mnist/', kernel='xla',
+                       **job['cfg']).fit(Xm[:-200], Xm[-200:])
+    out['mnist'] = tp_compare(
+        '784x1024 B=256 sampling on, (2, 2) mesh vs one-process xla fit',
+        np.load(tmpdir + '/tp4_mnist_out0.npz'), ref.get_params_arrays(),
+        TP_MNIST_B)
+    out['mnist_scalars'] = tp_compare_logs(
+        '  its scalars', tmpdir + '/tp4_mnist_rank0/', tmpdir +
+        '/tp_xla_mnist/')
+    # the one-process steps on the card, sampling on, metrics off the
+    # cadence, in turns, the first of each kind dropped
+    rbm = GaussianRBM(model_path=tmpdir + '/tp_step/', **grbm_wide(
+        True, 10 ** 6))
+    rbm._ensure_state()
+    Xt = torch.as_tensor(X_train[:TP_NB * CIFAR_B].reshape(
+        TP_NB, CIFAR_B, -1), device='cuda')
+    epoch = rbm._cd_epoch_program(1)
+    fns = {'kernels': lambda: epoch(rbm._state.as_dict(), Xt, GRBM_LR,
+                                    MOMENTUM, 5, 0),
+           'plain': lambda: rbm._train_epoch_generic(Xt, None, GRBM_LR,
+                                                     MOMENTUM, 1, 5)}
+    times = {k: [] for k in fns}
+    for which in ('kernels', 'plain', 'kernels', 'plain', 'plain',
+                  'kernels'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[which]()
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+    out['one_process_ms'] = {k: 1e3 * min(ts[1:]) / TP_NB
+                             for k, ts in times.items()}
+    out['ranks'] = [{k: rk[k] for k in ('ms_per_step', 'all_reduce_ms',
+                                         'all_reduce_bytes')}
+                    for rk in ranks[2]]
+    for r, rk in enumerate(out['ranks']):
+        say('tensor-parallel step 3072x7800 B=100 sampling on, (1, 2) mesh, '
+            'rank %d: %s ms; its all_reduce of the visible input (%d bytes) '
+            'alone %.3f ms, two a step' % (
+                r, ' '.join('%.3f' % t for t in rk['ms_per_step']),
+                rk['all_reduce_bytes'], rk['all_reduce_ms']))
+    say('one-process step 3072x7800 B=100 sampling on, same call: CD '
+        'kernels %.4f ms, plain program %.4f ms' % (
+            out['one_process_ms']['kernels'], out['one_process_ms']['plain']))
+    return out
+
+
 def profiler_trace(torch, tmpdir):
     """Phase 27: utils/profiler.trace around one DBM step on the kernels
     (784-512-1024, B = M = 100): the trace file it writes names
@@ -5416,8 +5745,11 @@ def main():
         mesh = dbm_mesh_path(torch, tmpdir)
     with tempfile.TemporaryDirectory() as tmpdir:
         prof = profiler_trace(torch, tmpdir)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tp = tp_path(torch, tmpdir)
     say(json.dumps({'gbm_dbm': {label: dict(gbm[label], **tg[label])
                                 for label in gbm}}))
+    say(json.dumps({'tensor_parallel': tp}))
     # the DBM mesh path's launches, both ranks: the samplers' draws of its
     # sampled fit, the DBM kernels of its remainder steps, sample_v, log_Z
     mesh_sum = {key: {} for key in ('samplers', 'dbm_epoch', 'sample_v',
@@ -5773,6 +6105,22 @@ def dbm_phases_only():
     return 0
 
 
+def tp_phases_only():
+    """``python3 chip_smoke.py --tp-phases``: phase 28 alone, after the
+    environment and the build, with one JSON line of its numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke: no CUDA device\n')
+        return 1
+    card = environment(torch)
+    build()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tp = tp_path(torch, tmpdir)
+    say(card)
+    say(json.dumps({'tensor_parallel': tp}))
+    return 0
+
+
 def kernel_times_only():
     """``python3 chip_smoke.py --kernel-times``: phase 18 alone, after the
     environment and the build, with one JSON line of its numbers -- so that
@@ -5798,6 +6146,9 @@ if __name__ == '__main__':
     if sys.argv[1:2] == ['--dbm-rank']:
         rank, world, tmpdir = sys.argv[2:]
         sys.exit(dbm_rank(int(rank), int(world), tmpdir))
+    if sys.argv[1:2] == ['--tp-rank']:
+        rank, world, tmpdir = sys.argv[2:]
+        sys.exit(tp_rank(int(rank), int(world), tmpdir))
     if sys.argv[1:2] == ['--example']:
         sys.exit(example_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
@@ -5806,5 +6157,6 @@ if __name__ == '__main__':
               '--pll-readings': pll_readings,
               '--kernel-times': kernel_times_only,
               '--cifar-phases': cifar_phases_only,
-              '--dbm-phases': dbm_phases_only}
+              '--dbm-phases': dbm_phases_only,
+              '--tp-phases': tp_phases_only}
              .get(' '.join(sys.argv[1:]), main)())

@@ -6,7 +6,10 @@ jobs in one start of the two ranks, which must end within 300 s.  Held
 against the JAX package's shard_map fit on two of its virtual CPU devices
 (tests/test_parallel.py:124-157's configuration, plus a validation set and
 a remainder batch), against the port's one-process fit, and against a
-brute-force log Z (tests/test_parallel.py:182-212)."""
+brute-force log Z (tests/test_parallel.py:182-212).  With sampling on, the
+ranks draw under their own keys, so the 2-rank fit is held against the
+one-process fit by its statistics over five seeds, as
+tests/test_torch_dbm_sampled.py holds the port against JAX."""
 
 import itertools
 import json
@@ -43,7 +46,7 @@ with open(tmp + '/jobs.json') as f:
     jobs = json.load(f)
 parallel.initialize('file://' + tmp + '/store', world, rank, backend='gloo')
 for job in jobs:
-    data = np.load(tmp + '/' + job['name'] + '.npz')
+    data = np.load(tmp + '/' + job.get('data', job['name']) + '.npz')
     cfg = dict(job['cfg'])
     if 'v_init' in data.files:
         cfg.update(v_particle_init=data['v_init'],
@@ -62,6 +65,8 @@ for job in jobs:
                    if isinstance(res, dict) else {key: res})
     if job.get('sample_v'):
         out['sample_v'] = dbm.sample_v(n_gibbs_steps=job['sample_v'])
+    if job.get('reconstruct'):
+        out['recon'] = dbm.reconstruct(data['X_val'])
     np.savez('%s/%s_out%d.npz' % (tmp, job['name'], rank), **out)
 '''
 
@@ -104,6 +109,10 @@ GBM = dict(PARITY, l2=0., sparsity_cost=0.)
 SAMPLED = dict(PARITY, n_gibbs_steps=1, learning_rate=0.05, max_epoch=6,
                sample_v_states=True, sample_h_states=[True, True],
                sparsity_cost=0., max_mf_updates=20)
+# the sampled fit at five seeds, its statistics against one process's
+STAT_SEEDS = range(5)
+#: F(4, 4)'s 99.9% point: the variance ratio of two samples of 5
+F_999 = 53.44
 # 15 particles do not split over two ranks
 FALLBACK = dict(PARITY, n_particles=15)
 # tests/test_parallel.py:182-212 (6-5-4, sampling on)
@@ -145,6 +154,9 @@ def runs(tmp_path_factory):
     Xs = protos[rng.randint(0, 2, 160)]
     Xs = np.abs(Xs - (rng.rand(*Xs.shape) < 0.05)).astype(np.float32)
     d['sampled'] = dict(X=Xs)
+    Xv = protos[rng.randint(0, 2, 32)]
+    d['stats'] = dict(X=Xs, X_val=np.abs(Xv - (rng.rand(*Xv.shape) < 0.05))
+                      .astype(np.float32))
     # G-B-M: the port's Gaussian (sigma 1.5, dbm_first) and multinomial
     # (n 5, dbm_last) RBMs
     Xg = rng.randn(72, 12).astype(np.float32)
@@ -170,6 +182,9 @@ def runs(tmp_path_factory):
     jobs = [dict(name='parity', rbms=rbms, cfg=PARITY, sample_v=2),
             dict(name='fallback', rbms=rbms, cfg=FALLBACK),
             dict(name='sampled', rbms=rbms, cfg=SAMPLED),
+            *(dict(name='stats%d' % seed, data='stats', rbms=rbms,
+                   cfg=dict(SAMPLED, random_seed=seed), reconstruct=True)
+              for seed in STAT_SEEDS),
             dict(name='gbm', rbms=gbm_rbms, cfg=GBM),
             dict(name='ais', rbms=[tmp + '/ar1/', tmp + '/ar2/'], cfg=AIS,
                  sample_v=3, log_Z=dict(
@@ -182,14 +197,14 @@ def runs(tmp_path_factory):
 
 
 def one_process(tmp, job, data, name):
-    """The port's one-process fit of a job."""
+    """The port's one-process fit of a job (`data` a dict or an npz)."""
     cfg = dict(job['cfg'])
     if 'v_init' in data:
         cfg.update(v_particle_init=data['v_init'],
                    h_particles_init=(data['h0_init'], data['h1_init']))
     dbm = DBM(rbms=[load_model(p, device='cpu') for p in job['rbms']],
               device='cpu', model_path='%s/%s/' % (tmp, name), **cfg)
-    return dbm.fit(data['X'], data.get('X_val'))
+    return dbm.fit(data['X'], data['X_val'] if 'X_val' in data else None)
 
 
 def assert_close(got, want, atol, keys=None):
@@ -269,6 +284,58 @@ def test_sampled_two_rank_fit_learns(runs):
     assert len(msre) == SAMPLED['max_epoch']
     assert np.all(np.isfinite(msre))
     assert msre[-1] < msre[0]
+
+
+@pytest.fixture(scope='module')
+def sampled_stats(runs):
+    """{'mesh' / 'one': (n_seeds, 2) array of (final validation msre, mean
+    |W_0 - W_0 at init|)} of the sampled fit, on two ranks and in one
+    process, at each of STAT_SEEDS."""
+    tmp, d, jobs, outs = runs
+    W0_init = load_model(jobs['stats0']['rbms'][0], device='cpu') \
+        .get_params_arrays()['weights/W']
+    X_val = d['stats']['X_val']
+    out = {'mesh': [], 'one': []}
+    for seed in STAT_SEEDS:
+        job = jobs['stats%d' % seed]
+        mesh = outs[job['name']][0]
+        out['mesh'].append((float(np.mean((X_val - mesh['recon']) ** 2)),
+                            float(np.mean(np.abs(mesh['weights/W_0'] -
+                                                 W0_init)))))
+        ref = one_process(tmp, job, d['stats'], job['name'] + '_one')
+        out['one'].append((float(np.mean((X_val - ref.reconstruct(X_val)) **
+                                         2)),
+                           float(np.mean(np.abs(ref.get_params_arrays()[
+                               'weights/W_0'] - W0_init)))))
+    return {k: np.array(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize('stat', ['val_msre', 'mean_abs_dW0'])
+def test_sampled_two_rank_fit_matches_one_process_in_distribution(
+        sampled_stats, stat):
+    """Sampling on: over five seeds, the means of the 2-rank fit's final
+    validation msre and of its mean |W_0 - W_0 at init| lie within 3
+    standard errors of the one-process sampled fit's (ROADMAP Queue C23;
+    each rank draws under its own keys, so no single fit compares draw by
+    draw)."""
+    col = ('val_msre', 'mean_abs_dW0').index(stat)
+    a, b = sampled_stats['one'][:, col], sampled_stats['mesh'][:, col]
+    assert np.all(np.isfinite(a)) and np.all(np.isfinite(b))
+    se = np.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b))
+    assert abs(b.mean() - a.mean()) <= 3. * se, (
+        '%s: one process %.5g +- %.2g, 2 ranks %.5g +- %.2g over %d seeds' % (
+            stat, a.mean(), a.std(ddof=1), b.mean(), b.std(ddof=1), len(a)))
+
+
+def test_sampled_two_rank_fit_spread_matches_one_process(sampled_stats):
+    """The variance over the seeds of mean |W_0 - W_0 at init|, 2 ranks
+    over one process, lies within the 0.1% and 99.9% points of F(4, 4):
+    ranks whose draws did not follow the fit's seed would collapse it."""
+    a, b = sampled_stats['one'][:, 1], sampled_stats['mesh'][:, 1]
+    ratio = b.var(ddof=1) / a.var(ddof=1)
+    assert 1. / F_999 <= ratio <= F_999, (
+        'variance of mean |dW0| over the seeds: 2 ranks / one process = '
+        '%.3g' % ratio)
 
 
 def test_fallback_when_rows_do_not_split(runs):

@@ -195,21 +195,23 @@ def test_world1_epoch_equals_generic_epoch(tmp_path, one_rank):
 
 
 def test_mesh_helpers_on_one_rank(one_rank):
-    """make_mesh / shard_batch / replicate over one rank; the parts that
-    are not ported raise, naming their ROADMAP item; DBM.set_mesh returns
-    the model."""
+    """make_mesh / shard_batch / replicate over one rank; the model axis
+    has size 1, so shard_model_columns gives W whole and
+    set_mesh(model_axis='model') keeps the whole state; DBM.set_mesh
+    returns the model."""
     assert one_rank.rank == 0 and one_rank.size == 1
-    assert one_rank.axis_names == ('data',)
+    assert one_rank.axis_names == ('data', 'model')
+    assert one_rank.model_size == 1 and one_rank.shape['model'] == 1
     X = torch.arange(12.).reshape(6, 2)
     assert torch.equal(parallel.shard_batch(one_rank, X), X)
     tree = {'a': torch.ones(3), 'b': [torch.zeros(2)]}
     assert parallel.replicate(one_rank, tree) is tree
     assert parallel.process_local_slice(10) == (0, 10)
-    with pytest.raises(NotImplementedError, match='A8'):
-        parallel.shard_model_columns(one_rank, torch.zeros(4, 4))
+    W = torch.arange(16.).reshape(4, 4)
+    assert torch.equal(parallel.shard_model_columns(one_rank, W), W)
     rbm = BernoulliRBM(n_visible=4, n_hidden=2, device='cpu')
-    with pytest.raises(NotImplementedError, match='A8'):
-        rbm.set_mesh(one_rank, model_axis='model')
+    assert rbm.set_mesh(one_rank, model_axis='model') is rbm
+    assert rbm._state.W.shape == (4, 2) and rbm._tp == slice(0, 2)
     # the DBM mesh is ported (tests/test_torch_dbm_parallel.py)
     dbm = DBM(rbms=[rbm], device='cpu')
     assert dbm.set_mesh(one_rank) is dbm and dbm._mesh is one_rank
