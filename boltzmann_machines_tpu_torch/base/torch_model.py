@@ -27,6 +27,7 @@ import torch
 from .base import is_param_name
 from .base_model import BaseModel
 from .mixin import DtypeMixin
+from ..utils.profiler import annotate
 
 
 def default_device():
@@ -255,11 +256,14 @@ class TorchModel(BaseModel, DtypeMixin):
         return self
 
     def fit(self, X, X_val=None, *args, **kwargs):
-        """Fit the model according to the given training data."""
-        self._ensure_state()
-        self.initialized_ = True
-        self._fit(X, X_val=X_val, *args, **kwargs)
-        self._save_model()
+        """Fit the model according to the given training data (the span
+        ``fit``, its checkpoint ``fit/save``: ``utils/profiler.py``)."""
+        with annotate('fit'):
+            self._ensure_state()
+            self.initialized_ = True
+            self._fit(X, X_val=X_val, *args, **kwargs)
+            with annotate('fit/save'):
+                self._save_model()
         return self
 
     def get_params_arrays(self, scope=None):

@@ -76,6 +76,7 @@ from .rbm.base_rbm import derive_seed
 from .utils import (make_list_from, epoch_iter, schedule_value,
                     write_during_training, log_sum_exp, log_diff_exp,
                     log_mean_exp, log_std_exp)
+from .utils.profiler import annotate, profiling
 
 # salts of the seeds derived from one call's seed: the forward AIS run, the
 # BDMC burn-in and reverse run, and (plus the rank) a mesh rank's draws
@@ -640,35 +641,61 @@ class DBM(EnergyBasedModel):
         split = self._set_layout()
         train_epoch = self._train_epoch_shardmap if split \
             else self._train_epoch
-        full, rem, _ = self._stage_batches(
-            X, rows=self._rows(self.batch_size) if split else None)
-        staged_val = self._stage_batches(X_val) if X_val is not None \
-            else None
-        every = int(self.train_metrics_every_iter)
+        with annotate('fit/stage'):
+            staged = self._stage_batches(
+                X, rows=self._rows(self.batch_size) if split else None)
+            staged_val = self._stage_batches(X_val) if X_val is not None \
+                else None
 
         for self.epoch_ in epoch_iter(start_epoch=self.epoch_,
                                       max_epoch=self.max_epoch,
                                       verbose=self.verbose and writes):
-            lr = float(schedule_value(self.learning_rate, self.epoch_))
-            mom = float(schedule_value(self.momentum, self.epoch_))
-            k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
-            iter0 = self.iter_
+            with annotate('fit/epoch'):
+                self._fit_epoch(staged, staged_val, train_epoch, epoch_fn,
+                                writes)
+
+    def _fit_epoch(self, staged, staged_val, train_epoch, epoch_fn, writes):
+        """Epoch ``self.epoch_`` of ``_fit``, its parts in spans of their
+        own.  The steps' mean-field sweeps, read from the n_mf row the
+        epoch copies to the host anyway, count in
+        ``dbm_epoch.sweeps['mf_sweeps']``, and with the epoch's steps and
+        enqueued sweeps in ``dbm_epoch.profiled_sweeps`` while a profiler
+        session is active."""
+        full, rem, _ = staged
+        every = int(self.train_metrics_every_iter)
+        lr = float(schedule_value(self.learning_rate, self.epoch_))
+        mom = float(schedule_value(self.momentum, self.epoch_))
+        k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
+        iter0 = self.iter_
+        sweeps = dbm_epoch.sweeps
+        enqueued = sweeps['mf_sweeps_enqueued']
+        with annotate('fit/epoch/train'):
             rows = train_epoch(full, rem, lr, mom, k,
                                derive_seed(self._fit_seed, self.epoch_),
                                epoch_fn)
+        with annotate('fit/epoch/readback'):
             rows = torch.cat(rows, dim=1).cpu().numpy() if rows \
                 else np.zeros((2, 0), self._np_dtype)
+            ran = int(rows[1].astype(np.int64).sum())
+            sweeps['mf_sweeps'] += ran
+            if profiling():
+                profiled = dbm_epoch.profiled_sweeps
+                profiled['steps'] += rows.shape[1]
+                profiled['mf_sweeps_enqueued'] += \
+                    sweeps['mf_sweeps_enqueued'] - enqueued
+                profiled['mf_sweeps'] += ran
             mask = (iter0 + 1 + np.arange(rows.shape[1])) % every == 0
-
             train_msre = train_n_mf = None
             if mask.any():
                 train_msre = float(rows[0][mask].mean())
                 train_n_mf = float(rows[1][mask].mean())
-            val_msre = val_n_mf = None
-            if X_val is not None and \
-                    self.epoch_ % self.val_metrics_every_epoch == 0:
+        val_msre = val_n_mf = None
+        if staged_val is not None and \
+                self.epoch_ % self.val_metrics_every_epoch == 0:
+            with annotate('fit/epoch/val'):
                 val_msre, val_n_mf = self._val_metrics(staged_val)
 
+        with annotate('fit/epoch/summaries'):
             step = self.iter_
             if writes and train_msre is not None:
                 self._train_writer.add_scalar('mean_squared_recon_error',
@@ -701,8 +728,9 @@ class DBM(EnergyBasedModel):
                     s += '; val.n_mf_upds: {0:.1f}'.format(val_n_mf)
                 write_during_training(s)
 
-            if self.save_after_each_epoch and \
-                    self.epoch_ % self.checkpoint_every_epoch == 0:
+        if self.save_after_each_epoch and \
+                self.epoch_ % self.checkpoint_every_epoch == 0:
+            with annotate('fit/epoch/checkpoint'):
                 self._save_model()
 
     # ================================================================== #
@@ -847,45 +875,51 @@ class DBM(EnergyBasedModel):
         sandwich (log_mean, log_upper) and `values` a dict of the forward
         values, the reverse log-weights and both bounds.  On a mesh the
         runs split over the ranks where they divide (each rank's with the
-        rank in its seed), and every rank returns the same values."""
-        self._ensure_state()
-        self._require_bernoulli('log_Z')
-        ladder = make_beta_schedule(n_betas, beta_schedule)
-        b0 = self._base_rate(base_rate)
-        H1 = self.n_hiddens_[0]
-        seed = self._replicated_seed(self.make_random_seed())
-        g = make_generator(seed, self._device)
-        # x0 from the base distribution itself
-        p0 = 0.5 if b0 is None else torch.sigmoid(b0)
-        x0 = (torch.rand((n_runs, H1), generator=g, dtype=self._torch_dtype,
-                         device=self._device) < p0).to(self._torch_dtype)
-        # the linear ladder in the JAX kernel's float32 arithmetic
-        cfg = self._ais_config(n_betas, n_gibbs_steps, None
-                               if beta_schedule == 'linear' else ladder)
-        eligible = self._kernel_eligible()
-        runs = self._runs(n_runs)
-        values = self._run_ais(
-            ais if eligible else ais_reference, cfg,
-            derive_seed(seed, _AIS_SALT),
-            x0 if runs is None else x0[runs].contiguous(), runs, b0) + \
-            self._ais_log_Z0(b0)
-        log_mean = log_mean_exp(values)
-        if bdmc:
-            x1 = self._model_h1_samples(n_runs, bdmc_burn_in,
-                                        derive_seed(seed, _BURN_SALT), runs)
-            w_rev = self._run_ais(
-                reverse_ais if eligible else reverse_ais_reference, cfg,
-                derive_seed(seed, _RAIS_SALT), x1, runs, b0)
-            log_upper = self._ais_log_Z0(b0) - log_mean_exp(w_rev)
-            return log_mean, (log_mean, log_upper), {
-                'forward': values, 'reverse': w_rev,
-                'log_Z_lower': log_mean, 'log_Z_upper': log_upper,
-                'bdmc_gap': log_upper - log_mean,
-            }
-        log_std = log_std_exp(values, log_mean_exp_x=log_mean)
-        log_high = log_sum_exp([log_std, log_mean])
-        log_low = log_diff_exp([log_std, log_mean])[0]
-        return log_mean, (log_low, log_high), values
+        rank in its seed), and every rank returns the same values.  Spans:
+        ``log_Z``, the forward run ``log_Z/ais``, BDMC's ``log_Z/bdmc``."""
+        with annotate('log_Z'):
+            self._ensure_state()
+            self._require_bernoulli('log_Z')
+            ladder = make_beta_schedule(n_betas, beta_schedule)
+            b0 = self._base_rate(base_rate)
+            H1 = self.n_hiddens_[0]
+            seed = self._replicated_seed(self.make_random_seed())
+            g = make_generator(seed, self._device)
+            # x0 from the base distribution itself
+            p0 = 0.5 if b0 is None else torch.sigmoid(b0)
+            x0 = (torch.rand((n_runs, H1), generator=g,
+                             dtype=self._torch_dtype, device=self._device)
+                  < p0).to(self._torch_dtype)
+            # the linear ladder in the JAX kernel's float32 arithmetic
+            cfg = self._ais_config(n_betas, n_gibbs_steps, None
+                                   if beta_schedule == 'linear' else ladder)
+            eligible = self._kernel_eligible()
+            runs = self._runs(n_runs)
+            with annotate('log_Z/ais'):
+                values = self._run_ais(
+                    ais if eligible else ais_reference, cfg,
+                    derive_seed(seed, _AIS_SALT),
+                    x0 if runs is None else x0[runs].contiguous(), runs,
+                    b0) + self._ais_log_Z0(b0)
+                log_mean = log_mean_exp(values)
+            if bdmc:
+                with annotate('log_Z/bdmc'):
+                    x1 = self._model_h1_samples(
+                        n_runs, bdmc_burn_in, derive_seed(seed, _BURN_SALT),
+                        runs)
+                    w_rev = self._run_ais(
+                        reverse_ais if eligible else reverse_ais_reference,
+                        cfg, derive_seed(seed, _RAIS_SALT), x1, runs, b0)
+                    log_upper = self._ais_log_Z0(b0) - log_mean_exp(w_rev)
+                return log_mean, (log_mean, log_upper), {
+                    'forward': values, 'reverse': w_rev,
+                    'log_Z_lower': log_mean, 'log_Z_upper': log_upper,
+                    'bdmc_gap': log_upper - log_mean,
+                }
+            log_std = log_std_exp(values, log_mean_exp_x=log_mean)
+            log_high = log_sum_exp([log_std, log_mean])
+            log_low = log_diff_exp([log_std, log_mean])[0]
+            return log_mean, (log_low, log_high), values
 
     def _log_proba_batch(self, X):
         """Variational lower bound -E(x, mu) + H(mu) (JAX dbm.py:1198)."""

@@ -8,7 +8,8 @@ source under ``csrc/`` and of the compiler flags, so an edited source is
 rebuilt and a stale library is never loaded.  The build needs only
 ``nvcc`` and the CUDA toolkit's headers -- no PyTorch headers, no network.
 A missing ``nvcc`` or a failed build raises with the compiler's output;
-there is no fallback.
+there is no fallback.  ``counts`` says what this process built and loaded,
+and the seconds it took: a process's first kernel call pays for both.
 """
 
 import ctypes
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -30,6 +32,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 LIBS = ('-lcuda',)
 
 _LOADED = {}
+#: ``nvcc`` runs and their wall seconds (sources built together share
+#: them), libraries loaded and the seconds of the loads alone
+counts = {'builds': 0, 'build_s': 0., 'loads': 0, 'load_s': 0.}
 
 
 def find_nvcc():
@@ -67,6 +72,7 @@ def build_all(names):
     compiler's output (register and shared memory use per kernel) is kept
     beside each library as ``<lib>.log``."""
     jobs = []
+    t0 = time.perf_counter()
     try:
         for name in names:
             lib = library_path(name)
@@ -97,6 +103,10 @@ def build_all(names):
             # atomic publish: a concurrent build of the same sources writes
             # the same bytes, and a reader never sees a half-written library
             os.replace(tmp, lib)
+    built = sum(proc is not None for _, proc, _, _ in jobs)
+    if built:
+        counts['builds'] += built
+        counts['build_s'] += time.perf_counter() - t0
     if failures:
         raise RuntimeError('\n'.join(failures))
     return [lib for lib, _, _, _ in jobs]
@@ -105,5 +115,9 @@ def build_all(names):
 def load_library(name):
     """The ``ctypes.CDLL`` of ``csrc/<name>.cu``, built on first use."""
     if name not in _LOADED:
-        _LOADED[name] = ctypes.CDLL(build_all([name])[0])
+        path = build_all([name])[0]
+        t0 = time.perf_counter()
+        _LOADED[name] = ctypes.CDLL(path)
+        counts['loads'] += 1
+        counts['load_s'] += time.perf_counter() - t0
     return _LOADED[name]

@@ -49,6 +49,15 @@ Each program has three parts:
   ``csrc/dbm_ops.cu`` (built on first use) or raises;
 * ``<wrapper>.launches``: how many times the wrapper launched each kernel.
 
+Beside the epoch's launches and not among them, ``dbm_epoch.sweeps``
+counts the training steps' mean-field sweeps: ``mf_sweeps_enqueued``, the
+sweeps the epochs enqueued (``max_mf_updates`` a step on the kernels,
+which enqueue the whole budget; the sweeps run on the plain paths), and
+``mf_sweeps``, the sweeps the steps ran, which ``DBM.fit`` adds from the
+n_mf row it copies to the host every epoch.  ``dbm_epoch.profiled_sweeps``
+holds the same two counts and the ``steps`` of the training epochs that
+ran while a ``torch.profiler`` session was active: what a trace covers.
+
 Random draws come from the Philox streams of ``ops/philox.py``, which the
 kernels reproduce exactly, so kernel and plain version draw the same
 uniforms.
@@ -90,6 +99,10 @@ EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_bias_update', 'dbm_assoc_update',
                  'dbm_max_norm', 'dbm_msre')
 SAMPLE_KERNELS = ('dbm_gemm_act',)
 AIS_KERNELS = ('dbm_gemm_act', 'ais_logw')
+#: the mean-field sweep counts of ``dbm_epoch.sweeps``, and of
+#: ``dbm_epoch.profiled_sweeps`` with its steps
+SWEEP_COUNTS = ('mf_sweeps_enqueued', 'mf_sweeps')
+PROFILED_COUNTS = ('steps',) + SWEEP_COUNTS
 
 # `units`: the layer objects (layers.py) of the visible and each hidden
 # layer, or None (the default) for an all-Bernoulli DBM
@@ -469,6 +482,7 @@ def _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed, iter0,
     for i in range(NB):
         state, msre, n_mf = dbm_step(cfg, state, X_batches[i], lr, momentum,
                                      seed, int(iter0) + i + 1, reference)
+        dbm_epoch.sweeps['mf_sweeps_enqueued'] += n_mf
         rows[0, i] = msre
         rows[1, i] = n_mf
     return state, rows[0], rows[1]
@@ -656,6 +670,7 @@ def dbm_mesh_epoch(cfg, state, X_batches, lr, momentum, seed, iter0, N, M,
         X, it = X_batches[i], int(iter0) + i + 1
         mu, n_mf = mean_field(X, state['W'], state['hb'], cfg.max_mf_updates,
                               cfg.mf_tol, cfg.units, reduce_max)
+        dbm_epoch.sweeps['mf_sweeps_enqueued'] += n_mf
         v, H = state['v'], state['H']
         for s in range(cfg.k):
             draw = unit_draw(units, cfg.sample_v, cfg.sample_h,
@@ -946,6 +961,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                                   ctrl.data_ptr(), tol, cfg.max_mf_updates,
                                   stream), 'dbm_mf_loop')
         launches['dbm_gemm_act'] += L * cfg.max_mf_updates
+        dbm_epoch.sweeps['mf_sweeps_enqueued'] += cfg.max_mf_updates
         for a in gibbs:
             a.it = it
             launch(a)
@@ -1225,9 +1241,15 @@ def ais_burn_in(cfg, state, seed, x0, n_steps):
 dbm_epoch.launches = dict.fromkeys(EPOCH_KERNELS, 0)
 dbm_sample.launches = dict.fromkeys(SAMPLE_KERNELS, 0)
 ais.launches = dict.fromkeys(AIS_KERNELS, 0)
+dbm_epoch.sweeps = dict.fromkeys(SWEEP_COUNTS, 0)
+dbm_epoch.profiled_sweeps = dict.fromkeys(PROFILED_COUNTS, 0)
 
 
 def reset_launches():
+    """Zero every launch count, and the sweep counts beside them."""
     for fn in (dbm_epoch, dbm_sample, ais):
         for name in fn.launches:
             fn.launches[name] = 0
+    for counts in (dbm_epoch.sweeps, dbm_epoch.profiled_sweeps):
+        for name in counts:
+            counts[name] = 0

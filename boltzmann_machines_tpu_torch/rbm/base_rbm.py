@@ -62,6 +62,7 @@ from ..ops.cd_stats import make_cd_stats_kernel, split_stats
 from ..parallel.mesh import all_gather_columns, column_block, replicate
 from ..utils import (make_list_from, epoch_iter, schedule_value,
                      write_during_training)
+from ..utils.profiler import annotate
 from ..utils.testing import assert_len, assert_shape
 
 # seed salts of the per-epoch streams (the JAX package folds the same
@@ -952,60 +953,77 @@ class BaseRBM(EnergyBasedModel):
         # a tensor-parallel mesh splits rows over 'data' where they split
         split = shardmap or (tp and mesh.size > 1 and
                              self.batch_size % mesh.size == 0)
-        if split:
-            b = self.batch_size // mesh.size
-            staged_train = self._stage_batches(
-                X, rows=slice(mesh.rank * b, (mesh.rank + 1) * b))
-            train_epoch = self._train_epoch_tensor_parallel if tp \
-                else self._train_epoch_shardmap
-        elif tp:
-            staged_train = self._stage_batches(X)
-            train_epoch = self._train_epoch_tensor_parallel
-        else:
-            staged_train = self._stage_batches(X)
-            train_epoch = self._train_epoch_kernel if use_kernel \
-                else self._train_epoch_generic
-        full, rem, n_full = staged_train
-        staged_val = self._stage_batches(X_val) if X_val is not None \
-            else None
-        staged_feg = staged_train
-        if split and X_val is not None and mc['feg']:
-            # the FEG reads whole training batches, the same on every rank
-            n, B = mc['n_batches_for_feg'], self.batch_size
-            staged_feg = self._stage_batches(
-                X if n_full < n else np.asarray(X)[:n * B])
-        every = int(mc['train_metrics_every_iter'])
+        with annotate('fit/stage'):
+            if split:
+                b = self.batch_size // mesh.size
+                staged_train = self._stage_batches(
+                    X, rows=slice(mesh.rank * b, (mesh.rank + 1) * b))
+                train_epoch = self._train_epoch_tensor_parallel if tp \
+                    else self._train_epoch_shardmap
+            elif tp:
+                staged_train = self._stage_batches(X)
+                train_epoch = self._train_epoch_tensor_parallel
+            else:
+                staged_train = self._stage_batches(X)
+                train_epoch = self._train_epoch_kernel if use_kernel \
+                    else self._train_epoch_generic
+            n_full = staged_train[2]
+            staged_val = self._stage_batches(X_val) if X_val is not None \
+                else None
+            staged_feg = staged_train
+            if split and X_val is not None and mc['feg']:
+                # the FEG reads whole training batches, the same on every
+                # rank
+                n, B = mc['n_batches_for_feg'], self.batch_size
+                staged_feg = self._stage_batches(
+                    X if n_full < n else np.asarray(X)[:n * B])
 
         for self.epoch_ in epoch_iter(start_epoch=self.epoch_,
                                       max_epoch=self.max_epoch,
                                       verbose=self.verbose and writes):
-            lr = float(schedule_value(self.learning_rate, self.epoch_))
-            mom = float(schedule_value(self.momentum, self.epoch_))
-            k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
-            iter0 = self.iter_
+            with annotate('fit/epoch'):
+                self._fit_epoch(X, staged_train, staged_val, staged_feg,
+                                train_epoch, writes)
+
+    def _fit_epoch(self, X, staged_train, staged_val, staged_feg,
+                   train_epoch, writes):
+        """Epoch ``self.epoch_`` of ``_fit``, its parts in spans of their
+        own."""
+        mc = self.metrics_config
+        full, rem, _ = staged_train
+        every = int(mc['train_metrics_every_iter'])
+        lr = float(schedule_value(self.learning_rate, self.epoch_))
+        mom = float(schedule_value(self.momentum, self.epoch_))
+        k = int(schedule_value(self.n_gibbs_steps, self.epoch_))
+        iter0 = self.iter_
+        with annotate('fit/epoch/train'):
             rows = train_epoch(full, rem, lr, mom, k,
                                derive_seed(self._fit_seed, self.epoch_))
+        with annotate('fit/epoch/readback'):
             rows = torch.cat(rows, dim=1).cpu().numpy() if rows \
                 else np.zeros((3, 0), self._np_dtype)
             mask = (iter0 + 1 + np.arange(rows.shape[1])) % every == 0
             train_results = self._reduce_train_metrics(rows, mask) \
                 if mask.any() else {}
 
-            val_results = {}
-            feg = None
-            if X_val is not None and \
-                    self.epoch_ % mc['val_metrics_every_epoch'] == 0:
+        val_results = {}
+        feg = None
+        if staged_val is not None and \
+                self.epoch_ % mc['val_metrics_every_epoch'] == 0:
+            with annotate('fit/epoch/val'):
                 val_results = self._val_metrics(staged_val, k)
-            if X_val is not None and mc['feg'] and \
-                    self.epoch_ % mc['feg_every_epoch'] == 0:
+        if staged_val is not None and mc['feg'] and \
+                self.epoch_ % mc['feg_every_epoch'] == 0:
+            with annotate('fit/epoch/feg'):
                 feg = self._feg(staged_feg, staged_val)
-            want_summaries = bool(mask.any()) and \
-                self._any_train_metric() and \
-                self.epoch_ % self.summaries_every_epoch == 0
-            hidden = stats = None
+        want_summaries = bool(mask.any()) and \
+            self._any_train_metric() and \
+            self.epoch_ % self.summaries_every_epoch == 0
+        hidden = stats = None
+        with annotate('fit/epoch/summaries'):
             # on a tensor-parallel mesh the probe and the summaries gather
             # columns: every rank takes part, and rank 0 writes
-            if want_summaries and (writes or tp):
+            if want_summaries and (writes or self._tp is not None):
                 if self.display_hidden_activations:
                     # the first batch of the whole data (a rank on the mesh
                     # holds only its rows of it)
@@ -1021,8 +1039,9 @@ class BaseRBM(EnergyBasedModel):
                 if want_summaries:
                     self._write_epoch_summaries(stats, self.iter_)
                     self._train_writer.flush()
-            if self.save_after_each_epoch and \
-                    self.epoch_ % self.checkpoint_every_epoch == 0:
+        if self.save_after_each_epoch and \
+                self.epoch_ % self.checkpoint_every_epoch == 0:
+            with annotate('fit/epoch/checkpoint'):
                 self._save_model()
 
     def _log_epoch(self, train_results, val_results, feg):

@@ -1,10 +1,31 @@
-"""Profiling hooks on ``torch.profiler``: traces viewable in TensorBoard or
-Perfetto, named regions inside them, and a step timer (the counterpart of
-the JAX package's ``utils/profiler.py``)."""
+"""Profiling hooks: traces on ``torch.profiler`` viewable in TensorBoard or
+Perfetto, and the port's spans, the named regions of its fit loops (the
+counterpart of the JAX package's ``utils/profiler.py``).
+
+``annotate(name)`` opens a span.  It does nothing unless a recording or a
+profiler session is open, so the fit loops keep their spans in every run:
+
+* inside ``recording()`` each span is kept in memory with its host
+  wall-clock interval (``time.time_ns()``, the clock ``torch.profiler``
+  stamps its host and device events with), its parent and the call it
+  belongs to;
+* while a ``torch.profiler`` session is active (``trace()`` below, or the
+  caller's own) it is also a ``record_function`` region of the trace.
+
+A span's name is a path: ``fit``, ``fit/epoch``, ``fit/epoch/train``.  A
+name without a slash names a call (``fit``, ``log_Z``): the spans under it
+belong to it.  Spans are recorded from one thread at a time.
+"""
 
 import contextlib
 import os
 import time
+
+from torch.autograd import _profiler_enabled
+
+#: the open ``Recorder``, or None: recording is off
+_recorder = None
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -13,7 +34,8 @@ def trace(logdir, name='bmtpu'):
     of the CUDA device when there is one (every kernel of the process, the
     port's ctypes launches included) -- and write it into `logdir` as
     ``<name>.<pid>.pt.trace.json`` (Chrome trace format: TensorBoard's
-    profiler plugin and Perfetto open it).  Yields the
+    profiler plugin and Perfetto open it).  The port's spans in the block
+    (``fit/...``, ``log_Z/...``) are regions of it.  Yields the
     ``torch.profiler.profile`` object.
 
     >>> with trace('/tmp/prof'):     # doctest: +SKIP
@@ -31,31 +53,77 @@ def trace(logdir, name='bmtpu'):
         logdir, '{0}.{1}.pt.trace.json'.format(name, os.getpid())))
 
 
-@contextlib.contextmanager
-def annotate(name):
-    """Named region inside a trace."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+class Span(object):
+    """A recorded span: `name`, `start_ns` and `end_ns` (``time.time_ns()``;
+    `end_ns` None while it is open), `parent` (the index of the enclosing
+    span in the recording, or None) and `call` (the index of the span that
+    names its call: the nearest enclosing one, itself included, whose name
+    has no slash; None where there is none)."""
+
+    __slots__ = ('name', 'start_ns', 'end_ns', 'parent', 'call')
+
+    def __init__(self, name, start_ns, parent, call):
+        self.name, self.start_ns, self.end_ns = name, start_ns, None
+        self.parent, self.call = parent, call
 
 
-class StepTimer(object):
-    """Lightweight wall-clock step timer that syncs with the device by a
-    scalar readback of `sync_value` (its sum)."""
+class Recorder(object):
+    """The spans of one ``recording()``, in the order they opened."""
 
     def __init__(self):
-        self.times = []
-        self._t0 = None
+        self.spans = []
+        self._open = []
 
-    def start(self):
-        self._t0 = time.perf_counter()
+    @contextlib.contextmanager
+    def span(self, name):
+        parent = self._open[-1] if self._open else None
+        i = len(self.spans)
+        call = i if '/' not in name else \
+            None if parent is None else self.spans[parent].call
+        s = Span(name, time.time_ns(), parent, call)
+        self.spans.append(s)
+        self._open.append(i)
+        try:
+            yield
+        finally:
+            s.end_ns = time.time_ns()
+            self._open.pop()
 
-    def stop(self, sync_value=None):
-        if sync_value is not None:
-            float(sync_value if not hasattr(sync_value, 'sum')
-                  else sync_value.sum())
-        self.times.append(time.perf_counter() - self._t0)
-        return self.times[-1]
 
-    def mean(self):
-        return sum(self.times) / max(len(self.times), 1)
+@contextlib.contextmanager
+def recording():
+    """Keep the spans opened in the block; yields their list (``Span``s,
+    in the order they opened), complete once the block ends.  Recordings
+    do not nest."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError('a recording is already open')
+    _recorder = Recorder()
+    try:
+        yield _recorder.spans
+    finally:
+        _recorder = None
+
+
+@contextlib.contextmanager
+def _span(name, recorder, in_session):
+    from torch.profiler import record_function
+    with record_function(name) if in_session else _OFF:
+        with recorder.span(name) if recorder is not None else _OFF:
+            yield
+
+
+def profiling():
+    """Whether a ``torch.profiler`` session is active."""
+    return _profiler_enabled()
+
+
+def annotate(name):
+    """A span named `name` around the enclosed block: kept by the open
+    ``recording()``, and a ``record_function`` region while a profiler
+    session is active; nothing otherwise."""
+    recorder = _recorder
+    in_session = _profiler_enabled()
+    if recorder is None and not in_session:
+        return _OFF
+    return _span(name, recorder, in_session)

@@ -1,10 +1,12 @@
 """The port's profiling hooks (boltzmann_machines_tpu_torch/utils/
 profiler.py) on the CPU, mirroring tests/test_aux.py:14-38: a trace file
-that TensorBoard or Perfetto opens, and the annotation and step timer."""
+that TensorBoard or Perfetto opens, and the spans of `annotate`, off, in a
+recording and in a profiler's trace."""
 
 import json
 import os
 
+import pytest
 import torch
 
 from boltzmann_machines_tpu_torch.utils import profiler
@@ -30,12 +32,55 @@ def test_profiler_trace_writes_events(tmp_path):
 
 
 def test_profiler_annotate_and_timer():
-    t = profiler.StepTimer()
+    """`annotate` records nothing with no recording and no profiler open;
+    inside `recording()` it keeps each span's interval, parent and call,
+    and the recording ends with its block."""
+    assert profiler.annotate('step') is profiler.annotate('other')
     with profiler.annotate('step'):
-        t.start()
         x = torch.ones((64, 64)) @ torch.ones((64, 64))
-        dt = t.stop(sync_value=x)
-    assert dt >= 0.
-    assert t.mean() >= 0.
-    assert len(t.times) == 1
-    assert profiler.StepTimer().mean() == 0.
+    with profiler.recording() as spans:
+        with profiler.annotate('fit'):
+            with profiler.annotate('fit/epoch'):
+                x = x @ x
+            with profiler.annotate('fit/save'):
+                pass
+        with profiler.annotate('log_Z'):
+            with profiler.annotate('log_Z/ais'):
+                pass
+        with pytest.raises(RuntimeError):
+            with profiler.recording():
+                pass
+    assert [(s.name, s.parent, s.call) for s in spans] == [
+        ('fit', None, 0), ('fit/epoch', 0, 0), ('fit/save', 0, 0),
+        ('log_Z', None, 3), ('log_Z/ais', 3, 3)]
+    for s in spans:
+        assert s.start_ns <= s.end_ns
+        if s.parent is not None:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+    assert spans[1].end_ns <= spans[2].start_ns
+    with profiler.annotate('fit'):
+        pass
+    assert len(spans) == 5 and profiler._recorder is None
+
+
+def test_span_holds_the_profiler_events_run_inside_it():
+    """The spans and torch.profiler's host events share a clock
+    (``time.time_ns()``, since the epoch): an op run inside a span lies
+    inside the span's recorded interval, and the span is a region of the
+    profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.ones((256, 256))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiler.recording() as spans:
+            with profiler.annotate('fit'):
+                for _ in range(5):
+                    x = x @ torch.ones((256, 256)) / 256.
+    events = prof.profiler.kineto_results.events()
+    mm = [e for e in events if e.name() == 'aten::mm']
+    assert len(mm) == 5
+    (span,) = spans
+    for e in mm:
+        assert span.start_ns <= e.start_ns()
+        assert e.start_ns() + e.duration_ns() <= span.end_ns
+    assert any(e.name() == 'fit' for e in events)
