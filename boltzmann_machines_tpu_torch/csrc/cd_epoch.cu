@@ -66,6 +66,16 @@
 //                       W adds |W|^2, the multinomial hidden terms x.(W
 //                       h_hat), the visible terms and the msre, and its last
 //                       block writes the rows.
+// The fit loop's validation and free-energy gap run as whole-set passes on
+// the same kernels (ops/cd_val.py), a chunk of whole batches at a time: K1
+// (and K1b) for the chain over every row at once, K4's first launch on
+// every row (bm_cd_val_fe, bm_cd_val_draw), then
+//
+//   K5 cd_val_reduce    each row's squared error and free energies, and on
+//                       the last chunk the means over the batch segments
+//                       (below, at the kernel), so a pass reads back three
+//                       numbers where the host ran ~50 torch ops a batch.
+//
 // The data-parallel epoch's per-shard statistics (the TPU's
 // `make_cd_stats_kernel` / `_cd_stats_kernel`, :1206, body :1086-1151, and
 // its W-streaming twin `make_tiled_cd_stats_kernel` /
@@ -159,8 +169,8 @@
 // tensor-core tile (K1) in gemm_tc.cuh, the association kernel (K3, K3s) in
 // assoc_tc.cuh; all are shared with dbm_ops.cu.
 //
-// C interface (bound with ctypes by ops/cd_epoch.py, ops/cd_stats.py and
-// ops/samplers.py):
+// C interface (bound with ctypes by ops/cd_epoch.py, ops/cd_stats.py,
+// ops/cd_val.py and ops/samplers.py):
 // every entry launches on the given stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError().
 
@@ -689,19 +699,23 @@ __global__ void __launch_bounds__(bm::tc::kThreads, 1)
 // fe(x_f) (z = 1, kStreamPllHhatFlip), n draws at elements 0..n-1 of the
 // uniform CDF, into hh[z H .. z H + H) as floats -- once per logged step,
 // where every block of the row walk drew both before.  The free-energy
-// probe launches block 0 alone at it = 0.  Dynamic shared memory:
-// row_smem(H).
+// probe launches block 0 alone at it = 0.  The whole-set passes
+// (bm_cd_val_draw) draw `per` vectors for each batch segment s of a chunk:
+// block z = s per + j, j = 1 the flipped rows' (per 2), at elements s n ..
+// s n + n - 1.  Dynamic shared memory: row_smem(H).
 __global__ void __launch_bounds__(kRowThreads)
-    cd_metrics_draw_kernel(int H, int n, unsigned seed, unsigned it,
+    cd_metrics_draw_kernel(int per, int H, int n, unsigned seed, unsigned it,
                            float* __restrict__ hh) {
   extern __shared__ float smem[];
   __shared__ double tot[32];
   float* buf = smem;
   int* counts = reinterpret_cast<int*>(smem + H);
+  const unsigned seg = blockIdx.x / (unsigned)per;
   uniform_cdf(buf, counts, H, n, tot);
   multinomial_draw(buf, H, n, seed, it,
-                   blockIdx.x ? bm::kStreamPllHhatFlip : bm::kStreamPllHhat,
-                   0u, counts);
+                   blockIdx.x % (unsigned)per ? bm::kStreamPllHhatFlip
+                                              : bm::kStreamPllHhat,
+                   seg * (unsigned)n, counts);
   int lo, hi;
   row_chunk(H, lo, hi);
   for (int h = lo; h < hi; ++h)
@@ -881,6 +895,128 @@ __global__ void __launch_bounds__(kMetThreads)
   }
 }
 
+// The whole-set passes' reduction (ops/cd_val.py: the validation msre and
+// PLL, the FEG's free energies), one launch a chunk of the set.  Warp w of
+// block j owns row b = 8 j + w of the chunk, 32 columns at a time: its
+// squared reconstruction error against the chain's v_means (vm; zeros
+// where null), and its free energy and, with `flip`, that of the row with
+// unit pll_flip(seed, it, b) flipped -- the visible terms (-x.vb, or 0.5
+// (x - vb/sigma)^2) beside the hidden ones: K4's first launch's softplus
+// row sums (fe_rows, Bernoulli hidden units) or x.u with u = W.hh of the
+// row's batch segment (multinomial; `u` holds `per` rows of V a segment).
+// Each row's three numbers go to row_out at its place in the whole set.
+// With `final_pass`, the last block to finish then walks the batch
+// segments -- rows [s B, s B + B) of the set, the remainder a segment of
+// its own -- a warp a segment, in a fixed order: per segment the msre
+// (sum / (rows V)), the batch-mean free energies fe and fe_f and the PLL V
+// log_sigmoid(fe_f - fe), and writes their means over the segments to
+// those of msre_out, pll_out and fe_out that are given, re-arming the
+// counter.  Bound by its bytes:
+// X and vm read once (31 MB at 5000 x 784), the segment walk's 12 bytes a
+// row from L2.
+constexpr int kValThreads = 256;
+
+__global__ void __launch_bounds__(kValThreads)
+    cd_val_reduce_kernel(const float* __restrict__ X,
+                         const float* __restrict__ vm,
+                         const float* __restrict__ vb,
+                         const float* __restrict__ sigma,
+                         const float* __restrict__ fe_rows, int fe_tiles,
+                         const float* __restrict__ u, int per, int rows,
+                         int V, int B, int msre, int fe, int flip,
+                         unsigned seed, unsigned it, long long row0,
+                         int n_total, int final_pass, float* row_out,
+                         unsigned* counter, float* msre_out, float* pll_out,
+                         float* fe_out) {
+  constexpr int kWarps = kValThreads / 32;
+  __shared__ float red[3][kWarps];
+  __shared__ bool is_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + warp;
+  if (b < rows) {
+    const float* x = X + (long long)b * V;
+    const float* m = vm ? vm + (long long)b * V : nullptr;
+    const int f = flip ? pll_flip(seed, it, b, V) : -1;
+    const float* us = u ? u + (long long)(b / B) * per * V : nullptr;
+    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sq, tv, tv_f, th, th_f
+    for (int v = lane; v < V; v += 32) {
+      const float xv = x[v], xf = v == f ? 1.f - xv : xv;
+      if (msre) {
+        const float d = m ? xv - m[v] : xv;
+        s[0] = fmaf(d, d, s[0]);
+      }
+      if (!fe) continue;
+      if (sigma) {
+        const float c = vb[v] / sigma[v], d = xv - c, df = xf - c;
+        s[1] = fmaf(d, d, s[1]);
+        s[2] = fmaf(df, df, s[2]);
+      } else {
+        s[1] = fmaf(xv, vb[v], s[1]);
+        s[2] = fmaf(xf, vb[v], s[2]);
+      }
+      if (us) {
+        s[3] = fmaf(xv, us[v], s[3]);
+        if (flip) s[4] = fmaf(xf, us[V + v], s[4]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[k] += __shfl_xor_sync(0xffffffffu, s[k], o);
+    if (lane == 0) {
+      if (fe && !us)
+        for (int t = 0; t < fe_tiles; ++t) {
+          s[3] += fe_rows[(long long)b * fe_tiles + t];
+          if (flip) s[4] += fe_rows[((long long)rows + b) * fe_tiles + t];
+        }
+      float* o = row_out + (row0 + b) * 3;
+      o[0] = s[0];
+      o[1] = (sigma ? 0.5f * s[1] : -s[1]) - s[3];
+      o[2] = (sigma ? 0.5f * s[2] : -s[2]) - s[4];
+      __threadfence();
+    }
+  }
+  if (!final_pass) return;
+  __syncthreads();
+  if (!bm::last_block(counter, &is_last)) return;
+
+  const int nseg = (n_total + B - 1) / B;
+  float acc[3] = {0.f, 0.f, 0.f};
+  for (int sg = warp; sg < nseg; sg += kWarps) {
+    const long long r0 = (long long)sg * B;
+    const int c = min(B, n_total - sg * B);
+    float t[3] = {0.f, 0.f, 0.f};
+    for (int r = lane; r < c; r += 32)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) t[k] += __ldcg(&row_out[(r0 + r) * 3 + k]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        t[k] += __shfl_xor_sync(0xffffffffu, t[k], o);
+    // batch-MEAN free energies, x n_visible, no dbm doubling
+    const float fe_s = t[1] / (float)c, fef_s = t[2] / (float)c;
+    acc[0] += t[0] / ((float)c * (float)V);
+    if (flip) acc[1] += (float)V * log_sigmoid(fef_s - fe_s);
+    acc[2] += fe_s;
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) red[k][warp] = acc[k];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float tot[3] = {0.f, 0.f, 0.f};
+    for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) tot[k] += red[k][w];
+    if (msre_out) *msre_out = tot[0] / (float)nseg;
+    if (pll_out) *pll_out = tot[1] / (float)nseg;
+    if (fe_out) *fe_out = tot[2] / (float)nseg;
+    *counter = 0u;
+  }
+}
+
 // The standalone samplers, bernoulli_sample_kernel and normal_sample_kernel.
 // They replace the TPU's `bernoulli_sample` and `normal_sample`
 // (boltzmann_machines_tpu/ops/pallas_ops.py:74-103, `_bernoulli_kernel` and
@@ -1043,15 +1179,16 @@ int launch_fe_rows(const float* X, const float* W, const float* hb, int B,
   return err;
 }
 
-// K4's draws: `blocks` count vectors (block z on stream kStreamPllHhat or
-// kStreamPllHhatFlip) into hh.
-int launch_draws(int blocks, int H, int n, unsigned seed, unsigned it,
-                 float* hh, cudaStream_t s) {
+// K4's draws: `blocks` count vectors into hh, `per` a segment (block z on
+// stream kStreamPllHhat, or kStreamPllHhatFlip where z % per is 1).
+int launch_draws(int blocks, int per, int H, int n, unsigned seed,
+                 unsigned it, float* hh, cudaStream_t s) {
+  if (blocks < 1 || per < 1 || per > 2) return (int)cudaErrorInvalidValue;
   const size_t smem = row_smem(H);
   const cudaError_t err = allow_smem(cd_metrics_draw_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  cd_metrics_draw_kernel<<<blocks, kRowThreads, smem, s>>>(H, n, seed, it,
-                                                           hh);
+  cd_metrics_draw_kernel<<<blocks, kRowThreads, smem, s>>>(per, H, n, seed,
+                                                           it, hh);
   return (int)cudaGetLastError();
 }
 
@@ -1199,7 +1336,7 @@ int bm_cd_metrics_fe(const float* X, const float* W, const float* hb, int B,
 // vectors into `hh` (2 x H floats).
 int bm_cd_metrics_draw(int H, int n, unsigned seed, unsigned it, float* hh,
                        void* stream) {
-  return launch_draws(2, H, n, seed, it, hh, (cudaStream_t)stream);
+  return launch_draws(2, 2, H, n, seed, it, hh, (cudaStream_t)stream);
 }
 
 // K4's pass over W and the metric rows: ceil(V / w_rows) blocks (w_rows <=
@@ -1220,6 +1357,51 @@ int bm_cd_metrics(const float* X, const float* W, const float* vb,
       X, W, vb, sigma, msre_col, B, V, H, w_rows, l2, compute_pll, n, hh,
       fe_rows, fe_tiles, seed, it, partials, counter, msre_out, pll_out,
       l2_out, nullptr, nullptr, (cudaStream_t)stream);
+}
+
+// The whole-set passes (ops/cd_val.py), per chunk of `rows` rows of the
+// set.  K4's first launch on the chunk: X (rows, V) . W on the tensor-core
+// tile with the free-energy epilogue, the flipped rows' too where `flip`;
+// `fe_rows` holds (flip ? 2 : 1) x rows x ceil(H / 128) floats.
+int bm_cd_val_fe(const float* X, const float* W, const float* hb, int rows,
+                 int V, int H, int flip, unsigned seed, unsigned it,
+                 int n_tile, int splits, float* ws, unsigned* counters,
+                 float* fe_rows, void* stream) {
+  return launch_fe_rows(X, W, hb, rows, V, H, flip ? 1 : 0, seed, it,
+                        n_tile, splits, ws, counters, fe_rows,
+                        (cudaStream_t)stream);
+}
+
+// Multinomial hidden units: `vectors` count vectors into hh (vectors x H
+// floats), `per` (1 or 2) for each batch segment of the chunk.
+int bm_cd_val_draw(int vectors, int per, int H, int n, unsigned seed,
+                   unsigned it, float* hh, void* stream) {
+  return launch_draws(vectors, per, H, n, seed, it, hh,
+                      (cudaStream_t)stream);
+}
+
+// cd_val_reduce_kernel over the chunk's rows, 8 a block; its rows' numbers
+// into row_out (3 floats a row of the whole set, from row row0), and with
+// final_pass the means over the set's segments into those of msre_out,
+// pll_out and fe_out that are not null.  `counter`: one zeroed unsigned,
+// re-armed by the final launch.
+int bm_cd_val_reduce(const float* X, const float* vm, const float* vb,
+                     const float* sigma, const float* fe_rows, int fe_tiles,
+                     const float* u, int per, int rows, int V, int B,
+                     int msre, int fe, int flip, unsigned seed, unsigned it,
+                     long long row0, int n_total, int final_pass,
+                     float* row_out, unsigned* counter, float* msre_out,
+                     float* pll_out, float* fe_out, void* stream) {
+  if (rows < 1 || B < 1 || per < 1 || per > 2 || row0 < 0 ||
+      row0 + rows > n_total)
+    return (int)cudaErrorInvalidValue;
+  constexpr int kWarps = kValThreads / 32;
+  cd_val_reduce_kernel<<<(rows + kWarps - 1) / kWarps, kValThreads, 0,
+                         (cudaStream_t)stream>>>(
+      X, vm, vb, sigma, fe_rows, fe_tiles, u, per, rows, V, B, msre, fe,
+      flip, seed, it, row0, n_total, final_pass, row_out, counter, msre_out,
+      pll_out, fe_out);
+  return (int)cudaGetLastError();
 }
 
 // The standalone samplers: one wave of ceil(count / 512) blocks (at least
@@ -1260,7 +1442,7 @@ int bm_fe_probe(const float* X, const float* W, const float* vb,
                 unsigned* counter, float* fe_out, float* hhat_out,
                 void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const int err = n > 0 ? launch_draws(1, H, n, seed, 0u, hhat_out, s)
+  const int err = n > 0 ? launch_draws(1, 1, H, n, seed, 0u, hhat_out, s)
                         : launch_fe_rows(X, W, hb, B, V, H, 0, seed, 0u,
                                          n_tile, splits, ws, counters, rows,
                                          s);

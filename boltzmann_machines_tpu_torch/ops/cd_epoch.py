@@ -25,7 +25,8 @@ Three parts:
 * ``cd_epoch`` -- the wrapper: a CPU tensor runs the plain version, a CUDA
   tensor launches the hand-written kernels of ``csrc/cd_epoch.cu`` (built
   on first use) or raises;
-* ``cd_epoch.launches`` -- how many times each kernel was launched.
+* ``cd_epoch.launches`` -- how many times each kernel was launched (the
+  whole-set passes of ``ops/cd_val.py`` count theirs here too).
 
 Random draws (sampled states, the PLL flip and count vectors) come from the
 Philox stream of ``ops/philox.py``, which the kernels reproduce exactly.
@@ -45,7 +46,7 @@ from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
 
 STATE_KEYS = ('W', 'vb', 'hb', 'dW', 'dvb', 'dhb', 'q_means')
 KERNELS = ('cd_gemm_act', 'cd_softmax_sample', 'cd_bias_stats',
-           'cd_assoc_update', 'cd_metrics')
+           'cd_assoc_update', 'cd_metrics', 'cd_val_reduce')
 VISIBLE = ('bernoulli', 'gaussian')
 HIDDEN = ('bernoulli', 'multinomial')
 
@@ -68,6 +69,27 @@ def check_flavour(visible, hidden, n_samples):
         raise ValueError('multinomial hidden units need n_samples >= 1')
 
 
+def cd_epoch_config(n_visible, n_hidden, k, sample_v_states,
+                    sample_h_states, propup_mult, propdown_mult, l2,
+                    sparsity_target, sparsity_cost, sparsity_damping,
+                    metrics_every, compute_pll=True, visible='bernoulli',
+                    sigma=None, hidden='bernoulli', n_samples=None):
+    """The checked static configuration of the CD kernels (the epoch's, and
+    the whole-set passes' of ``ops/cd_val.py``).  `sigma` (Gaussian visible
+    units) is a scalar or a (n_visible,) array, `n_samples` (multinomial
+    hidden units) the number of tied softmax draws."""
+    check_flavour(visible, hidden, n_samples)
+    if int(k) < 0 or int(metrics_every) < 1:
+        raise ValueError('need k >= 0 and metrics_every >= 1')
+    return CDEpochConfig(
+        int(n_visible), int(n_hidden), int(k), bool(sample_v_states),
+        bool(sample_h_states), float(propup_mult), float(propdown_mult),
+        float(l2), float(sparsity_target), float(sparsity_cost),
+        float(sparsity_damping), int(metrics_every), bool(compute_pll),
+        visible, sigma if visible == 'gaussian' else None, hidden,
+        None if hidden == 'bernoulli' else int(n_samples))
+
+
 def make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k,
                          sample_v_states, sample_h_states,
                          propup_mult, propdown_mult,
@@ -76,21 +98,15 @@ def make_cd_epoch_kernel(n_visible, n_hidden, batch_size, k,
                          compute_pll=True, visible='bernoulli', sigma=None,
                          hidden='bernoulli', n_samples=None):
     """Build ``epoch(state, X_batches, lr, momentum, seed, iter0)`` with the
-    static configuration of the JAX factory.  `sigma` (Gaussian visible
-    units) is a scalar or a (n_visible,) array, `n_samples` (multinomial
-    hidden units) the number of tied softmax draws.  `batch_size` is kept
-    for that signature; the epoch takes any batch size (the remainder batch
-    of a fit runs through it with its own row count)."""
-    check_flavour(visible, hidden, n_samples)
-    if int(k) < 0 or int(metrics_every) < 1:
-        raise ValueError('need k >= 0 and metrics_every >= 1')
-    cfg = CDEpochConfig(
-        int(n_visible), int(n_hidden), int(k), bool(sample_v_states),
-        bool(sample_h_states), float(propup_mult), float(propdown_mult),
-        float(l2), float(sparsity_target), float(sparsity_cost),
-        float(sparsity_damping), int(metrics_every), bool(compute_pll),
-        visible, sigma if visible == 'gaussian' else None, hidden,
-        None if hidden == 'bernoulli' else int(n_samples))
+    static configuration of the JAX factory (``cd_epoch_config``).
+    `batch_size` is kept for that signature; the epoch takes any batch size
+    (the remainder batch of a fit runs through it with its own row
+    count)."""
+    cfg = cd_epoch_config(
+        n_visible, n_hidden, k, sample_v_states, sample_h_states,
+        propup_mult, propdown_mult, l2, sparsity_target, sparsity_cost,
+        sparsity_damping, metrics_every, compute_pll, visible, sigma, hidden,
+        n_samples)
 
     def epoch(state, X_batches, lr, momentum, seed, iter0):
         return cd_epoch(cfg, state, X_batches, lr, momentum, seed, iter0)
@@ -323,6 +339,11 @@ _ARGTYPES = {
     'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P],
     'bm_assoc_n_tile': [_I, _I, _I],
+    'bm_cd_val_fe': [_P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P, _P, _P,
+                     _P],
+    'bm_cd_val_draw': [_I, _I, _I, _I, _U, _U, _P, _P],
+    'bm_cd_val_reduce': [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                         _I, _U, _U, _L, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 # epilogues of cd_gemm_act (csrc/cd_epoch.cu)
 ACT_SIGMOID, ACT_GAUSSIAN, ACT_PRE = 0, 1, 2
@@ -640,5 +661,10 @@ cd_epoch.launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches():
+    """Zero every launch count, and the whole-set pass counts of
+    ``ops/cd_val.py`` beside them."""
+    from .cd_val import cd_val
     for name in KERNELS:
         cd_epoch.launches[name] = 0
+    for name in cd_val.passes:
+        cd_val.passes[name] = 0

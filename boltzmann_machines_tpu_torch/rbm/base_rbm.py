@@ -11,7 +11,9 @@ The counterpart of the JAX package's ``rbm/base_rbm.py``:
   through the hand-written CD epoch kernels (``ops/cd_epoch.py``) at any
   size, as the JAX package picks its fused Pallas kernels on a TPU (where
   a big W takes the tiled kernel and loses PLL, and a multinomial one
-  too big for VMEM the XLA path);
+  too big for VMEM the XLA path), and validates, and measures the
+  free-energy gap, in whole-set passes on the same kernels
+  (``ops/cd_val.py``);
 * with a data-parallel mesh (``set_mesh(parallel.make_mesh())``, one
   process per device, every process calling ``fit`` with the whole data)
   each rank trains on its rows of every minibatch: the CD-k sums of its
@@ -57,8 +59,10 @@ from ..convert import RBMState, state_from_jax_arrays, state_to_numpy
 from ..ebm import EnergyBasedModel
 from ..layers import (Block, BernoulliLayer, GaussianLayer,
                       MultinomialLayer, draw)
-from ..ops.cd_epoch import make_cd_epoch_kernel, pll_flip_index
+from ..ops.cd_epoch import (cd_epoch_config, make_cd_epoch_kernel,
+                            pll_flip_index)
 from ..ops.cd_stats import make_cd_stats_kernel, split_stats
+from ..ops.cd_val import cd_feg, cd_val
 from ..parallel.mesh import all_gather_columns, column_block, replicate
 from ..utils import (make_list_from, epoch_iter, schedule_value,
                      write_during_training)
@@ -572,10 +576,12 @@ class BaseRBM(EnergyBasedModel):
                              'not eligible for the CUDA CD epoch kernels')
         return ok
 
-    def _cd_epoch_program(self, k):
+    def _cd_kwargs(self, k):
+        """The CD kernels' static configuration at `k` Gibbs steps, as the
+        keyword arguments of ``cd_epoch_config``."""
         visible, sigma, hidden, n_samples = self._kernel_flavours()
-        return make_cd_epoch_kernel(
-            self.n_visible, self.n_hidden, self.batch_size, k,
+        return dict(
+            n_visible=self.n_visible, n_hidden=self.n_hidden, k=k,
             sample_v_states=self.sample_v_states,
             sample_h_states=self.sample_h_states,
             propup_mult=self._propup_multiplier,
@@ -586,6 +592,14 @@ class BaseRBM(EnergyBasedModel):
             metrics_every=int(self.metrics_config['train_metrics_every_iter']),
             compute_pll=bool(self.metrics_config['pll']),
             visible=visible, sigma=sigma, hidden=hidden, n_samples=n_samples)
+
+    def _cd_epoch_program(self, k):
+        return make_cd_epoch_kernel(batch_size=self.batch_size,
+                                    **self._cd_kwargs(k))
+
+    def _cd_config(self, k):
+        return self._program(('cd_config', k),
+                             lambda: cd_epoch_config(**self._cd_kwargs(k)))
 
     def _train_epoch_kernel(self, full, rem, lr, mom, k, seed):
         """One epoch through the CD epoch kernels: the full batches in one
@@ -815,6 +829,12 @@ class BaseRBM(EnergyBasedModel):
         full, rem, _ = staged
         return list(full) + ([] if rem is None else [rem])
 
+    def _stage_rows(self, X):
+        """X as one contiguous (rows, n_visible) tensor on the model's
+        device: the set that the whole-set passes read."""
+        return torch.as_tensor(np.ascontiguousarray(self._preprocess(X)),
+                               device=self._device)
+
     # ================================================================== #
     # fit / metrics loops                                                 #
     # ================================================================== #
@@ -838,6 +858,31 @@ class BaseRBM(EnergyBasedModel):
         if self.metrics_config['pll']:
             results['pll'] = float(np.mean(torch.stack(plls).cpu().numpy()))
         return results
+
+    def _val_pass(self, X_val, k):
+        """``_val_metrics`` on the kernel path: one whole-set pass over the
+        staged validation rows (``ops/cd_val.py``), one readback."""
+        mc = self.metrics_config
+        if not (mc['msre'] or mc['pll']):
+            return {}
+        out = cd_val(self._cd_config(k), self._state.as_dict(), X_val,
+                     self.batch_size,
+                     derive_seed(self._fit_seed, _VAL_SALT + self.epoch_),
+                     msre=mc['msre'], pll=mc['pll'])
+        return {name: float(v) for name, v in zip(('msre', 'pll'),
+                                                  out.cpu().numpy())
+                if mc[name]}
+
+    def _feg_pass(self, train_rows, X_val):
+        """``_feg`` on the kernel path: the probe rows of both sides (the
+        training set's as staged) in whole-set passes, one readback."""
+        n, B = self.metrics_config['n_batches_for_feg'], self.batch_size
+        # the free energies read no chain: the configuration at k = 0
+        fe = cd_feg(self._cd_config(0), self._state.as_dict(), X_val[:n * B],
+                    train_rows, B,
+                    derive_seed(self._fit_seed, _FEG_SALT + self.epoch_))
+        val_fe, train_fe = fe.cpu().numpy()
+        return float(val_fe - train_fe)
 
     def _feg(self, staged_train, staged_val):
         """Free-energy gap between a fixed number of train and validation
@@ -968,27 +1013,40 @@ class BaseRBM(EnergyBasedModel):
                 train_epoch = self._train_epoch_kernel if use_kernel \
                     else self._train_epoch_generic
             n_full = staged_train[2]
-            staged_val = self._stage_batches(X_val) if X_val is not None \
-                else None
-            staged_feg = staged_train
-            if split and X_val is not None and mc['feg']:
-                # the FEG reads whole training batches, the same on every
-                # rank
-                n, B = mc['n_batches_for_feg'], self.batch_size
-                staged_feg = self._stage_batches(
-                    X if n_full < n else np.asarray(X)[:n * B])
+            n, B = mc['n_batches_for_feg'], self.batch_size
+            staged_val = staged_feg = None
+            if use_kernel:
+                # the whole-set passes read the validation set, and the
+                # FEG's training probe rows (the first n batches, or all
+                # rows where there are fewer), each as one tensor
+                val_fn, feg_fn = self._val_pass, self._feg_pass
+                if X_val is not None:
+                    staged_val = self._stage_rows(X_val)
+                    if mc['feg']:
+                        staged_feg = self._stage_rows(np.asarray(X)[:n * B])
+            else:
+                val_fn, feg_fn = self._val_metrics, self._feg
+                staged_val = self._stage_batches(X_val) \
+                    if X_val is not None else None
+                staged_feg = staged_train
+                if split and X_val is not None and mc['feg']:
+                    # the FEG reads whole training batches, the same on
+                    # every rank
+                    staged_feg = self._stage_batches(
+                        X if n_full < n else np.asarray(X)[:n * B])
 
         for self.epoch_ in epoch_iter(start_epoch=self.epoch_,
                                       max_epoch=self.max_epoch,
                                       verbose=self.verbose and writes):
             with annotate('fit/epoch'):
                 self._fit_epoch(X, staged_train, staged_val, staged_feg,
-                                train_epoch, writes)
+                                train_epoch, val_fn, feg_fn, writes)
 
     def _fit_epoch(self, X, staged_train, staged_val, staged_feg,
-                   train_epoch, writes):
+                   train_epoch, val_fn, feg_fn, writes):
         """Epoch ``self.epoch_`` of ``_fit``, its parts in spans of their
-        own."""
+        own; `val_fn` and `feg_fn` validate and measure the free-energy gap
+        (whole-set passes on the kernel path)."""
         mc = self.metrics_config
         full, rem, _ = staged_train
         every = int(mc['train_metrics_every_iter'])
@@ -1011,11 +1069,11 @@ class BaseRBM(EnergyBasedModel):
         if staged_val is not None and \
                 self.epoch_ % mc['val_metrics_every_epoch'] == 0:
             with annotate('fit/epoch/val'):
-                val_results = self._val_metrics(staged_val, k)
+                val_results = val_fn(staged_val, k)
         if staged_val is not None and mc['feg'] and \
                 self.epoch_ % mc['feg_every_epoch'] == 0:
             with annotate('fit/epoch/feg'):
-                feg = self._feg(staged_feg, staged_val)
+                feg = feg_fn(staged_feg, staged_val)
         want_summaries = bool(mask.any()) and \
             self._any_train_metric() and \
             self.epoch_ % self.summaries_every_epoch == 0

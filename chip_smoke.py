@@ -27,7 +27,9 @@ Phases, each printing its lines before the last:
    of examples/rbm_mnist.py on synthetic MNIST, its summaries included
    (30 filters, 24 hidden activations), through the kernels (their launch
    counts checked against the schedule), then transform, save and
-   load_model on the card;
+   load_model on the card; then the fit loop's whole-set passes
+   (ops/cd_val.py) on the trained state, validation and FEG at the fit's
+   shapes, against their plain version on CPU copies, and timed;
 5. CD timings: a training epoch, kernels vs plain version;
 6. DBM kernels vs plain: the DBM epoch, sampler and AIS kernels against
    their plain versions at 784-512-1024 (examples/dbm_mnist.py's widths),
@@ -57,6 +59,7 @@ Phases, each printing its lines before the last:
     ``GaussianRBM(3072, 5000).fit``, ``transform``,
     ``MultinomialRBM(5000, 1000, n_samples=1000).fit``, ``transform``, save
     and load_model, on synthetic CIFAR-shaped rows, launch counts checked;
+    each model's whole-set passes as in 4;
 12. CIFAR timings: G-RBM and M-RBM steps, kernels vs plain, the device
     time of each kernel (torch.profiler), their busy share of the step's
     unprofiled wall, and torch.matmul on the step's largest product as a
@@ -230,6 +233,9 @@ REPLACES = {
     'free_energy_probe': 'boltzmann_machines_tpu/ops/pallas_ops.py:241',
     'cd_stats': 'boltzmann_machines_tpu/ops/pallas_ops.py:1238 and :1033',
     'bernoulli_sample': 'boltzmann_machines_tpu/ops/pallas_ops.py:80',
+    'cd_val': 'boltzmann_machines_tpu/rbm/base_rbm.py:1133 '
+              '(_dispatch_val_metrics: one lax.scan of XLA ops, no Pallas '
+              'kernel)',
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
 # tensor cores, TF32 on them (an f32-accurate product in 3xTF32 runs three
@@ -331,6 +337,99 @@ def build():
                 if 'Function properties' in line or 'Used' in line \
                         or 'spill' in line:
                     say('  nvcc:', line.strip())
+
+
+def with_val_passes(expect, n_val, n_feg, pll=True, multinomial=False, k=1):
+    """`expect`, the CD kernels' launch counts of a fit's training steps,
+    plus those of its whole-set passes (ops/cd_val.py), a chunk each:
+    `n_val` validations (the chain's 2k products, and the PLL's first
+    launch where `pll`) and `n_feg` free-energy gaps (two sides each), one
+    cd_val_reduce a pass; multinomial hidden units add the chain's row
+    kernels and the u = W.hh product of each pass with free energies."""
+    multi = int(multinomial)
+    add = {'cd_gemm_act': n_val * (2 * k + multi * pll) + 2 * n_feg * multi,
+           'cd_softmax_sample': n_val * k * multi,
+           'cd_metrics': n_val * pll + 2 * n_feg,
+           'cd_val_reduce': n_val + 2 * n_feg}
+    return {name: expect.get(name, 0) + add.get(name, 0)
+            for name in set(expect) | set(add)}
+
+
+# the whole-set passes against their plain version: the card test's limits
+# (tests/test_torch_cuda.py, test_whole_set_passes_match_plain_version)
+VAL_TOL = {'msre': (1e-6, 1e-5), 'pll': (1e-3, 1e-3), 'fe': (0., 1e-5)}
+
+
+def val_pass_work(V, H, n_val, n_feg, k=1):
+    """(product operations, other f32 operations, bytes) of a validation
+    pass over `n_val` rows and a free-energy gap over `n_feg` rows of each
+    side: the chain's 2k products and the free energies' one a row (the
+    flipped rows' come from the same product), W and each row read once.
+    The elementwise work and the draws are not counted."""
+    gemm_flops = 2. * V * H * (n_val * (2 * k + 1) + 2 * n_feg)
+    nbytes = 4. * (V * H + (n_val + 2 * n_feg) * V)
+    return gemm_flops, 0., nbytes
+
+
+def val_passes_vs_plain(torch, model, X_val, X_train, label):
+    """The fit loop's whole-set passes (ops/cd_val.py) on the card against
+    their plain version (cd_pass_reference) on CPU copies of the same
+    inputs, on `model`'s final state at its fit's shapes: its validation
+    set at its batch size (msre and PLL, k = 1 as the fit's), and the FEG's
+    probe rows of both sides (the first n_batches_for_feg batches), under
+    VAL_TOL.  Then timed per pass (CUDA events), and the plain version on
+    the card.  Returns the numbers."""
+    import numpy as np
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import cd_epoch
+    from boltzmann_machines_tpu_torch.ops.cd_val import (
+        cd_feg, cd_pass_reference, cd_val)
+    B = model.batch_size
+    n = B * model.metrics_config['n_batches_for_feg']
+    cfg, seed = model._cd_config(1), 3000000019
+    state = model._state.as_dict()
+    cpu = {key: state[key].cpu() for key in ('W', 'vb', 'hb')}
+    Xv = model._stage_rows(X_val)
+    Xt = model._stage_rows(np.asarray(X_train)[:n])
+    torch.cuda.synchronize()
+    before = dict(cd_epoch.launches)
+    got = cd_val(cfg, state, Xv, B, seed).cpu()
+    val_launches = {k: cd_epoch.launches[k] - before[k] for k in before
+                    if cd_epoch.launches[k] > before[k]}
+    before = dict(cd_epoch.launches)
+    fe = cd_feg(cfg, state, Xv[:n], Xt, B, seed).cpu()
+    feg_launches = {k: cd_epoch.launches[k] - before[k] for k in before
+                    if cd_epoch.launches[k] > before[k]}
+    want = cd_val(cfg, cpu, Xv.cpu(), B, seed)
+    want_fe = cd_feg(cfg, cpu, Xv[:n].cpu(), Xt.cpu(), B, seed)
+    err = {}
+    for name, a, b in (('msre', got[0], want[0]), ('pll', got[1], want[1]),
+                       ('fe_val', fe[0], want_fe[0]),
+                       ('fe_train', fe[1], want_fe[1])):
+        atol, rtol = VAL_TOL[name[:2] if name.startswith('fe') else name]
+        err[name] = float(abs(a - b))
+        if not err[name] <= atol + rtol * float(abs(b)):
+            raise AssertionError(
+                '%s whole-set pass: %s %.9g on the card, %.9g plain '
+                '(limit %g + %g |plain|)' % (label, name, float(a), float(b),
+                                              atol, rtol))
+    r = dict(rows=len(Xv), feg_rows=n, batch=B, max_abs_err=max(err.values()),
+             err=err, val_launches=val_launches, feg_launches=feg_launches,
+             ms=event_ms(torch, lambda: cd_val(cfg, state, Xv, B, seed), 20),
+             feg_ms=event_ms(torch, lambda: cd_feg(cfg, state, Xv[:n], Xt, B,
+                                                   seed), 20),
+             plain_ms=event_ms(torch, lambda: cd_pass_reference(
+                 cfg, state, Xv, B, seed, 0, 1, True, True, True), 2),
+             plain_feg_ms=event_ms(torch, lambda: [cd_pass_reference(
+                 cfg, state, X, B, seed, side, 2, False, True, False)
+                 for side, X in enumerate((Xv[:n], Xt))], 2),
+             work=val_pass_work(cfg.n_visible, cfg.n_hidden, len(Xv), n))
+    say('%s whole-set passes vs plain, %d validation rows and %d + %d FEG '
+        'rows at B %d: |d| msre %.3g, pll %.3g, fe %.3g / %.3g; ms per pass '
+        '%.4f (FEG %.4f), plain %.2f (%.2f); launches %s, FEG %s' % (
+            label, len(Xv), n, n, B, err['msre'], err['pll'], err['fe_val'],
+            err['fe_train'], r['ms'], r['feg_ms'], r['plain_ms'],
+            r['plain_feg_ms'], val_launches, feg_launches))
+    return r
 
 
 def make_data(n, seed=42):
@@ -518,10 +617,12 @@ def main_path(torch, tmpdir):
     dt = time.perf_counter() - t0
     launches = dict(cd_epoch.launches)
     n_iter = epochs * math.ceil(len(X_train) / B)
-    # the PLL on: two cd_metrics launches a logged step
-    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
-              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
-              'cd_metrics': 2 * (n_iter // every)}
+    # the PLL on: two cd_metrics launches a logged step; validation and
+    # the FEG in epoch 2
+    expect = with_val_passes(
+        {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
+         'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+         'cd_metrics': 2 * (n_iter // every)}, 1, 1)
     say('fit: %d epochs, %d iterations in %.2f s; launches %s' % (
         epochs, rbm.iter_, dt, launches))
     if launches != expect or rbm.iter_ != n_iter:
@@ -562,7 +663,8 @@ def main_path(torch, tmpdir):
         raise AssertionError('loaded models differ')
     say('save / load_model(device="cuda"): 7 state arrays identical, '
         'transform reproducible, shape %s' % (Hf.shape,))
-    return launches
+    val = val_passes_vs_plain(torch, rbm, X_val, X_train, 'RBM')
+    return launches, val
 
 
 def timings(torch):
@@ -934,11 +1036,12 @@ def dbm_mnist_path(torch, tmpdir):
     launches = dict(dbm_ops.dbm_epoch.launches)
     dbm, msre, n_mf, val = run['dbm'], run['msre'], run['n_mf'], run['val']
     # k = 1 then k = 2: 1 + 2k GEMM launches per step; the PLL on: two
-    # cd_metrics launches a logged step
-    expect = {'cd_gemm_act': n_rbm_iter // 2 * (3 + 3 + 3 + 5),
-              'cd_softmax_sample': 0, 'cd_bias_stats': 2 * n_rbm_iter,
-              'cd_assoc_update': 2 * n_rbm_iter,
-              'cd_metrics': 2 * 2 * (n_rbm_iter // 100)}
+    # cd_metrics launches a logged step; no validation set
+    expect = with_val_passes(
+        {'cd_gemm_act': n_rbm_iter // 2 * (3 + 3 + 3 + 5),
+         'cd_softmax_sample': 0, 'cd_bias_stats': 2 * n_rbm_iter,
+         'cd_assoc_update': 2 * n_rbm_iter,
+         'cd_metrics': 2 * 2 * (n_rbm_iter // 100)}, 0, 0)
     say('pretraining: RBM #1 and RBM #2, %d iterations each, in %.2f s; '
         'launches %s' % (n_rbm_iter, run['t_pre'], cd_launches))
     if cd_launches != expect:
@@ -1652,10 +1755,12 @@ def cifar_naive_path(torch, tmpdir):
     torch.cuda.synchronize()
     t_g = time.perf_counter() - t0
     g_launches = dict(cd_epoch.launches)
-    # the PLL off: one cd_metrics launch a logged step
-    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
-              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
-              'cd_metrics': n_iter}
+    # the PLL off: one cd_metrics launch a logged step; validation and the
+    # FEG every epoch
+    expect = with_val_passes(
+        {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 0,
+         'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+         'cd_metrics': n_iter}, 2, 2, pll=False)
     say('G-RBM fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
         grbm.iter_, t_g, g_launches))
     if g_launches != expect or grbm.iter_ != n_iter:
@@ -1684,10 +1789,12 @@ def cifar_naive_path(torch, tmpdir):
     torch.cuda.synchronize()
     t_m = time.perf_counter() - t0
     m_launches = dict(cd_epoch.launches)
-    # the PLL on: two cd_metrics launches a logged step
-    expect = {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 2 * n_iter,
-              'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
-              'cd_metrics': 2 * n_iter}
+    # the PLL on: two cd_metrics launches a logged step; validation and
+    # the FEG every epoch
+    expect = with_val_passes(
+        {'cd_gemm_act': 3 * n_iter, 'cd_softmax_sample': 2 * n_iter,
+         'cd_bias_stats': n_iter, 'cd_assoc_update': n_iter,
+         'cd_metrics': 2 * n_iter}, 2, 2, multinomial=True)
     say('M-RBM fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
         mrbm.iter_, t_m, m_launches))
     if m_launches != expect or mrbm.iter_ != n_iter:
@@ -1721,7 +1828,11 @@ def cifar_naive_path(torch, tmpdir):
                                  % name)
     say('save / load_model(device="cuda"): both models, 7 state arrays '
         'identical, transform reproducible')
-    return g_launches, m_launches
+    vals = {'grbm': val_passes_vs_plain(torch, grbm, X_val, X_train,
+                                        'G-RBM'),
+            'mrbm': val_passes_vs_plain(torch, mrbm, Q_val, Q_train,
+                                        'M-RBM')}
+    return g_launches, m_launches, vals
 
 
 def check_msre(model_dir, label):
@@ -2241,10 +2352,11 @@ def dp_fit(torch, tmpdir):
     n_full, n_iter = 3050 // CIFAR_B, 2 * (3050 // CIFAR_B + 1)
     expect_stats = {'cd_gemm_act': 3 * 2 * n_full, 'cd_stats_sums': 2 * n_full,
                     'cd_assoc_stats': 2 * n_full}
-    # the remainder batch of each epoch through the CD epoch kernels, PLL on
-    expect_epoch = {'cd_gemm_act': 3 * 2, 'cd_softmax_sample': 0,
-                    'cd_bias_stats': 2, 'cd_assoc_update': 2,
-                    'cd_metrics': 2 * 2}
+    # the remainder batch of each epoch through the CD epoch kernels, PLL
+    # on; every rank validates every epoch in one whole-set pass
+    expect_epoch = with_val_passes(
+        {'cd_gemm_act': 3 * 2, 'cd_softmax_sample': 0, 'cd_bias_stats': 2,
+         'cd_assoc_update': 2, 'cd_metrics': 2 * 2}, 2, 0)
     for r, rk in enumerate(ranks):
         g = rk['grbm']
         say('G-RBM 3072x7800 rank %d: %d iterations in %.2f s; stats '
@@ -4785,11 +4897,16 @@ def cifar_example_paths(script, tmpdir):
 def cifar_example_launches(script):
     """The kernel launches the schedule implies at CIFAR_EXAMPLES'
     arguments (metrics are logged every 400 or more iterations, past these
-    runs; validation and the FEG run in plain PyTorch)."""
+    runs; of the validations and FEGs, two fall within them, each once in a
+    whole-set pass: torch_semi_supervised.py's RBM (msre and PLL) and
+    torch_dbm_cifar.py's G-RBM (msre))."""
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
     if script == 'torch_semi_supervised.py':
         n = 2 * math.ceil(4096 / 100)      # RBM 784 x 1024, B 100, k 1
-        return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
-                             'cd_assoc_update': n}}
+        return {'cd_epoch': nonzero(with_val_passes(
+            {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
+             'cd_assoc_update': n}, 1, 0))}
     if script == 'torch_dbm_cifar_naive.py':
         n = 3000 // 100                    # G-RBM and M-RBM steps
         dbm = 2 * n                        # two DBM epochs
@@ -4803,10 +4920,11 @@ def cifar_example_launches(script):
     rows = 10 * 1000
     small = 26 * math.ceil(rows / 48)      # the 26 patch RBMs, B 48
     n = rows // 100
-    return {'cd_epoch': {'cd_gemm_act': 3 * small + 6 * n,
-                         'cd_softmax_sample': 2 * n,
-                         'cd_bias_stats': small + 2 * n,
-                         'cd_assoc_update': small + 2 * n},
+    return {'cd_epoch': nonzero(with_val_passes(
+                {'cd_gemm_act': 3 * small + 6 * n,
+                 'cd_softmax_sample': 2 * n,
+                 'cd_bias_stats': small + 2 * n,
+                 'cd_assoc_update': small + 2 * n}, 1, 0, pll=False)),
             'samplers': dict.fromkeys(
                 ('bernoulli_sample', 'normal_sample', 'multinomial_sample'),
                 2 * n)}
@@ -5717,7 +5835,7 @@ def main():
     kt = kernel_times(torch)
     dbm_prof = dbm_step_profile(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
-        rbm_launches = main_path(torch, tmpdir)
+        rbm_launches, rbm_val = main_path(torch, tmpdir)
     t = timings(torch)
     steps = t[(10, 'steps')]
     dbm_err = dbm_kernels_vs_plain(torch)
@@ -5729,7 +5847,7 @@ def main():
     del dbm, small
     td = dbm_timings(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
-        g_launches, m_launches = cifar_naive_path(torch, tmpdir)
+        g_launches, m_launches, cifar_val = cifar_naive_path(torch, tmpdir)
     tc = cifar_timings(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         w1 = dp_world1(torch, tmpdir)
@@ -5786,6 +5904,10 @@ def main():
                    for k in rbm_launches}
     dp_stats = [r['grbm']['stats'] for r in dp['ranks']]
     wide, mnist = ts['3072x7800'], ts['784x1024']
+    # the whole-set passes' launches on the paths that validate
+    val_paths = {'rbm_mnist': with_val_passes({}, 1, 1),
+                 'cifar_grbm': with_val_passes({}, 2, 2, pll=False),
+                 'cifar_mrbm': with_val_passes({}, 2, 2, multinomial=True)}
 
     def entry(name, source, launches, err, ms, plain_ms, work,
               library_ms=None, **extra):
@@ -6017,6 +6139,25 @@ def main():
               device_ms=bern['device_ms'],
               library_device_ms=bern['library_device_ms'],
               bound_parts=bern['bound_parts']),
+        # per validation pass of the RBM path (2000 rows at B 10, k = 1,
+        # msre and PLL; `feg_ms` its FEG over 500 + 500 rows); launches:
+        # the passes' on the RBM path's fit (one validation, one FEG) and
+        # on the CIFAR path's G-RBM and M-RBM fits (two each), as those
+        # paths assert them; the CIFAR models' passes by shape
+        entry('cd_val', 'cd_epoch.cu', add(*val_paths.values()),
+              max(r['max_abs_err'] for r in (rbm_val, *cifar_val.values())),
+              rbm_val['ms'], rbm_val['plain_ms'], rbm_val['work'],
+              launches_per_path=val_paths, feg_ms=rbm_val['feg_ms'],
+              plain_feg_ms=rbm_val['plain_feg_ms'],
+              metric_err=rbm_val['err'],
+              launches_per_pass={'val': rbm_val['val_launches'],
+                                 'feg': rbm_val['feg_launches']},
+              **{'cifar_%s_pass' % label: dict(
+                  {k: r[k] for k in ('rows', 'feg_rows', 'batch', 'ms',
+                                     'feg_ms', 'plain_ms', 'plain_feg_ms',
+                                     'err')},
+                  bound_ms=bound(*r['work'])[0])
+                 for label, r in cifar_val.items()}),
     ]
     for e in kernels:
         for kernel, *labels in walks.get(e['name'], ()):

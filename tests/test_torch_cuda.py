@@ -102,7 +102,7 @@ def test_launch_counts(cuda):
     # pass over W alone
     assert diff == {'cd_gemm_act': NB * (1 + 2 * k), 'cd_softmax_sample': 0,
                     'cd_bias_stats': NB, 'cd_assoc_update': NB,
-                    'cd_metrics': 1}
+                    'cd_metrics': 1, 'cd_val_reduce': 0}
 
 
 def test_wrapper_rejects_bad_inputs(cuda):
@@ -207,7 +207,8 @@ def test_flavour_launch_counts(cuda):
     # W -- two launches a logged step
     assert diff == {'cd_gemm_act': NB * (1 + 2 * k),
                     'cd_softmax_sample': NB * (1 + k), 'cd_bias_stats': NB,
-                    'cd_assoc_update': NB, 'cd_metrics': 2 * (NB // 2)}
+                    'cd_assoc_update': NB, 'cd_metrics': 2 * (NB // 2),
+                    'cd_val_reduce': 0}
 
 
 @pytest.mark.parametrize('flavour,layer', [
@@ -369,6 +370,144 @@ def test_cd_metrics_without_pll(cuda):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-6)
     torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=0)
     assert float(got[1]) == 0.
+
+
+# ---------------------------------------------------------------------- #
+# the fit loop's whole-set passes (ops/cd_val.py)                          #
+# ---------------------------------------------------------------------- #
+# (visible, hidden, B) at 5000 x 784 x 1024: the RBM cells' two batches,
+# and a Gaussian and a multinomial flavour
+VAL_CASES = [('bernoulli', 'bernoulli', 10), ('bernoulli', 'bernoulli', 256),
+             ('gaussian', 'bernoulli', 100), ('bernoulli', 'multinomial', 100)]
+VAL_SEED = 3000000019
+
+
+def val_inputs(visible, hidden, k, sample, N=5000, V=784, H=1024, seed=0):
+    """(config, X, state on the card, state on the CPU) of a pass: Gaussian
+    units with a per-unit sigma and dbm_first's doubling, multinomial ones
+    with n = 40 and dbm_last's."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import cd_epoch_config
+    rng = np.random.RandomState(seed + N + V)
+    gaussian = visible == 'gaussian'
+    sigma = (rng.rand(V) + 0.5).astype(np.float32) if gaussian else None
+    cfg = cd_epoch_config(
+        V, H, k, sample, sample, 2. if gaussian else 1.,
+        2. if hidden == 'multinomial' else 1., 1e-4, 0.1, 0., 0.9, 1, True,
+        visible, sigma, hidden, 40 if hidden == 'multinomial' else None)
+    X = rng.randn(N, V) / sigma if gaussian else rng.rand(N, V) < 0.3
+    state = {'W': 0.05 * rng.randn(V, H), 'vb': 0.1 * rng.randn(V),
+             'hb': 0.1 * rng.randn(H)}
+    cpu = {key: torch.as_tensor(v, dtype=torch.float32)
+           for key, v in state.items()}
+    X = torch.as_tensor(X, dtype=torch.float32)
+    return cfg, X, cpu
+
+
+def val_launches(cfg, chunks=1, feg=False):
+    """The launches of a validation pass (msre and PLL), or of the FEG's
+    two sides, over `chunks` chunks."""
+    multi = cfg.hidden == 'multinomial'
+    if feg:
+        one = {'cd_gemm_act': int(multi), 'cd_metrics': 1,
+               'cd_val_reduce': 1}
+        chunks *= 2
+    else:
+        one = {'cd_gemm_act': 2 * cfg.k + multi,
+               'cd_softmax_sample': cfg.k * multi, 'cd_metrics': 1,
+               'cd_val_reduce': 1}
+    return {name: chunks * one.get(name, 0) for name in cd_epoch.launches}
+
+
+@pytest.mark.parametrize('visible,hidden,B', VAL_CASES)
+@pytest.mark.parametrize('sample', [False, True])
+def test_whole_set_passes_match_plain_version(cuda, visible, hidden, B,
+                                              sample):
+    """The validation pass (msre, PLL) and the FEG's free energies of 5000
+    x 784 x 1024 on the card against the plain version on the CPU, draw by
+    draw (sampled: k = 2, so the chain draws both layers): msre rtol 1e-5,
+    atol 1e-6; pll rtol 1e-3, atol 1e-3 (the training metrics'); free
+    energies rtol 1e-5.  The launches as ``val_launches`` counts them, one
+    chunk; a rerun bit for bit."""
+    from boltzmann_machines_tpu_torch.ops.cd_val import cd_feg, cd_val
+    cfg, X, cpu = val_inputs(visible, hidden, 2 if sample else 1, sample)
+    state = {key: v.to(cuda) for key, v in cpu.items()}
+    Xd = X.to(cuda)
+    before = dict(cd_epoch.launches)
+    got = cd_val(cfg, state, Xd, B, VAL_SEED)
+    torch.cuda.synchronize()
+    diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    assert diff == val_launches(cfg)
+    before = dict(cd_epoch.launches)
+    fe = cd_feg(cfg, state, Xd[:1234], Xd[1234:], B, VAL_SEED)
+    torch.cuda.synchronize()
+    diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    assert diff == val_launches(cfg, feg=True)
+    again = cd_val(cfg, state, Xd, B, VAL_SEED)
+    want = cd_val(cfg, cpu, X, B, VAL_SEED)
+    want_fe = cd_feg(cfg, cpu, X[:1234], X[1234:], B, VAL_SEED)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(fe.cpu(), want_fe, rtol=1e-5, atol=0)
+    assert 0 < float(got[0]) and float(got[1]) < 0
+
+
+# Sampled multinomial chains part between the card and the plain version
+# where a draw falls within float32 rounding of a bucket edge of the CDF,
+# whose sums the two take in another order: on an H100, 2-4 of 1000 rows
+# at n = 40, k = 2, in one chunk as in chunks (12 seeds), none with
+# Bernoulli hidden units.  A parting row moves the msre by at most ~1.5%
+# of the mean / N (4.3e-5 relative from 3 rows of 1000, the most read), so
+# with at most 1% of the rows parting the msre stays within 1.5e-4; a draw
+# keyed to the wrong chunk parts nearly every row.
+MAX_PARTING_SHARE = 0.01
+PARTED_MSRE_RTOL = 1.5e-4
+
+
+@pytest.mark.parametrize('visible,hidden', [('bernoulli', 'bernoulli'),
+                                            ('bernoulli', 'multinomial')])
+def test_whole_set_passes_in_chunks(cuda, visible, hidden, monkeypatch):
+    """CHUNK_BYTES cut so that 1000 rows at batch 64 run as chunks of a
+    few batches, the last one short, k = 2, both layers sampled: each
+    chunk's chain on the card against the plain version's under the
+    chunk's key, row by row (at most MAX_PARTING_SHARE of the rows part by
+    more than 1e-4, none with Bernoulli hidden units); the pass's msre and
+    PLL against the plain version under the same cut (msre rtol 1e-5, or
+    PARTED_MSRE_RTOL where rows part; PLL as above); the launches a
+    chunk."""
+    from boltzmann_machines_tpu_torch.ops import cd_val as cd_val_mod
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import library, sigma_row
+    cfg, X, cpu = val_inputs(visible, hidden, 2, True, N=1000)
+    monkeypatch.setattr(cd_val_mod, 'CHUNK_BYTES', 3 << 20)
+    rows = cd_val_mod.chunk_rows(cfg, 1000, 64, True, True, True)
+    chunks = -(-1000 // rows)
+    assert 64 <= rows < 1000 and chunks >= 3
+    state = {key: v.to(cuda) for key, v in cpu.items()}
+    parted = 0
+    for c, c0 in enumerate(range(0, 1000, rows)):
+        Xc = X[c0:c0 + rows]
+        card = cd_val_mod._chain_cuda(
+            library(), torch.cuda.current_stream().cuda_stream, cfg,
+            Xc.to(cuda), state['W'], state['vb'], state['hb'],
+            sigma_row(cfg, cuda), VAL_SEED, c,
+            lambda *shape: torch.empty(shape, device=cuda))
+        plain = cd_val_mod._chain_reference(
+            cfg, Xc, cpu['W'], cpu['vb'], cpu['hb'], sigma_row(cfg, 'cpu'),
+            VAL_SEED, c)
+        parted += int(((card.cpu() - plain).abs().amax(1) > 1e-4).sum())
+    assert parted <= MAX_PARTING_SHARE * 1000
+    if hidden == 'bernoulli':
+        assert parted == 0
+    before = dict(cd_epoch.launches)
+    got = cd_val_mod.cd_val(cfg, state, X.to(cuda), 64, VAL_SEED)
+    torch.cuda.synchronize()
+    diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    assert diff == val_launches(cfg, chunks)
+    want = cd_val_mod.cd_val(cfg, cpu, X, 64, VAL_SEED)
+    torch.testing.assert_close(got[0].cpu(), want[0], atol=1e-6,
+                               rtol=PARTED_MSRE_RTOL if parted else 1e-5)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-3, atol=1e-3)
 
 
 # the standalone samplers' shapes: the path's, one element (the scalar

@@ -34,7 +34,10 @@ Prints one JSON line (and writes it to FILE):
 - a DBM cell: ``mf_sweep_use_pct``, 100 x the sweeps the traced slices'
   steps ran over those they enqueued (``dbm_epoch.sweeps``), beside
   ``logged_n_mf``, the mean of the ``n_mf_updates`` that ``fit`` logged in
-  the same slices.
+  the same slices;
+- an RBM cell: ``val_passes``, the whole-set validation and FEG passes of
+  the traced slices (``ops/cd_val.cd_val.passes``: 'val' one a validation,
+  'feg' one a side of a gap).
 """
 
 import argparse
@@ -226,21 +229,25 @@ def idle_split(traces):
             'outside': pct(outside)}
 
 
-def sweep_counts():
-    ops = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
-    return dict(ops.dbm_epoch.sweeps) if ops is not None else {}
+def slice_counts():
+    """The DBM's sweep counts and the RBM's whole-set pass counts, of the
+    modules a cell has loaded."""
+    dbm = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
+    val = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_val')
+    return dict(dbm.dbm_epoch.sweeps if dbm is not None else {},
+                **(val.cd_val.passes if val is not None else {}))
 
 
 def traced_window(session, units, plan, capture, device):
     """The traced window of `units` epochs by `plan`, each slice traced by
     `capture(fn, device)`; returns the window and, per slice, the sweep
-    counts' growth over it."""
+    and pass counts' growth over it."""
     grown = []
 
     def slice_capture(fn):
-        before = sweep_counts()
+        before = slice_counts()
         result = capture(fn, device)
-        after = sweep_counts()
+        after = slice_counts()
         grown.append({k: after[k] - before[k] for k in after})
         return result
 
@@ -310,6 +317,9 @@ def main(argv=None):
             on['mf_sweeps_a_step'] = ran / on['steps']
             on['logged_n_mf'] = sum(logged) / len(logged) if logged \
                 else None
+        if any('val' in g for g in grown):
+            on['val_passes'] = {k: sum(g.get(k, 0) for g in grown)
+                                for k in ('val', 'feg')}
         out['on'] = on
         del window, traces
 
