@@ -27,23 +27,31 @@
 //                    states, sigmoid with the mean-field change
 //                    max |new - old| folded into a device scalar, and per-row
 //                    softplus sums at two betas written as per-block partials.
-//                    The mean-field loop's check rides on the layer
-//                    launches: each block of a sweep's first layer launch
-//                    reads the change of the sweep before (complete, as that
-//                    sweep's launches have ended) and returns at once when
-//                    it is <= tol or NaN, block 0 raising the `done` flag
-//                    and writing n_mf; the budget is the number of sweeps
-//                    the host enqueues (every sweep launch returns at once
-//                    when `done` is set), so the mean-field loop stays on
-//                    the device with no launch of its own for the check.
-//                    Three change words, one per sweep modulo 3: a sweep
-//                    folds into its own, its first launch reads the word of
-//                    the sweep before and re-arms the word of the sweep
-//                    after.  (A check launched on its own costs a launch's
-//                    floor, 1.2-1.3 us, once per sweep; one run by the last
-//                    block of a sweep's last launch to finish, after an
-//                    arrival counter over the output tiles, costs as much:
-//                    three dependent trips to L2, PERF.md.)
+//   dbm_mf_check     the mean-field loop's check, one thread.  The loop
+//                    runs on the device as a CUDA graph (bm_dbm_mf_graph_*):
+//                    a memset node zeroes the control words, then one
+//                    conditional WHILE node whose body, a turn, is `body`
+//                    sweeps, each its L dbm_gemm_act layer launches (each
+//                    folding its change into the sweep's word), and this
+//                    check, which counts the turn's sweeps into n_mf and
+//                    ends the loop where a sweep's change is <= tol or NaN
+//                    or the budget ran out, else re-arms the change words.
+//                    Between the sweeps of a turn the check rides on each
+//                    sweep's first layer launch (mf_sweep_runs), so the
+//                    sweeps after the stop return at once.  A turn costs
+//                    the check's launch and the WHILE node's turn (3.5-4.6
+//                    us, PERF.md) and a sweep that returns at once a
+//                    launch's floor a layer, so `body` trades the one
+//                    against the other.  The check has a launch of its own
+//                    because it ends the loop with cudaGraphSetConditional,
+//                    a call that ptxas cannot see into: in a kernel that
+//                    issues wgmma it serialises every wgmma (C7510;
+//                    PERF.md).  (Run by the last block of a sweep's last
+//                    launch to finish, after an arrival counter over the
+//                    output tiles, the check cost 1.42 us a sweep: three
+//                    dependent trips to L2, PERF.md.  Enqueuing the whole
+//                    budget from the host left 100 launches a step at 50
+//                    sweeps to pace the card.)
 //   dbm_bias_update  the bias statistics (data / N - particles / M), the
 //                    per-layer sparsity EMAs of batch sums with their
 //                    penalty, and the momentum update of every bias vector
@@ -122,21 +130,22 @@
 //
 // What bounds it on an H100: at dbm_mnist's shapes (784-512-1024, 100 rows)
 // each product is 40-100 MFLOP and reads 1.6-3.2 MB of W: a microsecond of
-// either, so a launch is bound by its latency, and a DBM step (107
-// dbm_gemm_act launches at 50 mean-field sweeps) or an AIS beta (17) by the
-// chain of launches.  dbm_gemm_act runs on the tensor-core tile of
+// either, so a launch is bound by its latency, and a DBM step (7
+// dbm_gemm_act launches, and 2 a mean-field sweep) or an AIS beta (17) by
+// the chain of launches.  dbm_gemm_act runs on the tensor-core tile of
 // gemm_tc.cuh: swap-AB wgmma in 3xTF32 with the two products of a middle
 // layer in one K loop, narrow batch tiles and deterministic split-K so that
 // ~100-130 blocks share each product instead of 8-16, and the epilogues
 // above on the summed tile.  dbm_assoc_update (K = rows, an n_in x n_out
 // output) is the association kernel of assoc_tc.cuh: both products in one
 // tensor-core K loop, each scaled as its stages are added (1/N, -1/M), the
-// update of W and dW as a TMA-fed epilogue.  CUDA graphs for the launch
-// chain are later work.
+// update of W and dW as a TMA-fed epilogue.  The mean-field loop is a CUDA
+// graph (dbm_mf_check); the step's other launches come from the host.
 //
 // C interface (bound with ctypes by ops/dbm_ops.py): every entry launches on
 // the given stream, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() (the first error of a multi-launch entry).
+// cudaGetLastError() (the first error of a multi-launch entry); the
+// mean-field graph's create and destroy launch nothing and take no stream.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -181,7 +190,6 @@ struct GemmArgs {
   const float* bias;
   float* out;             // means or states; kSoftplusRows: partials
   unsigned* delta_bits;   // kSigmoidDelta: max |new - old| as float bits
-  const int* done;        // launch is a no-op while *done != 0; may be null
   float* ws;              // split-K workspace
   unsigned* counters;     // split-K per-tile counters
   long long sam1, sak1, sbk1, sbn1;
@@ -218,12 +226,13 @@ struct AisLogw {
 struct DbmGemmArgs {
   bm::tc::Tile t;
   GemmArgs a;
-  // the first layer launch of mean-field sweep `sweep` of bm_dbm_mf_loop:
-  // the control words (mf_change), and the check's tolerance and budget;
-  // null in every other launch
-  unsigned* ctrl;
-  int sweep, max_updates;
-  float tol;
+  // a layer launch of the mean-field graph: its control words, the sweep's
+  // place in the WHILE node's turn (its first layer; -1 a later layer:
+  // mf_sweep_runs), the budget and the tolerance; mf null in every other
+  // launch
+  unsigned* mf;
+  int mf_pos, mf_max;
+  float mf_tol;
   // the first launch of an AIS beta: the update of the beta before
   AisLogw pending;
 };
@@ -262,39 +271,60 @@ constexpr int kNormHold = 28;
 // dbm_bias_update: rows of each side staged per pass
 constexpr int kBiasChunk = 128;
 
-// The mean-field control words, zeroed before the first sweep: the change
-// of sweep s (max |new - old| as float bits, folded by atomicMax) in word
-// mf_change(s), the done flag in word 1, n_mf in word 2 (dbm_msre reads
-// it).
-__host__ __device__ __forceinline__ int mf_change(int sweep) {
-  return sweep % 3 == 0 ? 0 : 2 + sweep % 3;
+// The mean-field control words of bm_dbm_mf_graph_create, body = the
+// sweeps of one turn of its WHILE node: the graph's memset node zeroes the
+// first kMfChange + body at each launch.  Word kMfStop: 0, or the body
+// position whose sweep did not run, the loop having stopped before it;
+// kMfCount: n_mf before the turn, then n_mf (dbm_msre reads it);
+// kMfChange + k: the change of the turn's sweep k (max |new - old| as
+// float bits, folded by atomicMax); kMfChange + body: the turns the graph
+// ran, never zeroed by it (the host counts the graph's kernels from it).
+constexpr int kMfStop = 0, kMfCount = 1, kMfChange = 2;
+
+// The check between the sweeps of a turn, at the start of the first layer
+// launch of sweep k of the turn (p.mf_pos = k >= 1), in every block alike:
+// whether the sweep runs.  It runs while the sweep before it did (the stop
+// word still 0), its change is > tol (the JAX loop runs while n < max and
+// delta > tol, so a NaN change stops it too) and the budget has room.
+// Block 0 writes a stop into the stop word, which every block of this
+// launch may read: a block that reads it decides not to run, as the
+// launch has.  The later layer launches of a sweep (p.mf_pos < 0) and the
+// turn's first sweep (0: the check kernel let the turn start) only test
+// the stop word, written by an earlier launch.  Every other word read here
+// was written by an earlier launch.
+__device__ __forceinline__ bool mf_sweep_runs(const DbmGemmArgs& p) {
+  unsigned* c = p.mf;
+  if (c[kMfStop] != 0u) return false;
+  const int k = p.mf_pos;
+  if (k <= 0) return true;
+  if ((int)c[kMfCount] + k < p.mf_max &&
+      __uint_as_float(c[kMfChange + k - 1]) > p.mf_tol)
+    return true;
+  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0)
+    c[kMfStop] = (unsigned)k;
+  return false;
 }
 
-// The check of sweep s - 1, at the start of sweep s's first layer launch,
-// in every block alike (no block of this launch writes the change word it
-// reads): whether sweep s runs.  The JAX loop runs while n < max and
-// delta > tol, so a NaN change stops it too; the budget is the sweeps the
-// host enqueues.
-// Block 0 writes what the launch decides: done and n_mf = s when the loop
-// stopped; else it re-arms the word of sweep s + 1 (that of sweep s - 2,
-// which sweep s - 1's check read in an earlier launch) and, in the budget's
-// last sweep, writes n_mf = max.
-__device__ __forceinline__ bool mf_sweep_runs(unsigned* ctrl, int s, float tol,
-                                              int max_updates) {
-  const bool lead = blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
-                    threadIdx.x == 0;
-  if (s > 0 && !(__uint_as_float(ctrl[mf_change(s - 1)]) > tol)) {
-    if (lead) {
-      ctrl[1] = 1u;
-      ctrl[2] = (unsigned)s;
-    }
-    return false;
+// The check after a turn of `body` sweeps, the last node of the graph's
+// WHILE body, one thread (no other thread reads what it writes): counts
+// the turn, adds the sweeps that ran to n_mf, and ends the loop where a
+// sweep of the turn did not run, n_mf reached the budget, or the last
+// sweep's change is <= tol or NaN; else it re-arms the turn's change
+// words.
+__global__ void dbm_mf_check_kernel(unsigned* ctrl, int body, float tol,
+                                    int max_updates,
+                                    cudaGraphConditionalHandle loop) {
+  ctrl[kMfChange + body] += 1u;
+  const unsigned stop = ctrl[kMfStop];
+  const unsigned n = ctrl[kMfCount] + (stop != 0u ? stop : (unsigned)body);
+  ctrl[kMfCount] = n;
+  if (stop != 0u || (int)n >= max_updates ||
+      !(__uint_as_float(ctrl[kMfChange + body - 1]) > tol)) {
+    cudaGraphSetConditional(loop, 0u);
+    return;
   }
-  if (lead) {
-    ctrl[mf_change(s + 1)] = 0u;
-    if (s == max_updates - 1) ctrl[2] = (unsigned)max_updates;
-  }
-  return true;
+  for (int k = 0; k < body; ++k) ctrl[kMfChange + k] = 0u;
 }
 
 // Run r's log-weight update by the calling warp (all its lanes):
@@ -434,10 +464,7 @@ template <int NT, bool kBias2, class Prologue>
 __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
                                          Prologue& pro) {
   const GemmArgs& a = p.a;
-  if (a.done != nullptr && *a.done != 0) return;  // mean-field converged
-  if (p.ctrl != nullptr &&
-      !mf_sweep_runs(p.ctrl, p.sweep, p.tol, p.max_updates))
-    return;
+  if (p.mf != nullptr && !mf_sweep_runs(p)) return;  // mean-field stopped
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __shared__ float rows[2][NT][4];  // kSoftplusRows: per row, per warp
   float* T;
@@ -742,7 +769,7 @@ __global__ void __launch_bounds__(kRedThreads)
   const float total = block_sum(p, red);
   if (threadIdx.x == 0) {
     *msre_out = total / (float)n;
-    *nmf_out = (float)reinterpret_cast<const int*>(ctrl)[2];
+    *nmf_out = (float)reinterpret_cast<const int*>(ctrl)[kMfCount];
     *counter = 0u;
   }
 }
@@ -775,9 +802,9 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
                 w_trans};
   }
   p->a = a;
-  p->ctrl = nullptr;
-  p->sweep = p->max_updates = 0;
-  p->tol = 0.f;
+  p->mf = nullptr;
+  p->mf_pos = p->mf_max = 0;
+  p->mf_tol = 0.f;
   p->pending = AisLogw();
   return bm::tc::setup_tile(&p->t, ops, n, a.M, a.N, a.n_tile, a.splits,
                             a.ws, a.counters);
@@ -796,6 +823,97 @@ int launch_ais(const DbmGemmArgs& p, cudaStream_t stream) {
   int err = 0;
   BM_TC_DISPATCH(ais_gemm_act_kernel, p.t, p, stream, err);
   return err;
+}
+
+// Adds a kernel node of `func` to `g` after `*prev` (none where null) and
+// makes it `*prev`.
+int add_kernel_node(cudaGraph_t g, cudaGraphNode_t* prev, const void* func,
+                    dim3 grid, dim3 block, int smem, void** args) {
+  cudaKernelNodeParams k = {};
+  k.func = const_cast<void*>(func);
+  k.gridDim = grid;
+  k.blockDim = block;
+  k.sharedMemBytes = smem;
+  k.kernelParams = args;
+  cudaGraphNode_t node;
+  const int err = (int)cudaGraphAddKernelNode(&node, g, *prev ? prev : nullptr,
+                                              *prev ? 1 : 0, &k);
+  if (!err) *prev = node;
+  return err;
+}
+
+// A mean-field layer launch as a dbm_gemm_act_kernel node, the kernel
+// granted its dynamic shared memory first.
+template <int NT>
+int add_layer_node(cudaGraph_t g, cudaGraphNode_t* prev,
+                   const DbmGemmArgs& p) {
+  const int bytes = bm::tc::smem_bytes(NT);
+  const int err = (int)cudaFuncSetAttribute(
+      dbm_gemm_act_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err) return err;
+  void* args[] = {const_cast<DbmGemmArgs*>(&p)};
+  return add_kernel_node(g, prev, (const void*)dbm_gemm_act_kernel<NT>,
+                         bm::tc::tile_grid(p.t), dim3(bm::tc::kThreads), bytes,
+                         args);
+}
+
+int add_layer_node(cudaGraph_t g, cudaGraphNode_t* prev,
+                   const DbmGemmArgs& p) {
+  switch (p.t.n_tile) {
+    case 8: return add_layer_node<8>(g, prev, p);
+    case 16: return add_layer_node<16>(g, prev, p);
+    case 32: return add_layer_node<32>(g, prev, p);
+    case 56: return add_layer_node<56>(g, prev, p);
+    case 64: return add_layer_node<64>(g, prev, p);
+    case 104: return add_layer_node<104>(g, prev, p);
+    case 128: return add_layer_node<128>(g, prev, p);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The mean-field graph of bm_dbm_mf_graph_create, built into `g`.
+int build_mf_graph(cudaGraph_t g, const std::vector<DbmGemmArgs>& layers,
+                   unsigned* ctrl, float tol, int max_updates, int body) {
+  cudaMemsetParams m = {};
+  m.dst = ctrl;
+  m.value = 0;
+  m.elementSize = sizeof(unsigned);
+  m.width = kMfChange + body;
+  m.height = 1;
+  cudaGraphNode_t reset;
+  int err = (int)cudaGraphAddMemsetNode(&reset, g, nullptr, 0, &m);
+  if (err) return err;
+  // armed at each launch of the graph, unless the budget is 0
+  cudaGraphConditionalHandle loop;
+  err = (int)cudaGraphConditionalHandleCreate(
+      &loop, g, max_updates > 0 ? 1u : 0u, cudaGraphCondAssignDefault);
+  if (err) return err;
+  cudaGraphNodeParams c = {};
+  c.type = cudaGraphNodeTypeConditional;
+  c.conditional.handle = loop;
+  c.conditional.type = cudaGraphCondTypeWhile;
+  c.conditional.size = 1;
+  cudaGraphNode_t node;
+  err = (int)cudaGraphAddNode(&node, g, &reset, 1, &c);
+  if (err) return err;
+  cudaGraph_t turn = c.conditional.phGraph_out[0];
+  cudaGraphNode_t prev = nullptr;
+  for (int k = 0; k < body; ++k) {
+    for (size_t l = 0; l < layers.size(); ++l) {
+      DbmGemmArgs p = layers[l];
+      p.a.delta_bits = ctrl + kMfChange + k;
+      p.mf = ctrl;
+      p.mf_pos = l == 0 ? k : -1;
+      p.mf_max = max_updates;
+      p.mf_tol = tol;
+      err = add_layer_node(turn, &prev, p);
+      if (err) return err;
+    }
+  }
+  void* args[] = {&ctrl, &body, &tol, &max_updates, &loop};
+  return add_kernel_node(turn, &prev, (const void*)dbm_mf_check_kernel,
+                         dim3(1), dim3(1), 0, args);
 }
 
 }  // namespace
@@ -829,43 +947,51 @@ int bm_ais_gemm_act(const GemmArgs* a, const AisLogw* pending, void* stream) {
   return launch_ais(p, (cudaStream_t)stream);
 }
 
-// Zero the mean-field control words (five: mf_change).
-int bm_dbm_mf_reset(unsigned* ctrl, void* stream) {
-  cudaMemsetAsync(ctrl, 0, 5 * sizeof(unsigned), (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-
-// `n_sweeps` mean-field sweeps: per sweep the `n_layers` layer launches of
-// `layers` (each kSigmoidDelta), which fold their change into the sweep's
-// word of ctrl and return at once when ctrl's done flag is set; the first
-// of them also runs the check of the sweep before (tol, max_updates).  The
-// layers' tiles are set up once for all sweeps.  The budget is the sweeps
-// enqueued, so max_updates must equal n_sweeps.
-int bm_dbm_mf_loop(const GemmArgs* layers, int n_layers, int n_sweeps,
-                   unsigned* ctrl, float tol, int max_updates, void* stream) {
-  if (n_layers < 1 || ctrl == nullptr || n_sweeps < 0 ||
-      max_updates != n_sweeps)
+// The mean-field loop of a DBM step as an executable CUDA graph (*graph):
+// a memset node zeroes the first kMfChange + `body` control words of
+// `ctrl` (which holds kMfChange + body + 1), then a WHILE node runs turns
+// of `body` sweeps, each sweep the `n_layers` layer launches of `layers`
+// (each kSigmoidDelta; its delta_bits unused: the graph sets it), and the
+// check after them, until a sweep's change is <= tol or `max_updates`
+// sweeps ran: n_mf sweeps, and the layer launches of a turn's sweeps after
+// the stop return at once.  The layers' tiles are set up once, so every
+// buffer they name is fixed for the graph's life.  Launches nothing.
+int bm_dbm_mf_graph_create(const GemmArgs* layers, int n_layers,
+                           unsigned* ctrl, float tol, int max_updates,
+                           int body, void** graph) {
+  if (graph == nullptr) return (int)cudaErrorInvalidValue;
+  *graph = nullptr;
+  if (layers == nullptr || n_layers < 1 || ctrl == nullptr ||
+      max_updates < 0 || body < 1)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
   std::vector<DbmGemmArgs> p(n_layers);
   for (int l = 0; l < n_layers; ++l) {
     if (layers[l].act != kSigmoidDelta) return (int)cudaErrorInvalidValue;
     const int e = setup(&p[l], layers[l]);
     if (e) return e;
-    p[l].a.done = reinterpret_cast<const int*>(ctrl + 1);
   }
-  p[0].ctrl = ctrl;
-  p[0].tol = tol;
-  p[0].max_updates = max_updates;
-  for (int it = 0; it < n_sweeps; ++it) {
-    p[0].sweep = it;
-    for (int l = 0; l < n_layers; ++l) {
-      p[l].a.delta_bits = ctrl + mf_change(it);
-      const int e = launch(p[l], s);
-      if (e) return e;
-    }
-  }
-  return 0;
+  cudaGraph_t g;
+  int err = (int)cudaGraphCreate(&g, 0);
+  if (err) return err;
+  err = build_mf_graph(g, p, ctrl, tol, max_updates, body);
+  cudaGraphExec_t exec = nullptr;
+  if (!err) err = (int)cudaGraphInstantiate(&exec, g, 0);
+  cudaGraphDestroy(g);
+  if (!err) *graph = exec;
+  return err;
+}
+
+// One run of the mean-field graph on `stream`: the control words zeroed,
+// then the turns.
+int bm_dbm_mf_graph_launch(void* graph, void* stream) {
+  if (graph == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)cudaGraphLaunch((cudaGraphExec_t)graph, (cudaStream_t)stream);
+}
+
+// Frees the graph; a launch of it still in flight runs to its end first.
+int bm_dbm_mf_graph_destroy(void* graph) {
+  if (graph == nullptr) return 0;
+  return (int)cudaGraphExecDestroy((cudaGraphExec_t)graph);
 }
 
 // The bias updates of `n_vecs` vectors (1 <= n_vecs <= kMaxBias) in one

@@ -49,14 +49,25 @@ Each program has three parts:
   ``csrc/dbm_ops.cu`` (built on first use) or raises;
 * ``<wrapper>.launches``: how many times the wrapper launched each kernel.
 
+On the kernels, a step's mean-field loop is one launch of a CUDA graph
+(``bm_dbm_mf_graph_*``) whose WHILE node runs turns of ``MF_BODY_SWEEPS``
+sweeps, each sweep L ``dbm_gemm_act`` layer launches, and a
+``dbm_mf_check`` launch after each turn, until mean-field stops.  The
+graph counts its turns in a control word; ``dbm_epoch`` reads it once the
+epoch's steps are enqueued and adds the kernels the turns ran to
+``dbm_epoch.launches`` (L x ``MF_BODY_SWEEPS`` ``dbm_gemm_act`` and one
+``dbm_mf_check`` a turn, those of sweeps after the stop included: they
+run and return at once).  ``dbm_epoch.graph_launches`` counts the graph's
+launches, one a step, apart from the kernels.
+
 Beside the epoch's launches and not among them, ``dbm_epoch.sweeps``
 counts the training steps' mean-field sweeps: ``mf_sweeps_enqueued``, the
-sweeps the epochs enqueued (``max_mf_updates`` a step on the kernels,
-which enqueue the whole budget; the sweeps run on the plain paths), and
-``mf_sweeps``, the sweeps the steps ran, which ``DBM.fit`` adds from the
-n_mf row it copies to the host every epoch.  ``dbm_epoch.profiled_sweeps``
-holds the same two counts and the ``steps`` of the training epochs that
-ran while a ``torch.profiler`` session was active: what a trace covers.
+budget the epochs offered (``max_mf_updates`` a step on the kernels; the
+sweeps run on the plain paths), and ``mf_sweeps``, the sweeps the steps
+ran, which ``DBM.fit`` adds from the n_mf row it copies to the host every
+epoch.  ``dbm_epoch.profiled_sweeps`` holds the same two counts and the
+``steps`` of the training epochs that ran while a ``torch.profiler``
+session was active: what a trace covers.
 
 Random draws come from the Philox streams of ``ops/philox.py``, which the
 kernels reproduce exactly, so kernel and plain version draw the same
@@ -96,7 +107,7 @@ STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
 LAYER_KEYS = ('hb', 'W', 'dhb', 'dW', 'q_means', 'mu_means', 'H')
 
 EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_bias_update', 'dbm_assoc_update',
-                 'dbm_max_norm', 'dbm_msre')
+                 'dbm_max_norm', 'dbm_msre', 'dbm_mf_check')
 SAMPLE_KERNELS = ('dbm_gemm_act',)
 AIS_KERNELS = ('dbm_gemm_act', 'ais_logw')
 #: the mean-field sweep counts of ``dbm_epoch.sweeps``, and of
@@ -701,13 +712,21 @@ ACT_IDENTITY, ACT_SIGMOID, ACT_SIGMOID_DELTA, ACT_SOFTPLUS_ROWS = range(4)
 MSRE_BLOCKS = 256
 #: the most bias vectors of one dbm_bias_update launch (kMaxBias)
 MAX_BIAS = 8
+#: the sweeps of one turn of the mean-field graph's WHILE node (the
+#: `body` of bm_dbm_mf_graph_create): a turn costs a check launch and the
+#: node's turn, a sweep after the stop a launch's floor a layer
+MF_BODY_SWEEPS = 4
+#: the mean-field control words ahead of a turn's change words (kMfChange):
+#: the stop word and n_mf (word 1, which dbm_msre reads); the graph's turn
+#: count follows the change words
+MF_CHANGE_WORD = 2
 
 
 class GemmArgs(ctypes.Structure):
     """The ``GemmArgs`` struct of csrc/dbm_ops.cu (same field order)."""
     _fields_ = (
         [(n, _P) for n in ('a1', 'b1', 'a2', 'b2', 'c', 'bias', 'out',
-                           'delta_bits', 'done', 'ws', 'counters')] +
+                           'delta_bits', 'ws', 'counters')] +
         [(n, _L) for n in ('sam1', 'sak1', 'sbk1', 'sbn1',
                            'sam2', 'sak2', 'sbk2', 'sbn2')] +
         [(n, _I) for n in ('k1', 'k2', 'M', 'N', 'act', 'sample', 'n_tile',
@@ -738,8 +757,10 @@ _ARGTYPES = {
     'bm_dbm_gemm_act': [ctypes.POINTER(GemmArgs), _P],
     'bm_ais_gemm_act': [ctypes.POINTER(GemmArgs), ctypes.POINTER(AisLogw),
                         _P],
-    'bm_dbm_mf_reset': [_P, _P],
-    'bm_dbm_mf_loop': [ctypes.POINTER(GemmArgs), _I, _I, _P, _F, _I, _P],
+    'bm_dbm_mf_graph_create': [ctypes.POINTER(GemmArgs), _I, _P, _F, _I,
+                               _I, ctypes.POINTER(_P)],
+    'bm_dbm_mf_graph_launch': [_P, _P],
+    'bm_dbm_mf_graph_destroy': [_P],
     'bm_dbm_bias_update': [ctypes.POINTER(BiasVec), _I, _I, _I, _F, _F, _F,
                            _F, _P],
     'bm_dbm_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F,
@@ -772,6 +793,22 @@ def _check(err, name):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    """torch's current stream on the CUDA `device`, as a handle."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count_mf_graph(n_mf, body=None):
+    """The turns of the mean-field graph's WHILE node behind steps whose
+    n_mf rows are `n_mf` (host numbers), at `body` sweeps a turn
+    (``MF_BODY_SWEEPS`` where None): a turn ends where mean-field stopped,
+    so a step runs ceil(n_mf / body).  What the graph's turn count should
+    read; the host counts the graph's kernels from the count itself."""
+    body = MF_BODY_SWEEPS if body is None else int(body)
+    n = np.rint(np.asarray(n_mf, dtype=np.float64)).astype(np.int64)
+    return int((-(-n // body)).sum())
 
 
 def _gemm_args(out, A=(), c=None, bias=None, act=ACT_SIGMOID, alpha=1.,
@@ -868,7 +905,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
 
     lib = _library()
     launches = dbm_epoch.launches
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     # the epoch updates copies of the state in place, batch after batch
     s = _clone_state(state)
     W, hb, H = s['W'], s['hb'], s['H']
@@ -880,10 +917,12 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     mu = [empty(B, h) for h in hs]
     pen = [empty(h) for h in hs]
     v_means = empty(B, V)
-    # the mean-field loop's control words of the current minibatch: the
-    # done flag, n_mf, and the max |change| of each sweep as float bits, in
-    # one of three words by the sweep (csrc/dbm_ops.cu mf_change)
-    ctrl = torch.zeros(5, dtype=torch.int32, device=dev)
+    # the mean-field loop's control words (csrc/dbm_ops.cu kMfStop): the
+    # stop word, n_mf, each sweep's max |change| of a turn as float bits,
+    # which the graph zeroes at each launch, then its turns of the call
+    body = MF_BODY_SWEEPS
+    ctrl = torch.zeros(MF_CHANGE_WORD + body + 1, dtype=torch.int32,
+                       device=dev)
     # dbm_msre's block sums and its last-block counter (re-armed by it)
     msre_part = empty(MSRE_BLOCKS)
     msre_count = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -945,6 +984,13 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
               cfg.sparsity_target[l]) for l in range(L)]]
     chunks = [vecs[j:j + MAX_BIAS] for j in range(0, L + 1, MAX_BIAS)]
     bias_launches = [(BiasVec * len(c))(*c) for c in chunks]
+    # the mean-field loop as a CUDA graph over the sweep's buffers, fixed
+    # for the call
+    graph = _P()
+    _check(lib.bm_dbm_mf_graph_create(sweep, L, ctrl.data_ptr(), tol,
+                                      cfg.max_mf_updates, body,
+                                      ctypes.byref(graph)),
+           'dbm_mf_graph_create')
 
     for i in range(NB):
         X = X_batches[i]
@@ -953,14 +999,12 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
         launch(t0_args)
         for a in init_args:
             launch(a)
-        # the mean-field loop, on the device: max_mf_updates sweeps are
-        # enqueued, those after convergence return at once; each sweep's
-        # first layer launch runs the check of the sweep before
-        _check(lib.bm_dbm_mf_reset(ctrl.data_ptr(), stream), 'dbm_mf_reset')
-        _check(lib.bm_dbm_mf_loop(sweep, L, cfg.max_mf_updates,
-                                  ctrl.data_ptr(), tol, cfg.max_mf_updates,
-                                  stream), 'dbm_mf_loop')
-        launches['dbm_gemm_act'] += L * cfg.max_mf_updates
+        # the mean-field loop on the device: the graph runs turns of sweeps
+        # until mean-field stops or the budget ran out; its kernels count
+        # after the last step, from its turns
+        _check(lib.bm_dbm_mf_graph_launch(graph, stream),
+               'dbm_mf_graph_launch')
+        dbm_epoch.graph_launches += 1
         dbm_epoch.sweeps['mf_sweeps_enqueued'] += cfg.max_mf_updates
         for a in gibbs:
             a.it = it
@@ -993,6 +1037,12 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                                rows[1].data_ptr() + 4 * i, stream),
                'dbm_msre')
         launches['dbm_msre'] += 1
+    # the graph's turns, read once the stream has passed its last launch:
+    # each ran L layer launches a sweep of the turn and the check
+    turns = int(ctrl[MF_CHANGE_WORD + body])
+    launches['dbm_gemm_act'] += L * body * turns
+    launches['dbm_mf_check'] += turns
+    _check(lib.bm_dbm_mf_graph_destroy(graph), 'dbm_mf_graph_destroy')
     return s, rows[0], rows[1]
 
 
@@ -1241,15 +1291,18 @@ def ais_burn_in(cfg, state, seed, x0, n_steps):
 dbm_epoch.launches = dict.fromkeys(EPOCH_KERNELS, 0)
 dbm_sample.launches = dict.fromkeys(SAMPLE_KERNELS, 0)
 ais.launches = dict.fromkeys(AIS_KERNELS, 0)
+dbm_epoch.graph_launches = 0
 dbm_epoch.sweeps = dict.fromkeys(SWEEP_COUNTS, 0)
 dbm_epoch.profiled_sweeps = dict.fromkeys(PROFILED_COUNTS, 0)
 
 
 def reset_launches():
-    """Zero every launch count, and the sweep counts beside them."""
+    """Zero every launch count, the graph's launches and the sweep counts
+    beside them."""
     for fn in (dbm_epoch, dbm_sample, ais):
         for name in fn.launches:
             fn.launches[name] = 0
+    dbm_epoch.graph_launches = 0
     for counts in (dbm_epoch.sweeps, dbm_epoch.profiled_sweeps):
         for name in counts:
             counts[name] = 0

@@ -941,14 +941,18 @@ def read_tag(path, tag):
                 if r['tag'] == tag]
 
 
-def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0):
+def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0,
+                    trace=False):
     """examples/dbm_mnist.py stages 1-3 as the DBM path cuts them: RBM #1 and
     RBM #2 pretrained, then DBM.fit; through the kernels, or with `plain`
     through the plain versions (the reference) on the same data and
     seeds (the models' seeds shifted by `seed`).  Returns the models,
-    timings and logged metrics."""
+    timings and logged metrics; with `trace`, DBM.fit runs under
+    torch.profiler and `traced` counts the kernels its device trace names
+    (traced_kernels)."""
     import numpy as np
     from boltzmann_machines_tpu_torch import BernoulliRBM, DBM
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
 
     def plain_if_asked(model):
         if plain:
@@ -996,13 +1000,20 @@ def train_dbm_mnist(torch, tmpdir, X_train, X_val, plain=False, seed=0):
         random_seed=2222 + seed, verbose=True, display_filters=10,
         display_particles=20, v_shape=(28, 28), device='cuda',
         model_path=tmpdir + '/dbm/'))
+    graphs = dbm_ops.dbm_epoch.graph_launches
+    sweeps = dbm_ops.dbm_epoch.sweeps['mf_sweeps']
     t0 = time.perf_counter()
-    dbm.fit(X_train, X_val)
+    traced = traced_kernels(torch, lambda: dbm.fit(X_train, X_val)) \
+        if trace else None
+    if not trace:
+        dbm.fit(X_train, X_val)
     torch.cuda.synchronize()
     t_fit = time.perf_counter() - t0
     train = tmpdir + '/dbm/logs/train/scalars.jsonl'
     return dict(
-        rbms=(rbm1, rbm2), dbm=dbm, t_pre=t_pre, t_fit=t_fit,
+        rbms=(rbm1, rbm2), dbm=dbm, t_pre=t_pre, t_fit=t_fit, traced=traced,
+        graph_launches=dbm_ops.dbm_epoch.graph_launches - graphs,
+        mf_sweeps=dbm_ops.dbm_epoch.sweeps['mf_sweeps'] - sweeps,
         msre=read_tag(train, 'mean_squared_recon_error'),
         n_mf=read_tag(train, 'n_mf_updates'),
         val=read_tag(tmpdir + '/dbm/logs/val/scalars.jsonl',
@@ -1031,7 +1042,7 @@ def dbm_mnist_path(torch, tmpdir):
     n_rbm_iter = 2 * math.ceil(len(X_train) / 48)
     reset_launches()
     dbm_ops.reset_launches()
-    run = train_dbm_mnist(torch, tmpdir, X_train, X_val)
+    run = train_dbm_mnist(torch, tmpdir, X_train, X_val, trace=True)
     cd_launches = dict(cd_epoch.launches)
     launches = dict(dbm_ops.dbm_epoch.launches)
     dbm, msre, n_mf, val = run['dbm'], run['msre'], run['n_mf'], run['val']
@@ -1049,17 +1060,41 @@ def dbm_mnist_path(torch, tmpdir):
             cd_launches, expect))
     n_iter = 2 * math.ceil(len(X_train) / DBM_B)
     L, max_mf = 2, 50
-    # 113 launches a step: 107 products (the mean-field check fused into
-    # each sweep's first), one bias update for vb, hb0 and hb1, two
-    # associations, two max-norms, one msre
-    expect = {'dbm_gemm_act': n_iter * (1 + L + L * max_mf + (L + 1) + 1),
-              'dbm_bias_update': n_iter,
+    # 13 host launches a step: 7 products, one bias update for vb, hb0 and
+    # hb1, two associations, two max-norms, one msre; and one launch of the
+    # mean-field graph, which runs turns of `body` sweeps, each sweep L
+    # products, and the check after each turn.  The turns are the graph's
+    # own count: a step's n_mf sweeps take ceil(n_mf / body) of them, so
+    # the fit's, from its sweeps and steps, lie in [sweeps / body, (sweeps
+    # + steps (body - 1)) / body]; and the device trace of the fit names
+    # every kernel counted, those of the graph's turns among them, to
+    # within a thousandth: CUPTI loses a few records of graphs of many
+    # turns (0-4 of ~20 000 in the traces of this fit and of a 100-step
+    # epoch at 13 turns a step on an H100; none at a turn a step), where a
+    # turn miscounted a step is 200 of ~2 000
+    body, turns = dbm_ops.MF_BODY_SWEEPS, launches.get('dbm_mf_check', 0)
+    expect = {'dbm_gemm_act': n_iter * (1 + L + (L + 1) + 1) +
+              L * body * turns, 'dbm_bias_update': n_iter,
               'dbm_assoc_update': n_iter * L, 'dbm_max_norm': n_iter * L,
-              'dbm_msre': n_iter}
-    if sum(expect.values()) != 113 * n_iter:
-        raise AssertionError('the DBM schedule is not 113 launches a step')
-    say('DBM.fit: 2 epochs, %d iterations in %.2f s; launches %s' % (
-        dbm.iter_, run['t_fit'], launches))
+              'dbm_msre': n_iter, 'dbm_mf_check': turns}
+    traced = {name: run['traced'].get(name + '_kernel', 0)
+              for name in ('dbm_gemm_act', 'dbm_mf_check')}
+    sweeps = run['mf_sweeps']
+    if run['graph_launches'] != n_iter or \
+            not n_iter <= sweeps <= n_iter * max_mf or \
+            not sweeps <= body * turns <= sweeps + n_iter * (body - 1) or \
+            any(abs(n - launches.get(k, 0)) > launches.get(k, 0) // 1000
+                for k, n in traced.items()):
+        raise AssertionError(
+            'the DBM schedule is not 13 launches and one graph a step: %d '
+            'graphs, %d turns of %d sweeps for %d sweeps run; kernels in the '
+            'trace %s' % (run['graph_launches'], turns, body, sweeps,
+                          traced))
+    say('DBM.fit: 2 epochs, %d iterations in %.2f s (traced); launches %s; '
+        'the mean-field graph %d times, %d turns of %d sweeps for %d sweeps '
+        'run; kernels in the device trace %s' % (
+            dbm.iter_, run['t_fit'], launches, run['graph_launches'], turns,
+            body, sweeps, traced))
     say('  train msre per epoch %s; mean n_mf per epoch %s; val msre %s' % (
         [v for _, v in msre], [v for _, v in n_mf], [v for _, v in val]))
     if launches != expect or dbm.iter_ != n_iter:
@@ -1858,6 +1893,23 @@ KERNEL_SYMBOLS = {'cd_metrics': r'cd_metrics_(?:fe_|draw_)?kernel',
                       r'cd_bias_stats_kernel(?:<\d, (?:false|0)>|ILi\dELb0E)',
                   'cd_stats_sums':
                       r'cd_bias_stats_kernel(?:<\d, (?:true|1)>|ILi\dELb1E)'}
+
+
+def traced_kernels(torch, fn):
+    """The kernels the card ran in `fn()`, by the device trace's names
+    (torch.profiler; the name up to its template arguments or parameter
+    list): a Counter."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r'(\w+)(?:<[^()]*>)?\(', ev.name)
+            names[m.group(1) if m else ev.name] += 1
+    return names
 
 
 def profile_kernels(torch, fn, names=None, wall=None):
@@ -2904,12 +2956,12 @@ def ais_beta_work(V, H1, H2, R, k):
 # dbm_cifar_naive.py:121, the G-RBM), every 500 (dbm_mnist.py:89 and :129,
 # the two RBMs) and every 400 (dbm_cifar_naive.py:153, the M-RBM); a DBM
 # step runs one bias update (vb, hb0 and hb1 in one launch), two max-norms
-# and one msre, and max_mf_updates = 50 mean-field checks, each fused into
-# its sweep's first dbm_gemm_act launch (enqueued whether or not mean-field
-# converged); an AIS run one ais_logw (each beta's update rides on the next
-# beta's first dbm_gemm_act launch; dbm_mnist.py's runs have 20 000
-# betas), a data-parallel stats call one cd_stats_sums; the free-energy
-# probe is on no path.
+# and one msre, and one dbm_mf_check node after each turn of the
+# mean-field graph's WHILE node, on its control words (ceil(n_mf /
+# MF_BODY_SWEEPS) a step); an AIS run one ais_logw (each
+# beta's update rides on the next beta's first dbm_gemm_act launch;
+# dbm_mnist.py's runs have 20 000 betas), a data-parallel stats call one
+# cd_stats_sums; the free-energy probe is on no path.
 #
 # cd_bias_stats at each RBM path: (label, rows, V, H, Gaussian visible,
 # n_samples of multinomial hidden units, sparsity cost, launches per 1000
@@ -2943,8 +2995,8 @@ NO_LIBRARY = {
                          'timed in phase 10',
     'cd_metrics': 'L2, msre and the PLL\'s flipped free energies',
     'fe_probe': 'a free energy is a product, a softplus sum and a dot',
-    'dbm_mf_check': 'a counter and flag update on three words, fused into '
-                    'the first dbm_gemm_act launch of each mean-field sweep',
+    'dbm_mf_check': 'a counter and flag update on a few words, a kernel '
+                    'node after each turn of the mean-field graph',
     'ais_logw': 'a dot and two partial sums per run',
 }
 
@@ -3408,7 +3460,7 @@ def kernel_times(torch):
     # rerun, with the count copied
     V = DBM_SIZES[0]
     X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
-    ctrl = torch.tensor([0, 0, 17], dtype=torch.int32, device='cuda')
+    ctrl = torch.tensor([0, 17], dtype=torch.int32, device='cuda')
     part = torch.empty(dbm_ops.MSRE_BLOCKS, **f32)
     count = torch.zeros(1, dtype=torch.int32, device='cuda')
 
@@ -3420,7 +3472,7 @@ def kernel_times(torch):
         return msre
 
     def plain():
-        return torch.mean(torch.square(X - vm)), ctrl[2].float()
+        return torch.mean(torch.square(X - vm)), ctrl[1].float()
     got = run(torch.full((2,), float('nan'), **f32))
     again = run(torch.full((2,), float('nan'), **f32))
     want = plain()
@@ -3438,109 +3490,170 @@ def kernel_times(torch):
            (0., 3. * DBM_B * V, 8. * DBM_B * V),
            graph_ms(torch, lambda: F.mse_loss(vm, X)), err=err)
 
-    # the mean-field loop at the step's shapes, from the random state of
-    # dbm_init's scale: one layer of it, the sweep's last (h1 =
-    # sigmoid(mu0.W1 + hb1), its change folded into ctrl), launched twice
-    # alone, and as two sweeps of a one-layer loop through the loop's entry,
-    # which adds the check at the start of a sweep's first launch: the
-    # check's cost per sweep is half the difference.  Then the whole loop,
-    # init and 50 sweeps.  ctrl holds the loop's five words.
+    # the mean-field graph at the step's shapes, from the random state of
+    # dbm_init's scale.  The check: one layer of the loop, the sweep's last
+    # (h1 = sigmoid(mu0.W1 + hb1), its change folded into ctrl), as a graph
+    # of a sweep a turn and two turns less one of one turn (the graph's
+    # launch and memset cancel), less the layer launched alone: what a turn
+    # adds to its layer launches (the check's launch and the WHILE node's
+    # turn).  A sweep after the stop: one turn of two sweeps less one of
+    # one, at a budget of 1.  Then the whole loop, init and 50 sweeps, and
+    # the loop at the cell's tolerance beside the same sweeps' launches
+    # enqueued from the host, both at MF_BODY_SWEEPS sweeps a turn.  ctrl
+    # holds the words of any of these graphs (n_mf in word 1).
+    import ctypes
     V, H1, H2 = DBM_SIZES
     X = (rand(DBM_B, V) < 0.3).float()
     Ws = (0.03 * randn(V, H1), 0.03 * randn(H1, H2))
     hbs = (torch.full((H1,), -0.5, **f32), torch.full((H2,), -0.5, **f32))
     T0, mu = torch.empty(DBM_B, H1, **f32), [rand(DBM_B, H1),
                                              rand(DBM_B, H2)]
-    ctrl = torch.zeros(5, dtype=torch.int32, device='cuda')
+    ctrl = torch.zeros(dbm_ops.MF_CHANGE_WORD + 9, dtype=torch.int32,
+                       device='cuda')
     s_ = torch.cuda.current_stream().cuda_stream
 
-    def sweep_args(l, stream):
+    def sweep_args(l, Ws=Ws):
         A = [(mu[0], Ws[1], False)] if l else [(mu[1], Ws[1], True)]
-        a = dbm_ops._gemm_args(mu[l], A, c=None if l else T0, bias=hbs[l],
-                               act=dbm_ops.ACT_SIGMOID_DELTA, stream=stream)
-        a.delta_bits, a.done = ctrl.data_ptr(), ctrl.data_ptr() + 4
-        return a
-    import ctypes
-    last = sweep_args(1, s_)
+        return dbm_ops._gemm_args(mu[l], A, c=None if l else T0,
+                                  bias=hbs[l], act=dbm_ops.ACT_SIGMOID_DELTA,
+                                  stream=s_)
 
-    def layers_alone():
-        for _ in range(2):
-            dbm_ops._check(dlib.bm_dbm_gemm_act(ctypes.byref(last),
-                                                stream()), 'dbm_gemm_act')
+    graphs = []
 
-    def one_layer_loop(sweeps=2, tol=-1.):  # a budget of `sweeps`
-        dbm_ops._check(dlib.bm_dbm_mf_loop(
-            ctypes.byref(last), 1, sweeps, ptr(ctrl), tol, sweeps, stream()),
-            'dbm_mf_loop')
+    def make_graph(layers, tol, budget, body=dbm_ops.MF_BODY_SWEEPS):
+        arr = (dbm_ops.GemmArgs * len(layers))(*layers)
+        g = ctypes.c_void_p()
+        dbm_ops._check(dlib.bm_dbm_mf_graph_create(
+            arr, len(layers), ptr(ctrl), tol, budget, body,
+            ctypes.byref(g)), 'dbm_mf_graph_create')
+        graphs.append(g)
+        return g
 
-    def check_plain(c=ctrl):  # n_mf += 1; done = !(delta > tol) || n >= max
-        n_mf = c[2] + 1
-        return n_mf, (n_mf >= 2).int(), torch.zeros_like(n_mf)
-    # n_mf against the plain rule: a budget of 3 sweeps at tol -1 runs all
-    # three; at tol 1 (every change of a mean is below it) the loop stops
-    # after one
-    counts = []
-    for tol in (-1., 1.):
-        ctrl.zero_()
-        one_layer_loop(3, tol)
+    def launch_graph(g):
+        dbm_ops._check(dlib.bm_dbm_mf_graph_launch(g, stream()),
+                       'dbm_mf_graph_launch')
+
+    def launch(a):
+        dbm_ops._check(dlib.bm_dbm_gemm_act(ctypes.byref(a), stream()),
+                       'dbm_gemm_act')
+
+    last = sweep_args(1)
+    last.delta_bits = ptr(ctrl)
+    try:
+        one_layer = {b: make_graph([sweep_args(1)], -1., b, 1)
+                     for b in (1, 2)}
+        noop_turn = make_graph([sweep_args(1)], -1., 1, 2)
+        # n_mf against the plain rule: a budget of 3 sweeps at tol -1 runs
+        # all three; at tol 1 (every change of a mean is below it) the loop
+        # stops after one
+        counts = []
+        for tol in (-1., 1.):
+            launch_graph(make_graph([sweep_args(1)], tol, 3))
+            torch.cuda.synchronize()
+            counts.append(int(ctrl[1]))
+        if counts != [3, 1]:
+            raise AssertionError('mean-field check: n_mf %s, its rule gives '
+                                 '[3, 1]' % counts)
+
+        def check_plain(c=ctrl):  # n_mf += 1; stop = n >= max || !(d > tol)
+            n_mf = c[1] + 1
+            return n_mf, (n_mf >= 2) | ~(c[2:3].view(torch.float32) > 0.)
+        r = dict(layer_ms=graph_ms(torch, lambda: launch(last)),
+                 sweeps_ms=[event_ms(torch, lambda b=b: launch_graph(
+                     one_layer[b]), 200) for b in (1, 2)],
+                 noop_turn_ms=event_ms(torch, lambda: launch_graph(
+                     noop_turn), 200))
+        r['ms'] = r['sweeps_ms'][1] - r['sweeps_ms'][0] - r['layer_ms']
+        r['noop_sweep_ms'] = r['noop_turn_ms'] - r['sweeps_ms'][0]
+        bound_ms, bound_by = bound(0., 3., 24.)
+        plain_ms = graph_ms(torch, check_plain)
+        r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                 bound_by=bound_by, err=0.,
+                 launched_as='a one-thread kernel node after each turn of '
+                             'the mean-field graph')
+        out[('dbm_mf_check', 'graph')] = r
+        say('dbm_mf_check: the sweep\'s last layer (100x1024, K 512) %.4f '
+            'ms alone; a one-layer mean-field graph of 1 and 2 turns of a '
+            'sweep %.4f and %.4f ms; the check and the WHILE turn %.4f ms a '
+            'turn; a sweep after the stop %.4f ms (one turn of 2 sweeps at a '
+            'budget of 1, %.4f ms); plain %.4f ms; bound %.5f ms (%s); n_mf '
+            'against its plain rule: equal' % (
+                r['layer_ms'], r['sweeps_ms'][0], r['sweeps_ms'][1], r['ms'],
+                r['noop_sweep_ms'], r['noop_turn_ms'], plain_ms, bound_ms,
+                bound_by))
+
+        # the whole mean-field loop of one step: the init launches (T0 =
+        # X.W0, mu0, mu1) and the graph, 50 sweeps, all run (tol -1)
+        def init_args(Ws):
+            return [dbm_ops._gemm_args(T0, [(X, Ws[0], False)],
+                                       act=dbm_ops.ACT_IDENTITY, stream=s_),
+                    dbm_ops._gemm_args(mu[0], c=T0, bias=hbs[0], alpha=2.,
+                                       stream=s_),
+                    dbm_ops._gemm_args(mu[1], [(mu[0], Ws[1], False)],
+                                       bias=hbs[1], stream=s_)]
+
+        def mf_loop(init, g):
+            for a in init:
+                launch(a)
+            launch_graph(g)
+        init = init_args(Ws)
+        g50 = make_graph([sweep_args(0), sweep_args(1)], -1., 50)
+        mf_loop(init, g50)
         torch.cuda.synchronize()
-        counts.append(int(ctrl[2]))
-    if counts != [3, 1]:
-        raise AssertionError('mean-field check: n_mf %s, its rule gives '
-                             '[3, 1]' % counts)
-    ctrl.zero_()
-    r = dict(layers_ms=graph_ms(torch, layers_alone),
-             loop_ms=graph_ms(torch, one_layer_loop))
-    ctrl.zero_()
-    r['ms'] = (r['loop_ms'] - r['layers_ms']) / 2.
-    bound_ms, bound_by = bound(0., 3., 24.)
-    plain_ms = graph_ms(torch, check_plain)
-    r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-             bound_by=bound_by, err=0.,
-             fused_into='the first dbm_gemm_act launch of each mean-field '
-                        'sweep')
-    out[('dbm_mf_check', 'fused')] = r
-    say('dbm_mf_check: two launches of the sweep\'s last layer (100x1024, '
-        'K 512) %.4f ms alone, %.4f ms as a two-sweep loop; the check %.4f '
-        'ms per sweep (no launch of its own), plain %.4f ms; bound %.5f ms '
-        '(%s); n_mf against its plain rule: equal' % (
-            r['layers_ms'], r['loop_ms'], r['ms'], plain_ms, bound_ms,
-            bound_by))
+        if int(ctrl[1]) != 50:
+            raise AssertionError('the mean-field loop ran %d sweeps of 50'
+                                 % int(ctrl[1]))
+        gemm = 2. * DBM_B * (V * H1 + H1 * H2) + 50 * 4. * DBM_B * H1 * H2
+        mf_bound = bound(gemm, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
+                                         + 2 * DBM_B * (H1 + H2)))
+        out[('dbm_mf_loop', 'mf_50')] = dict(
+            ms=event_ms(torch, lambda: mf_loop(init, g50), 20),
+            bound_ms=mf_bound[0], bound_by=mf_bound[1])
+        say('dbm mean-field loop, init and 50 sweeps (3 launches and the '
+            'graph): %.4f ms; bound %.5f ms (%s)' % (
+                out[('dbm_mf_loop', 'mf_50')]['ms'], mf_bound[0],
+                mf_bound[1]))
 
-    # the whole mean-field loop of one step: the init launches (T0 = X.W0,
-    # mu0, mu1) and 50 sweeps, all run (tol -1)
-    loop = (dbm_ops.GemmArgs * 2)()
-    init = [dbm_ops._gemm_args(T0, [(X, Ws[0], False)],
-                               act=dbm_ops.ACT_IDENTITY, stream=s_),
-            dbm_ops._gemm_args(mu[0], c=T0, bias=hbs[0], alpha=2.,
-                               stream=s_),
-            dbm_ops._gemm_args(mu[1], [(mu[0], Ws[1], False)], bias=hbs[1],
-                               stream=s_)]
+        # at the cell's tolerance (1e-7, its budget 50), from weights at the
+        # example's initial scale (W_init 0.001 and 0.005), where mean-field
+        # stops after a few sweeps: the graph as the step runs it, beside
+        # the same n_mf sweeps' layer launches enqueued from the host (CUDA
+        # events: what the host's launches cost) and captured in a CUDA
+        # graph of launches (graph_ms: the sweeps' device time alone)
+        small = (0.001 * randn(V, H1), 0.005 * randn(H1, H2))
+        init_s = init_args(small)
+        layers_s = [sweep_args(0, small), sweep_args(1, small)]
+        g_tol = make_graph(layers_s, 1e-7, 50)
+        mf_loop(init_s, g_tol)
+        torch.cuda.synchronize()
+        n_mf = int(ctrl[1])
+        if not 1 <= n_mf < 50:
+            raise AssertionError('mean-field at tol 1e-7 ran %d sweeps of 50'
+                                 % n_mf)
+        host = [sweep_args(0, small), sweep_args(1, small)]
+        for a in host:
+            a.delta_bits = ptr(ctrl)
 
-    def mf_loop():
-        for a in init:
-            dbm_ops._check(dlib.bm_dbm_gemm_act(ctypes.byref(a), stream()),
-                           'dbm_gemm_act')
-        dbm_ops._check(dlib.bm_dbm_mf_reset(ptr(ctrl), stream()),
-                       'dbm_mf_reset')
-        dbm_ops._check(dlib.bm_dbm_mf_loop(loop, 2, 50, ptr(ctrl), -1., 50,
-                                           stream()), 'dbm_mf_loop')
-    for l in range(2):
-        loop[l] = sweep_args(l, s_)
-    mf_loop()
-    torch.cuda.synchronize()
-    if int(ctrl[2]) != 50:
-        raise AssertionError('the mean-field loop ran %d sweeps of 50'
-                             % int(ctrl[2]))
-    gemm = 2. * DBM_B * (V * H1 + H1 * H2) + 50 * 4. * DBM_B * H1 * H2
-    mf_bound = bound(gemm, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
-                                     + 2 * DBM_B * (H1 + H2)))
-    out[('dbm_mf_loop', 'mf_50')] = dict(
-        ms=graph_ms(torch, mf_loop, n=4), bound_ms=mf_bound[0],
-        bound_by=mf_bound[1])
-    say('dbm mean-field loop, init and 50 sweeps (103 launches): %.4f ms; '
-        'bound %.5f ms (%s)' % (out[('dbm_mf_loop', 'mf_50')]['ms'],
-                                mf_bound[0], mf_bound[1]))
+        def enqueued():
+            for a in init_s + host * n_mf:
+                launch(a)
+        gemm_s = 2. * DBM_B * (V * H1 + H1 * H2) + n_mf * 4. * DBM_B * H1 * H2
+        tol_bound = bound(gemm_s, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
+                                            + 2 * DBM_B * (H1 + H2)))
+        out[('dbm_mf_loop', 'mf_tol')] = r = dict(
+            n_mf=n_mf, ms=event_ms(torch, lambda: mf_loop(init_s, g_tol), 50),
+            enqueued_ms=event_ms(torch, enqueued, 50),
+            captured_ms=graph_ms(torch, enqueued, n=5),
+            bound_ms=tol_bound[0], bound_by=tol_bound[1])
+        say('dbm mean-field loop at tol 1e-7: init and the graph, %d sweeps, '
+            '%.4f ms; the same %d sweeps\' launches enqueued from the host '
+            '%.4f ms, captured in a CUDA graph %.4f ms; bound %.5f ms (%s)'
+            % (n_mf, r['ms'], n_mf, r['enqueued_ms'], r['captured_ms'],
+               tol_bound[0], tol_bound[1]))
+    finally:
+        torch.cuda.synchronize()
+        for graph in graphs:
+            dlib.bm_dbm_mf_graph_destroy(graph)
 
     # one AIS beta's log-weight update, 100 runs: launched alone (an AIS
     # run's last beta) and riding on the next beta's first launch (v =
@@ -3610,11 +3723,11 @@ def dbm_step_profile(torch):
     """Phase 18's profile of the DBM step (784-512-1024, B = M = 100,
     sampling on) in two cases: from a random state at the examples'
     mf_tol 1e-7, where all 50 mean-field sweeps run, and at mf_tol 1e-4,
-    where mean-field converges in a few sweeps and the rest of the 50
-    enqueued sweeps return at once.  For each: each kernel's device us per
-    launch and per step (torch.profiler), their busy share over the
-    unprofiled wall of the same epoch, the launches per step and the mean
-    n_mf."""
+    where mean-field converges in a few sweeps and the graph stops in the
+    turn of the last.  For each: each kernel's device us per launch and per
+    step (torch.profiler), their busy share over the unprofiled wall of the
+    same epoch, the launches per step (the graph's among them, its turn
+    count held against the n_mf rows) and the mean n_mf."""
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     nb = 20
     X_all = make_data(nb * DBM_B, seed=5)
@@ -3629,8 +3742,13 @@ def dbm_step_profile(torch):
             return dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 5, 0)
         epoch()
         dbm_ops.reset_launches()
-        n_mf = float(epoch()[2].mean())
-        torch.cuda.synchronize()
+        n_mf_rows = epoch()[2].cpu()
+        n_mf = float(n_mf_rows.mean())
+        turns = dbm_ops.dbm_epoch.launches['dbm_mf_check']
+        if turns != dbm_ops.count_mf_graph(n_mf_rows):
+            raise AssertionError('the mean-field graph counted %d turns, its '
+                                 'n_mf rows imply %d' % (
+                                     turns, dbm_ops.count_mf_graph(n_mf_rows)))
         per_step = {k: v / nb for k, v in dbm_ops.dbm_epoch.launches.items()}
         walls = []
         for _ in range(3):
@@ -4264,23 +4382,27 @@ def example_paths(script, tmpdir):
             '--mlp-save-prefix', tmpdir + '/out/dbm_']
 
 
-def example_launches(script):
+def example_launches(script, turns=0):
     """The kernel launches the example's schedule implies at EXAMPLES'
-    arguments (kernels launched no time left out)."""
-    n_train, L, max_mf = 9000, 2, 50
+    arguments (kernels launched no time left out), `turns` those of the
+    DBM's mean-field graph (MF_BODY_SWEEPS sweeps of L products, and a
+    check, each)."""
+    from boltzmann_machines_tpu_torch.ops.dbm_ops import MF_BODY_SWEEPS
+    n_train, L = 9000, 2
     if script == 'torch_rbm_mnist.py':
         n = math.ceil(n_train / 10)      # B 10, k 1, no metric logged
         return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
                              'cd_assoc_update': n}}
     n = 2 * math.ceil(n_train / 48)      # RBM #1 and #2, B 48, k 1
-    n_dbm = n_train // 100               # B 100, a 50-sweep budget
+    n_dbm = n_train // 100               # B 100
     return {'cd_epoch': {'cd_gemm_act': 3 * n, 'cd_bias_stats': n,
                          'cd_assoc_update': n},
-            'dbm_epoch': {'dbm_gemm_act': n_dbm * (1 + L + L * max_mf +
-                                                    (L + 1) + 1),
+            'dbm_epoch': {'dbm_gemm_act': n_dbm * (1 + L + (L + 1) + 1) +
+                          L * MF_BODY_SWEEPS * turns,
                           'dbm_bias_update': n_dbm,
                           'dbm_assoc_update': n_dbm * L,
-                          'dbm_max_norm': n_dbm * L, 'dbm_msre': n_dbm},
+                          'dbm_max_norm': n_dbm * L, 'dbm_msre': n_dbm,
+                          'dbm_mf_check': turns},
             'ais': {'dbm_gemm_act': 200 * (3 * 5 + 2), 'ais_logw': 1}}
 
 
@@ -4363,7 +4485,9 @@ def example_child(script, out_path, args):
                              for name in dbm_ops.SAMPLER_KERNELS}}
     with open(out_path, 'w') as f:
         json.dump({'wall': wall, 'stages': stages, 'mlps': mlps,
-                   'launches': launches}, f)
+                   'launches': launches,
+                   'mf_graph_launches': dbm_ops.dbm_epoch.graph_launches},
+                  f)
     return 0
 
 
@@ -4373,6 +4497,7 @@ def examples_path(torch, tmpdir):
     its time limit), at EXAMPLES' arguments: exit code 0, the kernels of
     each stage launched as the schedule implies, the MLP's parameters on
     the card, the test accuracy above chance (0.1), each stage's wall."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
     out = {}
     for script, args in EXAMPLES:
         d = '%s/%s' % (tmpdir, script[:-3])
@@ -4399,9 +4524,12 @@ def examples_path(torch, tmpdir):
         got = {op: {k: v for k, v in counts.items() if v}
                for op, counts in r['launches'].items()}
         got = {op: counts for op, counts in got.items() if counts}
-        expect = example_launches(script)
-        say('%s: %.2f s in its process (%.2f s with start-up); launches %s'
-            % (script, r['wall'], wall, got))
+        turns = r['launches']['dbm_epoch']['dbm_mf_check']
+        expect = example_launches(script, turns)
+        say('%s: %.2f s in its process (%.2f s with start-up); launches %s; '
+            'the mean-field graph %d times, %d turns' % (
+                script, r['wall'], wall, got, r['mf_graph_launches'],
+                turns))
         for label, dt in r['stages']:
             say('  stage %s: %.3f s' % (label, dt))
         for m in r['mlps']:
@@ -4409,9 +4537,15 @@ def examples_path(torch, tmpdir):
                 'optimizer, parameters on %s' % (
                     m['epochs'], m['seconds_per_epoch'], m['multi_adam_s'],
                     m['devices']))
-        if got != expect:
-            raise AssertionError('%s: launch counts %s, schedule implies %s'
-                                 % (script, got, expect))
+        # a graph a DBM step, at least a turn each and at most the budget's
+        graphs = expect.get('dbm_epoch', {}).get('dbm_msre', 0)
+        if got != expect or r['mf_graph_launches'] != graphs or \
+                not graphs <= turns <= graphs * math.ceil(
+                    50 / dbm_ops.MF_BODY_SWEEPS):
+            raise AssertionError('%s: launch counts %s, schedule implies %s; '
+                                 'the mean-field graph %d times, not %d' % (
+                                     script, got, expect,
+                                     r['mf_graph_launches'], graphs))
         if not r['mlps'] or any(m['devices'] != ['cuda'] or m['epochs'] != 2
                                 for m in r['mlps']):
             raise AssertionError('%s: the MLP did not train 2 epochs on the '
@@ -5220,6 +5354,7 @@ def dbm_rank(rank, world, tmpdir):
             r = dict(seconds=time.perf_counter() - t0, iter_=dbm.iter_,
                      sharded=dbm._sharded,
                      dbm_epoch=dict(dbm_ops.dbm_epoch.launches),
+                     mf_graph_launches=dbm_ops.dbm_epoch.graph_launches,
                      samplers=dict(samplers.bernoulli_sample.launches))
             np.savez('%s/mesh_%s_out%d.npz' % (tmpdir, name, rank),
                      **dbm.get_params_arrays())
@@ -5314,7 +5449,8 @@ def dbm_mesh_path(torch, tmpdir):
     DBM kernels), state within DBM_TOL; the ranks' states bit for bit
     equal; rank 1 writing nothing; with sampling on, one bernoulli_sample
     launch a sampled layer a sweep of the full batches and the remainder
-    step on the DBM kernels (113 launches); ms per mesh step (the MAX
+    step on the DBM kernels (13 launches and the mean-field graph); ms per
+    mesh step (the MAX
     all_reduce of each of 50 sweeps and the SUM of the 2.5 MB of sums
     through the host).  sample_v (3 launches a sweep + 2 a rank) and log_Z
     (its 50 runs a rank, 17 a beta + 1) on the mesh, the same values on
@@ -5337,15 +5473,20 @@ def dbm_mesh_path(torch, tmpdir):
         with open('%s/dbm_rank%d.json' % (tmpdir, r)) as f:
             ranks.append(json.load(f))
     out = {'ranks': ranks}
-    n_iter = MESH_NB + 1
-    # the remainder step on the DBM kernels: 3 + L + 2 L x 50 ... as phase
-    # 7 counts them: 107 products, a bias update, 2 assoc, 2 max-norms, msre
-    expect_rem = {'dbm_gemm_act': 2 + 1 + 2 * 50 + 3 + 1,
-                  'dbm_bias_update': 1, 'dbm_assoc_update': 2,
-                  'dbm_max_norm': 2, 'dbm_msre': 1}
+    n_iter, body = MESH_NB + 1, dbm_ops.MF_BODY_SWEEPS
     for r, rk in enumerate(ranks):
         for name in ('off', 'on'):
             g = rk[name]
+            # the remainder step on the DBM kernels, as phase 7 counts
+            # them: 7 products from the host, a bias update, 2 assoc, 2
+            # max-norms, msre, and the mean-field graph once, turns of
+            # MF_BODY_SWEEPS sweeps of 2 products and a check (the graph's
+            # own count of them: 1 to the budget's)
+            turns = g['dbm_epoch']['dbm_mf_check']
+            expect_rem = {'dbm_gemm_act': 2 + 1 + 3 + 1 + 2 * body * turns,
+                          'dbm_bias_update': 1, 'dbm_assoc_update': 2,
+                          'dbm_max_norm': 2, 'dbm_msre': 1,
+                          'dbm_mf_check': turns}
             draws = 3 * MESH_NB if name == 'on' else 0
             say('DBM mesh fit sampling %s rank %d: %d iterations in %.2f s, '
                 'sharded %s; bernoulli_sample launches %s, DBM kernel '
@@ -5353,7 +5494,9 @@ def dbm_mesh_path(torch, tmpdir):
                                  g['sharded'], g['samplers'], g['dbm_epoch']))
             if g['iter_'] != n_iter or not g['sharded'] or \
                     g['samplers'] != {'bernoulli_sample': draws} or \
-                    g['dbm_epoch'] != expect_rem:
+                    g['dbm_epoch'] != expect_rem or \
+                    g['mf_graph_launches'] != 1 or \
+                    not 1 <= turns <= math.ceil(50 / body):
                 raise AssertionError('rank %d mesh fit: launches %s / %s, '
                                      'the schedule implies %d / %s' % (
                                          r, g['samplers'], g['dbm_epoch'],
@@ -5973,7 +6116,7 @@ def main():
         'dbm_epoch': (('dbm_max_norm', 'dbm_w0', 'dbm_w1'),
                       ('dbm_bias_update', 'dbm_step', 'dbm_vb', 'dbm_hb0',
                        'dbm_hb1'),
-                      ('dbm_msre', 'dbm'), ('dbm_mf_check', 'fused')),
+                      ('dbm_msre', 'dbm'), ('dbm_mf_check', 'graph')),
         'ais': (('ais_logw', 'ais'),),
         'cd_epoch_gaussian': (('cd_bias_stats', 'grbm'),
                               ('cd_metrics', 'grbm')),
@@ -6182,6 +6325,7 @@ def main():
         if e['name'] == 'dbm_epoch':
             e['step_profile'] = dbm_prof
             e['mf_loop_50_sweeps'] = kt[('dbm_mf_loop', 'mf_50')]
+            e['mf_loop_at_tol'] = kt[('dbm_mf_loop', 'mf_tol')]
         # phase 22's shapes of examples/dbm_cifar.py
         for name, label, key in (
                 ('cd_epoch_gaussian', 'small RBM 192x300 B=48',

@@ -807,20 +807,25 @@ def test_dbm_epoch_kernels_match_plain_version(cuda, sizes, B, M, sample,
 
 
 def test_dbm_epoch_launch_counts(cuda):
-    """Every minibatch enqueues the whole mean-field budget, each sweep's
-    first layer launch checking the sweep before; the sweeps after convergence
-    return at once, and n_mf counts those that ran.  One bias launch
-    updates vb and every hb."""
+    """Every minibatch launches the mean-field graph once, which runs
+    turns of sweeps on the device until mean-field stops; the host counts
+    its other launches, and the graph's kernels from the turns it counted
+    (ceil(n_mf / MF_BODY_SWEEPS) a step).  The budget is what
+    ``mf_sweeps_enqueued`` counts.  One bias launch updates vb and every
+    hb."""
     sizes, B, M, NB, k, max_mf = (24, 16, 12), 8, 8, 3, 2, 20
     X, state = make_dbm_inputs(sizes, B, M, NB, cuda)
     cfg = dbm_config(sizes, k, max_mf, 1e-4, False)
     dbm_ops.reset_launches()
     _, _, n_mf = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 0)
-    L = 2
+    L, body = 2, dbm_ops.MF_BODY_SWEEPS
+    turns = dbm_ops.count_mf_graph(n_mf.cpu())
     assert dbm_ops.dbm_epoch.launches == {
-        'dbm_gemm_act': NB * (1 + L + L * max_mf + k * (L + 1) + 1),
+        'dbm_gemm_act': NB * (1 + L + k * (L + 1) + 1) + L * body * turns,
         'dbm_bias_update': NB, 'dbm_assoc_update': NB * L,
-        'dbm_max_norm': NB * L, 'dbm_msre': NB}
+        'dbm_max_norm': NB * L, 'dbm_msre': NB, 'dbm_mf_check': turns}
+    assert dbm_ops.dbm_epoch.graph_launches == NB
+    assert dbm_ops.dbm_epoch.sweeps['mf_sweeps_enqueued'] == NB * max_mf
     assert 1 <= float(n_mf.min()) and float(n_mf.max()) < max_mf
     # no max-norm pass when max_norm is infinite
     dbm_ops.reset_launches()
@@ -1057,7 +1062,9 @@ def test_dbm_epoch_bias_vectors_past_one_launch(cuda):
     torch.cuda.synchronize()
     assert dbm_ops.dbm_epoch.launches['dbm_bias_update'] == NB * 2
     assert dbm_ops.dbm_epoch.launches['dbm_gemm_act'] == \
-        NB * (1 + L + L * max_mf + k * (L + 1) + 1)
+        NB * (1 + L + k * (L + 1) + 1) + \
+        L * dbm_ops.MF_BODY_SWEEPS * dbm_ops.count_mf_graph(got[2].cpu())
+    assert dbm_ops.dbm_epoch.graph_launches == NB
     assert torch.equal(got[2], want[2])
     assert_dbm_state_close(got[0], want[0], B, M)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
@@ -1074,7 +1081,7 @@ MF_CASES = [('converges', 50, 1e-4), ('tol_0', 4, 0.), ('budget_0', 0, 1e-4),
 @pytest.mark.parametrize('splits', [None, 3])
 def test_dbm_mf_fused_check_edges(cuda, monkeypatch, sizes, case, max_mf,
                                   tol, splits):
-    """The mean-field check, fused into each sweep's first layer launch,
+    """The mean-field check, after each sweep of the mean-field graph,
     at L = 1, 2, 3 and with the plan's split-K or 3 K slices everywhere (the
     first layer's launch, mu1.W1^T + T0, then has 3 at L >= 2; at L = 1 it
     has no product): the n_mf rows equal the plain version's, and the state
@@ -1117,66 +1124,295 @@ def test_dbm_mf_fused_check_edges(cuda, monkeypatch, sizes, case, max_mf,
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-6)
 
 
+def mf_graph(layers, ctrl, tol, budget, body=None):
+    """The mean-field graph of `layers` (GemmArgs) over `ctrl`, `body`
+    sweeps a turn (MF_BODY_SWEEPS where None)."""
+    import ctypes
+    lib = dbm_ops._library()
+    arr = (dbm_ops.GemmArgs * len(layers))(*layers)
+    graph = ctypes.c_void_p()
+    dbm_ops._check(lib.bm_dbm_mf_graph_create(
+        arr, len(layers), ctrl.data_ptr(), tol, budget,
+        dbm_ops.MF_BODY_SWEEPS if body is None else body,
+        ctypes.byref(graph)), 'dbm_mf_graph_create')
+    return graph
+
+
+def mf_ctrl(body, fill, device):
+    """The control words of a graph of `body` sweeps a turn, each `fill`,
+    but the turn count 0."""
+    ctrl = torch.full((dbm_ops.MF_CHANGE_WORD + body + 1,), fill,
+                      dtype=torch.int32, device=device)
+    ctrl[-1] = 0
+    return ctrl
+
+
+def run_mf_graph(graph, times=1):
+    lib = dbm_ops._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(times):
+        dbm_ops._check(lib.bm_dbm_mf_graph_launch(graph, stream),
+                       'dbm_mf_graph_launch')
+    torch.cuda.synchronize()
+
+
+def free_mf_graph(graph):
+    torch.cuda.synchronize()
+    dbm_ops._check(dbm_ops._library().bm_dbm_mf_graph_destroy(graph),
+                   'dbm_mf_graph_destroy')
+
+
 @pytest.mark.parametrize('splits', [1, 3])
 def test_dbm_mf_check_stops_at_tol(cuda, splits):
-    """One layer launch through the sweep loop, zero weights and bias, so
-    every mean is sigmoid(0) = 0.5 exactly: from means of 0.25 the first
-    change is 0.25 exactly.  At tol 0.25 the loop stops after that sweep
-    (done raised, n_mf 1); at the float below 0.25 it runs a second, whose
-    change is 0 (n_mf 2); at a budget of 1 it stops after one whatever the
-    change; and at a budget of 3 with tol -1 it runs all three.  With the
-    plan's one K slice and with 3."""
-    import ctypes
+    """One layer launch through the mean-field graph, zero weights and
+    bias, so every mean is sigmoid(0) = 0.5 exactly: from means of 0.25 the
+    first change is 0.25 exactly.  At tol 0.25 the loop stops after that
+    sweep (n_mf 1, in ctrl word 1); at the float below 0.25 it runs a
+    second, whose change is 0 (n_mf 2); at a budget of 1 it stops after one
+    whatever the change; and at a budget of 3 with tol -1 it runs all
+    three.  With the plan's one K slice and with 3, and 1 to 4 sweeps a
+    turn, so that each stop falls at each place of a turn: the turn count
+    reads ceil(n_mf / body), and the sweeps of a turn after the stop
+    change nothing."""
     stream = torch.cuda.current_stream().cuda_stream
-    lib = dbm_ops._library()
     x = torch.rand((30, 256), device=cuda)
     W = torch.zeros((256, 200), device=cuda)
     below = float(np.nextafter(np.float32(0.25), np.float32(0)))
-    for tol, budget, n_want, done in ((0.25, 5, 1, 1), (below, 5, 2, 1),
-                                      (below, 1, 1, None), (-1., 3, 3, None)):
-        out = torch.full((30, 200), 0.25, device=cuda)
-        ctrl = torch.zeros(5, dtype=torch.int32, device=cuda)
-        a = dbm_ops._gemm_args(out, [(x, W, False)],
-                               act=dbm_ops.ACT_SIGMOID_DELTA, stream=stream,
-                               splits=splits)
-        assert a.splits == splits
-        dbm_ops._check(lib.bm_dbm_mf_reset(ctrl.data_ptr(), stream),
-                       'dbm_mf_reset')
-        dbm_ops._check(lib.bm_dbm_mf_loop(ctypes.byref(a), 1, budget,
-                                          ctrl.data_ptr(), tol, budget,
-                                          stream), 'dbm_mf_loop')
-        torch.cuda.synchronize()
-        assert int(ctrl[2]) == n_want, (tol, budget, ctrl)
-        if done is not None:
-            assert int(ctrl[1]) == done, (tol, budget, ctrl)
-        assert bool((out == 0.5).all())
+    for body in (1, 2, 3, 4):
+        for tol, budget, n_want in ((0.25, 5, 1), (below, 5, 2),
+                                    (below, 1, 1), (-1., 3, 3)):
+            out = torch.full((30, 200), 0.25, device=cuda)
+            ctrl = mf_ctrl(body, 7, cuda)
+            a = dbm_ops._gemm_args(out, [(x, W, False)],
+                                   act=dbm_ops.ACT_SIGMOID_DELTA,
+                                   stream=stream, splits=splits)
+            assert a.splits == splits
+            graph = mf_graph([a], ctrl, tol, budget, body)
+            try:
+                run_mf_graph(graph)
+            finally:
+                free_mf_graph(graph)
+            case = (body, tol, budget, ctrl)
+            assert int(ctrl[1]) == n_want, case
+            assert int(ctrl[-1]) == -(-n_want // body), case
+            assert bool((out == 0.5).all())
 
 
 def test_dbm_mf_loop_rejects_bad_layers(cuda):
-    """Every layer of the loop must fold its change (the mean-field
-    epilogue), or the check could never stop it; no layer at all is
-    refused too, and so is a budget other than the sweeps enqueued (the
-    budget is the sweeps enqueued: its last sweep writes n_mf)."""
+    """Every layer of the mean-field graph must fold its change (the
+    mean-field epilogue), or the check could never stop it; no layer at
+    all is refused too, and so are a negative budget, no sweep a turn, no
+    control words and nowhere to put the graph.  A graph refused is none
+    (null)."""
     import ctypes
     stream = torch.cuda.current_stream().cuda_stream
     lib = dbm_ops._library()
     out = torch.zeros((8, 16), device=cuda)
-    ctrl = torch.zeros(5, dtype=torch.int32, device=cuda)
+    ctrl = mf_ctrl(dbm_ops.MF_BODY_SWEEPS, 0, cuda)
     a = dbm_ops._gemm_args(out, [(torch.rand((8, 24), device=cuda),
                                   torch.rand((24, 16), device=cuda), False)],
                            stream=stream)
-    assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, 1, ctrl.data_ptr(), 0.,
-                              1, stream) != 0
+    graph = ctypes.c_void_p(1)
+    body = dbm_ops.MF_BODY_SWEEPS
+
+    def create(layers, n, ctrl_ptr, budget, body, out):
+        return lib.bm_dbm_mf_graph_create(layers, n, ctrl_ptr, 0., budget,
+                                          body, out)
+    ref, c = ctypes.byref(a), ctrl.data_ptr()
+    assert create(ref, 1, c, 1, body, ctypes.byref(graph)) != 0
+    assert graph.value is None
     a.act = dbm_ops.ACT_SIGMOID_DELTA
-    assert lib.bm_dbm_mf_loop(None, 0, 1, ctrl.data_ptr(), 0., 1,
-                              stream) != 0
-    for sweeps, budget in ((1, 2), (2, 1), (2, 2 ** 30)):
-        assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, sweeps,
-                                  ctrl.data_ptr(), 0., budget, stream) != 0
-    assert lib.bm_dbm_mf_loop(ctypes.byref(a), 1, 1, ctrl.data_ptr(), 0.,
-                              1, stream) == 0
-    torch.cuda.synchronize()
-    assert int(ctrl[2]) == 1
+    assert create(None, 0, c, 1, body, ctypes.byref(graph)) != 0
+    assert create(ref, 0, c, 1, body, ctypes.byref(graph)) != 0
+    assert create(ref, 1, c, -1, body, ctypes.byref(graph)) != 0
+    assert create(ref, 1, c, 1, 0, ctypes.byref(graph)) != 0
+    assert create(ref, 1, None, 1, body, ctypes.byref(graph)) != 0
+    assert create(ref, 1, c, 1, body, None) != 0
+    assert lib.bm_dbm_mf_graph_launch(None, stream) != 0
+    assert lib.bm_dbm_mf_graph_destroy(None) == 0
+    graph = mf_graph([a], ctrl, 0., 1)
+    try:
+        run_mf_graph(graph)
+    finally:
+        free_mf_graph(graph)
+    assert int(ctrl[1]) == 1
+
+
+def mf_layers(mu, Ws, hbs, T0, stream):
+    """The sweep's layer launches of a mean-field loop over `mu`."""
+    L = len(mu)
+    layers = []
+    for l in range(L):
+        A = [(mu[l - 1], Ws[l], False)] if l else []
+        if l + 1 < L:
+            A.append((mu[l + 1], Ws[l + 1], True))
+        layers.append(dbm_ops._gemm_args(
+            mu[l], A, c=T0 if l == 0 else None, bias=hbs[l],
+            act=dbm_ops.ACT_SIGMOID_DELTA, stream=stream))
+    return layers
+
+
+def mf_by_launches(layers, tol, budget):
+    """The mean-field loop from the host, one bm_dbm_gemm_act launch a
+    layer of each sweep, the sweep's change read after it: (n_mf, the
+    changes).  The same kernel on the same arguments, so the same bits, as
+    the graph's."""
+    import ctypes
+    lib = dbm_ops._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    word = torch.zeros(1, dtype=torch.int32, device='cuda')
+    n, changes = 0, []
+    while n < budget:
+        word.zero_()
+        for a in layers:
+            a.delta_bits = word.data_ptr()
+            dbm_ops._check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
+                           'dbm_gemm_act')
+        n += 1
+        changes.append(float(word.view(torch.float32)))
+        if not changes[-1] > tol:
+            break
+    return n, changes
+
+
+def graph_kernels(run):
+    """The kernels the card ran in `run()` by the device trace's short
+    names (copies and sets left out): a Counter."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    from port_bench.harness.trace import short_name
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [short_name(e.name) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return Counter(n for n in names if n.endswith('_kernel'))
+
+
+@pytest.mark.parametrize('body', sorted({1, 5, dbm_ops.MF_BODY_SWEEPS}))
+@pytest.mark.parametrize('case', ['budget', 'converges', 'one_sweep',
+                                  'nan_change', 'twice'])
+def test_dbm_mf_graph_matches_host_loop(cuda, case, body):
+    """The mean-field graph at the DBM step's widths (784-512-1024, 100
+    rows) against the same layer launches run from the host and the plain
+    ``mean_field``: tol -1 runs the whole budget (n_mf = budget); a tol
+    between the second and third changes stops after three sweeps; a tol
+    at the first change stops after one; a NaN change stops after one; and
+    the graph launched again re-arms its words and gives the same bits.  mu
+    is the host loop's bit for bit (NaN included), so the sweeps of a turn
+    after the stop change nothing; n_mf (ctrl word 1, which dbm_msre
+    reads) is its rule's, and the card runs ceil(n_mf / body) turns, the
+    count in the last control word: L x body launches a turn that a device
+    trace names dbm_gemm_act_kernel and one dbm_mf_check_kernel.  With 1,
+    5 and MF_BODY_SWEEPS sweeps a turn (12 sweeps: turns of 5 stop inside
+    their third)."""
+    from boltzmann_machines_tpu_torch.ops.dbm_ops import mean_field
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(11)
+    V, H1, H2, B, budget = 784, 512, 1024, 100, 12
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float32), device=cuda)
+    X = t(rng.rand(B, V) < 0.3)
+    Ws = [t(rng.randn(V, H1) * 0.03), t(rng.randn(H1, H2) * 0.03)]
+    if case == 'nan_change':
+        Ws[1][0, 0] = float('nan')
+    hbs = [t(np.full(H1, -0.5)), t(np.full(H2, -0.5))]
+    T0 = X @ Ws[0]
+    mu0 = [torch.sigmoid(2. * T0 + hbs[0])]
+    mu0.append(torch.sigmoid(mu0[0] @ Ws[1] + hbs[1]))
+    mu = [m.clone() for m in mu0]
+    layers = mf_layers(mu, Ws, hbs, T0, stream)
+    _, changes = mf_by_launches(layers, -1., 4)
+    if case == 'converges':
+        tol = (changes[1] + changes[2]) / 2.
+    elif case == 'one_sweep':
+        tol = changes[0]
+    else:
+        tol = -1. if case == 'budget' else 1e-4
+    for m, m0 in zip(mu, mu0):
+        m.copy_(m0)
+    n_host, _ = mf_by_launches(layers, tol, budget)
+    want = [m.clone() for m in mu]
+    n_want = {'budget': budget, 'converges': 3, 'one_sweep': 1,
+              'nan_change': 1}.get(case, n_host)
+    assert n_host == n_want
+    if case in ('budget', 'converges'):
+        # the plain version's sums in another order: its changes lie far
+        # from these two tolerances
+        _, n_plain = mean_field(X, tuple(Ws), tuple(hbs), budget, tol)
+        assert int(n_plain) == n_want
+    for m, m0 in zip(mu, mu0):
+        m.copy_(m0)
+    ctrl = mf_ctrl(body, 9, cuda)
+    made = []
+
+    def first_run():
+        # made inside the trace, as the port makes its graph each epoch
+        made.append(mf_graph(mf_layers(mu, Ws, hbs, T0, stream), ctrl, tol,
+                             budget, body))
+        run_mf_graph(made[0])
+    turns = -(-n_want // body)
+    try:
+        kernels = graph_kernels(first_run)
+        graph = made[0]
+        if case == 'twice':
+            first = [m.clone() for m in mu] + [ctrl[:-1].clone()]
+            for m, m0 in zip(mu, mu0):
+                m.copy_(m0)
+            run_mf_graph(graph)
+            again = [m.clone() for m in mu] + [ctrl[:-1].clone()]
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(first, again))
+            turns *= 2
+    finally:
+        for g in made:
+            free_mf_graph(g)
+    for got, exp in zip(mu, want):
+        assert torch.equal(got.view(torch.int32), exp.view(torch.int32))
+    assert int(ctrl[1]) == n_want
+    assert int(ctrl[-1]) == turns
+    n_turns = -(-n_want // body)
+    assert kernels == {'dbm_gemm_act_kernel': 2 * body * n_turns,
+                       'dbm_mf_check_kernel': n_turns}, kernels
+
+
+@pytest.mark.parametrize('L', [1, 2, 3])
+def test_dbm_mf_graph_budget_0_runs_nothing(cuda, L):
+    """A budget of 0 runs no sweep: the graph zeroes its words and its
+    loop, unarmed, leaves mu as it was (n_mf 0, no turn); a budget of 1
+    runs one, whatever the change, in one turn whose later sweeps return
+    at once."""
+    stream = torch.cuda.current_stream().cuda_stream
+    sizes = (70, 37, 65, 20)[:L + 1]
+    torch.manual_seed(L)
+    X = (torch.rand((5, sizes[0]), device=cuda) < 0.3).float()
+    Ws = [0.3 * torch.randn((sizes[l], sizes[l + 1]), device=cuda)
+          for l in range(L)]
+    hbs = [0.1 * torch.randn(h, device=cuda) for h in sizes[1:]]
+    T0 = X @ Ws[0]
+    mu0 = [torch.rand((5, h), device=cuda) for h in sizes[1:]]
+    for budget in (0, 1):
+        mu = [m.clone() for m in mu0]
+        ctrl = mf_ctrl(dbm_ops.MF_BODY_SWEEPS, 3, cuda)
+        made = []
+
+        def run():
+            made.append(mf_graph(mf_layers(mu, Ws, hbs, T0, stream), ctrl,
+                                 1e-4, budget))
+            run_mf_graph(made[0])
+        try:
+            kernels = graph_kernels(run)
+        finally:
+            for g in made:
+                free_mf_graph(g)
+        assert int(ctrl[1]) == budget and int(ctrl[-1]) == budget
+        assert kernels == ({'dbm_gemm_act_kernel':
+                            L * dbm_ops.MF_BODY_SWEEPS * budget,
+                            'dbm_mf_check_kernel': budget} if budget
+                           else {}), kernels
+        assert all(torch.equal(a, b) for a, b in zip(mu, mu0)) == \
+            (budget == 0)
 
 
 # ---------------------------------------------------------------------- #
@@ -1345,15 +1581,13 @@ def test_cd_gemm_act_rejects_a_strided_operand(cuda):
 
 
 def dbm_launch(out, A, c=None, bias=None, act=dbm_ops.ACT_SIGMOID, alpha=1.,
-               sample=False, done=None, ctrl=None, partials=None):
+               sample=False, ctrl=None, partials=None):
     import ctypes
     a = dbm_ops._gemm_args(out, A, c=c, bias=bias, act=act, alpha=alpha,
                            gamma=alpha,
                            stream=torch.cuda.current_stream().cuda_stream)
     a.alpha2 = 0.5
     a.sample, a.seed, a.it, a.stream_id = int(sample), 9, 4, 2
-    if done is not None:
-        a.done = done.data_ptr()
     if ctrl is not None:
         a.delta_bits = ctrl.data_ptr()
     if partials is not None:
@@ -1427,22 +1661,6 @@ def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act):
         delta = float(ctrl.view(torch.float32))
         assert abs(delta - float((want - old).abs().max())) <= 1e-5
     assert torch.equal(out, again[0]) and torch.equal(ctrl, again[1])
-
-
-def test_dbm_gemm_act_done_is_a_no_op(cuda):
-    """With *done set (mean-field converged) the launch writes nothing, so
-    the sweeps enqueued after convergence leave the state alone."""
-    x = torch.rand((100, 784), device=cuda)
-    W = torch.randn((784, 512), device=cuda)
-    out = torch.full((100, 512), 7., device=cuda)
-    done = torch.ones(1, dtype=torch.int32, device=cuda)
-    dbm_launch(out, [(x, W, False)], done=done)
-    torch.cuda.synchronize()
-    assert bool((out == 7.).all())
-    done.zero_()
-    dbm_launch(out, [(x, W, False)], done=done)
-    torch.cuda.synchronize()
-    assert not bool((out == 7.).any())
 
 
 @pytest.mark.parametrize('N', [1, 4, 65, 128, 129, 512, 784, 1024, 7800])
@@ -1814,7 +2032,7 @@ def msre_launch(X, vm, ctrl, part, count):
 def test_dbm_msre_matches_plain_version(cuda, rows, cols, aligned):
     """mean((X - v_means)^2) against torch.mean(torch.square(X - vm)), atol
     1e-6 (chip_smoke.py's DBM_TOL msre: f32 sums in another order), and
-    n_mf copied from ctrl[2].  A rerun gives the same bits and two launches
+    n_mf copied from ctrl[1].  A rerun gives the same bits and two launches
     in a row both finish (the last block re-arms the counter to 0).  The
     DBM step's 100x784, n = 1, n not a multiple of 4 (21), fewer elements
     than one block's threads (16), 256x3072 (more elements than the grid
@@ -1826,7 +2044,7 @@ def test_dbm_msre_matches_plain_version(cuda, rows, cols, aligned):
     vm = torch.as_tensor(rng.rand(rows, cols).astype(np.float32),
                          device=cuda)
     X, vm = aligned_or_not(X, aligned), aligned_or_not(vm, aligned)
-    ctrl = torch.tensor([0, 1, 23], dtype=torch.int32, device=cuda)
+    ctrl = torch.tensor([1, 23], dtype=torch.int32, device=cuda)
     part = torch.empty(dbm_ops.MSRE_BLOCKS, device=cuda)
     count = torch.zeros(1, dtype=torch.int32, device=cuda)
     got = msre_launch(X, vm, ctrl, part, count)
@@ -1846,7 +2064,8 @@ def test_dbm_msre_grid_is_capped(cuda):
     rng = np.random.RandomState(7)
     X = torch.as_tensor(rng.rand(100, 784).astype(np.float32), device=cuda)
     vm = torch.as_tensor(rng.rand(100, 784).astype(np.float32), device=cuda)
-    ctrl = torch.zeros(3, dtype=torch.int32, device=cuda)
+    ctrl = torch.zeros(dbm_ops.MF_CHANGE_WORD, dtype=torch.int32,
+                       device=cuda)
     count = torch.zeros(1, dtype=torch.int32, device=cuda)
     buf = torch.full((6,), -7., device=cuda)
     got = msre_launch(X, vm, ctrl, buf[:3], count)

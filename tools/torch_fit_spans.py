@@ -34,7 +34,10 @@ Prints one JSON line (and writes it to FILE):
 - a DBM cell: ``mf_sweep_use_pct``, 100 x the sweeps the traced slices'
   steps ran over those they enqueued (``dbm_epoch.sweeps``), beside
   ``logged_n_mf``, the mean of the ``n_mf_updates`` that ``fit`` logged in
-  the same slices;
+  the same slices; ``mf_graph``, per traced slice, the mean-field graph's
+  launches (``dbm_epoch.graph_launches``) and the turns of its WHILE node
+  (``dbm_epoch.launches['dbm_mf_check']``, a check a turn), and
+  ``mf_turns_a_step``;
 - an RBM cell: ``val_passes``, the whole-set validation and FEG passes of
   the traced slices (``ops/cd_val.cd_val.passes``: 'val' one a validation,
   'feg' one a side of a gap).
@@ -234,8 +237,12 @@ def slice_counts():
     modules a cell has loaded."""
     dbm = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
     val = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_val')
-    return dict(dbm.dbm_epoch.sweeps if dbm is not None else {},
-                **(val.cd_val.passes if val is not None else {}))
+    counts = dict(val.cd_val.passes if val is not None else {})
+    if dbm is not None:
+        counts.update(dbm.dbm_epoch.sweeps,
+                      graph_launches=dbm.dbm_epoch.graph_launches,
+                      mf_turns=dbm.dbm_epoch.launches['dbm_mf_check'])
+    return counts
 
 
 def traced_window(session, units, plan, capture, device):
@@ -317,6 +324,10 @@ def main(argv=None):
             on['mf_sweeps_a_step'] = ran / on['steps']
             on['logged_n_mf'] = sum(logged) / len(logged) if logged \
                 else None
+            on['mf_graph'] = [{k: g.get(k, 0) for k in (
+                'graph_launches', 'mf_turns')} for g in grown]
+            on['mf_turns_a_step'] = sum(
+                g.get('mf_turns', 0) for g in grown) / on['steps']
         if any('val' in g for g in grown):
             on['val_passes'] = {k: sum(g.get(k, 0) for g in grown)
                                 for k in ('val', 'feg')}
