@@ -28,8 +28,8 @@
 //   products are equal, at k = 0, the sum is exactly 0), each 32-deep stage
 //   accumulated apart in 3xTF32 and added times its product's scale, rounded
 //   to nearest.  V is wgmma's M (128 rows per block), H its N (32 or 64
-//   columns per block, assoc_n_tile below); every element has one owner (no
-//   split-K), so a rerun is bit for bit the same.
+//   columns per block: the caller's n_tile, ops/gemm.py assoc_plan); every
+//   element has one owner (no split-K), so a rerun is bit for bit the same.
 // * Both operands are MN-major (rows of the batch): the V side (A) goes
 //   through registers, read from its stage as gemm_tc.cuh reads W; the H side
 //   (B) is staged as it lies and written K-major into 128-byte-swizzled hi
@@ -212,17 +212,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (update) store(dw, p.out[1]);
 }
 
-// The columns per block (wgmma's N) of a V x H association on a card of
-// n_sm SMs: 64, or 32 where 64-wide tiles would leave more than a quarter
-// of the SMs idle and 32-wide ones still fit in one wave (ops/gemm.py
-// assoc_plan, which the CPU tests hold, is the same arithmetic).
-inline int assoc_n_tile(int V, int H, int n_sm) {
-  const long long rows = (V + kTileM - 1) / kTileM;
-  const long long wide = rows * ((H + 63) / 64);
-  const long long narrow = rows * ((H + 31) / 32);
-  return 4 * wide < 3LL * n_sm && narrow <= n_sm ? 32 : 64;
-}
-
 // A (V, H) row-major float tensor map of boxes of 128 rows x 32 columns.
 inline int w_map(CUtensorMap* m, float* p, int V, int H) {
   const cuuint64_t dims[2] = {(cuuint64_t)H, (cuuint64_t)V};
@@ -259,25 +248,20 @@ static int launch_assoc_nt(const AssocArgs& a, cudaStream_t stream) {
 
 // One association launch: products (A0, B0, K0, s0) and (A1, B1, K1, s1),
 // each A (K, V) and B (K, H) row-major; `mode` picks the epilogue on out0
-// (W, or the association) and out1 (dW).  Returns a cudaError_t.
+// (W, or the association) and out1 (dW); `n_tile` (32 or 64) the columns
+// of H per block, ops/gemm.py's assoc_plan.  Returns a cudaError_t.
 inline int launch_assoc(const float* A0, const float* B0, int K0, float s0,
                         const float* A1, const float* B1, int K1, float s1,
                         int V, int H, int mode, float* out0, float* out1,
                         const float* pen, float div, float lr, float mom,
-                        float l2, cudaStream_t stream) {
-  if (V < 1 || H < 1 || K0 < 1 || K1 < 1) return (int)cudaErrorInvalidValue;
-  int dev = 0, n_sm = 0;
-  int err = (int)cudaGetDevice(&dev);
-  if (!err)
-    err = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                      dev);
-  if (err) return err;
+                        float l2, int n_tile, cudaStream_t stream) {
+  if (V < 1 || H < 1 || K0 < 1 || K1 < 1 || (n_tile != 32 && n_tile != 64))
+    return (int)cudaErrorInvalidValue;
   Operand ops[2];
   ops[0] = {B0, A0, H, V, K0, 0, 1, s0};
   ops[1] = {B1, A1, H, V, K1, 0, 1, s1};
   AssocArgs a;
-  err = setup_tile(&a.t, ops, 2, H, V, assoc_n_tile(V, H, n_sm), 1, nullptr,
-                   nullptr);
+  int err = setup_tile(&a.t, ops, 2, H, V, n_tile, 1, nullptr, nullptr);
   if (err) return err;
   a.out[0] = out0;
   a.out[1] = out1;

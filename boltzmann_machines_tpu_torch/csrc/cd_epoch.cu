@@ -1289,10 +1289,10 @@ int bm_cd_bias_stats(const float* X, const float* vs, const float* vm,
 int bm_cd_assoc_update(const float* X, const float* h0, const float* vs,
                        const float* hm, const float* pen, int B, int V, int H,
                        float* W, float* dW, float lr, float mom, float l2,
-                       void* stream) {
+                       int n_tile, void* stream) {
   return bm::tc::launch_assoc(X, h0, B, 1.f, vs, hm, B, -1.f, V, H,
                               bm::tc::kAssocCd, W, dW, pen, (float)B,
-                              lr, mom, l2, (cudaStream_t)stream);
+                              lr, mom, l2, n_tile, (cudaStream_t)stream);
 }
 
 // Slices of the caller's flat statistics buffer: dvb_sum (V), dhb_sum and
@@ -1308,16 +1308,11 @@ int bm_cd_stats_sums(const float* X, const float* vs, const float* h0,
 // `assoc` is the (V, H) head of the caller's flat statistics buffer.
 int bm_cd_assoc_stats(const float* X, const float* h0, const float* vs,
                       const float* hm, int B, int V, int H, float* assoc,
-                      void* stream) {
+                      int n_tile, void* stream) {
   return bm::tc::launch_assoc(X, h0, B, 1.f, vs, hm, B, -1.f, V, H,
                               bm::tc::kAssocStats, assoc, nullptr, nullptr,
-                              1.f, 0.f, 0.f, 0.f, (cudaStream_t)stream);
-}
-
-// The association kernel's columns per block at V x H on n_sm SMs (the
-// plan that ops/gemm.py's assoc_plan mirrors).
-int bm_assoc_n_tile(int V, int H, int n_sm) {
-  return bm::tc::assoc_n_tile(V, H, n_sm);
+                              1.f, 0.f, 0.f, 0.f, n_tile,
+                              (cudaStream_t)stream);
 }
 
 // K4's first launch, Bernoulli hidden units, PLL on: X (B, V) . W (V, H)

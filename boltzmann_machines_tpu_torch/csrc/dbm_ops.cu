@@ -1032,12 +1032,12 @@ int bm_dbm_bias_update(const BiasVec* vecs, int n_vecs, int N, int M,
 int bm_dbm_assoc_update(const float* Ad, const float* Bd, const float* Ap,
                         const float* Bp, const float* pen, int N, int M,
                         int n_in, int n_out, float* W, float* dW, float lr,
-                        float mom, float l2, void* stream) {
+                        float mom, float l2, int n_tile, void* stream) {
   // Ad^T Bd / N - Ap^T Bp / M: each stage of a product scaled as it is
   // added to the block's sum (1/N, -1/M, rounded once each)
   return bm::tc::launch_assoc(Ad, Bd, N, 1.f / (float)N, Ap, Bp, M,
                               -1.f / (float)M, n_in, n_out, bm::tc::kAssocDbm,
-                              W, dW, pen, 1.f, lr, mom, l2,
+                              W, dW, pen, 1.f, lr, mom, l2, n_tile,
                               (cudaStream_t)stream);
 }
 

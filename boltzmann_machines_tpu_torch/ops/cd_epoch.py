@@ -39,7 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .gemm import TILE_M, check_operand, launch_plan, num_sms
+from .gemm import TILE_M, assoc_plan, check_operand, launch_plan, num_sms
 from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
                      STREAM_PLL_HHAT_FLIP, bernoulli, multinomial_counts,
                      normal, philox_uniform, stream_h, stream_v)
@@ -326,19 +326,18 @@ _ARGTYPES = {
     'bm_cd_bias_stats': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                          _P, _P, _F, _F, _F, _F, _F, _F, _P],
     'bm_cd_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _F, _F,
-                           _F, _P],
+                           _F, _I, _P],
     'bm_cd_metrics_fe': [_P, _P, _P, _I, _I, _I, _U, _U, _I, _I, _P, _P, _P,
                          _P],
     'bm_cd_metrics_draw': [_I, _I, _U, _U, _P, _P],
     'bm_cd_metrics': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P,
                       _I, _U, _U, _P, _P, _P, _P, _P, _P],
     'bm_cd_stats_sums': [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    'bm_cd_assoc_stats': [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+    'bm_cd_assoc_stats': [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P],
     'bm_bernoulli_sample': [_P, _P, _U, _U, _U, _P],
     'bm_normal_sample': [_P, _U, _U, _P],
     'bm_fe_probe': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _I, _P,
                     _P, _P, _P, _P, _P, _P, _P],
-    'bm_assoc_n_tile': [_I, _I, _I],
     'bm_cd_val_fe': [_P, _P, _P, _I, _I, _I, _I, _U, _U, _I, _I, _P, _P, _P,
                      _P],
     'bm_cd_val_draw': [_I, _I, _I, _I, _U, _U, _P, _P],
@@ -604,6 +603,7 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     stream = torch.cuda.current_stream(dev).cuda_stream
     lr, mom = float(lr), float(momentum)
     seed = int(seed)
+    n_tile = assoc_plan(V, H, num_sms(dev)).n_tile
 
     for i in range(NB):
         X = X_batches[i]
@@ -632,7 +632,8 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
 
         check_launch(lib.bm_cd_assoc_update(
             ptr(X), ptr(h0), ptr(v_states), ptr(h_m), ptr(pen), B, V, H,
-            ptr(W), ptr(dW), lr, mom, cfg.l2, stream), 'cd_assoc_update')
+            ptr(W), ptr(dW), lr, mom, cfg.l2, n_tile, stream),
+            'cd_assoc_update')
         launches['cd_assoc_update'] += 1
 
         if it % cfg.metrics_every == 0:

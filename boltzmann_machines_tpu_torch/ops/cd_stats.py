@@ -45,6 +45,7 @@ from .cd_epoch import (_launch_h_pass, _launch_v_pass, check_flavour,
                        check_launch, check_tensors, h_means_reference,
                        h_sample_reference, library, ptr, sigma_row,
                        v_means_reference, v_sample_reference)
+from .gemm import assoc_plan, num_sms
 from .philox import STREAM_H0, stream_h, stream_v
 
 KERNELS = ('cd_gemm_act', 'cd_stats_sums', 'cd_assoc_stats')
@@ -188,7 +189,7 @@ def _cd_stats_cuda(cfg, state, X, seed, it, shard, out):
     launches['cd_stats_sums'] += 1
     check_launch(lib.bm_cd_assoc_stats(
         ptr(X), ptr(h0), ptr(v_states), ptr(h_m), B, V, H, ptr(flat),
-        stream), 'cd_assoc_stats')
+        assoc_plan(V, H, num_sms(dev)).n_tile, stream), 'cd_assoc_stats')
     launches['cd_assoc_stats'] += 1
     return split_stats(flat, V, H), {'X': X, 'v_means': v_m}
 

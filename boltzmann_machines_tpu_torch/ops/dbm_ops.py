@@ -98,7 +98,7 @@ import torch.nn.functional as F
 
 from ..layers import BernoulliLayer
 from . import samplers
-from .gemm import check_operand, launch_plan
+from .gemm import assoc_plan, check_operand, launch_plan, num_sms
 from .philox import AIS_H1, AIS_H2, AIS_V, bernoulli, stream_ais, stream_dbm
 
 STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
@@ -764,7 +764,7 @@ _ARGTYPES = {
     'bm_dbm_bias_update': [ctypes.POINTER(BiasVec), _I, _I, _I, _F, _F, _F,
                            _F, _P],
     'bm_dbm_assoc_update': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F,
-                            _F, _F, _P],
+                            _F, _F, _I, _P],
     'bm_dbm_max_norm': [_P, _I, _I, _F, _P],
     'bm_dbm_msre': [_P, _P, _L, _P, _P, _I, _P, _P, _P, _P],
     'bm_ais_logw': [_P, _P, _I, _I, _P, _I, _P, _I, _F, _F, _P, _P, _P],
@@ -906,6 +906,8 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     lib = _library()
     launches = dbm_epoch.launches
     stream = _stream(dev)
+    n_tiles = [assoc_plan(sizes[l], hs[l], num_sms(dev)).n_tile
+               for l in range(L)]
     # the epoch updates copies of the state in place, batch after batch
     s = _clone_state(state)
     W, hb, H = s['W'], s['hb'], s['H']
@@ -1022,7 +1024,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
             _check(lib.bm_dbm_assoc_update(
                 _ptr(Ad), _ptr(mu[l]), _ptr(Ap), _ptr(H[l]), _ptr(pen[l]), B,
                 M, sizes[l], hs[l], _ptr(W[l]), _ptr(s['dW'][l]), lr, mom,
-                cfg.l2, stream), 'dbm_assoc_update')
+                cfg.l2, n_tiles[l], stream), 'dbm_assoc_update')
             launches['dbm_assoc_update'] += 1
             if math.isfinite(cfg.max_norm):
                 _check(lib.bm_dbm_max_norm(_ptr(W[l]), sizes[l], hs[l],

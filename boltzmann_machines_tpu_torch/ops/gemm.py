@@ -102,10 +102,8 @@ def assoc_plan(V, H, n_sm):
     over the batch) on a card of `n_sm` SMs: 64 columns per block, or 32
     where 64-wide tiles would leave more than a quarter of the SMs idle and
     32-wide ones still fit in one wave.  No split-K: every element has one
-    owner.  The three entry points take no plan (their C signatures are
-    fixed), so the kernel applies the same rule in C (``bm_assoc_n_tile``);
-    ``test_assoc_plan_is_the_kernels`` and chip_smoke.py's association
-    phase hold the two equal on the card."""
+    owner.  The wrappers pass ``n_tile`` to the three entry points, as they
+    pass the tile's plan to the products."""
     V, H, n_sm = int(V), int(H), int(n_sm)
     if V < 1 or H < 1 or n_sm < 1:
         raise ValueError('assoc_plan needs V, H, n_sm >= 1, got {0}'.format(

@@ -1,7 +1,13 @@
 """Drive the PyTorch/CUDA port (boltzmann_machines_tpu_torch) once on one
-NVIDIA GPU and check it.
+NVIDIA GPU: its paths end to end, and each kernel timed.
 
     python3 chip_smoke.py
+
+Each kernel is held against its plain version in one place, the card tests
+(tests/test_torch_cuda.py, at ragged shapes and at the paths' widths); this
+script runs those tests' cases at the paths' widths (phase 3), runs the
+paths, checks what only a path can show (launch counts, summaries, trained
+states against the plain versions, save and load), and times the kernels.
 
 (``--readings``, ``--assoc-readings``, ``--softmax-readings``,
 ``--sampler-readings`` and ``--pll-readings`` print, instead of the smoke,
@@ -15,14 +21,16 @@ its plain version in float32 and float64; see ``readings``,
 times that checkout's kernels.  ``--cifar-phases`` runs phases 21-24
 alone, ``--dbm-phases`` phases 25-27, ``--tp-phases`` phase 28.)
 
-Phases, each printing its lines before the last:
+Phases, each printing its lines before the last (6, the DBM kernels
+against their plain versions, is among phase 3's cases):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: the package's two CUDA sources (csrc/cd_epoch.cu and
    csrc/dbm_ops.cu), one nvcc each, started together;
-3. CD kernels vs plain: the CD epoch kernels against their plain PyTorch
-   version (``cd_epoch_reference``) at 784 x 1024, batch 10 and 256, with
-   sampling off and on;
+3. every kernel of the paths against its plain version at the paths'
+   widths: the card tests' cases marked ``path_width`` (``python3 -m
+   pytest -m 'requires_cuda and path_width' tests/test_torch_cuda.py``, a
+   process of its own, waited for), each of which must pass and none skip;
 4. the RBM path: ``BernoulliRBM(784, 1024).fit`` with the hyperparameters
    of examples/rbm_mnist.py on synthetic MNIST, its summaries included
    (30 filters, 24 hidden activations), through the kernels (their launch
@@ -31,11 +39,6 @@ Phases, each printing its lines before the last:
    (ops/cd_val.py) on the trained state, validation and FEG at the fit's
    shapes, against their plain version on CPU copies, and timed;
 5. CD timings: a training epoch, kernels vs plain version;
-6. DBM kernels vs plain: the DBM epoch, sampler and AIS kernels against
-   their plain versions at 784-512-1024 (examples/dbm_mnist.py's widths),
-   the epoch with mean-field that runs its whole budget (once more with a
-   max-norm that scales half of W's columns down) and with mean-field that
-   converges;
 7. the DBM path of examples/dbm_mnist.py on the card: RBM #1 and RBM #2
    pretraining through the CD kernels, ``DBM.fit`` through the DBM epoch
    kernels, with the example's summaries (the DBM's 10 cumulative filters
@@ -45,16 +48,9 @@ Phases, each printing its lines before the last:
    version on the trained DBM, sampling on;
 8. AIS on the card against a brute-force log Z of a 6-5-4 DBM;
 9. DBM timings: epoch step, sampler sweep and AIS beta, kernels vs plain;
-10. CIFAR kernels vs plain: the Gaussian-visible CD kernels at 3072 x 5000
-    (examples/dbm_cifar_naive.py's G-RBM, dbm_first) and 3072 x 7800
-    (examples/dbm_cifar.py's, a ragged H) and the multinomial-hidden ones at
-    5000 x 1000, n = 1000 (the M-RBM, dbm_last, PLL on every checked
-    iteration), batch 100, sampling off and on; the standalone samplers
-    and the free-energy probe driven once each (normal_sample also at
-    SAMPLER_EDGE_SHAPES) between a reset and a read of their launch
-    counts, those outputs against their plain versions, and each timed
-    per call beside its plain version and, where one PyTorch call
-    computes the same function, that call;
+10. the standalone samplers and the free-energy probe at the CIFAR paths'
+    shapes, each timed per call beside its plain version and, where one
+    PyTorch call computes the same function, that call;
 11. the generative half of examples/dbm_cifar_naive.py on the card:
     ``GaussianRBM(3072, 5000).fit``, ``transform``,
     ``MultinomialRBM(5000, 1000, n_samples=1000).fit``, ``transform``, save
@@ -64,14 +60,8 @@ Phases, each printing its lines before the last:
     time of each kernel (torch.profiler), their busy share of the step's
     unprofiled wall, and torch.matmul on the step's largest product as a
     yardstick;
-13. stats kernels vs plain: the data-parallel epoch's per-shard CD stats
-    kernels (``ops/cd_stats.py``) at the local batches of two ranks, 784 x
-    1024 with 128 rows and 3072 x 7800 with 50 (Gaussian, dbm_first),
-    shards 0 and 1, k = 0 and 1, sampling off (sums within STATS_TOL) and on
-    (one pass's states draw by draw; shard 0's draws the CD epoch
-    kernels'); ``bernoulli_sample`` driven once at (10, 1024),
-    (100, 7800), SAMPLER_EDGE_SHAPES and a view 4 bytes past a 16-byte
-    boundary, bit for bit against plain;
+13. ``bernoulli_sample`` timed per call at (100, 7800), beside its plain
+    version and torch.bernoulli;
 14. the data-parallel path on the card: the epoch driven directly on a
     one-rank NCCL group at 3072 x 7800 against the CD epoch kernels, and
     its step timed beside theirs; then the main path of this slice, a
@@ -88,19 +78,16 @@ Phases, each printing its lines before the last:
 16. the tensor-core tile of the chain's products (csrc/gemm_tc.cuh): each
     ``cd_gemm_act`` and ``dbm_gemm_act`` product of the paths, both
     directions, every epilogue the path uses there (the two-product and
-    addend forms of the DBM's middle layer included), launched alone
-    against its plain version and a second time with the same seed (bit for
-    bit), then timed (a CUDA graph of launches between CUDA events) at the
-    plan's split count and at one K slice, beside torch.matmul on the same
-    product and the product's bounds in 3xTF32 and in f32, one line per
+    addend forms of the DBM's middle layer included), launched alone and
+    timed (a CUDA graph of launches between CUDA events) at the plan's
+    split count and at one K slice, beside torch.matmul on the same product
+    and the product's bounds on the tensor cores and in f32, one line per
     product;
 17. the association kernel (csrc/assoc_tc.cuh): each cd_assoc_update,
     cd_assoc_stats and dbm_assoc_update launch of the paths alone, through
-    its C entry point, against its plain version's arithmetic (each element
-    within the bound of tests/test_torch_cuda.py) and a second time on the
-    same inputs (bit for bit), then timed by a CUDA graph beside the plain
-    version, the former SIMT tile's recorded time and torch.matmul on the
-    stacked K = 2B product;
+    its C entry point at ops/gemm.py's assoc_plan, timed by a CUDA graph
+    beside the plain version, the former SIMT tile's recorded time and
+    torch.matmul on the stacked K = 2B product;
 18. every hand-written kernel but the products and the associations:
     cd_bias_stats (each RBM path), dbm_max_norm (both DBM layers),
     cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe (its two
@@ -111,13 +98,11 @@ Phases, each printing its lines before the last:
     library yardstick where one PyTorch call computes the function
     (torch.renorm, torch.sum over the batch, F.mse_loss; "none" and why
     where there is none) and its bound, with its launches per step and per
-    1000 steps at the examples' cadences; each also against its plain
-    version and a same-input rerun bit for bit; ais_logw also riding on an
-    AIS beta's first dbm_gemm_act launch (the same bits as alone), that
-    launch timed with and without it; the mean-field check, fused into
-    each sweep's first dbm_gemm_act launch, against its plain rule (n_mf),
-    timed as a one-layer loop against its launches alone, and the whole
-    mean-field loop of a step (init and 50 sweeps); then the DBM step
+    1000 steps at the examples' cadences; ais_logw also riding on an AIS
+    beta's first dbm_gemm_act launch, that launch timed with and without
+    it; the mean-field check, fused into each sweep's first dbm_gemm_act
+    launch, timed as a one-layer loop against its launches alone, and the
+    whole mean-field loop of a step (init and 50 sweeps); then the DBM step
     profiled, from a random state (all 50 sweeps run) and at mf_tol 1e-4
     (mean-field converges in a few): device time per kernel and busy
     share.
@@ -144,10 +129,9 @@ Phases, each printing its lines before the last:
     through their plain versions, both on the card, with one launch of
     each sampler a sampled sweep; then its step timed (sampler kernels,
     their plain versions, sampling off), its device busy share and n_mf;
-22. the CD epoch kernels against their plain versions at
-    examples/dbm_cifar.py's other shapes: the patch RBMs (192 x 300,
-    Gaussian, B 48) and the M-RBM (7800 x 512, n 512), sampling off and on,
-    with phase 10's tolerances, and their step times;
+22. the CD epoch kernels' steps at examples/dbm_cifar.py's other shapes:
+    the patch RBMs (192 x 300, Gaussian, B 48) and the M-RBM (7800 x 512,
+    n 512), timed beside their plain versions;
 23. examples/torch_dbm_cifar_naive.py and torch_dbm_cifar.py end to end at
     their published widths, on synthetic rows (3 000, and 1 000 augmented
     x10), one epoch a stage (two for the DBM), each in a process of its
@@ -191,16 +175,15 @@ versions and holds the kernels' validation error against that reference's.
 
 Every entry of the kernels' JSON line has its time on the card (``ms``),
 its plain version's (``plain_ms``), the least time the card could take for
-the same work (``bound_ms``: the larger of the bytes it must move over
-3.35 TB/s and its operations over the card's peaks for their type -- the
-products, run at f32 accuracy on the tensor cores in 3xTF32, at 495 / 3 =
-165 TFLOP/s, the other f32 operations at 67 TFLOP/s, and the standalone
+the same work (``bound_ms``, ``bound_by`` saying whether its operations or
+its bytes bound it: port_bench/work's count of the work from this run's
+shapes, at that module's peaks -- products at TF32's 495 TFLOP/s, other f32
+operations at 67 TFLOP/s, bytes at 3.35 TB/s -- and the standalone
 samplers' Philox integer instructions on 64 INT32 lanes an SM at the SM
-clock nvidia-smi reads -- from this run's shapes; ``bound_by`` says
-which), and ``library_ms``, the time of one PyTorch call computing the
-same function where there is one (else null).  The entries of the paths
-whose products run on the tensor-core tile carry phase 16's numbers for
-those products (``*_gemm_act_shapes``).
+clock nvidia-smi reads), and ``library_ms``, the time of one PyTorch call
+computing the same function where there is one (else null).  The entries
+of the paths whose products run on the tensor-core tile carry phase 16's
+numbers for those products (``*_gemm_act_shapes``).
 
 Any failure raises (non-zero exit).  The line before the last is the
 kernels' JSON line; the last line of standard output is one JSON object:
@@ -215,6 +198,9 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from port_bench.work import (PEAK_BYTES, Work, ais_beta_work, cd_step_work,
+                             dbm_step_work, product)
 
 V, H = 784, 1024
 LR, MOMENTUM = 0.05, 0.9
@@ -237,10 +223,6 @@ REPLACES = {
               '(_dispatch_val_metrics: one lax.scan of XLA ops, no Pallas '
               'kernel)',
 }
-# the card's published peaks (NVIDIA H100 SXM data sheet): f32 outside the
-# tensor cores, TF32 on them (an f32-accurate product in 3xTF32 runs three
-# tf32 products: 495 / 3 TFLOP/s), and device memory
-PEAK_F32, PEAK_3XTF32, PEAK_BYTES = 67e12, 495e12 / 3, 3.35e12
 # 32-bit integer instructions: 64 INT32 lanes an SM (the Hopper architecture
 # white paper), times the SMs, times the SM clock nvidia-smi reads
 INT32_LANES = 64
@@ -267,41 +249,28 @@ def int_peak():
     return int_peak.rate
 
 
-def bound_parts(gemm_flops, flops, nbytes, int_ops=0.):
-    """The least times, in ms, of `nbytes` bytes moved, of `gemm_flops`
-    operations of products (matrix products at f32 accuracy, which the card
-    runs on its tensor cores in 3xTF32) and `flops` other f32 operations,
-    each kind over its peak and the two added, and of `int_ops` 32-bit
-    integer instructions."""
-    return {'bytes_ms': 1e3 * nbytes / PEAK_BYTES,
-            'float_ms': 1e3 * (gemm_flops / PEAK_3XTF32 + flops / PEAK_F32),
+def bound_parts(work, int_ops=0.):
+    """The least times, in ms, of `work` (port_bench.work.Work) on the card:
+    its bytes, its operations at their peaks, and `int_ops` 32-bit integer
+    instructions."""
+    return {'bytes_ms': 1e3 * Work(nbytes=work.bytes).least_seconds(),
+            'float_ms': 1e3 * Work(work.products, work.flops).least_seconds(),
             'int_ms': 1e3 * int_ops / int_peak() if int_ops else 0.}
 
 
-def bound(*work):
-    """(bound_ms, bound_by) of the work (bound_parts' arguments): the larger
+def bound(work, int_ops=0.):
+    """(bound_ms, bound_by) of `work` (bound_parts' arguments): the larger
     of the bytes' time and the operations', where the integers run on lanes
     of their own beside the floating-point work."""
-    parts = bound_parts(*work)
+    parts = bound_parts(work, int_ops)
     t_op = max(parts['float_ms'], parts['int_ms'])
     return (max(t_op, parts['bytes_ms']),
             'operations' if t_op >= parts['bytes_ms'] else 'bytes')
 
 
-def cd_step_work(V, H, B, k=1, n_samples=0):
-    """(product operations, other f32 operations, bytes) of one CD-k step:
-    the 1 + 2k products and the two association products (2 B V H each);
-    ~8 per weight for the momentum update and a softmax row pass (~5 per
-    entry) per hidden pass of multinomial units; each input read once and
-    each output written once: X, W and dW in, W and dW out, the biases.
-    The Philox draws (integer work) and the binary-searched multinomial
-    draws are not counted."""
-    gemm_flops = 2. * B * V * H * (1 + 2 * k + 2)
-    flops = 8. * V * H
-    if n_samples:
-        flops += 5. * B * H * (1 + k)
-    nbytes = 4. * (B * V + 4 * V * H + 6 * (V + H))
-    return gemm_flops, flops, nbytes
+def total(parts):
+    """The sum of port_bench.work's split of a step ({kernel group: Work})."""
+    return sum(parts.values(), Work())
 
 
 def say(*parts):
@@ -339,6 +308,26 @@ def build():
                     say('  nvcc:', line.strip())
 
 
+def path_cases():
+    """Phase 3: the card tests' cases at the paths' widths, in a pytest
+    process of their own (BMT_TEST_TPU=1: no JAX).  Raises unless every
+    selected case passed."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, '-m', 'pytest', '-q', '-p', 'no:cacheprovider',
+         '-m', 'requires_cuda and path_width', 'tests/test_torch_cuda.py'],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        env=dict(os.environ, BMT_TEST_TPU='1'), text=True, timeout=1800)
+    last = (r.stdout.strip().splitlines() or ['no output'])[-1]
+    say('path cases of tests/test_torch_cuda.py: %s (exit %d, %.1f s)' % (
+        last, r.returncode, time.perf_counter() - t0))
+    if r.returncode or re.search('failed|skipped|error', last) \
+            or 'passed' not in last:
+        say(r.stdout[-8000:])
+        sys.stderr.write(r.stderr[-4000:])
+        raise AssertionError('card tests at the paths\' widths: ' + last)
+
+
 def with_val_passes(expect, n_val, n_feg, pll=True, multinomial=False, k=1):
     """`expect`, the CD kernels' launch counts of a fit's training steps,
     plus those of its whole-set passes (ops/cd_val.py), a chunk each:
@@ -361,14 +350,13 @@ VAL_TOL = {'msre': (1e-6, 1e-5), 'pll': (1e-3, 1e-3), 'fe': (0., 1e-5)}
 
 
 def val_pass_work(V, H, n_val, n_feg, k=1):
-    """(product operations, other f32 operations, bytes) of a validation
-    pass over `n_val` rows and a free-energy gap over `n_feg` rows of each
-    side: the chain's 2k products and the free energies' one a row (the
-    flipped rows' come from the same product), W and each row read once.
-    The elementwise work and the draws are not counted."""
-    gemm_flops = 2. * V * H * (n_val * (2 * k + 1) + 2 * n_feg)
-    nbytes = 4. * (V * H + (n_val + 2 * n_feg) * V)
-    return gemm_flops, 0., nbytes
+    """The work of a validation pass over `n_val` rows and a free-energy gap
+    over `n_feg` rows of each side: the chain's 2k products and the free
+    energies' one a row (the flipped rows' come from the same product), W
+    and each row read once.  The elementwise work and the draws are not
+    counted."""
+    return Work(2. * V * H * (n_val * (2 * k + 1) + 2 * n_feg), 0.,
+                4. * (V * H + (n_val + 2 * n_feg) * V))
 
 
 def val_passes_vs_plain(torch, model, X_val, X_train, label):
@@ -462,22 +450,17 @@ def config(sample_v, sample_h, metrics_every):
         metrics_every=metrics_every, compute_pll=True)
 
 
-# Tolerances, kernel vs plain version on the same inputs.  Both compute in
-# true f32 (no TF32) but sum in another order, so each step differs by a
-# few ulps; 50 steps of momentum carry that to ~1e-6 on W.
+# The 2-rank RBM fit against the one-process fit on the CD epoch kernels:
+# both compute in true f32 (no TF32) but sum in another order, so each step
+# differs by a few ulps.
 #   state:   |d| <= 1e-5 + 1e-5 |ref|
 #   q_means: |d| <= 1e-5 B + 1e-4 |ref|  (a batch SUM of hidden means, each
 #            off by ~1e-5: the 784-term pre-activations pick up W's ~1e-6)
-#   msre:    |d| <= 1e-6                 (a mean of ~1e5 squares, ~0.05)
-#   l2:      |d| <= 1e-5 |ref|           (a sum of 8e5 squares)
-#   pll:     |d| <= 0.1 + 1e-3 |ref|     (784 x the difference of two
-#            batch-mean free energies of magnitude ~1e2-1e3 in f32)
-TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4), 'msre': (1e-6, 0.),
-       'l2': (0., 1e-5), 'pll': (0.1, 1e-3)}
+TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4)}
 ROWS = ('msre', 'pll', 'l2')
 
 
-def diffs(got, want, B, tols=TOL):
+def diffs(got, want, B, tols):
     """{name: (max |d|, max excess over the tolerance)}; an excess <= 0 is
     within tolerance."""
     out = {}
@@ -492,63 +475,6 @@ def diffs(got, want, B, tols=TOL):
         out[name] = (float(d.max()),
                      float((d - atol - rtol * b.abs()).max()))
     return out
-
-
-def kernel_vs_plain(torch):
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-        cd_epoch, cd_epoch_reference)
-    nb = 50
-    X_all = make_data(nb * 256)
-    worst = 0.
-    for B in (10, 256):
-        X = torch.as_tensor(X_all[:nb * B].reshape(nb, B, V), device='cuda')
-        state = init_state(torch, X_all)
-        # metrics every 10 iterations so the metric kernel runs 5 times
-        cfg = config(False, False, 10)
-        got = cd_epoch(cfg, state, X, LR, MOMENTUM, 7, 0)
-        want = cd_epoch_reference(cfg, state, X, LR, MOMENTUM, 7, 0)
-        torch.cuda.synchronize()
-        d = diffs(got, want, B)
-        say('B=%d sampling off, %d steps, max|kernel-plain|: %s' % (
-            B, nb, ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items())))
-        bad = [k for k, v in d.items() if v[1] > 0]
-        if bad:
-            raise AssertionError('kernel and plain version disagree on %s '
-                                 '(B=%d, sampling off): %s' % (bad, B, d))
-        worst = max(worst, d['W'][0])
-        if not all(float(r.abs().max()) > 0 for r in got[1:]):
-            raise AssertionError('metric rows were not written')
-
-        # Sampling on (visible and hidden): both draw the same Philox
-        # uniforms, so sampled states agree except where a mean lies within
-        # rounding (~3e-8) of its uniform -- about 0.02 such draws per step
-        # at B=256 (7e5 draws).  One flip changes the gradient by up to 1/B
-        # and chains diverge after it, so each step starts both from the
-        # kernel's state: a step is exact (within the tolerances above) or
-        # holds a flip, bounded by 2 lr/B on dW; at least 40 of 50 steps
-        # must be exact.
-        cfg = config(True, True, 10)
-        s = init_state(torch, X_all)
-        exact, max_d = 0, 0.
-        for i in range(nb):
-            got = cd_epoch(cfg, s, X[i:i + 1], LR, MOMENTUM, 11, i)
-            want = cd_epoch_reference(cfg, s, X[i:i + 1], LR, MOMENTUM, 11,
-                                      i)
-            d = diffs(got, want, B)
-            if all(v[1] <= 0 for v in d.values()):
-                exact += 1
-            elif d['dW'][0] > 2 * LR / B + 1e-5:
-                raise AssertionError(
-                    'sampled step %d (B=%d) differs beyond a threshold flip: '
-                    'max|d dW|=%.3g' % (i, B, d['dW'][0]))
-            max_d = max(max_d, d['W'][0])
-            s = got[0]
-        say('B=%d sampling on, %d steps from the same state: %d exact, '
-            'max|W kernel-plain|=%.3g' % (B, nb, exact, max_d))
-        if exact < 40:
-            raise AssertionError('only %d of %d sampled steps exact' % (
-                exact, nb))
-    return worst
 
 
 def recon_msre(rbm, X):
@@ -730,18 +656,20 @@ SPARSITY_TARGET, SPARSITY_COST = (0.2, 0.1), (1e-4, 5e-5)
 # AIS ladder of the DBM path: dbm_mnist.py's 20 000 betas, uncut (~40 s)
 N_BETAS = 20000
 
-# Tolerances of the DBM kernels against their plain versions on the same
-# inputs (true f32 on both sides, sums in another order):
+# Tolerances of the DBM programs this script compares on the same inputs:
+# the mesh epoch and fit against the DBM kernels' (phase 26), and AIS and
+# log_Z's options on the trained DBM against their plain versions (phases
+# 7 and 25); true f32 on both sides, sums in another order:
 #   state:   |d| <= 1e-5 + 1e-5 |ref|   (W, biases, accumulators, particles;
-#            20 steps of lr 2e-3 carry a few ulps per step)
+#            steps of lr 2e-3 carry a few ulps each)
 #   q_means, mu_means: |d| <= 1e-5 (B + M) + 1e-4 |ref|  (EMAs of batch
 #            SUMS over 100 rows of means that are each off by ~1e-6)
 #   msre:    |d| <= 1e-6                (a mean of 7.8e4 squares)
 #   n_mf:    |d| <= 1 sweep             (the infinity-norm change sits at
 #            f32 rounding of the means near mf_tol = 1e-7, so the two sum
 #            orders may stop one sweep apart; a sweep then moves mu by
-#            <= 1e-7, below the state tolerance); equal at mf_tol = 1e-4
-#   sampler: v, H |d| <= 1e-4 after 50 sweeps on means
+#            <= 1e-7, below the state tolerance)
+#   sample:  the AIS burn-in's states |d| <= 1e-4
 #   AIS:     log-weights |d| <= 0.05    (each log p~ is ~1.3e3 nats summed
 #            over 1.8e3 softplus terms, f32 ulp 1.2e-4 at that size, and
 #            2 x 200 of them accumulate as a random walk)
@@ -798,141 +726,6 @@ def dbm_diffs(got, want):
     d = float((got[2] - want[2]).abs().max())
     out['n_mf'] = (d, d - DBM_TOL['n_mf'])
     return out
-
-
-def compare_epoch(torch, cfg, state, X, n_mf_equal):
-    """The DBM epoch kernel against its plain version on the same inputs,
-    sampling off.  Returns ({name: (max |d|, excess)}, kernel n_mf rows);
-    with `n_mf_equal` the n_mf rows must be equal."""
-    from boltzmann_machines_tpu_torch.ops import dbm_ops
-    got = dbm_ops.dbm_epoch(cfg, state, X, DBM_LR, DBM_MOM, 7, 0)
-    want = dbm_ops.dbm_epoch_reference(cfg, state, X, DBM_LR, DBM_MOM, 7, 0)
-    torch.cuda.synchronize()
-    d = dbm_diffs(got, want)
-    n_mf_k, n_mf_p = got[2].tolist(), want[2].tolist()
-    nb = len(n_mf_k)
-    say('dbm_epoch sampling off, mf_tol %g, %d steps, max|kernel-plain|: %s'
-        % (cfg.mf_tol, nb, ' '.join('%s=%.3g' % (k, v[0])
-                                    for k, v in d.items())))
-    say('  n_mf kernel %s' % n_mf_k)
-    say('  n_mf plain  %s (%d of %d rows equal)' % (
-        n_mf_p, sum(a == b for a, b in zip(n_mf_k, n_mf_p)), nb))
-    bad = [k for k, v in d.items() if v[1] > 0]
-    if n_mf_equal and n_mf_k != n_mf_p:
-        bad.append('n_mf rows')
-    if bad:
-        raise AssertionError('DBM epoch kernel and plain version disagree '
-                             'on %s (sampling off, mf_tol %g): %s' % (
-                                 bad, cfg.mf_tol, d))
-    if not all(1 <= n <= cfg.max_mf_updates for n in n_mf_k):
-        raise AssertionError('n_mf rows out of range: %s' % n_mf_k)
-    return d, n_mf_k
-
-
-def dbm_kernels_vs_plain(torch):
-    """The three DBM kernels against their plain versions at full width.
-    Returns the max |W kernel - plain| (epoch), |v| (sampler) and
-    |log_w| (AIS), sampling off."""
-    from boltzmann_machines_tpu_torch.ops import dbm_ops
-    nb = 20
-    X_all = make_data(nb * DBM_B, seed=11)
-    X = torch.as_tensor(X_all.reshape(nb, DBM_B, DBM_SIZES[0]),
-                        device='cuda')
-    state = dbm_init(torch, X_all)
-    err = {}
-
-    # From this random state mean-field never meets mf_tol = 1e-7: every
-    # minibatch runs the whole budget of 50 sweeps.
-    d, _ = compare_epoch(torch, dbm_config(False), state, X, False)
-    err['dbm_epoch'] = d['W'][0]
-    # max_norm 6 never bites on these weights (column norms ~0.7-0.9), so
-    # once more with each W's columns scaled to norms from 0.5 to 1.5 and a
-    # max_norm of 1: every step the max-norm kernel scales the columns above
-    # it down, and leaves the others (W * norm / norm)
-    capped = dict(state, W=tuple(
-        W * (0.5 + torch.arange(W.shape[1], device='cuda') / W.shape[1])
-        / torch.linalg.norm(W, dim=0) for W in state['W']))
-    d, _ = compare_epoch(torch, dbm_config(False, max_norm=1.), capped, X,
-                         False)
-    err['dbm_epoch'] = max(err['dbm_epoch'], d['W'][0])
-    # At mf_tol = 1e-4 it converges after a few sweeps, so the done flag,
-    # the change folded over all blocks by atomicMax and the skipped sweeps
-    # are held against the plain loop.  The change crosses 1e-4 about three
-    # orders of magnitude above its f32 rounding, so the rows must be equal.
-    _, n_mf = compare_epoch(torch, dbm_config(False, mf_tol=1e-4), state, X,
-                            True)
-    if not min(n_mf) < 50:
-        raise AssertionError('mean-field did not converge at mf_tol 1e-4: '
-                             '%s' % n_mf)
-
-    # Sampling on: both draw the same Philox uniforms; a state differs only
-    # where a mean lies within rounding of its uniform (~0.01 such draws per
-    # step among 2.3e5), and the chains part after it.  So each step starts
-    # both from the kernel's state: a step is exact (within the tolerances
-    # above) or holds a flip, which moves a particle statistic by 1/M and dW
-    # by at most lr / M per flipped unit; at least 15 of 20 exact.
-    cfg = dbm_config(True)
-    s, exact, max_d = state, 0, 0.
-    for i in range(nb):
-        got = dbm_ops.dbm_epoch(cfg, s, X[i:i + 1], DBM_LR, DBM_MOM, 13, i)
-        want = dbm_ops.dbm_epoch_reference(cfg, s, X[i:i + 1], DBM_LR,
-                                           DBM_MOM, 13, i)
-        d = dbm_diffs(got, want)
-        if all(v[1] <= 0 for v in d.values()):
-            exact += 1
-        elif d['dW'][0] > 4 * DBM_LR / DBM_M + 1e-5:
-            raise AssertionError('sampled DBM step %d differs beyond a few '
-                                 'threshold flips: %s' % (i, d))
-        max_d = max(max_d, d['W'][0])
-        s = got[0]
-    say('dbm_epoch sampling on, %d steps from the same state: %d exact, '
-        'max|W kernel-plain|=%.3g' % (nb, exact, max_d))
-    if exact < 15:
-        raise AssertionError('only %d of %d sampled DBM steps exact' % (
-            exact, nb))
-
-    # the sampler: 50 sweeps on means, then sampled sweeps from one state
-    scfg = dbm_ops.DBMSampleConfig(DBM_SIZES, False, (False, False))
-    got = dbm_ops.dbm_sample(scfg, state, 50, 3)
-    want = dbm_ops.dbm_sample_reference(scfg, state, 50, 3)
-    dv = float((got[1] - want[1]).abs().max())
-    dh = max(float((a - b).abs().max())
-             for a, b in zip(got[0]['H'], want[0]['H']))
-    say('dbm_sample sampling off, 50 sweeps: max|v kernel-plain|=%.3g '
-        'max|H|=%.3g' % (dv, dh))
-    if max(dv, dh) > DBM_TOL['sample']:
-        raise AssertionError('sampler kernel and plain version disagree')
-    err['dbm_sample'] = dv
-    scfg = dbm_ops.DBMSampleConfig(DBM_SIZES, True, (True, True))
-    s, exact, n_diff = state, 0, 0
-    for i in range(nb):
-        got = dbm_ops.dbm_sample(scfg, s, 1, 100 + i)
-        want = dbm_ops.dbm_sample_reference(scfg, s, 1, 100 + i)
-        n = sum(int(((a - b).abs() > DBM_TOL['sample']).sum())
-                for a, b in zip(got[0]['H'], want[0]['H']))
-        exact += n == 0 and bool(((got[1] - want[1]).abs()
-                                  <= DBM_TOL['sample']).all())
-        n_diff += n
-        s = got[0]
-    say('dbm_sample sampling on, %d single sweeps from the same state: %d '
-        'exact, %d hidden states differ of %d' % (
-            nb, exact, n_diff, nb * DBM_M * sum(DBM_SIZES[1:])))
-    if exact < 15 or n_diff > 1e-4 * nb * DBM_M * sum(DBM_SIZES[1:]):
-        raise AssertionError('sampled sweeps differ beyond threshold flips')
-
-    # AIS, sampling off: 100 runs, k = 5, 200 betas
-    acfg = dbm_ops.AISConfig(*DBM_SIZES, 200, 5, False, False, False)
-    x0 = (torch.rand((100, DBM_SIZES[1]), device='cuda') < 0.5).float()
-    got = dbm_ops.ais(acfg, state, 5, x0)
-    want = dbm_ops.ais_reference(acfg, state, 5, x0)
-    d = float((got - want).abs().max())
-    say('ais sampling off, 100 runs x %d betas, k=5: max|log_w '
-        'kernel-plain|=%.3g (log_w in [%.1f, %.1f])' % (
-            acfg.n_betas, d, float(want.min()), float(want.max())))
-    if not d <= DBM_TOL['ais']:
-        raise AssertionError('AIS kernel and plain version disagree: %g' % d)
-    err['ais'] = d
-    return err
 
 
 def read_tag(path, tag):
@@ -1115,7 +908,7 @@ def dbm_mnist_path(torch, tmpdir):
     # a planted fault: kernels over plain at three seeds 0.87-1.17, one
     # seed's plain run over another's 0.84-1.20, a tile that loses a
     # split-K slice 2.99-3.85.  (A 1xTF32 tile reads 0.95-1.15: this check
-    # cannot see it; the kernel-vs-plain comparisons do.)
+    # cannot see it; the card tests, phase 3's among them, do.)
     with tempfile.TemporaryDirectory() as ref_dir:
         ref = train_dbm_mnist(torch, ref_dir, X_train, X_val, plain=True)
     say('  reference (plain versions): train msre per epoch %s; val msre %s; '
@@ -1347,43 +1140,22 @@ GRBM = (3072, 5000)
 GRBM_WIDE = (3072, 7800)      # examples/dbm_cifar.py:266, N_SMALL_HIDDEN * 26
 MRBM = (5000, 1000)
 CIFAR_B, N_SAMPLES = 100, 1000
-# the standalone samplers' ragged shapes: one element (the scalar path
-# alone), and tails of 3 after the 16-byte path
-SAMPLER_EDGE_SHAPES = ((1, 1), (3, 5), (7, 1001))
 GRBM_LR, MRBM_LR = 5e-4, 1e-4   # the example's learning rates
 GRBM_L2, MRBM_L2 = 0.01, 0.05
 
-# Tolerances at the CIFAR shapes, kernel vs plain version on the same
-# inputs (true f32 on both sides, sums in another order):
-#   state, q_means: as at 784 x 1024 (a few steps of lr <= 5e-4);
+# The CIFAR paths' programs against each other on the same inputs (the
+# world-1 data-parallel epoch against the CD epoch kernels, the
+# tensor-parallel fits against the one-process ones; true f32 on both
+# sides, sums in another order):
+#   state, q_means: as TOL (a few steps of lr <= 5e-4);
 #   msre: atol 1e-6 + rtol 1e-5 (the Gaussian msre is ~1, a mean of 3e5
 #         squares);
 #   l2:   rtol 1e-5;
 #   pll:  atol 1 + rtol 1e-3: V (3072 or 5000) x the difference of two
 #         batch-mean free energies of magnitude up to ~1e3 (f32 ulp 6e-5
 #         there), each a sum of V + H terms per row taken in another order.
-# Sampling on, the draws agree bit for bit except where a uniform lies
-# within rounding of its threshold or CDF entry.  The means differ by ~1e-6
-# relative (K = 3072 or 5000 summed in another order), so a Bernoulli state
-# flips with odds ~1e-7 per draw, while a multinomial draw moves to the next
-# bucket with odds ~5e-5 (the sum of the H = 1000 CDF differences): a few
-# of the 1e5 draws of each M-RBM pass.  The Box-Muller normals differ by an
-# ulp or two.  So `compare_passes` holds the sampled states of one pass on
-# the same inputs: Bernoulli states differ in <= 1e-5 of draws, multinomial
-# counts in <= 1e-3 of draws with every row summing to n, Gaussian states
-# within 1e-5 (1 + |v|).  Epoch steps, each from the kernel's state, are
-# exact (within CIFAR_TOL) or hold moved draws, and then must stay within
-# SAMPLED_TOL: the parameters as CIFAR_TOL (lr <= 5e-4 scales a moved draw
-# far below it), while a moved draw changes one row's chain means by a few
-# per cent, so msre by <= 1e-2 relative and q_means (sums over 100 rows) by
-# <= 1e-2 relative; the PLL as CIFAR_TOL.  A probe step (lr 1, momentum 0,
-# no metrics) from the same state shows the moved draws: dvb = mean(X -
-# v_states) moves by <= max|W| sigma / B per flipped or moved draw (by 1 / B
-# per flipped visible state where Bernoulli visible states are sampled, as
-# in examples/dbm_cifar.py's M-RBM), and must stay within 20 of them.
 CIFAR_TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-4),
              'msre': (1e-6, 1e-5), 'l2': (0., 1e-5), 'pll': (1., 1e-3)}
-SAMPLED_TOL = dict(CIFAR_TOL, q_means=(1e-5, 1e-2), msre=(1e-6, 1e-2))
 
 
 def make_cifar(n, seed=42, n_templates=10):
@@ -1451,157 +1223,6 @@ def cifar_inputs(torch, nb, kind, seed=3):
                            device='cuda')
 
 
-def compare_cifar(torch, label, cfg, state, X, lr, B=CIFAR_B):
-    """Kernel vs plain over the batches of X (of `B` rows), sampling off;
-    raises beyond CIFAR_TOL.  Returns the max |W kernel - plain|."""
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-        cd_epoch, cd_epoch_reference)
-    got = cd_epoch(cfg, state, X, lr, MOMENTUM, 7, 0)
-    want = cd_epoch_reference(cfg, state, X, lr, MOMENTUM, 7, 0)
-    torch.cuda.synchronize()
-    d = diffs(got, want, B, CIFAR_TOL)
-    say('%s sampling off, %d steps, max|kernel-plain|: %s' % (
-        label, len(X), ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items())))
-    say('  rows kernel: msre %s pll %s' % (
-        ['%.5f' % v for v in got[1].tolist()],
-        ['%.3f' % v for v in got[2].tolist()]))
-    bad = [k for k, v in d.items() if v[1] > 0]
-    if bad:
-        raise AssertionError('%s: kernel and plain version disagree on %s: '
-                             '%s' % (label, bad, d))
-    if not (float(got[1].min()) > 0 and float(got[3].min()) > 0
-            and bool(torch.isfinite(got[2]).all())
-            and float(got[2].max()) <= 0 and float(got[2].min()) < 0):
-        raise AssertionError('%s: metric rows not written' % label)
-    return d['W'][0]
-
-
-def compare_cifar_sampled(torch, label, cfg, state, X, lr, B=CIFAR_B):
-    """Sampling on, each step from the kernel's state (see CIFAR_TOL), X's
-    batches of `B` rows.  Returns the share of exact probe steps."""
-    import numpy as np
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-        cd_epoch, cd_epoch_reference)
-    probe = cfg._replace(metrics_every=10 ** 6)
-    s, n_exact, exact, max_d, max_dvb, moved = state, 0, 0, 0., 0., []
-    sigma = 1. if cfg.sigma is None else float(np.max(cfg.sigma))
-    for i in range(len(X)):
-        Xi = X[i:i + 1]
-        got = cd_epoch(cfg, s, Xi, lr, MOMENTUM, 11, i)
-        want = cd_epoch_reference(cfg, s, Xi, lr, MOMENTUM, 11, i)
-        d = diffs(got, want, B, CIFAR_TOL)
-        n_exact += all(v[1] <= 0 for v in d.values())
-        wide = diffs(got, want, B, SAMPLED_TOL)
-        if any(v[1] > 0 for v in wide.values()):
-            raise AssertionError('%s sampled step %d beyond moved draws: %s' % (
-                label, i, wide))
-        max_d = max(max_d, d['W'][0])
-        pg = cd_epoch(probe, s, Xi, 1., 0., 13, i)
-        pw = cd_epoch_reference(probe, s, Xi, 1., 0., 13, i)
-        dp = diffs(pg, pw, B, CIFAR_TOL)
-        # a moved draw's share of dvb = mean(X - v_states): a sampled
-        # Bernoulli visible state that flips moves it by 1 / B, a Gaussian
-        # or mean-valued visible unit by at most max|W| sigma / B
-        per_draw = 1. / B if cfg.sample_v_states and \
-            cfg.visible == 'bernoulli' else \
-            float(s['W'].abs().max()) * sigma / B
-        exact += all(v[1] <= 0 for v in dp.values())
-        moved.append(dp['dvb'][0] / per_draw)
-        if dp['dvb'][0] > 20 * per_draw:
-            raise AssertionError('%s probe step %d differs beyond 20 moved '
-                                 'draws: %s' % (label, i, dp))
-        max_dvb = max(max_dvb, dp['dvb'][0])
-        s = got[0]
-    say('%s sampling on, %d steps from the kernel\'s state at lr %g: %d '
-        'exact, the rest within the moved-draw tolerance (max|W '
-        'kernel-plain|=%.3g); probe steps (lr 1): %d exact, max|dvb '
-        'kernel-plain|=%.3g = %.2f max|W| sigma / B' % (
-            label, len(X), lr, n_exact, max_d, exact, max_dvb, max(moved)))
-    return exact / len(X)
-
-
-def compare_passes(torch, label, cfg, layer, A, W, bias, n_batches,
-                   shard=0):
-    """The sampled states of one Gibbs pass of the epoch's kernels against
-    the plain version's on the same inputs (see CIFAR_TOL), under the
-    data-parallel counter word `shard`.  Returns the share of differing
-    draws (Bernoulli, multinomial) or the max |d| of the Gaussian
-    states."""
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-        _gibbs_pass, _gibbs_pass_reference)
-    d_means, n_diff, n_draws, d_states = 0., 0, 0, 0.
-    for i in range(n_batches):
-        mk, sk = _gibbs_pass(cfg, layer, A[i], W, bias, 21, i + 1, 3,
-                             shard=shard)
-        mp, sp = _gibbs_pass_reference(cfg, layer, A[i], W, bias, 21, i + 1,
-                                       3, shard=shard)
-        torch.cuda.synchronize()
-        d_means = max(d_means, float(((mk - mp).abs()
-                                      / mp.abs().clamp(min=1.)).max()))
-        if layer == 'v' and cfg.visible == 'gaussian':
-            d_states = max(d_states, float(((sk - sp).abs()
-                                            / (1. + sp.abs())).max()))
-        elif cfg.hidden == 'multinomial' and layer == 'h':
-            if not bool((sk.sum(1) == cfg.n_samples).all()):
-                raise AssertionError('%s: counts do not sum to n' % label)
-            n_diff += int((sk - sp).abs().sum()) // 2
-            n_draws += sk.shape[0] * cfg.n_samples
-        else:
-            n_diff += int((sk != sp).sum())
-            n_draws += sk.numel()
-    if n_draws:
-        share = n_diff / n_draws
-        limit = 1e-3 if cfg.hidden == 'multinomial' else 1e-5
-        say('%s %s pass, %d batches: %d of %d draws differ (%.2g; limit %g), '
-            'means max rel |d| %.3g' % (label, layer, n_batches, n_diff,
-                                        n_draws, share, limit, d_means))
-        if share > limit:
-            raise AssertionError('%s: sampled states differ' % label)
-        return share
-    say('%s %s pass (Gaussian), %d batches: states max |d| / (1 + |v|) %.3g '
-        '(limit 1e-5), means %.3g' % (label, layer, n_batches, d_states,
-                                      d_means))
-    if d_states > 1e-5:
-        raise AssertionError('%s: Gaussian states differ' % label)
-    return d_states
-
-
-def cifar_kernels_vs_plain(torch):
-    """The Gaussian and multinomial CD kernels against the plain version at
-    the CIFAR shapes.  Returns {entry: max |W kernel - plain|} and the
-    shares of exact probe steps and of differing draws."""
-    err, share = {}, {}
-    X = cifar_inputs(torch, 20, 'grbm', seed=3)
-    state = cifar_state(torch, *GRBM, 0.0008)
-    err['cd_epoch_gaussian'] = compare_cifar(
-        torch, 'G-RBM 3072x5000', grbm_cfg(*GRBM, False, 1), state, X[:5],
-        GRBM_LR)
-    cfg = grbm_cfg(*GRBM, True, 1)
-    share['grbm'] = compare_cifar_sampled(torch, 'G-RBM 3072x5000', cfg,
-                                          state, X, GRBM_LR)
-    share['grbm_h_draws'] = compare_passes(
-        torch, 'G-RBM', cfg, 'h', X, state['W'], state['hb'] + 0.1, 5)
-    H0 = (torch.rand((5, CIFAR_B, GRBM[1]), device='cuda') < 0.5).float()
-    share['grbm_v_states'] = compare_passes(
-        torch, 'G-RBM', cfg, 'v', H0, state['W'] * 10., state['vb'] + 0.1, 5)
-    wide = cifar_state(torch, *GRBM_WIDE, 0.0008, seed=7)
-    err['cd_epoch_gaussian'] = max(err['cd_epoch_gaussian'], compare_cifar(
-        torch, 'G-RBM 3072x7800', grbm_cfg(*GRBM_WIDE, False, 1), wide,
-        X[:3], GRBM_LR))
-    del wide
-    Xm = cifar_inputs(torch, 20, 'mrbm', seed=4)
-    state = cifar_state(torch, *MRBM, 0.01)
-    err['cd_epoch_multinomial'] = compare_cifar(
-        torch, 'M-RBM 5000x1000 n=1000', mrbm_cfg(False, 1), state, Xm[:5],
-        MRBM_LR)
-    cfg = mrbm_cfg(True, 1)
-    share['mrbm'] = compare_cifar_sampled(torch, 'M-RBM 5000x1000 n=1000',
-                                          cfg, state, Xm, MRBM_LR)
-    share['mrbm_h_draws'] = compare_passes(
-        torch, 'M-RBM', cfg, 'h', Xm, state['W'], state['hb'], 10)
-    return err, share
-
-
 def event_ms(torch, fn, n):
     """Device milliseconds per call of `fn`, by CUDA events around n calls
     after a warm-up."""
@@ -1617,138 +1238,79 @@ def event_ms(torch, fn, n):
 
 
 def samplers_vs_plain(torch):
-    """The standalone launchers normal_sample, multinomial_sample and the
-    free-energy probe at the shapes of the path.  Each is driven once (the
-    probe once per flavour) with the launch counts set to 0 just before and
-    read just after; those outputs are held against the plain versions;
-    then each is timed per call (CUDA events): kernel, plain, and the one
-    PyTorch call that computes the same function where there is one."""
+    """Phase 10: the standalone launchers normal_sample, multinomial_sample
+    and the free-energy probe at the shapes of the CIFAR path, each driven
+    once (its launches counted) and timed per call (CUDA events): kernel,
+    plain, and the one PyTorch call that computes the same function where
+    there is one."""
     from boltzmann_machines_tpu_torch.ops import samplers
-    out = {}
     # the G-RBM's visible draw: (100, 3072) normals
     shape = (CIFAR_B, GRBM[0])
+    n = shape[0] * shape[1]
     # the M-RBM's hidden draw: n = 1000 over 1000 buckets, on softmax means
     g = torch.Generator(device='cuda')
     g.manual_seed(3)
     pre = 2. * torch.randn((CIFAR_B, MRBM[1]), generator=g, device='cuda')
     means = N_SAMPLES * torch.softmax(pre, dim=1)
-    # the free energy of the M-RBM's PLL (multinomial, 5000 x 1000) and of
-    # the G-RBM (Gaussian, 3072 x 5000), batch 100
-    probes = []
-    for label, (V, H), visible, hidden, X in (
-            ('M-RBM', MRBM, 'bernoulli', 'multinomial',
-             cifar_inputs(torch, 1, 'mrbm')[0]),
-            ('G-RBM', GRBM, 'gaussian', 'bernoulli',
-             cifar_inputs(torch, 1, 'grbm')[0])):
-        st = cifar_state(torch, V, H, 0.01)
-        probe = samplers.make_free_energy_probe(V, H, CIFAR_B, visible,
-                                                hidden, N_SAMPLES)
-        args = (X, st['W'], st['vb'] + 0.1, st['hb'] - 0.1,
-                1. if visible == 'gaussian' else None, 9)
-        probes.append((label, V, H, probe, args))
-
-    torch.cuda.synchronize()
-    samplers.reset_launches()
-    got_normal = {s: samplers.normal_sample(5, s, 'cuda')
-                  for s in (shape,) + SAMPLER_EDGE_SHAPES}
-    got_counts = samplers.multinomial_sample(6, means, N_SAMPLES)
-    got_fe = [probe(*args) for _, _, _, probe, args in probes]
-    torch.cuda.synchronize()
-    launches = {'normal_sample': samplers.normal_sample.launches[
-                    'normal_sample'],
-                'multinomial_sample': samplers.multinomial_sample.launches[
-                    'multinomial_sample'],
-                'free_energy_probe': samplers.make_free_energy_probe.launches[
-                    'fe_probe']}
-    say('standalone launchers driven once each: %s' % json.dumps(launches))
-    # the probe: two launches a call
-    if launches != {'normal_sample': len(got_normal), 'multinomial_sample': 1,
-                    'free_energy_probe': 2 * len(probes)}:
-        raise AssertionError('launch counts of the standalone launchers: %s'
-                             % launches)
-
-    # each shape within 4e-6 of plain (the 1-element one on the scalar path
-    # alone, the others on the 16-byte path and its tail)
-    for s, got in got_normal.items():
-        want = samplers.normal_sample_reference(5, s, 'cuda')
-        d = (got - want).abs()
-        ulps = float((d / torch.finfo(torch.float32).eps
-                      / want.abs().clamp(min=1.)).max())
-        say('normal_sample %s: max|kernel-plain|=%.3g (%.1f ulp); mean %.4f, '
-            'var %.4f' % (s, float(d.max()), ulps, float(got.mean()),
-                          float(got.var()) if got.numel() > 1 else 0.))
-        if not float(d.max()) <= 4e-6 * max(1., float(want.abs().max())):
-            raise AssertionError('normal_sample kernel and plain disagree at '
-                                 '%s' % (s,))
-    got = got_normal[shape]
-    n = got.numel()
+    probs = means / N_SAMPLES
+    # the free energy of the M-RBM's PLL (multinomial hidden units, 5000 x
+    # 1000), batch 100
+    V, H = MRBM
+    st = cifar_state(torch, V, H, 0.01)
+    probe = samplers.make_free_energy_probe(V, H, CIFAR_B, 'bernoulli',
+                                            'multinomial', N_SAMPLES)
+    args = (cifar_inputs(torch, 1, 'mrbm')[0], st['W'], st['vb'] + 0.1,
+            st['hb'] - 0.1, None, 9)
+    calls = {
+        'normal_sample': (
+            lambda: samplers.normal_sample(5, shape, 'cuda'),
+            lambda: samplers.normal_sample_reference(5, shape, 'cuda'),
+            samplers.normal_sample.launches, 'normal_sample'),
+        'multinomial_sample': (
+            lambda: samplers.multinomial_sample(6, means, N_SAMPLES),
+            lambda: samplers.multinomial_sample_reference(6, means,
+                                                          N_SAMPLES),
+            samplers.multinomial_sample.launches, 'multinomial_sample'),
+        'free_energy_probe': (
+            lambda: probe(*args), lambda: probe.reference(*args),
+            samplers.make_free_energy_probe.launches, 'fe_probe')}
+    out = {}
+    for name, (fn, plain, counts, key) in calls.items():
+        torch.cuda.synchronize()
+        before = counts[key]
+        fn()
+        out[name] = dict(
+            launches=counts[key] - before,
+            ms=event_ms(torch, fn, 20 if name == 'free_energy_probe' else 50),
+            plain_ms=event_ms(torch, plain, 5))
     # ~30 f32 operations per normal (log, sqrt, cos and their scaling), and
     # one Philox an element on the integer lanes
-    out['normal_sample'] = dict(
-        err=float((got - samplers.normal_sample_reference(
-            5, shape, 'cuda')).abs().max()),
-        work=(0., 30. * n, 4. * n, PHILOX_INT_OPS['normal_sample'] * n),
-        ms=event_ms(torch, lambda: samplers.normal_sample(5, shape, 'cuda'),
-                    50),
-        plain_ms=event_ms(torch, lambda: samplers.normal_sample_reference(
-            5, shape, 'cuda'), 5),
+    out['normal_sample'].update(
+        work=Work(0., 30. * n, 4. * n),
+        int_ops=PHILOX_INT_OPS['normal_sample'] * n,
         # a yardstick: other numbers from another generator, same shape
         library_ms=event_ms(torch, lambda: torch.randn(
             shape, generator=g, device='cuda'), 50),
         # device times alone (a CUDA graph of calls: no host launch time)
-        device_ms=graph_ms(torch, lambda: samplers.normal_sample(
-            5, shape, 'cuda')),
+        device_ms=graph_ms(torch, calls['normal_sample'][0]),
         library_device_ms=graph_ms(torch, lambda: torch.randn(
             shape, device='cuda')))
-    out['normal_sample']['bound_parts'] = bound_parts(
-        *out['normal_sample']['work'])
-
-    got, probs = got_counts, means / N_SAMPLES
-    want = samplers.multinomial_sample_reference(6, means, N_SAMPLES)
-    rows_equal = int((got == want).all(dim=1).sum())
-    say('multinomial_sample (%d, %d) n=%d: %d of %d rows of counts equal, '
-        'max|kernel-plain|=%g; row sums %s' % (
-            CIFAR_B, MRBM[1], N_SAMPLES, rows_equal, CIFAR_B,
-            float((got - want).abs().max()),
-            sorted(set(got.sum(1).tolist()))))
-    if rows_equal != CIFAR_B or not bool((got.sum(1) == N_SAMPLES).all()):
-        raise AssertionError('multinomial_sample kernel and plain disagree')
-    out['multinomial_sample'] = dict(
-        err=float((got - want).abs().max()),
-        work=(0., 5. * means.numel() + 10. * CIFAR_B * N_SAMPLES,
-              8. * means.numel()),
-        ms=event_ms(torch, lambda: samplers.multinomial_sample(
-            6, means, N_SAMPLES), 50),
-        plain_ms=event_ms(torch, lambda: samplers.multinomial_sample_reference(
-            6, means, N_SAMPLES), 5),
+    r = out['normal_sample']
+    r['bound_parts'] = bound_parts(r['work'], r['int_ops'])
+    out['multinomial_sample'].update(
+        work=Work(0., 5. * means.numel() + 10. * CIFAR_B * N_SAMPLES,
+                  8. * means.numel()),
         # a yardstick: the same distribution from torch's own sampler
         library_ms=event_ms(torch, lambda: torch.distributions.Multinomial(
             N_SAMPLES, probs=probs, validate_args=False).sample(), 50))
-
-    err = 0.
-    for (label, V, H, probe, args), (fe, hh) in zip(probes, got_fe):
-        fe_p, hh_p = probe.reference(*args)
-        d = abs(float(fe) - float(fe_p))
-        say('free_energy_probe %s %dx%d: fe %.4f vs plain %.4f (|d| %.3g); '
-            'count vectors %s' % (label, V, H, float(fe), float(fe_p), d,
-                                  'equal' if torch.equal(hh, hh_p.reshape(-1))
-                                  else 'DIFFER'))
-        if not d <= 1e-5 * max(1., abs(float(fe_p))) \
-                or not torch.equal(hh, hh_p.reshape(-1)):
-            raise AssertionError('free-energy probe kernel and plain '
-                                 'disagree (%s)' % label)
-        err = max(err, d)
-        if label == 'M-RBM':
-            # the draw, u = W.hh and x.u per row, and the visible terms:
-            # no product (phase 18's count)
-            out['free_energy_probe'] = dict(
-                work=(0., 2. * V * H + 4. * CIFAR_B * V,
-                      4. * (CIFAR_B * V + V * H + 2 * V + 2 * H)),
-                ms=event_ms(torch, lambda: probe(*args), 20),
-                plain_ms=event_ms(torch, lambda: probe.reference(*args), 5))
-    out['free_energy_probe']['err'] = err
+    # the draw, u = W.hh and x.u per row, and the visible terms: no product
+    # (phase 18's count)
+    out['free_energy_probe']['work'] = Work(
+        0., 2. * V * H + 4. * CIFAR_B * V,
+        4. * (CIFAR_B * V + V * H + 2 * V + 2 * H))
+    say('standalone launchers, launches a call: %s' % json.dumps(
+        {name: r['launches'] for name, r in out.items()}))
     for name, r in out.items():
-        r['launches'] = launches[name]
         say('%s: %.4f ms per call, plain %.4f ms, library %s ms%s' % (
             name, r['ms'], r['plain_ms'], r.get('library_ms'),
             '; device time alone %.4f ms, torch.randn %.4f ms' % (
@@ -2009,21 +1571,27 @@ def cifar_timings(torch):
 DP_WORLD = 2
 DP_SHAPES = (('784x1024', (V, H), 256 // DP_WORLD, 'bernoulli', 1.),
              ('3072x7800', GRBM_WIDE, CIFAR_B // DP_WORLD, 'gaussian', 2.))
-# Stats kernels vs plain on the same inputs, sampling off: every sum runs
-# over the local batch of B rows, each term within a few ulps on either
-# side, so |d| <= 1e-5 B + 1e-5 |ref|; v_means as the epoch's state
-# (1e-5 + 1e-5 |ref|).
-STATS_TOL = {'sums': (1e-5, 1e-5), 'v_means': (1e-5, 1e-5)}
 
 
-def stats_work(V, H, B, k=1):
-    """(product operations, other f32 operations, bytes) of one stats
-    call: the 1 + 2k chain products and the two association products (2 B V
-    H each); X, W and the biases read once, the association, the three sums
-    and v_means written once.  Philox (integer work) is not counted."""
-    gemm_flops = 2. * B * V * H * (1 + 2 * k + 2)
-    nbytes = 4. * (2 * B * V + 2 * V * H + 2 * V + 3 * H)
-    return gemm_flops, 0., nbytes
+def assoc_stats_work(B, V, H):
+    """One cd_assoc_stats launch: the two association products over B rows
+    (2 B V H each), the activations read once, the association written
+    once."""
+    return Work(4. * B * V * H, 0., 4. * (2 * B * (V + H) + V * H))
+
+
+def stats_sums_work(B, V, H):
+    """One cd_stats_sums launch: three column sums over B rows, their
+    inputs read once, the sums written once."""
+    return Work(0., 3. * B * (V + H), 4. * (2 * B * V + 2 * B * H + V + 2 * H))
+
+
+def stats_work(V, H, B, k=1, sample_v=False):
+    """One stats call: the 1 + 2k chain products (port_bench.work's count,
+    hidden states sampled), the association and the column sums.  Philox
+    (integer work) is not counted."""
+    return (cd_step_work(V, H, B, k, sample_v=sample_v)['gemm_act'] +
+            assoc_stats_work(B, V, H) + stats_sums_work(B, V, H))
 
 
 def dp_inputs(torch, label, B, n, seed):
@@ -2034,129 +1602,25 @@ def dp_inputs(torch, label, B, n, seed):
     return cifar_inputs(torch, n, 'grbm', seed=seed)[:, :B].contiguous()
 
 
-def stats_vs_plain(torch):
-    """The stats kernels (#7, with #6 folded in) against their plain version
-    at DP_SHAPES, shards 0 and 1, k = 0 and 1.  Sampling off: every sum
-    within STATS_TOL (at k = 0 the association and the bias sums exactly
-    0).  Sampling on: one pass's states draw by draw under each shard
-    (compare_passes), and at shard 0 one step's sums equal the CD epoch
-    kernels' at the same (seed, it) bit for bit: the epoch at lr 1,
-    momentum 0, no L2 or sparsity leaves dW = assoc / B, dvb = dvb_sum / B,
-    q = h_sum.  Returns {shape: max |assoc kernel - plain|}."""
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
-        CDEpochConfig, cd_epoch)
-    from boltzmann_machines_tpu_torch.ops.cd_stats import (
-        cd_stats_reference, make_cd_stats_kernel)
-    err = {}
-    for label, (Vs, Hs), B, visible, up in DP_SHAPES:
-        sigma = 1. if visible == 'gaussian' else None
-        X = dp_inputs(torch, label, B, 5, seed=13)
-        # the W_init of each path: rbm_mnist's 0.01, the G-RBM's 0.0008
-        state = cifar_state(torch, Vs, Hs, 0.01 if Vs == V else 0.0008,
-                            seed=17)
-        state['vb'] += 0.1
-        state['hb'] -= 0.1
-        worst, exceed = 0., []
-        for k in (0, 1):
-            fn = make_cd_stats_kernel(Vs, Hs, B, k, False, False, up, 1.,
-                                      visible=visible, sigma=sigma)
-            for shard in (0, 1):
-                got, aux = fn(state, X[shard], 7, 3, shard)
-                want, aux_p = cd_stats_reference(fn.config, state, X[shard],
-                                                 7, 3, shard)
-                torch.cuda.synchronize()
-                pairs = [(key, got[key], want[key], 'sums') for key in want]
-                pairs.append(('v_means', aux['v_means'], aux_p['v_means'],
-                              'v_means'))
-                for key, a, b, tol in pairs:
-                    atol, rtol = STATS_TOL[tol]
-                    d = (a - b).abs()
-                    if tol == 'sums':
-                        atol *= B
-                    if float((d - atol - rtol * b.abs()).max()) > 0:
-                        exceed.append((k, shard, key, float(d.max())))
-                    if key == 'assoc':
-                        worst = max(worst, float(d.max()))
-                if k == 0 and any(bool(got[key].any()) for key in
-                                  ('assoc', 'dvb_sum', 'dhb_sum')):
-                    exceed.append((k, shard, 'k = 0 sums not zero'))
-        say('stats %s, local batch %d, sampling off, k 0 and 1, shards 0 and '
-            '1: max|assoc kernel-plain|=%.3g' % (label, B, worst))
-        if exceed:
-            raise AssertionError('stats kernels and plain version disagree '
-                                 '(%s): %s' % (label, exceed))
-        err[label] = worst
-
-        fn = make_cd_stats_kernel(Vs, Hs, B, 1, True, True, up, 1.,
-                                  visible=visible, sigma=sigma)
-        H0 = (torch.rand((3, B, Hs), device='cuda') < 0.5).float()
-        for shard in (0, 1):
-            compare_passes(torch, 'stats %s shard %d' % (label, shard),
-                           fn.config, 'h', X, state['W'], state['hb'], 3,
-                           shard)
-            compare_passes(torch, 'stats %s shard %d' % (label, shard),
-                           fn.config, 'v', H0, state['W'] * 10.,
-                           state['vb'], 3, shard)
-        s0, _ = fn(state, X[0], 11, 5, 0)
-        ecfg = CDEpochConfig(Vs, Hs, 1, True, True, up, 1., 0., 0.1, 0., 0.,
-                             10 ** 6, False, visible, sigma)
-        zero = {key: torch.zeros_like(v) for key, v in state.items()}
-        ep = cd_epoch(ecfg, dict(zero, W=state['W'], vb=state['vb'],
-                                 hb=state['hb']), X[:1], 1., 0., 11, 4)[0]
-        s1, _ = fn(state, X[0], 11, 5, 1)
-        n = torch.tensor(float(B), device='cuda')
-        same = (torch.equal(ep['dW'], s0['assoc'] / n)
-                and torch.equal(ep['dvb'], s0['dvb_sum'] / n)
-                and torch.equal(ep['q_means'], s0['h_sum']))
-        differ = not torch.equal(s1['h_sum'], s0['h_sum'])
-        say('stats %s sampling on: shard 0 sums %s the CD epoch kernels\' at '
-            'the same (seed, it); shard 1 %s' % (
-                label, 'equal' if same else 'DIFFER from',
-                'draws other states' if differ else 'draws THE SAME'))
-        if not (same and differ):
-            raise AssertionError('stats %s: shard 0 draws are not the epoch '
-                                 'kernels\' or shard 1 repeats them' % label)
-    return err
-
-
 def bernoulli_vs_plain(torch):
-    """``bernoulli_sample`` driven once at (10, 1024) (rbm_mnist's hidden
-    draw), (100, 7800) (dbm_cifar's G-RBM's), the ragged
-    SAMPLER_EDGE_SHAPES and on a contiguous view 4 bytes past a 16-byte
-    boundary (the scalar path) between a reset and a read of its launch
-    count, each output bit for bit against the plain version (an int seed
-    and a two-word key); then timed per call at (100, 7800) beside the
-    plain version and torch.bernoulli."""
+    """Phase 13: ``bernoulli_sample`` driven once at (100, 7800) (dbm_cifar's
+    G-RBM's hidden draw; its launches counted), then timed per call there
+    beside the plain version and torch.bernoulli, and at (10, 1024)
+    (rbm_mnist's)."""
     from boltzmann_machines_tpu_torch.ops import samplers
     g = torch.Generator(device='cuda')
     g.manual_seed(5)
     wide = (CIFAR_B, GRBM_WIDE[1])
-    cases = [('%s' % (s,), 12345 if s == (10, H) else (7, 99),
-              torch.rand(s, generator=g, device='cuda'))
-             for s in ((10, H), wide) + SAMPLER_EDGE_SHAPES]
-    flat = torch.rand(7 * 1001 + 1, generator=g, device='cuda')
-    cases.append(('(7, 1001) at a 4-byte offset', 99,
-                  flat[1:].view(7, 1001)))
+    p = torch.rand(wide, generator=g, device='cuda')
+    small = torch.rand((10, H), generator=g, device='cuda')
     torch.cuda.synchronize()
-    samplers.reset_launches()
-    got = [samplers.bernoulli_sample(seed, p) for _, seed, p in cases]
-    torch.cuda.synchronize()
-    launches = samplers.bernoulli_sample.launches['bernoulli_sample']
-    for (label, seed, p), s in zip(cases, got):
-        want = samplers.bernoulli_sample_reference(seed, p)
-        n_diff = int((s != want).sum())
-        say('bernoulli_sample %s seed %s: %d of %d states differ from plain; '
-            'mean %.4f (p %.4f)' % (label, seed, n_diff, p.numel(),
-                                    float(s.mean()), float(p.mean())))
-        if n_diff:
-            raise AssertionError('bernoulli_sample kernel and plain differ')
-    if launches != len(cases):
-        raise AssertionError('bernoulli_sample launches %d' % launches)
-    p, small = cases[1][2], cases[0][2]
+    before = samplers.bernoulli_sample.launches['bernoulli_sample']
+    samplers.bernoulli_sample((7, 99), p)
     n = p.numel()
     out = dict(
-        launches=launches, err=0.,
-        work=(0., 1. * n, 8. * n, PHILOX_INT_OPS['bernoulli_sample'] * n),
+        launches=samplers.bernoulli_sample.launches['bernoulli_sample'] -
+        before, work=Work(0., 1. * n, 8. * n),
+        int_ops=PHILOX_INT_OPS['bernoulli_sample'] * n,
         ms=event_ms(torch, lambda: samplers.bernoulli_sample(7, p), 50),
         plain_ms=event_ms(torch, lambda: samplers.bernoulli_sample_reference(
             7, p), 5),
@@ -2168,7 +1632,7 @@ def bernoulli_vs_plain(torch):
         # device times alone (a CUDA graph of calls: no host launch time)
         device_ms=graph_ms(torch, lambda: samplers.bernoulli_sample(7, p)),
         library_device_ms=graph_ms(torch, lambda: torch.bernoulli(p)))
-    out['bound_parts'] = bound_parts(*out['work'])
+    out['bound_parts'] = bound_parts(out['work'], out['int_ops'])
     say('bernoulli_sample %s: %.4f ms per call, plain %.4f ms, '
         'torch.bernoulli %.4f ms; (10, %d) %.4f ms; device time alone %.4f '
         'ms, torch.bernoulli %.4f ms' % (
@@ -2536,50 +2000,38 @@ def graph_ms(torch, fn, n=20, reps=5):
     return start.elapsed_time(end) / (n * reps)
 
 
-def gemm_bounds(M, K, N, extra_bytes):
-    """The product's bounds: its operations on the tensor cores in 3xTF32
-    (165 TFLOP/s) and on the SIMT cores in f32 (67), each against the bytes
-    (A and W read once, the outputs written once) over 3.35 TB/s."""
-    flops = 2. * M * K * N
-    nbytes = 4. * (M * K + K * N) + extra_bytes
-    t_b = 1e3 * nbytes / PEAK_BYTES
-    out = {}
-    for name, peak in (('3xtf32', PEAK_3XTF32), ('f32', PEAK_F32)):
-        t_op = 1e3 * flops / peak
-        out[name] = (max(t_op, t_b), 'operations' if t_op >= t_b else 'bytes')
-    return out
+def gemm_bounds(work):
+    """A product's least times: on the tensor cores (port_bench.work, its
+    products at TF32's peak) and on the SIMT cores in f32 (its products at
+    the f32 peak), each against its bytes: two (ms, bound_by)."""
+    return bound(work), bound(Work(0., work.products, work.bytes))
 
 
 def gemm_line(label, res):
-    b3, bf = res['bound_3xtf32'], res['bound_f32']
-    say('%s: max|kernel-plain| %.3g, draws differing %d, same-seed rerun '
-        'bit-identical; %.4f ms per launch (SIMT tile, recorded: %.4f; one '
-        'K slice %.4f), '
-        'torch.matmul %.4f ms; bound %.4f ms in 3xTF32 at 165 TFLOP/s (%s), '
-        '%.4f ms in f32 at 67 (%s), bytes term %.4f ms; splits %d, n_tile '
-        '%d' % (label, res['err'], res['draws_differing'], res['ms'],
-                res['pr4_ms'], res['one_slice_ms'], res['matmul_ms'], b3[0],
-                b3[1], bf[0], bf[1], res['bytes_ms'], res['splits'],
-                res['n_tile']))
+    say('%s: %.4f ms per launch (SIMT tile, recorded: %.4f; one K slice '
+        '%.4f), torch.matmul %.4f ms; bound %.4f ms on the tensor cores at '
+        'TF32\'s 495 TFLOP/s (%s), %.4f ms in f32 at 67 (%s), bytes term '
+        '%.4f ms; splits %d, n_tile %d' % (
+            label, res['ms'], res['pr4_ms'], res['one_slice_ms'],
+            res['matmul_ms'], res['bound'][0], res['bound'][1],
+            res['bound_f32'][0], res['bound_f32'][1], res['bytes_ms'],
+            res['splits'], res['n_tile']))
 
 
 def cd_gemm_shapes(torch):
-    """cd_gemm_act alone at each product of CD_GEMM_SHAPES: against its
-    plain version (means |d| <= 1e-5 + 1e-5 |ref|, Bernoulli states in <=
-    1e-5 of draws plus one, Gaussian states |d| <= 1e-5 (1 + |v|), the
-    tolerances of the pass comparisons), a second same-seed launch bit for
-    bit, then timed beside torch.matmul on the same product."""
+    """cd_gemm_act alone at each product of CD_GEMM_SHAPES, timed at the
+    plan's split count and at one K slice, beside torch.matmul on the same
+    product."""
     from boltzmann_machines_tpu_torch.ops import gemm
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         ACT_GAUSSIAN, ACT_PRE, ACT_SIGMOID, _launch_gemm_act, library)
-    from boltzmann_machines_tpu_torch.ops.philox import bernoulli, normal
     lib = library()
     g = torch.Generator(device='cuda')
     g.manual_seed(17)
     acts = {'sigmoid': ACT_SIGMOID, 'gaussian': ACT_GAUSSIAN, 'pre': ACT_PRE}
+    f32 = dict(dtype=torch.float32, device='cuda')
     out, counts = {}, {'cd_gemm_act': 0}
     for path, B, V, H, layer, epi, mult, shard, pr4 in CD_GEMM_SHAPES:
-        f32 = dict(dtype=torch.float32, device='cuda')
         W = 0.05 * torch.randn((V, H), generator=g, **f32)
         K, N = (V, H) if layer == 'h' else (H, V)
         A = torch.randn((B, K), generator=g, **f32) if epi == 'gaussian' \
@@ -2588,76 +2040,39 @@ def cd_gemm_shapes(torch):
         bias = 0.1 * torch.randn(N, generator=g, **f32)
         sigma = torch.linspace(0.5, 2., N, **f32) if epi == 'gaussian' \
             else None
-        act = acts[epi]
         sample = epi != 'pre'
-        seed, it, sid = 29, 3, 1
+        means = torch.empty((B, N), **f32)
+        states = torch.empty((B, N), **f32) if sample else None
 
-        def run(means, states, splits=None):
+        def run(splits=None):
             # the current stream: a graph capture's while timing
             stream = torch.cuda.current_stream().cuda_stream
             _launch_gemm_act(lib, stream, A, W, layer == 'v', bias, sigma,
-                             mult, act, means, states, seed, it, sid, shard,
+                             mult, acts[epi], means, states, 29, 3, 1, shard,
                              launches=counts, splits=splits)
 
-        res = [(torch.empty((B, N), **f32),
-                torch.empty((B, N), **f32) if sample else None)
-               for _ in range(2)]
-        for r in res:
-            run(*r)
-        acc = A @ W.T if layer == 'v' else A @ W
-        if epi == 'gaussian':
-            mu = mult * (acc * sigma + bias)
-            st = mu + normal(seed, it, sid, mu.shape, 'cuda', shard) * sigma
-        elif epi == 'pre':
-            mu, st = mult * (acc + bias), None
-        else:
-            mu = torch.sigmoid(mult * (acc + bias))
-            st = bernoulli(mu, seed, it, sid, shard)
-        torch.cuda.synchronize()
-        (m1, s1), (m2, s2) = res
-        d = (m1 - mu).abs()
-        err = float(d.max())
-        ok = bool((d <= 1e-5 + 1e-5 * mu.abs()).all())
-        moved = 0
-        if epi == 'gaussian':
-            ok = ok and float(((s1 - st).abs() / (1 + st.abs())).max()) \
-                <= 1e-5
-        elif sample:
-            moved = int((s1 != st).sum())
-            ok = ok and moved <= 1e-5 * st.numel() + 1
-        same = torch.equal(m1, m2) and (not sample or torch.equal(s1, s2))
-        label = 'cd_gemm_act %s %s pass (%d x %d -> %d, %s)' % (
-            path, layer, B, K, N, epi)
-        if not ok or not same:
-            raise AssertionError('%s: kernel and plain version disagree (max '
-                                 '|d| %.3g, %d draws, rerun identical %s)' % (
-                                     label, err, moved, same))
         plan = gemm.gemm_plan(B, N, K, gemm.num_sms(A.device))
-        bounds = gemm_bounds(B, K, N, 4. * (N * (2 if sigma is not None
-                                                 else 1) +
-                                            B * N * (2 if sample else 1)))
-        r = dict(err=err, draws_differing=moved, pr4_ms=pr4 / 1e3,
-                 ms=graph_ms(torch, lambda: run(*res[0])),
-                 one_slice_ms=graph_ms(torch, lambda: run(*res[0], 1)),
+        work = product(B, K, N, 2 if sample else 1) + \
+            Work(nbytes=4. * N if sigma is not None else 0.)
+        bounds = gemm_bounds(work)
+        r = dict(pr4_ms=pr4 / 1e3, ms=graph_ms(torch, run),
+                 one_slice_ms=graph_ms(torch, lambda: run(1)),
                  matmul_ms=graph_ms(torch, (lambda: A @ W.T) if layer == 'v'
                                     else (lambda: A @ W)),
-                 bound_3xtf32=bounds['3xtf32'], bound_f32=bounds['f32'],
-                 bytes_ms=1e3 * (4. * (B * K + K * N)) / PEAK_BYTES,
+                 bound=bounds[0], bound_f32=bounds[1],
+                 bytes_ms=1e3 * 4. * (B * K + K * N) / PEAK_BYTES,
                  splits=plan.splits, n_tile=plan.n_tile)
-        gemm_line(label, r)
+        gemm_line('cd_gemm_act %s %s pass (%d x %d -> %d, %s)' % (
+            path, layer, B, K, N, epi), r)
         out['%s_%s' % (path, layer)] = r
     return out
 
 
 def dbm_gemm_shapes(torch):
-    """dbm_gemm_act alone at each product of DBM_GEMM_SHAPES, as
-    cd_gemm_shapes: means and the mean-field change |d| <= 1e-5 + 1e-5
-    |ref|, states in <= 1e-5 of draws plus one, the softplus row sums within
-    1e-4 + 1e-5 |ref| (sums of up to 1024 terms)."""
+    """dbm_gemm_act alone at each product of DBM_GEMM_SHAPES, timed as
+    cd_gemm_shapes times cd_gemm_act."""
     import ctypes
-    import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops, gemm
-    from boltzmann_machines_tpu_torch.ops.philox import bernoulli
     lib = dbm_ops._library()
     g = torch.Generator(device='cuda')
     g.manual_seed(23)
@@ -2680,11 +2095,11 @@ def dbm_gemm_shapes(torch):
         bias = 0.1 * torch.randn(N, generator=g, **f32)
         old = torch.rand((M, N), generator=g, **f32)
         nblk = lib.bm_dbm_gemm_col_blocks(N)
-        outs = [old.clone() if epi != 'softplus_rows'
-                else torch.empty(2 * M * nblk, **f32) for _ in range(2)]
-        ctrls = [torch.zeros(1, dtype=torch.int32, device='cuda')
-                 for _ in range(2)]
-        def make_args(o, ctrl, splits=None):
+        o = old.clone() if epi != 'softplus_rows' \
+            else torch.empty(2 * M * nblk, **f32)
+        ctrl = torch.zeros(1, dtype=torch.int32, device='cuda')
+
+        def make_args(splits=None):
             a = dbm_ops._gemm_args(
                 old, A, c=c, bias=bias, act=acts[epi], alpha=beta,
                 gamma=beta, stream=torch.cuda.current_stream().cuda_stream,
@@ -2696,53 +2111,14 @@ def dbm_gemm_shapes(torch):
             a.alpha2 = 1.
             return a
 
-        args = [make_args(o, ctrl) for o, ctrl in zip(outs, ctrls)]
-        one_slice_args = make_args(outs[1], ctrls[1], 1)
+        args, one_slice_args = make_args(), make_args(1)
 
         def run(a):
             stream = torch.cuda.current_stream().cuda_stream
             dbm_ops._check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
                            'dbm_gemm_act')
 
-        for a in args:
-            run(a)
-        acc = sum(lhs @ (W.T if t else W) for lhs, W, t in A)
-        if c is not None:
-            acc = acc + c
-        moved = 0
-        torch.cuda.synchronize()
-        if epi == 'softplus_rows':
-            got = outs[0].view(2, M, nblk).sum(2)
-            want = torch.stack([F.softplus(b * (acc + bias)).sum(1)
-                                for b in (beta, 1.)])
-            d = (got - want).abs()
-            ok = bool((d <= 1e-4 + 1e-5 * want.abs()).all())
-        else:
-            pre = beta * acc + beta * bias
-            want = pre if epi == 'identity' else torch.sigmoid(pre)
-            got = outs[0]
-            if epi == 'sample':
-                st = bernoulli(want, 31, 4, 2)
-                moved = int((got != st).sum())
-                d = torch.zeros(1, **f32)
-                ok = moved <= 1e-5 * st.numel() + 1
-            else:
-                d = (got - want).abs()
-                ok = bool((d <= 1e-5 + 1e-5 * want.abs()).all())
-            if epi == 'sigmoid_delta':
-                delta = float((want - old).abs().max())
-                got_delta = float(ctrls[0].view(torch.float32))
-                ok = ok and abs(got_delta - delta) <= 1e-5 + 1e-5 * delta
-        err = float(d.max())
-        same = torch.equal(outs[0], outs[1]) and torch.equal(ctrls[0],
-                                                             ctrls[1])
         K = sum(lhs.shape[1] for lhs, _, _ in A)
-        name = 'dbm_gemm_act %s (%d x %s -> %d, %s)' % (
-            label, M, '+'.join(str(lhs.shape[1]) for lhs, _, _ in A), N, epi)
-        if not ok or not same:
-            raise AssertionError('%s: kernel and plain version disagree (max '
-                                 '|d| %.3g, %d draws, rerun identical %s)' % (
-                                     name, err, moved, same))
         plan = gemm.gemm_plan(M, N, [lhs.shape[1] for lhs, _, _ in A],
                               gemm.num_sms(old.device))
         if len(A) == 2:
@@ -2750,24 +2126,23 @@ def dbm_gemm_shapes(torch):
             rhs = torch.cat([W.T if t else W for _, W, t in A], 0)
         else:
             lhs, rhs = A[0][0], (A[0][1].T if A[0][2] else A[0][1])
-        extra = 4. * (N + M * N * (2 if with_c or epi == 'sigmoid_delta'
-                                   else 1))
-        bounds = gemm_bounds(M, K, N, extra)
-        r = dict(err=err, draws_differing=moved, pr4_ms=pr4 / 1e3,
-                 ms=graph_ms(torch, lambda: run(args[0])),
+        bounds = gemm_bounds(product(
+            M, K, N, 2 if with_c or epi == 'sigmoid_delta' else 1))
+        r = dict(pr4_ms=pr4 / 1e3, ms=graph_ms(torch, lambda: run(args)),
                  one_slice_ms=graph_ms(torch, lambda: run(one_slice_args)),
                  matmul_ms=graph_ms(torch, lambda: lhs @ rhs),
-                 bound_3xtf32=bounds['3xtf32'], bound_f32=bounds['f32'],
+                 bound=bounds[0], bound_f32=bounds[1],
                  bytes_ms=1e3 * 4. * (M * K + K * N) / PEAK_BYTES,
                  splits=plan.splits, n_tile=plan.n_tile)
-        gemm_line(name, r)
+        gemm_line('dbm_gemm_act %s (%d x %s -> %d, %s)' % (
+            label, M, '+'.join(str(a[0].shape[1]) for a in A), N, epi), r)
         out[label] = r
     return out
 
 
 def gemm_shapes(torch):
-    """The phase of the tensor-core tile: every product of the paths, each
-    kernel alone against its plain version and timed."""
+    """Phase 16, the tensor-core tile: every product of the paths, each
+    kernel alone, timed."""
     return dict(cd_gemm_shapes(torch), **dbm_gemm_shapes(torch))
 
 
@@ -2789,24 +2164,9 @@ ASSOC_SHAPES = (
 )
 
 
-def assoc_work(kind, B, V, H):
-    """(product operations, other f32 operations, bytes) of one association
-    launch: the two products over B rows (2 B V H each); the update ~8 f32
-    operations per weight; the activations read once, W and dW read and
-    written once (the stats: the association written once)."""
-    ops = 4. * B * V * H
-    acts = 4. * 2 * B * (V + H)
-    if kind == 'cd_assoc_stats':
-        return ops, 0., acts + 4. * V * H
-    return ops, 8. * V * H, acts + 16. * V * H + 4. * H
-
-
 def assoc_shapes(torch):
-    """Each association launch of ASSOC_SHAPES alone, through its C entry
-    point: against its plain version's arithmetic on the same inputs, each
-    element within the bound of tests/test_torch_cuda.py (2^-22 (2 |A|^T|B|
-    + |A^T B|) on the association, carried through the update), a second
-    launch on the same inputs bit for bit; then timed (graph_ms) beside the
+    """Phase 17: each association launch of ASSOC_SHAPES alone, through its
+    C entry point at ops/gemm.py's assoc_plan, timed (graph_ms) beside the
     plain version and, as yardstick, torch.matmul on the pre-stacked K = 2B
     product [X; v]^T [h0; -h]."""
     from boltzmann_machines_tpu_torch.ops import dbm_ops, gemm
@@ -2816,7 +2176,6 @@ def assoc_shapes(torch):
     g = torch.Generator(device='cuda')
     g.manual_seed(41)
     f32 = dict(dtype=torch.float32, device='cuda')
-    u = 2. ** -22
     lr, mom, l2 = 1e-3, 0.9, 1e-4
 
     def stream():  # the current one: a graph capture's while timing
@@ -2829,122 +2188,68 @@ def assoc_shapes(torch):
                 (torch.rand((K, V), generator=g, **f32) < 0.3).float()
             return A, torch.rand((K, H), generator=g, **f32)
         (X, h0), (v, h) = side(B), side(B)
-        W0 = 0.01 * torch.randn((V, H), generator=g, **f32)
-        dW0 = 1e-3 * torch.randn((V, H), generator=g, **f32)
+        W = 0.01 * torch.randn((V, H), generator=g, **f32)
+        dW = 1e-3 * torch.randn((V, H), generator=g, **f32)
         pen = 1e-4 * torch.randn(H, generator=g, **f32)
-        W, dW = W0.clone(), dW0.clone()
+        plan = gemm.assoc_plan(V, H, gemm.num_sms(X.device))
 
         if kind == 'cd_assoc_update':
             def run():
                 check_launch(lib.bm_cd_assoc_update(
                     ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, H,
-                    ptr(W), ptr(dW), lr, mom, l2, stream()), kind)
+                    ptr(W), ptr(dW), lr, mom, l2, plan.n_tile, stream()),
+                    kind)
 
             def plain():
-                assoc = X.T @ h0 - v.T @ h
-                d = lr * (mom * dW0 + (assoc / B - l2 * W0) - pen)
-                return W0 + d, d
-            scales = (1. / B, 1. / B)
+                d = lr * (mom * dW + ((X.T @ h0 - v.T @ h) / B - l2 * W)
+                          - pen)
+                return W + d, d
         elif kind == 'dbm_assoc_update':
             def run():
                 dbm_ops._check(dlib.bm_dbm_assoc_update(
                     ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, B, V, H,
-                    ptr(W), ptr(dW), lr, mom, l2, stream()), kind)
+                    ptr(W), ptr(dW), lr, mom, l2, plan.n_tile, stream()),
+                    kind)
 
             def plain():
                 assoc = (X.T @ h0) / B - (v.T @ h) / B
-                d = lr * (mom * dW0 + (assoc - l2 * W0 - pen))
-                return W0 + d, d
-            scales = (1. / B, 1. / B)
+                d = lr * (mom * dW + (assoc - l2 * W - pen))
+                return W + d, d
         else:
             def run():
                 check_launch(lib.bm_cd_assoc_stats(
                     ptr(X), ptr(h0), ptr(v), ptr(h), B, V, H, ptr(W),
-                    stream()), kind)
+                    plan.n_tile, stream()), kind)
 
             def plain():
-                return (X.T @ h0 - v.T @ h,)
-            scales = (1., 1.)
+                return X.T @ h0 - v.T @ h
 
-        run()
-        got = (W.clone(), dW.clone())
-        W.copy_(W0)
-        dW.copy_(dW0)
-        run()
-        same = torch.equal(got[0], W) and torch.equal(got[1], dW)
-        want = plain()
-        assoc = X.T @ h0 - v.T @ h
-        E = u * (gemm.ERR_SUM * (scales[0] * (X.abs().T @ h0.abs()) +
-                                 scales[1] * (v.abs().T @ h.abs()))
-                 + (scales[0] * assoc).abs())
-        if kind == 'cd_assoc_stats':
-            errs = [(got[0] - want[0]).abs()]
-            ok = bool((errs[0] <= E).all())
-        else:
-            terms = (mom * dW0).abs() + (scales[0] * assoc).abs() + \
-                (l2 * W0).abs() + pen.abs()
-            tol_dw = lr * (E + 2. ** -20 * terms) + u * want[1].abs()
-            errs = [(got[0] - want[0]).abs(), (got[1] - want[1]).abs()]
-            ok = bool((errs[1] <= tol_dw).all()) and bool(
-                (errs[0] <= tol_dw + u * want[0].abs()).all())
-        torch.cuda.synchronize()
-        err = max(float(e.max()) for e in errs)
-        name = '%s %s (%d rows, %d x %d)' % (kind, label, B, V, H)
-        if not ok or not same:
-            raise AssertionError('%s: kernel and plain version disagree (max '
-                                 '|d| %.3g, rerun identical %s)' % (
-                                     name, err, same))
         stacked = (torch.cat([X, v]).contiguous(),
                    torch.cat([h0, -h]).contiguous())
-        # the width the kernel picks (its own rule), and ops/gemm.py's plan
-        plan = gemm.assoc_plan(V, H, gemm.num_sms(X.device))
-        n_tile = lib.bm_assoc_n_tile(V, H, gemm.num_sms(X.device))
-        if n_tile != plan.n_tile:
-            raise AssertionError('%s: the kernel takes %d columns per block, '
-                                 'assoc_plan %d' % (name, n_tile, plan.n_tile))
-        bound_ms, bound_by = bound(*assoc_work(kind, B, V, H))
-        r = dict(err=err, ms=graph_ms(torch, run),
-                 plain_ms=graph_ms(torch, plain),
+        work = assoc_stats_work(B, V, H) if kind == 'cd_assoc_stats' \
+            else cd_step_work(V, H, B)['assoc']
+        bound_ms, bound_by = bound(work)
+        r = dict(ms=graph_ms(torch, run), plain_ms=graph_ms(torch, plain),
                  matmul_ms=graph_ms(torch, lambda: stacked[0].T @ stacked[1]),
-                 bound_ms=bound_ms, bound_by=bound_by, n_tile=n_tile,
+                 bound_ms=bound_ms, bound_by=bound_by, n_tile=plan.n_tile,
                  blocks=plan.blocks)
-        say('%s: max|kernel-plain| %.3g within the bound, same-input rerun '
-            'bit-identical; %.4f ms per launch (SIMT tile, recorded: %s), '
-            'plain %.4f ms, torch.matmul of the stacked K = %d product %.4f '
-            'ms; bound %.4f ms (%s); n_tile %d, %d blocks' % (
-                name, err, r['ms'], 'not timed' if pr5 is None
+        say('%s %s (%d rows, %d x %d): %.4f ms per launch (SIMT tile, '
+            'recorded: %s), plain %.4f ms, torch.matmul of the stacked K = %d '
+            'product %.4f ms; bound %.4f ms (%s); n_tile %d, %d blocks' % (
+                kind, label, B, V, H, r['ms'], 'not timed' if pr5 is None
                 else '%.4f' % (pr5 / 1e3), r['plain_ms'], 2 * B,
-                r['matmul_ms'], bound_ms, bound_by, n_tile, plan.blocks))
+                r['matmul_ms'], bound_ms, bound_by, plan.n_tile,
+                plan.blocks))
         out[label] = r
     return out
 
 
-def dbm_step_work(V, H1, H2, B, M, n_mf, k=1):
-    """(product operations, other f32 operations, bytes) of one DBM epoch
-    step (ops/dbm_ops.py): X.W0, the init of h2, n_mf mean-field sweeps (two
-    products each), k Gibbs sweeps of the particles, the association
-    products of both layers on data and particles, the reconstruction for
-    msre; ~11 per weight for the update and max-norm; X, W, dW, particles
-    in and out once."""
-    a, b = V * H1, H1 * H2
-    gemm_flops = (2. * B * a + 2. * B * b + n_mf * 4. * B * b
-                  + k * 4. * M * (a + b) + 2. * (B + M) * (a + b)
-                  + 2. * B * a)
-    nbytes = 4. * (B * V + 4 * (a + b) + 2 * M * (V + H1 + H2))
-    return gemm_flops, 11. * (a + b), nbytes
-
-
 def dbm_sweep_work(V, H1, H2, M):
-    a, b = V * H1, H1 * H2
-    return 4. * M * (a + b), 0., 4. * ((a + b) + 2 * M * (V + H1 + H2))
-
-
-def ais_beta_work(V, H1, H2, R, k):
-    """k transitions of three products each plus the two log p~ products
-    (R runs), W read once, the runs' states in and out."""
-    a, b = V * H1, H1 * H2
-    return (4. * k + 2.) * R * (a + b), 0., 4. * ((a + b) + 2 * R * H1)
-
+    """One sampled Gibbs sweep of M particles (dbm_sample): h0 from v and
+    h1 (two products into one output), h1 from h0, v from h0, each drawn,
+    as port_bench.work counts a Gibbs sweep of the DBM step."""
+    return (product(M, V, H1, 2) + product(M, H2, H1, 0, False) +
+            product(M, H1, H2, 2) + product(M, H1, V, 2))
 
 
 # ---------------------------------------------------------------------- #
@@ -2977,17 +2282,6 @@ BIAS_SHAPES = (
 # examples/dbm_mnist.py:247
 NORM_SHAPES = (('dbm_w0', 784, 512), ('dbm_w1', 512, 1024))
 DBM_MAX_NORM = 6.
-# The two redesigned kernels against their plain versions, with the
-# tolerances of phases 3, 10 and 13: the updated biases, their accumulators
-# and the penalty as `state`; q as `q_means` (a batch sum: atol x rows);
-# msre_col, a column sum over the batch, and the max-norm's W (each column
-# scaled by a factor from a sum of n_in squares) as the stats' `sums`.
-KT_TOL = {'state': TOL['state'], 'q': TOL['q_means'],
-          'sums': STATS_TOL['sums']}
-# cd_softmax_sample's means against n softmax(pre) in torch: the row's max,
-# exponentials and sum in another order, each mean within a few ulps of n
-# (1000) times its probability
-SOFTMAX_TOL = (1e-5, 1e-5)
 # phase 18's kernels that no single PyTorch call computes, and why
 NO_LIBRARY = {
     'cd_softmax_sample': 'softmax and Multinomial counts are two calls; '
@@ -3001,19 +2295,12 @@ NO_LIBRARY = {
 }
 
 
-def excess(got, want, tol, scale=1.):
-    """max(|got - want| - atol scale - rtol |want|): <= 0 is within."""
-    atol, rtol = tol
-    return float(((got - want).abs() - atol * scale
-                  - rtol * want.abs()).max())
-
-
 def bias_work(B, V, H):
-    """(0, other f32 operations, bytes) of one cd_bias_stats launch: the
-    five (B, .) inputs read once, vb, dvb, hb, dhb, q read and written once,
-    pen and msre_col written; ~4 operations per input element."""
-    return (0., 4. * B * (V + H),
-            4. * (3 * B * V + 2 * B * H + 5 * V + 7 * H))
+    """One cd_bias_stats launch: the five (B, .) inputs read once, vb, dvb,
+    hb, dhb, q read and written once, pen and msre_col written; ~4
+    operations per input element."""
+    return Work(0., 4. * B * (V + H),
+                4. * (3 * B * V + 2 * B * H + 5 * V + 7 * H))
 
 
 def kernel_times(torch):
@@ -3024,21 +2311,25 @@ def kernel_times(torch):
     CUDA graph), a library yardstick where one PyTorch call computes
     (nearly) the same function -- torch.renorm for the max-norm, torch.sum
     over dim 0 of one (rows, V + H) tensor for the column sums, F.mse_loss
-    for the msre -- and its bound.  Each is also held against its plain
-    version (KT_TOL, STATS_TOL, SOFTMAX_TOL, TOL and CIFAR_TOL, DBM_TOL,
-    phase 10's probe tolerance) and a second launch on the same inputs bit
-    for bit; cd_softmax_sample is also timed in parts, and each cd_metrics
-    launch alone; ais_logw also riding on the next beta's first launch (the
-    same bits as alone), that launch timed with and without it.  The
-    mean-field check: n_mf against its plain rule, and its cost per sweep
-    (a one-layer loop of two sweeps less the two launches alone); and the
-    whole mean-field loop.  Returns {(kernel, label): numbers}."""
+    for the msre -- and its bound; cd_softmax_sample also in parts, and
+    each cd_metrics launch alone; ais_logw's update also riding on the next
+    beta's first launch, that launch timed with and without it.  The
+    mean-field check's cost per turn (a one-layer graph of two turns less
+    one of one, less the layer alone), and the whole mean-field loop.
+    Returns {(kernel, label): numbers}."""
+    import ctypes
+    import importlib
     import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         CDEpochConfig, bias_stats_reference, check_launch, library,
         pll_flip_index, pll_from_flip, pll_h_hats, ptr)
     from boltzmann_machines_tpu_torch.ops.philox import multinomial_counts
+    from boltzmann_machines_tpu_torch.ops.samplers import (
+        launch_probe, make_free_energy_probe)
+    # the module (the package's `cd_epoch` is the function of that name)
+    cd_mod = importlib.import_module(
+        'boltzmann_machines_tpu_torch.ops.cd_epoch')
     lib, dlib = library(), dbm_ops._library()
     g = torch.Generator(device='cuda')
     g.manual_seed(18)
@@ -3056,24 +2347,21 @@ def kernel_times(torch):
     out = {}
 
     def record(kernel, label, run, plain, work, library_ms=None, per_step=1,
-               per_1000=1000, err=None):
+               per_1000=1000):
         """Times one kernel; per_step and per_1000 are the launches at the
         examples' published cadences, written down, not counted here: they
         are printed and never returned.  library_ms is None where no single
         PyTorch call computes the kernel's function (NO_LIBRARY says why)."""
-        bound_ms, bound_by = bound(*work)
+        bound_ms, bound_by = bound(work)
         r = dict(ms=graph_ms(torch, run), plain_ms=graph_ms(torch, plain),
-                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                 err=err)
+                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
         say('%s %s: %.4f ms per launch, plain %.4f ms, library %s; bound '
             '%.5f ms (%s); at the examples\' cadences %s launches per step, '
-            '%s per 1000 steps%s' % (
+            '%s per 1000 steps' % (
                 kernel, label, r['ms'], r['plain_ms'],
                 'none (%s)' % NO_LIBRARY[kernel] if library_ms is None
                 else '%.4f ms' % library_ms,
-                bound_ms, bound_by, per_step, per_1000,
-                '' if err is None else '; max|kernel-plain| %.3g, '
-                'same-input rerun bit-identical' % err))
+                bound_ms, bound_by, per_step, per_1000))
         out[(kernel, label)] = r
 
     def colsum_ms(rows, width):
@@ -3095,139 +2383,70 @@ def kernel_times(torch):
               'q': 0.3 * B * rand(H) * (n if n else 1) / (H if n else 1),
               'pen': torch.full((H,), float('nan'), **f32),
               'msre_col': torch.full((V,), float('nan'), **f32)}
+        p = {k: v.clone() for k, v in p0.items()}
 
-        def launch(p):
+        def launch():
             check_launch(lib.bm_cd_bias_stats(
                 ptr(X), ptr(vs), ptr(vm), ptr(h0), ptr(hm), B, V, H,
                 ptr(p['vb']), ptr(p['dvb']), ptr(p['hb']), ptr(p['dhb']),
                 ptr(p['q']), ptr(p['pen']), ptr(p['msre_col']), lr, mom, damp,
                 1. - damp, cost, target, stream()), 'cd_bias_stats')
-            return p
-        got = launch({k: v.clone() for k, v in p0.items()})
-        again = launch({k: v.clone() for k, v in p0.items()})
-        want = bias_stats_reference(X, vs, h0, hm, p0, lr, mom, damp, cost,
-                                    target, v_means=vm)
-        torch.cuda.synchronize()
-        tols = {'q': (KT_TOL['q'], B), 'msre_col': (KT_TOL['sums'], 1.)}
-        bad = {k: e for k, e in (
-            (k, excess(got[k], want[k], *tols.get(k, (KT_TOL['state'], 1.))))
-            for k in want) if not e <= 0.}
-        same = all(torch.equal(got[k], again[k]) for k in got)
-        err = max(float((got[k] - want[k]).abs().max()) for k in want)
-        if bad or not same:
-            raise AssertionError('cd_bias_stats %s: kernel and plain version '
-                                 'disagree (excess %s, rerun identical %s)' % (
-                                     label, bad, same))
-        p = {k: v.clone() for k, v in p0.items()}
-        record('cd_bias_stats', label, lambda: launch(p),
+        record('cd_bias_stats', label, launch,
                lambda: bias_stats_reference(X, vs, h0, hm, p0, lr, mom, damp,
                                             cost, target, v_means=vm),
-               bias_work(B, V, H), colsum_ms(B, V + H), err=err)
+               bias_work(B, V, H), colsum_ms(B, V + H))
 
     for label, n_in, n_out in NORM_SHAPES:
         # columns with norms from 0.5 to 1.5 max_norm: half are scaled down
         scale = DBM_MAX_NORM * (0.5 + torch.arange(n_out, **f32) / n_out)
         W0 = randn(n_in, n_out) * scale / math.sqrt(n_in)
-
-        def launch(W):
-            dbm_ops._check(dlib.bm_dbm_max_norm(
-                ptr(W), n_in, n_out, DBM_MAX_NORM, stream()), 'dbm_max_norm')
-            return W
-        got, again = launch(W0.clone()), launch(W0.clone())
-        want = dbm_ops.apply_max_norm(W0, DBM_MAX_NORM)
-        torch.cuda.synchronize()
-        norms = torch.linalg.norm(W0, dim=0)
-        e = excess(got, want, KT_TOL['sums'])
-        same = torch.equal(got, again)
-        if not (e <= 0. and same) or not 0 < int(
-                (norms > DBM_MAX_NORM).sum()) < n_out:
-            raise AssertionError('dbm_max_norm %s: kernel and plain version '
-                                 'disagree (excess %.3g, rerun identical %s)'
-                                 % (label, e, same))
         W = W0.clone()
         mx = torch.tensor(DBM_MAX_NORM, **f32)
 
         def plain(W=W0, mx=mx):  # apply_max_norm's body, mx made outside
             norm = torch.linalg.norm(W, dim=0)
             return W * torch.minimum(norm, mx) / torch.clamp(norm, min=1e-8)
-        record('dbm_max_norm', label, lambda: launch(W), plain,
-               (0., 3. * n_in * n_out, 8. * n_in * n_out),
+        record('dbm_max_norm', label, lambda: dbm_ops._check(
+            dlib.bm_dbm_max_norm(ptr(W), n_in, n_out, DBM_MAX_NORM,
+                                 stream()), 'dbm_max_norm'), plain,
+               Work(0., 3. * n_in * n_out, 8. * n_in * n_out),
                graph_ms(torch, lambda: torch.renorm(W0, 2, 1, DBM_MAX_NORM)),
-               per_step=1, err=float((got - want).abs().max()))
+               per_step=1)
 
-    # the data-parallel stats call's column sums (one per call), held
-    # against the plain sums (STATS_TOL, atol x rows) and a rerun
+    # the data-parallel stats call's column sums (one per call)
     for label, B, V, H in (('stats_784', 128, 784, 1024),
                            ('stats_7800', 50, 3072, 7800)):
         X, vs, h0, hm = randn(B, V), randn(B, V), rand(B, H), rand(B, H)
-
-        def run(sums):
-            check_launch(lib.bm_cd_stats_sums(
-                ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums),
-                ptr(sums, V), ptr(sums, V + H), stream()), 'cd_stats_sums')
-            return sums
-
-        def plain():
-            return torch.cat([torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
-                              torch.sum(hm, 0)])
-        got = run(torch.full((V + 2 * H,), float('nan'), **f32))
-        again = run(torch.full((V + 2 * H,), float('nan'), **f32))
-        want = plain()
-        torch.cuda.synchronize()
-        e = excess(got, want, STATS_TOL['sums'], B)
-        same = torch.equal(got, again)
-        if not (e <= 0. and same):
-            raise AssertionError('cd_stats_sums %s: kernel and plain version '
-                                 'disagree (excess %.3g, rerun identical %s)'
-                                 % (label, e, same))
         sums = torch.empty(V + 2 * H, **f32)
-        record('cd_stats_sums', label, lambda: run(sums), plain,
-               (0., 3. * B * (V + H), 4. * (2 * B * V + 2 * B * H + V + 2 * H)),
-               colsum_ms(B, V + H), err=float((got - want).abs().max()))
+        record('cd_stats_sums', label, lambda: check_launch(
+            lib.bm_cd_stats_sums(
+                ptr(X), ptr(vs), ptr(h0), ptr(hm), B, V, H, ptr(sums),
+                ptr(sums, V), ptr(sums, V + H), stream()), 'cd_stats_sums'),
+               lambda: torch.cat([torch.sum(X - vs, 0), torch.sum(h0 - hm, 0),
+                                  torch.sum(hm, 0)]),
+               stats_sums_work(B, V, H), colsum_ms(B, V + H))
 
     # the M-RBM's hidden pass: n softmax(pre) and Multinomial(n) counts,
-    # held against the plain softmax (SOFTMAX_TOL), multinomial_counts on
-    # the kernel's own means (equal), rows summing to n, and a rerun; then
     # timed whole and in parts: the means alone (no states), the means and
     # the CDF with one draw (n = 1), the draws on given means (from_pre 0)
     B, H, n = CIFAR_B, MRBM[1], N_SAMPLES
     pre = 2. * randn(B, H)
     means, states = torch.empty(B, H, **f32), torch.empty(B, H, **f32)
-
     given = float(n) * torch.softmax(pre, dim=1)  # the given-means input
 
-    def softmax_run(means=means, states=states, from_pre=1, n=n):
+    def softmax_run(states=states, from_pre=1, n=n):
         check_launch(lib.bm_cd_softmax_sample(
             ptr(pre if from_pre else given), from_pre, B, H, n, ptr(means),
             ptr(states), 9, 3, 2, stream()), 'cd_softmax_sample')
-        return means, states
 
     def plain():
         mu = float(n) * torch.softmax(pre, dim=1)
         return mu, multinomial_counts(mu, n, 9, 3, 2)
-    got = softmax_run(torch.empty(B, H, **f32), torch.empty(B, H, **f32))
-    again = softmax_run(torch.empty(B, H, **f32), torch.empty(B, H, **f32))
-    want_mu = plain()[0]
-    counts = multinomial_counts(got[0], n, 9, 3, 2)
-    torch.cuda.synchronize()
-    e = excess(got[0], want_mu, SOFTMAX_TOL)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    if not (e <= 0. and same and torch.equal(got[1], counts)
-            and bool((got[1].sum(1) == n).all())):
-        raise AssertionError(
-            'cd_softmax_sample: kernel and plain version disagree (means '
-            'excess %.3g, counts equal %s, rerun identical %s)' % (
-                e, torch.equal(got[1], counts), same))
     record('cd_softmax_sample', 'mrbm', softmax_run, plain,
-           (0., 5. * B * H, 4. * 3 * B * H), per_step=2, per_1000=2000,
-           err=float((got[0] - want_mu).abs().max()))
-    parts = {
-        'means_only_ms': lambda: check_launch(lib.bm_cd_softmax_sample(
-            ptr(pre), 1, B, H, n, ptr(means), None, 9, 3, 2, stream()),
-            'cd_softmax_sample'),
-        'cdf_one_draw_ms': lambda: softmax_run(n=1),
-        'given_means_ms': lambda: softmax_run(from_pre=0)}
-    softmax_run()
+           Work(0., 5. * B * H, 4. * 3 * B * H), per_step=2, per_1000=2000)
+    parts = {'means_only_ms': lambda: softmax_run(states=None),
+             'cdf_one_draw_ms': lambda: softmax_run(n=1),
+             'given_means_ms': lambda: softmax_run(from_pre=0)}
     parts = {k: graph_ms(torch, fn) for k, fn in parts.items()}
     out[('cd_softmax_sample', 'mrbm')].update(parts)
     say('cd_softmax_sample mrbm parts: %s' % ' '.join(
@@ -3235,12 +2454,7 @@ def kernel_times(torch):
 
     # the metrics of one logged step, PLL on, at each CIFAR and MNIST shape:
     # the step's launches (cd_metrics_fe or cd_metrics_draw, then the pass
-    # over W), held against the plain metric rows (TOL, CIFAR_TOL) and a
-    # rerun, timed whole and each launch alone
-    import importlib
-    # the module (the package's `cd_epoch` is the function of that name)
-    cd_mod = importlib.import_module(
-        'boltzmann_machines_tpu_torch.ops.cd_epoch')
+    # over W), timed whole and each launch alone
     l2 = 1e-4
     for label, B, V, H, gaussian, n, _, per_1000 in BIAS_SHAPES:
         if label.startswith('dbm_rbm'):
@@ -3255,13 +2469,13 @@ def kernel_times(torch):
                             None, 'multinomial' if n else 'bernoulli',
                             n or None)
         ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
+        rows = torch.empty(3, **f32)
 
-        def run(rows):
+        def run():
             cd_mod._launch_metrics(
                 lib, stream(), cfg, X, W, vb, hb, sigma, msre_col, 7, 1000,
                 ws, [ptr(rows, j) for j in range(3)],
                 launches={'cd_metrics': 0})
-            return rows
 
         def plain():
             flip = pll_flip_index(7, 1000, B, V, X.device)
@@ -3270,31 +2484,14 @@ def kernel_times(torch):
                                   cfg.hidden, sigma,
                                   pll_h_hats(cfg, 7, 1000, X.device)),
                     l2 * 0.5 * torch.sum(W * W))
-        got = run(torch.full((3,), float('nan'), **f32))
-        again = run(torch.full((3,), float('nan'), **f32))
-        want = plain()
-        torch.cuda.synchronize()
-        tols = CIFAR_TOL if label in ('grbm', 'mrbm') else TOL
-        bad = {k: e for k, e in (
-            (k, excess(got[j], want[j], tols[k]))
-            for j, k in enumerate(ROWS)) if not e <= 0.}
-        same = torch.equal(got, again)
-        if bad or not same:
-            raise AssertionError('cd_metrics %s: kernel and plain version '
-                                 'disagree (rows %s against %s, excess %s, '
-                                 'rerun identical %s)' % (
-                                     label, got.tolist(),
-                                     [float(w) for w in want], bad, same))
-        rows = torch.empty(3, **f32)
         # one product x.W (the flipped row's is x.W plus one row of W) and
         # W^2 with Bernoulli hidden units; with multinomial ones no product:
         # W^2, u = W.hh and u_f = W.hh_f, then x.u per row
-        work = ((0., 6. * V * H + 8. * B * V) if n else
-                (2. * B * V * H, 2. * V * H + 12. * B * H + 6. * B * V)) + (
-            4. * (B * V + V * H + 3 * V + H),)
-        record('cd_metrics', label, lambda: run(rows), plain, work,
-               per_step=per_1000 / 1000., per_1000=per_1000,
-               err=max(float(abs(g - w)) for g, w in zip(got, want)))
+        work = (Work(0., 6. * V * H + 8. * B * V) if n else
+                Work(2. * B * V * H, 2. * V * H + 12. * B * H + 6. * B * V)) \
+            + Work(nbytes=4. * (B * V + V * H + 3 * V + H))
+        record('cd_metrics', label, run, plain, work,
+               per_step=per_1000 / 1000., per_1000=per_1000)
         # each launch alone: the first (the product with its epilogue, or
         # the two count vectors), then the pass over W
         plan = cd_mod.launch_plan(B, H, V, X.device, stream())[0]
@@ -3331,11 +2528,7 @@ def kernel_times(torch):
 
     # the free-energy probe at the M-RBM's shape (multinomial hidden units)
     # and the G-RBM's (Gaussian visible, Bernoulli hidden), B 100: its two
-    # launches through bm_fe_probe, held against the plain version (the
-    # count vectors equal, fe within 1e-5 max(1, |fe|) as in phase 10) and
-    # a rerun bit for bit, then timed
-    from boltzmann_machines_tpu_torch.ops.samplers import (
-        launch_probe, make_free_energy_probe)
+    # launches through bm_fe_probe
     for label, (V, H), gaussian, n in (('mrbm', MRBM, False, N_SAMPLES),
                                        ('grbm', GRBM, True, 0)):
         B = CIFAR_B
@@ -3346,10 +2539,10 @@ def kernel_times(torch):
             V, H, B, 'gaussian' if gaussian else 'bernoulli',
             'multinomial' if n else 'bernoulli', n or None)
         ws = cd_mod.metrics_workspace(V, H, B, torch.device('cuda'))
+        fe, h_hat = torch.empty((), **f32), torch.empty(H, **f32)
 
-        def run(fe=torch.empty((), **f32), h_hat=torch.empty(H, **f32)):
+        def run():
             launch_probe(X, W, vb, hb, sigma, n, 9, ws, fe, h_hat, stream())
-            return fe, h_hat
 
         def plain(zeros=torch.zeros(H, **f32)):
             if n:
@@ -3358,26 +2551,13 @@ def kernel_times(torch):
             # no copy from the host)
             return cd_mod.free_energy_sum(X, X @ W, vb, hb, 'gaussian',
                                           'bernoulli', sigma) / B, zeros
-        got = run(torch.empty((), **f32), torch.full((H,), 7., **f32))
-        again = run(torch.empty((), **f32), torch.full((H,), 7., **f32))
-        want = plain()
-        torch.cuda.synchronize()
-        err = abs(float(got[0]) - float(want[0]))
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        if not (err <= 1e-5 * max(1., abs(float(want[0]))) and same
-                and torch.equal(got[1], want[1].reshape(-1))):
-            raise AssertionError('fe_probe %s: kernel and plain version '
-                                 'disagree (%s against %s, rerun identical '
-                                 '%s)' % (label, float(got[0]),
-                                          float(want[0]), same))
         # multinomial hidden units: the draw, u = W.hh and x.u per row, no
         # product; Bernoulli ones: the product X.W and a softplus an entry;
         # both: the visible terms
-        work = ((0., 2. * V * H + 4. * B * V) if n else
-                (2. * B * V * H, 6. * B * H + 4. * B * V)) + (
-            4. * (B * V + V * H + 2 * V + 2 * H),)
-        record('fe_probe', label, run, plain, work, per_step=0, per_1000=0,
-               err=err)
+        work = (Work(0., 2. * V * H + 4. * B * V) if n else
+                Work(2. * B * V * H, 6. * B * H + 4. * B * V)) + \
+            Work(nbytes=4. * (B * V + V * H + 2 * V + 2 * H))
+        record('fe_probe', label, run, plain, work, per_step=0, per_1000=0)
 
     # the DBM step's bias updates: vb (data X, no sparsity), hb0, hb1; each
     # vector alone and, as the step launches them, all three in one launch
@@ -3393,7 +2573,6 @@ def kernel_times(torch):
                      pen=torch.empty(n_units, **f32),
                      cost=SPARSITY_COST[l - 1], target=SPARSITY_TARGET[l - 1])
         vecs.append(v)
-    params = ('b', 'db', 'q', 'mu', 'pen')
 
     def bias_launch(vs):
         """One launch of the vectors `vs` in place."""
@@ -3418,77 +2597,36 @@ def kernel_times(torch):
         out['b'] = v['b'] + out['db']
         return out
 
-    def copies():
-        return [dict(v, **{k: v[k].clone() for k in params
-                           if v[k] is not None}) for v in vecs]
-    got, again = copies(), copies()
-    bias_launch(got)
-    bias_launch(again)
-    torch.cuda.synchronize()
-    errs = []
-    for l, (v, g_, a_) in enumerate(zip(vecs, got, again)):
-        want = bias_plain(v)
-        bad = {k: e for k, e in (
-            (k, excess(g_[k], want[k], *((KT_TOL['q'], N + M) if k in
-                                          ('q', 'mu') else
-                                          (KT_TOL['state'], 1.))))
-            for k in want) if not e <= 0.}
-        same = all(torch.equal(g_[k], a_[k]) for k in want)
-        if bad or not same:
-            raise AssertionError('dbm_bias_update vector %d: kernel and '
-                                 'plain version disagree (excess %s, rerun '
-                                 'identical %s)' % (l, bad, same))
-        errs.append(max(float((g_[k] - want[k]).abs().max()) for k in want))
-    work = [(0., 4. * (N + M) * v['b'].numel(),
-             4. * ((N + M) * v['b'].numel() + 9 * v['b'].numel()))
+    work = [Work(0., 4. * (N + M) * v['b'].numel(),
+                 4. * ((N + M) * v['b'].numel() + 9 * v['b'].numel()))
             for v in vecs]
-    timed = copies()
+    timed = [dict(v, **{k: v[k].clone() for k in ('b', 'db', 'q', 'mu', 'pen')
+                        if v[k] is not None}) for v in vecs]
     for l, v in enumerate(timed):
         label = 'dbm_vb' if l == 0 else 'dbm_hb%d' % (l - 1)
         record('dbm_bias_update', label, lambda v=v: bias_launch([v]),
                lambda v=v: bias_plain(v), work[l],
-               colsum_ms(N + M, v['b'].numel()), per_step=0, per_1000=0,
-               err=errs[l])
+               colsum_ms(N + M, v['b'].numel()), per_step=0, per_1000=0)
     T = rand(N + M, sum(DBM_SIZES))
     record('dbm_bias_update', 'dbm_step', lambda: bias_launch(timed),
-           lambda: [bias_plain(v) for v in vecs],
-           tuple(sum(w[i] for w in work) for i in range(3)),
+           lambda: [bias_plain(v) for v in vecs], sum(work, Work()),
            graph_ms(torch, lambda: torch.sum(T, 0)), per_step=1,
-           per_1000=1000, err=max(errs))
+           per_1000=1000)
 
-    # the DBM step's msre, held against the plain one (DBM_TOL) and a
-    # rerun, with the count copied
+    # the DBM step's msre, the count copied
     V = DBM_SIZES[0]
     X, vm = (rand(DBM_B, V) < 0.3).float(), rand(DBM_B, V)
     ctrl = torch.tensor([0, 17], dtype=torch.int32, device='cuda')
     part = torch.empty(dbm_ops.MSRE_BLOCKS, **f32)
     count = torch.zeros(1, dtype=torch.int32, device='cuda')
-
-    def run(msre):
-        dbm_ops._check(dlib.bm_dbm_msre(
-            ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), ptr(part),
-            dbm_ops.MSRE_BLOCKS, ptr(count), ptr(msre, 0), ptr(msre, 1),
-            stream()), 'dbm_msre')
-        return msre
-
-    def plain():
-        return torch.mean(torch.square(X - vm)), ctrl[1].float()
-    got = run(torch.full((2,), float('nan'), **f32))
-    again = run(torch.full((2,), float('nan'), **f32))
-    want = plain()
-    torch.cuda.synchronize()
-    err = abs(float(got[0]) - float(want[0]))
-    same = torch.equal(got, again)
-    if not (err <= DBM_TOL['msre'] and same and float(got[1]) == 17.
-            and int(count[0]) == 0):
-        raise AssertionError('dbm_msre: kernel and plain version disagree '
-                             '(%s against %s, rerun %s, counter %d)' % (
-                                 got.tolist(), float(want[0]), again.tolist(),
-                                 int(count[0])))
     msre = torch.empty(2, **f32)
-    record('dbm_msre', 'dbm', lambda: run(msre), plain,
-           (0., 3. * DBM_B * V, 8. * DBM_B * V),
-           graph_ms(torch, lambda: F.mse_loss(vm, X)), err=err)
+    record('dbm_msre', 'dbm', lambda: dbm_ops._check(dlib.bm_dbm_msre(
+        ptr(X), ptr(vm), DBM_B * V, ptr(ctrl), ptr(part),
+        dbm_ops.MSRE_BLOCKS, ptr(count), ptr(msre, 0), ptr(msre, 1),
+        stream()), 'dbm_msre'),
+        lambda: (torch.mean(torch.square(X - vm)), ctrl[1].float()),
+        Work(0., 3. * DBM_B * V, 8. * DBM_B * V),
+        graph_ms(torch, lambda: F.mse_loss(vm, X)))
 
     # the mean-field graph at the step's shapes, from the random state of
     # dbm_init's scale.  The check: one layer of the loop, the sweep's last
@@ -3501,7 +2639,6 @@ def kernel_times(torch):
     # the loop at the cell's tolerance beside the same sweeps' launches
     # enqueued from the host, both at MF_BODY_SWEEPS sweeps a turn.  ctrl
     # holds the words of any of these graphs (n_mf in word 1).
-    import ctypes
     V, H1, H2 = DBM_SIZES
     X = (rand(DBM_B, V) < 0.3).float()
     Ws = (0.03 * randn(V, H1), 0.03 * randn(H1, H2))
@@ -3543,17 +2680,6 @@ def kernel_times(torch):
         one_layer = {b: make_graph([sweep_args(1)], -1., b, 1)
                      for b in (1, 2)}
         noop_turn = make_graph([sweep_args(1)], -1., 1, 2)
-        # n_mf against the plain rule: a budget of 3 sweeps at tol -1 runs
-        # all three; at tol 1 (every change of a mean is below it) the loop
-        # stops after one
-        counts = []
-        for tol in (-1., 1.):
-            launch_graph(make_graph([sweep_args(1)], tol, 3))
-            torch.cuda.synchronize()
-            counts.append(int(ctrl[1]))
-        if counts != [3, 1]:
-            raise AssertionError('mean-field check: n_mf %s, its rule gives '
-                                 '[3, 1]' % counts)
 
         def check_plain(c=ctrl):  # n_mf += 1; stop = n >= max || !(d > tol)
             n_mf = c[1] + 1
@@ -3565,10 +2691,10 @@ def kernel_times(torch):
                      noop_turn), 200))
         r['ms'] = r['sweeps_ms'][1] - r['sweeps_ms'][0] - r['layer_ms']
         r['noop_sweep_ms'] = r['noop_turn_ms'] - r['sweeps_ms'][0]
-        bound_ms, bound_by = bound(0., 3., 24.)
+        bound_ms, bound_by = bound(Work(0., 3., 24.))
         plain_ms = graph_ms(torch, check_plain)
         r.update(plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                 bound_by=bound_by, err=0.,
+                 bound_by=bound_by,
                  launched_as='a one-thread kernel node after each turn of '
                              'the mean-field graph')
         out[('dbm_mf_check', 'graph')] = r
@@ -3576,8 +2702,7 @@ def kernel_times(torch):
             'ms alone; a one-layer mean-field graph of 1 and 2 turns of a '
             'sweep %.4f and %.4f ms; the check and the WHILE turn %.4f ms a '
             'turn; a sweep after the stop %.4f ms (one turn of 2 sweeps at a '
-            'budget of 1, %.4f ms); plain %.4f ms; bound %.5f ms (%s); n_mf '
-            'against its plain rule: equal' % (
+            'budget of 1, %.4f ms); plain %.4f ms; bound %.5f ms (%s)' % (
                 r['layer_ms'], r['sweeps_ms'][0], r['sweeps_ms'][1], r['ms'],
                 r['noop_sweep_ms'], r['noop_turn_ms'], plain_ms, bound_ms,
                 bound_by))
@@ -3596,16 +2721,17 @@ def kernel_times(torch):
             for a in init:
                 launch(a)
             launch_graph(g)
+
+        def mf_work(n_mf):
+            """The loop's products (the init's two and n_mf sweeps of two),
+            X, W0, W1 and the means read once, the means written once."""
+            return Work(2. * DBM_B * (V * H1 + H1 * H2) +
+                        n_mf * 4. * DBM_B * H1 * H2, 0.,
+                        4. * (DBM_B * V + V * H1 + H1 * H2 +
+                              2 * DBM_B * (H1 + H2)))
         init = init_args(Ws)
         g50 = make_graph([sweep_args(0), sweep_args(1)], -1., 50)
-        mf_loop(init, g50)
-        torch.cuda.synchronize()
-        if int(ctrl[1]) != 50:
-            raise AssertionError('the mean-field loop ran %d sweeps of 50'
-                                 % int(ctrl[1]))
-        gemm = 2. * DBM_B * (V * H1 + H1 * H2) + 50 * 4. * DBM_B * H1 * H2
-        mf_bound = bound(gemm, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
-                                         + 2 * DBM_B * (H1 + H2)))
+        mf_bound = bound(mf_work(50))
         out[('dbm_mf_loop', 'mf_50')] = dict(
             ms=event_ms(torch, lambda: mf_loop(init, g50), 20),
             bound_ms=mf_bound[0], bound_by=mf_bound[1])
@@ -3627,9 +2753,6 @@ def kernel_times(torch):
         mf_loop(init_s, g_tol)
         torch.cuda.synchronize()
         n_mf = int(ctrl[1])
-        if not 1 <= n_mf < 50:
-            raise AssertionError('mean-field at tol 1e-7 ran %d sweeps of 50'
-                                 % n_mf)
         host = [sweep_args(0, small), sweep_args(1, small)]
         for a in host:
             a.delta_bits = ptr(ctrl)
@@ -3637,9 +2760,7 @@ def kernel_times(torch):
         def enqueued():
             for a in init_s + host * n_mf:
                 launch(a)
-        gemm_s = 2. * DBM_B * (V * H1 + H1 * H2) + n_mf * 4. * DBM_B * H1 * H2
-        tol_bound = bound(gemm_s, 0., 4. * (DBM_B * V + V * H1 + H1 * H2
-                                            + 2 * DBM_B * (H1 + H2)))
+        tol_bound = bound(mf_work(n_mf))
         out[('dbm_mf_loop', 'mf_tol')] = r = dict(
             n_mf=n_mf, ms=event_ms(torch, lambda: mf_loop(init_s, g_tol), 50),
             enqueued_ms=event_ms(torch, enqueued, 50),
@@ -3656,28 +2777,17 @@ def kernel_times(torch):
             dlib.bm_dbm_mf_graph_destroy(graph)
 
     # one AIS beta's log-weight update, 100 runs: launched alone (an AIS
-    # run's last beta) and riding on the next beta's first launch (v =
-    # sigmoid(beta (x.W0^T + vb)), 100 x 784, K 512), each held against the
-    # plain update and the other bit for bit; the first launch timed with
-    # and without it
+    # run's last beta), and the next beta's first launch (v = sigmoid(beta
+    # (x.W0^T + vb)), 100 x 784, K 512) timed with and without it
     R, (V, H1, H2) = 100, DBM_SIZES
     nblk_v = dlib.bm_dbm_gemm_col_blocks(V)
     nblk_h2 = dlib.bm_dbm_gemm_col_blocks(H2)
     x, hb0 = (rand(R, H1) < 0.5).float(), 0.1 * randn(H1)
     part_v, part_h2 = randn(2 * R * nblk_v), randn(2 * R * nblk_h2)
-    log_w0 = randn(R)
+    log_w = randn(R)
     W0, vb, v = 0.03 * randn(V, H1), 0.1 * randn(V), torch.empty(R, V, **f32)
-
-    def update(log_w):
-        return dbm_ops.AisLogw(ptr(x), ptr(hb0), ptr(part_v), ptr(part_h2),
-                               ptr(log_w), R, H1, nblk_v, nblk_h2, 0.37, 0.38)
-
-    def run(log_w):
-        u = update(log_w)
-        dbm_ops._check(dlib.bm_ais_logw(
-            u.x, u.hb0, R, H1, u.part_v, nblk_v, u.part_h2, nblk_h2, 0.37,
-            0.38, u.log_w, None, stream()), 'ais_logw')
-        return log_w
+    pending = dbm_ops.AisLogw(ptr(x), ptr(hb0), ptr(part_v), ptr(part_h2),
+                              ptr(log_w), R, H1, nblk_v, nblk_h2, 0.37, 0.38)
 
     def first_launch(pending=None):
         a = dbm_ops._gemm_args(v, [(x, W0, True)], bias=vb, stream=stream())
@@ -3685,35 +2795,24 @@ def kernel_times(torch):
         dbm_ops._check(dlib.bm_ais_gemm_act(ctypes.byref(a), pending,
                                             stream()), 'dbm_gemm_act')
 
-    def plain(log_w=log_w0):
+    def plain():
         xh = x @ hb0
         pv, ph = part_v.view(2, R, nblk_v), part_h2.view(2, R, nblk_h2)
-        lp_lo = 0.37 * xh + pv[0].sum(1) + ph[0].sum(1)
-        lp_hi = 0.38 * xh + pv[1].sum(1) + ph[1].sum(1)
-        return log_w - lp_lo + lp_hi
-    alone, again, fused = (run(log_w0.clone()), run(log_w0.clone()),
-                           log_w0.clone())
-    first_launch(update(fused))
-    want = plain()
-    torch.cuda.synchronize()
-    err = float((alone - want).abs().max())
-    if not (err <= 1e-4 * float(want.abs().max()) and
-            torch.equal(alone, again) and torch.equal(alone, fused)):
-        raise AssertionError('ais_logw: kernel and plain version disagree '
-                             '(max |d| %.3g), or the fused update differs '
-                             'from the launch alone' % err)
-    log_w = log_w0.clone()
-    record('ais_logw', 'ais', lambda: run(log_w), plain,
-           (0., 2. * R * H1 + 2. * R * (nblk_v + nblk_h2),
-            4. * (R * H1 + H1 + 2 * R * (nblk_v + nblk_h2) + 2 * R)),
-           per_step=1. / N_BETAS, per_1000=1000. / N_BETAS, err=err)
-    pend = update(log_w)
+        return log_w - (0.37 * xh + pv[0].sum(1) + ph[0].sum(1)) + \
+            (0.38 * xh + pv[1].sum(1) + ph[1].sum(1))
+    record('ais_logw', 'ais', lambda: dbm_ops._check(dlib.bm_ais_logw(
+        pending.x, pending.hb0, R, H1, pending.part_v, nblk_v,
+        pending.part_h2, nblk_h2, 0.37, 0.38, pending.log_w, None, stream()),
+        'ais_logw'), plain,
+        Work(0., 2. * R * H1 + 2. * R * (nblk_v + nblk_h2),
+             4. * (R * H1 + H1 + 2 * R * (nblk_v + nblk_h2) + 2 * R)),
+        per_step=1. / N_BETAS, per_1000=1000. / N_BETAS)
     r = out[('ais_logw', 'ais')]
     r.update(first_launch_ms=graph_ms(torch, first_launch),
-             first_launch_fused_ms=graph_ms(torch, lambda: first_launch(pend)))
+             first_launch_fused_ms=graph_ms(torch,
+                                            lambda: first_launch(pending)))
     say('ais_logw fused: the beta\'s first launch %.4f ms alone, %.4f ms with '
-        'the beta before\'s update (+%.4f ms); the fused update equals the '
-        'launch alone bit for bit' % (
+        'the beta before\'s update (+%.4f ms)' % (
             r['first_launch_ms'], r['first_launch_fused_ms'],
             r['first_launch_fused_ms'] - r['first_launch_ms']))
     return out
@@ -3975,6 +3074,7 @@ def assoc_readings():
         return 1
     environment(torch)
     import importlib
+    from boltzmann_machines_tpu_torch.ops import gemm
     ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
     g = torch.Generator(device='cuda')
     g.manual_seed(43)
@@ -3991,12 +3091,14 @@ def assoc_readings():
                          for _ in range(2))
                 W = 0.01 * torch.randn((V, H), generator=g, device='cuda')
                 dW, pen = torch.zeros_like(W), torch.zeros(H, device='cuda')
+                n_tile = gemm.assoc_plan(V, H, gemm.num_sms(W.device)).n_tile
 
                 def run():
                     ce.check_launch(lib.bm_cd_assoc_update(
                         ce.ptr(X), ce.ptr(h0), ce.ptr(v), ce.ptr(h),
                         ce.ptr(pen), B, V, H, ce.ptr(W), ce.ptr(dW), 1e-4,
-                        0.5, 1e-4, torch.cuda.current_stream().cuda_stream),
+                        0.5, 1e-4, n_tile,
+                        torch.cuda.current_stream().cuda_stream),
                         'cd_assoc_update')
                 say('  %s cd_assoc_update %s (%d rows, %d x %d): %s us' % (
                     variant or 'committed', label, B, V, H, ' '.join(
@@ -4173,7 +3275,7 @@ def sampler_readings():
     environment(torch)
     import importlib
     ce = importlib.import_module('boltzmann_machines_tpu_torch.ops.cd_epoch')
-    from boltzmann_machines_tpu_torch.ops import _build, samplers
+    from boltzmann_machines_tpu_torch.ops import _build, dbm_ops, samplers
     g = torch.Generator(device='cuda')
     g.manual_seed(5)
     shape = (CIFAR_B, GRBM[0])
@@ -4181,7 +3283,7 @@ def sampler_readings():
     view = torch.rand(p.numel() + 1, generator=g, device='cuda')[1:].view(
         p.shape)
     dev, idx, n, n_normal = p.device, p.get_device(), p.numel(), 307200
-    lib = ce.library()
+    lib, dbm_lib = ce.library(), dbm_ops._library()
     out_b, out_n = torch.empty_like(p), torch.empty(shape, device=dev)
     handle = torch.cuda.current_stream(idx).cuda_stream
     args_b = (p.data_ptr(), out_b.data_ptr(), n, 7, 0, handle)
@@ -4242,8 +3344,8 @@ def sampler_readings():
         ('p.new_empty(shape)', lambda: p.new_empty(shape)),
         ('p.data_ptr()', lambda: p.data_ptr()),
         ('library()', ce.library),
-        ('ctypes, no launch: bm_assoc_n_tile',
-         lambda: lib.bm_assoc_n_tile(784, 1024, 132)),
+        ('ctypes, no launch: bm_dbm_gemm_col_blocks',
+         lambda: dbm_lib.bm_dbm_gemm_col_blocks(1024)),
         ('ctypes, a launch: bm_bernoulli_sample',
          lambda: lib.bm_bernoulli_sample(*args_b)),
         ('ctypes, a launch: bm_normal_sample',
@@ -4925,7 +4027,7 @@ def gbm_timings(torch):
 # The CD kernels at examples/dbm_cifar.py's other two shapes: the 26 small
 # patch RBMs (192 x 300, Gaussian visible, sigma 1, dbm_first, batch 48,
 # examples/dbm_cifar.py:135-152) and the M-RBM (7800 x 512, n_samples 512,
-# dbm_last, both layers sampled, :305-321), with phase 10's tolerances.
+# dbm_last, both layers sampled, :305-321).
 SMALL_RBM, SMALL_B = (192, 300), 48
 WIDE_MRBM, WIDE_N = (7800, 512), 512
 
@@ -4946,20 +4048,18 @@ def wide_mrbm_cfg(sample, metrics_every):
 
 
 def cifar_rbm_shapes(torch):
-    """Phase 22: the CD epoch kernels against their plain versions at
-    192 x 300 (B 48) and 7800 x 512 (n 512, B 100), sampling off (5 steps,
-    CIFAR_TOL) and on (20 steps, each from the kernel's state, with phase
-    10's moved-draw tolerance), the M-RBM's sampled hidden states of one
-    pass draw by draw; then ms per step, kernel and plain, sampling on.
-    Returns {label: results}."""
+    """Phase 22: the CD epoch kernels' steps at 192 x 300 (B 48) and
+    7800 x 512 (n 512, B 100), both layers sampled: ms per step, kernel and
+    plain.  Returns {label: results}."""
     import numpy as np
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         cd_epoch, cd_epoch_reference)
     out = {}
+    nb = 10
     rng = np.random.RandomState(17)
-    Xs = torch.as_tensor(rng.randn(20, SMALL_B, SMALL_RBM[0]),
+    Xs = torch.as_tensor(rng.randn(nb, SMALL_B, SMALL_RBM[0]),
                          dtype=torch.float32, device='cuda')
-    Xm = torch.as_tensor(np.random.RandomState(9).rand(20, CIFAR_B,
+    Xm = torch.as_tensor(np.random.RandomState(9).rand(nb, CIFAR_B,
                                                        WIDE_MRBM[0]),
                          dtype=torch.float32, device='cuda')
     for label, make_cfg, (V, H), B, X, w_init, lr in (
@@ -4968,16 +4068,7 @@ def cifar_rbm_shapes(torch):
             ('M-RBM 7800x512 n=512', wide_mrbm_cfg, WIDE_MRBM, CIFAR_B, Xm,
              0.001, 5e-5)):
         state = cifar_state(torch, V, H, w_init, seed=V)
-        r = {'err': compare_cifar(torch, label, make_cfg(False, 1), state,
-                                  X[:5], lr, B=B)}
-        cfg = make_cfg(True, 1)
-        r['sampled_steps_exact'] = compare_cifar_sampled(
-            torch, label, cfg, state, X, lr, B=B)
-        if cfg.hidden == 'multinomial':
-            r['h_draws_differing'] = compare_passes(
-                torch, label, cfg, 'h', X, state['W'], state['hb'], 5)
         times = {'kernel': [], 'plain': []}
-        nb = 10
         for which in ('plain', 'kernel', 'plain', 'kernel', 'kernel',
                       'plain'):
             fn = cd_epoch if which == 'kernel' else cd_epoch_reference
@@ -4986,9 +4077,9 @@ def cifar_rbm_shapes(torch):
             fn(make_cfg(True, 10 ** 6), state, X[:nb], lr, MOMENTUM, 5, 0)
             torch.cuda.synchronize()
             times[which].append(time.perf_counter() - t0)
-        r['ms'] = 1e3 * min(times['kernel'][1:]) / nb
-        r['plain_ms'] = 1e3 * min(times['plain'][1:]) / nb
-        r['work'] = cd_step_work(V, H, B, n_samples=cfg.n_samples or 0)
+        r = dict(ms=1e3 * min(times['kernel'][1:]) / nb,
+                 plain_ms=1e3 * min(times['plain'][1:]) / nb,
+                 work=total(cd_step_work(V, H, B, sample_v=True)))
         say('%s sampling on: %.4f ms per step, plain %.4f ms (host clock, '
             'best of two runs of %d steps)' % (label, r['ms'], r['plain_ms'],
                                                nb))
@@ -5968,10 +5059,8 @@ def main():
     import boltzmann_machines_tpu_torch  # noqa: F401  (fails outside the repo)
     card = environment(torch)
     build()
-    worst = kernel_vs_plain(torch)
-    cifar_err, cifar_share = cifar_kernels_vs_plain(torch)
+    path_cases()
     sampler = samplers_vs_plain(torch)
-    stats_err = stats_vs_plain(torch)
     bern = bernoulli_vs_plain(torch)
     gs = gemm_shapes(torch)
     asc = assoc_shapes(torch)
@@ -5981,10 +5070,9 @@ def main():
         rbm_launches, rbm_val = main_path(torch, tmpdir)
     t = timings(torch)
     steps = t[(10, 'steps')]
-    dbm_err = dbm_kernels_vs_plain(torch)
     with tempfile.TemporaryDirectory() as tmpdir:
         dbm_launches, dbm = dbm_mnist_path(torch, tmpdir)
-        dbm_err['ais'] = max(dbm_err['ais'], ais_trained_vs_plain(torch, dbm))
+        ais_err = ais_trained_vs_plain(torch, dbm)
         small, exact = ais_vs_bruteforce(torch, tmpdir)
         opt = ais_options_vs_plain(torch, dbm._state.as_dict(), small, exact)
     del dbm, small
@@ -6052,14 +5140,14 @@ def main():
                  'cifar_grbm': with_val_passes({}, 2, 2, pll=False),
                  'cifar_mrbm': with_val_passes({}, 2, 2, multinomial=True)}
 
-    def entry(name, source, launches, err, ms, plain_ms, work,
-              library_ms=None, **extra):
-        bound_ms, bound_by = bound(*work)
+    def entry(name, source, launches, ms, plain_ms, work, library_ms=None,
+              int_ops=0., **extra):
+        bound_ms, bound_by = bound(work, int_ops)
         d = {'name': name, 'route': 'cuda', 'source': CSRC + source,
              'replaces': REPLACES[name],
              'launches': (sum(launches.values())
                           if isinstance(launches, dict) else launches),
-             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+             'ms': ms, 'plain_ms': plain_ms,
              'bound_ms': bound_ms, 'bound_by': bound_by,
              'library_ms': library_ms}
         if isinstance(launches, dict):
@@ -6073,18 +5161,16 @@ def main():
             'ms': gs[label]['ms'],
             'one_slice_ms': gs[label]['one_slice_ms'],
             'matmul_ms': gs[label]['matmul_ms'],
-            'bound_3xtf32_ms': gs[label]['bound_3xtf32'][0],
+            'bound_ms': gs[label]['bound'][0],
             'bound_f32_ms': gs[label]['bound_f32'][0],
-            'splits': gs[label]['splits'], 'n_tile': gs[label]['n_tile'],
-            'max_abs_err': gs[label]['err']} for label in labels}
+            'splits': gs[label]['splits'], 'n_tile': gs[label]['n_tile']}
+            for label in labels}
 
     def assoc(*labels):
         """The association phase's numbers for the entry's launches."""
         keys = ('ms', 'plain_ms', 'matmul_ms', 'bound_ms',
                 'bound_by', 'n_tile', 'blocks')
-        return {label: dict({k: asc[label][k] for k in keys},
-                            max_abs_err=asc[label]['err'])
-                for label in labels}
+        return {label: {k: asc[label][k] for k in keys} for label in labels}
 
     dbm_step_shapes = ('dbm_x_w0', 'dbm_mf_h0', 'dbm_mf_h1', 'dbm_gibbs_h0',
                        'dbm_gibbs_h1', 'dbm_gibbs_v')
@@ -6105,8 +5191,7 @@ def main():
         extra = {'no_library': NO_LIBRARY[kernel]} if kernel in NO_LIBRARY \
             else {}
         return {label: dict({k: kt[(kernel, label)][k] for k in keys
-                             if k in kt[(kernel, label)]},
-                            max_abs_err=kt[(kernel, label)]['err'], **extra)
+                             if k in kt[(kernel, label)]}, **extra)
                 for label in labels}
 
     # each entry's kernels timed alone by phase 18, by shape
@@ -6132,19 +5217,19 @@ def main():
     kernels = [
         # per minibatch step of the RBM path (batch 10, sampled hiddens);
         # launches from the RBM path and the DBM path's pretraining
-        entry('cd_epoch', 'cd_epoch.cu', cd_launches, worst,
+        entry('cd_epoch', 'cd_epoch.cu', cd_launches,
               1e3 * t[(10, 'kernel', True)] / steps,
               1e3 * t[(10, 'plain', True)] / steps,
-              cd_step_work(V, H, 10), kernel_us=t['kernel_us'],
+              total(cd_step_work(V, H, 10)), kernel_us=t['kernel_us'],
               device_busy=t['busy'], cd_gemm_act_library_ms=t['matmul_ms'],
               cd_gemm_act_shapes=shapes('rbm_mnist_h', 'rbm_mnist_v'),
               cd_assoc_update_shapes=assoc('rbm_mnist')),
         # per minibatch step at B = M = 100, n_mf 50, sampling on
         entry('dbm_epoch', 'dbm_ops.cu',
               add(dbm_launches['dbm_epoch'], mesh_sum['dbm_epoch']),
-              dbm_err['dbm_epoch'], td[('dbm_epoch', True, 'kernel')],
+              td[('dbm_epoch', True, 'kernel')],
               td[('dbm_epoch', True, 'plain')],
-              dbm_step_work(*DBM_SIZES, DBM_B, DBM_M, 50),
+              total(dbm_step_work(*DBM_SIZES, DBM_B, DBM_M, 50)),
               dbm_gemm_act_library_ms=td['matmul_ms'],
               dbm_gemm_act_shapes=shapes(*dbm_step_shapes),
               dbm_assoc_update_shapes=assoc('dbm_w0', 'dbm_w1'),
@@ -6162,7 +5247,7 @@ def main():
         # per Gibbs sweep of 100 particles, sampling on
         entry('dbm_sample', 'dbm_ops.cu',
               add(dbm_launches['dbm_sample'], mesh_sum['sample_v']),
-              dbm_err['dbm_sample'], td[('dbm_sample', True, 'kernel')],
+              td[('dbm_sample', True, 'kernel')],
               td[('dbm_sample', True, 'plain')],
               dbm_sweep_work(*DBM_SIZES, DBM_M),
               dbm_gemm_act_shapes=shapes(*dbm_step_shapes[3:]),
@@ -6172,9 +5257,9 @@ def main():
         # off (its Philox emulation would dominate)
         entry('ais', 'dbm_ops.cu',
               add(dbm_launches['ais'], opt['launches'], mesh_sum['log_Z']),
-              max([dbm_err['ais']] + list(opt['err'].values())),
               td[('ais', True, 'kernel')], td[('ais', False, 'plain')],
-              ais_beta_work(*DBM_SIZES, 100, 5), plain_sampling='off',
+              total(ais_beta_work(*DBM_SIZES, 100, 5)), plain_sampling='off',
+              max_abs_err=max([ais_err] + list(opt['err'].values())),
               dbm_gemm_act_shapes=shapes('ais_v', 'ais_h2', 'ais_h1',
                                          'ais_lp_v', 'ais_lp_h2'),
               launches_per_path={'dbm_mnist': dbm_launches['ais'],
@@ -6185,21 +5270,15 @@ def main():
         # per G-RBM step, 3072 x 5000, B = 100, k = 1, states sampled;
         # launches from the dbm_cifar_naive G-RBM fit
         entry('cd_epoch_gaussian', 'cd_epoch.cu', g_launches,
-              cifar_err['cd_epoch_gaussian'], tc[('grbm', True, 'kernel')],
-              tc[('grbm', True, 'plain')], cd_step_work(*GRBM, CIFAR_B),
-              sampled_probe_steps_exact=cifar_share['grbm'],
-              sampled_h_draws_differing=cifar_share['grbm_h_draws'],
-              sampled_v_states_max_rel_err=cifar_share['grbm_v_states'],
+              tc[('grbm', True, 'kernel')], tc[('grbm', True, 'plain')],
+              total(cd_step_work(*GRBM, CIFAR_B, sample_v=True)),
               cd_gemm_act_shapes=shapes('grbm_h', 'grbm_v'),
               cd_assoc_update_shapes=assoc('grbm'), **stage('grbm')),
         # per M-RBM step, 5000 x 1000, B = 100, n = 1000, hiddens sampled;
         # launches from the dbm_cifar_naive M-RBM fit
         entry('cd_epoch_multinomial', 'cd_epoch.cu', m_launches,
-              cifar_err['cd_epoch_multinomial'], tc[('mrbm', True, 'kernel')],
-              tc[('mrbm', True, 'plain')],
-              cd_step_work(*MRBM, CIFAR_B, n_samples=N_SAMPLES),
-              sampled_probe_steps_exact=cifar_share['mrbm'],
-              sampled_h_draws_differing=cifar_share['mrbm_h_draws'],
+              tc[('mrbm', True, 'kernel')], tc[('mrbm', True, 'plain')],
+              total(cd_step_work(*MRBM, CIFAR_B)),
               cd_gemm_act_shapes=shapes('mrbm_h', 'mrbm_v'),
               cd_assoc_update_shapes=assoc('mrbm'), **stage('mrbm')),
         # the three standalone launchers at the path's shapes: `launches`
@@ -6214,9 +5293,9 @@ def main():
         # sampled Gaussian visible pass)
         *(entry(name, 'cd_epoch.cu',
                 gbm_launches.get(name, sampler[name]['launches']),
-                sampler[name]['err'], sampler[name]['ms'],
-                sampler[name]['plain_ms'], sampler[name]['work'],
-                sampler[name].get('library_ms'),
+                sampler[name]['ms'], sampler[name]['plain_ms'],
+                sampler[name]['work'], sampler[name].get('library_ms'),
+                sampler[name].get('int_ops', 0.),
                 standalone_launches=sampler[name]['launches'],
                 **({'gbm_dbm_path': gbm_path} if name in gbm_launches
                    else {}),
@@ -6240,8 +5319,8 @@ def main():
         # G-RBM fit (the main path of the data-parallel slice)
         entry('cd_stats', 'cd_epoch.cu',
               {k: sum(r[k] for r in dp_stats) for k in dp_stats[0]},
-              max(stats_err.values()), wide['ms'], wide['plain_ms'],
-              stats_work(*GRBM_WIDE, CIFAR_B // DP_WORLD),
+              wide['ms'], wide['plain_ms'],
+              stats_work(*GRBM_WIDE, CIFAR_B // DP_WORLD, sample_v=True),
               launches_per_rank=dp_stats, kernel_us=wide['kernel_us'],
               device_busy=wide['busy'],
               cd_gemm_act_library_ms=wide['library_ms'],
@@ -6249,7 +5328,7 @@ def main():
               plain_sampling_off_ms=wide['plain_ms_sampling_off'],
               mnist_784x1024_local_128=dict(
                   ms=mnist['ms'], plain_ms=mnist['plain_ms'],
-                  bound_ms=bound(*stats_work(V, H, 256 // DP_WORLD))[0],
+                  bound_ms=bound(stats_work(V, H, 256 // DP_WORLD))[0],
                   cd_gemm_act_library_ms=mnist['library_ms'],
                   kernel_us=mnist['kernel_us']),
               world1_step_ms={'data_parallel': w1[('data_parallel', True)],
@@ -6264,14 +5343,15 @@ def main():
               cd_assoc_stats_shapes=assoc('stats_7800', 'stats_784')),
         # per call at (100, 7800), the G-RBM's hidden draw; `launches` its
         # count on this slice's main path (the G-B-M DBM's h0 draws, phase
-        # 23), `standalone_launches` that of the phase that drives it once
-        # per shape; `path_launches` the stats kernels' cd_gemm_act launches
+        # 23), `standalone_launches` that of the phase that drives it once;
+        # `path_launches` the stats kernels' cd_gemm_act launches
         # that carry its body (the Bernoulli hidden draws) on the 2-rank fit
         entry('bernoulli_sample', 'cd_epoch.cu',
               gbm_launches['bernoulli_sample'] +
-              mesh_sum['samplers']['bernoulli_sample'], bern['err'],
+              mesh_sum['samplers']['bernoulli_sample'],
               bern['ms'], bern['plain_ms'], bern['work'], bern['library_ms'],
-              standalone_launches=bern['launches'], gbm_dbm_path=gbm_path,
+              bern['int_ops'], standalone_launches=bern['launches'],
+              gbm_dbm_path=gbm_path,
               path_launches={'cd_gemm_act': sum(r['cd_gemm_act']
                                                 for r in dp_stats)},
               launches_per_path={
@@ -6288,8 +5368,9 @@ def main():
         # on the CIFAR path's G-RBM and M-RBM fits (two each), as those
         # paths assert them; the CIFAR models' passes by shape
         entry('cd_val', 'cd_epoch.cu', add(*val_paths.values()),
-              max(r['max_abs_err'] for r in (rbm_val, *cifar_val.values())),
               rbm_val['ms'], rbm_val['plain_ms'], rbm_val['work'],
+              max_abs_err=max(r['max_abs_err']
+                              for r in (rbm_val, *cifar_val.values())),
               launches_per_path=val_paths, feg_ms=rbm_val['feg_ms'],
               plain_feg_ms=rbm_val['plain_feg_ms'],
               metric_err=rbm_val['err'],
@@ -6299,7 +5380,7 @@ def main():
                   {k: r[k] for k in ('rows', 'feg_rows', 'batch', 'ms',
                                      'feg_ms', 'plain_ms', 'plain_feg_ms',
                                      'err')},
-                  bound_ms=bound(*r['work'])[0])
+                  bound_ms=bound(r['work'])[0])
                  for label, r in cifar_val.items()}),
     ]
     for e in kernels:
@@ -6334,7 +5415,7 @@ def main():
                  'step_7800x512_n512')):
             if e['name'] == name:
                 r = crs[label]
-                bound_ms, bound_by = bound(*r['work'])
+                bound_ms, bound_by = bound(r['work'])
                 e[key] = dict({k: v for k, v in r.items() if k != 'work'},
                               bound_ms=bound_ms, bound_by=bound_by)
     say(json.dumps({'kernels': kernels}))

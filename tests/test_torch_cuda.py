@@ -1,12 +1,17 @@
 """The port's CUDA kernels (boltzmann_machines_tpu_torch/csrc/cd_epoch.cu and
 csrc/dbm_ops.cu, behind ops/cd_epoch.py, ops/cd_stats.py, ops/samplers.py
-and ops/dbm_ops.py) against their plain PyTorch versions, on the card.  This
-file imports no JAX, so it runs where the card is:
+and ops/dbm_ops.py) against their plain PyTorch versions, on the card: at
+small ragged shapes that leave partial tiles on every edge, and at the
+widths of the paths (examples/rbm_mnist.py, dbm_mnist.py, dbm_cifar_naive.py
+and dbm_cifar.py; marked ``path_width``).  This is the one place where a
+kernel is held against its plain version; chip_smoke.py runs the
+``path_width`` cases, drives the paths and times the kernels.  On the card:
 
-    BMT_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -q
+    python3 -m pytest -m requires_cuda tests/
 
-(``BMT_TEST_TPU=1`` keeps tests/conftest.py from importing JAX.)  Without a
-CUDA device every test skips."""
+This file imports no JAX (``BMT_TEST_TPU=1`` keeps tests/conftest.py from
+importing it too, for a run of this file alone).  Without a CUDA device
+every test skips."""
 
 import numpy as np
 import pytest
@@ -17,6 +22,16 @@ from boltzmann_machines_tpu_torch.ops.cd_epoch import (
     CDEpochConfig, bias_stats_reference, cd_epoch, cd_epoch_reference)
 
 pytestmark = pytest.mark.requires_cuda
+# a case at the widths of a path (examples/rbm_mnist.py, dbm_mnist.py,
+# dbm_cifar_naive.py and dbm_cifar.py); chip_smoke.py runs these on the card
+# (``-m path_width``), so its run holds every kernel of the paths against
+# its plain version at the paths' own shapes
+PATH = pytest.mark.path_width
+
+
+def at_path(*cases):
+    """`cases`, each a tuple of a test's arguments, marked `path_width`."""
+    return [pytest.param(*case, marks=PATH) for case in cases]
 
 
 @pytest.fixture
@@ -28,12 +43,13 @@ def cuda():
     return torch.device('cuda')
 
 
-def make_inputs(V, H, B, NB, dev, seed=0):
+def make_inputs(V, H, B, NB, dev, seed=0, w_std=0.1):
+    """Binary batches and a random CD state, W of std `w_std`."""
     rng = np.random.RandomState(seed)
     X = torch.as_tensor((rng.rand(NB, B, V) < 0.3).astype(np.float32),
                         device=dev)
     state = {
-        'W': rng.randn(V, H) * 0.1, 'vb': rng.randn(V) * 0.1,
+        'W': rng.randn(V, H) * w_std, 'vb': rng.randn(V) * 0.1,
         'hb': rng.randn(H) * 0.1, 'dW': rng.randn(V, H) * 0.01,
         'dvb': rng.randn(V) * 0.01, 'dhb': rng.randn(H) * 0.01,
         'q_means': rng.rand(H),
@@ -45,9 +61,11 @@ def make_inputs(V, H, B, NB, dev, seed=0):
 # (V, H, B): the CPU tests' shape, and ragged ones that leave partial
 # 64-wide tiles on every edge, with a batch of 1 and one above a tile
 SHAPES = [(24, 16, 8), (37, 70, 3), (130, 65, 1), (50, 129, 67)]
+# examples/rbm_mnist.py's RBM at the batches of its two benchmark cells
+PATH_SHAPES = [(784, 1024, 10), (784, 1024, 256)]
 
 
-@pytest.mark.parametrize('V,H,B', SHAPES)
+@pytest.mark.parametrize('V,H,B', SHAPES + at_path(*PATH_SHAPES))
 @pytest.mark.parametrize('k', [0, 1, 2])
 def test_kernels_match_plain_version_sampling_off(cuda, V, H, B, k):
     """atol 1e-5 on state (f32 sums in another order; q_means is a batch
@@ -125,22 +143,24 @@ def test_wrapper_rejects_bad_inputs(cuda):
 # Gaussian-visible and multinomial-hidden CD kernels, samplers, probe      #
 # ---------------------------------------------------------------------- #
 def flavour_config(V, H, k, sample, flavour, metrics_every=2):
-    """(config, X-maker) of a flavour: Gaussian visible units with a scalar
-    or per-unit sigma (dbm_first's doubling), or multinomial hidden units
-    with n = 12 (dbm_last's)."""
+    """The config of a flavour: Gaussian visible units with a scalar or
+    per-unit sigma (dbm_first's doubling), multinomial hidden units with
+    n = 12 (dbm_last's), or Bernoulli units both (rbm_mnist's, no
+    multipliers)."""
     rng = np.random.RandomState(7)
     kw = {'gaussian': dict(visible='gaussian', sigma=np.float32(1.5)),
           'gaussian_per_unit': dict(visible='gaussian', sigma=(
               rng.rand(V) + 0.5).astype(np.float32)),
-          'multinomial': dict(hidden='multinomial', n_samples=12)}[flavour]
-    up, down = (2., 1.) if 'sigma' in kw else (1., 2.)
+          'multinomial': dict(hidden='multinomial', n_samples=12),
+          'bernoulli': {}}[flavour]
+    up, down = (2., 1.) if 'sigma' in kw else (1., 2.) if kw else (1., 1.)
     return CDEpochConfig(V, H, k, sample, sample, up, down, 1e-4, 0.1, 1e-2,
                          0.9, metrics_every, True, **kw)
 
 
-def flavour_inputs(V, H, B, NB, dev, flavour, seed=0):
-    X, state = make_inputs(V, H, B, NB, dev, seed)
-    if flavour != 'multinomial':
+def flavour_inputs(V, H, B, NB, dev, flavour, seed=0, w_std=0.1):
+    X, state = make_inputs(V, H, B, NB, dev, seed, w_std)
+    if flavour not in ('multinomial', 'bernoulli'):
         X = torch.as_tensor(np.random.RandomState(seed).randn(NB, B, V),
                             dtype=torch.float32, device=dev)
     return X, state
@@ -171,8 +191,15 @@ def test_flavour_kernels_match_plain_version_sampling_off(cuda, V, H, B, k,
     assert float(got[2][1]) < 0 and float(got[2][0]) == 0
 
 
-@pytest.mark.parametrize('V,H,B', SHAPES)
-@pytest.mark.parametrize('flavour', FLAVOURS)
+# the flavours at the ragged shapes, and the Bernoulli RBM at its paths'
+# widths, where ~7e5 draws a step (B 256) meet a threshold within the
+# means' rounding ~0.02 times a step
+SAMPLED_CASES = [(flavour,) + shape for shape in SHAPES
+                 for flavour in FLAVOURS] + at_path(*[
+                     ('bernoulli',) + shape for shape in PATH_SHAPES])
+
+
+@pytest.mark.parametrize('flavour,V,H,B', SAMPLED_CASES)
 def test_flavour_kernels_match_plain_version_sampling_on(cuda, V, H, B,
                                                          flavour):
     """Sampled, each step from the same state: the Box-Muller normals
@@ -211,27 +238,43 @@ def test_flavour_launch_counts(cuda):
                     'cd_val_reduce': 0}
 
 
-@pytest.mark.parametrize('flavour,layer', [
-    ('gaussian', 'v'), ('gaussian', 'h'), ('multinomial', 'h')])
-def test_gibbs_pass_states_match_plain_version(cuda, flavour, layer):
+# (flavour, layer, V, H, B, std of W): one pass of each sampled layer at
+# 300 x 1000; the dbm_cifar_naive M-RBM's hidden pass (5000 x 1000, n 1000,
+# B 100) at its W_init; and both passes of a rank of the data-parallel
+# 3072 x 7800 G-RBM (50 rows of 100 on two ranks), the hidden one at its
+# W_init and the visible one at ten times it
+GIBBS_CASES = [(flavour, layer, 300, 1000, 64, 0.1)
+               for flavour, layer in (('gaussian', 'v'), ('gaussian', 'h'),
+                                      ('multinomial', 'h'))] + at_path(
+    ('multinomial', 'h', 5000, 1000, 100, 0.01),
+    ('gaussian', 'h', 3072, 7800, 50, 8e-4),
+    ('gaussian', 'v', 3072, 7800, 50, 8e-3))
+
+
+@pytest.mark.parametrize('flavour,layer,V,H,B,w_std', GIBBS_CASES)
+@pytest.mark.parametrize('shard', [0, 1])
+def test_gibbs_pass_states_match_plain_version(cuda, flavour, layer, V, H, B,
+                                               w_std, shard):
     """The sampled states of one pass of the epoch's kernels on the same
-    inputs as the plain version: Gaussian states within 1e-5 (1 + |v|)
-    (Box-Muller ulps), Bernoulli states in <= 1e-5 of draws and multinomial
-    counts in <= 1e-3 of draws (a draw moves where its uniform lies between
-    the two versions' CDF entries, which differ by the means' rounding),
-    every count row summing to n."""
+    inputs as the plain version, under the data-parallel counter word
+    `shard` (the stats kernels' rank 1 draws under 1): Gaussian states
+    within 1e-5 (1 + |v|) (Box-Muller ulps), Bernoulli states in <= 1e-5 of
+    draws and multinomial counts in <= 1e-3 of draws (a draw moves where
+    its uniform lies between the two versions' CDF entries, which differ by
+    the means' rounding), every count row summing to n."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         _gibbs_pass, _gibbs_pass_reference)
-    V, H, B = 300, 1000, 64
     cfg = flavour_config(V, H, 1, True, flavour)
     if flavour == 'multinomial':
         cfg = cfg._replace(n_samples=1000)
-    X, state = flavour_inputs(V, H, B, 1, cuda, flavour)
+    X, state = flavour_inputs(V, H, B, 1, cuda, flavour, w_std=w_std)
     A = X[0] if layer == 'h' else \
         (torch.rand((B, H), device=cuda) < 0.5).float()
     bias = state['hb'] if layer == 'h' else state['vb']
-    mk, sk = _gibbs_pass(cfg, layer, A, state['W'], bias, 5, 2, 3)
-    mp, sp = _gibbs_pass_reference(cfg, layer, A, state['W'], bias, 5, 2, 3)
+    mk, sk = _gibbs_pass(cfg, layer, A, state['W'], bias, 5, 2, 3,
+                         shard=shard)
+    mp, sp = _gibbs_pass_reference(cfg, layer, A, state['W'], bias, 5, 2, 3,
+                                   shard=shard)
     torch.cuda.synchronize()
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-5)
     if layer == 'v':
@@ -243,7 +286,8 @@ def test_gibbs_pass_states_match_plain_version(cuda, flavour, layer):
         assert int((sk != sp).sum()) <= 1e-5 * sk.numel() + 1
 
 
-@pytest.mark.parametrize('H,n', [(16, 12), (1000, 1000), (7800, 513)])
+@pytest.mark.parametrize('H,n', [(16, 12), *at_path((1000, 1000)),
+                                 (7800, 513)])
 def test_multinomial_sample_kernel_matches_plain_version(cuda, H, n):
     """Given the same means both build the CDF in float64 (in another
     order) and round it to float32, so the counts are equal; every row
@@ -262,7 +306,8 @@ def test_multinomial_sample_kernel_matches_plain_version(cuda, H, n):
     assert bool((got.sum(1) == n).all())
 
 
-@pytest.mark.parametrize('H,n', [(5, 3), (1500, 1000), (7800, 513)])
+@pytest.mark.parametrize('H,n', [(5, 3), (1500, 1000), (7800, 513),
+                                 *at_path((1000, 1000), (512, 512))])
 def test_cd_softmax_sample_matches_plain_version(cuda, H, n):
     """K1b from pre-activations, as the epoch's multinomial hidden pass
     launches it: the means within 1e-5 of n softmax(pre) (the row's sums in
@@ -271,7 +316,8 @@ def test_cd_softmax_sample_matches_plain_version(cuda, H, n):
     at float64 ties), every row summing to n, a rerun bit for bit.  H = 5
     is below a warp, 1500 not a multiple of the block's 1024 threads
     (chunks of 2, the last ones short or empty), 7800 the widest path's
-    (62 KB of dynamic shared memory)."""
+    (62 KB of dynamic shared memory); 1000 and 512 the M-RBMs' of
+    dbm_cifar_naive.py and dbm_cifar.py at their n."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         check_launch, library, ptr)
     from boltzmann_machines_tpu_torch.ops.philox import multinomial_counts
@@ -300,9 +346,11 @@ def test_cd_softmax_sample_matches_plain_version(cuda, H, n):
 
 # (V, H, B): a batch of 1, one above a batch tile (two tiles of 128 rows),
 # V and H not multiples of 4, and a split-K plan (K = 1000 in 32 k-tiles,
-# three model tiles) at widths that take the 16-byte loads of W
+# three model tiles) at widths that take the 16-byte loads of W; and the
+# logged steps of the paths: rbm_mnist's, the G-RBM's and the M-RBM's
 METRICS_SHAPES = [(37, 70, 1), (130, 65, 131), (50, 129, 67),
-                  (1000, 300, 10)]
+                  (1000, 300, 10), *at_path(
+                      (784, 1024, 10), (3072, 5000, 100), (5000, 1000, 100))]
 METRICS_FLAVOURS = [('bernoulli', 'bernoulli'), ('gaussian', 'bernoulli'),
                     ('bernoulli', 'multinomial'),
                     ('gaussian', 'multinomial')]
@@ -377,8 +425,9 @@ def test_cd_metrics_without_pll(cuda):
 # ---------------------------------------------------------------------- #
 # (visible, hidden, B) at 5000 x 784 x 1024: the RBM cells' two batches,
 # and a Gaussian and a multinomial flavour
-VAL_CASES = [('bernoulli', 'bernoulli', 10), ('bernoulli', 'bernoulli', 256),
-             ('gaussian', 'bernoulli', 100), ('bernoulli', 'multinomial', 100)]
+VAL_CASES = at_path(('bernoulli', 'bernoulli', 10),
+                    ('bernoulli', 'bernoulli', 256)) + [
+    ('gaussian', 'bernoulli', 100), ('bernoulli', 'multinomial', 100)]
 VAL_SEED = 3000000019
 
 
@@ -515,7 +564,8 @@ def test_whole_set_passes_in_chunks(cuda, visible, hidden, monkeypatch):
 SAMPLER_SHAPES = [(1, 1), (3, 5), (7, 1001)]
 
 
-@pytest.mark.parametrize('shape', [(100, 3072)] + SAMPLER_SHAPES)
+@pytest.mark.parametrize('shape', [pytest.param((100, 3072), marks=PATH)]
+                         + SAMPLER_SHAPES)
 def test_normal_sample_kernel_matches_plain_version(cuda, shape):
     """Box-Muller in the kernel (logf, cosf, sqrtf without fast math) and
     in torch agree within a few ulps: 4e-6; one launch a call."""
@@ -530,14 +580,16 @@ def test_normal_sample_kernel_matches_plain_version(cuda, shape):
     assert abs(float(got.mean())) < 6 / np.sqrt(got.numel())
 
 
+# (V, H, B): a small shape, and the probe at the M-RBM's and the G-RBM's
+@pytest.mark.parametrize('V,H,B', [(70, 65, 37), *at_path(
+    (5000, 1000, 100), (3072, 5000, 100))])
 @pytest.mark.parametrize('visible,hidden', [
     ('bernoulli', 'bernoulli'), ('gaussian', 'bernoulli'),
     ('bernoulli', 'multinomial')])
-def test_free_energy_probe_kernel_matches_plain_version(cuda, visible,
-                                                        hidden):
+def test_free_energy_probe_kernel_matches_plain_version(cuda, V, H, B,
+                                                        visible, hidden):
     from boltzmann_machines_tpu_torch.ops.samplers import (
         make_free_energy_probe)
-    V, H, B = 70, 65, 37
     X, state = flavour_inputs(V, H, B, 1, cuda,
                               'gaussian' if visible == 'gaussian'
                               else 'multinomial')
@@ -640,17 +692,26 @@ def stats_fn(V, H, k, sample, visible='bernoulli', sigma=None, up=1.,
                                 visible=visible, sigma=sigma)
 
 
-@pytest.mark.parametrize('V,H,B', SHAPES)
+# (V, H, B, atol of the sums, std of W): the ragged shapes, and the local
+# batches of the two data-parallel paths' ranks -- rbm_mnist's 256 rows and
+# the 3072 x 7800 G-RBM's 100 over two -- at their paths' W_init, whose
+# sums run over more rows, each term within a few ulps: atol 1e-5 a row
+STATS_CASES = [shape + (1e-5, 0.1) for shape in SHAPES] + at_path(
+    (784, 1024, 128, 1e-5 * 128, 0.01), (3072, 7800, 50, 1e-5 * 50, 8e-4))
+
+
+@pytest.mark.parametrize('V,H,B,atol,w_std', STATS_CASES)
 @pytest.mark.parametrize('k', [0, 1, 2])
 @pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
-def test_cd_stats_kernels_match_plain_version(cuda, V, H, B, k, visible):
+def test_cd_stats_kernels_match_plain_version(cuda, V, H, B, atol, w_std, k,
+                                              visible):
     """Sampling off: the stats kernels (3 + 2k launches) against the plain
-    version on the same inputs, rtol / atol 1e-5 (true f32, sums in
-    another order); at k = 0 the association and the two bias sums are
-    exactly zero."""
+    version on the same inputs, rtol 1e-5 and the case's atol on the sums,
+    rtol / atol 1e-5 on v_means (true f32, sums in another order); at k = 0
+    the association and the two bias sums are exactly zero."""
     from boltzmann_machines_tpu_torch.ops.cd_stats import (
         cd_stats, cd_stats_reference)
-    X, state = make_inputs(V, H, B, 1, cuda)
+    X, state = make_inputs(V, H, B, 1, cuda, w_std=w_std)
     sigma = np.linspace(0.5, 2., V) if visible == 'gaussian' else None
     fn = stats_fn(V, H, k, False, visible, sigma, up=2.)
     before = dict(cd_stats.launches)
@@ -660,7 +721,7 @@ def test_cd_stats_kernels_match_plain_version(cuda, V, H, B, k, visible):
         'cd_gemm_act': 1 + 2 * k, 'cd_stats_sums': 1, 'cd_assoc_stats': 1}
     want, aux_p = cd_stats_reference(fn.config, state, X[0], 7, 3, 1)
     for key in want:
-        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(got[key], want[key], rtol=1e-5, atol=atol)
     torch.testing.assert_close(aux['v_means'], aux_p['v_means'], rtol=1e-5,
                                atol=1e-5)
     if k == 0:
@@ -668,17 +729,21 @@ def test_cd_stats_kernels_match_plain_version(cuda, V, H, B, k, visible):
             assert not bool(got[key].any())
 
 
+@pytest.mark.parametrize('V,H,B,w_std', [(130, 129, 64, 0.1)] + at_path(
+    (3072, 7800, 50, 8e-4)))
 @pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
-def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, visible):
+def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, V, H, B, w_std,
+                                                       visible):
     """Sampling on: at shard 0 one step's draws are the CD epoch kernels'
-    at the same (seed, it).  The epoch at lr 1, momentum 0, no L2 or
-    sparsity leaves dW = assoc / B, dvb = dvb_sum / B, q = h_sum, exact for
-    B = 64; shard 1 draws other states, the same in kernel and plain
-    version (a threshold flip, odds ~1e-7 per draw, would move h_sum by up
-    to 1)."""
+    at the same (seed, it), at a ragged shape and at a rank's share of the
+    data-parallel 3072 x 7800 G-RBM (W at its W_init).  The epoch at lr 1,
+    momentum 0, no L2 or sparsity leaves dW = assoc / B, dvb = dvb_sum / B,
+    q = h_sum, bit for bit; shard 1 draws other states, the same in kernel
+    and plain version (a hidden state that flips, odds ~1e-7 a draw, moves
+    one row's visible means by a column of W, and h_sum by far less than
+    the tolerance)."""
     from boltzmann_machines_tpu_torch.ops.cd_stats import cd_stats_reference
-    V, H, B = 130, 129, 64
-    X, state = make_inputs(V, H, B, 1, cuda)
+    X, state = make_inputs(V, H, B, 1, cuda, w_std=w_std)
     sigma = 1. if visible == 'gaussian' else None
     fn = stats_fn(V, H, 1, True, visible, sigma)
     s0, _ = fn(state, X[0], 11, 5, 0)
@@ -688,9 +753,12 @@ def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, visible):
     zero = {key: torch.zeros_like(v) for key, v in state.items()}
     ep = cd_epoch(cfg, dict(zero, W=state['W'], vb=state['vb'],
                             hb=state['hb']), X, 1., 0., 11, 4)[0]
-    torch.cuda.synchronize()
-    assert torch.equal(ep['dW'] * B, s0['assoc'])
-    assert torch.equal(ep['dvb'] * B, s0['dvb_sum'])
+    # the quotient by B, held on the card (torch divides a CUDA tensor by a
+    # Python number as a product with its reciprocal, which can round
+    # otherwise)
+    n = torch.tensor(float(B), device=cuda)
+    assert torch.equal(ep['dW'], s0['assoc'] / n)
+    assert torch.equal(ep['dvb'], s0['dvb_sum'] / n)
     assert torch.equal(ep['q_means'], s0['h_sum'])
     s1, _ = fn(state, X[0], 11, 5, 1)
     assert not torch.equal(s1['h_sum'], s0['h_sum'])
@@ -699,7 +767,8 @@ def test_cd_stats_shard0_draws_equal_the_epoch_kernels(cuda, visible):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize('shape', [(10, 1024), (100, 7800)] + SAMPLER_SHAPES)
+@pytest.mark.parametrize('shape', [pytest.param(s, marks=PATH) for s in (
+    (10, 1024), (100, 7800))] + SAMPLER_SHAPES)
 @pytest.mark.parametrize('offset', [0, 1])
 def test_bernoulli_sample_kernel_matches_plain_version(cuda, shape, offset):
     """Bit for bit, under an int seed and a two-word key, on probabilities at
@@ -735,19 +804,27 @@ def test_cd_stats_wrapper_rejects_bad_inputs(cuda):
 # ---------------------------------------------------------------------- #
 # DBM kernels (csrc/dbm_ops.cu)                                           #
 # ---------------------------------------------------------------------- #
-def make_dbm_inputs(sizes, B, M, NB, dev, seed=0):
-    """A random DBM state, minibatches and particles of `sizes`."""
+def make_dbm_inputs(sizes, B, M, NB, dev, seed=0, w_std=0.3):
+    """A random DBM state, minibatches and particles of `sizes`: W of std
+    `w_std`, or, given a pair (lo, hi), each W's columns scaled to norms
+    spaced evenly from lo to hi."""
     rng = np.random.RandomState(seed)
     L = len(sizes) - 1
 
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev)
 
+    def weights(n_in, n_out):
+        W = rng.randn(n_in, n_out)
+        if isinstance(w_std, tuple):
+            return W * np.linspace(*w_std, n_out) / np.linalg.norm(W, axis=0)
+        return W * w_std
+
     hs = sizes[1:]
     state = {
         'vb': t(rng.randn(sizes[0]) * 0.1),
         'hb': tuple(t(rng.randn(h) * 0.1) for h in hs),
-        'W': tuple(t(rng.randn(sizes[l], hs[l]) * 0.3) for l in range(L)),
+        'W': tuple(t(weights(sizes[l], hs[l])) for l in range(L)),
         'dvb': t(rng.randn(sizes[0]) * 0.01),
         'dhb': tuple(t(rng.randn(h) * 0.01) for h in hs),
         'dW': tuple(t(rng.randn(sizes[l], hs[l]) * 0.01) for l in range(L)),
@@ -781,18 +858,27 @@ def assert_dbm_state_close(got, want, B, M, atol=1e-5):
 
 # (layer sizes, B, M): ragged tile edges everywhere, a 3-layer DBM
 DBM_SHAPES = [((24, 16, 12), 8, 8), ((70, 37, 65, 20), 5, 67)]
+# (layer sizes, B, M, sample, std of W or its column norms' range): those
+# sampled and not; examples/dbm_mnist.py's DBM at B = M = 100, sampling off
+# (its 2.3e5 draws a sweep would part the chains: the *_sampled_* tests
+# below), with small weights and with column norms around the epoch test's
+# max_norm of 2, which then caps 356 of 512 and 488 of 1024 columns in the
+# first step (173 and 45 from the small weights; the plain version, CPU)
+DBM_CASES = [shape + (sample, 0.3) for shape in DBM_SHAPES
+             for sample in (False, True)] + at_path(
+                 ((784, 512, 1024), 100, 100, False, 0.03),
+                 ((784, 512, 1024), 100, 100, False, (0.5, 2.5)))
 
 
-@pytest.mark.parametrize('sizes,B,M', DBM_SHAPES)
-@pytest.mark.parametrize('sample', [False, True])
+@pytest.mark.parametrize('sizes,B,M,sample,w_std', DBM_CASES)
 @pytest.mark.parametrize('max_mf,tol', [(50, 1e-4), (3, 0.)])
 def test_dbm_epoch_kernels_match_plain_version(cuda, sizes, B, M, sample,
-                                               max_mf, tol):
+                                               w_std, max_mf, tol):
     """Mean-field that converges before its budget (tol 1e-4) and one that
     never does (tol 0, 3 sweeps): same n_mf rows; msre atol 1e-6.  With
     sampling on (~1e3 draws per step) a threshold flip is unlikely, so the
     sampling-off tolerances hold."""
-    X, state = make_dbm_inputs(sizes, B, M, 4, cuda)
+    X, state = make_dbm_inputs(sizes, B, M, 4, cuda, w_std=w_std)
     cfg = dbm_config(sizes, 2, max_mf, tol, sample)
     got = dbm_ops.dbm_epoch(cfg, state, X, 0.05, 0.5, 3, 10)
     want = dbm_ops.dbm_epoch_reference(cfg, state, X, 0.05, 0.5, 3, 10)
@@ -835,10 +921,10 @@ def test_dbm_epoch_launch_counts(cuda):
     assert dbm_ops.dbm_epoch.launches['dbm_max_norm'] == 0
 
 
-@pytest.mark.parametrize('sizes,B,M', DBM_SHAPES)
-@pytest.mark.parametrize('sample', [False, True])
-def test_dbm_sample_kernel_matches_plain_version(cuda, sizes, B, M, sample):
-    _, state = make_dbm_inputs(sizes, B, M, 1, cuda, seed=2)
+@pytest.mark.parametrize('sizes,B,M,sample,w_std', DBM_CASES)
+def test_dbm_sample_kernel_matches_plain_version(cuda, sizes, B, M, sample,
+                                                 w_std):
+    _, state = make_dbm_inputs(sizes, B, M, 1, cuda, seed=2, w_std=w_std)
     L = len(sizes) - 1
     cfg = dbm_ops.DBMSampleConfig(tuple(sizes), sample, (sample,) * L)
     dbm_ops.reset_launches()
@@ -852,12 +938,90 @@ def test_dbm_sample_kernel_matches_plain_version(cuda, sizes, B, M, sample):
     assert got[0]['v'] is got[1]
 
 
-@pytest.mark.parametrize('sizes,R', [((24, 16, 12), 8), ((70, 37, 65), 13)])
-@pytest.mark.parametrize('sample', [False, True])
-def test_ais_kernel_matches_plain_version(cuda, sizes, R, sample):
-    """Log-weights atol 2e-3: each log p~ is a sum of ~1e2 softplus terms
-    of magnitude ~1e2 taken in another order, and 2 x 50 of them
-    accumulate."""
+def dbm_step_exact(got, want, B, M):
+    """Whether a step's kernel and plain results agree within the
+    sampling-off tolerances: state atol 1e-5 + rtol 1e-5, the EMAs of batch
+    sums atol 1e-5 (B + M) + rtol 1e-4, msre atol 1e-6, n_mf within a sweep
+    (at mf_tol 1e-7 the change sits at the means' f32 rounding, so two sum
+    orders may stop a sweep apart, which then moves mu by <= 1e-7)."""
+    for key in dbm_ops.STATE_KEYS:
+        a, b = got[0][key], want[0][key]
+        sums = key in ('q_means', 'mu_means')
+        atol, rtol = (1e-5 * (B + M), 1e-4) if sums else (1e-5, 1e-5)
+        for x, y in zip(a, b) if isinstance(b, tuple) else [(a, b)]:
+            if not torch.allclose(x, y, rtol=rtol, atol=atol):
+                return False
+    return (float((got[1] - want[1]).abs().max()) <= 1e-6
+            and float((got[2] - want[2]).abs().max()) <= 1)
+
+
+@PATH
+def test_dbm_epoch_sampled_steps_at_path_width(cuda):
+    """examples/dbm_mnist.py's step (k 1, 50 sweeps at mf_tol 1e-7, its
+    l2, max_norm, sparsity and the first lr and momentum of its schedules),
+    sampling on: both draw the same Philox uniforms, and a state
+    differs only where a mean lies within rounding of its uniform (~0.01
+    such draws a step among 2.3e5), after which the chains part.  So each
+    of 20 steps starts both from the kernel's state: a step is exact
+    (dbm_step_exact) or holds a flip, which moves dW by at most lr / M a
+    flipped unit; at least 15 of 20 exact, dW of the others within
+    4 lr / M."""
+    sizes, B, M, lr, nb = (784, 512, 1024), 100, 100, 2e-3, 20
+    X, state = make_dbm_inputs(sizes, B, M, nb, cuda, seed=11, w_std=0.03)
+    cfg = dbm_ops.DBMEpochConfig(sizes, 1, 50, 1e-7, True, (True, True),
+                                 1e-7, 6., (0.2, 0.1), (1e-4, 5e-5), 0.9)
+    exact = 0
+    for i in range(nb):
+        got = dbm_ops.dbm_epoch(cfg, state, X[i:i + 1], lr, 0.5, 13, i)
+        want = dbm_ops.dbm_epoch_reference(cfg, state, X[i:i + 1], lr, 0.5,
+                                           13, i)
+        if dbm_step_exact(got, want, B, M):
+            exact += 1
+        else:
+            d_dw = max(float((a - b).abs().max())
+                       for a, b in zip(got[0]['dW'], want[0]['dW']))
+            assert d_dw <= 4 * lr / M + 1e-5, (i, d_dw)
+        state = got[0]
+    assert exact >= 15
+
+
+@PATH
+def test_dbm_sample_sampled_sweeps_at_path_width(cuda):
+    """dbm_mnist's sampled sweeps of 100 particles (sample_v's), 20 single
+    sweeps, each from the kernel's state: a sweep is exact (v and H within
+    1e-4) unless a uniform lies within rounding of its mean; at least 15 of
+    20 exact, and at most 1e-4 of the hidden states differ."""
+    sizes, M, nb = (784, 512, 1024), 100, 20
+    _, state = make_dbm_inputs(sizes, M, M, 1, cuda, seed=2, w_std=0.03)
+    cfg = dbm_ops.DBMSampleConfig(sizes, True, (True, True))
+    exact, n_diff = 0, 0
+    for i in range(nb):
+        got = dbm_ops.dbm_sample(cfg, state, 1, 100 + i)
+        want = dbm_ops.dbm_sample_reference(cfg, state, 1, 100 + i)
+        n = sum(int(((a - b).abs() > 1e-4).sum())
+                for a, b in zip(got[0]['H'], want[0]['H']))
+        exact += n == 0 and bool(((got[1] - want[1]).abs() <= 1e-4).all())
+        n_diff += n
+        state = got[0]
+    assert exact >= 15
+    assert n_diff <= 1e-4 * nb * M * sum(sizes[1:])
+
+
+# (sizes, runs, sample, atol of the log-weights): small shapes sampled and
+# not, and dbm_mnist.py's log_Z (784-512-1024, 100 runs) with sampling off
+# (a threshold flip would part a run), where each log p~ sums ~2e3
+# softplus terms to ~5e3 (f32 ulp 5e-4) and 2 x 50 of them accumulate
+AIS_CASES = [(sizes, R, sample, 2e-3)
+             for sizes, R in (((24, 16, 12), 8), ((70, 37, 65), 13))
+             for sample in (False, True)] + at_path(
+                 ((784, 512, 1024), 100, False, 0.05))
+
+
+@pytest.mark.parametrize('sizes,R,sample,atol', AIS_CASES)
+def test_ais_kernel_matches_plain_version(cuda, sizes, R, sample, atol):
+    """Log-weights within `atol`: at the small shapes 2e-3, each log p~ a
+    sum of ~1e2 softplus terms of magnitude ~1e2 taken in another order,
+    and 2 x 50 of them accumulate."""
     _, state = make_dbm_inputs(sizes, 4, 4, 1, cuda, seed=3)
     V, H1, H2 = sizes
     cfg = dbm_ops.AISConfig(V, H1, H2, 50, 2, sample, sample, sample)
@@ -868,7 +1032,7 @@ def test_ais_kernel_matches_plain_version(cuda, sizes, R, sample):
     torch.cuda.synchronize()
     assert dbm_ops.ais.launches == {'dbm_gemm_act': 50 * (3 * 2 + 2),
                                     'ais_logw': 1}
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
 # (sizes, R): V and H2 with other column-block counts (3 and 2 blocks of
@@ -899,6 +1063,58 @@ def test_ais_fused_update_edges(cuda, sizes, R, n_betas, k):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
     assert torch.equal(got, again)
+
+
+@PATH
+def test_ais_logw_fused_equals_alone(cuda):
+    """One beta's log-weight update at dbm_mnist.py's log_Z (784-512-1024,
+    100 runs): launched alone (an AIS run's last beta) and riding on the
+    next beta's first launch (``bm_ais_gemm_act``, v = sigmoid(beta
+    (x.W0^T + vb))), the same bits; both against the plain update, within
+    1e-4 of the largest log-weight; a rerun of the launch alone bit for
+    bit."""
+    import ctypes
+    lib = dbm_ops._library()
+    R, (V, H1, H2) = 100, (784, 512, 1024)
+    nblk_v, nblk_h2 = (lib.bm_dbm_gemm_col_blocks(n) for n in (V, H2))
+    rng = np.random.RandomState(11)
+
+    def t(*shape, scale=1.):
+        return torch.as_tensor(rng.randn(*shape) * scale,
+                               dtype=torch.float32, device=cuda)
+    x, hb0 = (t(R, H1) > 0).float(), t(H1, scale=0.1)
+    part_v, part_h2, log_w0 = t(2 * R * nblk_v), t(2 * R * nblk_h2), t(R)
+    W0, vb, v = t(V, H1, scale=0.03), t(V, scale=0.1), torch.empty(
+        R, V, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def update(log_w):
+        return dbm_ops.AisLogw(
+            x.data_ptr(), hb0.data_ptr(), part_v.data_ptr(),
+            part_h2.data_ptr(), log_w.data_ptr(), R, H1, nblk_v, nblk_h2,
+            0.37, 0.38)
+
+    def alone(log_w):
+        u = update(log_w)
+        dbm_ops._check(lib.bm_ais_logw(
+            u.x, u.hb0, R, H1, u.part_v, nblk_v, u.part_h2, nblk_h2, 0.37,
+            0.38, u.log_w, None, stream), 'ais_logw')
+        return log_w
+
+    got, again, fused = alone(log_w0.clone()), alone(log_w0.clone()), \
+        log_w0.clone()
+    a = dbm_ops._gemm_args(v, [(x, W0, True)], bias=vb, stream=stream)
+    a.alpha = a.gamma = 0.4
+    pending = update(fused)
+    dbm_ops._check(lib.bm_ais_gemm_act(ctypes.byref(a), ctypes.byref(
+        pending), stream), 'dbm_gemm_act')
+    pv, ph = part_v.view(2, R, nblk_v), part_h2.view(2, R, nblk_h2)
+    xh = x @ hb0
+    want = log_w0 - (0.37 * xh + pv[0].sum(1) + ph[0].sum(1)) + \
+        (0.38 * xh + pv[1].sum(1) + ph[1].sum(1))
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again) and torch.equal(got, fused)
 
 
 def ais_options(sizes, option, dev):
@@ -1419,9 +1635,9 @@ def test_dbm_mf_graph_budget_0_runs_nothing(cuda, L):
 # the tensor-core tile of cd_gemm_act and dbm_gemm_act (csrc/gemm_tc.cuh) #
 # ---------------------------------------------------------------------- #
 # (B, V, H): the ragged SHAPES and every product of the paths
-GEMM_SHAPES = [(B, V, H) for V, H, B in SHAPES] + [
+GEMM_SHAPES = [(B, V, H) for V, H, B in SHAPES] + at_path(
     (10, 784, 1024), (128, 784, 1024), (100, 3072, 5000), (100, 5000, 1000),
-    (50, 3072, 7800)]
+    (50, 3072, 7800))
 
 
 def cd_gemm(A, W, transposed, bias, sigma, mult, act, states, seed=5, it=2,
@@ -1534,8 +1750,8 @@ def test_cd_gemm_act_matches_plain_version(cuda, B, V, H, transposed, act):
     assert not states or torch.equal(got[1], again[1])
 
 
-@pytest.mark.parametrize('B,V,H', [(67, 50, 129), (10, 784, 1024),
-                                   (100, 5000, 1000), (50, 3072, 7800)])
+@pytest.mark.parametrize('B,V,H', [(67, 50, 129), *at_path(
+    (10, 784, 1024), (100, 5000, 1000), (50, 3072, 7800))])
 @pytest.mark.parametrize('transposed', [False, True])
 def test_cd_gemm_act_split_counts(cuda, B, V, H, transposed):
     """Split-K with 1, 2, 3 and 7 slices and the plan's: each within the
@@ -1599,7 +1815,7 @@ def dbm_launch(out, A, c=None, bias=None, act=dbm_ops.ACT_SIGMOID, alpha=1.,
 
 
 DBM_GEMM_SHAPES = [((24, 16, 12), 8), ((70, 37, 65), 13), ((6, 5, 4), 100),
-                   ((784, 512, 1024), 100)]
+                   *at_path(((784, 512, 1024), 100))]
 
 
 @pytest.mark.parametrize('sizes,M', DBM_GEMM_SHAPES)
@@ -1681,14 +1897,14 @@ def test_dbm_gemm_col_blocks_is_the_tiling(cuda, N):
 # G-RBM and M-RBM steps, the stats calls at 128 and 50 rows) and ragged
 # ones: V and H no multiples of 64 (and H of 4: the cp.async path), B from
 # 1 to 256
-ASSOC_SHAPES = [(10, 784, 1024), (256, 784, 1024), (100, 3072, 5000),
-                (100, 5000, 1000), (1, 24, 16), (7, 37, 70), (50, 130, 65),
-                (100, 50, 129), (256, 65, 36)]
-ASSOC_STATS_SHAPES = [(50, 3072, 7800), (128, 784, 1024), (7, 37, 70),
-                      (1, 130, 65), (256, 50, 132)]
+ASSOC_SHAPES = at_path((10, 784, 1024), (256, 784, 1024),
+                       (100, 3072, 5000), (100, 5000, 1000)) + [
+    (1, 24, 16), (7, 37, 70), (50, 130, 65), (100, 50, 129), (256, 65, 36)]
+ASSOC_STATS_SHAPES = at_path((50, 3072, 7800), (128, 784, 1024)) + [
+    (7, 37, 70), (1, 130, 65), (256, 50, 132)]
 # (N data rows, M particles, n_in, n_out): the dbm_mnist layers, and N != M
-DBM_ASSOC_SHAPES = [(100, 100, 784, 512), (100, 100, 512, 1024),
-                    (7, 10, 37, 70), (50, 100, 130, 65), (1, 256, 24, 16)]
+DBM_ASSOC_SHAPES = at_path((100, 100, 784, 512), (100, 100, 512, 1024)) + [
+    (7, 10, 37, 70), (50, 100, 130, 65), (1, 256, 24, 16)]
 
 
 def assoc_sides(K, V, H, dev, rng, gaussian):
@@ -1722,15 +1938,21 @@ def assert_update_close(got, want, E, terms, lr):
         assert excess <= 0., '%s off by %.3g over the bound' % (name, excess)
 
 
+def assoc_n_tile(V, H, dev):
+    """The association's columns per block, as the wrappers pass them."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    return gemm.assoc_plan(V, H, gemm.num_sms(dev)).n_tile
+
+
 def cd_assoc_update_launch(X, h0, v, h, pen, W, dW, lr, mom, l2):
     from boltzmann_machines_tpu_torch.ops.cd_epoch import (
         check_launch, library, ptr)
     W, dW = W.clone(), dW.clone()
-    B, V = X.shape
+    (B, V), H = X.shape, W.shape[1]
     check_launch(library().bm_cd_assoc_update(
-        ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, W.shape[1], ptr(W),
-        ptr(dW), lr, mom, l2, torch.cuda.current_stream().cuda_stream),
-        'cd_assoc_update')
+        ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, H, ptr(W), ptr(dW),
+        lr, mom, l2, assoc_n_tile(V, H, X.device),
+        torch.cuda.current_stream().cuda_stream), 'cd_assoc_update')
     return W, dW
 
 
@@ -1772,6 +1994,7 @@ def cd_assoc_stats_launch(X, h0, v, h):
     out = torch.full((V, H), float('nan'), device=X.device)
     check_launch(library().bm_cd_assoc_stats(
         ptr(X), ptr(h0), ptr(v), ptr(h), B, V, H, ptr(out),
+        assoc_n_tile(V, H, X.device),
         torch.cuda.current_stream().cuda_stream), 'cd_assoc_stats')
     return out
 
@@ -1797,11 +2020,12 @@ def test_cd_assoc_stats_matches_plain_version(cuda, B, V, H):
 
 def dbm_assoc_update_launch(Ad, Bd, Ap, Bp, pen, W, dW, lr, mom, l2):
     W, dW = W.clone(), dW.clone()
-    (N, n_in), M = Ad.shape, Ap.shape[0]
+    (N, n_in), M, n_out = Ad.shape, Ap.shape[0], W.shape[1]
     dbm_ops._check(dbm_ops._library().bm_dbm_assoc_update(
         dbm_ops._ptr(Ad), dbm_ops._ptr(Bd), dbm_ops._ptr(Ap),
-        dbm_ops._ptr(Bp), dbm_ops._ptr(pen), N, M, n_in, W.shape[1],
+        dbm_ops._ptr(Bp), dbm_ops._ptr(pen), N, M, n_in, n_out,
         dbm_ops._ptr(W), dbm_ops._ptr(dW), lr, mom, l2,
+        assoc_n_tile(n_in, n_out, Ad.device),
         torch.cuda.current_stream().cuda_stream), 'dbm_assoc_update')
     return W, dW
 
@@ -1840,19 +2064,6 @@ def test_dbm_assoc_update_matches_plain_version(cuda, N, M, n_in, n_out,
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
-@pytest.mark.parametrize('V,H', [(784, 1024), (784, 512), (512, 1024),
-                                 (3072, 5000), (5000, 1000), (3072, 7800),
-                                 (24, 16), (130, 65)])
-def test_assoc_plan_is_the_kernels(cuda, V, H):
-    """The kernel picks its width as ops/gemm.py's assoc_plan does."""
-    from boltzmann_machines_tpu_torch.ops import gemm
-    from boltzmann_machines_tpu_torch.ops.cd_epoch import library
-    n_sm = gemm.num_sms(cuda)
-    for sms in (n_sm, 114, 1):
-        assert library().bm_assoc_n_tile(V, H, sms) == \
-            gemm.assoc_plan(V, H, sms).n_tile
-
-
 # ---------------------------------------------------------------------- #
 # the column walks: cd_bias_stats (K2) and dbm_max_norm                   #
 # ---------------------------------------------------------------------- #
@@ -1882,17 +2093,18 @@ def bias_stats_launch(X, vs, vm, h0, hm, p, lr, mom, damp, cost, target):
 
 
 @pytest.mark.parametrize('B', [1, 10, 48, 100, 256])
-@pytest.mark.parametrize('V,H', [(784, 1024), (37, 70), (130, 65),
-                                 (24, 16)])
+@pytest.mark.parametrize('V,H', [(37, 70), (130, 65), (24, 16), *at_path(
+    (784, 1024), (784, 512), (512, 1024), (3072, 5000), (5000, 1000))])
 @pytest.mark.parametrize('sparsity', [False, True])
 @pytest.mark.parametrize('visible', ['bernoulli', 'gaussian'])
 def test_cd_bias_stats_matches_plain_version(cuda, B, V, H, sparsity,
                                              visible):
     """Every output of K2 (vb, dvb, hb, dhb, q, pen, msre_col) against the
-    plain arithmetic, with the tolerances of chip_smoke.py's phases 3 and
-    13: atol 1e-5 + rtol 1e-5 on the updates and the penalty, atol 1e-5 B +
-    rtol 1e-4 on q (an EMA of batch sums), atol 1e-5 + rtol 1e-5 on the
-    column sums msre_col; a same-input rerun bit for bit."""
+    plain arithmetic, at every RBM path's widths (rbm_mnist's, dbm_mnist's
+    two RBMs, the CIFAR G-RBM and M-RBM) and ragged ones: atol 1e-5 + rtol
+    1e-5 on the updates and the penalty, atol 1e-5 B + rtol 1e-4 on q (an
+    EMA of batch sums), atol 1e-5 + rtol 1e-5 on the column sums msre_col;
+    a same-input rerun bit for bit."""
     rng = np.random.RandomState(B * 7 + V + H)
 
     def t(a):
@@ -1921,7 +2133,7 @@ def test_cd_bias_stats_matches_plain_version(cuda, B, V, H, sparsity,
 
 
 @pytest.mark.parametrize('B', [1, 10, 48, 50, 100, 128, 256])
-@pytest.mark.parametrize('V,H', [(784, 1024), (37, 70), (130, 65)])
+@pytest.mark.parametrize('V,H', [*at_path((784, 1024)), (37, 70), (130, 65)])
 @pytest.mark.parametrize('aligned', [True, False])
 def test_cd_bias_stats_sums_are_cd_stats_sums(cuda, B, V, H, aligned):
     """K2 adds the batch in row order, as K2s (cd_stats_sums) does: at lr 1,
@@ -1990,14 +2202,14 @@ def stats_sums_launch(X, vs, h0, hm):
     return sums
 
 
-@pytest.mark.parametrize('B,V,H,aligned', [
-    (128, 784, 1024, True), (50, 3072, 7800, True), (50, 3072, 7800, False),
-    (3, 37, 70, True), (129, 130, 65, True)])
+@pytest.mark.parametrize('B,V,H,aligned', at_path(
+    (128, 784, 1024, True), (50, 3072, 7800, True), (50, 3072, 7800, False))
+    + [(3, 37, 70, True), (129, 130, 65, True)])
 def test_cd_stats_sums_matches_plain_version(cuda, B, V, H, aligned):
     """K2s against the plain sums of ``cd_stats_reference`` -- sum(X -
-    v_states), sum(h0 - h_means), sum(h_means) over the rows -- with
-    chip_smoke.py's STATS_TOL (atol 1e-5 x rows, rtol 1e-5: f32 sums in
-    another order), and a same-input rerun bit for bit.  The stats calls'
+    v_states), sum(h0 - h_means), sum(h_means) over the rows -- within atol
+    1e-5 x rows, rtol 1e-5 (f32 sums in another order), and a same-input
+    rerun bit for bit.  The stats calls'
     local shapes (784x1024 / 128 rows, 3072x7800 / 50), the latter also 4
     bytes off a 16-byte boundary (the scalar path); ragged widths, and 129
     rows (two of K2's 128-row chunks)."""
@@ -2027,11 +2239,11 @@ def msre_launch(X, vm, ctrl, part, count):
 
 
 @pytest.mark.parametrize('rows,cols,aligned', [
-    (100, 784, True), (100, 784, False), (1, 1, True), (3, 7, True),
+    *at_path((100, 784, True), (100, 784, False)), (1, 1, True), (3, 7, True),
     (2, 8, True), (256, 3072, True), (256, 3072, False)])
 def test_dbm_msre_matches_plain_version(cuda, rows, cols, aligned):
     """mean((X - v_means)^2) against torch.mean(torch.square(X - vm)), atol
-    1e-6 (chip_smoke.py's DBM_TOL msre: f32 sums in another order), and
+    1e-6 (the DBM epoch's msre tolerance: f32 sums in another order), and
     n_mf copied from ctrl[1].  A rerun gives the same bits and two launches
     in a row both finish (the last block re-arms the counter to 0).  The
     DBM step's 100x784, n = 1, n not a multiple of 4 (21), fewer elements
@@ -2084,9 +2296,9 @@ def max_norm_launch(W, max_norm):
     return W
 
 
-@pytest.mark.parametrize('n_in,n_out', [(784, 512), (512, 1024), (37, 101),
-                                        (130, 66), (1100, 40), (6, 5),
-                                        (1, 3)])
+@pytest.mark.parametrize('n_in,n_out', [*at_path((784, 512), (512, 1024)),
+                                        (37, 101), (130, 66), (1100, 40),
+                                        (6, 5), (1, 3)])
 def test_dbm_max_norm_matches_plain_version(cuda, n_in, n_out):
     """W[:, j] *= min(|w_j|, c) / max(|w_j|, 1e-8) against apply_max_norm,
     columns from 0.5 to 1.5 c (and one of zeros), atol 1e-5 + rtol 1e-5
@@ -2195,7 +2407,7 @@ def bias_update_plain(v, N, M, lr, mom, damp):
 # 784-512-1024; vb alone and hb with sparsity alone, ragged (no multiple of
 # 4 or 32) with N != M; more rows than one staged chunk (128); a DBM of 7
 # layers (8 vectors, the most of one launch)
-BIAS_CASES = [((784, 512, 1024), 100, 100, (False, True, True)),
+BIAS_CASES = [*at_path(((784, 512, 1024), 100, 100, (False, True, True))),
               ((37,), 7, 10, (False,)), ((70,), 50, 100, (True,)),
               ((130, 65, 33), 129, 300, (False, True, True)),
               ((5, 3, 9, 2, 31, 64, 1, 40), 3, 2, (False,) + (True,) * 7)]
@@ -2204,7 +2416,7 @@ BIAS_CASES = [((784, 512, 1024), 100, 100, (False, True, True)),
 @pytest.mark.parametrize('widths,N,M,sparse', BIAS_CASES)
 def test_dbm_bias_update_matches_plain_version(cuda, widths, N, M, sparse):
     """Every output (b, db, and with sparsity q, mu and the penalty) against
-    the plain arithmetic with chip_smoke.py's DBM tolerances: atol 1e-5 +
+    the plain arithmetic with the DBM epoch's tolerances: atol 1e-5 +
     rtol 1e-5 on b, db and the penalty, atol 1e-5 (N + M) + rtol 1e-4 on q
     and mu (EMAs of batch sums); a same-input rerun bit for bit, and each
     vector launched alone equal to it in the launch of all, bit for bit."""
@@ -2264,20 +2476,41 @@ def test_dbm_bias_update_sums_in_row_order(cuda):
 # ---------------------------------------------------------------------- #
 # (V, H, B, flavour config): the 26 small patch RBMs (Gaussian, sigma 1,
 # dbm_first, batch 48) and the M-RBM 7800 -> 512 (n_samples 512, dbm_last,
-# both layers sampled), examples/dbm_cifar.py:135-152 and :305-321
+# both layers sampled), examples/dbm_cifar.py:135-152 and :305-321; its
+# G-RBM 3072 -> 7800 (:266); and examples/dbm_cifar_naive.py's G-RBM
+# 3072 -> 5000 (a per-unit sigma of ones, dbm_first) and M-RBM 5000 -> 1000
+# (n_samples 1000, dbm_last), :103-163, all at batch 100
 CIFAR_RBM_SHAPES = [
     (192, 300, 48, dict(visible='gaussian', sigma=np.float32(1.)), (2., 1.)),
     (7800, 512, 100, dict(hidden='multinomial', n_samples=512), (1., 2.)),
+    (3072, 7800, 100, dict(visible='gaussian', sigma=np.float32(1.)),
+     (2., 1.)),
+    (3072, 5000, 100, dict(visible='gaussian',
+                           sigma=np.ones(3072, np.float32)), (2., 1.)),
 ]
+# each shape sampled and not; the M-RBM 5000 -> 1000 with sampling off
+# only: its 1e5 draws a pass move a few across the CDF's bucket edges
+# every step (the means' rounding, trap C14), more than this test's one
+# tolerance lets pass, so test_cd_epoch_sampled_steps_at_cifar_widths holds
+# its sampled steps and test_gibbs_pass_states_match_plain_version its
+# draws pass by pass
+CIFAR_RBM_CASES = at_path(*[shape + (sample,) for shape in CIFAR_RBM_SHAPES
+                            for sample in (False, True)], (
+    5000, 1000, 100, dict(hidden='multinomial', n_samples=1000), (1., 2.),
+    False))
 
 
-@pytest.mark.parametrize('V,H,B,kw,mult', CIFAR_RBM_SHAPES)
-@pytest.mark.parametrize('sample', [False, True])
+@pytest.mark.parametrize('V,H,B,kw,mult,sample', CIFAR_RBM_CASES)
 def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
-    """Sampling off: the flavour tests' tolerances over 3 steps.  Sampling
-    on, each step from the same state: all but one of 4 steps within rtol
-    1e-4, atol 1e-4 (x B for q_means) -- a multinomial draw moves across a
-    CDF boundary now and then (the means' rounding, trap C14)."""
+    """Sampling off, over 3 steps: the state within the flavour tests'
+    tolerances, msre within atol 1e-6, rtol 1e-5 (a Gaussian msre is ~1),
+    l2 within rtol 1e-5, the PLL within atol 1 + rtol 1e-3 (V x the
+    difference of two batch-mean free energies of up to ~1e3, each a sum of
+    V + H terms in another order); every metric row written (msre and l2
+    above 0, the PLL below).  Sampling on, each step from the same state:
+    all but one of 4 steps within rtol 1e-4, atol 1e-4 (x B for q_means) --
+    a multinomial draw moves across a CDF boundary now and then (the means'
+    rounding, trap C14)."""
     rng = np.random.RandomState(V)
     X = torch.as_tensor(rng.randn(4, B, V) if 'sigma' in kw
                         else rng.rand(4, B, V), dtype=torch.float32,
@@ -2296,6 +2529,9 @@ def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
                                        atol=atol, msg=key)
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1.)
+        torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
+        assert float(got[1].min()) > 0 and float(got[3].min()) > 0
+        assert float(got[2].max()) < 0
         return
     bad = 0
     for i in range(4):
@@ -2306,6 +2542,69 @@ def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
             atol=1e-4 * (B if key == 'q_means' else 1)) for key in got[0])
         state = got[0]
     assert bad <= 1
+
+
+# (atol, rtol) of a CD step's state and metric rows, kernel against plain,
+# on the same inputs (the tests above; q_means' atol is a row's); where
+# draws moved, the parameters stay there (lr <= 5e-4 scales a moved draw
+# far below it), while a moved draw changes a row's chain means by a few
+# per cent, so msre and q_means (a sum over 100 rows) by <= 1e-2 relative
+SAMPLED_TOL = {'state': (1e-5, 1e-5), 'q_means': (1e-5, 1e-2),
+               'msre': (1e-6, 1e-2), 'pll': (1., 1e-3), 'l2': (0., 1e-5)}
+
+
+def step_within(got, want, B, tols):
+    """Whether a CD step's state and metric rows are within `tols`."""
+    pairs = [(key, got[0][key], want[0][key]) for key in got[0]]
+    pairs += zip(('msre', 'pll', 'l2'), got[1:], want[1:])
+    return all(torch.allclose(a, b, rtol=tols.get(key, tols['state'])[1],
+                              atol=tols.get(key, tols['state'])[0]
+                              * (B if key == 'q_means' else 1))
+               for key, a, b in pairs)
+
+
+# (V, H, lr, W_init, the config from sample_v_states on):
+# examples/dbm_cifar_naive.py's G-RBM (Gaussian, sigma 1, dbm_first) and
+# M-RBM (n_samples 1000, hidden states sampled, dbm_last), :103-163
+CIFAR_SAMPLED_CASES = at_path(
+    (3072, 5000, 5e-4, 8e-4, (True, True, 2., 1., 0.01, 0.1, 0., 0.9, 1,
+                              True, 'gaussian', np.ones(3072, np.float32))),
+    (5000, 1000, 1e-4, 0.01, (False, True, 1., 2., 0.05, 0.1, 0., 0.9, 1,
+                              True, 'bernoulli', None, 'multinomial',
+                              1000)))
+
+
+@pytest.mark.parametrize('V,H,lr,w_init,args', CIFAR_SAMPLED_CASES)
+def test_cd_epoch_sampled_steps_at_cifar_widths(cuda, V, H, lr, w_init,
+                                                args):
+    """Sampled, B 100, 20 steps, each from the kernel's state: the draws
+    agree but where a uniform lies within rounding of its threshold or CDF
+    entry (a multinomial draw of an M-RBM pass's 1e5 moves with odds
+    ~5e-5), so each step is within SAMPLED_TOL.  A probe step (lr 1,
+    momentum 0, no metrics) counts the moved draws: dvb = mean(X -
+    v_states) moves by <= max|W| sigma / B a draw, within 20 of them."""
+    B = 100
+    rng = np.random.RandomState(V)
+    X = torch.as_tensor(rng.randn(20, B, V) if args[10] == 'gaussian'
+                        else rng.rand(20, B, V), dtype=torch.float32,
+                        device=cuda)
+    state = {key: torch.zeros(shape, device=cuda) for key, shape in (
+        ('vb', V), ('hb', H), ('dW', (V, H)), ('dvb', V), ('dhb', H),
+        ('q_means', H))}
+    state['W'] = torch.as_tensor(rng.randn(V, H) * w_init,
+                                 dtype=torch.float32, device=cuda)
+    cfg = CDEpochConfig(V, H, 1, *args)
+    probe = cfg._replace(metrics_every=10 ** 6)
+    for i in range(20):
+        got = cd_epoch(cfg, state, X[i:i + 1], lr, 0.9, 11, i)
+        want = cd_epoch_reference(cfg, state, X[i:i + 1], lr, 0.9, 11, i)
+        assert step_within(got, want, B, SAMPLED_TOL), i
+        pg = cd_epoch(probe, state, X[i:i + 1], 1., 0., 13, i)[0]
+        pw = cd_epoch_reference(probe, state, X[i:i + 1], 1., 0., 13, i)[0]
+        # sigma 1, and no Bernoulli visible draw (which would move 1 / B)
+        per_draw = float(state['W'].abs().max()) / B
+        assert float((pg['dvb'] - pw['dvb']).abs().max()) <= 20 * per_draw, i
+        state = got[0]
 
 
 def gbm_setup(dev, sizes=(24, 16, 12), B=8, M=8, NB=3, n=7, seed=0):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from boltzmann_machines_tpu_torch.ops import dbm_ops
+from boltzmann_machines_tpu_torch.ops import dbm_ops, gemm
 from boltzmann_machines_tpu_torch.ops.dbm_ops import count_mf_graph, dbm_epoch
 
 
@@ -76,7 +76,8 @@ def test_dbm_epoch_launches_one_graph_a_step(monkeypatch, case):
     freed after its last launch; the host counts its own launches, the
     graph's launches, the budget offered a step, and, from the turn count
     the graph keeps (read once, after the last launch), L x body
-    ``dbm_gemm_act`` launches and one ``dbm_mf_check`` a turn."""
+    ``dbm_gemm_act`` launches and one ``dbm_mf_check`` a turn.  Each
+    layer's association takes ``assoc_plan``'s width."""
     NB = 5
     lib = FakeLibrary(TURNS[case])
     monkeypatch.setattr(dbm_ops, '_library', lambda: lib)
@@ -84,6 +85,7 @@ def test_dbm_epoch_launches_one_graph_a_step(monkeypatch, case):
     monkeypatch.setattr(dbm_ops, 'launch_plan',
                         lambda *a: (SimpleNamespace(n_tile=8, splits=1),
                                     None, None))
+    monkeypatch.setattr(dbm_ops, 'num_sms', lambda device: 132)
     sizes, B, M, k = (12, 7, 5, 4), 3, 4, 2
     budget = 0 if case == 'budget_0' else 17
     L = len(sizes) - 1
@@ -129,6 +131,9 @@ def test_dbm_epoch_launches_one_graph_a_step(monkeypatch, case):
     assert host == names.count('bm_dbm_gemm_act')
     turns = sum(TURNS[case])
     assert dbm_epoch.launches['dbm_gemm_act'] == host + L * body * turns
+    assert [args[-2] for name, args in lib.calls
+            if name == 'bm_dbm_assoc_update'] == \
+        [gemm.assoc_plan(sizes[l], hs[l], 132).n_tile for l in range(L)] * NB
     assert dbm_epoch.launches['dbm_mf_check'] == turns
     assert dbm_epoch.graph_launches == NB
     assert dbm_epoch.sweeps == {'mf_sweeps_enqueued': NB * budget,

@@ -93,10 +93,15 @@ def one(root):
     hb, dhb, q, pen = (torch.zeros(H, **f32) for _ in range(4))
     p = ce.ptr
     stream = torch.cuda.current_stream().cuda_stream
+    assoc = [p(Xb), p(h0), p(v), p(h), p(pen), B, V, H, p(W), p(dW), 1e-4,
+             0.9, 1e-4, stream]
+    if len(ce._ARGTYPES['bm_cd_assoc_update']) == len(assoc) + 1:
+        # the association's width from ops/gemm.py's plan, before the stream
+        # (a checkout from before then chose it in C)
+        gemm = importlib.import_module('boltzmann_machines_tpu_torch.ops.gemm')
+        assoc.insert(-1, gemm.assoc_plan(V, H, gemm.num_sms(W.device)).n_tile)
     calls = {
-        'cd_assoc_update': lambda: lib.bm_cd_assoc_update(
-            p(Xb), p(h0), p(v), p(h), p(pen), B, V, H, p(W), p(dW), 1e-4,
-            0.9, 1e-4, stream),
+        'cd_assoc_update': lambda: lib.bm_cd_assoc_update(*assoc),
         'cd_bias_stats': lambda: lib.bm_cd_bias_stats(
             p(Xb), p(v), p(v), p(h0), p(h), B, V, H, p(vb), p(dvb), p(hb),
             p(dhb), p(q), p(pen), p(msre_col), 1e-4, 0.9, 0.9, 0.1, 0., 0.1,
