@@ -119,7 +119,10 @@
 //
 // Ordering: every K1 of a step reads the old vb/hb before K2 writes them; K3
 // needs K2's penalty vector; K4 reads the new W, vb, hb.  One stream, in
-// order, no host synchronisation inside an epoch.
+// order, no host synchronisation inside an epoch.  One host call an epoch
+// call, bm_cd_epoch_loop, issues every step's launches through the entry
+// points below, so the host spends a launch's own cost a kernel and no
+// interpreter time a step.
 //
 // What bounds it on an H100.  At 784x1024 the step is a few MFLOP (batch 10)
 // to ~2 GFLOP (batch 256); at the CIFAR shapes (3072x5000 and 5000x1000,
@@ -1224,6 +1227,53 @@ int launch_w_pass(const float* X, const float* W, const float* vb,
 
 }  // namespace
 
+// One cd_epoch call's launches, which bm_cd_epoch_loop issues step by step
+// (ctypes mirror ops/cd_epoch.py's EpochLoop, same field order).  Everything
+// here holds for the whole call: the wrapper's plans, workspaces and
+// buffers.  X is (NB, B, V); `streams` the Philox stream ids, h0's first,
+// then stream_v(s) and stream_h(s) for each s < k; null sigma: Bernoulli
+// visible units; n 0: Bernoulli hidden units, else the multinomial draws.
+// The products of the hidden passes and the metrics' free-energy product
+// (the same M, N and K) share the plan (h_tile, h_splits, h_ws,
+// h_counters), the visible passes' is (v_tile, ...).
+struct CdEpochLoop {
+  const float* X;
+  const float* sigma;
+  const unsigned* streams;
+  float* W;
+  float* vb;
+  float* hb;
+  float* dW;
+  float* dvb;
+  float* dhb;
+  float* q;
+  float* h0;
+  float* v_means;
+  float* h_means;
+  float* h_samp;   // null unless hidden states are sampled
+  float* v_samp;   // null unless visible states are sampled
+  float* pre;      // multinomial hidden units' pre-activations
+  float* pen;
+  float* msre_col;
+  float* h_ws;
+  unsigned* h_counters;
+  float* v_ws;
+  unsigned* v_counters;
+  float* met_rows;  // metrics_workspace: rows, hh, partials, counter
+  float* met_hh;
+  float* met_partials;
+  unsigned* met_counter;
+  float* msre_rows;  // (NB,) each
+  float* pll_rows;
+  float* l2_rows;
+  long long metrics_every;
+  int NB, B, V, H, k, n;
+  int sample_v, sample_h, compute_pll;
+  int h_tile, h_splits, v_tile, v_splits, assoc_tile, w_rows;
+  float up, down, l2, lr, mom, damp, one_minus_damp, cost, target;
+  unsigned seed, iter0;
+};
+
 extern "C" {
 
 // A(m, k) = A[m*sam + k*sak] with sak == 1; B(k, n) = Bm[k*sbk + n*sbn]
@@ -1446,6 +1496,116 @@ int bm_fe_probe(const float* X, const float* W, const float* vb,
       X, W, vb, sigma, nullptr, B, V, H, w_rows, 0.f, 1, n, hhat_out, rows,
       (H + bm::tc::kTileM - 1) / bm::tc::kTileM, seed, 0u, partials,
       counter, nullptr, nullptr, nullptr, fe_out, hhat_out, s);
+}
+
+// The launches of one cd_epoch call: for step i (it = iter0 + i + 1, X's
+// rows i*B*V on) the hidden pass on X, k visible and hidden passes, K2, K3
+// and, where it % metrics_every == 0, K4 into row i of the metric rows,
+// through the entry points above with the arguments ops/cd_epoch.py's
+// launch helpers give them.  launches[0..4] gain the launches made of
+// cd_gemm_act, cd_softmax_sample, cd_bias_stats, cd_assoc_update and
+// cd_metrics; the loop stops at the first launch that fails and returns
+// its error, with failed[0] the step and failed[1] the kernel's index in
+// `launches`.
+int bm_cd_epoch_loop(const CdEpochLoop* a, long long* launches, int* failed,
+                     void* stream) {
+  if (!a || !launches || !failed || !a->streams || a->NB < 1 || a->B < 1 ||
+      a->k < 0 || a->metrics_every < 1)
+    return (int)cudaErrorInvalidValue;
+  enum { kGemm, kSoftmax, kBias, kAssoc, kMetrics };
+  const int B = a->B, V = a->V, H = a->H;
+  // each launch: its error, else one more in its count
+  int err = 0;
+  auto done = [&](int e, int kernel, int step) {
+    err = e;
+    if (e) {
+      failed[0] = step;
+      failed[1] = kernel;
+    } else {
+      ++launches[kernel];
+    }
+    return e == 0;
+  };
+  // up * (A.W + hb) on rows A (B, V): sigmoid means and Bernoulli states,
+  // or the pre-activations, then the softmax means and counts
+  auto h_pass = [&](const float* A, float* means, float* states,
+                    unsigned it, unsigned sid, int i) {
+    if (!a->n)
+      return done(bm_cd_gemm_act(A, V, 1, a->W, H, 1, a->hb, nullptr, a->up,
+                                 kActSigmoid, B, H, V, means, states,
+                                 a->seed, it, sid, 0, a->h_tile, a->h_splits,
+                                 a->h_ws, a->h_counters, stream),
+                  kGemm, i);
+    return done(bm_cd_gemm_act(A, V, 1, a->W, H, 1, a->hb, nullptr, a->up,
+                               kActPre, B, H, V, a->pre, nullptr, a->seed,
+                               it, sid, 0, a->h_tile, a->h_splits, a->h_ws,
+                               a->h_counters, stream),
+                kGemm, i) &&
+           done(bm_cd_softmax_sample(a->pre, 1, B, H, a->n, means, states,
+                                     a->seed, it, sid, stream),
+                kSoftmax, i);
+  };
+  for (int i = 0; i < a->NB; ++i) {
+    const float* X = a->X + (long long)i * B * V;
+    const unsigned it = a->iter0 + (unsigned)i + 1u;
+    if (!h_pass(X, a->h0, a->h_samp, it, a->streams[0], i)) return err;
+    const float* h_states = a->sample_h ? a->h_samp : a->h0;
+    const float* v_states = X;
+    const float* v_m = X;
+    const float* h_m = a->h0;
+    for (int s = 0; s < a->k; ++s) {
+      // down (h.W^T + vb): sigmoid, or Gaussian (times sigma) and its draws
+      if (!done(bm_cd_gemm_act(h_states, H, 1, a->W, 1, H, a->vb, a->sigma,
+                               a->down,
+                               a->sigma ? kActGaussian : kActSigmoid, B, V,
+                               H, a->v_means, a->v_samp, a->seed, it,
+                               a->streams[1 + 2 * s], 0, a->v_tile,
+                               a->v_splits, a->v_ws, a->v_counters, stream),
+                kGemm, i))
+        return err;
+      v_m = a->v_means;
+      v_states = a->sample_v ? a->v_samp : a->v_means;
+      if (!h_pass(v_states, a->h_means, a->h_samp, it,
+                  a->streams[2 + 2 * s], i))
+        return err;
+      h_m = a->h_means;
+      h_states = a->sample_h ? a->h_samp : a->h_means;
+    }
+    if (!done(bm_cd_bias_stats(X, v_states, v_m, a->h0, h_m, B, V, H, a->vb,
+                               a->dvb, a->hb, a->dhb, a->q, a->pen,
+                               a->msre_col, a->lr, a->mom, a->damp,
+                               a->one_minus_damp, a->cost, a->target,
+                               stream),
+              kBias, i) ||
+        !done(bm_cd_assoc_update(X, a->h0, v_states, h_m, a->pen, B, V, H,
+                                 a->W, a->dW, a->lr, a->mom, a->l2,
+                                 a->assoc_tile, stream),
+              kAssoc, i))
+      return err;
+    if ((long long)it % a->metrics_every) continue;
+    int fe_tiles = 0;
+    if (a->compute_pll && a->n) {
+      if (!done(bm_cd_metrics_draw(H, a->n, a->seed, it, a->met_hh, stream),
+                kMetrics, i))
+        return err;
+    } else if (a->compute_pll) {
+      if (!done(bm_cd_metrics_fe(X, a->W, a->hb, B, V, H, a->seed, it,
+                                 a->h_tile, a->h_splits, a->h_ws,
+                                 a->h_counters, a->met_rows, stream),
+                kMetrics, i))
+        return err;
+      fe_tiles = (H + bm::tc::kTileM - 1) / bm::tc::kTileM;
+    }
+    if (!done(bm_cd_metrics(X, a->W, a->vb, a->sigma, a->msre_col, B, V, H,
+                            a->w_rows, a->l2, a->compute_pll, a->n, a->met_hh,
+                            a->met_rows, fe_tiles, a->seed, it,
+                            a->met_partials, a->met_counter,
+                            a->msre_rows + i, a->pll_rows + i,
+                            a->l2_rows + i, stream),
+              kMetrics, i))
+      return err;
+  }
+  return 0;
 }
 
 }  // extern "C"

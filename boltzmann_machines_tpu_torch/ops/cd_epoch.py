@@ -26,7 +26,11 @@ Three parts:
   tensor launches the hand-written kernels of ``csrc/cd_epoch.cu`` (built
   on first use) or raises;
 * ``cd_epoch.launches`` -- how many times each kernel was launched (the
-  whole-set passes of ``ops/cd_val.py`` count theirs here too).
+  whole-set passes of ``ops/cd_val.py`` count theirs here too), and
+  ``cd_epoch.loop`` -- the calls of the C step loop and the steps they ran.
+
+On CUDA one C call an epoch call, ``bm_cd_epoch_loop``, issues every
+step's launches: ``epoch_launches`` counts them.
 
 Random draws (sampled states, the PLL flip and count vectors) come from the
 Philox stream of ``ops/philox.py``, which the kernels reproduce exactly.
@@ -319,7 +323,33 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _F = ctypes.c_float
+
+
+class EpochLoop(ctypes.Structure):
+    """The ``CdEpochLoop`` struct of csrc/cd_epoch.cu (same field order):
+    one ``cd_epoch`` call's launches, for ``bm_cd_epoch_loop``."""
+    _fields_ = (
+        [(n, _P) for n in (
+            'X', 'sigma', 'streams', 'W', 'vb', 'hb', 'dW', 'dvb', 'dhb', 'q',
+            'h0', 'v_means', 'h_means', 'h_samp', 'v_samp', 'pre', 'pen',
+            'msre_col', 'h_ws', 'h_counters', 'v_ws', 'v_counters',
+            'met_rows', 'met_hh', 'met_partials', 'met_counter', 'msre_rows',
+            'pll_rows', 'l2_rows')] +
+        [('metrics_every', _L)] +
+        [(n, _I) for n in (
+            'NB', 'B', 'V', 'H', 'k', 'n', 'sample_v', 'sample_h',
+            'compute_pll', 'h_tile', 'h_splits', 'v_tile', 'v_splits',
+            'assoc_tile', 'w_rows')] +
+        [(n, _F) for n in ('up', 'down', 'l2', 'lr', 'mom', 'damp',
+                           'one_minus_damp', 'cost', 'target')] +
+        [(n, _U) for n in ('seed', 'iter0')])
+
+
+#: the kernels whose launches ``bm_cd_epoch_loop`` counts, in its order
+LOOP_KERNELS = KERNELS[:5]
 _ARGTYPES = {
+    'bm_cd_epoch_loop': [ctypes.POINTER(EpochLoop), ctypes.POINTER(_L),
+                         ctypes.POINTER(_I), _P],
     'bm_cd_gemm_act': [_P, _L, _L, _P, _L, _L, _P, _P, _F, _I, _I, _I, _I,
                        _P, _P, _U, _U, _U, _U, _I, _I, _P, _P, _P],
     'bm_cd_softmax_sample': [_P, _I, _I, _I, _I, _P, _P, _U, _U, _U, _P],
@@ -561,7 +591,9 @@ def _gibbs_pass(cfg, layer, A, W, bias, seed, it, stream_id, sample=True,
 
 
 def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
-    """Launch the kernels of ``csrc/cd_epoch.cu`` for every minibatch."""
+    """Launch the kernels of ``csrc/cd_epoch.cu`` for every minibatch: one
+    call of ``bm_cd_epoch_loop`` issues every step's launches, from the
+    plans, buffers and Philox streams worked out here once."""
     V, H = cfg.n_visible, cfg.n_hidden
     if X_batches.dim() != 3 or X_batches.shape[2] != V \
             or X_batches.shape[0] < 1 or X_batches.shape[1] < 1:
@@ -582,7 +614,6 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                          'bits')
 
     lib = library()
-    launches = cd_epoch.launches
     dev = X_batches.device
     # the epoch updates copies of the state in place, batch after batch
     W, vb, hb, dW, dvb, dhb, q = (state[key].clone() for key in STATE_KEYS)
@@ -601,46 +632,44 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                                                 device=dev)
                                     for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    lr, mom = float(lr), float(momentum)
-    seed = int(seed)
-    n_tile = assoc_plan(V, H, num_sms(dev)).n_tile
-
-    for i in range(NB):
-        X = X_batches[i]
-        it = int(iter0) + i + 1
-        _launch_h_pass(lib, stream, cfg, X, W, hb, h0, h_samp, pre, seed, it,
-                       STREAM_H0)
-        h_states = h_samp if cfg.sample_h_states else h0
-        v_states, v_m, h_m = X, X, h0
-        for s in range(cfg.k):
-            _launch_v_pass(lib, stream, cfg, h_states, W, vb, sigma, v_means,
-                           v_samp, seed, it, stream_v(s))
-            v_m = v_means
-            v_states = v_samp if cfg.sample_v_states else v_means
-            _launch_h_pass(lib, stream, cfg, v_states, W, hb, h_means, h_samp,
-                           pre, seed, it, stream_h(s))
-            h_m = h_means
-            h_states = h_samp if cfg.sample_h_states else h_means
-
-        damp = cfg.sparsity_damping
-        check_launch(lib.bm_cd_bias_stats(
-            ptr(X), ptr(v_states), ptr(v_m), ptr(h0), ptr(h_m), B, V, H,
-            ptr(vb), ptr(dvb), ptr(hb), ptr(dhb), ptr(q), ptr(pen),
-            ptr(msre_col), lr, mom, damp, 1. - damp, cfg.sparsity_cost,
-            cfg.sparsity_target, stream), 'cd_bias_stats')
-        launches['cd_bias_stats'] += 1
-
-        check_launch(lib.bm_cd_assoc_update(
-            ptr(X), ptr(h0), ptr(v_states), ptr(h_m), ptr(pen), B, V, H,
-            ptr(W), ptr(dW), lr, mom, cfg.l2, n_tile, stream),
-            'cd_assoc_update')
-        launches['cd_assoc_update'] += 1
-
-        if it % cfg.metrics_every == 0:
-            _launch_metrics(lib, stream, cfg, X, W, vb, hb, sigma, msre_col,
-                            seed, it, met_ws, [ptr(msre_rows, i),
-                                               ptr(pll_rows, i),
-                                               ptr(l2_rows, i)])
+    h_plan, h_ws, h_counters = launch_plan(B, H, V, dev, stream)
+    v_plan, v_ws, v_counters = launch_plan(B, V, H, dev, stream)
+    # the Philox stream of every pass of a step, in the order of its passes
+    ids = [STREAM_H0] + [sid for s in range(cfg.k)
+                         for sid in (stream_v(s), stream_h(s))]
+    streams = (ctypes.c_uint * len(ids))(*ids)
+    damp = cfg.sparsity_damping
+    args = EpochLoop(
+        X=ptr(X_batches), sigma=ptr(sigma), streams=ctypes.addressof(streams),
+        W=ptr(W), vb=ptr(vb), hb=ptr(hb), dW=ptr(dW), dvb=ptr(dvb),
+        dhb=ptr(dhb), q=ptr(q), h0=ptr(h0), v_means=ptr(v_means),
+        h_means=ptr(h_means), h_samp=ptr(h_samp), v_samp=ptr(v_samp),
+        pre=ptr(pre), pen=ptr(pen), msre_col=ptr(msre_col), h_ws=ptr(h_ws),
+        h_counters=ptr(h_counters), v_ws=ptr(v_ws),
+        v_counters=ptr(v_counters), met_rows=ptr(met_ws['rows']),
+        met_hh=ptr(met_ws['hh']), met_partials=ptr(met_ws['partials']),
+        met_counter=ptr(met_ws['counter']), msre_rows=ptr(msre_rows),
+        pll_rows=ptr(pll_rows), l2_rows=ptr(l2_rows), NB=NB, B=B, V=V, H=H,
+        k=cfg.k, n=n, sample_v=int(cfg.sample_v_states),
+        sample_h=int(cfg.sample_h_states),
+        compute_pll=int(cfg.compute_pll), metrics_every=cfg.metrics_every,
+        h_tile=h_plan.n_tile, h_splits=h_plan.splits, v_tile=v_plan.n_tile,
+        v_splits=v_plan.splits,
+        assoc_tile=assoc_plan(V, H, num_sms(dev)).n_tile,
+        w_rows=met_ws['w_rows'], up=cfg.propup_mult, down=cfg.propdown_mult,
+        l2=cfg.l2, lr=float(lr), mom=float(momentum), damp=damp,
+        one_minus_damp=1. - damp, cost=cfg.sparsity_cost,
+        target=cfg.sparsity_target, seed=int(seed), iter0=int(iter0))
+    made = (ctypes.c_longlong * len(LOOP_KERNELS))()
+    failed = (ctypes.c_int * 2)()
+    err = lib.bm_cd_epoch_loop(ctypes.byref(args), made, failed, stream)
+    for name, count in zip(LOOP_KERNELS, made):
+        cd_epoch.launches[name] += count
+    if err:
+        check_launch(err, "step {0}'s {1}".format(failed[0],
+                                                  LOOP_KERNELS[failed[1]]))
+    cd_epoch.loop['calls'] += 1
+    cd_epoch.loop['steps'] += NB
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
     return new_state, msre_rows, pll_rows, l2_rows
 
@@ -659,13 +688,32 @@ def cd_epoch(cfg, state, X_batches, lr, momentum, seed, iter0):
 
 
 cd_epoch.launches = dict.fromkeys(KERNELS, 0)
+cd_epoch.loop = {'calls': 0, 'steps': 0}
+
+
+def epoch_launches(cfg, NB, iter0):
+    """{kernel: launches} of `NB` CD steps from iteration ``iter0 + 1`` on
+    CUDA, as ``bm_cd_epoch_loop`` issues them: a step's 1 + 2k products
+    (each hidden one followed by a softmax row launch for multinomial hidden
+    units), K2 and K3, and on the steps with ``it % metrics_every == 0`` the
+    pass over W, after a first metrics launch where the PLL is on."""
+    multinomial = cfg.hidden == 'multinomial'
+    logged = (iter0 + NB) // cfg.metrics_every - iter0 // cfg.metrics_every
+    out = dict.fromkeys(KERNELS, 0)
+    out.update(cd_gemm_act=NB * (1 + 2 * cfg.k),
+               cd_softmax_sample=NB * (1 + cfg.k) if multinomial else 0,
+               cd_bias_stats=NB, cd_assoc_update=NB,
+               cd_metrics=logged * (1 + int(cfg.compute_pll)))
+    return out
 
 
 def reset_launches():
-    """Zero every launch count, and the whole-set pass counts of
-    ``ops/cd_val.py`` beside them."""
+    """Zero every launch count, the C step loop's counts and the whole-set
+    pass counts of ``ops/cd_val.py`` beside them."""
     from .cd_val import cd_val
     for name in KERNELS:
         cd_epoch.launches[name] = 0
+    for name in cd_epoch.loop:
+        cd_epoch.loop[name] = 0
     for name in cd_val.passes:
         cd_val.passes[name] = 0

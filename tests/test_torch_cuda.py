@@ -238,6 +238,141 @@ def test_flavour_launch_counts(cuda):
                     'cd_val_reduce': 0}
 
 
+def python_step_loop(cfg, state, X_batches, lr, momentum, seed, iter0):
+    """The epoch's launches issued step by step from Python through the
+    launch helpers of ops/cd_epoch.py -- the loop that ``bm_cd_epoch_loop``
+    replaced, kept as its oracle: the same kernels on the same arguments in
+    the same order, so the same bits."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        STATE_KEYS, _launch_h_pass, _launch_metrics, _launch_v_pass,
+        check_launch, library, metrics_workspace, ptr, sigma_row)
+    from boltzmann_machines_tpu_torch.ops.gemm import assoc_plan, num_sms
+    from boltzmann_machines_tpu_torch.ops.philox import (
+        STREAM_H0, stream_h, stream_v)
+    V, H = cfg.n_visible, cfg.n_hidden
+    NB, B = int(X_batches.shape[0]), int(X_batches.shape[1])
+    multinomial = cfg.hidden == 'multinomial'
+    lib = library()
+    launches = cd_epoch.launches
+    dev = X_batches.device
+    # the epoch updates copies of the state in place, batch after batch
+    W, vb, hb, dW, dvb, dhb, q = (state[key].clone() for key in STATE_KEYS)
+    sigma = sigma_row(cfg, dev)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    h0, v_means, h_means = empty(B, H), empty(B, V), empty(B, H)
+    h_samp = empty(B, H) if cfg.sample_h_states else None
+    v_samp = empty(B, V) if cfg.sample_v_states else None
+    pre = empty(B, H) if multinomial else None
+    pen, msre_col = empty(H), empty(V)
+    met_ws = metrics_workspace(V, H, B, dev)
+    msre_rows, pll_rows, l2_rows = (torch.zeros(NB, dtype=torch.float32,
+                                                device=dev)
+                                    for _ in range(3))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lr, mom = float(lr), float(momentum)
+    seed = int(seed)
+    n_tile = assoc_plan(V, H, num_sms(dev)).n_tile
+
+    for i in range(NB):
+        X = X_batches[i]
+        it = int(iter0) + i + 1
+        _launch_h_pass(lib, stream, cfg, X, W, hb, h0, h_samp, pre, seed, it,
+                       STREAM_H0)
+        h_states = h_samp if cfg.sample_h_states else h0
+        v_states, v_m, h_m = X, X, h0
+        for s in range(cfg.k):
+            _launch_v_pass(lib, stream, cfg, h_states, W, vb, sigma, v_means,
+                           v_samp, seed, it, stream_v(s))
+            v_m = v_means
+            v_states = v_samp if cfg.sample_v_states else v_means
+            _launch_h_pass(lib, stream, cfg, v_states, W, hb, h_means, h_samp,
+                           pre, seed, it, stream_h(s))
+            h_m = h_means
+            h_states = h_samp if cfg.sample_h_states else h_means
+
+        damp = cfg.sparsity_damping
+        check_launch(lib.bm_cd_bias_stats(
+            ptr(X), ptr(v_states), ptr(v_m), ptr(h0), ptr(h_m), B, V, H,
+            ptr(vb), ptr(dvb), ptr(hb), ptr(dhb), ptr(q), ptr(pen),
+            ptr(msre_col), lr, mom, damp, 1. - damp, cfg.sparsity_cost,
+            cfg.sparsity_target, stream), 'cd_bias_stats')
+        launches['cd_bias_stats'] += 1
+
+        check_launch(lib.bm_cd_assoc_update(
+            ptr(X), ptr(h0), ptr(v_states), ptr(h_m), ptr(pen), B, V, H,
+            ptr(W), ptr(dW), lr, mom, cfg.l2, n_tile, stream),
+            'cd_assoc_update')
+        launches['cd_assoc_update'] += 1
+
+        if it % cfg.metrics_every == 0:
+            _launch_metrics(lib, stream, cfg, X, W, vb, hb, sigma, msre_col,
+                            seed, it, met_ws, [ptr(msre_rows, i),
+                                               ptr(pll_rows, i),
+                                               ptr(l2_rows, i)])
+    new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
+    return new_state, msre_rows, pll_rows, l2_rows
+
+
+def loop_config(flavour, V, H, k, pll, metrics_every):
+    """rbm_mnist's RBM (hidden states sampled, no multipliers), the G-RBM
+    of dbm_cifar_naive (Gaussian visibles, per-unit sigma, both layers
+    sampled, dbm_first's doubling) or multinomial hidden units (n = 12,
+    both layers sampled)."""
+    if flavour == 'bernoulli':
+        return CDEpochConfig(V, H, k, False, True, 1., 1., 1e-4, 0.1, 1e-2,
+                             0.9, metrics_every, pll)
+    cfg = flavour_config(V, H, k, True, flavour, metrics_every)
+    return cfg._replace(compute_pll=pll)
+
+
+# (flavour, V, H, B, NB, k, PLL, metrics_every, iter0): rbm_mnist's RBM at
+# both cells' batches, logging inside the call with the PLL on and off; the
+# G-RBM at its cell's shape for a few steps; multinomial hidden units and
+# k = 2 at ragged shapes; a one-row remainder call that logs
+LOOP_CASES = at_path(
+    ('bernoulli', 784, 1024, 10, 12, 1, True, 5, 3),
+    ('bernoulli', 784, 1024, 256, 6, 1, False, 4, 0),
+    ('gaussian_per_unit', 3072, 5000, 100, 3, 1, True, 2, 0),
+    ('bernoulli', 784, 1024, 1, 1, 1, True, 1, 214)) + [
+    ('multinomial', 50, 129, 67, 5, 1, True, 2, 0),
+    ('multinomial', 37, 70, 3, 4, 2, False, 3, 1),
+    ('bernoulli', 130, 65, 8, 5, 2, True, 2, 0),
+    ('gaussian', 24, 16, 8, 6, 2, False, 1, 7)]
+
+
+@pytest.mark.parametrize('flavour,V,H,B,NB,k,pll,every,iter0', LOOP_CASES)
+def test_epoch_loop_matches_python_step_loop(cuda, flavour, V, H, B, NB, k,
+                                             pll, every, iter0):
+    """``cd_epoch``'s C step loop against the Python step loop it replaced
+    (``python_step_loop``) bit for bit: the new state and the three metric
+    rows.  Its launches as it reports them equal ``epoch_launches``'s
+    schedule and the Python loop's; one loop call of NB steps."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import epoch_launches
+    cfg = loop_config(flavour, V, H, k, pll, every)
+    X, state = flavour_inputs(V, H, B, NB, cuda, flavour,
+                              w_std=8e-4 if V == 3072 else 0.01)
+    before, loop = dict(cd_epoch.launches), dict(cd_epoch.loop)
+    got = cd_epoch(cfg, state, X, 0.01, 0.9, 3000000019, iter0)
+    diff = {n: cd_epoch.launches[n] - before[n] for n in before}
+    assert diff == epoch_launches(cfg, NB, iter0)
+    assert {n: cd_epoch.loop[n] - loop[n] for n in loop} == {
+        'calls': 1, 'steps': NB}
+    before = dict(cd_epoch.launches)
+    want = python_step_loop(cfg, state, X, 0.01, 0.9, 3000000019, iter0)
+    torch.cuda.synchronize()
+    assert {n: cd_epoch.launches[n] - before[n] for n in before} == diff
+    for key in got[0]:
+        assert torch.equal(got[0][key], want[0][key]), key
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+    logged = [i for i in range(NB) if (iter0 + i + 1) % every == 0]
+    assert logged and all(float(got[3][i]) > 0 for i in logged)
+    assert all((float(got[2][i]) != 0) == pll for i in logged)
+
+
 # (flavour, layer, V, H, B, std of W): one pass of each sampled layer at
 # 300 x 1000; the dbm_cifar_naive M-RBM's hidden pass (5000 x 1000, n 1000,
 # B 100) at its W_init; and both passes of a rank of the data-parallel

@@ -309,6 +309,26 @@ def test_launches_outside_fit_is_the_clock_check(tool):
     assert tool.launches_outside_fit(tr) == 1
 
 
+def test_epoch_loop_counts_per_slice(tool):
+    """``slice_counts`` reads the CD epoch's C loop counts, and
+    ``epoch_loop`` gives each slice's calls and steps, None where no slice
+    ran the loop (the DBM, or a port without the loop)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import cd_epoch
+    before = dict(cd_epoch.loop)
+    try:
+        cd_epoch.loop.update(calls=2, steps=430)
+        counts = tool.slice_counts()
+    finally:
+        cd_epoch.loop.update(before)
+    assert (counts['loop_calls'], counts['loop_steps']) == (2, 430)
+    grown = [{'loop_calls': 1, 'loop_steps': 5500, 'val': 1},
+             {'loop_calls': 2, 'loop_steps': 215}]
+    assert tool.epoch_loop(grown) == [{'calls': 1, 'steps': 5500},
+                                      {'calls': 2, 'steps': 215}]
+    assert tool.epoch_loop([{'loop_calls': 0, 'loop_steps': 0}]) is None
+    assert tool.epoch_loop([{'mf_sweeps': 3}]) is None
+
+
 def test_capture_spans_puts_the_spans_on_the_trace_base(tool):
     """On the CPU the profiler's host events and the spans share the
     trace's base: an op run inside a span lies inside it."""

@@ -40,7 +40,10 @@ Prints one JSON line (and writes it to FILE):
   ``mf_turns_a_step``;
 - an RBM cell: ``val_passes``, the whole-set validation and FEG passes of
   the traced slices (``ops/cd_val.cd_val.passes``: 'val' one a validation,
-  'feg' one a side of a gap).
+  'feg' one a side of a gap), and ``epoch_loop``, per traced slice, the
+  calls of the CD epoch's C step loop and the steps they ran
+  (``ops/cd_epoch.cd_epoch.loop``; absent where the port has no such
+  loop).
 """
 
 import argparse
@@ -233,16 +236,31 @@ def idle_split(traces):
 
 
 def slice_counts():
-    """The DBM's sweep counts and the RBM's whole-set pass counts, of the
+    """The DBM's sweep counts, the RBM's whole-set pass counts and the CD
+    epoch's C step loop counts (``loop_calls``, ``loop_steps``), of the
     modules a cell has loaded."""
     dbm = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
     val = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_val')
+    epoch = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_epoch')
     counts = dict(val.cd_val.passes if val is not None else {})
+    loop = getattr(getattr(epoch, 'cd_epoch', None), 'loop', None)
+    if loop is not None:
+        counts.update(loop_calls=loop['calls'], loop_steps=loop['steps'])
     if dbm is not None:
         counts.update(dbm.dbm_epoch.sweeps,
                       graph_launches=dbm.dbm_epoch.graph_launches,
                       mf_turns=dbm.dbm_epoch.launches['dbm_mf_check'])
     return counts
+
+
+def epoch_loop(grown):
+    """Per slice of `grown` (``slice_counts``' growth over each), the CD
+    epoch's C step loop calls and the steps they ran; None where no slice
+    ran the loop."""
+    if not any(g.get('loop_calls') for g in grown):
+        return None
+    return [{'calls': g.get('loop_calls', 0), 'steps': g.get('loop_steps', 0)}
+            for g in grown]
 
 
 def traced_window(session, units, plan, capture, device):
@@ -331,6 +349,9 @@ def main(argv=None):
         if any('val' in g for g in grown):
             on['val_passes'] = {k: sum(g.get(k, 0) for g in grown)
                                 for k in ('val', 'feg')}
+        loop = epoch_loop(grown)
+        if loop is not None:
+            on['epoch_loop'] = loop
         out['on'] = on
         del window, traces
 
