@@ -1,5 +1,7 @@
-// All-Bernoulli DBM kernels, hand-written for Hopper (sm_90a): the PCD /
-// mean-field training epoch, the particle sampler and the AIS sweep.
+// DBM kernels, hand-written for Hopper (sm_90a): the PCD / mean-field
+// training epoch (Bernoulli hidden layers or multinomial ones, Bernoulli or
+// Gaussian visible units), the particle sampler and the AIS sweep
+// (all-Bernoulli).
 //
 // Replaces the TPU's three kernels of boltzmann_machines_tpu/ops/pallas_dbm.py:
 //   make_dbm_epoch_kernel / _dbm_epoch_kernel   (pallas_call at :373)
@@ -27,6 +29,26 @@
 //                    states, sigmoid with the mean-field change
 //                    max |new - old| folded into a device scalar, and per-row
 //                    softplus sums at two betas written as per-block partials.
+//                    A Gaussian layer (sigma given) is an instance of its
+//                    own, dbm_gemm_act_kernel<NT, true>, so that the other
+//                    launches compile as before: the mean x sigma + b, raw
+//                    (the DBM does not divide by sigma), and the state mean +
+//                    sigma eps with eps Box-Muller on the Philox counter,
+//                    fl(fl(x sigma) + b) and fl(mean + fl(eps sigma)) as the
+//                    CD kernels' Gaussian epilogue and the plain version
+//                    compute them.
+//   dbm_softmax      a multinomial layer's rows, one block a row (rows.cuh):
+//                    the means n softmax(pre) of the pre-activations that an
+//                    identity dbm_gemm_act launch wrote, and either the change
+//                    max |new - old| in counts folded into the mean-field
+//                    sweep's change word (a node of the mean-field graph, after
+//                    its layer's product), or the Multinomial(n, means / n)
+//                    counts drawn through the CDF of means / n accumulated in
+//                    float64 (integer counts in a shared-memory histogram, so
+//                    exact in any order), draw j of row b at Philox element
+//                    b n + j on the layer's stream: cd_softmax_sample's draws.
+//                    Bound by its latency (a 1000-wide row is 4 KB): five
+//                    barriers a sampled row, two a mean-field one.
 //   dbm_mf_check     the mean-field loop's check, one thread.  The loop
 //                    runs on the device as a CUDA graph (bm_dbm_mf_graph_*):
 //                    a memset node zeroes the control words, then one
@@ -158,10 +180,16 @@
 #include "gemm.cuh"
 #include "gemm_tc.cuh"
 #include "philox.cuh"
+#include "rows.cuh"
 
 namespace {
 
+using bm::block_allreduce;
 using bm::block_sum;
+using bm::build_cdf;
+using bm::multinomial_draw;
+using bm::row_chunk;
+using bm::row_smem;
 using bm::sigmoid;
 using bm::softplus;
 
@@ -203,6 +231,26 @@ struct GemmArgs {
   // bias is beta hb0 + (1 - beta) b0); null: none
   const float* bias2;
   float gamma2;
+  // a Gaussian layer's sigma (N): the launch takes the Gaussian epilogue
+  // (act unused); null: none
+  const float* sigma;
+};
+
+// One launch of dbm_softmax, the rows of a multinomial layer;
+// ops/dbm_ops.py mirrors the layout.  pre (rows, H) holds the
+// pre-activations, out (rows, H) gets the means n softmax(pre) or, where
+// `sample`, the counts drawn under (seed, it, stream_id).  delta_bits: the
+// mean-field change word (max |new - old| of the means, in counts, as
+// float bits, against the means out held); null: none.  mf: a node of the
+// mean-field graph, the control words (the row returns once mean-field
+// stopped); null in every other launch.
+struct SoftmaxArgs {
+  const float* pre;
+  float* out;
+  unsigned* delta_bits;
+  const unsigned* mf;
+  int rows, H, n, sample;
+  unsigned seed, it, stream_id;
 };
 
 // The log-weight update of one AIS beta (ais_logw); ops/dbm_ops.py mirrors
@@ -264,6 +312,9 @@ struct BiasArgs {
 namespace {
 
 constexpr int kRedThreads = 256;
+// dbm_softmax: threads per row (one block a row), as cd_softmax_sample
+constexpr int kRowThreads = 512;
+constexpr int kStaticSmemLimit = 48 * 1024;
 // dbm_max_norm: columns per block, and the floats of W each thread keeps
 // in registers between its two passes (7 rows of 4 at VW = 4: 896 rows)
 constexpr int kNormTile = 8;
@@ -459,8 +510,10 @@ struct PendingLogw {
 // bias2 where kBias2], acc = A1.B1 + A2.B2 by the tensor-core tile
 // (gemm_tc.cuh), with the tile's prologue `pro`; kSoftplusRows sums
 // softplus(alpha (acc + C + bias)) and the same at alpha2 over the row's
-// 128 columns of this block instead.
-template <int NT, bool kBias2, class Prologue>
+// 128 columns of this block instead.  kGauss: a Gaussian layer, out =
+// alpha (acc + C) sigma + gamma bias, or that mean + sigma eps where
+// `sample`.
+template <int NT, bool kBias2, bool kGauss, class Prologue>
 __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
                                          Prologue& pro) {
   const GemmArgs& a = p.a;
@@ -482,6 +535,18 @@ __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
         T[(e / bm::tc::kTileM) * bm::tc::kTileStride + e % bm::tc::kTileM];
     if (in && a.c != nullptr) t += a.c[idx];
     const float b = in && a.bias != nullptr ? a.bias[n] : 0.f;
+    if constexpr (kGauss) {
+      if (!in) continue;
+      const float s = a.sigma[n];
+      const float mu = __fadd_rn(__fmul_rn(a.alpha * t, s), a.gamma * b);
+      a.out[idx] = a.sample
+                       ? __fadd_rn(mu, __fmul_rn(bm::philox_normal(
+                                                     a.seed, a.it, a.stream_id,
+                                                     (unsigned)idx),
+                                                 s))
+                       : mu;
+      continue;
+    }
     if (a.act == kSoftplusRows) {
       // bias inside the scale: softplus(beta (x.W + b)) at two betas; the
       // row's sums in a fixed order (a shuffle tree, then the two halves)
@@ -539,11 +604,11 @@ __device__ __forceinline__ void gemm_act(const DbmGemmArgs& p,
   }
 }
 
-template <int NT>
+template <int NT, bool kGauss = false>
 __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     dbm_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
   bm::tc::NoPrologue pro;
-  gemm_act<NT, false>(p, pro);
+  gemm_act<NT, false, kGauss>(p, pro);
 }
 
 // A launch with a second bias (an AIS h1 transition from a base rate), in
@@ -553,7 +618,7 @@ template <int NT>
 __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     dbm_gemm_act_bias2_kernel(const __grid_constant__ DbmGemmArgs p) {
   bm::tc::NoPrologue pro;
-  gemm_act<NT, true>(p, pro);
+  gemm_act<NT, true, false>(p, pro);
 }
 
 // An AIS beta's first launch: the update of the beta before (p.pending) in
@@ -564,7 +629,65 @@ template <int NT>
 __global__ void __launch_bounds__(bm::tc::kThreads, 1)
     ais_gemm_act_kernel(const __grid_constant__ DbmGemmArgs p) {
   PendingLogw pro(p.pending);
-  gemm_act<NT, false>(p, pro);
+  gemm_act<NT, false, false>(p, pro);
+}
+
+// dbm_softmax: block b owns row b, each of its kRowThreads threads a
+// contiguous chunk of it (row_chunk), as in cd_softmax_sample: the row's
+// max and sum by block_allreduce, the means fn (e / s) (the plain
+// version's n softmax), then the change or the draws.  The change of each
+// warp's entries is folded by one atomicMax on its bits (exact, any
+// order; a NaN wins, as in the sigmoid epilogue).  Dynamic shared memory:
+// row_smem(H).
+__global__ void __launch_bounds__(kRowThreads)
+    dbm_softmax_kernel(const __grid_constant__ SoftmaxArgs a) {
+  if (a.mf != nullptr && a.mf[kMfStop] != 0u) return;  // mean-field stopped
+  extern __shared__ float smem[];
+  __shared__ float red[2][32];
+  __shared__ double tot[32];
+  const int H = a.H;
+  float* buf = smem;
+  int* counts = reinterpret_cast<int*>(smem + H);
+  const long long row = (long long)blockIdx.x * H;
+  int lo, hi;
+  row_chunk(H, lo, hi);
+  float m = -INFINITY;
+  for (int h = lo; h < hi; ++h) {
+    const float x = a.pre[row + h];
+    buf[h] = x;
+    m = fmaxf(m, x);
+  }
+  m = block_allreduce(m, red[0], true);
+  float s = 0.f;
+  for (int h = lo; h < hi; ++h) {
+    const float e = expf(buf[h] - m);
+    buf[h] = e;
+    s += e;
+  }
+  s = block_allreduce(s, red[1], false);
+  const float fn = (float)a.n;
+  float dmax = 0.f;
+  for (int h = lo; h < hi; ++h) {
+    const float mu = fn * (buf[h] / s);
+    buf[h] = mu;
+    if (a.sample) continue;
+    if (a.delta_bits != nullptr)
+      dmax = nan_max(dmax, fabsf(mu - a.out[row + h]));
+    a.out[row + h] = mu;
+  }
+  if (a.delta_bits != nullptr) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      dmax = nan_max(dmax, __shfl_xor_sync(0xffffffffu, dmax, o));
+    if ((threadIdx.x & 31) == 0)
+      atomicMax(a.delta_bits, __float_as_uint(dmax));
+  }
+  if (!a.sample) return;
+  for (int h = lo; h < hi; ++h) counts[h] = 0;
+  build_cdf(buf, H, a.n, tot);
+  multinomial_draw(buf, H, a.n, a.seed, a.it, a.stream_id,
+                   (unsigned)blockIdx.x * (unsigned)a.n, counts);
+  for (int h = lo; h < hi; ++h) a.out[row + h] = (float)counts[h];
 }
 
 // Block b owns kColTile consecutive columns of one bias vector (the
@@ -812,7 +935,10 @@ int setup(DbmGemmArgs* p, const GemmArgs& a) {
 
 int launch(const DbmGemmArgs& p, cudaStream_t stream) {
   int err = 0;
-  if (p.a.bias2 != nullptr)
+  if (p.a.sigma != nullptr) {
+    if (p.a.bias2 != nullptr) return (int)cudaErrorInvalidValue;
+    BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err, true);
+  } else if (p.a.bias2 != nullptr)
     BM_TC_DISPATCH(dbm_gemm_act_bias2_kernel, p.t, p, stream, err);
   else
     BM_TC_DISPATCH(dbm_gemm_act_kernel, p.t, p, stream, err);
@@ -872,9 +998,35 @@ int add_layer_node(cudaGraph_t g, cudaGraphNode_t* prev,
   }
 }
 
-// The mean-field graph of bm_dbm_mf_graph_create, built into `g`.
+// dbm_softmax's dynamic shared memory above the 48 KB default, granted.
+int allow_softmax_smem(int H) {
+  const size_t bytes = row_smem(H);
+  if (bytes <= (size_t)kStaticSmemLimit) return 0;
+  return (int)cudaFuncSetAttribute(
+      dbm_softmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+}
+
+// A multinomial layer's rows of a mean-field sweep as a dbm_softmax node:
+// the change folded into `delta`, skipped once mean-field stopped.
+int add_softmax_node(cudaGraph_t g, cudaGraphNode_t* prev,
+                     const SoftmaxArgs& row, unsigned* ctrl,
+                     unsigned* delta) {
+  SoftmaxArgs r = row;
+  r.delta_bits = delta;
+  r.mf = ctrl;
+  r.sample = 0;
+  void* args[] = {&r};
+  return add_kernel_node(g, prev, (const void*)dbm_softmax_kernel,
+                         dim3(r.rows), dim3(kRowThreads), (int)row_smem(r.H),
+                         args);
+}
+
+// The mean-field graph of bm_dbm_mf_graph_create, built into `g`; rows[l]
+// (n > 0) follows layer l's product with its softmax node.
 int build_mf_graph(cudaGraph_t g, const std::vector<DbmGemmArgs>& layers,
-                   unsigned* ctrl, float tol, int max_updates, int body) {
+                   const SoftmaxArgs* rows, unsigned* ctrl, float tol,
+                   int max_updates, int body) {
   cudaMemsetParams m = {};
   m.dst = ctrl;
   m.value = 0;
@@ -909,6 +1061,11 @@ int build_mf_graph(cudaGraph_t g, const std::vector<DbmGemmArgs>& layers,
       p.mf_tol = tol;
       err = add_layer_node(turn, &prev, p);
       if (err) return err;
+      if (rows != nullptr && rows[l].n > 0) {
+        err = add_softmax_node(turn, &prev, rows[l], ctrl,
+                               ctrl + kMfChange + k);
+        if (err) return err;
+      }
     }
   }
   void* args[] = {&ctrl, &body, &tol, &max_updates, &loop};
@@ -954,11 +1111,15 @@ int bm_ais_gemm_act(const GemmArgs* a, const AisLogw* pending, void* stream) {
 // (each kSigmoidDelta; its delta_bits unused: the graph sets it), and the
 // check after them, until a sweep's change is <= tol or `max_updates`
 // sweeps ran: n_mf sweeps, and the layer launches of a turn's sweeps after
-// the stop return at once.  The layers' tiles are set up once, so every
-// buffer they name is fixed for the graph's life.  Launches nothing.
+// the stop return at once.  `rows` (null: none) holds n_layers dbm_softmax
+// launches: a multinomial layer l (rows[l].n > 0) is a kIdentity launch
+// writing rows[l].pre, followed by rows[l] (its delta_bits and mf unused:
+// the graph sets them; never sampled).  The layers' tiles are set up once,
+// so every buffer they name is fixed for the graph's life.  Launches
+// nothing.
 int bm_dbm_mf_graph_create(const GemmArgs* layers, int n_layers,
                            unsigned* ctrl, float tol, int max_updates,
-                           int body, void** graph) {
+                           int body, const SoftmaxArgs* rows, void** graph) {
   if (graph == nullptr) return (int)cudaErrorInvalidValue;
   *graph = nullptr;
   if (layers == nullptr || n_layers < 1 || ctrl == nullptr ||
@@ -966,14 +1127,23 @@ int bm_dbm_mf_graph_create(const GemmArgs* layers, int n_layers,
     return (int)cudaErrorInvalidValue;
   std::vector<DbmGemmArgs> p(n_layers);
   for (int l = 0; l < n_layers; ++l) {
-    if (layers[l].act != kSigmoidDelta) return (int)cudaErrorInvalidValue;
+    const bool row = rows != nullptr && rows[l].n > 0;
+    if (row ? layers[l].act != kIdentity || rows[l].pre != layers[l].out ||
+                  rows[l].rows != layers[l].M || rows[l].H != layers[l].N
+            : layers[l].act != kSigmoidDelta)
+      return (int)cudaErrorInvalidValue;
+    if (layers[l].sigma != nullptr) return (int)cudaErrorInvalidValue;
+    if (row) {
+      const int e = allow_softmax_smem(rows[l].H);
+      if (e) return e;
+    }
     const int e = setup(&p[l], layers[l]);
     if (e) return e;
   }
   cudaGraph_t g;
   int err = (int)cudaGraphCreate(&g, 0);
   if (err) return err;
-  err = build_mf_graph(g, p, ctrl, tol, max_updates, body);
+  err = build_mf_graph(g, p, rows, ctrl, tol, max_updates, body);
   cudaGraphExec_t exec = nullptr;
   if (!err) err = (int)cudaGraphInstantiate(&exec, g, 0);
   cudaGraphDestroy(g);
@@ -992,6 +1162,17 @@ int bm_dbm_mf_graph_launch(void* graph, void* stream) {
 int bm_dbm_mf_graph_destroy(void* graph) {
   if (graph == nullptr) return 0;
   return (int)cudaGraphExecDestroy((cudaGraphExec_t)graph);
+}
+
+// The rows of a multinomial layer (see SoftmaxArgs), one block a row.
+int bm_dbm_softmax(const SoftmaxArgs* a, void* stream) {
+  if (a == nullptr || a->rows < 1 || a->H < 1 || a->n < 1)
+    return (int)cudaErrorInvalidValue;
+  const int err = allow_softmax_smem(a->H);
+  if (err) return err;
+  dbm_softmax_kernel<<<a->rows, kRowThreads, row_smem(a->H),
+                       (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 // The bias updates of `n_vecs` vectors (1 <= n_vecs <= kMaxBias) in one

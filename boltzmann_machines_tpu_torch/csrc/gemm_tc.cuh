@@ -681,24 +681,25 @@ inline dim3 tile_grid(const Tile& t) {
               (t.nb + t.n_tile - 1) / t.n_tile, t.splits);
 }
 
-// Launches kernel<NT> for the tile's n_tile (the widths of wgmma_tf32.cuh),
-// granting its dynamic shared memory first.
-#define BM_TC_DISPATCH(KERNEL, TILE, ARGS, STREAM, ERR)                     \
+// Launches KERNEL<NT, ...> for the tile's n_tile (the widths of
+// wgmma_tf32.cuh), granting its dynamic shared memory first; template
+// arguments after NT follow ERR.
+#define BM_TC_DISPATCH(KERNEL, TILE, ARGS, STREAM, ERR, ...)                \
   do {                                                                     \
     switch ((TILE).n_tile) {                                               \
-      BM_TC_CASE(KERNEL, 8, TILE, ARGS, STREAM, ERR)                       \
-      BM_TC_CASE(KERNEL, 16, TILE, ARGS, STREAM, ERR)                      \
-      BM_TC_CASE(KERNEL, 32, TILE, ARGS, STREAM, ERR)                      \
-      BM_TC_CASE(KERNEL, 56, TILE, ARGS, STREAM, ERR)                      \
-      BM_TC_CASE(KERNEL, 64, TILE, ARGS, STREAM, ERR)                      \
-      BM_TC_CASE(KERNEL, 104, TILE, ARGS, STREAM, ERR)                     \
-      BM_TC_CASE(KERNEL, 128, TILE, ARGS, STREAM, ERR)                     \
+      BM_TC_CASE(KERNEL, 8, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)        \
+      BM_TC_CASE(KERNEL, 16, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)       \
+      BM_TC_CASE(KERNEL, 32, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)       \
+      BM_TC_CASE(KERNEL, 56, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)       \
+      BM_TC_CASE(KERNEL, 64, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)       \
+      BM_TC_CASE(KERNEL, 104, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)      \
+      BM_TC_CASE(KERNEL, 128, TILE, ARGS, STREAM, ERR, ##__VA_ARGS__)      \
       default:                                                             \
         ERR = (int)cudaErrorInvalidValue;                                  \
     }                                                                      \
   } while (0)
 
-#define BM_TC_CASE(KERNEL, NT, TILE, ARGS, STREAM, ERR)                     \
+#define BM_TC_CASE(KERNEL, NT, TILE, ARGS, STREAM, ERR, ...)                \
   case NT: {                                                               \
     static bool granted[64] = {};                                          \
     const int bytes = bm::tc::smem_bytes(NT);                              \
@@ -707,12 +708,13 @@ inline dim3 tile_grid(const Tile& t) {
     if (ERR) break;                                                        \
     if (dev >= 64 || !granted[dev]) {                                      \
       ERR = (int)cudaFuncSetAttribute(                                     \
-          KERNEL<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes); \
+          KERNEL<NT, ##__VA_ARGS__>,                                       \
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);             \
       if (ERR) break;                                                      \
       if (dev < 64) granted[dev] = true;                                   \
     }                                                                      \
-    KERNEL<NT><<<bm::tc::tile_grid(TILE), bm::tc::kThreads, bytes,         \
-                 STREAM>>>(ARGS);                                          \
+    KERNEL<NT, ##__VA_ARGS__><<<bm::tc::tile_grid(TILE), bm::tc::kThreads, \
+                                bytes, STREAM>>>(ARGS);                    \
     ERR = (int)cudaGetLastError();                                         \
     break;                                                                 \
   }

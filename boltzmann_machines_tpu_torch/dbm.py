@@ -14,9 +14,14 @@ The counterpart of the JAX package's ``dbm.py``:
   through the hand-written kernels (decided once from the configuration,
   as the JAX package picks its Pallas kernels on a TPU), otherwise through
   their plain versions.  A float32 model with Gaussian or multinomial
-  layers on a CUDA device runs the plain program there (as the JAX package
-  runs it on XLA), its sampled layers drawn by the standalone sampler
-  kernels.  Mean-field for validation, ``transform``, ``reconstruct`` and
+  layers on a CUDA device trains on the same kernels where its visible
+  units are Bernoulli or Gaussian and its hidden layers Bernoulli or
+  multinomial (the CIFAR pipelines' Gaussian-Bernoulli-Multinomial DBM:
+  the Gaussian epilogue, a multinomial layer's softmax rows, the
+  mean-field graph), else on the plain epoch there; its ``sample_v`` runs
+  the plain program there (as the JAX package runs it on XLA), its sampled
+  layers drawn by the standalone sampler kernels.  Mean-field for
+  validation, ``transform``, ``reconstruct`` and
   ``log_proba`` is plain PyTorch, as the JAX package leaves it to XLA.  The
   DBM takes its inputs raw: a Gaussian layer's mean is x sigma + b (no
   division by sigma, unlike ``GaussianRBM``);
@@ -437,12 +442,16 @@ class DBM(EnergyBasedModel):
     def _kernel_eligible(self):
         """Whether training and ``sample_v`` take the device programs'
         wrappers (``dbm_epoch``, ``dbm_sample``) rather than their plain
-        versions: a float32 model on a CUDA device -- the DBM kernels for an
-        all-Bernoulli one, the standalone sampler kernels' draws for one with
-        Gaussian or multinomial layers -- decided from the configuration
-        (JAX ``_pallas_epoch_eligible``, dbm.py:605-618), never from a
-        failure.  ``kernel='pallas'`` asks for the DBM kernels, which take
-        all-Bernoulli float32 models on a CUDA device alone."""
+        versions: a float32 model on a CUDA device -- the DBM kernels for
+        training one whose units they take (``dbm_ops.kernel_units``: the
+        Gaussian-Bernoulli-Multinomial DBM among them), and for
+        ``sample_v`` of an all-Bernoulli one; the standalone sampler
+        kernels' draws for ``sample_v`` of one with Gaussian or multinomial
+        layers -- decided from the configuration (JAX
+        ``_pallas_epoch_eligible``, dbm.py:605-618), never from a failure.
+        ``kernel='pallas'`` asks for the DBM kernels as the JAX API does,
+        for all-Bernoulli float32 models on a CUDA device alone: a model
+        with Gaussian or multinomial layers raises."""
         self._ensure_layers()
         if self.kernel == 'xla':
             return False

@@ -51,13 +51,15 @@ Each program has three parts:
 
 On the kernels, a step's mean-field loop is one launch of a CUDA graph
 (``bm_dbm_mf_graph_*``) whose WHILE node runs turns of ``MF_BODY_SWEEPS``
-sweeps, each sweep L ``dbm_gemm_act`` layer launches, and a
-``dbm_mf_check`` launch after each turn, until mean-field stops.  The
-graph counts its turns in a control word; ``dbm_epoch`` reads it once the
-epoch's steps are enqueued and adds the kernels the turns ran to
-``dbm_epoch.launches`` (L x ``MF_BODY_SWEEPS`` ``dbm_gemm_act`` and one
-``dbm_mf_check`` a turn, those of sweeps after the stop included: they
-run and return at once).  ``dbm_epoch.graph_launches`` counts the graph's
+sweeps, each sweep L ``dbm_gemm_act`` layer launches (and a ``dbm_softmax``
+launch after a multinomial layer's), and a ``dbm_mf_check`` launch after
+each turn, until mean-field stops.  The graph counts its turns in a
+control word; ``dbm_epoch`` reads it once the epoch's steps are enqueued
+and adds the kernels the turns ran to ``dbm_epoch.launches``
+(``mf_graph_launches``: L x ``MF_BODY_SWEEPS`` ``dbm_gemm_act``, a
+multinomial layer's ``dbm_softmax`` a sweep, and one ``dbm_mf_check`` a
+turn, those of sweeps after the stop included: they run and return at
+once).  ``dbm_epoch.graph_launches`` counts the graph's
 launches, one a step, apart from the kernels.
 
 Beside the epoch's launches and not among them, ``dbm_epoch.sweeps``
@@ -73,19 +75,30 @@ Random draws come from the Philox streams of ``ops/philox.py``, which the
 kernels reproduce exactly, so kernel and plain version draw the same
 uniforms.
 
-The kernels cover all-Bernoulli float32 DBMs, as the TPU's do.  A DBM with
-Gaussian or multinomial layers (the CIFAR pipelines' Gaussian-Bernoulli-
-Multinomial DBM, which the JAX package runs on XLA) names its layers in
-the configs' ``units`` (the layer objects of ``layers.py``, visible
-first; None, the default, is all-Bernoulli) and runs the plain program on
-its own device, each layer's activation its unit's (sigmoid(x + b), n
-softmax(x + b), x sigma + b).  Its sampled layers draw through the
+A DBM with Gaussian or multinomial layers (the CIFAR pipelines'
+Gaussian-Bernoulli-Multinomial DBM, which the JAX package runs on XLA)
+names its layers in the configs' ``units`` (the layer objects of
+``layers.py``, visible first; None, the default, is all-Bernoulli), each
+layer's activation its unit's (sigmoid(x + b), n softmax(x + b), x sigma +
+b).  The epoch's kernels take every float32 DBM whose visible units are
+Bernoulli or Gaussian and whose hidden layers are Bernoulli or multinomial
+(``kernel_units``): a Gaussian layer's launches are ``dbm_gemm_act``'s
+Gaussian instance (the mean x sigma + b, the state mean + sigma eps with eps
+Box-Muller on the layer's Philox counter), and a multinomial layer is an
+identity ``dbm_gemm_act`` launch writing its pre-activations, then a
+``dbm_softmax`` launch that writes n softmax and, in the mean-field graph,
+folds the change in counts into the sweep's change word, or draws the
+counts on the layer's Philox stream (``philox.multinomial_counts``).  The
+plain epoch draws the same numbers (``philox_draw``), so kernel and plain
+version compare state by state.  Other layouts run the plain epoch on
+their device.  ``dbm_sample`` of a DBM with Gaussian or multinomial layers
+runs the plain program on its device, its sampled layers drawn through the
 standalone samplers of ``ops/samplers.py`` (``bernoulli_sample``,
 ``normal_sample`` for ``means + sigma eps``, ``multinomial_sample``), each
-under a key of its own (``draw_key``): on CUDA tensors the wrappers
-(``dbm_epoch``, ``dbm_sample``) launch the samplers' kernels, one launch a
-sampled layer a sweep; the plain versions draw the same numbers through
-the samplers' ``*_reference`` functions.
+under a key of its own (``draw_key``): on CUDA tensors the wrapper
+launches the samplers' kernels, one launch a sampled layer a sweep; the
+plain version draws the same numbers through the samplers' ``*_reference``
+functions.  So does the mesh's epoch (``dbm_mesh_epoch``).
 """
 
 import ctypes
@@ -96,10 +109,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..layers import BernoulliLayer
+from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
 from . import samplers
 from .gemm import assoc_plan, check_operand, launch_plan, num_sms
-from .philox import AIS_H1, AIS_H2, AIS_V, bernoulli, stream_ais, stream_dbm
+from .philox import (AIS_H1, AIS_H2, AIS_V, bernoulli, multinomial_counts,
+                     normal, stream_ais, stream_dbm)
 
 STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
               'v', 'H')
@@ -107,7 +121,7 @@ STATE_KEYS = ('vb', 'hb', 'W', 'dvb', 'dhb', 'dW', 'q_means', 'mu_means',
 LAYER_KEYS = ('hb', 'W', 'dhb', 'dW', 'q_means', 'mu_means', 'H')
 
 EPOCH_KERNELS = ('dbm_gemm_act', 'dbm_bias_update', 'dbm_assoc_update',
-                 'dbm_max_norm', 'dbm_msre', 'dbm_mf_check')
+                 'dbm_max_norm', 'dbm_msre', 'dbm_mf_check', 'dbm_softmax')
 SAMPLE_KERNELS = ('dbm_gemm_act',)
 AIS_KERNELS = ('dbm_gemm_act', 'ais_logw')
 #: the mean-field sweep counts of ``dbm_epoch.sweeps``, and of
@@ -201,6 +215,16 @@ def all_bernoulli(units):
     return units is None or all(isinstance(u, BernoulliLayer) for u in units)
 
 
+def kernel_units(units):
+    """Whether the epoch's kernels take a DBM of `units` (a config's
+    ``units``): Bernoulli or Gaussian visible units, Bernoulli or
+    multinomial hidden layers."""
+    if units is None:
+        return True
+    return isinstance(units[0], (BernoulliLayer, GaussianLayer)) and all(
+        isinstance(u, (BernoulliLayer, MultinomialLayer)) for u in units[1:])
+
+
 def activation(unit, x, b):
     """Mean activation of a layer of `unit` (a layer object of
     ``layers.py``, None for Bernoulli) given the total input `x` and the
@@ -284,15 +308,25 @@ def gibbs_sweep(W, vb, hb, v, H, draw=None, units=None):
     return vn, tuple(Hn)
 
 
-def philox_draw(sample_v, sample_h, seed, it, stream_of_layer):
-    """``draw`` for `gibbs_sweep` of an all-Bernoulli DBM: Bernoulli states
-    of the layers whose sampling is on, from key (`seed`, `it`) on
-    ``stream_of_layer(l)``, as the kernels draw them."""
+def philox_draw(sample_v, sample_h, seed, it, stream_of_layer, units=None):
+    """``draw`` for `gibbs_sweep`: the states of the layers whose sampling
+    is on, from key (`seed`, `it`) on ``stream_of_layer(l)``, as the
+    kernels draw them: Bernoulli states, ``means + sigma eps`` with eps
+    ``philox.normal`` for a Gaussian layer, ``philox.multinomial_counts``
+    for a multinomial one (`units`: a config's ``units``)."""
     L = len(sample_h)
 
     def draw(p, l):
-        on = sample_v if l == L else sample_h[l]
-        return bernoulli(p, seed, it, stream_of_layer(l)) if on else p
+        if not (sample_v if l == L else sample_h[l]):
+            return p
+        unit = None if units is None else units[0 if l == L else l + 1]
+        stream = stream_of_layer(l)
+        if isinstance(unit, GaussianLayer):
+            eps = normal(seed, it, stream, p.shape, p.device).to(p.dtype)
+            return p + eps * unit._sigma(p)
+        if isinstance(unit, MultinomialLayer):
+            return multinomial_counts(p, unit.n_samples, seed, it, stream)
+        return bernoulli(p, seed, it, stream)
 
     return draw
 
@@ -345,14 +379,15 @@ def unit_draw(units, sample_v, sample_h, key_of_layer, reference=False):
     return draw
 
 
-def _sweep_draw(cfg, seed, it, sweep, stream_of_layer, reference):
-    """The draws of one sampled sweep: the kernels' Philox streams for an
-    all-Bernoulli DBM, the standalone samplers otherwise."""
+def _sample_draw(cfg, seed, sweep, reference):
+    """The draws of ``sample_v``'s sampled sweep `sweep`: the kernels'
+    Philox streams for an all-Bernoulli DBM, the standalone samplers
+    otherwise."""
     if all_bernoulli(cfg.units):
-        return philox_draw(cfg.sample_v, cfg.sample_h, seed, it,
-                           stream_of_layer)
+        return philox_draw(cfg.sample_v, cfg.sample_h, seed, sweep,
+                           lambda l: l)
     return unit_draw(cfg.units, cfg.sample_v, cfg.sample_h,
-                     lambda l: draw_key(seed, it, sweep, l), reference)
+                     lambda l: draw_key(seed, sweep, sweep, l), reference)
 
 
 def apply_max_norm(W, max_norm):
@@ -464,19 +499,18 @@ def reconstruction_means(state, mu0, units=None):
                       mu0 @ state['W'][0].T, state['vb'])
 
 
-def dbm_step(cfg, state, X, lr, momentum, seed, it, reference=True):
+def dbm_step(cfg, state, X, lr, momentum, seed, it):
     """One PCD / mean-field update on minibatch `X` at iteration `it`
     (JAX ``DBM._train_step``, dbm.py:587-595); returns (state, msre,
-    n_mf).  msre reads the UPDATED W0 and vb.  `reference`: a DBM with
-    Gaussian or multinomial layers draws through the samplers' plain
-    versions (else their wrappers)."""
+    n_mf).  msre reads the UPDATED W0 and vb.  Sweep s draws layer l from
+    key (`seed`, `it`) on ``stream_dbm(s, l, L)``, as the kernels do."""
     L = len(cfg.layer_sizes) - 1
     mu, n_mf = mean_field(X, state['W'], state['hb'], cfg.max_mf_updates,
                           cfg.mf_tol, cfg.units)
     v, H = state['v'], state['H']
     for s in range(cfg.k):
-        draw = _sweep_draw(cfg, seed, it, s,
-                           lambda l, s=s: stream_dbm(s, l, L), reference)
+        draw = philox_draw(cfg.sample_v, cfg.sample_h, seed, it,
+                           lambda l, s=s: stream_dbm(s, l, L), cfg.units)
         v, H = gibbs_sweep(state['W'], state['vb'], state['hb'], v, H, draw,
                            cfg.units)
     state = dbm_update(cfg, state, X, mu, v, H, lr, momentum)
@@ -485,32 +519,28 @@ def dbm_step(cfg, state, X, lr, momentum, seed, it, reference=True):
     return state, msre, n_mf
 
 
-def _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed, iter0,
-                     reference):
+def dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
+    """The plain PyTorch version of the epoch (see module docstring), on
+    the device of its inputs."""
     NB = X_batches.shape[0]
     rows = torch.zeros((2, NB), dtype=X_batches.dtype,
                        device=X_batches.device)
     for i in range(NB):
         state, msre, n_mf = dbm_step(cfg, state, X_batches[i], lr, momentum,
-                                     seed, int(iter0) + i + 1, reference)
+                                     seed, int(iter0) + i + 1)
         dbm_epoch.sweeps['mf_sweeps_enqueued'] += n_mf
         rows[0, i] = msre
         rows[1, i] = n_mf
     return state, rows[0], rows[1]
 
 
-def dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed, iter0):
-    """The plain PyTorch version of the epoch (see module docstring)."""
-    return _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed, iter0,
-                            True)
-
-
 def _dbm_sample_plain(cfg, state, n_steps, seed, reference):
     v, H = state['v'], state['H']
     W, vb, hb = state['W'], state['vb'], state['hb']
     for s in range(int(n_steps)):
-        draw = _sweep_draw(cfg, seed, s, s, lambda l: l, reference)
-        v, H = gibbs_sweep(W, vb, hb, v, H, draw, cfg.units)
+        v, H = gibbs_sweep(W, vb, hb, v, H, _sample_draw(cfg, seed, s,
+                                                         reference),
+                           cfg.units)
     v_means, _ = gibbs_sweep(W, vb, hb, v, H, units=cfg.units)
     return dict(state, v=v_means, H=tuple(H)), v_means
 
@@ -733,7 +763,15 @@ class GemmArgs(ctypes.Structure):
                            'splits')] +
         [(n, _F) for n in ('alpha', 'alpha2', 'gamma')] +
         [(n, _U) for n in ('seed', 'it', 'stream_id')] +
-        [('bias2', _P), ('gamma2', _F)])
+        [('bias2', _P), ('gamma2', _F), ('sigma', _P)])
+
+
+class SoftmaxArgs(ctypes.Structure):
+    """The ``SoftmaxArgs`` struct of csrc/dbm_ops.cu (same field order): one
+    ``dbm_softmax`` launch, the rows of a multinomial layer."""
+    _fields_ = ([(n, _P) for n in ('pre', 'out', 'delta_bits', 'mf')] +
+                [(n, _I) for n in ('rows', 'H', 'n', 'sample')] +
+                [(n, _U) for n in ('seed', 'it', 'stream_id')])
 
 
 class AisLogw(ctypes.Structure):
@@ -758,7 +796,9 @@ _ARGTYPES = {
     'bm_ais_gemm_act': [ctypes.POINTER(GemmArgs), ctypes.POINTER(AisLogw),
                         _P],
     'bm_dbm_mf_graph_create': [ctypes.POINTER(GemmArgs), _I, _P, _F, _I,
-                               _I, ctypes.POINTER(_P)],
+                               _I, ctypes.POINTER(SoftmaxArgs),
+                               ctypes.POINTER(_P)],
+    'bm_dbm_softmax': [ctypes.POINTER(SoftmaxArgs), _P],
     'bm_dbm_mf_graph_launch': [_P, _P],
     'bm_dbm_mf_graph_destroy': [_P],
     'bm_dbm_bias_update': [ctypes.POINTER(BiasVec), _I, _I, _I, _F, _F, _F,
@@ -809,6 +849,17 @@ def count_mf_graph(n_mf, body=None):
     body = MF_BODY_SWEEPS if body is None else int(body)
     n = np.rint(np.asarray(n_mf, dtype=np.float64)).astype(np.int64)
     return int((-(-n // body)).sum())
+
+
+def mf_graph_launches(turns, n_layers, n_rows=0, body=None):
+    """The kernels that `turns` turns of the mean-field graph run, by
+    ``dbm_epoch.launches``' names: a turn is `body` sweeps
+    (``MF_BODY_SWEEPS`` where None) of `n_layers` ``dbm_gemm_act``
+    launches and `n_rows` ``dbm_softmax`` launches (one a multinomial
+    layer, after its product), then one ``dbm_mf_check``."""
+    body = MF_BODY_SWEEPS if body is None else int(body)
+    return {'dbm_gemm_act': n_layers * body * turns,
+            'dbm_softmax': n_rows * body * turns, 'dbm_mf_check': turns}
 
 
 def _gemm_args(out, A=(), c=None, bias=None, act=ACT_SIGMOID, alpha=1.,
@@ -888,6 +939,17 @@ def _clone_state(state):
                   else state[key].clone()) for key in STATE_KEYS}
 
 
+def _softmax_args(pre, out, n_samples):
+    """One ``dbm_softmax`` launch: the n softmax means of `pre`'s rows
+    into `out`, neither sampled nor folding a change (the caller sets
+    that)."""
+    a = SoftmaxArgs()
+    a.pre, a.out = pre.data_ptr(), out.data_ptr()
+    a.rows, a.H = int(out.shape[0]), int(out.shape[1])
+    a.n = int(n_samples)
+    return a
+
+
 def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     """Launch the kernels of ``csrc/dbm_ops.cu`` for every minibatch."""
     sizes = cfg.layer_sizes
@@ -915,6 +977,17 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
+    # each hidden layer's multinomial n (0: Bernoulli) and, for a
+    # multinomial layer, the pre-activations of its mean-field and Gibbs
+    # products, which dbm_softmax reads; a Gaussian visible layer's sigma
+    n_of = [u.n_samples if isinstance(u, MultinomialLayer) else 0
+            for u in _hidden_units(cfg.units, L)]
+    pre_mf = [empty(B, h) if n else None for h, n in zip(hs, n_of)]
+    pre_gibbs = [empty(M, h) if n else None for h, n in zip(hs, n_of)]
+    v_unit = None if cfg.units is None else cfg.units[0]
+    sigma = torch.as_tensor(v_unit.sigma, dtype=torch.float32).expand(
+        V).contiguous().to(dev) if isinstance(v_unit, GaussianLayer) else None
+
     T0 = empty(B, hs[0])
     mu = [empty(B, h) for h in hs]
     pen = [empty(h) for h in hs]
@@ -935,45 +1008,70 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     tol = float(np.float32(cfg.mf_tol))
 
     def launch(args):
+        if isinstance(args, SoftmaxArgs):
+            _check(lib.bm_dbm_softmax(ctypes.byref(args), stream),
+                   'dbm_softmax')
+            launches['dbm_softmax'] += 1
+            return
         _check(lib.bm_dbm_gemm_act(ctypes.byref(args), stream),
                'dbm_gemm_act')
         launches['dbm_gemm_act'] += 1
+
+    def layer(out, l, A, pre, **kw):
+        """The launches that update hidden layer l into `out`: one
+        dbm_gemm_act, or for a multinomial layer an identity one into
+        `pre` and its dbm_softmax."""
+        if not n_of[l]:
+            return [_gemm_args(out, A, bias=hb[l], stream=stream, **kw)]
+        kw.pop('act', None)
+        return [_gemm_args(pre, A, bias=hb[l], act=ACT_IDENTITY,
+                           stream=stream, **kw),
+                _softmax_args(pre, out, n_of[l])]
 
     # launch arguments shared by every minibatch (X's pointer and the
     # iteration are set per minibatch)
     t0_args = _gemm_args(T0, [(X_batches[0], W[0], False)], act=ACT_IDENTITY,
                          stream=stream)
-    # mean-field init: sigmoid(2 X.W0 + hb0) doubles the product only
-    init_args = [_gemm_args(mu[0], c=T0, bias=hb[0], alpha=2., stream=stream)]
+    # mean-field init: act(2 X.W0 + hb0) doubles the product only, and so
+    # does every layer below the top
+    init_args = layer(mu[0], 0, [], pre_mf[0], c=T0, alpha=2.)
     for l in range(1, L):
-        init_args.append(_gemm_args(mu[l], [(mu[l - 1], W[l], False)],
-                                    bias=hb[l], alpha=2. if l < L - 1 else 1.,
-                                    stream=stream))
+        init_args += layer(mu[l], l, [(mu[l - 1], W[l], False)], pre_mf[l],
+                           alpha=2. if l < L - 1 else 1.)
     sweep = (GemmArgs * L)()
+    sweep_rows = (SoftmaxArgs * L)() if any(n_of) else None
     for l in range(L):
         A = [(mu[l - 1], W[l], False)] if l else []
         if l + 1 < L:
             A.append((mu[l + 1], W[l + 1], True))
-        sweep[l] = _gemm_args(mu[l], A, c=T0 if l == 0 else None, bias=hb[l],
-                              act=ACT_SIGMOID_DELTA, stream=stream)
+        launched = layer(mu[l], l, A, pre_mf[l], c=T0 if l == 0 else None,
+                         act=ACT_SIGMOID_DELTA)
+        sweep[l] = launched[0]
+        if n_of[l]:
+            sweep_rows[l] = launched[1]
     gibbs = []
     for step in range(cfg.k):
         for l in range(L + 1):
             if l == L:
-                A, out, bias, on = [(H[0], W[0], True)], s['v'], s['vb'], \
-                    cfg.sample_v
+                a = _gemm_args(s['v'], [(H[0], W[0], True)], bias=s['vb'],
+                               stream=stream)
+                a.sigma = _ptr(sigma)
+                launched, on = [a], cfg.sample_v
             else:
                 A = [(s['v'], W[0], False)] if l == 0 else \
                     [(H[l - 1], W[l], False)]
                 if l + 1 < L:
                     A.append((H[l + 1], W[l + 1], True))
-                out, bias, on = H[l], hb[l], cfg.sample_h[l]
-            a = _gemm_args(out, A, bias=bias, stream=stream)
+                launched, on = layer(H[l], l, A, pre_gibbs[l]), \
+                    cfg.sample_h[l]
+            # the draws: the last launch of the layer's
+            a = launched[-1]
             a.sample, a.seed = int(on), int(seed)
             a.stream_id = stream_dbm(step, l, L)
-            gibbs.append(a)
+            gibbs += launched
     recon_args = _gemm_args(v_means, [(mu[0], W[0], True)], bias=s['vb'],
                             stream=stream)
+    recon_args.sigma = _ptr(sigma)
     # vb and every hb_l: (data side, particle side, bias, its accumulator,
     # sparsity EMAs q and mu, penalty, cost, target), at most MAX_BIAS a
     # launch; the data side of vb is X, set per minibatch
@@ -990,7 +1088,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     # for the call
     graph = _P()
     _check(lib.bm_dbm_mf_graph_create(sweep, L, ctrl.data_ptr(), tol,
-                                      cfg.max_mf_updates, body,
+                                      cfg.max_mf_updates, body, sweep_rows,
                                       ctypes.byref(graph)),
            'dbm_mf_graph_create')
 
@@ -1039,11 +1137,11 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                                rows[1].data_ptr() + 4 * i, stream),
                'dbm_msre')
         launches['dbm_msre'] += 1
-    # the graph's turns, read once the stream has passed its last launch:
-    # each ran L layer launches a sweep of the turn and the check
+    # the graph's turns, read once the stream has passed its last launch
     turns = int(ctrl[MF_CHANGE_WORD + body])
-    launches['dbm_gemm_act'] += L * body * turns
-    launches['dbm_mf_check'] += turns
+    for name, n in mf_graph_launches(turns, L, sum(map(bool, n_of)),
+                                     body).items():
+        launches[name] += n
     _check(lib.bm_dbm_mf_graph_destroy(graph), 'dbm_mf_graph_destroy')
     return s, rows[0], rows[1]
 
@@ -1240,18 +1338,15 @@ def _route(device, name):
 
 
 def dbm_epoch(cfg, state, X_batches, lr, momentum, seed, iter0):
-    """One PCD / mean-field DBM epoch: the CUDA kernels for a CUDA tensor,
-    the plain version for a CPU tensor.  A DBM with Gaussian or multinomial
-    layers runs the plain program on its device, its draws through the
-    standalone samplers' wrappers (their kernels on CUDA)."""
-    if _route(X_batches.device, 'dbm_epoch') == 'cpu':
-        return dbm_epoch_reference(cfg, state, X_batches, lr, momentum,
-                                   seed, iter0)
-    if all_bernoulli(cfg.units):
+    """One PCD / mean-field DBM epoch: the CUDA kernels for a CUDA tensor
+    of a DBM they take (``kernel_units``), the plain version otherwise, on
+    the device of the inputs."""
+    if _route(X_batches.device, 'dbm_epoch') == 'cuda' and \
+            kernel_units(cfg.units):
         return _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed,
                                iter0)
-    return _dbm_epoch_plain(cfg, state, X_batches, lr, momentum, seed,
-                            iter0, False)
+    return dbm_epoch_reference(cfg, state, X_batches, lr, momentum, seed,
+                               iter0)
 
 
 def dbm_sample(cfg, state, n_steps, seed):

@@ -123,12 +123,14 @@ against their plain versions, is among phase 3's cases):
     published rows;
 21. the Gaussian-Bernoulli-Multinomial DBM of the CIFAR pipelines at both
     published widths (3072-5000-1000, n 1000; 3072-7800-512, n 512), B =
-    M = 100, 50 mean-field sweeps: the plain program on the card against
-    the CPU with sampling off (per field, GBM_TOL), and with sampling on
-    the path through the standalone sampler kernels against the same path
-    through their plain versions, both on the card, with one launch of
-    each sampler a sampled sweep; then its step timed (sampler kernels,
-    their plain versions, sampling off), its device busy share and n_mf;
+    M = 100, 50 mean-field sweeps, on the DBM kernels (the Gaussian
+    epilogue, the multinomial layer's dbm_softmax rows, the mean-field
+    graph): the kernels on the card against the plain version on the CPU
+    with sampling off (per field, GBM_TOL), and with sampling on against
+    the plain version on the card, each step from the kernels' state, with
+    the DBM kernels' launches as the schedule implies and no standalone
+    sampler launched; then its step timed (the kernels, the plain version,
+    sampling off), its device busy share and n_mf;
 22. the CD epoch kernels' steps at examples/dbm_cifar.py's other shapes:
     the patch RBMs (192 x 300, Gaussian, B 48) and the M-RBM (7800 x 512,
     n 512), timed beside their plain versions;
@@ -2661,7 +2663,7 @@ def kernel_times(torch):
         arr = (dbm_ops.GemmArgs * len(layers))(*layers)
         g = ctypes.c_void_p()
         dbm_ops._check(dlib.bm_dbm_mf_graph_create(
-            arr, len(layers), ptr(ctrl), tol, budget, body,
+            arr, len(layers), ptr(ctrl), tol, budget, body, None,
             ctypes.byref(g)), 'dbm_mf_graph_create')
         graphs.append(g)
         return g
@@ -3752,9 +3754,8 @@ def mlp_card_vs_cpu(torch):
 # two scripts configure it: (label, layer sizes, n_samples, lr, l2,
 # sparsity targets, sparsity costs); B = M = 100, 50 mean-field sweeps at
 # mf_tol 1e-11, max_norm 4, k = 1, momentum 0.5 (the first of its
-# schedule).  It runs the plain program on the card (torch.matmul in true
-# f32, as the JAX package runs it on XLA), its sampled layers drawn by the
-# standalone sampler kernels.
+# schedule).  It trains on the DBM kernels, which draw the Philox numbers
+# of the plain version.
 GBM_WIDTHS = (
     ('3072-5000-1000', (3072, 5000, 1000), 1000, 8e-5, 1e-8, (0.1, 0.1),
      (0., 0.)),                                   # dbm_cifar_naive.py:176
@@ -3763,8 +3764,9 @@ GBM_WIDTHS = (
 )
 GBM_MAX_MF, GBM_MF_TOL = 50, 1e-11
 GBM_B = GBM_M = 100
-# Tolerances of the G-B-M DBM on the card against the same program on the
-# CPU, sampling off (true f32 on both sides, sums in another order):
+# Tolerances of the G-B-M DBM's kernels on the card against the plain
+# version on the CPU, sampling off (f32 on both sides, sums in another
+# order):
 #   state:  |d| <= 1e-5 + 1e-4 |ref|  (W, biases, accumulators, particles:
 #           the products run over K <= 7800 terms, each within ~sqrt(K) eps
 #           of the other order relative to the sum of |terms|, and the
@@ -3777,13 +3779,13 @@ GBM_B = GBM_M = 100
 #   n_mf:   |d| <= 1 sweep            (mf_tol 1e-11 is below every unit's
 #           f32 rounding: mean-field stops where a sweep changes nothing,
 #           which the two sum orders may reach a sweep apart)
-# Sampling on, both on the card: the path through the sampler kernels
-# against the same path through their plain versions, each step from the
-# kernel path's state.  Both compute the same means with the same torch
-# ops, so a Bernoulli or multinomial draw can only differ where the means
-# do (never, with a deterministic product), and a Gaussian state by the
-# Box-Muller's ulps: within 4e-6 (1 + |v|) sigma.  States that moved
-# beyond that are reported as a share of the draws.
+# Sampling on, both on the card: the kernels against the plain version,
+# each step from the kernels' state.  Both draw the same Philox numbers, so
+# a Bernoulli draw differs only where a mean lies within rounding of its
+# uniform, a multinomial one where a uniform lies within rounding of a
+# bucket's edge, and a Gaussian state, in a step whose draws all agree, by
+# the means' rounding and the Box-Muller's ulps: within 4e-6 (1 + |v|)
+# sigma.  Draws that moved are reported as a share of the draws.
 GBM_TOL = {'state': (1e-5, 1e-4), 'msre': (1e-6, 1e-5), 'n_mf': 1}
 
 
@@ -3863,15 +3865,32 @@ def gbm_diffs(got, want, n):
     return out
 
 
+def gbm_dbm_launches(steps, turns, k=1):
+    """The DBM kernels' launches of `steps` steps of a G-B-M DBM (L = 2,
+    the top layer multinomial, max-norm on) whose mean-field graphs ran
+    `turns` turns: a step's products (X.W0, the init's L, k Gibbs sweeps'
+    L + 1, the reconstruction), the multinomial layer's softmax rows (the
+    init's and each Gibbs sweep's), one bias update, L associations and
+    max-norms, one msre; and the graph's kernels."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    L, R = 2, 1
+    counts = {'dbm_gemm_act': steps * (1 + L + k * (L + 1) + 1),
+              'dbm_bias_update': steps, 'dbm_assoc_update': steps * L,
+              'dbm_max_norm': steps * L, 'dbm_msre': steps,
+              'dbm_softmax': steps * R * (1 + k)}
+    for name, n in dbm_ops.mf_graph_launches(turns, L, R).items():
+        counts[name] = counts.get(name, 0) + n
+    return counts
+
+
 def gbm_vs_plain(torch):
     """Phase 21: the G-B-M DBM at both published widths, B = M = 100, 50
-    mean-field sweeps.  Sampling off: 2 steps on the card (the plain
-    program on CUDA tensors) against the same 2 steps on the CPU, per
-    field within GBM_TOL, no DBM kernel launched.  Sampling on: 4 steps,
-    each from the kernel path's state, through the sampler kernels against
-    the same path through their plain versions, both on the card; the
-    launches of each sampler (one a sampled sweep) and the share of states
-    that moved.  Returns {label: results}."""
+    mean-field sweeps, on the DBM kernels.  Sampling off: 2 steps on the
+    card against the plain version's same 2 steps on the CPU, per field
+    within GBM_TOL.  Sampling on: 4 steps, each from the kernels' state,
+    against the plain version on the card; the DBM kernels' launches as
+    the schedule implies, no standalone sampler launched, the share of
+    draws that moved.  Returns {label: results}."""
     from boltzmann_machines_tpu_torch.ops import dbm_ops, samplers
     out = {}
     for width in GBM_WIDTHS:
@@ -3882,14 +3901,18 @@ def gbm_vs_plain(torch):
         dbm_ops.reset_launches()
         got = dbm_ops.dbm_epoch(cfg, state, X[:2], lr, 0.5, 7, 0)
         torch.cuda.synchronize()
-        if any(dbm_ops.dbm_epoch.launches.values()):
-            raise AssertionError('G-B-M DBM launched the all-Bernoulli DBM '
-                                 'kernels: %s' % dbm_ops.dbm_epoch.launches)
+        turns = dbm_ops.dbm_epoch.launches['dbm_mf_check']
+        if dbm_ops.dbm_epoch.launches != gbm_dbm_launches(2, turns):
+            raise AssertionError('G-B-M DBM %s: DBM kernel launches %s, the '
+                                 'schedule implies %s' % (
+                                     label, dbm_ops.dbm_epoch.launches,
+                                     gbm_dbm_launches(2, turns)))
         want = dbm_ops.dbm_epoch_reference(cfg, to_device(state, 'cpu'),
                                            X[:2].cpu(), lr, 0.5, 7, 0)
         d = gbm_diffs(to_device_result(got, 'cpu'), want, n)
-        say('G-B-M DBM %s sampling off, 2 steps, card vs CPU, max|d|: %s; '
-            'n_mf card %s CPU %s; msre card %s' % (
+        say('G-B-M DBM %s sampling off, 2 steps, kernels on the card vs the '
+            'plain version on the CPU, max|d|: %s; n_mf card %s CPU %s; '
+            'msre card %s' % (
                 label, ' '.join('%s=%.3g' % (k, v[0]) for k, v in d.items()),
                 got[2].tolist(), want[2].tolist(),
                 ['%.5f' % v for v in got[1].tolist()]))
@@ -3904,41 +3927,47 @@ def gbm_vs_plain(torch):
 
         cfg = gbm_config(width, True)
         s, moved, d_v, exact = state, {'h0': 0, 'h1': 0}, 0., 0
-        launches = dict.fromkeys(dbm_ops.SAMPLER_KERNELS, 0)
+        dbm_ops.reset_launches()
+        samplers.reset_launches()
         for i in range(4):
-            samplers.reset_launches()
             got = dbm_ops.dbm_epoch(cfg, s, X[i:i + 1], lr, 0.5, 11, i)
             torch.cuda.synchronize()
-            for name in launches:
-                launches[name] += getattr(samplers, name).launches[name]
+            launches = dict(dbm_ops.dbm_epoch.launches)
             want = dbm_ops.dbm_epoch_reference(cfg, s, X[i:i + 1], lr, 0.5,
                                                11, i)
             (g0, g1), (w0, w1) = got[0]['H'], want[0]['H']
-            moved['h0'] += int((g0 != w0).sum())
-            moved['h1'] += int((g1 - w1).abs().sum()) // 2
+            moved_h = (int((g0 != w0).sum()), int((g1 - w1).abs().sum()) // 2)
+            moved['h0'] += moved_h[0]
+            moved['h1'] += moved_h[1]
             if not bool((g1.sum(1) == n).all()):
                 raise AssertionError('G-B-M DBM %s: multinomial particles do '
                                      'not sum to n' % label)
-            dv = float(((got[0]['v'] - want[0]['v']).abs()
-                        / (1. + want[0]['v'].abs())).max())
-            d_v = max(d_v, dv)
+            if not any(moved_h):
+                d_v = max(d_v, float(((got[0]['v'] - want[0]['v']).abs()
+                                      / (1. + want[0]['v'].abs())).max()))
             dd = gbm_diffs(got, want, n)
             exact += all(v[1] <= 0 for v in dd.values())
             s = got[0]
         share = {'h0': moved['h0'] / (4. * GBM_M * sizes[1]),
                  'h1': moved['h1'] / (4. * GBM_M * n)}
-        say('G-B-M DBM %s sampling on, 4 steps from the same state, sampler '
-            'kernels vs their plain versions on the card: launches %s; %d '
+        samp = {name: getattr(samplers, name).launches[name]
+                for name in dbm_ops.SAMPLER_KERNELS}
+        want_launches = gbm_dbm_launches(4, launches['dbm_mf_check'])
+        say('G-B-M DBM %s sampling on, 4 steps from the same state, the '
+            'kernels vs the plain version on the card: launches %s; %d '
             'steps within the sampling-off tolerances; moved draws: h0 %.3g, '
-            'h1 %.3g of the draws; v max |d| / (1 + |v|) %.3g (limit 4e-6)' % (
+            'h1 %.3g of the draws; v max |d| / (1 + |v|) %.3g (limit 4e-6) '
+            'in the steps whose draws agree' % (
                 label, launches, exact, share['h0'], share['h1'], d_v))
-        if launches != dict.fromkeys(dbm_ops.SAMPLER_KERNELS, 4):
-            raise AssertionError('G-B-M DBM %s: sampler launches %s, one a '
-                                 'sampled sweep implies 4 each' % (label,
-                                                                   launches))
-        if share['h0'] > 1e-5 or share['h1'] > 1e-3 or d_v > 4e-6:
+        if launches != want_launches or any(samp.values()):
+            raise AssertionError('G-B-M DBM %s: launches %s and sampler '
+                                 'launches %s, the schedule implies %s and '
+                                 'none' % (label, launches, samp,
+                                           want_launches))
+        if share['h0'] > 1e-5 or share['h1'] > 1e-3 or d_v > 4e-6 or \
+                exact < 3:
             raise AssertionError('G-B-M DBM %s: sampled states differ beyond '
-                                 'the samplers\' tolerances' % label)
+                                 'rounding' % label)
         r.update(sampled_steps_exact=exact / 4., moved_share=share,
                  v_max_rel_err=d_v, launches=launches)
         # the multinomial draw's plain version on the card: its peak memory
@@ -3979,7 +4008,7 @@ def device_busy(torch, fn, wall):
 def gbm_timings(torch):
     """The G-B-M DBM step at both widths: ms per step on the host clock
     (10 steps to a synchronize, best of two after a warm-up), sampling on
-    (the sampler kernels) and off, and with the plain versions' draws; the
+    (the DBM kernels) and off, and the plain version on the card; the
     device busy share of the sampled step; the mean n_mf."""
     from boltzmann_machines_tpu_torch.ops import dbm_ops
     nb = 10
@@ -4011,10 +4040,10 @@ def gbm_timings(torch):
                 r['mean_n_mf'] = r['kernel_n_mf']
                 r['busy'] = device_busy(torch, epoch, min(walls[1:]))
         say('G-B-M DBM step %s, B=M=100, %d mean-field sweeps at mf_tol %g: '
-            '%.4f ms per step sampled through the sampler kernels (mean n_mf '
-            '%.2f), %.4f through their plain versions (%.2f), %.4f sampling '
-            'off (%.2f); device busy %s (host clock, best of two runs of %d '
-            'steps)' % (
+            '%.4f ms per step sampled on the DBM kernels (mean n_mf %.2f), '
+            '%.4f by the plain version (%.2f), %.4f sampling off on the '
+            'kernels (%.2f); device busy %s (host clock, best of two runs of '
+            '%d steps)' % (
                 label, GBM_MAX_MF, GBM_MF_TOL, r['kernel_ms'],
                 r['kernel_n_mf'], r['plain_ms'], r['plain_n_mf'],
                 r['sampling_off_ms'], r['sampling_off_n_mf'],
@@ -4119,12 +4148,13 @@ def cifar_example_paths(script, tmpdir):
     return args
 
 
-def cifar_example_launches(script):
+def cifar_example_launches(script, turns=0):
     """The kernel launches the schedule implies at CIFAR_EXAMPLES'
     arguments (metrics are logged every 400 or more iterations, past these
     runs; of the validations and FEGs, two fall within them, each once in a
     whole-set pass: torch_semi_supervised.py's RBM (msre and PLL) and
-    torch_dbm_cifar.py's G-RBM (msre))."""
+    torch_dbm_cifar.py's G-RBM (msre)); the G-B-M DBM's on the DBM kernels,
+    its mean-field graphs having run `turns` turns."""
     def nonzero(counts):
         return {k: v for k, v in counts.items() if v}
     if script == 'torch_semi_supervised.py':
@@ -4139,9 +4169,7 @@ def cifar_example_launches(script):
                              'cd_softmax_sample': 2 * n,
                              'cd_bias_stats': 2 * n,
                              'cd_assoc_update': 2 * n},
-                'samplers': dict.fromkeys(
-                    ('bernoulli_sample', 'normal_sample',
-                     'multinomial_sample'), dbm)}
+                'dbm_epoch': gbm_dbm_launches(dbm, turns)}
     rows = 10 * 1000
     small = 26 * math.ceil(rows / 48)      # the 26 patch RBMs, B 48
     n = rows // 100
@@ -4150,17 +4178,15 @@ def cifar_example_launches(script):
                  'cd_softmax_sample': 2 * n,
                  'cd_bias_stats': small + 2 * n,
                  'cd_assoc_update': small + 2 * n}, 1, 0, pll=False)),
-            'samplers': dict.fromkeys(
-                ('bernoulli_sample', 'normal_sample', 'multinomial_sample'),
-                2 * n)}
+            'dbm_epoch': gbm_dbm_launches(2 * n, turns)}
 
 
 def cifar_examples_path(torch, tmpdir):
     """Phases 23-24: each script of CIFAR_EXAMPLES on the card in a process
     of its own (``python3 chip_smoke.py --example``, waited for): exit code
     0, every stage's kernel launches as the schedule implies (the CD epoch
-    kernels for the RBMs, one launch of each standalone sampler per sampled
-    DBM sweep, no all-Bernoulli DBM kernel), the MLPs' parameters on the
+    kernels for the RBMs, the DBM kernels for the G-B-M DBM), the MLPs'
+    parameters on the
     card, finite test accuracies, every ``[stage]`` wall; the
     semi-supervised table of both label subsets' accuracies."""
     out = {}
@@ -4182,7 +4208,8 @@ def cifar_examples_path(torch, tmpdir):
         got = {op: {k: v for k, v in counts.items() if v}
                for op, counts in r['launches'].items()}
         got = {op: counts for op, counts in got.items() if counts}
-        expect = cifar_example_launches(script)
+        expect = cifar_example_launches(
+            script, got.get('dbm_epoch', {}).get('dbm_mf_check', 0))
         walls = [ln for ln in p.stdout.splitlines()
                  if ln.startswith('[stage]   ')]
         say('%s: %.2f s in its process (%.2f s with start-up); launches %s'
@@ -5121,8 +5148,8 @@ def main():
             for k, v in c.items():
                 out[k] = out.get(k, 0) + v
         return out
-    # the standalone samplers' launches on this slice's main path: the
-    # G-B-M DBM's sampled sweeps in the two CIFAR scripts
+    # the standalone samplers' launches in the two CIFAR scripts (none: the
+    # G-B-M DBM trains on the DBM kernels, and sample_v is not called)
     gbm_launches = {name: sum(r['launches']['samplers'][name]
                               for r in cex.values())
                     for name in ('bernoulli_sample', 'normal_sample',
@@ -5440,12 +5467,14 @@ def cifar_phases_only():
     with tempfile.TemporaryDirectory() as tmpdir:
         cex = cifar_examples_path(torch, tmpdir)
     say(card)
+    # a shape's work as its products, other operations and bytes
     say(json.dumps({'gbm_dbm': {label: dict(gbm[label], **tg[label])
                                 for label in gbm},
                     'cifar_rbm_shapes': crs,
                     'examples': {k: {kk: v[kk] for kk in (
                         'wall', 'process_wall', 'launches', 'stage_walls',
-                        'accuracy')} for k, v in cex.items()}}))
+                        'accuracy')} for k, v in cex.items()}},
+                   default=lambda w: [w.products, w.flops, w.bytes]))
     return 0
 
 

@@ -1044,7 +1044,8 @@ def test_dbm_epoch_launch_counts(cuda):
     assert dbm_ops.dbm_epoch.launches == {
         'dbm_gemm_act': NB * (1 + L + k * (L + 1) + 1) + L * body * turns,
         'dbm_bias_update': NB, 'dbm_assoc_update': NB * L,
-        'dbm_max_norm': NB * L, 'dbm_msre': NB, 'dbm_mf_check': turns}
+        'dbm_max_norm': NB * L, 'dbm_msre': NB, 'dbm_mf_check': turns,
+        'dbm_softmax': 0}
     assert dbm_ops.dbm_epoch.graph_launches == NB
     assert dbm_ops.dbm_epoch.sweeps['mf_sweeps_enqueued'] == NB * max_mf
     assert 1 <= float(n_mf.min()) and float(n_mf.max()) < max_mf
@@ -1484,7 +1485,7 @@ def mf_graph(layers, ctrl, tol, budget, body=None):
     graph = ctypes.c_void_p()
     dbm_ops._check(lib.bm_dbm_mf_graph_create(
         arr, len(layers), ctrl.data_ptr(), tol, budget,
-        dbm_ops.MF_BODY_SWEEPS if body is None else body,
+        dbm_ops.MF_BODY_SWEEPS if body is None else body, None,
         ctypes.byref(graph)), 'dbm_mf_graph_create')
     return graph
 
@@ -1566,9 +1567,9 @@ def test_dbm_mf_loop_rejects_bad_layers(cuda):
     graph = ctypes.c_void_p(1)
     body = dbm_ops.MF_BODY_SWEEPS
 
-    def create(layers, n, ctrl_ptr, budget, body, out):
+    def create(layers, n, ctrl_ptr, budget, body, out, rows=None):
         return lib.bm_dbm_mf_graph_create(layers, n, ctrl_ptr, 0., budget,
-                                          body, out)
+                                          body, rows, out)
     ref, c = ctypes.byref(a), ctrl.data_ptr()
     assert create(ref, 1, c, 1, body, ctypes.byref(graph)) != 0
     assert graph.value is None
@@ -2767,11 +2768,26 @@ def gbm_config(sizes, units, sample, k=1, max_mf=20, tol=1e-7):
         (0.2, 0.2), (1e-2, 1e-3), 0.9, units)
 
 
+def gbm_launches(NB, turns, k=1, max_norm=True):
+    """The DBM kernels' launches of NB steps of a G-B-M DBM (L = 2, the top
+    layer multinomial) whose mean-field graphs ran `turns` turns."""
+    L = 2
+    want = {'dbm_gemm_act': NB * (1 + L + k * (L + 1) + 1),
+            'dbm_softmax': NB * (1 + k), 'dbm_bias_update': NB,
+            'dbm_assoc_update': NB * L,
+            'dbm_max_norm': NB * L if max_norm else 0, 'dbm_msre': NB}
+    for name, n in dbm_ops.mf_graph_launches(turns, L, 1).items():
+        want[name] = want.get(name, 0) + n
+    return want
+
+
 def test_gbm_dbm_epoch_card_matches_cpu_sampling_off(cuda):
-    """Sampling off, the plain program on the card (torch.matmul in true
-    f32) against the CPU's: the DBM state tolerances (the EMAs are batch
-    sums, of counts up to n for the multinomial layer), msre atol 1e-5,
-    n_mf within one sweep; no DBM kernel launched."""
+    """Sampling off, the DBM kernels on the card (the Gaussian epilogue,
+    the multinomial layer's dbm_softmax rows, the mean-field graph)
+    against the plain version on the CPU: the DBM state tolerances (the
+    EMAs are batch sums, of counts up to n for the multinomial layer),
+    msre atol 1e-5, n_mf within one sweep; the DBM kernels' launches as
+    the schedule implies."""
     units, state, X = gbm_setup(cuda)
     cfg = gbm_config((24, 16, 12), units, False)
     dbm_ops.reset_launches()
@@ -2779,7 +2795,8 @@ def test_gbm_dbm_epoch_card_matches_cpu_sampling_off(cuda):
     cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
                else v.cpu()) for k, v in state.items()}
     want = dbm_ops.dbm_epoch_reference(cfg, cpu, X.cpu(), 0.05, 0.5, 3, 10)
-    assert not any(dbm_ops.dbm_epoch.launches.values())
+    assert dbm_ops.dbm_epoch.launches == gbm_launches(
+        3, dbm_ops.dbm_epoch.launches['dbm_mf_check'])
     got_cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
                    else v.cpu()) for k, v in got[0].items()}
     assert_dbm_state_close(got_cpu, want[0], 8, 8 * 7, atol=1e-5)
@@ -2788,22 +2805,21 @@ def test_gbm_dbm_epoch_card_matches_cpu_sampling_off(cuda):
 
 
 def test_gbm_dbm_sampler_kernels_match_reference_draws(cuda):
-    """Sampling on: the path through the sampler kernels against the same
-    path through their plain versions, both on the card, each step from
-    the same state: one bernoulli_sample, normal_sample and
-    multinomial_sample launch a sampled sweep; the Bernoulli and multinomial
-    states equal (same means, same keys), the Gaussian ones within the
-    Box-Muller's 4e-6 (1 + |v|) sigma, so the state within rtol 1e-4."""
+    """Sampling on: the DBM kernels against the plain version, both on the
+    card, each step from the same state, both drawing the same Philox
+    numbers: no standalone sampler launched; the Bernoulli and
+    multinomial states equal (the means agree to rounding, far from any
+    uniform or bucket edge at these few draws), the Gaussian ones within
+    the means' rounding and the Box-Muller's 4e-6 (1 + |v|) sigma, so the
+    state within rtol 1e-4."""
     from boltzmann_machines_tpu_torch.ops import samplers
     units, state, X = gbm_setup(cuda, NB=4, seed=1)
     cfg = gbm_config((24, 16, 12), units, True, k=2)
     for i in range(4):
         samplers.reset_launches()
         got = dbm_ops.dbm_epoch(cfg, state, X[i:i + 1], 0.05, 0.5, 5, i)
-        assert samplers.bernoulli_sample.launches['bernoulli_sample'] == 2
-        assert samplers.normal_sample.launches['normal_sample'] == 2
-        assert samplers.multinomial_sample.launches[
-            'multinomial_sample'] == 2
+        assert not any(getattr(samplers, name).launches[name]
+                       for name in dbm_ops.SAMPLER_KERNELS)
         want = dbm_ops.dbm_epoch_reference(cfg, state, X[i:i + 1], 0.05, 0.5,
                                            5, i)
         torch.cuda.synchronize()
@@ -2814,6 +2830,254 @@ def test_gbm_dbm_sampler_kernels_match_reference_draws(cuda):
                       / (1. + want[0]['v'].abs())).max()) <= 1e-5
         assert_dbm_state_close(got[0], want[0], 8, 8 * 7, atol=1e-4)
         state = got[0]
+
+
+#: examples/dbm_cifar_naive.py's DBM stage: 3072-5000-1000, n 1000, B = M
+#: = 100, k 1, 50 sweeps at mf_tol 1e-11, l2 1e-8, max_norm 4, the first
+#: lr and momentum of its schedules
+GBM_PATH = ((3072, 5000, 1000), 1000, 100, 8e-5)
+#: the tolerances of chip_smoke.py's GBM_TOL: state atol, rtol; msre atol,
+#: rtol; n_mf (mf_tol 1e-11 lies below every unit's f32 rounding, so two
+#: sum orders may stop a sweep apart)
+GBM_TOL = {'state': (1e-5, 1e-4), 'msre': (1e-6, 1e-5), 'n_mf': 1}
+
+
+def gbm_path_inputs(dev, nb, seed):
+    """Standardized Gaussian rows of 3072 columns and a G-B-M state at
+    GBM_PATH: W0 and W1 of the published scales, zero biases, particles
+    from rows, uniform h0 means and count vectors of the top layer."""
+    from boltzmann_machines_tpu_torch import (BernoulliLayer, GaussianLayer,
+                                              MultinomialLayer)
+    (V, H1, H2), n, B, _ = GBM_PATH
+    rng = np.random.RandomState(seed)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    z = [torch.zeros(h, device=dev) for h in (H1, H2)]
+    p = rng.dirichlet(np.ones(H2), size=B)
+    state = {'vb': torch.zeros(V, device=dev), 'hb': tuple(z),
+             'W': (t(8e-4 * rng.randn(V, H1)), t(0.01 * rng.randn(H1, H2))),
+             'dvb': torch.zeros(V, device=dev), 'dhb': tuple(z),
+             'dW': (torch.zeros((V, H1), device=dev),
+                    torch.zeros((H1, H2), device=dev)),
+             'q_means': tuple(z), 'mu_means': tuple(z),
+             'v': t(rng.randn(B, V)), 'H': (t(rng.rand(B, H1)), t(n * p))}
+    units = (GaussianLayer(V, sigma=1.), BernoulliLayer(H1),
+             MultinomialLayer(H2, n_samples=n))
+    return units, state, t(rng.randn(nb, B, V))
+
+
+def gbm_path_config(units, sample):
+    sizes, _, _, _ = GBM_PATH
+    return dbm_ops.DBMEpochConfig(sizes, 1, 50, 1e-11, sample,
+                                  (sample, sample), 1e-8, 4., (0.1, 0.1),
+                                  (0., 0.), 0.9, units)
+
+
+def gbm_step_exact(got, want):
+    """Whether two epoch results agree within GBM_TOL: the EMAs' atol
+    scaled by (B + M) n, the batch sums of counts."""
+    _, n, B, _ = GBM_PATH
+    for key in dbm_ops.STATE_KEYS:
+        a, b = got[0][key], want[0][key]
+        atol, rtol = GBM_TOL['state']
+        if key in ('q_means', 'mu_means'):
+            atol *= 2 * B * n
+        for x, y in zip(a, b) if isinstance(b, tuple) else [(a, b)]:
+            if not torch.allclose(x, y, rtol=rtol, atol=atol):
+                return False
+    atol, rtol = GBM_TOL['msre']
+    return (torch.allclose(got[1], want[1], rtol=rtol, atol=atol) and
+            float((got[2] - want[2]).abs().max()) <= GBM_TOL['n_mf'])
+
+
+@PATH
+def test_gbm_dbm_epoch_kernels_match_plain_version_at_path_width(cuda):
+    """examples/dbm_cifar_naive.py's DBM step on the DBM kernels, sampling
+    off, two steps against the plain version on the card, every field
+    within GBM_TOL; the DBM kernels' launches as the schedule implies."""
+    units, state, X = gbm_path_inputs(cuda, 2, 5)
+    cfg = gbm_path_config(units, False)
+    lr = GBM_PATH[3]
+    dbm_ops.reset_launches()
+    got = dbm_ops.dbm_epoch(cfg, state, X, lr, 0.5, 7, 0)
+    want = dbm_ops.dbm_epoch_reference(cfg, state, X, lr, 0.5, 7, 0)
+    torch.cuda.synchronize()
+    assert dbm_ops.dbm_epoch.launches == gbm_launches(
+        2, dbm_ops.dbm_epoch.launches['dbm_mf_check'])
+    assert gbm_step_exact(got, want)
+    assert 1 <= float(got[2].min())
+
+
+@PATH
+def test_gbm_dbm_epoch_sampled_steps_at_path_width(cuda):
+    """examples/dbm_cifar_naive.py's DBM step, sampling on: the kernels
+    and the plain version draw the same Philox numbers, and a state
+    differs only where a mean lies within rounding of its uniform or a
+    uniform within rounding of a bucket's edge, after which the chains
+    part.  So each of 20 steps starts both from the kernel's state: at
+    least 15 of 20 within GBM_TOL (``gbm_step_exact``), dW of the others
+    within 4 lr / M times the largest state a flip moves (|v|, a count)."""
+    units, state, X = gbm_path_inputs(cuda, 20, 6)
+    cfg = gbm_path_config(units, True)
+    _, n, M, lr = GBM_PATH
+    exact = 0
+    for i in range(20):
+        got = dbm_ops.dbm_epoch(cfg, state, X[i:i + 1], lr, 0.5, 13, i)
+        want = dbm_ops.dbm_epoch_reference(cfg, state, X[i:i + 1], lr, 0.5,
+                                           13, i)
+        assert bool((got[0]['H'][1].sum(1) == n).all())
+        if gbm_step_exact(got, want):
+            exact += 1
+        else:
+            big = max(1., float(got[0]['v'].abs().max()),
+                      float(got[0]['H'][1].max()))
+            d_dw = max(float((a - b).abs().max())
+                       for a, b in zip(got[0]['dW'], want[0]['dW']))
+            assert d_dw <= 4 * lr / M * big + 1e-5, (i, d_dw)
+        state = got[0]
+    assert exact >= 15
+
+
+def softmax_launch(pre, out, n, sample=False, ctrl=None, delta=None):
+    """One bm_dbm_softmax launch on `pre`'s rows into `out`, drawn under
+    (9, 4, stream 2) where `sample`."""
+    import ctypes
+    a = dbm_ops._softmax_args(pre, out, n)
+    a.sample, a.seed, a.it, a.stream_id = int(sample), 9, 4, 2
+    if ctrl is not None:
+        a.mf = ctrl.data_ptr()
+    if delta is not None:
+        a.delta_bits = delta.data_ptr()
+    dbm_ops._check(dbm_ops._library().bm_dbm_softmax(
+        ctypes.byref(a), torch.cuda.current_stream().cuda_stream),
+        'dbm_softmax')
+
+
+@pytest.mark.parametrize('H,n,rows', [(5, 3, 7), (1500, 1000, 37),
+                                      (7800, 513, 5),
+                                      *at_path((1000, 1000, 100),
+                                               (512, 512, 100))])
+def test_dbm_softmax_matches_plain_version(cuda, H, n, rows):
+    """A DBM's multinomial layer: the means within 1e-5 of n softmax(pre)
+    and the change (max |new - old|, folded into its word) that of the
+    kernel's own means; the counts drawn equal to ``multinomial_counts``
+    on the kernel's own means (both build the CDF in float64), every row
+    summing to n; a stopped mean-field (a control word's stop set) leaves
+    the rows as they are; reruns bit for bit.  H = 5 is below a warp, 1500
+    not a multiple of the block's 512 threads, 7800 the widest path's (62
+    KB of dynamic shared memory); 1000 and 512 the top layers of
+    dbm_cifar_naive.py and dbm_cifar.py at 100 rows."""
+    from boltzmann_machines_tpu_torch.ops.philox import multinomial_counts
+    rng = np.random.RandomState(H + rows)
+    pre = torch.as_tensor(2. * rng.randn(rows, H), dtype=torch.float32,
+                          device=cuda)
+    old = torch.as_tensor(n * rng.dirichlet(np.ones(H), size=rows),
+                          dtype=torch.float32, device=cuda)
+    runs = []
+    for _ in range(2):
+        means, delta = old.clone(), torch.zeros(1, dtype=torch.int32,
+                                                device=cuda)
+        softmax_launch(pre, means, n, delta=delta)
+        counts = torch.full((rows, H), float('nan'), device=cuda)
+        softmax_launch(pre, counts, n, sample=True)
+        runs.append((means, delta, counts))
+    stopped = old.clone()
+    ctrl = torch.zeros(dbm_ops.MF_CHANGE_WORD + 2, dtype=torch.int32,
+                       device=cuda)
+    ctrl[0] = 1
+    softmax_launch(pre, stopped, n, ctrl=ctrl, delta=ctrl[2:3])
+    (means, delta, counts), again = runs
+    want = float(n) * torch.softmax(pre, dim=1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(means, want, rtol=1e-5, atol=1e-5)
+    assert float(delta.view(torch.float32)) == \
+        float((means - old).abs().max())
+    assert torch.equal(counts, multinomial_counts(means, n, 9, 4, 2))
+    assert bool((counts.sum(1) == n).all())
+    assert torch.equal(stopped, old) and int(ctrl[2]) == 0
+    for a, b in zip(runs[0], again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('M,K,N', [(8, 16, 24), (13, 37, 70),
+                                   *at_path((100, 5000, 3072),
+                                            (100, 7800, 3072))])
+@pytest.mark.parametrize('sample', [False, True], ids=['means', 'sampled'])
+def test_dbm_gemm_act_gaussian_epilogue(cuda, M, K, N, sample):
+    """A Gaussian visible layer's launch (sigma given: the kernel's
+    Gaussian instance): the means h.W^T sigma + vb, raw, within 1e-5 of
+    the plain version's, and the states means + sigma eps with eps
+    ``philox.normal`` of the launch's key, within the means' rounding and
+    Box-Muller's ulps, 4e-6 (1 + |v|) sigma; a per-unit sigma; reruns bit
+    for bit."""
+    import ctypes
+    from boltzmann_machines_tpu_torch.ops.philox import normal
+    rng = np.random.RandomState(M + K + N)
+    h = torch.as_tensor(rng.rand(M, K) < 0.5, dtype=torch.float32,
+                        device=cuda)
+    W = torch.as_tensor(0.01 * rng.randn(N, K), dtype=torch.float32,
+                        device=cuda)
+    vb = torch.as_tensor(0.1 * rng.randn(N), dtype=torch.float32,
+                         device=cuda)
+    sigma = torch.as_tensor(rng.rand(N) + 0.5, dtype=torch.float32,
+                            device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for _ in range(2):
+        out = torch.full((M, N), float('nan'), device=cuda)
+        a = dbm_ops._gemm_args(out, [(h, W, True)], bias=vb, stream=stream)
+        a.sigma = sigma.data_ptr()
+        a.sample, a.seed, a.it, a.stream_id = int(sample), 9, 4, 2
+        dbm_ops._check(dbm_ops._library().bm_dbm_gemm_act(
+            ctypes.byref(a), stream), 'dbm_gemm_act')
+        outs.append(out)
+    means = (h @ W.T) * sigma + vb
+    want = means + normal(9, 4, 2, (M, N), cuda) * sigma if sample \
+        else means
+    torch.cuda.synchronize()
+    if sample:
+        err = ((outs[0] - want).abs() / (1. + want.abs())) / sigma
+        assert float(err.max()) <= 4e-6 + 1e-5
+    else:
+        torch.testing.assert_close(outs[0], want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_dbm_mf_graph_refuses_bad_softmax_rows(cuda):
+    """A multinomial layer of the mean-field graph is an identity launch
+    into its row node's pre-activations: a row node after a layer that
+    folds its change, one whose pre-activations are not the layer's
+    output or whose shape differs, and a Gaussian layer are refused."""
+    import ctypes
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = dbm_ops._library()
+    pre, mu = torch.zeros((8, 16), device=cuda), torch.zeros((8, 16),
+                                                             device=cuda)
+    ctrl = mf_ctrl(dbm_ops.MF_BODY_SWEEPS, 0, cuda)
+    a = dbm_ops._gemm_args(pre, [(torch.rand((8, 24), device=cuda),
+                                  torch.rand((24, 16), device=cuda), False)],
+                           act=dbm_ops.ACT_IDENTITY, stream=stream)
+    rows = (dbm_ops.SoftmaxArgs * 1)(dbm_ops._softmax_args(pre, mu, 5))
+
+    def create():
+        graph = ctypes.c_void_p()
+        err = lib.bm_dbm_mf_graph_create(
+            ctypes.byref(a), 1, ctrl.data_ptr(), 0., 3,
+            dbm_ops.MF_BODY_SWEEPS, rows, ctypes.byref(graph))
+        if not err:
+            lib.bm_dbm_mf_graph_destroy(graph)
+        return err
+    assert create() == 0
+    rows[0].pre = mu.data_ptr()
+    assert create() != 0
+    rows[0].pre, rows[0].H = pre.data_ptr(), 15
+    assert create() != 0
+    rows[0].H = 16
+    a.act = dbm_ops.ACT_SIGMOID_DELTA
+    assert create() != 0
+    a.act, a.sigma = dbm_ops.ACT_IDENTITY, pre.data_ptr()
+    assert create() != 0
 
 
 def test_gbm_dbm_sample_launches_the_samplers(cuda):

@@ -329,6 +329,24 @@ def test_epoch_loop_counts_per_slice(tool):
     assert tool.epoch_loop([{'mf_sweeps': 3}]) is None
 
 
+def test_slice_counts_read_the_dbm_graph_counters(tool):
+    """``slice_counts`` reads the DBM epoch's graph launches, the turns of
+    its WHILE node (a check a turn) and the multinomial layer's softmax
+    rows (``dbm_epoch.launches['dbm_softmax']``)."""
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    launches = dict(dbm_ops.dbm_epoch.launches)
+    graphs = dbm_ops.dbm_epoch.graph_launches
+    try:
+        dbm_ops.dbm_epoch.launches.update(dbm_mf_check=9, dbm_softmax=47)
+        dbm_ops.dbm_epoch.graph_launches = 5
+        counts = tool.slice_counts()
+    finally:
+        dbm_ops.dbm_epoch.launches.update(launches)
+        dbm_ops.dbm_epoch.graph_launches = graphs
+    assert (counts['graph_launches'], counts['mf_turns'],
+            counts['softmax_rows']) == (5, 9, 47)
+
+
 def test_capture_spans_puts_the_spans_on_the_trace_base(tool):
     """On the CPU the profiler's host events and the spans share the
     trace's base: an op run inside a span lies inside it."""

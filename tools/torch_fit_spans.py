@@ -35,9 +35,12 @@ Prints one JSON line (and writes it to FILE):
   steps ran over those they enqueued (``dbm_epoch.sweeps``), beside
   ``logged_n_mf``, the mean of the ``n_mf_updates`` that ``fit`` logged in
   the same slices; ``mf_graph``, per traced slice, the mean-field graph's
-  launches (``dbm_epoch.graph_launches``) and the turns of its WHILE node
-  (``dbm_epoch.launches['dbm_mf_check']``, a check a turn), and
-  ``mf_turns_a_step``;
+  launches (``dbm_epoch.graph_launches``), the turns of its WHILE node
+  (``dbm_epoch.launches['dbm_mf_check']``, a check a turn) and a
+  multinomial layer's softmax rows (``dbm_epoch.launches['dbm_softmax']``:
+  the host's, the init's and each Gibbs sweep's, and the graph's, one a
+  sweep of a turn; 0 in an all-Bernoulli DBM), and ``mf_turns_a_step`` and
+  ``softmax_rows_a_step``;
 - an RBM cell: ``val_passes``, the whole-set validation and FEG passes of
   the traced slices (``ops/cd_val.cd_val.passes``: 'val' one a validation,
   'feg' one a side of a gap), and ``epoch_loop``, per traced slice, the
@@ -249,7 +252,9 @@ def slice_counts():
     if dbm is not None:
         counts.update(dbm.dbm_epoch.sweeps,
                       graph_launches=dbm.dbm_epoch.graph_launches,
-                      mf_turns=dbm.dbm_epoch.launches['dbm_mf_check'])
+                      mf_turns=dbm.dbm_epoch.launches['dbm_mf_check'],
+                      softmax_rows=dbm.dbm_epoch.launches.get(
+                          'dbm_softmax', 0))
     return counts
 
 
@@ -343,9 +348,11 @@ def main(argv=None):
             on['logged_n_mf'] = sum(logged) / len(logged) if logged \
                 else None
             on['mf_graph'] = [{k: g.get(k, 0) for k in (
-                'graph_launches', 'mf_turns')} for g in grown]
-            on['mf_turns_a_step'] = sum(
-                g.get('mf_turns', 0) for g in grown) / on['steps']
+                'graph_launches', 'mf_turns', 'softmax_rows')}
+                for g in grown]
+            for key in ('mf_turns', 'softmax_rows'):
+                on[key + '_a_step'] = sum(
+                    g.get(key, 0) for g in grown) / on['steps']
         if any('val' in g for g in grown):
             on['val_passes'] = {k: sum(g.get(k, 0) for g in grown)
                                 for k in ('val', 'feg')}
