@@ -13,7 +13,13 @@
 // 61 MB, 18 us at 3.35 TB/s; in 3xTF32 its operations take about as long at
 // 165 TFLOP/s, in f32 on the SIMT cores 2.5x longer) or, for the small
 // DBM/AIS products (a microsecond of either), by the latency of the launch
-// and of the K loop.
+// and of the K loop.  Inside a block the K loop is bound by shared memory:
+// every 32-deep stage lands there (TMA), its activation tile is read back
+// and split into tf32 hi and lo tiles, W's fragments are loaded from it,
+// and the 12 wgmmas read the activation halves.  A stage takes about the
+// sum of that traffic, the loads and stores of the threads about twice a
+// wgmma byte (PERF.md, PR 26), so the loop keeps the threads' shared-memory
+// instructions few and wide.
 //
 // What the design does about it:
 // * Swap A and B: out^T = W^(T) . A^T, so the model dimension is wgmma's M
@@ -25,15 +31,22 @@
 //   hi = tf32(x) and lo = tf32(x - hi) (round to nearest), and lo.hi +
 //   hi.lo + hi.hi accumulate in f32 (small terms first), each 32-deep stage
 //   into an accumulator of its own that is added to the block's sum (times
-//   its product's scale) by an f32 FMA rounded to nearest.  Products of
-//   tf32 values are exact in f32, so the error is the dropped lo.lo and
-//   lo's rounding (~2^-22 relative) and the sums.  Plain TF32 (~1e-3)
-//   would break the kernel-vs-plain comparisons and the draw-by-draw ones.
-// * wgmma reads tf32 from shared memory only K-major.  The activation tile
+//   its product's scale) by an f32 FMA rounded to nearest, in stage order.
+//   Products of tf32 values are exact in f32, so the error is the dropped
+//   lo.lo and lo's rounding (~2^-22 relative) and the sums.  Plain TF32
+//   (~1e-3) would break the kernel-vs-plain comparisons and the draw-by-draw
+//   ones.
+// * W's fragments come from registers, loaded from the stage and split
+//   there, so W is read from shared memory once and never written back
+//   (splitting it into shared-memory hi and lo tiles for wgmma to read cost
+//   more than it saved, PERF.md).  Where W's tile lands K-major (propdown)
+//   one ldmatrix a k-step loads a thread's four elements (rows g and g + 8,
+//   columns q and q + 4 of four 8x4 matrices), in place of four scalar
+//   loads: the shared-memory pipe counts instructions as well as bytes.
+//   wgmma reads tf32 from shared memory only K-major: the activation tile
 //   (rows of 32 k, K-major in A's own layout) is split once per stage into
 //   hi (in place) and lo copies that wgmma reads through 128-byte-swizzle
-//   descriptors; W's fragment comes from registers, loaded from the stage
-//   (either orientation of W) and split there.
+//   descriptors.
 // * A ring of stages(n_tile) stages in shared memory, filled by TMA
 //   (cp.async.bulk.tensor, 128-byte swizzle, one mbarrier per stage), so the
 //   next tiles of W and A load while wgmma runs; each stage's wgmmas run
@@ -41,7 +54,12 @@
 //   not a multiple of 16 bytes (TMA cannot take it), the same kernel fills
 //   the same ring, in the same swizzled layout, with 4-byte cp.async copies.
 //   Ragged edges are zero-filled on load (TMA's out-of-bounds fill,
-//   cp.async's src-size 0) and masked in the epilogue.
+//   cp.async's src-size 0) and masked in the epilogue.  Each stage's
+//   wgmmas are retired before the next stage's are issued: keeping one in
+//   flight (two accumulators and two fragment sets) measured slower, as did
+//   a warp-specialised block (a producer warp beside the two warpgroups:
+//   a 288-thread wgmma block gets 168 registers a thread and spills) and
+//   conflict-free scalar fragment loads by lane order (PERF.md, PR 26).
 // * Deterministic split-K: grid (model tiles, batch tiles, splits), the
 //   plan (ops/gemm.py) choosing narrower batch tiles and K slices so that
 //   ~100-132 blocks run.  Slice s takes k-tiles [s T / S, (s + 1) T / S) of
@@ -442,16 +460,40 @@ __device__ __forceinline__ bool tile_accumulate(const Tile& t,
     }
     int o, k0;
     ktile(kt0 + j, nk0, nk1, kTransA, o, k0);
-    const int w_trans = t.op[o].w_trans;
+    if (t.op[o].w_trans) {
+      // K-major rows (propdown): ldmatrix, one instruction a kk; lanes
+      // 8 i .. 8 i + 7 address the rows of matrix i (rows 16 warp + 8 (i &
+      // 1) .., the 16 bytes of k 8 kk + 4 (i >> 1) ..), and each thread
+      // gets word q of row g of each: register i of the fragment
+      const int i = lane >> 3;
+      const int m = 16 * warp + (i & 1) * 8 + (lane & 7);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t x[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];"
+            : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+            : "r"(smem_u32(wsm + sw128(m, 8 * kk + 4 * (i >> 1))))
+            : "memory");
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = 16 * warp + g + (r & 1) * 8;
-        const int k = kk * 8 + q + (r >> 1) * 4;
-        const float x = wsm[w_offset(w_trans, m, k)], h = tf32_rna(x);
-        f[0][kk][r] = __float_as_uint(h);
-        f[1][kk][r] = __float_as_uint(tf32_rna(x - h));
+        for (int r = 0; r < 4; ++r) {
+          const float v = __uint_as_float(x[r]), h = tf32_rna(v);
+          f[0][kk][r] = __float_as_uint(h);
+          f[1][kk][r] = __float_as_uint(tf32_rna(v - h));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int m = 16 * warp + g + (r & 1) * 8;
+          const int k = kk * 8 + q + (r >> 1) * 4;
+          const float x = wsm[w_offset(0, m, k)], h = tf32_rna(x);
+          f[0][kk][r] = __float_as_uint(h);
+          f[1][kk][r] = __float_as_uint(tf32_rna(x - h));
+        }
       }
     }
     fence_proxy_async();  // the split's generic writes, visible to wgmma

@@ -43,7 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .gemm import TILE_M, assoc_plan, check_operand, launch_plan, num_sms
+from .gemm import (TILE_M, assoc_k_tiles, assoc_plan, check_operand,
+                   count_stages, launch_plan, num_sms, reset_stages)
 from .philox import (STREAM_H0, STREAM_PLL, STREAM_PLL_HHAT,
                      STREAM_PLL_HHAT_FLIP, bernoulli, multinomial_counts,
                      normal, philox_uniform, stream_h, stream_v)
@@ -438,6 +439,7 @@ def _launch_gemm_act(lib, stream, A, W, transposed_w, bias, sigma, mult,
         plan.n_tile, plan.splits, ptr(ws), ptr(counters), stream),
         'cd_gemm_act')
     (cd_epoch.launches if launches is None else launches)['cd_gemm_act'] += 1
+    count_stages('gemm_act', plan.k_tiles, plan.splits)
 
 
 def _launch_h_pass(lib, stream, cfg, A, W, hb, means, states, pre, seed, it,
@@ -511,6 +513,7 @@ def _launch_metrics(lib, stream, cfg, X, W, vb, hb, sigma, msre_col, seed,
             plan.splits, ptr(tws), ptr(counters), ptr(ws['rows']), stream),
             'cd_metrics')
         count['cd_metrics'] += 1
+        count_stages('fe_rows', plan.k_tiles, plan.splits)
         fe_tiles = plan.model_tiles
     check_launch(lib.bm_cd_metrics(
         ptr(X), ptr(W), ptr(vb), ptr(sigma), ptr(msre_col), B, V, H,
@@ -668,6 +671,15 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     if err:
         check_launch(err, "step {0}'s {1}".format(failed[0],
                                                   LOOP_KERNELS[failed[1]]))
+    # the loop's plans are fixed for the call: its products, free-energy
+    # rows and associations walk these k-tiles a block
+    sched = epoch_launches(cfg, NB, iter0)
+    count_stages('gemm_act', h_plan.k_tiles, h_plan.splits, NB * (1 + cfg.k))
+    count_stages('gemm_act', v_plan.k_tiles, v_plan.splits, NB * cfg.k)
+    if cfg.compute_pll and not multinomial:
+        count_stages('fe_rows', h_plan.k_tiles, h_plan.splits,
+                     sched['cd_metrics'] // 2)
+    count_stages('assoc', assoc_k_tiles(B, B), 1, sched['cd_assoc_update'])
     cd_epoch.loop['calls'] += 1
     cd_epoch.loop['steps'] += NB
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
@@ -708,9 +720,11 @@ def epoch_launches(cfg, NB, iter0):
 
 
 def reset_launches():
-    """Zero every launch count, the C step loop's counts and the whole-set
-    pass counts of ``ops/cd_val.py`` beside them."""
+    """Zero every launch count, the C step loop's counts, the whole-set
+    pass counts of ``ops/cd_val.py`` beside them and the tile's k-tile
+    counts (``gemm.tile_stages``)."""
     from .cd_val import cd_val
+    reset_stages()
     for name in KERNELS:
         cd_epoch.launches[name] = 0
     for name in cd_epoch.loop:

@@ -45,7 +45,8 @@ from .cd_epoch import (_launch_h_pass, _launch_v_pass, check_flavour,
                        check_launch, check_tensors, h_means_reference,
                        h_sample_reference, library, ptr, sigma_row,
                        v_means_reference, v_sample_reference)
-from .gemm import assoc_plan, num_sms
+from .gemm import (assoc_k_tiles, assoc_plan, count_stages, num_sms,
+                   reset_stages)
 from .philox import STREAM_H0, stream_h, stream_v
 
 KERNELS = ('cd_gemm_act', 'cd_stats_sums', 'cd_assoc_stats')
@@ -191,6 +192,7 @@ def _cd_stats_cuda(cfg, state, X, seed, it, shard, out):
         ptr(X), ptr(h0), ptr(v_states), ptr(h_m), B, V, H, ptr(flat),
         assoc_plan(V, H, num_sms(dev)).n_tile, stream), 'cd_assoc_stats')
     launches['cd_assoc_stats'] += 1
+    count_stages('assoc', assoc_k_tiles(B, B), 1)
     return split_stats(flat, V, H), {'X': X, 'v_means': v_m}
 
 
@@ -209,5 +211,8 @@ cd_stats.launches = dict.fromkeys(KERNELS, 0)
 
 
 def reset_launches():
+    """Zero every launch count and the tile's k-tile counts
+    (``gemm.tile_stages``)."""
+    reset_stages()
     for name in KERNELS:
         cd_stats.launches[name] = 0

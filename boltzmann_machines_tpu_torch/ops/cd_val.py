@@ -57,7 +57,7 @@ from .cd_epoch import (ACT_PRE, _launch_gemm_act, _launch_h_pass,
                        free_energy_sum, h_means_reference, h_sample_reference,
                        library, pll_flip_index, pll_from_flip, ptr, sigma_row,
                        v_means_reference, v_sample_reference)
-from .gemm import TILE_M, launch_plan
+from .gemm import TILE_M, count_stages, launch_plan
 from .philox import (STREAM_H0, STREAM_PLL_HHAT, STREAM_PLL_HHAT_FLIP,
                      multinomial_counts, stream_h, stream_v)
 
@@ -240,6 +240,7 @@ def _cd_pass_cuda(cfg, state, X, batch_size, seed, key0, step, msre, fe,
                 plan.n_tile, plan.splits, ptr(ws), ptr(counters),
                 ptr(fe_rows), stream), 'cd_metrics')
             launches['cd_metrics'] += 1
+            count_stages('fe_rows', plan.k_tiles, plan.splits)
         check_launch(lib.bm_cd_val_reduce(
             ptr(Xc), ptr(vm), ptr(vb), ptr(sigma), ptr(fe_rows), tiles,
             ptr(u), per, R, V, B, int(msre), int(fe), int(flip), seed, it,

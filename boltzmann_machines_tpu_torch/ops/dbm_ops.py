@@ -111,7 +111,8 @@ import torch.nn.functional as F
 
 from ..layers import BernoulliLayer, GaussianLayer, MultinomialLayer
 from . import samplers
-from .gemm import assoc_plan, check_operand, launch_plan, num_sms
+from .gemm import (TILE_K, assoc_k_tiles, assoc_plan, check_operand,
+                   count_stages, launch_plan, num_sms, reset_stages)
 from .philox import (AIS_H1, AIS_H2, AIS_V, bernoulli, multinomial_counts,
                      normal, stream_ais, stream_dbm)
 
@@ -892,6 +893,13 @@ def _gemm_args(out, A=(), c=None, bias=None, act=ACT_SIGMOID, alpha=1.,
     return a
 
 
+def _count_stages(args, launches=1):
+    """Count `launches` dbm_gemm_act launches of `args` (a ``GemmArgs``) in
+    ``gemm.tile_stages``: both products' k-tiles over the plan's slices."""
+    k_tiles = sum(-(-int(k) // TILE_K) for k in (args.k1, args.k2))
+    count_stages('gemm_act', k_tiles, args.splits, launches)
+
+
 def _validate(tensors, device):
     """Each (name, tensor, shape) must be a contiguous float32 tensor of
     that shape on `device`."""
@@ -1016,6 +1024,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
         _check(lib.bm_dbm_gemm_act(ctypes.byref(args), stream),
                'dbm_gemm_act')
         launches['dbm_gemm_act'] += 1
+        _count_stages(args)
 
     def layer(out, l, A, pre, **kw):
         """The launches that update hidden layer l into `out`: one
@@ -1124,6 +1133,7 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
                 M, sizes[l], hs[l], _ptr(W[l]), _ptr(s['dW'][l]), lr, mom,
                 cfg.l2, n_tiles[l], stream), 'dbm_assoc_update')
             launches['dbm_assoc_update'] += 1
+            count_stages('assoc', assoc_k_tiles(B, M), 1)
             if math.isfinite(cfg.max_norm):
                 _check(lib.bm_dbm_max_norm(_ptr(W[l]), sizes[l], hs[l],
                                            cfg.max_norm, stream),
@@ -1142,6 +1152,8 @@ def _dbm_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     for name, n in mf_graph_launches(turns, L, sum(map(bool, n_of)),
                                      body).items():
         launches[name] += n
+    for l in range(L):
+        _count_stages(sweep[l], turns * body)
     _check(lib.bm_dbm_mf_graph_destroy(graph), 'dbm_mf_graph_destroy')
     return s, rows[0], rows[1]
 
@@ -1184,12 +1196,14 @@ def _dbm_sample_cuda(cfg, state, n_steps, seed):
             _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream),
                    'dbm_gemm_act')
             launches['dbm_gemm_act'] += 1
+            _count_stages(a)
     h0_means = torch.empty((M, hs[0]), dtype=torch.float32, device=dev)
     for a in (layer_args(0, h0_means),
               _gemm_args(v, [(h0_means, W[0], True)], bias=vb,
                          stream=stream)):
         _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream), 'dbm_gemm_act')
         launches['dbm_gemm_act'] += 1
+        _count_stages(a)
     return dict(state, v=v, H=H), v
 
 
@@ -1305,6 +1319,7 @@ def _ais_cuda(cfg, state, seed, x0, b0=None, reverse=False):
                        'dbm_gemm_act')
                 pending = None
             launches['dbm_gemm_act'] += 1
+            _count_stages(a)
     if pending is not None:
         p = pending
         _check(lib.bm_ais_logw(p.x, p.hb0, R, H1, p.part_v, nblk_v,
@@ -1324,6 +1339,7 @@ def _ais_burn_in_cuda(cfg, state, seed, x0, n_steps):
     for a in trans:
         _check(lib.bm_dbm_gemm_act(ctypes.byref(a), stream), 'dbm_gemm_act')
         ais.launches['dbm_gemm_act'] += 1
+        _count_stages(a)
     return x
 
 
@@ -1395,7 +1411,8 @@ dbm_epoch.profiled_sweeps = dict.fromkeys(PROFILED_COUNTS, 0)
 
 def reset_launches():
     """Zero every launch count, the graph's launches and the sweep counts
-    beside them."""
+    beside them, and the tile's k-tile counts (``gemm.tile_stages``)."""
+    reset_stages()
     for fn in (dbm_epoch, dbm_sample, ais):
         for name in fn.launches:
             fn.launches[name] = 0

@@ -115,6 +115,46 @@ def assoc_plan(V, H, n_sm):
     return AssocPlan(n_tile, rows, cols, rows * cols)
 
 
+#: the families of the tile's kernels: the products ('gemm_act':
+#: cd_gemm_act, dbm_gemm_act and its AIS and graph launches), the
+#: free-energy rows ('fe_rows': cd_metrics_fe, cd_val_fe, the probe's
+#: product) and the associations ('assoc')
+TILE_FAMILIES = ('gemm_act', 'fe_rows', 'assoc')
+#: per family, the launches and the k-tiles a block walks, summed over them
+#: (a launch's k_tiles / splits, from the plan its wrapper passes): the K
+#: loop overlaps one stage's split with the stage before's wgmmas only
+#: where a block walks more than one.
+#: Zeroed with the launch counters (``reset_launches`` of ``cd_epoch``,
+#: ``cd_stats``, ``dbm_ops`` and ``samplers``).
+tile_stages = {f: {'launches': 0, 'k_tiles': 0.} for f in TILE_FAMILIES}
+
+
+def count_stages(family, k_tiles, splits, launches=1):
+    """Count `launches` launches of `family` whose blocks walk `k_tiles` /
+    `splits` k-tiles each (`k_tiles` over both products of a launch)."""
+    c = tile_stages[family]
+    c['launches'] += int(launches)
+    c['k_tiles'] += int(launches) * int(k_tiles) / int(splits)
+
+
+def assoc_k_tiles(K0, K1):
+    """The k-tiles of an association launch over batches of K0 and K1 rows
+    (no split-K: a block walks them all)."""
+    return _ceil(int(K0), TILE_K) + _ceil(int(K1), TILE_K)
+
+
+def mean_stages():
+    """{family: the mean k-tiles a block walks}, None for a family with no
+    launch."""
+    return {f: (c['k_tiles'] / c['launches'] if c['launches'] else None)
+            for f, c in tile_stages.items()}
+
+
+def reset_stages():
+    for c in tile_stages.values():
+        c['launches'], c['k_tiles'] = 0, 0.
+
+
 @lru_cache(maxsize=None)
 def num_sms(device):
     """The SM count of a CUDA device."""

@@ -34,7 +34,7 @@ import torch
 from .cd_epoch import (check_flavour, check_launch, check_tensors,
                        free_energy_sum, library, metrics_workspace, ptr,
                        sigma_tensor, uniform_h_hat)
-from .gemm import launch_plan
+from .gemm import count_stages, launch_plan, reset_stages
 from .philox import (STREAM_PLL_HHAT, multinomial_counts, normal,
                      philox_uniform)
 
@@ -258,9 +258,14 @@ def launch_probe(X, W, vb, hb, sigma, n, seed, ws, fe, h_hat, stream):
         ws['w_rows'], n_tile, splits, ptr(tws), ptr(counters),
         ptr(ws['rows']), ptr(ws['partials']), ptr(ws['counter']), ptr(fe),
         ptr(h_hat), stream), 'fe_probe')
+    if not n:
+        count_stages('fe_rows', plan.k_tiles, plan.splits)
 
 
 def reset_launches():
+    """Zero every launch count and the tile's k-tile counts
+    (``gemm.tile_stages``)."""
+    reset_stages()
     for fn in (bernoulli_sample, normal_sample, multinomial_sample,
                make_free_energy_probe):
         for name in fn.launches:

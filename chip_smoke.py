@@ -17,6 +17,9 @@ standalone sampler's call and device time go, and the PLL's error against
 its plain version in float32 and float64; see ``readings``,
 ``assoc_readings``, ``softmax_readings``, ``sampler_readings`` and
 ``pll_readings``.
+``--tile-ab PARENT_CSRC`` builds another checkout's csrc/ beside this one
+and holds every product and association of phases 16-17 bit for bit
+against it, then times both (``tile_ab``).
 ``--kernel-times`` runs phase 18 alone; run from another checkout, it
 times that checkout's kernels.  ``--cifar-phases`` runs phases 21-24
 alone, ``--dbm-phases`` phases 25-27, ``--tp-phases`` phase 28.)
@@ -82,12 +85,15 @@ against their plain versions, is among phase 3's cases):
     timed (a CUDA graph of launches between CUDA events) at the plan's
     split count and at one K slice, beside torch.matmul on the same product
     and the product's bounds on the tensor cores and in f32, one line per
-    product;
+    product, with a stage's time (the one-slice time over its k-tiles)
+    beside a stage's tensor work;
 17. the association kernel (csrc/assoc_tc.cuh): each cd_assoc_update,
     cd_assoc_stats and dbm_assoc_update launch of the paths alone, through
     its C entry point at ops/gemm.py's assoc_plan, timed by a CUDA graph
     beside the plain version, the former SIMT tile's recorded time and
-    torch.matmul on the stacked K = 2B product;
+    torch.matmul on the stacked K = 2B product, with the most a stage can
+    take (the time over the blocks' waves and k-tiles) beside a stage's
+    tensor work;
 18. every hand-written kernel but the products and the associations:
     cd_bias_stats (each RBM path), dbm_max_norm (both DBM layers),
     cd_stats_sums, cd_softmax_sample, cd_metrics, fe_probe (its two
@@ -871,7 +877,7 @@ def dbm_mnist_path(torch, tmpdir):
     expect = {'dbm_gemm_act': n_iter * (1 + L + (L + 1) + 1) +
               L * body * turns, 'dbm_bias_update': n_iter,
               'dbm_assoc_update': n_iter * L, 'dbm_max_norm': n_iter * L,
-              'dbm_msre': n_iter, 'dbm_mf_check': turns}
+              'dbm_msre': n_iter, 'dbm_mf_check': turns, 'dbm_softmax': 0}
     traced = {name: run['traced'].get(name + '_kernel', 0)
               for name in ('dbm_gemm_act', 'dbm_mf_check')}
     sweeps = run['mf_sweeps']
@@ -2009,12 +2015,22 @@ def gemm_bounds(work):
     return bound(work), bound(Work(0., work.products, work.bytes))
 
 
+def stage_tensor_us(n_tile):
+    """The tensor work of one 32-deep stage of a block, in us: its 12
+    wgmmas of m64 n_tile k8 in each of two warpgroups, at one SM's share of
+    TF32's peak."""
+    from port_bench.work import PEAK_TF32
+    return 1e6 * 2. * 3 * 128 * 32 * n_tile / (PEAK_TF32 / 132)
+
+
 def gemm_line(label, res):
     say('%s: %.4f ms per launch (SIMT tile, recorded: %.4f; one K slice '
-        '%.4f), torch.matmul %.4f ms; bound %.4f ms on the tensor cores at '
-        'TF32\'s 495 TFLOP/s (%s), %.4f ms in f32 at 67 (%s), bytes term '
+        '%.4f: %.3f us a stage over its %d k-tiles, a stage\'s tensor work '
+        '%.3f us), torch.matmul %.4f ms; bound %.4f ms on the tensor cores '
+        'at TF32\'s 495 TFLOP/s (%s), %.4f ms in f32 at 67 (%s), bytes term '
         '%.4f ms; splits %d, n_tile %d' % (
             label, res['ms'], res['pr4_ms'], res['one_slice_ms'],
+            res['stage_us'], res['k_tiles'], res['stage_tensor_us'],
             res['matmul_ms'], res['bound'][0], res['bound'][1],
             res['bound_f32'][0], res['bound_f32'][1], res['bytes_ms'],
             res['splits'], res['n_tile']))
@@ -2064,6 +2080,9 @@ def cd_gemm_shapes(torch):
                  bound=bounds[0], bound_f32=bounds[1],
                  bytes_ms=1e3 * 4. * (B * K + K * N) / PEAK_BYTES,
                  splits=plan.splits, n_tile=plan.n_tile)
+        r.update(k_tiles=plan.k_tiles,
+                 stage_us=1e3 * r['one_slice_ms'] / plan.k_tiles,
+                 stage_tensor_us=stage_tensor_us(plan.n_tile))
         gemm_line('cd_gemm_act %s %s pass (%d x %d -> %d, %s)' % (
             path, layer, B, K, N, epi), r)
         out['%s_%s' % (path, layer)] = r
@@ -2136,6 +2155,9 @@ def dbm_gemm_shapes(torch):
                  bound=bounds[0], bound_f32=bounds[1],
                  bytes_ms=1e3 * 4. * (M * K + K * N) / PEAK_BYTES,
                  splits=plan.splits, n_tile=plan.n_tile)
+        r.update(k_tiles=plan.k_tiles,
+                 stage_us=1e3 * r['one_slice_ms'] / plan.k_tiles,
+                 stage_tensor_us=stage_tensor_us(plan.n_tile))
         gemm_line('dbm_gemm_act %s (%d x %s -> %d, %s)' % (
             label, M, '+'.join(str(a[0].shape[1]) for a in A), N, epi), r)
         out[label] = r
@@ -2235,11 +2257,20 @@ def assoc_shapes(torch):
                  matmul_ms=graph_ms(torch, lambda: stacked[0].T @ stacked[1]),
                  bound_ms=bound_ms, bound_by=bound_by, n_tile=plan.n_tile,
                  blocks=plan.blocks)
+        # a block's stages: its k-tiles, in as many waves as the blocks
+        # need of the card's SMs (each wave's epilogue included)
+        waves = -(-plan.blocks // gemm.num_sms(X.device))
+        r.update(k_tiles=gemm.assoc_k_tiles(B, B),
+                 stage_tensor_us=stage_tensor_us(plan.n_tile))
+        r['stage_us'] = 1e3 * r['ms'] / (waves * r['k_tiles'])
         say('%s %s (%d rows, %d x %d): %.4f ms per launch (SIMT tile, '
-            'recorded: %s), plain %.4f ms, torch.matmul of the stacked K = %d '
-            'product %.4f ms; bound %.4f ms (%s); n_tile %d, %d blocks' % (
+            'recorded: %s; at most %.3f us a stage, over %d waves of %d '
+            'k-tiles, epilogues included; a stage\'s tensor work %.3f us), '
+            'plain %.4f ms, torch.matmul of the stacked K = %d product %.4f '
+            'ms; bound %.4f ms (%s); n_tile %d, %d blocks' % (
                 kind, label, B, V, H, r['ms'], 'not timed' if pr5 is None
-                else '%.4f' % (pr5 / 1e3), r['plain_ms'], 2 * B,
+                else '%.4f' % (pr5 / 1e3), r['stage_us'], waves,
+                r['k_tiles'], r['stage_tensor_us'], r['plain_ms'], 2 * B,
                 r['matmul_ms'], bound_ms, bound_by, plan.n_tile,
                 plan.blocks))
         out[label] = r
@@ -2902,7 +2933,8 @@ TILE_VARIANTS = {
     # the association kernel without its contraction (the accumulators
     # zero), or returning before its epilogue: where its time goes
     'assoc_no_mainloop': (
-        ('assoc_tc.cuh', 'tile_accumulate<NT, true>(p.t, assoc_smem, d);',
+        ('assoc_tc.cuh',
+         'tile_accumulate<NT, true>(p.t, assoc_smem, d, none);',
          'for (int i = 0; i < NT / 2; ++i) d[i] = 0.f;'),),
     'assoc_no_epilogue': (
         ('assoc_tc.cuh', '  if (prefetch) mbar_wait(ebar, 0);\n',
@@ -2939,10 +2971,12 @@ TILE_VARIANTS = {
 }
 
 
-def use_tile(tmpdir, variant=None):
+def use_tile(tmpdir, variant=None, source=None):
     """Build and load the kernels from csrc/ (`variant` None) or from a copy
-    of it under `tmpdir` with TILE_VARIANTS[variant] applied; the
-    libraries loaded before are dropped."""
+    of it under `tmpdir` with TILE_VARIANTS[variant] applied -- or, where
+    `source` is given, from a copy of that csrc/ directory (another
+    checkout's) under `tmpdir`/`variant`; the libraries loaded before are
+    dropped."""
     import shutil
     from boltzmann_machines_tpu_torch.ops import _build
     from boltzmann_machines_tpu_torch.ops.cd_epoch import _BOUND as cd_bound
@@ -2951,11 +2985,11 @@ def use_tile(tmpdir, variant=None):
         use_tile.home = (_build.CSRC_DIR, _build.BUILD_DIR)
     csrc, build_dir = use_tile.home
     if variant is not None:
-        src, csrc = csrc, os.path.join(tmpdir, variant, 'csrc')
+        src, csrc = source or csrc, os.path.join(tmpdir, variant, 'csrc')
         build_dir = os.path.join(tmpdir, variant, '_build')
         if not os.path.isdir(csrc):
             shutil.copytree(src, csrc)
-            for edit in TILE_VARIANTS[variant]:
+            for edit in () if source else TILE_VARIANTS[variant]:
                 name, old, new = (('gemm_tc.cuh',) + edit)[-3:]
                 path = os.path.join(csrc, name)
                 with open(path) as f:
@@ -3107,6 +3141,202 @@ def assoc_readings():
                         '%.1f' % (1e3 * graph_ms(torch, run))
                         for _ in range(3))))
         use_tile(tmpdir)
+    return 0
+
+
+#: splits of the A/B's split-K cases, beside each path product's plan
+AB_SPLITS = (1, 2, 3, 7)
+
+
+def ab_cases(torch):
+    """The tile A/B's launches: {label: (run, reset, outputs)}, `run()`
+    launching one kernel through its C entry point on inputs made here
+    once, `outputs` the tensors it writes and `reset()` their contents
+    before a run whose outputs are read.  Every product of phase 16
+    (CD_GEMM_SHAPES at its plan and at AB_SPLITS slices; DBM_GEMM_SHAPES,
+    the two-product form and the AIS-shaped launches among them), a ragged
+    product whose A is 4 bytes off a 16-byte boundary (the cp.async fill),
+    and every association of phase 17 (ASSOC_SHAPES) with a ragged,
+    unaligned one."""
+    import ctypes
+    from boltzmann_machines_tpu_torch.ops import dbm_ops
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        ACT_GAUSSIAN, ACT_PRE, ACT_SIGMOID, _launch_gemm_act, check_launch,
+        library, ptr)
+    g = torch.Generator(device='cuda')
+    g.manual_seed(61)
+    f32 = dict(dtype=torch.float32, device='cuda')
+    acts = {'sigmoid': ACT_SIGMOID, 'gaussian': ACT_GAUSSIAN, 'pre': ACT_PRE}
+    cases = {}
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def cd_case(label, A, W, layer, epi, mult, shard, splits):
+        N = W.shape[0] if layer == 'v' else W.shape[1]
+        bias = 0.1 * torch.randn(N, generator=g, **f32)
+        sigma = torch.linspace(0.5, 2., N, **f32) if epi == 'gaussian' \
+            else None
+        sample = epi != 'pre'
+        out = [torch.empty((A.shape[0], N), **f32)] + \
+            ([torch.empty((A.shape[0], N), **f32)] if sample else [])
+
+        def run():
+            _launch_gemm_act(library(), stream(), A, W, layer == 'v', bias,
+                             sigma, mult, acts[epi], out[0],
+                             out[1] if sample else None, 29, 3, 1, shard,
+                             launches={'cd_gemm_act': 0}, splits=splits)
+        cases[label] = (run, lambda: None, out)
+
+    for path, B, V, H, layer, epi, mult, shard, _ in CD_GEMM_SHAPES:
+        W = 0.05 * torch.randn((V, H), generator=g, **f32)
+        K = V if layer == 'h' else H
+        A = torch.randn((B, K), generator=g, **f32) if epi == 'gaussian' \
+            and layer == 'h' else \
+            (torch.rand((B, K), generator=g, **f32) < 0.3).float()
+        for splits in (None,) + AB_SPLITS:
+            cd_case('cd_gemm_act %s %s splits %s' % (path, layer, splits),
+                    A, W, layer, epi, mult, shard, splits)
+    wide = torch.randn((3, 41), generator=g, **f32)
+    cd_case('cd_gemm_act ragged 3x37->70, A unaligned', wide[:, 1:38],
+            0.05 * torch.randn((37, 70), generator=g, **f32), 'h', 'pre',
+            1., 0, None)
+
+    lib = dbm_ops._library()
+    V, H1, H2 = DBM_SIZES
+    Ws = (0.1 * torch.randn((V, H1), generator=g, **f32),
+          0.1 * torch.randn((H1, H2), generator=g, **f32))
+    dacts = {'identity': dbm_ops.ACT_IDENTITY,
+             'sample': dbm_ops.ACT_SIGMOID,
+             'sigmoid_delta': dbm_ops.ACT_SIGMOID_DELTA,
+             'softplus_rows': dbm_ops.ACT_SOFTPLUS_ROWS}
+    for label, prods, N, epi, with_c, beta, _ in DBM_GEMM_SHAPES:
+        A = []
+        for w, transposed in prods:
+            K = Ws[w].shape[1] if transposed else Ws[w].shape[0]
+            A.append(((torch.rand((DBM_M, K), generator=g, **f32) < 0.5)
+                      .float(), Ws[w], transposed))
+        c = torch.randn((DBM_M, N), generator=g, **f32) if with_c else None
+        bias = 0.1 * torch.randn(N, generator=g, **f32)
+        old = torch.rand((DBM_M, N), generator=g, **f32)
+        nblk = lib.bm_dbm_gemm_col_blocks(N)
+        o = torch.empty(2 * DBM_M * nblk, **f32) \
+            if epi == 'softplus_rows' else torch.empty_like(old)
+        ctrl = torch.zeros(1, dtype=torch.int32, device='cuda')
+
+        def reset(old=old, epi=epi, o=o, ctrl=ctrl):
+            if epi != 'softplus_rows':
+                o.copy_(old)
+            ctrl.zero_()
+
+        def run(old=old, A=A, c=c, bias=bias, epi=epi, beta=beta, o=o,
+                ctrl=ctrl):
+            a = dbm_ops._gemm_args(old, A, c=c, bias=bias, act=dacts[epi],
+                                   alpha=beta, gamma=beta, stream=stream())
+            a.out, a.delta_bits = o.data_ptr(), ctrl.data_ptr()
+            a.sample, a.seed, a.it, a.stream_id = int(epi == 'sample'), 31, \
+                4, 2
+            a.alpha2 = 1.
+            dbm_ops._check(dbm_ops._library().bm_dbm_gemm_act(
+                ctypes.byref(a), stream()), 'dbm_gemm_act')
+        cases['dbm_gemm_act ' + label] = (run, reset, [o, ctrl])
+
+    lr, mom, l2 = 1e-3, 0.9, 1e-4
+    shapes = ASSOC_SHAPES + (
+        ('ragged_unaligned', 'cd_assoc_update', 37, 70, 45, False, None),)
+    for label, kind, B, V, H, gaussian, _ in shapes:
+        def side(K, V=V, H=H, gaussian=gaussian):
+            A = torch.randn((K, V), generator=g, **f32) if gaussian else \
+                (torch.rand((K, V), generator=g, **f32) < 0.3).float()
+            return A, torch.rand((K, H), generator=g, **f32)
+        (X, h0), (v, h) = side(B), side(B)
+        if label == 'ragged_unaligned':
+            X = torch.cat([torch.zeros((B, 1), **f32), X], 1)[:, 1:]
+        W0 = 0.01 * torch.randn((V, H), generator=g, **f32)
+        dW0 = 1e-3 * torch.randn((V, H), generator=g, **f32)
+        pen = 1e-4 * torch.randn(H, generator=g, **f32)
+        n_tile = 64 if label == 'ragged_unaligned' else None
+        out = [torch.empty_like(W0), torch.empty_like(dW0)]
+
+        def reset(W0=W0, dW0=dW0, out=out):
+            out[0].copy_(W0)
+            out[1].copy_(dW0)
+
+        def run(kind=kind, X=X, h0=h0, v=v, h=h, pen=pen, B=B, V=V, H=H,
+                out=out, n_tile=n_tile):
+            from boltzmann_machines_tpu_torch.ops import gemm
+            nt = n_tile or gemm.assoc_plan(
+                V, H, gemm.num_sms(out[0].device)).n_tile
+            if kind == 'cd_assoc_update':
+                check_launch(library().bm_cd_assoc_update(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, V, H,
+                    ptr(out[0]), ptr(out[1]), lr, mom, l2, nt, stream()),
+                    kind)
+            elif kind == 'dbm_assoc_update':
+                dbm_ops._check(dbm_ops._library().bm_dbm_assoc_update(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), ptr(pen), B, B, V, H,
+                    ptr(out[0]), ptr(out[1]), lr, mom, l2, nt, stream()),
+                    kind)
+            else:
+                check_launch(library().bm_cd_assoc_stats(
+                    ptr(X), ptr(h0), ptr(v), ptr(h), B, V, H, ptr(out[0]),
+                    nt, stream()), kind)
+        cases['%s %s' % (kind, label)] = (run, reset, out)
+    return cases
+
+
+def tile_ab(parent_csrc):
+    """``python3 chip_smoke.py --tile-ab PARENT_CSRC``: the tensor-core tile
+    of csrc/ against another checkout's (PARENT_CSRC, e.g. a parent commit
+    unpacked by ``git archive``), both built beside each other: every launch
+    of ``ab_cases`` on the same inputs through each build, the outputs held
+    bit for bit (and this build's rerun against its first run), then each
+    launch's device time (graph_ms) in turns, parent, this, this, parent.
+    One JSON line: per launch the times and whether the bits agree."""
+    import torch
+    if not torch.cuda.is_available():
+        sys.stderr.write('chip_smoke --tile-ab: no CUDA device\n')
+        return 1
+    card = environment(torch)
+    parent_csrc = os.path.abspath(parent_csrc)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        use_tile(tmpdir, 'parent', source=parent_csrc)
+        use_tile(tmpdir)
+        cases = ab_cases(torch)
+        outs, times = {}, {label: [] for label in cases}
+        for turn, build_of in enumerate(('parent', 'this', 'this', 'parent')):
+            if build_of == 'parent':
+                use_tile(tmpdir, 'parent', source=parent_csrc)
+            else:
+                use_tile(tmpdir)
+            for label, (run, reset, out) in cases.items():
+                if turn < 3:
+                    reset()
+                    run()
+                    torch.cuda.synchronize()
+                    outs[(turn, label)] = [t.clone() for t in out]
+                times[label].append(1e3 * graph_ms(torch, run))
+        result = {}
+        bad = []
+        for label in cases:
+            same = [all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(outs[(t, label)], outs[(1, label)]))
+                    for t in (0, 2)]
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(outs[(0, label)], outs[(1, label)]))
+            t = times[label]
+            result[label] = {'us': t, 'bits_equal': same[0],
+                             'rerun_equal': same[1], 'max_abs_diff': diff}
+            say('tile A/B %s: P %.2f C %.2f C %.2f P %.2f us (this / parent '
+                '%.3f); bits %s parent%s' % (
+                    label, *t, (t[1] + t[2]) / (t[0] + t[3]),
+                    'equal to' if same[0] else 'DIFFER (max |d| %.3g) from'
+                    % diff, '' if same[1] else '; RERUN DIFFERS'))
+            if not all(same):
+                bad.append(label)
+        use_tile(tmpdir)
+    say(card)
+    say(json.dumps({'tile_ab': result, 'bits_differ': bad}))
     return 0
 
 
@@ -4604,7 +4834,7 @@ def dbm_mesh_path(torch, tmpdir):
             expect_rem = {'dbm_gemm_act': 2 + 1 + 3 + 1 + 2 * body * turns,
                           'dbm_bias_update': 1, 'dbm_assoc_update': 2,
                           'dbm_max_norm': 2, 'dbm_msre': 1,
-                          'dbm_mf_check': turns}
+                          'dbm_mf_check': turns, 'dbm_softmax': 0}
             draws = 3 * MESH_NB if name == 'on' else 0
             say('DBM mesh fit sampling %s rank %d: %d iterations in %.2f s, '
                 'sharded %s; bernoulli_sample launches %s, DBM kernel '
@@ -5549,6 +5779,8 @@ if __name__ == '__main__':
         sys.exit(tp_rank(int(rank), int(world), tmpdir))
     if sys.argv[1:2] == ['--example']:
         sys.exit(example_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ['--tile-ab']:
+        sys.exit(tile_ab(sys.argv[2]))
     sys.exit({'--readings': readings, '--assoc-readings': assoc_readings,
               '--softmax-readings': softmax_readings,
               '--sampler-readings': sampler_readings,

@@ -1903,21 +1903,60 @@ def test_cd_gemm_act_split_counts(cuda, B, V, H, transposed):
         assert torch.equal(runs[0][1], runs[1][1])
 
 
-def test_cd_gemm_act_cp_async_path(cuda):
+# The K loop's edges, per batch width of the tile (gemm.N_TILES): the batch
+# rows that give each width at an output of 4100 columns (33 model tiles,
+# so the plan keeps the width), and the ring's depth at that width
+# (csrc/gemm_tc.cuh stages(n_tile)).
+TILE_BATCH = {8: 5, 16: 12, 32: 30, 56: 50, 64: 60, 104: 100, 128: 128}
+TILE_RING = {8: 6, 16: 6, 32: 6, 56: 6, 64: 6, 104: 4, 128: 4}
+K_LOOP_EDGES = {'one': lambda S: 1, 'two': lambda S: 2,
+                'ring_less_one': lambda S: S - 1,
+                'ring_plus_one': lambda S: S + 1,
+                'many_rings': lambda S: 4 * S + 1}
+
+
+@pytest.mark.parametrize('n_tile', sorted(TILE_BATCH))
+@pytest.mark.parametrize('edge', sorted(K_LOOP_EDGES))
+@pytest.mark.parametrize('transposed', [False, True])
+def test_cd_gemm_act_k_loop_edges(cuda, n_tile, edge, transposed):
+    """The pipelined K loop at every batch width, with a block walking one
+    k-tile, two, one less than the ring, one more, and many rings (one
+    slice, the last k-tile ragged by 5), in both directions of W: within
+    the plain tolerance, and bit for bit the same on a same-seed rerun; the
+    many-ring case also at 3 and 7 slices."""
+    from boltzmann_machines_tpu_torch.ops import gemm
+    B, N = TILE_BATCH[n_tile], 4100
+    K = 32 * K_LOOP_EDGES[edge](TILE_RING[n_tile]) - 5
+    V, H = (N, K) if transposed else (K, N)
+    plan = gemm.gemm_plan(B, N, K, gemm.num_sms(cuda))
+    assert plan.n_tile == n_tile
+    A, W, bias, _ = gemm_operands(B, V, H, transposed, cuda, seed=n_tile)
+    want = cd_gemm_plain(A, W, transposed, bias, None, 1., 2)
+    for splits in (1, 3, 7) if edge == 'many_rings' else (1,):
+        runs = [cd_gemm(A, W, transposed, bias, None, 1., 2, False,
+                        splits=splits) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert_gemm_close(runs[0], want, 2, A, W, transposed, bias, None, 1.)
+        assert torch.equal(runs[0][0], runs[1][0])
+
+
+@pytest.mark.parametrize('K', [37, 37 + 32 * 9])
+def test_cd_gemm_act_cp_async_path(cuda, K):
     """Row strides that are no multiple of 16 bytes (TMA cannot take them)
-    fill the same ring by cp.async: a (B, 37) view of a wider buffer, and W
-    of 37 columns; a base address 4 bytes off a 16-byte boundary too."""
-    A0, W, bias, _ = gemm_operands(9, 37, 70, False, cuda, seed=2)
-    wide = torch.zeros((9, 41), device=cuda)
-    wide[:, 1:38] = A0
-    for A in (wide[:, 1:38], wide[:, :37].copy_(A0)):
-        assert A.stride() == (41, 1)
+    fill the same ring by cp.async: a (B, K) view of a wider buffer, and W
+    of K columns; a base address 4 bytes off a 16-byte boundary too.  K of
+    2 k-tiles, and of 11 (more than the ring holds at this width)."""
+    A0, W, bias, _ = gemm_operands(9, K, 70, False, cuda, seed=2)
+    wide = torch.zeros((9, K + 4), device=cuda)
+    wide[:, 1:K + 1] = A0
+    for A in (wide[:, 1:K + 1], wide[:, :K].copy_(A0)):
+        assert A.stride() == (K + 4, 1)
         got = cd_gemm(A, W, False, bias, None, 1., 0, True)
         want = cd_gemm_plain(A, W, False, bias, None, 1., 0)
         torch.cuda.synchronize()
         assert_gemm_close(got, want, 0, A, W, False, bias, None, 1.)
-    Wt = W.T.contiguous()  # (70, 37): h.W^T with rows of 37 floats
-    h = (torch.rand((9, 37), device=cuda) < 0.5).float()
+    Wt = W.T.contiguous()  # (70, K): h.W^T with rows of K floats
+    h = (torch.rand((9, K), device=cuda) < 0.5).float()
     got = cd_gemm(h, Wt, True, bias, None, 1., 2, False)
     want = cd_gemm_plain(h, Wt, True, bias, None, 1., 2)
     torch.cuda.synchronize()
@@ -1957,12 +1996,15 @@ DBM_GEMM_SHAPES = [((24, 16, 12), 8), ((70, 37, 65), 13), ((6, 5, 4), 100),
 @pytest.mark.parametrize('sizes,M', DBM_GEMM_SHAPES)
 @pytest.mark.parametrize('act', ['identity', 'sigmoid', 'sample', 'delta',
                                  'softplus'])
-def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act):
+@pytest.mark.parametrize('products', ['two', 'none'])
+def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act, products):
     """The middle layer's two-product form x0.W0 + x2.W1^T with the addend
     C, every epilogue: identity, sigmoid, sigmoid with Philox states, the
     mean-field change (max |new - old| into the control word), and the
     softplus row sums at two betas (per column block of the tile,
-    ``bm_dbm_gemm_col_blocks`` of them); same-seed reruns bit for bit."""
+    ``bm_dbm_gemm_col_blocks`` of them); same-seed reruns bit for bit.
+    With no products (the mean-field init's launch on C alone) a block
+    walks no k-tile."""
     import torch.nn.functional as F
     from boltzmann_machines_tpu_torch.ops.philox import bernoulli
     V, H1, H2 = sizes
@@ -1977,7 +2019,7 @@ def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act):
     x2 = (t(M, H2) > 0).float()
     c, bias, old = t(M, H1), t(H1, scale=0.1), torch.rand((M, H1),
                                                            device=cuda)
-    A = [(x0, W0, False), (x2, W1, True)]
+    A = [(x0, W0, False), (x2, W1, True)] if products == 'two' else []
     code = {'identity': dbm_ops.ACT_IDENTITY, 'sigmoid': dbm_ops.ACT_SIGMOID,
             'sample': dbm_ops.ACT_SIGMOID,
             'delta': dbm_ops.ACT_SIGMOID_DELTA,
@@ -1992,7 +2034,7 @@ def test_dbm_gemm_act_matches_plain_version(cuda, sizes, M, act):
                    sample=act == 'sample', ctrl=ctrl,
                    partials=part if act == 'softplus' else None)
         runs.append((out, ctrl, part))
-    acc = x0 @ W0 + x2 @ W1.T + c
+    acc = x0 @ W0 + x2 @ W1.T + c if A else c
     torch.cuda.synchronize()
     (out, ctrl, part), again = runs
     if act == 'softplus':
@@ -2035,7 +2077,9 @@ def test_dbm_gemm_col_blocks_is_the_tiling(cuda, N):
 # 1 to 256
 ASSOC_SHAPES = at_path((10, 784, 1024), (256, 784, 1024),
                        (100, 3072, 5000), (100, 5000, 1000)) + [
-    (1, 24, 16), (7, 37, 70), (50, 130, 65), (100, 50, 129), (256, 65, 36)]
+    (1, 24, 16), (7, 37, 70), (50, 130, 65), (100, 50, 129), (256, 65, 36),
+    # the K loop's edges at n_tile 32 (a ring of 4): 4, 6 and 32 k-tiles
+    (33, 40, 200), (65, 130, 300), (500, 70, 45)]
 ASSOC_STATS_SHAPES = at_path((50, 3072, 7800), (128, 784, 1024)) + [
     (7, 37, 70), (1, 130, 65), (256, 50, 132)]
 # (N data rows, M particles, n_in, n_out): the dbm_mnist layers, and N != M

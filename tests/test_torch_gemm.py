@@ -11,7 +11,11 @@ gemm.py) and its arithmetic, on the CPU:
   |A|.|W| + |A.W|)), where plain TF32 is not (ROADMAP Queue C8); and an
   emulation of the tile's accumulation (each wgmma's sum truncated to f32):
   each 32-deep stage apart, as the tile does, within the bound, one
-  accumulator for a whole K of 784-5000 not.
+  accumulator for a whole K of 784-5000 not;
+* ``gemm.tile_stages``, the k-tiles a block walks per family of the tile's
+  kernels: its arithmetic at the paths' plans, its order across the cells
+  (the G-RBM's products over 30 k-tiles a block, B 10's under 4), and its
+  zeroing by each module's ``reset_launches``.
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_gemm.py -q
 
@@ -193,6 +197,85 @@ def test_workspace_per_stream(monkeypatch):
     other = gemm.workspace(plan, 'cpu', 8)
     assert other[0] is not ws and other[1] is not counters
     assert gemm.workspace(plan._replace(splits=1), 'cpu', 7) == (None, None)
+
+
+# Each cell's step products (M, N, K depths) with their launches a step,
+# and the range the mean k-tiles a block of them walk must lie in: the
+# tile's pipeline overlaps stages only where a block walks more than one
+STEP_PRODUCTS = [
+    ('grbm-cifar B 100', [((100, 5000, (3072,)), 2),
+                          ((100, 3072, (5000,)), 1)], (30, 33)),
+    ('gbm-dbm-cifar h0', [((100, 5000, (3072, 1000)), 1)], (30, 45)),
+    ('rbm-mnist B 256', [((256, 1024, (784,)), 2),
+                         ((256, 784, (1024,)), 1)], (4, 12)),
+    ('dbm-mnist', [((100, 512, (784, 1024)), 1), ((100, 1024, (512,)), 1),
+                   ((100, 784, (512,)), 1)], (3, 8)),
+    ('rbm-mnist B 10', [((10, 1024, (784,)), 2),
+                        ((10, 784, (1024,)), 1)], (1, 4)),
+]
+
+
+@pytest.mark.parametrize('cell,products,bounds', STEP_PRODUCTS,
+                         ids=[c[0] for c in STEP_PRODUCTS])
+def test_tile_stages_of_the_paths(cell, products, bounds):
+    """``gemm.tile_stages`` counts each launch's k-tiles over its slices:
+    the mean over a step's products is the mean of the blocks' slice
+    lengths (slice_tiles), and follows the cells' order -- the G-RBM's
+    products over 30 k-tiles a block, B 10's under 4."""
+    gemm.reset_stages()
+    blocks = []
+    for (M, N, ks), n in products:
+        plan = gemm.gemm_plan(M, N, ks, N_SM)
+        gemm.count_stages('gemm_act', plan.k_tiles, plan.splits, n)
+        lengths = [b - a for a, b in slice_tiles(plan)]
+        blocks += n * [sum(lengths) / len(lengths)]
+    mean = gemm.mean_stages()
+    assert mean['gemm_act'] == pytest.approx(sum(blocks) / len(blocks))
+    assert bounds[0] <= mean['gemm_act'] <= bounds[1]
+    assert mean['fe_rows'] is None and mean['assoc'] is None
+    assert gemm.tile_stages['gemm_act']['launches'] == sum(
+        n for _, n in products)
+    gemm.reset_stages()
+
+
+def test_tile_stages_single_products_and_associations():
+    """The G-RBM's h product walks 32 k-tiles a block (96 over 3 slices),
+    B 10's 2-3 (25 over 12); an association walks both batches' k-tiles
+    whole (no split-K): 8 at 100 + 100 rows, 2 at 10 + 10."""
+    grbm_h = gemm.gemm_plan(100, 5000, 3072, N_SM)
+    assert (grbm_h.k_tiles, grbm_h.splits) == (96, 3)
+    b10_h = gemm.gemm_plan(10, 1024, 784, N_SM)
+    assert 2 <= b10_h.k_tiles / b10_h.splits < 3
+    assert gemm.assoc_k_tiles(100, 100) == 8
+    assert gemm.assoc_k_tiles(10, 10) == 2
+    assert gemm.assoc_k_tiles(33, 1) == 3
+    gemm.reset_stages()
+    gemm.count_stages('gemm_act', grbm_h.k_tiles, grbm_h.splits)
+    gemm.count_stages('assoc', gemm.assoc_k_tiles(100, 100), 1, 3)
+    gemm.count_stages('fe_rows', b10_h.k_tiles, b10_h.splits)
+    assert gemm.tile_stages == {
+        'gemm_act': {'launches': 1, 'k_tiles': 32.},
+        'fe_rows': {'launches': 1, 'k_tiles': 25 / 12},
+        'assoc': {'launches': 3, 'k_tiles': 24.}}
+    assert gemm.mean_stages() == {'gemm_act': 32., 'fe_rows': 25 / 12,
+                                  'assoc': 8.}
+    gemm.reset_stages()
+
+
+@pytest.mark.parametrize('module', ['cd_epoch', 'cd_stats', 'dbm_ops',
+                                    'samplers'])
+def test_tile_stages_zeroed_with_the_launch_counters(module):
+    """Each module's ``reset_launches`` zeroes the k-tile counts too."""
+    import importlib
+    mod = importlib.import_module('boltzmann_machines_tpu_torch.ops.' +
+                                  module)
+    for family in gemm.TILE_FAMILIES:
+        gemm.count_stages(family, 7, 2, 3)
+    assert gemm.mean_stages() == dict.fromkeys(gemm.TILE_FAMILIES, 3.5)
+    mod.reset_launches()
+    assert gemm.tile_stages == {f: {'launches': 0, 'k_tiles': 0.}
+                                for f in gemm.TILE_FAMILIES}
+    assert gemm.mean_stages() == dict.fromkeys(gemm.TILE_FAMILIES)
 
 
 def test_check_operand_strides():

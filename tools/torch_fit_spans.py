@@ -46,7 +46,11 @@ Prints one JSON line (and writes it to FILE):
   'feg' one a side of a gap), and ``epoch_loop``, per traced slice, the
   calls of the CD epoch's C step loop and the steps they ran
   (``ops/cd_epoch.cd_epoch.loop``; absent where the port has no such
-  loop).
+  loop);
+- every cell: ``tile_stages``, per traced slice and family of the
+  tensor-core tile's kernels ('gemm_act', 'fe_rows', 'assoc'), the launches
+  and the mean k-tiles a block of them walks (``ops/gemm.tile_stages``;
+  absent where the port has no such count).
 """
 
 import argparse
@@ -239,9 +243,11 @@ def idle_split(traces):
 
 
 def slice_counts():
-    """The DBM's sweep counts, the RBM's whole-set pass counts and the CD
-    epoch's C step loop counts (``loop_calls``, ``loop_steps``), of the
-    modules a cell has loaded."""
+    """The DBM's sweep counts, the RBM's whole-set pass counts, the CD
+    epoch's C step loop counts (``loop_calls``, ``loop_steps``) and the
+    tile's k-tile counts (``stages/<family>/launches``, ``.../k_tiles``),
+    of the modules a cell has loaded."""
+    gemm = sys.modules.get('boltzmann_machines_tpu_torch.ops.gemm')
     dbm = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
     val = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_val')
     epoch = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_epoch')
@@ -249,6 +255,9 @@ def slice_counts():
     loop = getattr(getattr(epoch, 'cd_epoch', None), 'loop', None)
     if loop is not None:
         counts.update(loop_calls=loop['calls'], loop_steps=loop['steps'])
+    for family, c in getattr(gemm, 'tile_stages', {}).items():
+        for key in ('launches', 'k_tiles'):
+            counts['stages/%s/%s' % (family, key)] = c[key]
     if dbm is not None:
         counts.update(dbm.dbm_epoch.sweeps,
                       graph_launches=dbm.dbm_epoch.graph_launches,
@@ -266,6 +275,26 @@ def epoch_loop(grown):
         return None
     return [{'calls': g.get('loop_calls', 0), 'steps': g.get('loop_steps', 0)}
             for g in grown]
+
+
+def tile_stages(grown):
+    """Per slice of `grown`, {family: {'launches', 'k_tiles_a_block'}} of
+    the tile's kernels that ran in it (the mean k-tiles a block walked);
+    None where the port counts no k-tiles."""
+    families = sorted({k.split('/')[1] for g in grown for k in g
+                       if k.startswith('stages/')})
+    if not families:
+        return None
+    out = []
+    for g in grown:
+        per = {}
+        for f in families:
+            n = g.get('stages/%s/launches' % f, 0)
+            if n:
+                per[f] = {'launches': n, 'k_tiles_a_block':
+                          g['stages/%s/k_tiles' % f] / n}
+        out.append(per)
+    return out
 
 
 def traced_window(session, units, plan, capture, device):
@@ -359,6 +388,9 @@ def main(argv=None):
         loop = epoch_loop(grown)
         if loop is not None:
             on['epoch_loop'] = loop
+        stages = tile_stages(grown)
+        if stages is not None:
+            on['tile_stages'] = stages
         out['on'] = on
         del window, traces
 
