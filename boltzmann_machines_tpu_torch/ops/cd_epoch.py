@@ -26,8 +26,12 @@ Three parts:
   tensor launches the hand-written kernels of ``csrc/cd_epoch.cu`` (built
   on first use) or raises;
 * ``cd_epoch.launches`` -- how many times each kernel was launched (the
-  whole-set passes of ``ops/cd_val.py`` count theirs here too), and
-  ``cd_epoch.loop`` -- the calls of the C step loop and the steps they ran.
+  whole-set passes of ``ops/cd_val.py`` count theirs here too),
+  ``cd_epoch.loop`` -- the calls of the C step loop, the steps they ran and
+  the Gibbs steps of their chains (k a step), and
+  ``cd_epoch.softmax_rows`` -- the rows of every ``cd_softmax_sample``
+  launch of the epoch and the whole-set passes, and the draws of those
+  that drew counts (rows x n).
 
 On CUDA one C call an epoch call, ``bm_cd_epoch_loop``, issues every
 step's launches: ``epoch_launches`` counts them.
@@ -457,6 +461,14 @@ def _launch_h_pass(lib, stream, cfg, A, W, hb, means, states, pre, seed, it,
         ptr(pre), 1, A.shape[0], W.shape[1], cfg.n_samples, ptr(means),
         ptr(states), seed, it, stream_id, stream), 'cd_softmax_sample')
     cd_epoch.launches['cd_softmax_sample'] += 1
+    count_softmax_rows(A.shape[0], 0 if states is None else cfg.n_samples)
+
+
+def count_softmax_rows(rows, n):
+    """Add `rows` softmax rows, each of `n` draws (0: means alone), to
+    ``cd_epoch.softmax_rows``."""
+    cd_epoch.softmax_rows['rows'] += int(rows)
+    cd_epoch.softmax_rows['draws'] += int(rows) * int(n)
 
 
 def _launch_v_pass(lib, stream, cfg, A, W, vb, sigma, means, states, seed,
@@ -668,6 +680,9 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     err = lib.bm_cd_epoch_loop(ctypes.byref(args), made, failed, stream)
     for name, count in zip(LOOP_KERNELS, made):
         cd_epoch.launches[name] += count
+    # each softmax launch of the loop is a hidden pass of its B rows
+    count_softmax_rows(made[LOOP_KERNELS.index('cd_softmax_sample')] * B,
+                       n if cfg.sample_h_states else 0)
     if err:
         check_launch(err, "step {0}'s {1}".format(failed[0],
                                                   LOOP_KERNELS[failed[1]]))
@@ -682,6 +697,7 @@ def _cd_epoch_cuda(cfg, state, X_batches, lr, momentum, seed, iter0):
     count_stages('assoc', assoc_k_tiles(B, B), 1, sched['cd_assoc_update'])
     cd_epoch.loop['calls'] += 1
     cd_epoch.loop['steps'] += NB
+    cd_epoch.loop['gibbs'] += NB * cfg.k
     new_state = dict(zip(STATE_KEYS, (W, vb, hb, dW, dvb, dhb, q)))
     return new_state, msre_rows, pll_rows, l2_rows
 
@@ -700,7 +716,8 @@ def cd_epoch(cfg, state, X_batches, lr, momentum, seed, iter0):
 
 
 cd_epoch.launches = dict.fromkeys(KERNELS, 0)
-cd_epoch.loop = {'calls': 0, 'steps': 0}
+cd_epoch.loop = {'calls': 0, 'steps': 0, 'gibbs': 0}
+cd_epoch.softmax_rows = {'rows': 0, 'draws': 0}
 
 
 def epoch_launches(cfg, NB, iter0):
@@ -720,14 +737,15 @@ def epoch_launches(cfg, NB, iter0):
 
 
 def reset_launches():
-    """Zero every launch count, the C step loop's counts, the whole-set
-    pass counts of ``ops/cd_val.py`` beside them and the tile's k-tile
-    counts (``gemm.tile_stages``)."""
+    """Zero every launch count, the C step loop's counts, the softmax
+    rows, the whole-set pass counts of ``ops/cd_val.py`` beside them and
+    the tile's k-tile counts (``gemm.tile_stages``)."""
     from .cd_val import cd_val
     reset_stages()
     for name in KERNELS:
         cd_epoch.launches[name] = 0
-    for name in cd_epoch.loop:
-        cd_epoch.loop[name] = 0
+    for counts in (cd_epoch.loop, cd_epoch.softmax_rows):
+        for name in counts:
+            counts[name] = 0
     for name in cd_val.passes:
         cd_val.passes[name] = 0

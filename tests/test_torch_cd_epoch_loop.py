@@ -102,16 +102,19 @@ def test_epoch_loop_struct_mirrors_c():
 
 
 def test_reset_zeroes_loop_counts():
-    """The loop's counts start at zero, ``reset_launches`` zeroes them, and
-    the plain version on the CPU adds nothing to them."""
+    """The loop's counts and the softmax rows start at zero,
+    ``reset_launches`` zeroes them, and the plain version on the CPU adds
+    nothing to them."""
     import torch
     cfg = config('bernoulli', 1, False, True, 1, True)
     X = torch.zeros((2, 3, 24))
     state = {key: torch.zeros(shape) for key, shape in (
         ('W', (24, 16)), ('vb', (24,)), ('hb', (16,)), ('dW', (24, 16)),
         ('dvb', (24,)), ('dhb', (16,)), ('q_means', (16,)))}
-    cd_epoch.loop.update(calls=3, steps=30)
+    cd_epoch.loop.update(calls=3, steps=30, gibbs=60)
+    cd_epoch.softmax_rows.update(rows=90, draws=900)
     reset_launches()
-    assert cd_epoch.loop == {'calls': 0, 'steps': 0}
+    zero = ({'calls': 0, 'steps': 0, 'gibbs': 0}, {'rows': 0, 'draws': 0})
+    assert (cd_epoch.loop, cd_epoch.softmax_rows) == zero
     cd_epoch(cfg, state, X, 0.01, 0.9, 3, 0)
-    assert cd_epoch.loop == {'calls': 0, 'steps': 0}
+    assert (cd_epoch.loop, cd_epoch.softmax_rows) == zero

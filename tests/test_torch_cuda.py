@@ -349,21 +349,29 @@ def test_epoch_loop_matches_python_step_loop(cuda, flavour, V, H, B, NB, k,
     """``cd_epoch``'s C step loop against the Python step loop it replaced
     (``python_step_loop``) bit for bit: the new state and the three metric
     rows.  Its launches as it reports them equal ``epoch_launches``'s
-    schedule and the Python loop's; one loop call of NB steps."""
+    schedule and the Python loop's; one loop call of NB steps, NB k Gibbs
+    steps, and B softmax rows a ``cd_softmax_sample`` launch, each of n
+    draws where the hidden states are sampled."""
     from boltzmann_machines_tpu_torch.ops.cd_epoch import epoch_launches
     cfg = loop_config(flavour, V, H, k, pll, every)
     X, state = flavour_inputs(V, H, B, NB, cuda, flavour,
                               w_std=8e-4 if V == 3072 else 0.01)
     before, loop = dict(cd_epoch.launches), dict(cd_epoch.loop)
+    rows = dict(cd_epoch.softmax_rows)
     got = cd_epoch(cfg, state, X, 0.01, 0.9, 3000000019, iter0)
     diff = {n: cd_epoch.launches[n] - before[n] for n in before}
     assert diff == epoch_launches(cfg, NB, iter0)
     assert {n: cd_epoch.loop[n] - loop[n] for n in loop} == {
-        'calls': 1, 'steps': NB}
-    before = dict(cd_epoch.launches)
+        'calls': 1, 'steps': NB, 'gibbs': NB * k}
+    grown = {n: cd_epoch.softmax_rows[n] - rows[n] for n in rows}
+    n_rows = diff['cd_softmax_sample'] * B
+    assert grown == {'rows': n_rows, 'draws': n_rows * (
+        cfg.n_samples if cfg.sample_h_states and cfg.n_samples else 0)}
+    before, rows = dict(cd_epoch.launches), dict(cd_epoch.softmax_rows)
     want = python_step_loop(cfg, state, X, 0.01, 0.9, 3000000019, iter0)
     torch.cuda.synchronize()
     assert {n: cd_epoch.launches[n] - before[n] for n in before} == diff
+    assert {n: cd_epoch.softmax_rows[n] - rows[n] for n in rows} == grown
     for key in got[0]:
         assert torch.equal(got[0][key], want[0][key]), key
     for a, b in zip(got[1:], want[1:]):
@@ -2677,7 +2685,21 @@ CIFAR_RBM_SHAPES = [
 CIFAR_RBM_CASES = at_path(*[shape + (sample,) for shape in CIFAR_RBM_SHAPES
                             for sample in (False, True)], (
     5000, 1000, 100, dict(hidden='multinomial', n_samples=1000), (1., 2.),
-    False))
+    False), *[(7800, 512, 100, dict(hidden='multinomial', n_samples=512, k=2),
+               (1., 2.), sample) for sample in (False, True)])
+
+
+def softmax_counts_grow(cfg, rows, fn):
+    """Run `fn()`; assert that ``cd_epoch.softmax_rows`` grew by `rows`
+    softmax rows, each of n draws where the hidden states are sampled, and
+    return fn's result."""
+    before = dict(cd_epoch.softmax_rows)
+    out = fn()
+    n = cfg.n_samples if cfg.hidden == 'multinomial' else 0
+    rows = rows if n else 0
+    assert {k: cd_epoch.softmax_rows[k] - before[k] for k in before} == {
+        'rows': rows, 'draws': rows * n * cfg.sample_h_states}
+    return out
 
 
 @pytest.mark.parametrize('V,H,B,kw,mult,sample', CIFAR_RBM_CASES)
@@ -2690,17 +2712,29 @@ def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
     above 0, the PLL below).  Sampling on, each step from the same state:
     all but one of 4 steps within rtol 1e-4, atol 1e-4 (x B for q_means) --
     a multinomial draw moves across a CDF boundary now and then (the means'
-    rounding, trap C14)."""
+    rounding, trap C14).  k is 1 unless the case gives it (the M-RBM of
+    dbm_cifar.py also at the k 2 of its schedule's second block).  The
+    counts: k Gibbs steps a step, and 1 + k softmax rows of B a step; the
+    whole-set validation of the 4 batches k rows of 4 B (its chain skips
+    the last hidden pass).  Sampled at k 2, see sampled_chain_matches."""
+    kw = dict(kw)
+    k = kw.pop('k', 1)
     rng = np.random.RandomState(V)
     X = torch.as_tensor(rng.randn(4, B, V) if 'sigma' in kw
                         else rng.rand(4, B, V), dtype=torch.float32,
                         device=cuda)
     _, state = make_inputs(V, H, B, 1, cuda, seed=2)
     state['W'] = state['W'] * 0.1
-    cfg = CDEpochConfig(V, H, 1, sample, sample, mult[0], mult[1], 1e-3,
+    cfg = CDEpochConfig(V, H, k, sample, sample, mult[0], mult[1], 1e-3,
                         0.1, 1e-3, 0.9, 1, True, **kw)
+    from boltzmann_machines_tpu_torch.ops.cd_val import cd_val
+    softmax_counts_grow(cfg, k * 4 * B, lambda: cd_val(
+        cfg, state, X.reshape(4 * B, V), B, 5))
     if not sample:
-        got = cd_epoch(cfg, state, X[:3], 1e-3, 0.9, 3, 0)
+        gibbs = cd_epoch.loop['gibbs']
+        got = softmax_counts_grow(cfg, 3 * (1 + k) * B, lambda: cd_epoch(
+            cfg, state, X[:3], 1e-3, 0.9, 3, 0))
+        assert cd_epoch.loop['gibbs'] - gibbs == 3 * k
         want = cd_epoch_reference(cfg, state, X[:3], 1e-3, 0.9, 3, 0)
         torch.cuda.synchronize()
         for key in got[0]:
@@ -2711,7 +2745,16 @@ def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
         torch.testing.assert_close(got[2], want[2], rtol=1e-3, atol=1.)
         torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
         assert float(got[1].min()) > 0 and float(got[3].min()) > 0
-        assert float(got[2].max()) < 0
+        if k == 1:
+            assert float(got[2].max()) < 0
+        else:
+            # the M-RBM's k 2 steps move W into a free-energy gap above
+            # ~104 on a row: V log_sigmoid of it is 0 in float32, in the
+            # plain version alike; every row is written and none above 0
+            assert float(got[2].max()) <= 0 and float(got[2].min()) < 0
+        return
+    if k > 1:
+        sampled_chain_matches(cfg, state, X[0], B)
         return
     bad = 0
     for i in range(4):
@@ -2722,6 +2765,43 @@ def test_cd_kernels_at_cifar_rbm_shapes(cuda, V, H, B, kw, mult, sample):
             atol=1e-4 * (B if key == 'q_means' else 1)) for key in got[0])
         state = got[0]
     assert bad <= 1
+
+
+def sampled_chain_matches(cfg, state, X, B):
+    """A sampled multinomial CD-k step at k > 1, where a draw that moves
+    between kernel and plain (the means' rounding, trap C14) moves a whole
+    row's later passes, so the step's states are not comparable: the C
+    loop's step bit for bit against the Python loop of the same launches,
+    and each pass of its chain against its plain version on the kernels'
+    own states (means within 1e-5, counts in <= 1e-3 of draws, Bernoulli
+    states in <= 1e-5 of draws, as test_gibbs_pass_states_match_plain_
+    version holds them)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import (
+        _gibbs_pass, _gibbs_pass_reference)
+    from boltzmann_machines_tpu_torch.ops.philox import (
+        STREAM_H0, stream_h, stream_v)
+    got = cd_epoch(cfg, state, X[None], 1e-3, 0.9, 17, 0)
+    want = python_step_loop(cfg, state, X[None], 1e-3, 0.9, 17, 0)
+    torch.cuda.synchronize()
+    for key in got[0]:
+        assert torch.equal(got[0][key], want[0][key]), key
+    n = cfg.n_samples
+    A, W = X, state['W']
+    passes = [('h', state['hb'], STREAM_H0)]
+    for s in range(cfg.k):
+        passes += [('v', state['vb'], stream_v(s)),
+                   ('h', state['hb'], stream_h(s))]
+    for layer, bias, sid in passes:
+        mk, sk = _gibbs_pass(cfg, layer, A, W, bias, 17, 1, sid)
+        mp, sp = _gibbs_pass_reference(cfg, layer, A, W, bias, 17, 1, sid)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-5)
+        if layer == 'h':
+            assert bool((sk.sum(1) == n).all())
+            assert float((sk - sp).abs().sum()) / 2 <= 1e-3 * B * n
+        else:
+            assert int((sk != sp).sum()) <= 1e-5 * sk.numel() + 1
+        A = sk
 
 
 # (atol, rtol) of a CD step's state and metric rows, kernel against plain,

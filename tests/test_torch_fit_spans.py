@@ -329,6 +329,36 @@ def test_epoch_loop_counts_per_slice(tool):
     assert tool.epoch_loop([{'mf_sweeps': 3}]) is None
 
 
+def test_gibbs_steps_and_softmax_rows_per_slice(tool):
+    """``slice_counts`` reads the C step loop's Gibbs steps and the CD
+    kernels' softmax rows; ``epoch_loop`` gives each slice's Gibbs steps
+    beside its calls and steps, and ``softmax_rows`` each slice's rows and
+    draws, None where no slice ran a softmax row (Bernoulli hidden
+    units)."""
+    from boltzmann_machines_tpu_torch.ops.cd_epoch import cd_epoch
+    loop, rows = dict(cd_epoch.loop), dict(cd_epoch.softmax_rows)
+    try:
+        cd_epoch.loop.update(calls=2, steps=980, gibbs=1960)
+        cd_epoch.softmax_rows.update(rows=296000, draws=151552000)
+        counts = tool.slice_counts()
+    finally:
+        cd_epoch.loop.update(loop)
+        cd_epoch.softmax_rows.update(rows)
+    assert (counts['loop_gibbs'], counts['cd_softmax_rows'],
+            counts['cd_softmax_draws']) == (1960, 296000, 151552000)
+    grown = [{'loop_calls': 1, 'loop_steps': 490, 'loop_gibbs': 980,
+              'cd_softmax_rows': 149000, 'cd_softmax_draws': 76288000},
+             {'loop_calls': 1, 'loop_steps': 490, 'loop_gibbs': 980,
+              'cd_softmax_rows': 147000, 'cd_softmax_draws': 75264000}]
+    assert tool.epoch_loop(grown) == [
+        {'calls': 1, 'steps': 490, 'gibbs': 980}] * 2
+    assert tool.softmax_rows(grown) == [
+        {'rows': 149000, 'draws': 76288000},
+        {'rows': 147000, 'draws': 75264000}]
+    assert tool.softmax_rows([{'loop_calls': 1, 'cd_softmax_rows': 0}]) \
+        is None
+
+
 def test_slice_counts_read_the_dbm_graph_counters(tool):
     """``slice_counts`` reads the DBM epoch's graph launches, the turns of
     its WHILE node (a check a turn) and the multinomial layer's softmax

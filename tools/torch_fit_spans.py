@@ -43,10 +43,13 @@ Prints one JSON line (and writes it to FILE):
   ``softmax_rows_a_step``;
 - an RBM cell: ``val_passes``, the whole-set validation and FEG passes of
   the traced slices (``ops/cd_val.cd_val.passes``: 'val' one a validation,
-  'feg' one a side of a gap), and ``epoch_loop``, per traced slice, the
-  calls of the CD epoch's C step loop and the steps they ran
+  'feg' one a side of a gap), ``epoch_loop``, per traced slice, the calls
+  of the CD epoch's C step loop, the steps they ran and their Gibbs steps
   (``ops/cd_epoch.cd_epoch.loop``; absent where the port has no such
-  loop);
+  loop), and, with multinomial hidden units, ``softmax_rows``, per traced
+  slice, the rows and draws of the ``cd_softmax_sample`` launches, the
+  epoch's and the whole-set passes' (``cd_epoch.softmax_rows``; absent
+  where the port counts none);
 - every cell: ``tile_stages``, per traced slice and family of the
   tensor-core tile's kernels ('gemm_act', 'fe_rows', 'assoc'), the launches
   and the mean k-tiles a block of them walks (``ops/gemm.tile_stages``;
@@ -244,9 +247,11 @@ def idle_split(traces):
 
 def slice_counts():
     """The DBM's sweep counts, the RBM's whole-set pass counts, the CD
-    epoch's C step loop counts (``loop_calls``, ``loop_steps``) and the
-    tile's k-tile counts (``stages/<family>/launches``, ``.../k_tiles``),
-    of the modules a cell has loaded."""
+    epoch's C step loop counts (``loop_calls``, ``loop_steps``,
+    ``loop_gibbs``), its softmax rows (``cd_softmax_rows``,
+    ``cd_softmax_draws``) and the tile's k-tile counts
+    (``stages/<family>/launches``, ``.../k_tiles``), of the modules a cell
+    has loaded."""
     gemm = sys.modules.get('boltzmann_machines_tpu_torch.ops.gemm')
     dbm = sys.modules.get('boltzmann_machines_tpu_torch.ops.dbm_ops')
     val = sys.modules.get('boltzmann_machines_tpu_torch.ops.cd_val')
@@ -254,7 +259,10 @@ def slice_counts():
     counts = dict(val.cd_val.passes if val is not None else {})
     loop = getattr(getattr(epoch, 'cd_epoch', None), 'loop', None)
     if loop is not None:
-        counts.update(loop_calls=loop['calls'], loop_steps=loop['steps'])
+        counts.update({'loop_' + k: v for k, v in loop.items()})
+    rows = getattr(getattr(epoch, 'cd_epoch', None), 'softmax_rows', None)
+    if rows is not None:
+        counts.update({'cd_softmax_' + k: v for k, v in rows.items()})
     for family, c in getattr(gemm, 'tile_stages', {}).items():
         for key in ('launches', 'k_tiles'):
             counts['stages/%s/%s' % (family, key)] = c[key]
@@ -269,11 +277,21 @@ def slice_counts():
 
 def epoch_loop(grown):
     """Per slice of `grown` (``slice_counts``' growth over each), the CD
-    epoch's C step loop calls and the steps they ran; None where no slice
-    ran the loop."""
+    epoch's C step loop calls, the steps they ran and their Gibbs steps
+    (where the port counts them); None where no slice ran the loop."""
     if not any(g.get('loop_calls') for g in grown):
         return None
-    return [{'calls': g.get('loop_calls', 0), 'steps': g.get('loop_steps', 0)}
+    keys = ('calls', 'steps') + (('gibbs',) if any(
+        'loop_gibbs' in g for g in grown) else ())
+    return [{k: g.get('loop_' + k, 0) for k in keys} for g in grown]
+
+
+def softmax_rows(grown):
+    """Per slice of `grown`, the rows and draws of the CD kernels'
+    softmax rows; None where no slice ran one."""
+    if not any(g.get('cd_softmax_rows') for g in grown):
+        return None
+    return [{k: g.get('cd_softmax_' + k, 0) for k in ('rows', 'draws')}
             for g in grown]
 
 
@@ -388,6 +406,9 @@ def main(argv=None):
         loop = epoch_loop(grown)
         if loop is not None:
             on['epoch_loop'] = loop
+        rows = softmax_rows(grown)
+        if rows is not None:
+            on['softmax_rows'] = rows
         stages = tile_stages(grown)
         if stages is not None:
             on['tile_stages'] = stages
